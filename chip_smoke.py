@@ -1,28 +1,52 @@
 #!/usr/bin/env python3
-"""Smoke run of the deepspeed_tpu_torch serving path on one CUDA GPU.
+"""Smoke run of the deepspeed_tpu_torch serving and training paths on one
+CUDA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. build    — compile the CUDA kernels from deepspeed_tpu_torch/csrc with
-                nvcc (sm_90a) and load them; report versions and the GPU.
-  2. kernels  — every kernel of the serving path against its plain PyTorch
-                version at main-path shapes in bf16: max abs error beside
-                the stated tolerance, kernel / plain / library time (CUDA
-                events) and the least time the card could take (bound).
-  3. parity   — the tiny Llama config in fp32 through the whole engine on
-                the GPU (kernels) and on the CPU (plain versions), same
-                weights: logits must agree.
-  4. serving  — build_llama_engine at the full Llama-3-8B width (32 layers,
-                seeded random bf16 weights, 1024 KV blocks of 64 tokens),
-                greedy generate on 8 prompts of 128..1024 tokens with 32 new
-                tokens each; checks outputs, finite logits, kernel launch
-                counts per forward, and prefill-vs-decode consistency.
-Then a ``{"kernels": [...]}`` line, the GPU's name and power limit, and, as
-the last line, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before that line. Without a CUDA device it exits 2 and prints no result.
+  1. build          — compile the CUDA kernels from deepspeed_tpu_torch/csrc
+                      with nvcc (sm_90a, one process per source) and load
+                      them; report versions and the GPU.
+  2. kernels        — every kernel of both paths against its plain PyTorch
+                      version at main-path shapes in bf16: the error
+                      beside the stated tolerance (flash: row by row, with
+                      the exact fp32 value as a control), kernel / plain / library
+                      time and the least time the card could take (bound).
+                      Large cases are timed with CUDA events around 20
+                      calls; the small ones (K5, K4 decode) by replaying 20
+                      calls captured in a CUDA graph, so the time is the
+                      device's and not the wrapper's host cost.
+  3. parity         — the tiny Llama config in fp32 through the whole serving
+                      engine on the GPU (kernels) and on the CPU (plain
+                      versions), same weights: logits must agree.
+  4. train_parity   — the tiny config in fp32, same weights, 3 AdamW steps
+                      (clipping, WarmupLR) of the training engine on the GPU
+                      and on the CPU: losses and parameters must agree.
+  5. training       — initialize() at the Llama-3-8B width cut to 4 layers
+                      (seeded random bf16 weights, fp32 masters and AdamW
+                      state, chunked CE), 6 forward/backward/step on one
+                      repeated batch of 2 x 2048 tokens; checks finite and
+                      falling losses and L launches per step of each flash
+                      kernel; reports step time, tokens/s, peak memory and
+                      the model-FLOP share; then, after the counts are
+                      read, two more steps: one split into forward,
+                      backward and optimizer step, one traced by
+                      torch.profiler and summed by kernel group.
+  6. serving        — build_llama_engine at the full Llama-3-8B width (32
+                      layers, seeded random bf16 weights, 1024 KV blocks of
+                      64 tokens), greedy generate on 8 prompts of 128..1024
+                      tokens with 32 new tokens each; checks outputs, finite
+                      logits, kernel launch counts per forward, and
+                      prefill-vs-decode consistency.
+Each main path (phases 5 and 6) runs with the launch counts of its kernels
+set to 0 just before and read just after. Then a ``{"kernels": [...]}``
+line, the GPU's name and power limit, and, as the last line, ``{"ok": true,
+"device": {...}}``. Any failure exits non-zero before that line. Without a
+CUDA device it exits 2 and prints no result.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -65,6 +89,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of ``fn`` from replaying a CUDA graph that holds
+    ``iters`` back-to-back calls: what the card spends, without the
+    wrapper's host cost between launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
+def free_memory() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def phase_build() -> dict:
     import torch
     from deepspeed_tpu_torch.ops import _build
@@ -93,14 +153,15 @@ def _rms_case(rows: int, d: int, gen) -> dict:
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs().max().item()
     nbytes = 2 * rows * d * x.element_size() + d * w.element_size()
-    return {"shape": [rows, d], "max_abs_err": err,
-            "ms": time_ms(lambda: rms_norm(x, w, eps)),
-            "plain_ms": time_ms(lambda: rms_norm_reference(x, w, eps)),
-            "library_ms": time_ms(lambda: F.rms_norm(x, (d, ), w, eps)),
+    return {"shape": [rows, d], "max_abs_err": err, "timing": "cuda graph",
+            "ms": graph_time_ms(lambda: rms_norm(x, w, eps)),
+            "plain_ms": graph_time_ms(lambda: rms_norm_reference(x, w, eps)),
+            "library_ms": graph_time_ms(lambda: F.rms_norm(x, (d, ), w, eps)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
-def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int) -> dict:
+def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
+                graph: bool = False) -> dict:
     """One paged-attention batch over a 32-layer Llama-3-8B-width cache
     (KV 8, G 4, D 128, 64-token pages). A sequence with ``n_new`` 0 is a
     padding row (zero block table, no tokens)."""
@@ -136,12 +197,13 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int) -> dict
     flops = 4 * D * H * visible
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_flops = flops / BF16_FLOPS * 1e3
+    timer = graph_time_ms if graph else time_ms
     rec = {"case": name, "shape": {"S": S, "N": N, "B": B, "H": H, "KV": KV,
                                    "D": D, "page_size": ps, "layers": L,
                                    "seen": seen, "n_new": n_new},
-           "max_abs_err": err,
-           "ms": time_ms(lambda: paged_attention(*args, page_size=ps)),
-           "plain_ms": time_ms(lambda: paged_attention_reference(*args, page_size=ps)),
+           "max_abs_err": err, "timing": "cuda graph" if graph else "events",
+           "ms": timer(lambda: paged_attention(*args, page_size=ps)),
+           "plain_ms": timer(lambda: paged_attention_reference(*args, page_size=ps)),
            "library_ms": None,
            "bound_ms": max(bound_bytes, bound_flops),
            "bound_by": "bytes" if bound_bytes >= bound_flops else "operations"}
@@ -150,11 +212,130 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int) -> dict
     return rec
 
 
+def row_rel_err(x, ref) -> float:
+    """The largest ||x - ref|| / ||ref|| over the rows of the last dim
+    (a head's D values at one position). A row's norm is floored at 2^-10
+    of the RMS row norm: a row whose exact value cancels to ~0 (dq of a
+    query that sees only its own key) carries fp32 noise, ~1.4e-6 of the
+    RMS row, and FLASH_ROW_TOL x 2^-10 allows it 2^-16."""
+    x, ref = x.float().flatten(0, -2), ref.float().flatten(0, -2)
+    den = ref.norm(dim=-1)
+    floor = 2.0 ** -10 * den.square().mean().sqrt()
+    return ((x - ref).norm(dim=-1) / den.clamp_min(floor)).max().item()
+
+
+def _flash_case(gen, name: str, B: int, S: int, causal: bool) -> dict:
+    """K1 and both K2 passes at the training path's Llama-3-8B widths (H 32,
+    KV 8, D 128) in bf16, each against its plain version on identical
+    inputs (the backward passes take the plain forward's o and lse). Each
+    also stands beside the exact value, the plain version on the same
+    inputs in fp32 (no rounding of P, dS or the output), with the plain
+    bf16 version's error and one bf16 rounding of the exact value as
+    controls."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import attention as fa
+    H, KV, D = 32, 8, 128
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), rnd(B, S, H, D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
+    delta = fa.attention_delta(o_ref, do)
+    bwd_args = (q, k, v, do, lse_ref, delta, causal)
+    dq = fa.flash_attention_bwd_dq(*bwd_args)
+    dk, dv = fa.flash_attention_bwd_dkdv(*bwd_args)
+    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_args, D ** -0.5)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_args, D ** -0.5)
+    exact_args = (q.float(), k.float(), v.float(), do.float(), lse_ref, delta, causal)
+    exact = {"fwd": [fa.flash_attention_fwd_reference(*exact_args[:3], causal)[0]],
+             "dq": [fa.flash_attention_bwd_dq_reference(*exact_args, D ** -0.5)],
+             "dkdv": list(fa.flash_attention_bwd_dkdv_reference(*exact_args, D ** -0.5))}
+    torch.cuda.synchronize()
+    got = {"fwd": [(o, o_ref)], "dq": [(dq, dq_ref)], "dkdv": [(dk, dk_ref), (dv, dv_ref)]}
+    errs = {}
+    for key, pairs in got.items():
+        errs[key] = {
+            "max_abs_err": max((x.float() - r.float()).abs().max().item() for x, r in pairs),
+            "row_rel_err": max(row_rel_err(x, r) for x, r in pairs),
+            "vs_exact": {
+                "kernel": max(row_rel_err(x, e) for (x, _), e in zip(pairs, exact[key])),
+                "plain": max(row_rel_err(r, e) for (_, r), e in zip(pairs, exact[key])),
+                "bf16_rounding": max(row_rel_err(e.to(torch.bfloat16), e)
+                                     for e in exact[key])}}
+    lse_err = (lse - lse_ref).abs().max().item()
+    del o, o_ref, lse, dq, dk, dv, dq_ref, dk_ref, dv_ref, exact, exact_args, got
+
+    free_memory()
+
+    # SDPA, timed as the yardstick only: forward, and forward + backward
+    # less the forward for the backward
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=causal, enable_gqa=True)
+
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt))
+    lib_fb = time_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dot))
+    del qt, kt, vt, dot, leaves
+
+    # operations: 4*D (fwd), 6*D (dq: QK^T, dO V^T, dS K), 8*D (dk/dv: QK^T,
+    # dO V^T, P^T dO, dS^T Q) per visible (query, key) pair and query head;
+    # bytes: each input read once, each output written once
+    pairs = S * (S + 1) // 2 if causal else S * S
+    qb, kvb, rb = B * S * H * D * 2, B * S * KV * D * 2, B * S * H * 4
+    work = {"fwd": (4, 2 * qb + 2 * kvb + rb),
+            "dq": (6, 3 * qb + 2 * kvb + 2 * rb),
+            "dkdv": (8, 2 * qb + 4 * kvb + 2 * rb)}
+    timed = {
+        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, causal),
+                lambda: fa.flash_attention_fwd_reference(q, k, v, causal), lib_fwd),
+        "dq": (lambda: fa.flash_attention_bwd_dq(*bwd_args),
+               lambda: fa.flash_attention_bwd_dq_reference(*bwd_args, D ** -0.5),
+               lib_fb - lib_fwd),
+        "dkdv": (lambda: fa.flash_attention_bwd_dkdv(*bwd_args),
+                 lambda: fa.flash_attention_bwd_dkdv_reference(*bwd_args, D ** -0.5),
+                 lib_fb - lib_fwd),
+    }
+    rec = {"case": name, "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
+                                   "causal": causal}, "lse_max_abs_err": lse_err}
+    for key, (kernel, plain, library) in timed.items():
+        flops = work[key][0] * D * pairs * H * B
+        bound_flops = flops / BF16_FLOPS * 1e3
+        bound_bytes = work[key][1] / HBM_BYTES_PER_S * 1e3
+        rec[key] = {**errs[key], "tolerance": FLASH_ROW_TOL,
+                    "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5),
+                    # SDPA's backward computes dq, dk and dv in one call: the
+                    # same time stands beside both K2 passes
+                    "library_ms": library, "gflop": flops / 1e9,
+                    "bound_ms": max(bound_flops, bound_bytes),
+                    "bound_by": "operations" if bound_flops >= bound_bytes else "bytes"}
+    del q, k, v, do, delta, bwd_args, timed
+    free_memory()
+    return rec
+
+
 # tolerances against the plain versions, bf16 in and out: both compute in
 # fp32 and round once to bf16, so they differ by summation order and that
 # rounding — one or two bf16 ulps of the output's magnitude
 RMS_TOL = 6.25e-2      # |y| up to ~5 for N(0,1) rows: two ulps at [4, 8)
 PAGED_TOL = 1.6e-2     # |out| < 1 (softmax-weighted mean of N(0,1) values)
+# flash, held row by row (a head's D values at one position): the largest
+# ||kernel - plain|| / ||plain|| of any row. Both round P (or dS) to bf16
+# before its product and the output once, at other points (the kernel
+# rounds P before dividing by the row sum): a few roundings of 2^-8 (bf16's
+# unit roundoff) each, so 2^-6 of the row. Against the exact value the
+# kernel may be at most FLASH_EXACT_RATIO times as far off as the plain
+# bf16 version.
+FLASH_ROW_TOL = 2.0 ** -6
+FLASH_EXACT_RATIO = 2.0
+LSE_TOL = 1e-3         # fp32 lse of ~10: summation order only
+FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:88"),
+                 ("dq", "flash_attention_bwd_dq", "deepspeed_tpu/ops/attention.py:273"),
+                 ("dkdv", "flash_attention_bwd_dkdv", "deepspeed_tpu/ops/attention.py:350"))
 
 
 def phase_kernels() -> list:
@@ -169,14 +350,22 @@ def phase_kernels() -> list:
                     [1, 1, 1, 1, 1, 1, 16, 0], N=16, B=16),
         # a decode step of generate's 8 sequences (N=1)
         _paged_case(gen, "decode", [128 * (i + 1) + 22 for i in range(8)],
-                    [1] * 8, N=1, B=17),
+                    [1] * 8, N=1, B=17, graph=True),
         # generate's first admission wave: 3 prompts in a 512-row bucket
         _paged_case(gen, "prefill", [0, 0, 0, 0], [128, 256, 384, 0],
                     N=512, B=8),
     ]
     paged = paged_cases[0]
+    flash_cases = [
+        _flash_case(gen, "main", 2, 2048, True),          # the training phase's shape
+        _flash_case(gen, "ragged_s1000", 2, 1000, True),  # S not a tile multiple
+        _flash_case(gen, "full_s1000", 1, 1000, False),   # no causal mask
+    ]
     ok = all(c["max_abs_err"] <= RMS_TOL for c in rms) and \
-        all(c["max_abs_err"] <= PAGED_TOL for c in paged_cases)
+        all(c["max_abs_err"] <= PAGED_TOL for c in paged_cases) and \
+        all(c[key]["row_rel_err"] <= FLASH_ROW_TOL and c["lse_max_abs_err"] <= LSE_TOL
+            and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
+            for c in flash_cases for key, _, _ in FLASH_KERNELS)
     main = rms[1]
     kernels = [
         {"name": "paged_attention", "route": "cuda",
@@ -195,7 +384,18 @@ def phase_kernels() -> list:
          **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
          "cases": rms},
-    ]
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+         "replaces": replaces, "launches": None,
+         "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-6; "
+                      "against the exact fp32 value at most 2x the plain version's",
+         "max_abs_err": max(c[key]["max_abs_err"] for c in flash_cases),
+         "row_rel_err": max(c[key]["row_rel_err"] for c in flash_cases),
+         **{k: flash_cases[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+         "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in flash_cases]}
+        for key, name, replaces in FLASH_KERNELS]
     emit({"phase": "kernels", "ok": ok, "gpu": gpu_identity(), "kernels": kernels})
     if not ok:
         raise SystemExit("kernel mismatch against the plain version")
@@ -231,6 +431,229 @@ def phase_parity() -> dict:
     emit(rec)
     if not rec["ok"]:
         raise SystemExit("GPU engine disagrees with the CPU engine")
+    return rec
+
+
+TRAIN_PARITY_CONFIG = {
+    "train_batch_size": 2,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {
+        "warmup_min_lr": 1e-4, "warmup_max_lr": 1e-3, "warmup_num_steps": 3,
+        "warmup_type": "linear"}},
+    "gradient_clipping": 1.0}
+
+
+def phase_train_parity() -> dict:
+    """Training engine, tiny config, fp32, 3 steps: GPU (kernels) vs CPU
+    (plain versions) from the same weights and batches."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.tiny(dtype=torch.float32, num_key_value_heads=2)
+    rng = np.random.default_rng(0)
+    # S = 100: the kernels' last 64-row tile is ragged
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100))) for _ in range(3)]
+    losses, masters, norms = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        model = init_llama_for_causal_lm(cfg, seed=1, device="cpu")
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_PARITY_CONFIG,
+                                                    device=device)
+        losses[device], norms[device] = [], []
+        for ids in batches:
+            loss = engine.forward(ids, labels=ids)
+            engine.backward(loss)
+            engine.step()
+            losses[device].append(loss.item())
+            norms[device].append(engine.get_global_grad_norm())
+        # the loss of the trained weights on the first batch
+        losses[device].append(engine.eval_batch(batches[0], labels=batches[0]).item())
+        masters[device] = {n: m.cpu() for n, m in engine.master_params().items()}
+    loss_err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    param_err = max((masters["cpu"][n] - masters["cuda"][n]).abs().max().item()
+                    for n in masters["cpu"])
+    # fp32 on both sides, sums in another order. Adam's m/sqrt(v) is a
+    # ratio: an element whose gradient nearly cancels carries its relative
+    # difference into the update, up to the whole step. The parameters are
+    # held to 5% of the path the 3 updates can move an element (lr 1e-4 +
+    # 4e-4 + 7e-4 = 1.2e-3), the losses to 1e-4 of ~6
+    loss_tol, param_tol = 1e-4, 0.05 * 1.2e-3
+    rec = {"phase": "train_parity", "config": "tiny(num_key_value_heads=2) fp32, "
+           "AdamW + WarmupLR + clip 1.0, 3 steps of 2 x 100 tokens",
+           "losses_then_eval": losses, "grad_norms": norms, "loss_max_abs_err": loss_err,
+           "loss_tolerance": loss_tol, "param_max_abs_err": param_err,
+           "param_tolerance": param_tol,
+           "ok": loss_err <= loss_tol and param_err <= param_tol}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("GPU training engine disagrees with the CPU engine")
+    return rec
+
+
+def _kernel_group(name: str) -> str:
+    n = name.lower()
+    if "flash" in n:
+        return ("K1 flash fwd" if "fwd_kernel" in n else
+                "K2 flash dq" if "dq_kernel" in n else "K2 flash dk/dv")
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul")):
+        return "matmul (layers)"
+    return "other"
+
+
+def _kernels_under(ev):
+    yield from ev.kernels
+    for child in ev.cpu_children:
+        yield from _kernels_under(child)
+
+
+# profiler ranges the port opens (ops/chunked_ce.py, runtime/engine.py)
+PROFILE_RANGES = {"chunked_ce_forward": "chunked CE (fwd + bwd)",
+                  "chunked_ce_backward": "chunked CE (fwd + bwd)",
+                  "optimizer_step": "optimizer step"}
+
+
+def profile_step(step) -> dict:
+    """Where one call of ``step`` spends its time: its forward, backward
+    and optimizer step on CUDA events (spans on the device's clock, idle
+    included), then a ``torch.profiler`` trace of another call with the
+    device kernel time summed into groups: the port's named ranges (the
+    chunked CE's sweeps, the optimizer step: every kernel under them), the
+    flash kernels, the other matmuls, other PyTorch kernels; the wall time
+    less the device's busy time is the host's gaps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    step(events)
+    events[3].synchronize()
+    split = {name: events[i].elapsed_time(events[i + 1])
+             for i, name in enumerate(("forward_ms", "backward_ms", "step_ms"))}
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        step(None)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t)
+    # device kernels only: a range also shows on the device timeline, as a
+    # user annotation spanning its kernels
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    in_ranges, groups = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in PROFILE_RANGES:
+            for k in _kernels_under(e):
+                in_ranges[k.name] = in_ranges.get(k.name, 0.0) + k.duration / 1e3
+                g = PROFILE_RANGES[e.name]
+                groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    for name, ms in by_name.items():  # what no named range holds
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms - in_ranges.get(name, 0.0)
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"split": split, "wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms, "host_gap_ms": wall_ms - device_ms,
+            "kernel_launches": len(kernels), "group_ms": groups,
+            "top_kernels_ms": [[k[:100], v] for k, v in top]}
+
+
+def phase_training() -> dict:
+    """initialize() -> forward/backward/step at the Llama-3-8B width, depth
+    cut to 4 layers so the fp32 masters, AdamW moments and gradient buffer
+    fit one 80 GB card."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    from deepspeed_tpu_torch.ops import attention as fa
+
+    L, B, S, n_steps = 4, 2, 2048, 6
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=L, ce_chunk_size=8192)
+    t0 = time.monotonic()
+    model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": B, "bf16": {"enabled": True},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+        "scheduler": {"type": "WarmupLR", "params": {
+            "warmup_min_lr": 0.0, "warmup_max_lr": 1e-4, "warmup_num_steps": 4,
+            "warmup_type": "linear"}},
+        "gradient_clipping": 1.0})
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv)
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    losses, step_s, per_step = [], [], []
+    for _ in range(n_steps):
+        before = [f.launches for f in kernels]
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        loss = engine.forward(ids, labels=ids)
+        engine.backward(loss)
+        engine.step()
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t)
+        losses.append(loss.item())
+        per_step.append([f.launches - b for f, b in zip(kernels, before)])
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def step(events):
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        mark(0)
+        loss = engine.forward(ids, labels=ids)
+        mark(1)
+        engine.backward(loss)
+        mark(2)
+        engine.step()
+        mark(3)
+
+    profile = profile_step(step)
+
+    # model FLOPs of a step: 6 x tokens x matmul weights (the layers'
+    # projections and the unembed; the embedding is a gather) plus the
+    # attention products, 12*D per visible pair and query head (forward 4,
+    # backward 8, without the backward's recompute)
+    h, hd, nq, nkv, inter = (cfg.hidden_size, cfg.head_dim_, cfg.num_attention_heads,
+                             cfg.num_key_value_heads, cfg.intermediate_size)
+    layer_w = h * hd * (2 * nq + 2 * nkv) + 3 * h * inter
+    matmul_w = L * layer_w + h * cfg.vocab_size
+    tokens = B * S
+    attn_flops = 12 * hd * (S * (S + 1) // 2) * nq * B * L
+    model_flops = 6 * tokens * matmul_w + attn_flops
+    steady = sum(step_s[1:]) / (n_steps - 1)
+    checks = {
+        "losses_finite": all(np.isfinite(losses)),
+        "last_loss_below_first": losses[-1] < losses[0],
+        "flash_launches_L_per_step": all(c == [L, L, L] for c in per_step),
+    }
+    rec = {"phase": "training", "config": "llama3_8b(num_hidden_layers=4, "
+           "ce_chunk_size=8192), random bf16 weights, fp32 masters, AdamW lr 1e-4 + "
+           "WarmupLR(linear, 4 steps) + clip 1.0, batch 2 x 2048 (one repeated batch)",
+           "gpu": gpu_identity(), "params": n_params, "engine_build_s": build_s,
+           "losses": losses, "step_s": step_s, "steady_step_ms": steady * 1e3,
+           "tokens_per_s": tokens / steady, "peak_memory_gib": peak,
+           "model_tflop_per_step": model_flops / 1e12,
+           "model_flop_share": model_flops / (steady * BF16_FLOPS),
+           "grad_norm_last": engine.get_global_grad_norm(), "lr_last": engine.get_lr()[0],
+           "launches": launches, "launches_per_step": per_step,
+           "profile": profile, "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    del engine, model, ids, loss
+    free_memory()
+    if not rec["ok"]:
+        raise SystemExit(f"training checks failed: {checks}")
     return rec
 
 
@@ -293,7 +716,8 @@ def phase_serving(kernels: list) -> dict:
         "rms_norm_launches_per_forward": launches["rms_norm"] == (2 * L + 1) * n_fwd,
     }
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
 
     # prefill vs decode: the same last-token logits either way
     p = prompts[2]
@@ -337,7 +761,12 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_parity()
+    phase_train_parity()
+    training = phase_training()
     phase_serving(kernels)
+    for k in kernels:
+        if k["name"] in training["launches"]:
+            k["launches"] = training["launches"][k["name"]]
     emit({"kernels": kernels})
     print(gpu_identity(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,34 @@ is easy to find (``deepspeed_tpu_torch/inference/v2/model.py`` ports
 ``deepspeed_tpu/inference/v2/model.py``). It imports ``torch``, ``numpy``
 and the standard library only — never ``jax`` and never ``deepspeed_tpu``.
 
-Ported so far: the ragged Llama serving path (``inference/v2``) with its two
-hand-written CUDA kernels, paged attention and RMSNorm (``ops/``,
-``csrc/``). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+Ported so far: the ragged Llama serving path (``inference/v2``) with its
+two hand-written CUDA kernels, paged attention and RMSNorm; and Llama
+training (``initialize`` -> ``engine.forward/backward/step``,
+``train_batch``, ``eval_batch``) with ZeRO stage 0 on one device, carried by
+the flash-attention forward and backward kernels (``ops/``, ``csrc/``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, config=None,
+               config_params=None, device=None):
+    """Build a training engine (port of ``deepspeed_tpu/__init__.py:23
+    initialize``). ``model`` is a ``torch.nn.Module`` whose forward returns
+    the loss (``models.llama.LlamaForCausalLM``); ``model_parameters`` the
+    parameters to train (default: every parameter that takes a gradient);
+    ``config`` a dict or the path of a JSON file (``config/config.py``).
+    Returns ``(engine, optimizer, None, lr_scheduler)``. A client
+    optimizer and ``training_data`` are not ported yet and raise."""
+    from .runtime.engine import DeepSpeedTorchEngine
+    if optimizer is not None or training_data is not None:
+        raise NotImplementedError("initialize: a client optimizer and "
+                                  "training_data are not ported yet")
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    engine = DeepSpeedTorchEngine(model, model_parameters=model_parameters,
+                                  config=config, lr_scheduler=lr_scheduler,
+                                  device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler

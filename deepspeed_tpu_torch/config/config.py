@@ -1,0 +1,106 @@
+"""The training config (port of the subset of
+``deepspeed_tpu/config/config.py`` that the stage-0 engine runs).
+
+Keys, as in the JAX package's JSON config: the batch triangle
+(``train_batch_size``, ``train_micro_batch_size_per_gpu``,
+``gradient_accumulation_steps``, resolved as ``config.py:236
+_configure_train_batch_size`` does for a world of one device),
+``optimizer`` (``type``, ``params``), ``scheduler`` (``type``,
+``params``), ``bf16`` (``enabled``), ``gradient_clipping`` and
+``zero_optimization`` with ``stage`` 0. Any other key (``fp16``, ``mesh``,
+...), or one of these set to what the port does not run yet (ZeRO stage >
+0), raises: nothing is ignored silently.
+"""
+
+import json
+import os
+from typing import Any, Dict
+
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+
+_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+         GRADIENT_ACCUMULATION_STEPS, "optimizer", "scheduler", "bf16",
+         "gradient_clipping", "zero_optimization"}
+
+
+class DeepSpeedConfigError(Exception):
+    pass
+
+
+def _section(pd: Dict[str, Any], key: str, allowed) -> Dict[str, Any]:
+    sec = pd.get(key) or {}
+    if not isinstance(sec, dict):
+        raise DeepSpeedConfigError(f"{key} must be a dict, got {type(sec)}")
+    extra = sorted(set(sec) - set(allowed))
+    if extra:
+        raise NotImplementedError(f"config {key}: keys {extra} are not ported yet")
+    return sec
+
+
+class DeepSpeedTorchConfig:
+    """The validated config the engine reads."""
+
+    def __init__(self, config: Any):
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise DeepSpeedConfigError(f"config file not found: {config}")
+            with open(config) as f:
+                config = json.load(f)
+        if not isinstance(config, dict):
+            raise DeepSpeedConfigError(
+                f"expected a dict or a path to a json file, got {type(config)}")
+        self._param_dict = dict(config)
+        pd = self._param_dict
+        extra = sorted(set(pd) - _KEYS)
+        if extra:
+            raise NotImplementedError(f"config keys {extra} are not ported yet")
+
+        self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)
+        self.train_micro_batch_size_per_gpu = pd.get(TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        self.gradient_accumulation_steps = pd.get(GRADIENT_ACCUMULATION_STEPS)
+        self.gradient_clipping = float(pd.get("gradient_clipping") or 0.0)
+
+        opt = _section(pd, "optimizer", ("type", "params"))
+        self.optimizer_name = opt.get("type", "").lower() or None
+        self.optimizer_params = dict(opt.get("params") or {})
+        sched = _section(pd, "scheduler", ("type", "params"))
+        self.scheduler_name = sched.get("type")
+        self.scheduler_params = dict(sched.get("params") or {})
+
+        self.bf16_enabled = bool(_section(pd, "bf16", ("enabled", )).get("enabled", False))
+        zero = _section(pd, "zero_optimization", ("stage", ))
+        if int(zero.get("stage", 0)) != 0:
+            raise NotImplementedError(
+                f"zero_optimization.stage {zero['stage']} is not ported yet; "
+                "the port runs stage 0 on one device")
+        self._configure_train_batch_size()
+
+    def _configure_train_batch_size(self):
+        """Resolve the batch triangle ``train = micro * gas`` (one device)."""
+        train, micro, gas = (self.train_batch_size,
+                             self.train_micro_batch_size_per_gpu,
+                             self.gradient_accumulation_steps)
+        if train is not None and micro is not None and gas is not None:
+            pass
+        elif train is not None and micro is not None:
+            gas = train // micro
+        elif train is not None and gas is not None:
+            micro = train // gas
+        elif micro is not None and gas is not None:
+            train = micro * gas
+        elif train is not None:
+            gas, micro = 1, train
+        elif micro is not None:
+            train, gas = micro, 1
+        else:
+            raise DeepSpeedConfigError("Either train_batch_size or "
+                                       "train_micro_batch_size_per_gpu needs to be provided")
+        if not (train > 0 and micro > 0 and gas > 0 and train == micro * gas):
+            raise DeepSpeedConfigError(
+                "Check batch related parameters: train_batch_size is not equal to "
+                f"micro_batch_per_gpu * gradient_acc_step: {train} != {micro} * {gas}")
+        self.train_batch_size = train
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = gas

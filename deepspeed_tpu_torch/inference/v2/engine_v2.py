@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ...models.llama import LlamaConfig, LlamaModel, init_llama
+from ...utils.device import resolve_device
 from .config_v2 import RaggedInferenceEngineConfig
 from .model import RaggedLlamaModel
 from .ragged.ragged_manager import DSStateManager
@@ -353,18 +354,6 @@ class InferenceEngineV2:
 
     def flush(self, uid: int) -> None:
         self._state_manager.flush_sequence(uid)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names a device; a CUDA request on a host
-    without CUDA raises instead of quietly running on the CPU."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "deepspeed_tpu_torch serving runs on CUDA by default and no CUDA "
-            "device is available; pass device='cpu' to run the plain "
-            "PyTorch path on the CPU")
-    return dev
 
 
 def build_llama_engine(config: Optional[LlamaConfig] = None,

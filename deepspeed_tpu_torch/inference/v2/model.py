@@ -25,28 +25,10 @@ import torch.nn.functional as F
 from .config_v2 import KVCacheConfig
 from .ragged.ragged_wrapper import RaggedBatch
 from .ragged.sequence_descriptor import BaseSequenceDescriptor
-from ...models.llama import LlamaConfig, LlamaModel, precompute_rope
+from ...models.llama import (LLAMA_FAMILY, LlamaConfig, LlamaModel,
+                             check_supported, precompute_rope)
 from ...ops.normalization import rms_norm
 from ...ops.paged_attention import paged_attention
-
-# LlamaConfig knobs whose non-default values the ported path cannot serve
-_UNPORTED_DEFAULTS = dict(
-    attention_bias=False, attention_out_bias=False, norm_type="rmsnorm",
-    pos_embedding="rope", embed_layernorm=False, rotary_dim=None,
-    rope_interleaved=False, sliding_window=None, clip_qkv=None,
-    logit_scale=None, qk_norm=False, post_norm=False, sandwich_norm=False,
-    norm_plus_one=False, embed_scale=None, attn_logit_softcapping=None,
-    final_logit_softcapping=None, mlp_type="swiglu", mlp_bias=False,
-    parallel_residual=False, lm_head_bias=False, num_local_experts=0)
-
-
-def check_supported(config: LlamaConfig) -> None:
-    bad = {k: getattr(config, k) for k, v in _UNPORTED_DEFAULTS.items()
-           if getattr(config, k) != v}
-    if bad:
-        raise NotImplementedError(
-            f"RaggedLlamaModel: config options {bad} are not ported yet "
-            "(the port serves the Llama rmsnorm/rope/swiglu/GQA family)")
 
 
 def _rope_tok(x, c, s):
@@ -62,7 +44,7 @@ class RaggedLlamaModel:
 
     def __init__(self, config: LlamaConfig, model: LlamaModel,
                  dtype=torch.bfloat16, kv_block_size: int = 64):
-        check_supported(config)
+        check_supported(config, "RaggedLlamaModel", LLAMA_FAMILY)
         self.config = config
         self.model = model
         self.dtype = dtype

@@ -1,1 +1,2 @@
-from .llama import LlamaConfig, LlamaModel, init_llama, precompute_rope  # noqa: F401
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, init_llama,
+                    init_llama_for_causal_lm, precompute_rope)  # noqa: F401

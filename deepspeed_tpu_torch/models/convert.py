@@ -5,48 +5,66 @@ checkpoint of it), with numpy leaves: ``tree['model']['layers_0']
 ['self_attn']['q_proj']['kernel']`` of shape ``[in, out]``,
 ``['model']['embed_tokens']['embedding']`` of shape ``[vocab, hidden]``,
 norm scales under ``['weight']``. Shapes carry over unchanged, because the
-port keeps the flax layout.
+port keeps the flax layout; :func:`jax_key_path` maps a port parameter
+name onto its path in the tree.
 """
+
+from typing import List
 
 import numpy as np
 import torch
 
-from .llama import LlamaConfig, LlamaModel
+from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel
+
+
+def jax_key_path(name: str) -> List[str]:
+    """The JAX tree path of a port parameter name, relative to the tree
+    the module mirrors: ``layers.3.mlp.up_proj.kernel`` ->
+    ``['layers_3', 'mlp', 'up_proj', 'kernel']``,
+    ``model.embed_tokens.weight`` -> ``['model', 'embed_tokens',
+    'embedding']``."""
+    parts = name.split(".")
+    path = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers":
+            path.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    if path[-2:] == ["embed_tokens", "weight"]:
+        path[-1] = "embedding"
+    return path
+
+
+def lookup(tree, name: str):
+    """The leaf of ``tree`` that port parameter ``name`` mirrors."""
+    node = tree
+    for key in jax_key_path(name):
+        node = node[key]
+    return node
 
 
 @torch.no_grad()
-def params_from_jax(tree, config: LlamaConfig, dtype=None,
-                    device=None) -> LlamaModel:
-    """Build a :class:`LlamaModel` holding ``tree``'s values, cast to
-    ``dtype`` (default ``config.dtype``; ``lm_head`` stays fp32) on
-    ``device`` (default ``cuda``)."""
+def params_from_jax(tree, config: LlamaConfig, dtype=None, device=None,
+                    training: bool = False):
+    """A module holding ``tree``'s values, cast to ``dtype`` (default
+    ``config.dtype``) on ``device`` (default ``cuda``). For serving, a
+    :class:`LlamaModel` with an fp32 ``lm_head``; with ``training``, a
+    :class:`LlamaForCausalLM` whose weights all take gradients, ``lm_head``
+    in ``dtype`` too."""
     device = torch.device(device or "cuda")
-    model = LlamaModel(config, dtype=dtype, device=device)
-    p = tree["model"] if "model" in tree else tree
-
-    def put(dst: torch.Tensor, src, name: str) -> None:
-        arr = np.array(src, dtype=np.float32)  # a writable fp32 copy
+    if training:
+        module = LlamaForCausalLM(config, dtype=dtype, device=device)
+        root = tree if "model" in tree else {"model": tree}
+    else:
+        module = LlamaModel(config, dtype=dtype, device=device)
+        root = tree["model"] if "model" in tree else tree
+    for name, dst in module.named_parameters():
+        arr = np.array(lookup(root, name), dtype=np.float32)  # a writable copy
         if tuple(arr.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: JAX shape {arr.shape} != port shape "
                              f"{tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(arr))
-
-    put(model.embed_tokens.weight, p["embed_tokens"]["embedding"],
-        "embed_tokens")
-    for i, layer in enumerate(model.layers):
-        lp = p[f"layers_{i}"]
-        put(layer.input_layernorm.weight, lp["input_layernorm"]["weight"],
-            f"layers_{i}.input_layernorm")
-        put(layer.post_attention_layernorm.weight,
-            lp["post_attention_layernorm"]["weight"],
-            f"layers_{i}.post_attention_layernorm")
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            put(getattr(layer.self_attn, name).kernel,
-                lp["self_attn"][name]["kernel"], f"layers_{i}.{name}")
-        for name in ("gate_proj", "up_proj", "down_proj"):
-            put(getattr(layer.mlp, name).kernel, lp["mlp"][name]["kernel"],
-                f"layers_{i}.{name}")
-    put(model.norm.weight, p["norm"]["weight"], "norm")
-    if model.lm_head is not None:
-        put(model.lm_head.kernel, p["lm_head"]["kernel"], "lm_head")
-    return model
+    return module

@@ -1,12 +1,19 @@
-"""Llama-family decoder config and weights (port of
-``deepspeed_tpu/models/llama.py``: ``LlamaConfig`` :35-172,
-``precompute_rope`` :175, ``_layer_window`` :298, and the ``init_llama``
-initializers).
+"""Llama-family decoder (port of ``deepspeed_tpu/models/llama.py``:
+``LlamaConfig`` :35-172, ``precompute_rope`` :175, ``apply_rope`` :182,
+``RMSNorm`` :206, ``LlamaAttention`` :308 (the flash branch), ``LlamaMLP``
+:440 (swiglu), ``LlamaDecoderLayer`` :522 (the pre-norm branch),
+``LMHead`` :566, ``LlamaModel`` :625,
+``cross_entropy_loss`` :713, ``LlamaForCausalLM`` :725 and the
+``init_llama`` initializers).
 
 The modules hold the weights in the JAX package's layout and names — a
 projection's ``kernel`` is ``[in, out]`` and applies as ``x @ kernel`` —
-so a JAX param tree loads one-to-one (``models/convert.py``). The serving
-forward that uses them lives in ``inference/v2/model.py``.
+so a JAX param tree loads one-to-one (``models/convert.py``). Their
+``forward`` is the training forward; the serving forward over the same
+weights lives in ``inference/v2/model.py``. The compute dtype is the
+parameters' dtype: the training engine holds fp32 masters and hands the
+model their cast (``runtime/engine.py``), as the JAX engine casts the tree
+before ``apply``.
 """
 
 import dataclasses
@@ -14,7 +21,11 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..ops.attention import flash_attention
+from ..ops.chunked_ce import chunked_cross_entropy_loss, matmul_fp32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +109,31 @@ class LlamaConfig:
                                      num_key_value_heads=8, scan_layers=True), **over})
 
 
+# LlamaConfig knobs whose non-default values the port does not run yet:
+# it runs the Llama rmsnorm/rope/swiglu/GQA family
+LLAMA_FAMILY = dict(
+    attention_bias=False, attention_out_bias=False, norm_type="rmsnorm",
+    pos_embedding="rope", embed_layernorm=False, rotary_dim=None,
+    rope_interleaved=False, sliding_window=None, clip_qkv=None,
+    logit_scale=None, qk_norm=False, post_norm=False, sandwich_norm=False,
+    norm_plus_one=False, embed_scale=None, attn_logit_softcapping=None,
+    final_logit_softcapping=None, mlp_type="swiglu", mlp_bias=False,
+    parallel_residual=False, lm_head_bias=False, num_local_experts=0)
+# and what the training forward does not run yet on top of that
+TRAINING_DEFAULTS = dict(remat=False, scan_layers=False)
+
+
+def check_supported(config, who: str, defaults: dict) -> None:
+    """Raise ``NotImplementedError`` naming every option of ``config`` that
+    differs from ``defaults``."""
+    bad = {k: getattr(config, k) for k, v in defaults.items()
+           if getattr(config, k) != v}
+    if bad:
+        raise NotImplementedError(
+            f"{who}: config options {bad} are not ported yet (the port runs "
+            "the Llama rmsnorm/rope/swiglu/GQA family)")
+
+
 def precompute_rope(head_dim: int, max_len: int, theta: float,
                     dtype=torch.float32, device=None):
     """cos/sin tables ``[max_len, head_dim/2]``: fp32 inverse frequencies,
@@ -109,32 +145,43 @@ def precompute_rope(head_dim: int, max_len: int, theta: float,
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
 
 
-def _layer_window(cfg, layer_idx: int):
-    """Sliding window for this layer (None = global attention)."""
-    if cfg.sliding_window is None:
-        return None
-    if (cfg.sliding_window_layers is not None
-            and layer_idx not in cfg.sliding_window_layers):
-        return None
-    return cfg.sliding_window
+def apply_rope(x, cos, sin, positions):
+    """Half-split rotary embedding of x ``[b, s, h, d]`` at ``positions``
+    ``[b, s]``: the fp32 table rows promote the product to fp32, cast back
+    to x's dtype (as in JAX)."""
+    c = cos[positions][:, :, None, :]
+    s = sin[positions][:, :, None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
 class Dense(nn.Module):
     """Projection weight ``kernel`` of shape ``[in, out]`` (the flax
-    layout), applied as ``x @ kernel``."""
+    layout), applied as ``x @ kernel`` in the kernel's dtype."""
 
     def __init__(self, fan_in: int, fan_out: int, dtype, device):
         super().__init__()
         self.kernel = nn.Parameter(
-            torch.empty(fan_in, fan_out, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.empty(fan_in, fan_out, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return x.to(self.kernel.dtype) @ self.kernel
 
 
 class RMSNormWeight(nn.Module):
-    def __init__(self, dim: int, dtype, device):
+    """RMSNorm (``RMSNorm :206``): fp32 statistics, scaled by the fp32
+    cast of ``weight``, output in x's dtype. Plain PyTorch: the JAX
+    training model runs it as jnp, not as the K5 kernel."""
+
+    def __init__(self, dim: int, dtype, device, eps: float = 1e-5):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
-                                   requires_grad=False)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        var = (xf * xf).mean(-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -142,10 +189,24 @@ class LlamaAttention(nn.Module):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim_
         nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        self.config = cfg
         self.q_proj = Dense(h, nq * hd, dtype, device)
         self.k_proj = Dense(h, nkv * hd, dtype, device)
         self.v_proj = Dense(h, nkv * hd, dtype, device)
         self.o_proj = Dense(nq * hd, h, dtype, device)
+
+    def forward(self, x, cos, sin, positions):
+        """The flash branch of the JAX layer: K1/K2 forward and backward."""
+        cfg = self.config
+        b, s, _ = x.shape
+        hd = cfg.head_dim_
+        q = self.q_proj(x).reshape(b, s, cfg.num_attention_heads, hd)
+        k = self.k_proj(x).reshape(b, s, cfg.num_key_value_heads, hd)
+        v = self.v_proj(x).reshape(b, s, cfg.num_key_value_heads, hd)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        attn = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale)
+        return self.o_proj(attn.reshape(b, s, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -156,36 +217,130 @@ class LlamaMLP(nn.Module):
         self.up_proj = Dense(h, i, dtype, device)
         self.down_proj = Dense(i, h, dtype, device)
 
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype, device):
         super().__init__()
-        self.input_layernorm = RMSNormWeight(cfg.hidden_size, dtype, device)
+        eps = cfg.rms_norm_eps
+        self.input_layernorm = RMSNormWeight(cfg.hidden_size, dtype, device, eps)
         self.self_attn = LlamaAttention(cfg, dtype, device)
-        self.post_attention_layernorm = RMSNormWeight(cfg.hidden_size, dtype, device)
+        self.post_attention_layernorm = RMSNormWeight(cfg.hidden_size, dtype,
+                                                      device, eps)
         self.mlp = LlamaMLP(cfg, dtype, device)
+
+    def forward(self, x, cos, sin, positions):
+        """The pre-norm branch (``:548-563``)."""
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin, positions)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class _MatmulFp32(torch.autograd.Function):
+    """``matmul_fp32`` with its backward: each cotangent product again
+    takes operands in the compute dtype with fp32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return matmul_fp32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (matmul_fp32(g, b.t()).to(a.dtype),
+                matmul_fp32(a.t(), g).to(b.dtype))
 
 
 class LlamaModel(nn.Module):
-    """Weights of a Llama decoder, named as the JAX tree's ``model`` node:
+    """A Llama decoder, named as the JAX tree's ``model`` node:
     ``embed_tokens.weight`` ``[vocab, hidden]`` (the tree's
     ``embed_tokens/embedding``), ``layers[i]`` (``layers_{i}``), ``norm``
-    and ``lm_head``. ``lm_head`` is held in fp32: the serving forward
-    computes fp32 logits of fp32 operands, as the JAX engine does."""
+    and ``lm_head``. For serving (``trainable=False``) the weights take no
+    gradient and ``lm_head`` is held in fp32: the serving forward computes
+    fp32 logits of fp32 operands, as the JAX engine does. For training
+    every weight takes a gradient and ``lm_head`` is in ``dtype`` like
+    the rest (the unembed multiplies compute-dtype operands into fp32
+    logits, ``LMHead :566``)."""
 
-    def __init__(self, cfg: LlamaConfig, dtype=None, device=None):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None,
+                 trainable: bool = False):
         super().__init__()
         dtype = dtype or cfg.dtype
         self.config = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dtype, device=device)
-        self.embed_tokens.weight.requires_grad_(False)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype, device)
                                     for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNormWeight(cfg.hidden_size, dtype, device)
+        self.norm = RMSNormWeight(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else Dense(cfg.hidden_size, cfg.vocab_size,
-                                   torch.float32, device))
+                                   dtype if trainable else torch.float32, device))
+        for p in self.parameters():
+            p.requires_grad_(trainable)
+
+    def forward(self, input_ids, positions=None, return_unembed=False):
+        """Logits ``[b, s, vocab]`` fp32, or with ``return_unembed`` the
+        final hidden states and the unembed weight ``[hidden, vocab]`` for
+        the chunked CE."""
+        cfg = self.config
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+            positions = positions[None, :].expand(input_ids.shape)
+        x = self.embed_tokens(input_ids)
+        cos, sin = precompute_rope(cfg.head_dim_, cfg.max_position_embeddings,
+                                   cfg.rope_theta, device=x.device)
+        for layer in self.layers:
+            x = layer(x, cos, sin, positions)
+        x = self.norm(x)
+        w = (self.embed_tokens.weight.t() if cfg.tie_word_embeddings
+             else self.lm_head.kernel)
+        if return_unembed:
+            return x, w
+        b, s, h = x.shape
+        return _MatmulFp32.apply(x.reshape(b * s, h), w.to(x.dtype)).reshape(b, s, -1)
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Token-mean CE with shift-by-one (causal LM), in fp32."""
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:]
+    mask = (targets != ignore_index).float()
+    targets = torch.where(targets == ignore_index, torch.zeros_like(targets),
+                          targets)
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+class LlamaForCausalLM(nn.Module):
+    """The engine contract: the scalar loss when ``labels`` are given,
+    else the fp32 logits. Trainable weights under ``model``, as the JAX
+    tree. ``ce_chunk_size`` selects the chunked CE."""
+
+    def __init__(self, config: LlamaConfig, dtype=None, device=None):
+        super().__init__()
+        check_supported(config, "LlamaForCausalLM",
+                        {**LLAMA_FAMILY, **TRAINING_DEFAULTS})
+        self.config = config
+        self.model = LlamaModel(config, dtype, device, trainable=True)
+
+    def forward(self, input_ids, labels=None, positions=None, attn_mask=None):
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "LlamaForCausalLM: attn_mask (the JAX model's non-flash "
+                "branch) is not ported yet")
+        cfg = self.config
+        if labels is not None and cfg.ce_chunk_size:
+            x, w = self.model(input_ids, positions, return_unembed=True)
+            return chunked_cross_entropy_loss(x, w, labels, cfg.ce_chunk_size,
+                                              compute_dtype=x.dtype)
+        logits = self.model(input_ids, positions)
+        if labels is None:
+            return logits
+        return cross_entropy_loss(logits, labels)
 
 
 def _lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:
@@ -198,15 +353,8 @@ def _lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def init_llama(config: LlamaConfig, seed: int = 0, dtype=None,
-               device=None) -> LlamaModel:
-    """Seeded random weights on ``device`` (default ``cuda``), following
-    ``init_llama``'s initializers: lecun-normal projection kernels,
-    normal(0.02) embeddings, ones for norm scales. The numbers differ from
-    JAX's (another generator); load JAX weights through
-    ``models/convert.params_from_jax`` to compare the two."""
-    device = torch.device(device or "cuda")
-    model = LlamaModel(config, dtype=dtype, device=device)
+def _init_weights(model: LlamaModel, seed: int) -> None:
+    device = model.embed_tokens.weight.device
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     emb = torch.empty(model.embed_tokens.weight.shape, dtype=torch.float32,
@@ -217,4 +365,25 @@ def init_llama(config: LlamaConfig, seed: int = 0, dtype=None,
     for mod in model.modules():
         if isinstance(mod, Dense):
             _lecun_normal_(mod.kernel, gen)
+
+
+def init_llama(config: LlamaConfig, seed: int = 0, dtype=None,
+               device=None) -> LlamaModel:
+    """Seeded random serving weights on ``device`` (default ``cuda``),
+    following ``init_llama``'s initializers: lecun-normal projection
+    kernels, normal(0.02) embeddings, ones for norm scales. The numbers
+    differ from JAX's (another generator); load JAX weights through
+    ``models/convert.params_from_jax`` to compare the two."""
+    model = LlamaModel(config, dtype=dtype, device=torch.device(device or "cuda"))
+    _init_weights(model, seed)
+    return model
+
+
+def init_llama_for_causal_lm(config: LlamaConfig, seed: int = 0, dtype=None,
+                             device=None) -> LlamaForCausalLM:
+    """Seeded random trainable weights on ``device`` (default ``cuda``),
+    with ``init_llama``'s initializers."""
+    model = LlamaForCausalLM(config, dtype=dtype,
+                             device=torch.device(device or "cuda"))
+    _init_weights(model.model, seed)
     return model

@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels (counterpart of
 ``deepspeed_tpu/ops/jit_build.py``).
 
-Every ``csrc/*.cu`` source has a plain C interface (no PyTorch headers), so
-one ``nvcc`` call compiles them all into a shared library in seconds. The
+Every ``csrc/*.cu`` source has a plain C interface (no PyTorch headers).
+One ``nvcc -c`` per source runs, all at once, and one more links the
+objects into a shared library (``python3 -m deepspeed_tpu_torch.ops._build``
+times this against one ``nvcc`` call for all sources). The
 library lands in ``build/deepspeed_tpu_torch/<hash>/`` beside the package
 (a directory ``.gitignore`` lists), keyed by a hash of the sources and the
 flags, and is loaded with ``ctypes``. The build runs at the first kernel
@@ -27,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "deepspeed_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,15 @@ _SIGNATURES = {
     # layer, page_size, scale, dtype, workspace, workspace length, stream
     "dstt_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _L, _I, _I, _F, _I, _P, _L, _P),
+    # q, k, v, o, lse, B, S, H, KV, D, scale, causal, dtype, stream
+    "dstt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, dO, lse, delta, dq, B, S, H, KV, D, scale, causal, dtype, stream
+    "dstt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                          _I, _I, _P),
+    # q, k, v, dO, lse, delta, dk, dv, B, S, H, KV, D, scale, causal, dtype,
+    # stream
+    "dstt_flash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -80,26 +91,47 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libdstt_kernels.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact build exists; returns the
-    library path. The library is written to a temporary name and renamed,
-    so a concurrent or interrupted build never leaves a torn file."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run(cmds):
+    """Run the commands at once; raise with the output of every one that
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            failed.append(f"{' '.join(cmd)}\n(exit {proc.returncode})\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _compile(out: Path) -> None:
+    """Each source in its own ``nvcc -c`` process, all started together,
+    then one link into ``out``. The objects and the library are written
+    in a temporary directory beside ``out`` and the library is renamed
+    into place, so a concurrent or interrupted build never leaves a torn
+    file."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        objs = [work / (src.stem + ".o") for src in sources()]
+        _run([[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources(), objs)])
+        tmp = work / out.name
+        _run([[nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    library path."""
+    out = library_path()
+    if not out.exists():
+        _compile(out)
     return out
 
 
@@ -131,3 +163,31 @@ def dtype_code(dtype) -> int:
     if name not in DTYPE_CODES:
         raise TypeError(f"kernel does not take dtype {dtype}")
     return DTYPE_CODES[name]
+
+
+def _time_builds(rounds: int = 2) -> dict:
+    """Seconds of the parallel build above and of one ``nvcc`` call that
+    compiles and links every source, alternated ``rounds`` times, each into
+    a throwaway directory."""
+    import json
+    import time
+    times = {"parallel_s": [], "one_call_s": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(rounds):
+            for key in times:
+                out = Path(tmp) / f"{key}{i}" / "libdstt_kernels.so"
+                t = time.monotonic()
+                if key == "parallel_s":
+                    _compile(out)
+                else:
+                    out.parent.mkdir(parents=True)
+                    _run([[nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(out),
+                           *map(str, sources())]])
+                times[key].append(time.monotonic() - t)
+    print(json.dumps({"sources": [s.name for s in sources()], **times}), flush=True)
+    return times
+
+
+if __name__ == "__main__":
+    # python3 -m deepspeed_tpu_torch.ops._build: time the two ways to build
+    _time_builds()

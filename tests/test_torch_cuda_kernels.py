@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops.attention import (
+    attention_delta, flash_attention, flash_attention_bwd_dkdv,
+    flash_attention_bwd_dq, flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_fwd_reference)
 from deepspeed_tpu_torch.ops.normalization import rms_norm, rms_norm_reference
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
@@ -132,6 +136,116 @@ def test_rms_norm_unaligned_view_takes_scalar_path(cuda_device):
                                **RMS_TOL[torch.bfloat16])
 
 
+# ---- K1/K2 flash attention (forward, dq pass, dk/dv pass) ----
+
+# (B, S, H, KV, D, causal, dtype): the CPU tests' shapes in fp32 (G 1, 2,
+# 4; S not a multiple of the 64-row tile; D 16..128), then bf16 at the
+# training path's Llama-3-8B widths (H 32, KV 8, D 128): the main shape,
+# a ragged S, and no causal mask
+FLASH = {
+    "g1_causal": (1, 64, 2, 2, 16, True, torch.float32),
+    "g2_causal_s100": (2, 100, 4, 2, 32, True, torch.float32),
+    "g4_causal_s80": (1, 80, 8, 2, 16, True, torch.float32),
+    "g4_full_s100": (1, 100, 4, 1, 16, False, torch.float32),
+    "d128_causal_s130": (1, 130, 4, 1, 128, True, torch.float32),
+    "d64_full_s200": (1, 200, 4, 2, 64, False, torch.float32),
+    "bf16_small": (2, 100, 4, 2, 32, True, torch.bfloat16),
+    "bf16_8b_main": (2, 2048, 32, 8, 128, True, torch.bfloat16),
+    "bf16_8b_s1000": (1, 1000, 32, 8, 128, True, torch.bfloat16),
+    "bf16_8b_full": (1, 1000, 32, 8, 128, False, torch.bfloat16),
+}
+
+
+# the largest error of any row (a head's D values at one position),
+# ||kernel - plain|| / ||plain||. fp32: the kernel's products sum in
+# another order than the plain einsum. bf16: both round P (or dS) to bf16
+# before its product and the output once, at other points (the kernel
+# rounds P before dividing by the row sum): a few roundings of 2^-8 (bf16's
+# unit roundoff) each; at the main shape the largest reading is 5.4e-3 and
+# one bf16 rounding of the exact value gives 2.3e-3 (chip_smoke.py)
+ROW_TOL = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -6}
+# A row whose exact value cancels to ~0 (dq of a query that sees only its
+# own key) carries the fp32 noise of that cancellation, 1.4e-6 of the RMS
+# row norm on the H100: every row is allowed 2^-16 of the RMS row norm
+ROW_FLOOR = 2.0 ** -16
+
+
+def assert_rows_close(x, ref, msg=""):
+    """Each row within ROW_TOL of its norm, or within ROW_FLOOR of the RMS
+    row norm where that is larger."""
+    assert x.dtype == ref.dtype and x.shape == ref.shape, msg
+    xf, rf = x.float().flatten(0, -2), ref.float().flatten(0, -2)
+    tol = ROW_TOL[ref.dtype]
+    den = rf.norm(dim=-1)
+    den = den.clamp_min(ROW_FLOOR / tol * den.square().mean().sqrt())
+    err = ((xf - rf).norm(dim=-1) / den).max().item()
+    assert err <= tol, f"{msg}: largest row error {err:.3g}"
+
+
+def _flash_inputs(case, device):
+    B, S, H, KV, D, causal, dtype = FLASH[case]
+    rng = np.random.default_rng(sorted(FLASH).index(case))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to(device, dtype) for shape in (
+                       (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    return q, k, v, do, causal, dtype
+
+
+@pytest.mark.parametrize("case", sorted(FLASH))
+def test_flash_kernels_match_plain(case, cuda_device):
+    q, k, v, do, causal, dtype = _flash_inputs(case, cuda_device)
+    before = [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkdv)]
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert_rows_close(o, o_ref, "o")
+    # lse is fp32 in both: the scores' summation order only
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    # the backward passes take the plain forward's o and lse, so each is
+    # held to its plain version on identical inputs
+    delta = attention_delta(o_ref, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse_ref, delta, causal)
+    grads_ref = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    for name, g, g_ref in zip("qkv", (dq, dk, dv), grads_ref):
+        assert g.dtype == dtype
+        assert_rows_close(g, g_ref, f"d{name}")
+    assert [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
+                                 flash_attention_bwd_dkdv)] == [b + 1 for b in before]
+
+
+def test_flash_autograd_launches_all_three_kernels(cuda_device):
+    q, k, v, do, causal, dtype = _flash_inputs("g2_causal_s100", cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkdv)]
+    out = flash_attention(*leaves, causal=causal)
+    out.backward(do)
+    assert [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
+                                 flash_attention_bwd_dkdv)] == [b + 1 for b in before]
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
+    grads_ref = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal)
+    assert_rows_close(out.detach(), o_ref, "o")
+    for name, t, g_ref in zip("qkv", leaves, grads_ref):
+        assert_rows_close(t.grad, g_ref, f"d{name}")
+
+
+def test_flash_refuses_what_the_kernel_does_not_take(cuda_device):
+    q, k, v, do, causal, _ = _flash_inputs("g1_causal", cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.half(), k.half(), v.half(), causal)
+    with pytest.raises(ValueError):  # head_dim not a multiple of 8
+        flash_attention_fwd(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                            v[..., :12].contiguous(), causal)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q.transpose(1, 2), k, v, causal)
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    with pytest.raises(ValueError):  # lse must be fp32 [B, S, H]
+        flash_attention_bwd_dq(q, k, v, do, lse.double(), lse, causal)
+
+
 # ---- the whole engine, tiny config: GPU kernels vs CPU plain path ----
 
 def test_engine_gpu_matches_cpu(cuda_device):
@@ -157,3 +271,39 @@ def test_engine_gpu_matches_cpu(cuda_device):
         e.flush(8)
     outs = [e.generate(prompts, max_new_tokens=8) for e in engines]
     assert outs[0] == outs[1]
+
+
+def test_training_engine_gpu_matches_cpu(cuda_device):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.tiny(dtype=torch.float32, num_key_value_heads=2)
+    config = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+              "gradient_clipping": 1.0}
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 70))) for _ in range(4)]
+    runs = []
+    for device in ("cpu", cuda_device):
+        model = init_llama_for_causal_lm(cfg, seed=2, device="cpu")
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device=device)
+        losses = [engine.train_batch(iter([(ids, ids) for ids in batches[i:i + 2]]))
+                  for i in (0, 2)]
+        runs.append((losses, {n: m.cpu() for n, m in engine.master_params().items()}))
+    (loss_cpu, p_cpu), (loss_gpu, p_gpu) = runs
+    # fp32 both sides, sums in another order (2 steps at lr 1e-3): 5e-5 is
+    # 5% of a step. Adam's m/(sqrt(v)+eps) is a ratio: where a gradient
+    # cancels to fp32 noise, the default eps 1e-8 lets the two sides take
+    # other shares of a step. At most MAX_FLIPPED such elements, none
+    # beyond the whole path of both sides' updates (2 x 2 steps x lr).
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-5)
+    n_off = 0
+    for name in p_cpu:
+        diff = (p_gpu[name] - p_cpu[name]).abs()
+        assert diff.max().item() <= 2 * 2 * 1e-3, name
+        n_off += int((diff > 5e-5).sum())
+    assert n_off <= MAX_FLIPPED, f"{n_off} elements off"
+
+
+MAX_FLIPPED = 4

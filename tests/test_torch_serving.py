@@ -200,10 +200,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
-        "import chip_smoke\n"
-        "import deepspeed_tpu_torch.inference.v2.engine_v2\n"
-        "import deepspeed_tpu_torch.models.convert\n"
-        "import deepspeed_tpu_torch.ops._build\n"
+        "import importlib, pkgutil\n"
+        "import chip_smoke, torch_serving_profile\n"
+        "import deepspeed_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'deepspeed_tpu' or m.startswith('deepspeed_tpu.')]\n"
         "print(bad)\n"
