@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the deepspeed_tpu_torch serving and training paths on one
-CUDA GPU.
+"""Smoke run of the deepspeed_tpu_torch serving (bf16 and int8) and
+training paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -16,10 +16,13 @@ Phases, each printing one JSON line:
                       Large cases are timed with CUDA events around 20
                       calls; the small ones (K5, K4 decode) by replaying 20
                       calls captured in a CUDA graph, so the time is the
-                      device's and not the wrapper's host cost.
+                      device's and not the wrapper's host cost. K6 and the
+                      dequantize helper must equal their plain versions bit
+                      for bit; K4 over an int8 cache is held row by row.
   3. parity         — the tiny Llama config in fp32 through the whole serving
                       engine on the GPU (kernels) and on the CPU (plain
-                      versions), same weights: logits must agree.
+                      versions), same weights: logits must agree; then the
+                      same with int8 weights and an int8 KV cache.
   4. train_parity   — the tiny config in fp32, same weights, 3 AdamW steps
                       (clipping, WarmupLR) of the training engine on the GPU
                       and on the CPU: losses and parameters must agree.
@@ -39,8 +42,16 @@ Phases, each printing one JSON line:
                       tokens with 32 new tokens each; checks outputs, finite
                       logits, kernel launch counts per forward, and
                       prefill-vs-decode consistency.
-Each main path (phases 5 and 6) runs with the launch counts of its kernels
-set to 0 just before and read just after. Then a ``{"kernels": [...]}``
+  7. serving_int8   — the same weights, prompts and KV byte budget through
+                      build_llama_engine(quantize="int8",
+                      kv_cache_dtype="int8") (K6 at build, the dequantize
+                      helper at each use, K4 over the int8 cache): the same
+                      checks, K6 launched 7 per layer, the layer weights and
+                      the memory after build at least 6 GiB below phase 6's,
+                      and each prompt's prefill logits within cosine 0.99 of
+                      phase 6's.
+Each main path (phases 5, 6 and 7) runs with the launch counts of its
+kernels set to 0 just before and read just after. Then a ``{"kernels": [...]}``
 line, the GPU's name and power limit, and, as the last line, ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero before that line. Without a
 CUDA device it exits 2 and prints no result.
@@ -160,11 +171,29 @@ def _rms_case(rows: int, d: int, gen) -> dict:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
+def int8_kv(cache, D: int):
+    """``cache`` as the int8 engine stores it: one scale per (row, slot,
+    head) vector of D, max(absmax / 127, 1e-8), codes round(x / scale)."""
+    from deepspeed_tpu_torch.inference.v2.model import quantize_kv
+    L2, slots, KVD = cache.shape
+    codes, sc = quantize_kv(cache.reshape(L2, slots, KVD // D, D))
+    return codes.reshape(L2, slots, KVD), sc
+
+
+def staged_kv(codes, scales, D: int):
+    """What K4 stages from an int8 cache, the TPU kernel's numerics: each
+    scale rounded to bf16, each product rounded to bf16."""
+    L2, slots, KVD = codes.shape
+    x = codes.float().reshape(L2, slots, KVD // D, D) * scales.bfloat16().float()[..., None]
+    return x.bfloat16().reshape(L2, slots, KVD)
+
+
 def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
-                graph: bool = False) -> dict:
+                graph: bool = False, int8: bool = False) -> dict:
     """One paged-attention batch over a 32-layer Llama-3-8B-width cache
-    (KV 8, G 4, D 128, 64-token pages). A sequence with ``n_new`` 0 is a
-    padding row (zero block table, no tokens)."""
+    (KV 8, G 4, D 128, 64-token pages), bf16 or (``int8``) int8 with its
+    scales. A sequence with ``n_new`` 0 is a padding row (zero block
+    table, no tokens)."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
@@ -173,6 +202,9 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     S = len(seen)
     cache = torch.randn(2 * L, n_pages * ps, KV * D, generator=gen,
                         device="cuda", dtype=torch.bfloat16)
+    kw = {}
+    if int8:
+        cache, kw["cache_scales"] = int8_kv(cache, D)
     q = torch.randn(S, N, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     bt = perm[:S * B].reshape(S, B).to(torch.int32)
@@ -183,14 +215,26 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     lens_t = seen_t + torch.tensor(n_new, dtype=torch.int32, device="cuda")
     layer = 17
     args = (q, cache, layer, bt, seen_t, lens_t)
-    y = paged_attention(*args, page_size=ps)
-    ref = paged_attention_reference(*args, page_size=ps)
+    y = paged_attention(*args, page_size=ps, **kw)
+    ref = paged_attention_reference(*args, page_size=ps, **kw)
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs().max().item()
+    errs = {"max_abs_err": err}
+    if int8:
+        control = paged_attention_reference(
+            q, staged_kv(cache, kw["cache_scales"], D), layer, bt, seen_t, lens_t,
+            page_size=ps)
+        torch.cuda.synchronize()
+        errs = {"max_abs_err": err, "row_rel_err": row_rel_err(y, ref),
+                "control_row_rel_err": row_rel_err(control, ref),
+                "control_max_abs_err": (y.float() - control.float()).abs().max().item()}
+        del control
     del ref
     # bytes: q read + out written + each sequence's visible K and V rows
+    # (int8: D codes and a 4-byte scale per head)
     kv_tokens = sum(s + n for s, n in zip(seen, n_new))
-    nbytes = (2 * q.numel() * q.element_size() + 2 * kv_tokens * KV * D * 2
+    row_bytes = KV * (D + 4) if int8 else KV * D * 2
+    nbytes = (2 * q.numel() * q.element_size() + 2 * kv_tokens * row_bytes
               + bt.numel() * 4 + 2 * S * 4)
     # flops: QK and PV for each real query row and head over its visible keys
     visible = sum(s + n + 1 for s, nn in zip(seen, n_new) for n in range(nn))
@@ -200,16 +244,72 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     timer = graph_time_ms if graph else time_ms
     rec = {"case": name, "shape": {"S": S, "N": N, "B": B, "H": H, "KV": KV,
                                    "D": D, "page_size": ps, "layers": L,
-                                   "seen": seen, "n_new": n_new},
-           "max_abs_err": err, "timing": "cuda graph" if graph else "events",
-           "ms": timer(lambda: paged_attention(*args, page_size=ps)),
-           "plain_ms": timer(lambda: paged_attention_reference(*args, page_size=ps)),
+                                   "seen": seen, "n_new": n_new,
+                                   "cache": "int8" if int8 else "bfloat16"},
+           **errs, "timing": "cuda graph" if graph else "events",
+           "ms": timer(lambda: paged_attention(*args, page_size=ps, **kw)),
+           "plain_ms": timer(lambda: paged_attention_reference(*args, page_size=ps, **kw)),
            "library_ms": None,
            "bound_ms": max(bound_bytes, bound_flops),
            "bound_by": "bytes" if bound_bytes >= bound_flops else "operations"}
-    del cache
+    del cache, kw
     torch.cuda.empty_cache()
     return rec
+
+
+def _quant_case(gen, name: str, shape: tuple, zero_block: bool = False) -> dict:
+    """K6 on a bf16 weight of ``shape`` at block 512 (the engine's group
+    size): equal to the plain version bit for bit."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer import (
+        quantize_int8_blockwise, quantize_int8_blockwise_reference)
+    x = (0.02 * torch.randn(*shape, generator=gen, device="cuda")).to(torch.bfloat16)
+    if zero_block:
+        x.view(-1)[512 * 3:512 * 5] = 0  # two all-zero blocks: scale 1
+    v, s = quantize_int8_blockwise(x, 512)
+    v_ref, s_ref = quantize_int8_blockwise_reference(x, 512)
+    torch.cuda.synchronize()
+    equal = torch.equal(v, v_ref) and torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+    # bytes: the bf16 weight read once, the codes (padding included) and
+    # the scales written once
+    nbytes = x.numel() * 2 + v.numel() + s.numel() * 4
+    rec = {"case": name, "shape": list(shape), "block": 512, "equal": equal,
+           "max_abs_err": max((v.int() - v_ref.int()).abs().max().item(),
+                              (s - s_ref).abs().max().item()),
+           "timing": "events",
+           "ms": time_ms(lambda: quantize_int8_blockwise(x, 512)),
+           "plain_ms": time_ms(lambda: quantize_int8_blockwise_reference(x, 512), iters=5),
+           "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    if zero_block:
+        rec["zero_block_scales"] = s[3:5].tolist()
+    return rec
+
+
+def _dequant_case(gen, shape: tuple) -> dict:
+    """The dequantize helper on K6's output of a bf16 weight of ``shape``,
+    into a reused bf16 buffer as the engine calls it: equal bit for bit."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer import (
+        dequantize_int8_blockwise, dequantize_int8_blockwise_reference,
+        quantize_int8_blockwise_reference)
+    x = (0.02 * torch.randn(*shape, generator=gen, device="cuda")).to(torch.bfloat16)
+    v, s = quantize_int8_blockwise_reference(x, 512)
+    out = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+    y = dequantize_int8_blockwise(v, s, shape, 512, dtype=torch.bfloat16, out=out)
+    ref = dequantize_int8_blockwise_reference(v, s, shape, 512, torch.bfloat16)
+    torch.cuda.synchronize()
+    equal = torch.equal(y.view(torch.int16), ref.view(torch.int16))
+    nbytes = v.numel() + s.numel() * 4 + out.numel() * 2
+    return {"case": "llama3_8b gate/up kernel", "shape": list(shape), "block": 512,
+            "equal": equal, "max_abs_err": (y.float() - ref.float()).abs().max().item(),
+            "timing": "events",
+            "ms": time_ms(lambda: dequantize_int8_blockwise(
+                v, s, shape, 512, dtype=torch.bfloat16, out=out)),
+            "plain_ms": time_ms(lambda: dequantize_int8_blockwise_reference(
+                v, s, shape, 512, torch.bfloat16)),
+            "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
 
 
 def row_rel_err(x, ref) -> float:
@@ -333,6 +433,14 @@ PAGED_TOL = 1.6e-2     # |out| < 1 (softmax-weighted mean of N(0,1) values)
 FLASH_ROW_TOL = 2.0 ** -6
 FLASH_EXACT_RATIO = 2.0
 LSE_TOL = 1e-3         # fp32 lse of ~10: summation order only
+# K4 over an int8 cache stages each K/V element as the TPU kernel does,
+# bf16(code) * bf16(scale) rounded to bf16, where the plain version
+# dequantizes in fp32. Against the plain version on those staged values
+# (the control): PAGED_TOL, summation order and the output's rounding.
+# Against the plain version itself, row by row, one bf16 rounding of K and
+# V is allowed: the control's own row error on the same inputs, plus one
+# bf16 rounding of the output.
+PAGED_INT8_OUT_ROUNDING = 2.0 ** -8
 FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:88"),
                  ("dq", "flash_attention_bwd_dq", "deepspeed_tpu/ops/attention.py:273"),
                  ("dkdv", "flash_attention_bwd_dkdv", "deepspeed_tpu/ops/attention.py:350"))
@@ -356,6 +464,23 @@ def phase_kernels() -> list:
                     N=512, B=8),
     ]
     paged = paged_cases[0]
+    paged_int8_cases = [
+        _paged_case(gen, "mixed", [100, 250, 400, 550, 700, 999, 300, 0],
+                    [1, 1, 1, 1, 1, 1, 16, 0], N=16, B=16, int8=True),
+        _paged_case(gen, "decode", [128 * (i + 1) + 22 for i in range(8)],
+                    [1] * 8, N=1, B=17, graph=True, int8=True),
+        _paged_case(gen, "prefill", [0, 0, 0, 0], [128, 256, 384, 0],
+                    N=512, B=8, int8=True),
+    ]
+    # Llama-3-8B's layer kernels (q/o, k/v, gate/up, down), a ragged tail
+    # and all-zero blocks
+    quant_cases = [_quant_case(gen, "q_proj/o_proj", (4096, 4096)),
+                   _quant_case(gen, "k_proj/v_proj", (4096, 1024)),
+                   _quant_case(gen, "gate_proj/up_proj", (4096, 14336)),
+                   _quant_case(gen, "down_proj", (14336, 4096)),
+                   _quant_case(gen, "ragged_tail", (4096 * 3 + 100, )),
+                   _quant_case(gen, "zero_blocks", (4096, 1024), zero_block=True)]
+    dequant = _dequant_case(gen, (4096, 14336))
     flash_cases = [
         _flash_case(gen, "main", 2, 2048, True),          # the training phase's shape
         _flash_case(gen, "ragged_s1000", 2, 1000, True),  # S not a tile multiple
@@ -363,6 +488,10 @@ def phase_kernels() -> list:
     ]
     ok = all(c["max_abs_err"] <= RMS_TOL for c in rms) and \
         all(c["max_abs_err"] <= PAGED_TOL for c in paged_cases) and \
+        all(c["row_rel_err"] <= c["control_row_rel_err"] + PAGED_INT8_OUT_ROUNDING
+            and c["control_max_abs_err"] <= PAGED_TOL for c in paged_int8_cases) and \
+        all(c["equal"] for c in quant_cases) and dequant["equal"] and \
+        quant_cases[-1]["zero_block_scales"] == [1.0, 1.0] and \
         all(c[key]["row_rel_err"] <= FLASH_ROW_TOL and c["lse_max_abs_err"] <= LSE_TOL
             and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
             for c in flash_cases for key, _, _ in FLASH_KERNELS)
@@ -376,6 +505,34 @@ def phase_kernels() -> list:
          **{k: paged[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
          "cases": paged_cases},
+        {"name": "paged_attention_int8", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:111",
+         "launches": None,
+         "tolerance": "against the plain version on the staged bf16 K/V: max abs "
+                      f"<= {PAGED_TOL}; against the plain version, the largest row "
+                      "error ||kernel - plain|| / ||plain|| <= the staged version's + 2^-8",
+         "max_abs_err": max(c["max_abs_err"] for c in paged_int8_cases),
+         "row_rel_err": max(c["row_rel_err"] for c in paged_int8_cases),
+         **{k: paged_int8_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+         "cases": paged_int8_cases},
+        {"name": "quantize_int8_blockwise", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/quantizer.cu",
+         "replaces": "deepspeed_tpu/ops/quantizer.py:29",
+         "launches": None, "tolerance": "bit for bit",
+         "max_abs_err": max(c["max_abs_err"] for c in quant_cases),
+         **{k: quant_cases[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+         "cases": quant_cases},
+        {"name": "dequantize_int8_blockwise", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/quantizer.cu",
+         "replaces": "deepspeed_tpu/ops/quantizer.py:83",
+         "note": "no TPU kernel: XLA fuses this jnp expression into its matmul",
+         "launches": None, "tolerance": "bit for bit",
+         **{k: dequant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+         "cases": [dequant]},
         {"name": "rms_norm", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/rms_norm.cu",
          "replaces": "deepspeed_tpu/ops/normalization.py:26",
@@ -403,31 +560,42 @@ def phase_kernels() -> list:
 
 
 def phase_parity() -> dict:
-    """Whole engine, tiny config, fp32: GPU (kernels) vs CPU (plain)."""
+    """Whole engine, tiny config, fp32: GPU (kernels) vs CPU (plain); then
+    with int8 weights and an int8 KV cache."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
     from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama
     cfg = LlamaConfig.tiny(num_key_value_heads=2)
-    cpu_model = init_llama(cfg, seed=1, dtype=torch.float32, device="cpu")
-    gpu_model = init_llama(cfg, seed=1, dtype=torch.float32, device="cpu")
-    gpu_model.to("cuda")
     ecfg = dict(num_kv_blocks=64, state_manager=dict(
         max_ragged_batch_size=64, max_ragged_sequence_count=8, max_context=128))
-    engines = [build_llama_engine(cfg, params=m, dtype=torch.float32,
-                                  kv_block_size=16, device=d,
-                                  engine_config=RaggedInferenceEngineConfig(**ecfg))
-               for m, d in ((cpu_model, "cpu"), (gpu_model, "cuda"))]
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (7, 33, 20)]
-    logits = [e.put([0, 1, 2], prompts).float().cpu() for e in engines]
-    steps = [e.put([0, 1, 2], [[1], [2], [3]]).float().cpu() for e in engines]
-    err = max((logits[0] - logits[1]).abs().max().item(),
-              (steps[0] - steps[1]).abs().max().item())
+
+    def run(**quant):
+        engines = [build_llama_engine(
+            cfg, params=init_llama(cfg, seed=1, dtype=torch.float32, device="cpu").to(d),
+            dtype=torch.float32, kv_block_size=16, device=d,
+            engine_config=RaggedInferenceEngineConfig(**ecfg), **quant)
+            for d in ("cpu", "cuda")]
+        logits = [e.put([0, 1, 2], prompts).float().cpu() for e in engines]
+        steps = [e.put([0, 1, 2], [[1], [2], [3]]).float().cpu() for e in engines]
+        return max((logits[0] - logits[1]).abs().max().item(),
+                   (steps[0] - steps[1]).abs().max().item())
+
+    err = run()
     tol = 1e-3  # fp32 on both sides; kernels sum in another order
+    err_int8 = run(quantize="int8", kv_cache_dtype="int8")
+    # K6 gives both the same int8 weights; K4 stages each K/V element and
+    # scale in bf16 where the CPU's plain version dequantizes in fp32 (the
+    # CPU tests read 0.015 between the JAX engine's two int8 paths)
+    tol_int8 = 0.05
     rec = {"phase": "parity", "config": "tiny(num_key_value_heads=2) fp32",
-           "max_abs_err": err, "tolerance": tol, "ok": err <= tol}
+           "max_abs_err": err, "tolerance": tol,
+           "int8": {"options": 'quantize="int8", kv_cache_dtype="int8"',
+                    "max_abs_err": err_int8, "tolerance": tol_int8},
+           "ok": err <= tol and err_int8 <= tol_int8}
     emit(rec)
     if not rec["ok"]:
         raise SystemExit("GPU engine disagrees with the CPU engine")
@@ -657,27 +825,54 @@ def phase_training() -> dict:
     return rec
 
 
-def phase_serving(kernels: list) -> dict:
+SERVING_PROMPTS = [128 * (i + 1) for i in range(8)]  # prompt lengths
+SERVING_NEW_TOKENS = 32
+SERVING_KV_BYTES = 8 << 30  # the KV budget of both serving phases
+
+
+def _drive_serving(counters: dict, **build_kw) -> dict:
+    """build_llama_engine at the full Llama-3-8B width (32 layers, seeded
+    random bf16 weights, 64-token KV blocks filling ``SERVING_KV_BYTES``),
+    then greedy ``generate`` on the 8 prompts. Each count of ``counters``
+    (name -> (wrapper, attribute)) is set to 0 just before the build and
+    read after it and after ``generate``. Records each forward's time and
+    each prompt's prefill logits (the last ``put`` that fed it more than
+    one token), then checks prefill against decode on one prompt."""
     import numpy as np
     import torch
-    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.config_v2 import (KVCacheConfig,
+                                                            RaggedInferenceEngineConfig)
     from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import per_token_kv_bytes
     from deepspeed_tpu_torch.models.llama import LlamaConfig
-    from deepspeed_tpu_torch.ops.normalization import rms_norm
-    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 
     cfg = LlamaConfig.llama3_8b()
+    per_block = 64 * per_token_kv_bytes(KVCacheConfig(
+        block_size=64, cache_shape=(cfg.num_hidden_layers, cfg.num_key_value_heads,
+                                    cfg.head_dim_),
+        cache_dtype=build_kw.get("kv_cache_dtype") or "bfloat16"))
+    num_blocks = SERVING_KV_BYTES // per_block
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    before_build = torch.cuda.memory_allocated()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     t0 = time.monotonic()
     engine = build_llama_engine(
-        cfg, engine_config=RaggedInferenceEngineConfig(num_kv_blocks=1024),
-        seed=0, dtype=torch.bfloat16, kv_block_size=64)
+        cfg, engine_config=RaggedInferenceEngineConfig(num_kv_blocks=num_blocks),
+        seed=0, dtype=torch.bfloat16, kv_block_size=64, **build_kw)
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
+    at_build = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    built_bytes = torch.cuda.memory_allocated() - before_build
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
 
     model = engine.model()
-    inner_forward = model.forward
+    inner_forward, inner_put = model.forward, engine.put
     steps = []  # (real tokens, decode?, seconds)
     bad_logits = []
+    prefill_logits = {}
 
     def counted_forward(batch):
         torch.cuda.synchronize()
@@ -691,33 +886,22 @@ def phase_serving(kernels: list) -> dict:
             bad_logits.append(len(steps))
         return logits
 
-    model.forward = counted_forward
+    def recording_put(uids, tokens, do_checks=True):
+        logits = inner_put(uids, tokens, do_checks=do_checks)
+        for i, (u, t) in enumerate(zip(uids, tokens)):
+            if len(t) > 1:
+                prefill_logits[u] = logits[i].float().cpu()
+        return logits
+
+    model.forward, engine.put = counted_forward, recording_put
     rng = np.random.default_rng(0)
-    lens = [128 * (i + 1) for i in range(8)]
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    max_new = 32
-    torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = 0
-    rms_norm.launches = 0
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVING_PROMPTS]
     t0 = time.monotonic()
-    outs = engine.generate(prompts, max_new_tokens=max_new)
+    outs = engine.generate(prompts, max_new_tokens=SERVING_NEW_TOKENS)
     gen_s = time.monotonic() - t0
-    launches = {"paged_attention": paged_attention.launches,
-                "rms_norm": rms_norm.launches}
-    model.forward = inner_forward
-    n_fwd = len(steps)
-    L = cfg.num_hidden_layers
-    checks = {
-        "outputs_32_valid_ids": len(outs) == 8 and all(
-            len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
-            for o in outs),
-        "logits_finite": not bad_logits,
-        "paged_attention_launches_per_forward": launches["paged_attention"] == L * n_fwd,
-        "rms_norm_launches_per_forward": launches["rms_norm"] == (2 * L + 1) * n_fwd,
-    }
-    for k in kernels:
-        if k["name"] in launches:
-            k["launches"] = launches[k["name"]]
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    model.forward, engine.put = inner_forward, inner_put
+    peak = torch.cuda.max_memory_allocated() / 2**30
 
     # prefill vs decode: the same last-token logits either way
     p = prompts[2]
@@ -727,28 +911,107 @@ def phase_serving(kernels: list) -> dict:
     step = engine.put([1001], [[p[-1]]]).float()[0]
     engine.flush(1001)
     diff = (full - step).abs().max().item()
-    scale = full.abs().max().item()
     # bf16 activations: 32 layers round the residual stream to bf16 (2^-9
     # relative) on two different reduction orders; allow 5% of max|logit|
-    consistency_tol = 0.05 * scale
-    checks["prefill_decode_consistent"] = diff <= consistency_tol
+    consistency_tol = 0.05 * full.abs().max().item()
 
     pre = [(n, s) for n, dec, s in steps if not dec]
     dec = [(n, s) for n, dec, s in steps if dec]
-    rec = {"phase": "serving", "config": "llama3_8b (32 layers, random bf16 weights)",
-           "gpu": gpu_identity(), "engine_build_s": build_s, "generate_s": gen_s,
-           "forwards": n_fwd, "prefill_forwards": len(pre),
-           "decode_forwards": len(dec), "launches": launches,
+    rec = {"gpu": gpu_identity(), "engine_build_s": build_s,
+           "kv_blocks": num_blocks, "kv_bytes_per_block": per_block,
+           "layer_weight_bytes": model.layer_weight_bytes(),
+           "memory_after_build_gib": built_bytes / 2**30,
+           "build_peak_memory_gib": build_peak,
+           "generate_s": gen_s, "forwards": len(steps), "prefill_forwards": len(pre),
+           "decode_forwards": len(dec), "launches_at_build": at_build,
+           "launches": launches,
            "prefill_tokens_per_s": sum(n for n, _ in pre) / sum(s for _, s in pre),
            "decode_tokens_per_s": sum(n for n, _ in dec) / sum(s for _, s in dec),
            "decode_step_ms_mean": 1e3 * sum(s for _, s in dec) / len(dec),
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_memory_gib": peak,
            "prefill_decode_max_abs_diff": diff,
-           "prefill_decode_tolerance": consistency_tol,
-           "checks": checks, "ok": all(checks.values())}
+           "prefill_decode_tolerance": consistency_tol}
+    checks = {
+        "outputs_32_valid_ids": len(outs) == 8 and all(
+            len(o) == SERVING_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
+            for o in outs),
+        "logits_finite": not bad_logits,
+        "prefill_logits_of_every_prompt": sorted(prefill_logits) == list(range(8)),
+        "prefill_decode_consistent": diff <= consistency_tol,
+    }
+    del engine, model, full, step
+    free_memory()
+    return {"rec": rec, "checks": checks, "prefill_logits": prefill_logits,
+            "layers": cfg.num_hidden_layers}
+
+
+def phase_serving(kernels: list) -> dict:
+    """The bf16 engine: K4 once and K5 2L+1 times per forward."""
+    from deepspeed_tpu_torch.ops.normalization import rms_norm
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    run = _drive_serving({"paged_attention": (paged_attention, "launches"),
+                          "rms_norm": (rms_norm, "launches")})
+    rec, checks, L = run["rec"], run["checks"], run["layers"]
+    n_fwd, launches = rec["forwards"], rec["launches"]
+    checks["paged_attention_launches_per_forward"] = launches["paged_attention"] == L * n_fwd
+    checks["rms_norm_launches_per_forward"] = launches["rms_norm"] == (2 * L + 1) * n_fwd
+    rec = {"phase": "serving", "config": "llama3_8b (32 layers, random bf16 weights)",
+           **rec, "checks": checks, "ok": all(checks.values())}
     emit(rec)
     if not rec["ok"]:
         raise SystemExit(f"serving checks failed: {checks}")
+    for k in kernels:
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
+    return {"rec": rec, "prefill_logits": run["prefill_logits"]}
+
+
+def phase_serving_int8(kernels: list, bf16: dict) -> dict:
+    """The same weights, prompts and KV bytes with int8 weights (K6 7 times
+    per layer at build, the dequantize helper at each of the 7L uses per
+    forward) and an int8 KV cache (K4's int8 instance once per layer)."""
+    import torch
+    from deepspeed_tpu_torch.ops.normalization import rms_norm
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.ops.quantizer import (dequantize_int8_blockwise,
+                                                   quantize_int8_blockwise)
+    counters = {"paged_attention_int8": (paged_attention, "int8_launches"),
+                "paged_attention": (paged_attention, "launches"),
+                "rms_norm": (rms_norm, "launches"),
+                "quantize_int8_blockwise": (quantize_int8_blockwise, "launches"),
+                "dequantize_int8_blockwise": (dequantize_int8_blockwise, "launches")}
+    run = _drive_serving(counters, quantize="int8", kv_cache_dtype="int8")
+    rec, checks, L = run["rec"], run["checks"], run["layers"]
+    n_fwd, launches, at_build = rec["forwards"], rec["launches"], rec["launches_at_build"]
+    # each prompt's prefill logits against the bf16 engine's: the int8
+    # weights and KV move each logit by the quantization noise only
+    cosines = [torch.nn.functional.cosine_similarity(
+        run["prefill_logits"][u], bf16["prefill_logits"][u], dim=0).item()
+        for u in range(8)]
+    memory_saved = bf16["rec"]["memory_after_build_gib"] - rec["memory_after_build_gib"]
+    checks.update({
+        "quantize_launches_7L_at_build": at_build["quantize_int8_blockwise"] == 7 * L
+        and launches["quantize_int8_blockwise"] == 7 * L,
+        "dequantize_launches_7L_per_forward":
+            launches["dequantize_int8_blockwise"] == 7 * L * n_fwd,
+        "paged_attention_int8_launches_per_forward":
+            launches["paged_attention_int8"] == L * n_fwd and launches["paged_attention"] == 0,
+        "rms_norm_launches_per_forward": launches["rms_norm"] == (2 * L + 1) * n_fwd,
+        "memory_after_build_6gib_below_bf16": memory_saved >= 6.0,
+        "prefill_logits_cosine_vs_bf16": min(cosines) >= 0.99,
+    })
+    rec = {"phase": "serving_int8",
+           "config": 'llama3_8b (32 layers, random bf16 weights), quantize="int8", '
+                     'kv_cache_dtype="int8"',
+           **rec, "memory_saved_vs_bf16_gib": memory_saved,
+           "prefill_logits_cosine_vs_bf16": cosines, "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"int8 serving checks failed: {checks}")
+    for k in kernels:
+        if k["name"] in launches and k["name"] not in ("paged_attention", "rms_norm"):
+            k["launches"] = launches[k["name"]]
     return rec
 
 
@@ -763,7 +1026,8 @@ def main() -> int:
     phase_parity()
     phase_train_parity()
     training = phase_training()
-    phase_serving(kernels)
+    bf16 = phase_serving(kernels)
+    phase_serving_int8(kernels, bf16)
     for k in kernels:
         if k["name"] in training["launches"]:
             k["launches"] = training["launches"][k["name"]]

@@ -6,7 +6,9 @@ is easy to find (``deepspeed_tpu_torch/inference/v2/model.py`` ports
 and the standard library only — never ``jax`` and never ``deepspeed_tpu``.
 
 Ported so far: the ragged Llama serving path (``inference/v2``) with its
-two hand-written CUDA kernels, paged attention and RMSNorm; and Llama
+hand-written CUDA kernels, paged attention and RMSNorm, and its int8
+options (weight-only int8 through the blockwise quantizer and an int8 KV
+cache, ``linear/``); and Llama
 training (``initialize`` -> ``engine.forward/backward/step``,
 ``train_batch``, ``eval_batch``) with ZeRO stage 0 on one device, carried by
 the flash-attention forward and backward kernels (``ops/``, ``csrc/``).

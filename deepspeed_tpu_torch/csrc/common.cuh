@@ -8,7 +8,7 @@
 
 namespace dstt {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -7,7 +7,10 @@
 //   q      [S, N, H, D]     H = KV*G query heads, kv-major (head h*G+g uses
 //                           KV head h)
 //   cache  [2L, slots, KV*D] k at row 2*layer, v at row 2*layer+1, flat
-//                           slot = page*page_size + offset
+//                           slot = page*page_size + offset; fp32, bf16 (the
+//                           query's dtype) or int8
+//   cache_scales [2L, slots, KV] fp32, for an int8 cache only: element d of
+//                           head h at a slot is cache * scale[row, slot, h]
 //   block_table [S, B], seen [S], lens [S] (int32)
 //   out    [S, N, H, D]     in q's dtype
 // Query row (n, g) of sequence s sees key position p iff p <= seen+n and
@@ -41,8 +44,16 @@
 // - Scores: one lane per key, the K row padded in shared memory to an odd
 //   number of 4-byte words so the 32 lanes hit 32 banks. P.V: one lane per
 //   output dim, with the page's probabilities broadcast from shared memory.
+// - int8 cache (the TPU kernel's int8 branch, paged_attention.py:111-117):
+//   the page is dequantized as it is staged, with the Pallas kernel's
+//   numerics: the scale rounds to bf16, and the product bf16(code) *
+//   bf16(scale) rounds to bf16 (exact in fp32, then one rounding), so the
+//   staged K/V are the bf16 values the TPU kernel feeds its dot. The rest of
+//   the kernel reads them as it reads a bf16 page. It moves about half the
+//   bytes of a bf16 page: D + 4 bytes per (slot, head) instead of 2*D.
 // Later versions move both products to wgmma with TMA-fed page rings.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -57,6 +68,7 @@ constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 struct PagedArgs {
   const void* q;
   const void* cache;
+  const float* cache_scales;  // int8 cache only
   void* out;
   const int* block_table;
   const int* seen;
@@ -72,6 +84,11 @@ struct PagedArgs {
   float* ws_acc;  // [S, KV, N*G, splits, D]
   float* ws_ml;   // [S, KV, N*G, splits, 2]
 };
+
+// What a page is staged as in shared memory: the cache's own type, or bf16
+// for an int8 cache (dequantized while staged)
+template <typename C> struct Staged { using type = C; };
+template <> struct Staged<int8_t> { using type = __nv_bfloat16; };
 
 // K rows in shared memory are padded to an odd count of 4-byte words
 template <typename T>
@@ -90,22 +107,40 @@ __host__ inline size_t smem_bytes(int D, int page_size, int rows_per_block) {
   return ((k + 15) / 16 * 16) + v + qs + ps;
 }
 
+// Four int8 codes (one 32-bit word, little-endian) times a bf16 scale,
+// each product rounded to bf16: two words of bf16 pairs
+__device__ __forceinline__ uint2 dequant4(uint32_t w, float scale) {
+  uint2 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float lo = (float)(int8_t)((w >> (16 * k)) & 0xff) * scale;
+    const float hi = (float)(int8_t)((w >> (16 * k + 8)) & 0xff) * scale;
+    __nv_bfloat162 h = __halves2bfloat162(__float2bfloat16(lo), __float2bfloat16(hi));
+    o[k] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  return out;
+}
+
+// T: the query's and output's type; C: the cache's (T, or int8).
 // DPL: output dims per lane (D <= 32*DPL); RPW: query rows per warp
-template <typename T, int DPL, int RPW>
+template <typename T, typename C, int DPL, int RPW>
 __global__ void __launch_bounds__(kAttnThreads)
 paged_attention_kernel(PagedArgs a) {
+  using S = typename Staged<C>::type;
+  constexpr bool kInt8Cache = std::is_same<C, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, ps = a.page_size;
   const int G = a.H / a.KV;
   const int rows = a.N * G;
   constexpr int RPB = kAttnWarps * RPW;  // query rows per block
-  const int kw = k_stride_words<T>(D);  // padded K row, in words
-  const int vw = D * (int)sizeof(T) / 4;  // V row, in words
+  const int kw = k_stride_words<S>(D);  // padded K row, in words
+  const int vw = D * (int)sizeof(S) / 4;  // V row, in words
 
   uint32_t* Ks = reinterpret_cast<uint32_t*>(smem);
   size_t off = ((size_t)ps * kw * 4 + 15) / 16 * 16;
   uint32_t* Vs = reinterpret_cast<uint32_t*>(smem + off);
-  off += ((size_t)ps * D * sizeof(T) + 15) / 16 * 16;
+  off += ((size_t)ps * D * sizeof(S) + 15) / 16 * 16;
   float* Qs = reinterpret_cast<float*>(smem + off);
   off += (size_t)RPB * D * 4;
   float* Ps = reinterpret_cast<float*>(smem + off);
@@ -147,9 +182,9 @@ paged_attention_kernel(PagedArgs a) {
   }
 
   const size_t kvd = (size_t)a.KV * D;
-  const T* kbase = reinterpret_cast<const T*>(a.cache) +
+  const C* kbase = reinterpret_cast<const C*>(a.cache) +
                    (size_t)(2 * a.layer) * a.slots * kvd + (size_t)h * D;
-  const T* vbase = kbase + (size_t)a.slots * kvd;
+  const C* vbase = kbase + (size_t)a.slots * kvd;
   float* Pw = Ps + warp * ps;
 
   for (int b = b_begin; b < b_end; ++b) {
@@ -159,15 +194,30 @@ paged_attention_kernel(PagedArgs a) {
       const size_t slot = (size_t)page * ps + j;
       const uint32_t* kg = reinterpret_cast<const uint32_t*>(kbase + slot * kvd);
       const uint32_t* vg = reinterpret_cast<const uint32_t*>(vbase + slot * kvd);
-      for (int c = lane; c < vw; c += 32) {
-        Ks[j * kw + c] = kg[c];
-        Vs[j * vw + c] = vg[c];
+      if constexpr (kInt8Cache) {
+        // the scales of (slot, head h) in k row 2*layer and v row 2*layer+1;
+        // the TPU kernel's order: bf16(code) * bf16(scale), rounded to bf16
+        const float* ksc = a.cache_scales + ((size_t)(2 * a.layer) * a.slots + slot) * a.KV + h;
+        const float k_scale = __bfloat162float(__float2bfloat16(ksc[0]));
+        const float v_scale = __bfloat162float(__float2bfloat16(ksc[(size_t)a.slots * a.KV]));
+        for (int c = lane; c < D / 4; c += 32) {
+          const uint2 kd = dequant4(kg[c], k_scale), vd = dequant4(vg[c], v_scale);
+          Ks[j * kw + 2 * c] = kd.x;
+          Ks[j * kw + 2 * c + 1] = kd.y;
+          Vs[j * vw + 2 * c] = vd.x;
+          Vs[j * vw + 2 * c + 1] = vd.y;
+        }
+      } else {
+        for (int c = lane; c < vw; c += 32) {
+          Ks[j * kw + c] = kg[c];
+          Vs[j * vw + c] = vg[c];
+        }
       }
     }
     __syncthreads();
-    const T* Kt = reinterpret_cast<const T*>(Ks);
-    const T* Vt = reinterpret_cast<const T*>(Vs);
-    const int kstride = kw * 4 / (int)sizeof(T);  // padded K row, in elements
+    const S* Kt = reinterpret_cast<const S*>(Ks);
+    const S* Vt = reinterpret_cast<const S*>(Vs);
+    const int kstride = kw * 4 / (int)sizeof(S);  // padded K row, in elements
     const int key0 = b * ps;
 
 #pragma unroll
@@ -188,7 +238,7 @@ paged_attention_kernel(PagedArgs a) {
         if (j < ps) {
           const int key = key0 + j;
           if (key <= q_abs && key < hist) {
-            const T* kr = Kt + j * kstride;
+            const S* kr = Kt + j * kstride;
             // four independent chains: the loop is latency-bound otherwise
             float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
             int d = 0;
@@ -337,12 +387,12 @@ inline size_t workspace_floats(const Plan& p, int S, int N, int H, int D) {
   return p.splits > 1 ? (size_t)S * N * H * p.splits * (D + 2) : 0;
 }
 
-template <typename T, int DPL, int RPW>
+template <typename T, typename C, int DPL, int RPW>
 cudaError_t launch_paged(const PagedArgs& a, cudaStream_t stream) {
   const int rows = a.N * (a.H / a.KV);
   constexpr int RPB = kAttnWarps * RPW;
-  const size_t smem = smem_bytes<T>(a.D, a.page_size, RPB);
-  auto kern = paged_attention_kernel<T, DPL, RPW>;
+  const size_t smem = smem_bytes<typename Staged<C>::type>(a.D, a.page_size, RPB);
+  auto kern = paged_attention_kernel<T, C, DPL, RPW>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -357,17 +407,17 @@ cudaError_t launch_paged(const PagedArgs& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <typename T, int DPL>
+template <typename T, typename C, int DPL>
 cudaError_t launch_paged_rpw(const PagedArgs& a, int rpw, cudaStream_t stream) {
-  return rpw == 1 ? launch_paged<T, DPL, 1>(a, stream)
-                  : launch_paged<T, DPL, 4>(a, stream);
+  return rpw == 1 ? launch_paged<T, C, DPL, 1>(a, stream)
+                  : launch_paged<T, C, DPL, 4>(a, stream);
 }
 
 // DPL 1 serves the narrow test widths (D <= 32), DPL 4 Llama's D = 128
-template <typename T>
+template <typename T, typename C>
 cudaError_t launch_paged_dpl(const PagedArgs& a, int rpw, cudaStream_t stream) {
-  return a.D <= 32 ? launch_paged_rpw<T, 1>(a, rpw, stream)
-                   : launch_paged_rpw<T, 4>(a, rpw, stream);
+  return a.D <= 32 ? launch_paged_rpw<T, C, 1>(a, rpw, stream)
+                   : launch_paged_rpw<T, C, 4>(a, rpw, stream);
 }
 
 inline bool valid_shape(int S, int N, int H, int D, int KV, int B) {
@@ -389,16 +439,21 @@ extern "C" int dstt_paged_attention_workspace(int S, int N, int H, int D, int KV
   return (int)cudaSuccess;
 }
 
-extern "C" int dstt_paged_attention(const void* q, const void* cache, void* out,
+// dtype: the query's and output's; cache_dtype: the same, or kInt8 with
+// cache_scales
+extern "C" int dstt_paged_attention(const void* q, const void* cache,
+                                    const void* cache_scales, void* out,
                                     const void* block_table, const void* seen,
                                     const void* lens, int S, int N, int H, int D,
                                     int KV, int B, long long slots, int layer,
                                     int page_size, float scale, int dtype,
-                                    void* workspace, long long workspace_len,
-                                    void* stream) {
+                                    int cache_dtype, void* workspace,
+                                    long long workspace_len, void* stream) {
   using namespace dstt;
+  const int cache_bytes = cache_dtype == kFloat32 ? 4 : cache_dtype == kBFloat16 ? 2 : 1;
   if (!valid_shape(S, N, H, D, KV, B) || page_size <= 0 || page_size > kMaxPage ||
-      slots % page_size != 0 || (D * (dtype == kFloat32 ? 4 : 2)) % 4 != 0)
+      slots % page_size != 0 || (D * cache_bytes) % 4 != 0 ||
+      (cache_dtype == kInt8) != (cache_scales != nullptr))
     return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
@@ -408,16 +463,22 @@ extern "C" int dstt_paged_attention(const void* q, const void* cache, void* out,
     return (int)cudaErrorInvalidValue;
   float* ws = need > 0 ? (float*)workspace : nullptr;
   const size_t parts = (size_t)S * N * H * p.splits;
-  PagedArgs a{q, cache, out, (const int*)block_table, (const int*)seen,
+  PagedArgs a{q, cache, (const float*)cache_scales, out, (const int*)block_table,
+              (const int*)seen,
               (const int*)lens, S, N, H, D, KV, B, slots, layer, page_size, scale,
               p.splits, p.pages_per_split, ws, ws ? ws + parts * D : nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  switch (dtype) {
-    case kFloat32: e = launch_paged_dpl<float>(a, p.rpw, s); break;
-    case kBFloat16: e = launch_paged_dpl<__nv_bfloat16>(a, p.rpw, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == kFloat32 && cache_dtype == kFloat32)
+    e = launch_paged_dpl<float, float>(a, p.rpw, s);
+  else if (dtype == kBFloat16 && cache_dtype == kBFloat16)
+    e = launch_paged_dpl<__nv_bfloat16, __nv_bfloat16>(a, p.rpw, s);
+  else if (dtype == kFloat32 && cache_dtype == kInt8)
+    e = launch_paged_dpl<float, int8_t>(a, p.rpw, s);
+  else if (dtype == kBFloat16 && cache_dtype == kInt8)
+    e = launch_paged_dpl<__nv_bfloat16, int8_t>(a, p.rpw, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

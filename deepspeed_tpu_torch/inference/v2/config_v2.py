@@ -1,7 +1,7 @@
 """Inference-v2 configuration (port of ``deepspeed_tpu/inference/v2/
 config_v2.py``): the same field names, defaults and validation errors, as
 plain dataclasses. Only the knobs of the ported serving path are here;
-tensor parallelism, quantization, sampling, resilience, durability,
+tensor parallelism, sampling, resilience, durability,
 continuous fusion, disaggregation, observability, prefix caching, tenants
 and adapters are not ported yet."""
 
@@ -65,10 +65,19 @@ class DSStateManagerConfig:
 
 
 @dataclasses.dataclass
+class QuantizationConfig:
+    """Reference config_v2.py:QuantizationConfig. ``build_llama_engine``
+    maps the mode onto its ``quantize`` argument ("int8"; "wf6af16"/"fp6"
+    and "int4" are not ported yet)."""
+    quantization_mode: Optional[str] = None
+
+
+@dataclasses.dataclass
 class RaggedInferenceEngineConfig:
     """Reference config_v2.py:RaggedInferenceEngineConfig, reduced to the
-    state manager and the KV block count. ``state_manager`` also takes a
-    dict of :class:`DSStateManagerConfig` fields."""
+    state manager, the KV block count and weight quantization.
+    ``state_manager`` and ``quantization`` also take a dict of their
+    fields."""
     state_manager: DSStateManagerConfig = dataclasses.field(
         default_factory=DSStateManagerConfig)
 
@@ -76,6 +85,11 @@ class RaggedInferenceEngineConfig:
     # set — tests and CPU runs need deterministic small caches)
     num_kv_blocks: Optional[int] = None
 
+    quantization: QuantizationConfig = dataclasses.field(
+        default_factory=QuantizationConfig)
+
     def __post_init__(self):
         if isinstance(self.state_manager, dict):
             self.state_manager = DSStateManagerConfig(**self.state_manager)
+        if isinstance(self.quantization, dict):
+            self.quantization = QuantizationConfig(**self.quantization)

@@ -362,15 +362,33 @@ def build_llama_engine(config: Optional[LlamaConfig] = None,
                        seed: int = 0,
                        dtype=None,
                        kv_block_size: int = 64,
+                       quantize: Optional[str] = None,
+                       kv_cache_dtype: Optional[str] = None,
                        device=None) -> InferenceEngineV2:
     """Factory (reference ``engine_factory.py build_hf_engine``): build a
     ragged engine from a Llama config and weights — a :class:`LlamaModel`,
     a JAX param tree with numpy leaves (loaded through
     ``models/convert.params_from_jax``), or seeded random weights if None.
-    Runs on ``cuda`` unless ``device`` says otherwise."""
+    ``quantize="int8"`` (or ``engine_config.quantization.quantization_mode
+    = "int8"``) holds the layer kernels as int8; ``kv_cache_dtype="int8"``
+    the KV cache. Runs on ``cuda`` unless ``device`` says otherwise."""
     device = resolve_device(device)
     config = config or LlamaConfig.tiny()
     engine_config = engine_config or RaggedInferenceEngineConfig()
+    mode = engine_config.quantization.quantization_mode
+    if mode:
+        # the reference spells weight-only quantization as a mode
+        # ('wf6af16' = weight fp6, activations fp16); it maps onto quantize
+        mapped = {"wf6af16": "fp6", "fp6": "fp6",
+                  "int8": "int8", "int4": "int4"}.get(mode)
+        if mapped is None:
+            raise ValueError(f"unknown quantization_mode {mode!r}; "
+                             "supported: wf6af16 (fp6), fp6, int8, int4")
+        if quantize is not None and quantize != mapped:
+            raise ValueError(
+                f"quantize={quantize!r} conflicts with "
+                f"quantization_mode={mode!r} (= {mapped!r}) — set one")
+        quantize = mapped
     dtype = dtype or torch.bfloat16
     if params is None:
         model = init_llama(config, seed=seed, dtype=dtype, device=device)
@@ -380,5 +398,6 @@ def build_llama_engine(config: Optional[LlamaConfig] = None,
         from ...models.convert import params_from_jax
         model = params_from_jax(params, config, dtype=dtype, device=device)
     ragged = RaggedLlamaModel(config, model, dtype=dtype,
-                              kv_block_size=kv_block_size)
+                              kv_block_size=kv_block_size, quantize=quantize,
+                              kv_cache_dtype=kv_cache_dtype)
     return InferenceEngineV2(ragged, engine_config)

@@ -15,9 +15,18 @@ dtype, rope multiplies by the fp32 tables (bf16 × fp32 → fp32) and casts
 back, attention returns the query dtype, and the unembed multiplies the
 fp32 final hidden rows by an fp32 ``lm_head`` (held in fp32, as the JAX
 engine holds it), so the logits are the same fp32 product.
+
+Two int8 options, as in the JAX model. ``quantize="int8"`` (weight-only):
+every layer kernel is held as int8 + per-block scales (K6 at build) and
+dequantized at each use into one scratch buffer (the JAX forward
+dequantizes in-graph, where XLA fuses it into the matmul).
+``kv_cache_dtype="int8"``: K/V are stored as int8 with one fp32 scale per
+(token, head) vector, quantized at the KV write, and K4 dequantizes pages
+as it reads them.
 """
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,10 +34,14 @@ import torch.nn.functional as F
 from .config_v2 import KVCacheConfig
 from .ragged.ragged_wrapper import RaggedBatch
 from .ragged.sequence_descriptor import BaseSequenceDescriptor
+from ...linear.config import QuantizationConfig
+from ...linear.quantization import QuantizedParameter
 from ...models.llama import (LLAMA_FAMILY, LlamaConfig, LlamaModel,
                              check_supported, precompute_rope)
 from ...ops.normalization import rms_norm
 from ...ops.paged_attention import paged_attention
+from ...ops.quantizer import true_div_127
+from ...utils.dtypes import resolve_dtype
 
 
 def _rope_tok(x, c, s):
@@ -39,23 +52,107 @@ def _rope_tok(x, c, s):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
+def quantize_kv(w):
+    """Per-vector symmetric int8 of ``w [..., D]`` at the KV write (the
+    JAX forward's ``model.py:1059-1071``): one scale per (token, head),
+    ``max(absmax / 127, 1e-8)`` (a floor, where K6 gives an all-zero block
+    scale 1), codes ``round(w / scale)`` clipped to +-127."""
+    wf = w.float()
+    sc = true_div_127(wf.abs().amax(dim=-1)).clamp_min(1e-8)
+    codes = torch.round(wf / sc[..., None]).clamp_(-127, 127).to(torch.int8)
+    return codes, sc
+
+
+def layer_kernels(layer):
+    """The seven projection modules of a decoder layer that weight-only
+    quantization covers."""
+    attn, mlp = layer.self_attn, layer.mlp
+    return (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj,
+            mlp.gate_proj, mlp.up_proj, mlp.down_proj)
+
+
 class RaggedLlamaModel:
-    """Paged-KV decode/prefill model over a :class:`LlamaModel`."""
+    """Paged-KV decode/prefill model over a :class:`LlamaModel`.
+
+    ``quantize``: None or "int8" (weight-only int8; "fp6" and "int4" are
+    not ported yet). The layer kernels of ``model`` are replaced by their
+    int8 form: each projection module's ``kernel`` becomes None and its
+    ``quantized`` holds the :class:`QuantizedParameter`.
+    ``kv_cache_dtype``: None (the model dtype) or "int8"."""
 
     def __init__(self, config: LlamaConfig, model: LlamaModel,
-                 dtype=torch.bfloat16, kv_block_size: int = 64):
+                 dtype=torch.bfloat16, kv_block_size: int = 64,
+                 quantize: Optional[str] = None,
+                 kv_cache_dtype: Optional[str] = None):
         check_supported(config, "RaggedLlamaModel", LLAMA_FAMILY)
+        if quantize not in (None, "int8", "fp6", "int4"):
+            raise ValueError("quantize must be None, 'int8', 'fp6' or 'int4', "
+                             f"got {quantize!r}")
+        if quantize in ("fp6", "int4"):
+            raise NotImplementedError(f"RaggedLlamaModel: quantize={quantize!r} "
+                                      "is not ported yet; 'int8' is")
+        if kv_cache_dtype not in (None, "int8", "bfloat16", "float32"):
+            raise ValueError("kv_cache_dtype must be None/int8/bfloat16/"
+                             f"float32, got {kv_cache_dtype!r}")
+        if kv_cache_dtype in ("bfloat16", "float32") and \
+                resolve_dtype(kv_cache_dtype) != dtype:
+            raise NotImplementedError(
+                f"RaggedLlamaModel: a {kv_cache_dtype} KV cache under a {dtype} "
+                "model is not ported yet (the cache takes the model dtype or int8)")
         self.config = config
         self.model = model
         self.dtype = dtype
         self.kv_block_size = kv_block_size
         self.device = model.embed_tokens.weight.device
+        self._kv_cache_dtype = kv_cache_dtype
         # the JAX forward rebuilds this table at every trace; here it is
         # computed once, on the model's device
         self.rope_cos, self.rope_sin = precompute_rope(
             config.head_dim_, config.max_position_embeddings,
             config.rope_theta, device=self.device)
         self._state_manager = None
+        self._scratch = None
+        if quantize is not None:
+            self._quantize_layers()
+
+    @torch.no_grad()
+    def _quantize_layers(self) -> None:
+        """Weight-only int8 (the JAX model's ``:398-451``): each layer
+        kernel, cast to the model dtype as the JAX model casts its tree
+        first, is quantized as stored (``[in, out]`` row-major, 512-value
+        blocks) and its float tensor released, one at a time, so the float
+        layers are never held twice. Embeddings, norms and the fp32
+        ``lm_head`` stay as they are."""
+        qcfg = QuantizationConfig(q_bits=8)
+        largest = 0
+        for layer in self.model.layers:
+            for dense in layer_kernels(layer):
+                dense.quantized = QuantizedParameter.quantize(
+                    dense.kernel.detach().to(self.dtype), qcfg)
+                dense.kernel = None
+                largest = max(largest, math.prod(dense.quantized.shape))
+        # every dequantized kernel lands here, used by its matmul before the
+        # next one overwrites it (one stream orders the two)
+        self._scratch = torch.empty(largest, dtype=self.dtype, device=self.device)
+
+    def _kernel(self, dense) -> torch.Tensor:
+        """A projection's ``[in, out]`` weight: the float kernel, or the int8
+        one dequantized into the scratch buffer."""
+        qp = getattr(dense, "quantized", None)
+        if qp is None:
+            return dense.kernel
+        return qp.dequantized(out=self._scratch[:math.prod(qp.shape)].view(qp.shape))
+
+    def layer_weight_bytes(self) -> int:
+        """Bytes of the layers' projection weights as held (int8 values and
+        scales, or the float kernels)."""
+        total = 0
+        for layer in self.model.layers:
+            for dense in layer_kernels(layer):
+                qp = getattr(dense, "quantized", None)
+                total += (qp.nbytes if qp is not None else
+                          dense.kernel.numel() * dense.kernel.element_size())
+        return total
 
     # ---- state-manager plumbing (reference inference_model_base) ----
 
@@ -68,7 +165,9 @@ class RaggedLlamaModel:
             block_size=self.kv_block_size,
             cache_shape=(cfg.num_hidden_layers, cfg.num_key_value_heads,
                          cfg.head_dim_),
-            cache_dtype="bfloat16" if self.dtype == torch.bfloat16 else "float32")
+            cache_dtype=(self._kv_cache_dtype
+                         or ("bfloat16" if self.dtype == torch.bfloat16
+                             else "float32")))
 
     # ---- scheduling arithmetic (reference get_kv_requirements) ----
 
@@ -99,18 +198,23 @@ class RaggedLlamaModel:
     def forward(self, batch: RaggedBatch) -> torch.Tensor:
         """One ragged forward; returns fp32 logits ``[S, vocab]`` for each
         sequence's final token and updates the KV cache in place."""
-        return _ragged_forward(self.model, self._state_manager.kv_cache.cache,
-                               batch, config=self.config,
+        cache = self._state_manager.kv_cache.cache
+        cache, scales = cache if isinstance(cache, tuple) else (cache, None)
+        return _ragged_forward(self.model, cache, batch, config=self.config,
                                block_size=self.kv_block_size,
-                               cos=self.rope_cos, sin=self.rope_sin)
+                               cos=self.rope_cos, sin=self.rope_sin,
+                               kernel=self._kernel, cache_scales=scales)
 
 
 @torch.inference_mode()
 def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
                     *, config: LlamaConfig, block_size: int, cos: torch.Tensor,
-                    sin: torch.Tensor) -> torch.Tensor:
+                    sin: torch.Tensor, kernel,
+                    cache_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One ragged step: embed → L×(paged attn + mlp) → final-token logits.
-    Writes this step's K/V into ``cache`` in place."""
+    Writes this step's K/V into ``cache`` (and an int8 cache's
+    ``cache_scales``) in place. ``kernel(module)`` gives a projection's
+    weight."""
     cfg = config
     T = batch.tokens.shape[0]
     S = batch.block_table.shape[0]
@@ -134,30 +238,34 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
     for l, layer in enumerate(model.layers):
         attn = layer.self_attn
         h = rms_norm(x, layer.input_layernorm.weight, eps)
-        q = (h @ attn.q_proj.kernel).reshape(T, nq, hd)
-        k = (h @ attn.k_proj.kernel).reshape(T, nkv, hd)
-        v = (h @ attn.v_proj.kernel).reshape(T, nkv, hd)
+        q = (h @ kernel(attn.q_proj)).reshape(T, nq, hd)
+        k = (h @ kernel(attn.k_proj)).reshape(T, nkv, hd)
+        v = (h @ kernel(attn.v_proj)).reshape(T, nkv, hd)
         q = _rope_tok(q, rope_c, rope_s)
         k = _rope_tok(k, rope_c, rope_s)
 
         # paged write into [2L, slot, KV*D]: k row 2l, v row 2l+1
-        cache[2 * l].index_copy_(
-            0, slots, k.reshape(T, nkv * hd)[:n_real].to(cache.dtype))
-        cache[2 * l + 1].index_copy_(
-            0, slots, v.reshape(T, nkv * hd)[:n_real].to(cache.dtype))
+        for row, w in ((2 * l, k), (2 * l + 1, v)):
+            if cache_scales is None:
+                cache[row].index_copy_(
+                    0, slots, w.reshape(T, nkv * hd)[:n_real].to(cache.dtype))
+            else:
+                codes, sc = quantize_kv(w[:n_real])
+                cache[row].index_copy_(0, slots, codes.reshape(n_real, nkv * hd))
+                cache_scales[row].index_copy_(0, slots, sc)
 
         q_s = q[q_tok_idx]  # [S, N, nq, hd], head-major, kv-major heads
         ctx = paged_attention(q_s, cache, l, batch.block_table,
                               batch.seq_seen, seq_lens, page_size=block_size,
-                              attn_scale=cfg.attn_scale)
+                              attn_scale=cfg.attn_scale, cache_scales=cache_scales)
         ctx = ctx.to(x.dtype).reshape(S, N, nq * hd)
 
         ctx_tok = ctx[ctx_rows]  # [T, H*D]
-        x = x + ctx_tok @ attn.o_proj.kernel
+        x = x + ctx_tok @ kernel(attn.o_proj)
         h2 = rms_norm(x, layer.post_attention_layernorm.weight, eps)
         mlp = layer.mlp
-        inner = F.silu(h2 @ mlp.gate_proj.kernel) * (h2 @ mlp.up_proj.kernel)
-        x = x + inner @ mlp.down_proj.kernel
+        inner = F.silu(h2 @ kernel(mlp.gate_proj)) * (h2 @ kernel(mlp.up_proj))
+        x = x + inner @ kernel(mlp.down_proj)
 
     x = rms_norm(x, model.norm.weight, eps)
     final = x[batch.last_token_idx].float()  # [S, E]

@@ -6,7 +6,8 @@ checkpoint of it), with numpy leaves: ``tree['model']['layers_0']
 ``['model']['embed_tokens']['embedding']`` of shape ``[vocab, hidden]``,
 norm scales under ``['weight']``. Shapes carry over unchanged, because the
 port keeps the flax layout; :func:`jax_key_path` maps a port parameter
-name onto its path in the tree.
+name onto its path in the tree. :func:`quantized_from_jax` carries a JAX
+``QuantizedParameter``'s stored int8 values and scales over as they are.
 """
 
 from typing import List
@@ -14,6 +15,8 @@ from typing import List
 import numpy as np
 import torch
 
+from ..linear.quantization import QuantizedParameter
+from ..utils.dtypes import resolve_dtype
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel
 
 
@@ -68,3 +71,17 @@ def params_from_jax(tree, config: LlamaConfig, dtype=None, device=None,
                              f"{tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(arr))
     return module
+
+
+def quantized_from_jax(qp, device=None) -> QuantizedParameter:
+    """The port's :class:`QuantizedParameter` holding the values and scales
+    of ``qp``, a ``deepspeed_tpu.linear.quantization.QuantizedParameter``
+    (any object with its fields, arrays convertible by numpy), on
+    ``device`` (default ``cuda``)."""
+    device = torch.device(device or "cuda")
+    values = torch.from_numpy(np.array(qp.values, dtype=np.int8)).to(device)
+    scales = torch.from_numpy(np.array(qp.scales, dtype=np.float32)).to(device)
+    return QuantizedParameter(values, scales, tuple(qp.shape), int(qp.block_size),
+                              dtype=resolve_dtype(np.dtype(qp.dtype).name),
+                              q_bits=int(qp.q_bits), shard_dim=qp.shard_dim,
+                              shards=int(qp.shards))

@@ -43,10 +43,15 @@ _SIGNATURES = {
     # S, N, H, D, KV, B, out: workspace length in fp32 words
     "dstt_paged_attention_workspace": (_I, _I, _I, _I, _I, _I,
                                        ctypes.POINTER(_L)),
-    # q, cache, out, block_table, seen, lens, S, N, H, D, KV, B, slots,
-    # layer, page_size, scale, dtype, workspace, workspace length, stream
-    "dstt_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _L, _I, _I, _F, _I, _P, _L, _P),
+    # q, cache, cache_scales, out, block_table, seen, lens, S, N, H, D, KV,
+    # B, slots, layer, page_size, scale, q dtype, cache dtype, workspace,
+    # workspace length, stream
+    "dstt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _L, _I, _I, _F, _I, _I, _P, _L, _P),
+    # x, n, block, dtype, values, scales, stream
+    "dstt_quantize_int8": (_P, _L, _I, _I, _P, _P, _P),
+    # values, scales, n, block, out, dtype, stream
+    "dstt_dequantize_int8": (_P, _P, _L, _I, _P, _I, _P),
     # q, k, v, o, lse, B, S, H, KV, D, scale, causal, dtype, stream
     "dstt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, dO, lse, delta, dq, B, S, H, KV, D, scale, causal, dtype, stream
@@ -155,7 +160,7 @@ def check(err: int, name: str) -> None:
 
 
 # kernel dtype codes (csrc/common.cuh)
-DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 
 
 def dtype_code(dtype) -> int:

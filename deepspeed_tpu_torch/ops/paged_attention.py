@@ -3,14 +3,17 @@
 
 Cache layout as in the JAX package: ``[2*layers, num_slots, kv_heads*D]``
 with k at row ``2l``, v at row ``2l+1`` and ``num_slots = num_pages *
-page_size``. Queries ``[S, N, H, D]`` with H = KV*G in kv-major order.
+page_size``. Queries ``[S, N, H, D]`` with H = KV*G in kv-major order. An
+int8 cache comes with ``cache_scales`` ``[2*layers, num_slots, kv_heads]``
+fp32, one scale per (row, slot, head).
 
 ``paged_attention`` dispatches on the query's device: a CPU tensor takes
 the plain PyTorch version (``paged_attention_reference``, the dense-gather
-path), a CUDA tensor launches ``csrc/paged_attention.cu`` or raises.
-``paged_attention.launches`` counts kernel launches. The kernel covers the
-Llama-3 configuration; the JAX kernel's sliding window, ALiBi, softcap and
-int8-cache options raise ``NotImplementedError`` here.
+path, which dequantizes an int8 window in fp32), a CUDA tensor launches
+``csrc/paged_attention.cu`` or raises. ``paged_attention.launches`` counts
+launches over a float cache, ``paged_attention.int8_launches`` over an
+int8 cache. The kernel covers the Llama-3 configuration; the JAX kernel's
+sliding window, ALiBi and softcap raise ``NotImplementedError`` here.
 """
 
 import ctypes
@@ -24,14 +27,31 @@ from . import _build
 NEG_INF = -1e30
 
 
-def _check_options(window, use_alibi, slopes, cache_scales, softcap):
+def _check_options(window, use_alibi, slopes, softcap):
     unsupported = [name for name, off in (
         ("window", window is None), ("use_alibi", not use_alibi),
-        ("slopes", slopes is None), ("cache_scales", cache_scales is None),
-        ("softcap", softcap is None)) if not off]
+        ("slopes", slopes is None), ("softcap", softcap is None)) if not off]
     if unsupported:
         raise NotImplementedError(
             f"paged_attention: option(s) {unsupported} are not ported yet")
+
+
+def _check_cache_scales(cache, cache_scales, D: int) -> None:
+    """An int8 cache needs fp32 scales ``[2L, slots, KV]``; a float cache
+    takes none."""
+    if cache.dtype != torch.int8:
+        if cache_scales is not None:
+            raise ValueError("paged_attention: cache_scales come with an int8 "
+                             f"cache, not a {cache.dtype} one")
+        return
+    L2, slots, KVD = cache.shape
+    want = (L2, slots, KVD // D)
+    if (cache_scales is None or cache_scales.dtype != torch.float32
+            or tuple(cache_scales.shape) != want):
+        got = (None if cache_scales is None
+               else f"{cache_scales.dtype} {tuple(cache_scales.shape)}")
+        raise ValueError(f"paged_attention: an int8 cache needs cache_scales "
+                         f"float32 {want}, got {got}")
 
 
 def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
@@ -42,9 +62,11 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
                               cache_scales=None,
                               softcap: Optional[float] = None):
     """Dense-gather reference: gathers each sequence's ``B*page_size``
-    history window, masks, softmaxes in fp32."""
-    _check_options(window, use_alibi, slopes, cache_scales, softcap)
+    history window (an int8 window dequantized in fp32), masks, softmaxes
+    in fp32."""
+    _check_options(window, use_alibi, slopes, softcap)
     S, N, H, D = q.shape
+    _check_cache_scales(cache, cache_scales, D)
     B = block_table.shape[1]
     L = B * page_size
     KV = cache.shape[-1] // D
@@ -55,6 +77,9 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
     slot_grid = block_table.long()[:, j // page_size] * page_size + j % page_size
     k_h = cache[2 * layer][slot_grid].reshape(S, L, KV, D)   # [S, L, KV, D]
     v_h = cache[2 * layer + 1][slot_grid].reshape(S, L, KV, D)
+    if cache_scales is not None:  # int8 cache: dequant the gathered window
+        k_h = k_h.float() * cache_scales[2 * layer][slot_grid][..., None]
+        v_h = v_h.float() * cache_scales[2 * layer + 1][slot_grid][..., None]
     k_h = k_h.movedim(2, 1).float()                          # [S, KV, L, D]
     v_h = v_h.movedim(2, 1).float()
     qf = q.reshape(S, N, KV, G, D).float()
@@ -93,12 +118,14 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
 
     Args:
       q: ``[S, N, H, D]`` queries (N new tokens per sequence).
-      cache: ``[2L, num_slots, KV*D]`` full paged cache (never sliced).
+      cache: ``[2L, num_slots, KV*D]`` full paged cache (never sliced), in
+        q's dtype or int8.
       layer: which layer's pages to read.
       block_table: ``[S, B]`` int32 page ids per sequence.
       seq_seen: ``[S]`` int32 history length before this step.
       seq_lens: ``[S]`` int32 seen + n_new (valid key region).
       attn_scale: overrides ``1/sqrt(D)``.
+      cache_scales: ``[2L, num_slots, KV]`` fp32 scales of an int8 cache.
     Returns:
       ``[S, N, H, D]`` in q.dtype.
     """
@@ -108,7 +135,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             page_size=page_size, window=window, attn_scale=attn_scale,
             use_alibi=use_alibi, slopes=slopes, cache_scales=cache_scales,
             softcap=softcap)
-    _check_options(window, use_alibi, slopes, cache_scales, softcap)
+    _check_options(window, use_alibi, slopes, softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     S, N, H, D = q.shape
@@ -123,9 +150,15 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
     if slots % page_size:
         raise ValueError(f"paged_attention: {slots} slots is not a whole "
                          f"number of pages of {page_size}")
-    if cache.dtype != q.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            cache.dtype not in (q.dtype, torch.int8):
         raise TypeError(f"paged_attention: q {q.dtype} / cache {cache.dtype};"
-                        " both must be float32 or both bfloat16")
+                        " q must be float32 or bfloat16, the cache q's dtype "
+                        "or int8")
+    if cache.dtype == torch.int8 and D % 4:
+        raise ValueError(f"paged_attention: an int8 cache needs head_dim % 4 "
+                         f"== 0, got {D}")
+    _check_cache_scales(cache, cache_scales, D)
     B = block_table.shape[1]
     for name, t, shape in (("block_table", block_table, (S, B)),
                            ("seq_seen", seq_seen, (S, )),
@@ -133,7 +166,8 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise ValueError(f"paged_attention: {name} must be int32 {shape},"
                              f" got {t.dtype} {tuple(t.shape)}")
-    tensors = (q, cache, block_table, seq_seen, seq_lens)
+    tensors = (q, cache, block_table, seq_seen, seq_lens) + (
+        () if cache_scales is None else (cache_scales, ))
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_attention: all inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -147,15 +181,21 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
     lib = _build.lib()
     with torch.cuda.device(q.device):
         err = lib.dstt_paged_attention(
-            q.data_ptr(), cache.data_ptr(), out.data_ptr(),
-            block_table.data_ptr(), seq_seen.data_ptr(), seq_lens.data_ptr(),
-            S, N, H, D, KV, B, slots, int(layer), page_size,
-            float(scale), _build.dtype_code(q.dtype),
+            q.data_ptr(), cache.data_ptr(),
+            None if cache_scales is None else cache_scales.data_ptr(),
+            out.data_ptr(), block_table.data_ptr(), seq_seen.data_ptr(),
+            seq_lens.data_ptr(), S, N, H, D, KV, B, slots, int(layer),
+            page_size, float(scale), _build.dtype_code(q.dtype),
+            _build.dtype_code(cache.dtype),
             None if workspace is None else workspace.data_ptr(), ws_len,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
-    paged_attention.launches += 1
+    if cache.dtype == torch.int8:
+        paged_attention.int8_launches += 1
+    else:
+        paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.int8_launches = 0

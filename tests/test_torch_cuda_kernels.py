@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.inference.v2.model import quantize_kv
 from deepspeed_tpu_torch.ops.attention import (
     attention_delta, flash_attention, flash_attention_bwd_dkdv,
     flash_attention_bwd_dq, flash_attention_bwd_reference, flash_attention_fwd,
@@ -17,6 +18,9 @@ from deepspeed_tpu_torch.ops.attention import (
 from deepspeed_tpu_torch.ops.normalization import rms_norm, rms_norm_reference
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
+from deepspeed_tpu_torch.ops.quantizer import (
+    dequantize_int8_blockwise, dequantize_int8_blockwise_reference,
+    quantize_int8_blockwise, quantize_int8_blockwise_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +83,64 @@ def test_paged_attention_kernel_matches_plain(case, dtype, cuda_device):
                                atol=PAGED_TOL[dtype], rtol=0)
 
 
+def int8_cache(cache, D):
+    """An int8 cache as the engine's KV write makes it from ``cache``: one
+    scale per (row, slot, head) vector of D, max(absmax / 127, 1e-8)."""
+    L2, slots, KVD = cache.shape
+    codes, sc = quantize_kv(cache.reshape(L2, slots, KVD // D, D))
+    return codes.reshape(L2, slots, KVD), sc
+
+
+def staged_cache(codes, scales, D):
+    """What K4 stages from an int8 cache, the TPU kernel's numerics: the
+    scale rounded to bf16, each product rounded to bf16 (exact in fp32)."""
+    L2, slots, KVD = codes.shape
+    x = codes.float().reshape(L2, slots, KVD // D, D) * \
+        scales.bfloat16().float()[..., None]
+    return x.bfloat16().reshape(L2, slots, KVD)
+
+
+def rows_err(x, ref):
+    """The largest ||x - ref|| / ||ref|| over rows, a row's norm floored at
+    2^-10 of the RMS row norm (padding rows are 0 on both sides)."""
+    x, ref = x.float().flatten(0, -2), ref.float().flatten(0, -2)
+    den = ref.norm(dim=-1)
+    den = den.clamp_min(2.0 ** -10 * den.square().mean().sqrt())
+    return ((x - ref).norm(dim=-1) / den).max().item()
+
+
+# int8 cache. The kernel stages each K/V element as the TPU kernel does,
+# bf16(code) * bf16(scale) rounded to bf16, where the plain version
+# dequantizes in fp32. Against the plain version on those staged values
+# (the control) it differs by summation order only (PAGED_TOL). Against the
+# plain version itself, row by row, one bf16 rounding of K and V is
+# allowed: the control's own row error on the same inputs (up to 1.6e-2 on
+# these cases, emulated on the CPU), plus one rounding of the output.
+OUT_ROUNDING = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -8}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED))
+def test_paged_attention_int8_kernel_matches_plain(case, dtype, cuda_device):
+    (q, cache, layer, bt, seen, lens), ps = _paged_inputs(case, dtype, cuda_device)
+    D = q.shape[-1]
+    codes, scales = int8_cache(cache, D)
+    before = (paged_attention.launches, paged_attention.int8_launches)
+    out_k = paged_attention(q, codes, layer, bt, seen, lens, page_size=ps,
+                            cache_scales=scales)
+    assert (paged_attention.launches, paged_attention.int8_launches) == \
+        (before[0], before[1] + 1)
+    out_r = paged_attention_reference(q, codes, layer, bt, seen, lens,
+                                      page_size=ps, cache_scales=scales)
+    control = paged_attention_reference(q, staged_cache(codes, scales, D), layer,
+                                        bt, seen, lens, page_size=ps)
+    torch.cuda.synchronize()
+    assert out_k.dtype == dtype and out_k.shape == q.shape
+    torch.testing.assert_close(out_k.float(), control.float(),
+                               atol=PAGED_TOL[dtype], rtol=0)
+    assert rows_err(out_k, out_r) <= rows_err(control, out_r) + OUT_ROUNDING[dtype]
+
+
 def test_paged_attention_refuses_what_the_kernel_does_not_take(cuda_device):
     args, ps = _paged_inputs("gqa_small", torch.float32, cuda_device)
     q, cache, layer, bt, seen, lens = args
@@ -90,10 +152,80 @@ def test_paged_attention_refuses_what_the_kernel_does_not_take(cuda_device):
         paged_attention(q.transpose(1, 2), cache, layer, bt, seen, lens, page_size=ps)
     with pytest.raises(NotImplementedError):
         paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, window=4)
+    codes, scales = int8_cache(cache, q.shape[-1])
+    with pytest.raises(ValueError):  # an int8 cache needs its scales
+        paged_attention(q, codes, layer, bt, seen, lens, page_size=ps)
+    with pytest.raises(ValueError):  # fp32 [2L, slots, KV]
+        paged_attention(q, codes, layer, bt, seen, lens, page_size=ps,
+                        cache_scales=scales.half())
+    with pytest.raises(ValueError):  # scales belong to an int8 cache
+        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps,
+                        cache_scales=scales)
     wide = torch.zeros(*q.shape[:3], 256, device=cuda_device)  # head_dim > 128
     with pytest.raises(ValueError):
         paged_attention(wide, torch.zeros(4, cache.shape[1], 2 * 256, device=cuda_device),
                         layer, bt, seen, lens, page_size=ps)
+
+
+# ---- K6 quantizer and the dequantize helper ----
+
+# Llama-3-8B's layer kernels, a ragged tail (numel not a multiple of 512)
+# and a small one with an all-zero block
+QUANT_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                (4103, ), (37, 100)]
+
+
+def _quant_input(shape, dtype, device):
+    x = torch.from_numpy(np.random.default_rng(len(shape) + shape[0]).normal(
+        size=shape).astype(np.float32)).to(device, dtype)
+    x.view(-1)[512:1024] = 0  # an all-zero block: scale 1
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+def test_quantize_kernel_equals_plain(shape, dtype, cuda_device):
+    """IEEE division and round-half-to-even on both sides: bit for bit."""
+    x = _quant_input(shape, dtype, cuda_device)
+    before = quantize_int8_blockwise.launches
+    v, s = quantize_int8_blockwise(x, 512)
+    assert quantize_int8_blockwise.launches == before + 1
+    v_ref, s_ref = quantize_int8_blockwise_reference(x, 512)
+    torch.cuda.synchronize()
+    assert v.dtype == torch.int8 and v.shape == v_ref.shape
+    assert torch.equal(v, v_ref)
+    assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+    assert s[1].item() == 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 14336), (4103, ), (37, 100), (3, 5)])
+def test_dequantize_kernel_equals_plain(shape, dtype, cuda_device):
+    """fp32 product, one rounding to the dtype: bit for bit. (4103,), (37,
+    100) and (3, 5) take the one-element-per-thread kernel."""
+    x = _quant_input(shape, torch.bfloat16, cuda_device) if shape[0] > 512 else \
+        torch.randn(shape, device=cuda_device)
+    v, s = quantize_int8_blockwise_reference(x, 512)
+    before = dequantize_int8_blockwise.launches
+    out = torch.empty(shape, dtype=dtype, device=cuda_device)
+    got = dequantize_int8_blockwise(v, s, shape, 512, dtype=dtype, out=out)
+    assert got is out and dequantize_int8_blockwise.launches == before + 1
+    ref = dequantize_int8_blockwise_reference(v, s, shape, 512, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(-1).view(torch.uint8), ref.view(-1).view(torch.uint8))
+
+
+def test_quantizer_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.randn(64, 64, device=cuda_device)
+    with pytest.raises(TypeError):
+        quantize_int8_blockwise(x.half(), 512)
+    with pytest.raises(ValueError):
+        quantize_int8_blockwise(x.t(), 512)
+    v, s = quantize_int8_blockwise(x, 512)
+    with pytest.raises(ValueError):  # more elements than the values hold
+        dequantize_int8_blockwise(v, s, (65, 64), 512)
+    with pytest.raises(TypeError):
+        dequantize_int8_blockwise(v, s, (64, 64), 512, dtype=torch.half)
 
 
 # ---- K5 RMSNorm ----
@@ -271,6 +403,30 @@ def test_engine_gpu_matches_cpu(cuda_device):
         e.flush(8)
     outs = [e.generate(prompts, max_new_tokens=8) for e in engines]
     assert outs[0] == outs[1]
+
+
+def test_int8_engine_gpu_matches_cpu(cuda_device):
+    """Weight-only int8 and an int8 KV cache, tiny config in fp32: K6 at
+    build gives the same int8 weights on both; K4 stages K/V in bf16 where
+    the CPU's plain version dequantizes in fp32, so logits within 0.05 (the
+    CPU tests read 0.015 between the JAX engine's Pallas and dense paths)."""
+    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama
+    cfg = LlamaConfig.tiny(num_key_value_heads=2)
+    engines = []
+    for device in ("cpu", cuda_device):
+        model = init_llama(cfg, seed=1, dtype=torch.float32, device="cpu").to(device)
+        engines.append(build_llama_engine(
+            cfg, params=model, dtype=torch.float32, kv_block_size=16,
+            device=device, quantize="int8", kv_cache_dtype="int8",
+            engine_config=RaggedInferenceEngineConfig(num_kv_blocks=64)))
+    qa, qb = (e.model().model.layers[1].mlp.down_proj.quantized for e in engines)
+    assert torch.equal(qa.values, qb.values.cpu()) and torch.equal(qa.scales, qb.scales.cpu())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 40, 11)]
+    logits = [e.put([7, 8], [prompts[0], prompts[2]]).cpu() for e in engines]
+    torch.testing.assert_close(logits[1], logits[0], atol=0.05, rtol=0)
 
 
 def test_training_engine_gpu_matches_cpu(cuda_device):

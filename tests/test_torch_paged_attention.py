@@ -4,7 +4,8 @@ The same numpy inputs go through ``deepspeed_tpu.ops.paged_attention`` (the
 Pallas kernel in interpret mode, as its own tests run it on the CPU) and
 through the port's ``paged_attention``, which on CPU tensors takes the
 plain PyTorch version. The cases are those of
-``tests/unit/ops/test_paged_attention.py``."""
+``tests/unit/ops/test_paged_attention.py``, then the int8 cache of
+``tests/unit/inference/v2/test_kv_cache_int8.py``."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from deepspeed_tpu.ops.paged_attention import paged_attention as jax_paged
+from deepspeed_tpu.ops.paged_attention import paged_attention_reference as jax_paged_ref
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 
 
@@ -85,5 +87,99 @@ def test_unsupported_option_raises(option):
     q, cache, bt, seen, lens = _setup(rng, 2, 1, 2, 2, 16, 8, 8, 2, [3, 4], [1, 1])
     args = [torch.from_numpy(a) for a in (q, cache)]
     meta = [torch.from_numpy(a) for a in (bt, seen, lens)]
+    if "cache_scales" in option:
+        # ported: an int8 cache with unit scales attends as the float cache
+        # of its codes; scales beside a float cache are refused
+        codes = torch.from_numpy(np.clip(np.round(cache * 40), -127, 127)
+                                 .astype(np.int8))
+        out = paged_attention(args[0], codes, 0, *meta, page_size=8, **option)
+        want = paged_attention(args[0], codes.float(), 0, *meta, page_size=8)
+        torch.testing.assert_close(out, want, atol=0, rtol=0)
+        with pytest.raises(ValueError):
+            paged_attention(args[0], args[1], 0, *meta, page_size=8, **option)
+        return
     with pytest.raises(NotImplementedError):
         paged_attention(args[0], args[1], 0, *meta, page_size=8, **option)
+
+
+# ---- int8 cache ----
+
+def _int8_setup(seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new):
+    """An int8 cache as the engine's KV write makes it: each (row, slot,
+    head) vector of a normal cache quantized to codes with scale
+    max(absmax / 127, 1e-8); one page of zeros (scale 1e-8)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(4, n_pages * ps, KV, D)).astype(np.float32)
+    x[:, :ps] = 0.0
+    sc = np.maximum(np.abs(x).max(-1) / 127.0, 1e-8).astype(np.float32)
+    codes = np.clip(np.round(x / sc[..., None]), -127, 127).astype(np.int8)
+    q = rng.normal(size=(S, N, KV * G, D)).astype(np.float32)
+    bt = rng.permutation(n_pages)[:S * B].reshape(S, B).astype(np.int32)
+    seen = np.asarray(seen, np.int32)
+    lens = seen + np.asarray(n_new, np.int32)
+    return q, codes.reshape(4, n_pages * ps, KV * D), sc, bt, seen, lens
+
+
+def row_rel_err(x, ref):
+    """The largest ||x - ref|| / ||ref|| over rows (a head's D values at one
+    position), a row's norm floored at 2^-10 of the RMS row norm (padding
+    rows are 0 on both sides)."""
+    x, ref = x.reshape(-1, x.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    den = np.linalg.norm(ref, axis=-1)
+    den = np.maximum(den, 2.0 ** -10 * np.sqrt((den ** 2).mean()))
+    return float((np.linalg.norm(x - ref, axis=-1) / den).max())
+
+
+# (seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, layer): mixed decode,
+# prefill and padding; GQA; one query head per KV head; a prefill chunk
+INT8_CASES = {
+    "mixed_decode_prefill_padding": (0, 4, 2, 2, 3, 32, 16, 32, 4,
+                                     [5, 0, 37, 0], [2, 1, 2, 0], 1),
+    "gqa_grouping": (2, 2, 1, 2, 4, 16, 8, 16, 2, [9, 2], [1, 1], 0),
+    "one_head": (3, 2, 1, 1, 1, 32, 16, 8, 2, [20, 11], [1, 1], 1),
+    "prefill_chunk": (5, 3, 4, 2, 4, 128, 16, 24, 6, [50, 0, 70], [1, 4, 3], 1),
+}
+# The JAX reference dequantizes in fp32 like the port's plain version:
+# summation order only (fp32 2e-5; bf16 outputs one ulp of |out| < 1).
+# The Pallas kernel rounds each scale and each dequantized K/V element to
+# bf16 (2^-9 relative each) before its dots: each output row within 2^-6
+# of its norm (readings up to 8.3e-3 on these cases).
+INT8_REF_ATOL = {"float32": 2e-5, "bfloat16": 2.0 ** -8}
+INT8_ROW_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_cache_matches_jax(case, dtype):
+    seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, layer = INT8_CASES[case]
+    q, codes, sc, bt, seen, lens = _int8_setup(seed, S, N, KV, G, D, ps,
+                                               n_pages, B, seen, n_new)
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jargs = (jnp.asarray(q, jd), jnp.asarray(codes), layer, jnp.asarray(bt),
+             jnp.asarray(seen), jnp.asarray(lens))
+    out_kernel = np.asarray(jax_paged(*jargs, page_size=ps, interpret=True,
+                                      cache_scales=jnp.asarray(sc)), np.float32)
+    out_ref = np.asarray(jax_paged_ref(*jargs, page_size=ps,
+                                       cache_scales=jnp.asarray(sc)), np.float32)
+    out_t = paged_attention(torch.from_numpy(q).to(td), torch.from_numpy(codes),
+                            layer, torch.from_numpy(bt), torch.from_numpy(seen),
+                            torch.from_numpy(lens), page_size=ps,
+                            cache_scales=torch.from_numpy(sc))
+    assert out_t.dtype == td and tuple(out_t.shape) == q.shape
+    out_t = out_t.float().numpy()
+    np.testing.assert_allclose(out_t, out_ref, atol=INT8_REF_ATOL[dtype], rtol=0)
+    assert row_rel_err(out_t, out_kernel) <= INT8_ROW_TOL
+    if case == "mixed_decode_prefill_padding":
+        assert not out_t[3].any()
+
+
+@pytest.mark.parametrize("bad", ["missing", "dtype", "shape"])
+def test_int8_cache_needs_its_scales(bad):
+    q, codes, sc, bt, seen, lens = _int8_setup(*INT8_CASES["gqa_grouping"][:-1])
+    scales = {"missing": None, "dtype": torch.from_numpy(sc).double(),
+              "shape": torch.from_numpy(sc[:, :, :1]).contiguous()}[bad]
+    with pytest.raises(ValueError, match="cache_scales"):
+        paged_attention(torch.from_numpy(q), torch.from_numpy(codes), 0,
+                        torch.from_numpy(bt), torch.from_numpy(seen),
+                        torch.from_numpy(lens), page_size=8, cache_scales=scales)

@@ -107,13 +107,56 @@ def test_kv_geometry_matches_jax(cache_dtype):
     assert jkv.per_token_kv_bytes(jk) == tkv.per_token_kv_bytes(tk)
     assert jkv.estimate_kv_blocks(jk, 80 << 30, 0.85) == \
         tkv.estimate_kv_blocks(tk, 80 << 30, 0.85)
+    cache = tkv.BlockedKVCache(tk, 4, device="cpu")
+    assert cache.per_token_bytes == jkv.per_token_kv_bytes(jk)
     if cache_dtype == "int8":
-        with pytest.raises(NotImplementedError):
-            tkv.BlockedKVCache(tk, 4, device="cpu")
+        data, scales = cache.cache
+        assert cache.quantized
+        assert data.dtype == torch.int8 and tuple(data.shape) == (64, 4 * 64, 1024)
+        assert scales.dtype == torch.float32 and tuple(scales.shape) == (64, 4 * 64, 8)
+        assert (data.numel() + 4 * scales.numel()) == 4 * 64 * cache.per_token_bytes
     else:
-        cache = tkv.BlockedKVCache(tk, 4, device="cpu")
+        assert not cache.quantized
         assert tuple(cache.cache.shape) == (64, 4 * 64, 1024)
         assert cache.cache.dtype == getattr(torch, cache_dtype)
+
+
+def test_int8_cache_allocation_and_budget():
+    """``tests/unit/inference/v2/test_kv_cache_int8.py::
+    test_int8_cache_allocation_and_budget`` on the port, beside the JAX
+    cache: the same shapes, dtypes, bytes per token and block budgets."""
+    kw = dict(block_size=16, cache_shape=(2, 4, 64))
+    cfg = tcfg.KVCacheConfig(cache_dtype="int8", **kw)
+    kv = tkv.BlockedKVCache(cfg, num_blocks=8, device="cpu")
+    jkv_cache = jkv.BlockedKVCache(jcfg.KVCacheConfig(cache_dtype="int8", **kw), 8)
+    data, scales = kv.cache
+    assert data.dtype == torch.int8 and tuple(data.shape) == (4, 128, 4 * 64)
+    assert scales.dtype == torch.float32 and tuple(scales.shape) == (4, 128, 4)
+    assert tuple(data.shape) == jkv_cache.cache[0].shape
+    assert tuple(scales.shape) == jkv_cache.cache[1].shape
+    assert not data.any() and not scales.any()
+    # ~half the bytes of bf16 (int8 + fp32-scale/64-dim overhead)
+    bf16 = tkv.BlockedKVCache(tcfg.KVCacheConfig(cache_dtype="bfloat16", **kw),
+                              num_blocks=8, device="cpu")
+    assert kv.per_token_bytes == jkv_cache.per_token_bytes
+    assert kv.per_token_bytes < 0.6 * bf16.per_token_bytes
+    # the same memory budget schedules ~2x the blocks
+    b_int8 = tkv.estimate_kv_blocks(cfg, 1 << 24, 1.0)
+    b_bf16 = tkv.estimate_kv_blocks(tcfg.KVCacheConfig(cache_dtype="bfloat16", **kw),
+                                    1 << 24, 1.0)
+    assert b_int8 >= int(1.8 * b_bf16)
+    assert b_int8 == jkv.estimate_kv_blocks(jkv_cache._config, 1 << 24, 1.0)
+    # Llama-3-8B width: 2,112 B per token and layer in place of 4,096
+    llama = tcfg.KVCacheConfig(block_size=64, cache_shape=(32, 8, 128),
+                               cache_dtype="int8")
+    assert tkv.per_token_kv_bytes(llama) == 32 * 2112
+
+
+def test_quantization_config_matches_jax():
+    jc, tc = jcfg.RaggedInferenceEngineConfig(), tcfg.RaggedInferenceEngineConfig()
+    assert jc.quantization.quantization_mode is tc.quantization.quantization_mode is None
+    tc = tcfg.RaggedInferenceEngineConfig(quantization={"quantization_mode": "int8"})
+    assert tc.quantization.quantization_mode == "int8"
 
 
 # (seen, n_new, blocks) per sequence

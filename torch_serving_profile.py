@@ -4,15 +4,19 @@ time, on one CUDA GPU.
 
     python3 torch_serving_profile.py
 
-Builds ``build_llama_engine(LlamaConfig.llama3_8b())`` with seeded random
-bf16 weights, prefills ``SEQS`` sequences of 128, 256, ... tokens, then
-runs ``STEPS`` decode steps (one token per sequence per ``put``):
+For each variant, the bf16 engine and the int8 one (``quantize="int8",
+kv_cache_dtype="int8"``), one after the other: builds
+``build_llama_engine(LlamaConfig.llama3_8b())`` with seeded random bf16
+weights, prefills ``SEQS`` sequences of 128, 256, ... tokens, then runs
+``STEPS`` decode steps (one token per sequence per ``put``):
   - step time on the host clock, each step ending in a device sync;
   - a ``torch.profiler`` trace of a few steps: device time per kernel name,
-    summed into groups (K4 paged attention, K5 RMSNorm, matmuls, other),
-    and the device's busy share of the traced wall time;
+    summed into groups (K4 paged attention, K5 RMSNorm, the int8 weights'
+    dequantize, matmuls, other), and the device's busy share of the traced
+    wall time;
   - the paged-attention kernel alone at this decode batch (CUDA events).
-Prints one JSON line per part and exits non-zero without a CUDA device.
+Prints one JSON line per part, each naming its variant, and exits non-zero
+without a CUDA device.
 """
 
 import json
@@ -24,6 +28,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 16  # timed decode steps
 SEQS = 8    # live sequences, prompts of 128, 256, ..., 128 * SEQS tokens
+VARIANTS = {"bf16": {}, "int8": {"quantize": "int8", "kv_cache_dtype": "int8"}}
 
 
 def _group(name: str) -> str:
@@ -32,30 +37,40 @@ def _group(name: str) -> str:
         return "K4 paged_attention"
     if "rms_norm" in n:
         return "K5 rms_norm"
+    if "dequantize" in n:
+        return "int8 weight dequantize"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul")):
         return "matmul"
     return "other"
 
 
 def main() -> int:
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("torch_serving_profile: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    for variant, build_kw in VARIANTS.items():
+        profile_variant(variant, build_kw, gpu)
+        torch.cuda.empty_cache()
+    return 0
+
+
+def profile_variant(variant: str, build_kw: dict, gpu: str) -> None:
+    import numpy as np
+    import torch
     from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
     from deepspeed_tpu_torch.models.llama import LlamaConfig
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
     cfg = LlamaConfig.llama3_8b()
     engine = build_llama_engine(
         cfg, engine_config=RaggedInferenceEngineConfig(num_kv_blocks=1024),
-        seed=0, dtype=torch.bfloat16, kv_block_size=64)
+        seed=0, dtype=torch.bfloat16, kv_block_size=64, **build_kw)
     rng = np.random.default_rng(0)
     uids = list(range(SEQS))
     for u in uids:  # prefill one sequence per put (<= 768 tokens per chunk)
@@ -75,7 +90,8 @@ def main() -> int:
         t = time.monotonic()
         step()
         times.append(time.monotonic() - t)
-    print(json.dumps({"part": "decode_steps", "gpu": gpu, "seqs": SEQS,
+    print(json.dumps({"part": "decode_steps", "variant": variant, "gpu": gpu,
+                      "seqs": SEQS,
                       "steps": STEPS, "step_ms": [1e3 * t for t in times],
                       "step_ms_mean": 1e3 * sum(times) / len(times),
                       "tokens_per_s": SEQS * len(times) / sum(times)}),
@@ -104,7 +120,7 @@ def main() -> int:
     busy_ms = sum(by_name.values()) / 1e3 / n_prof
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "part": "profile", "gpu": gpu, "steps": n_prof,
+        "part": "profile", "variant": variant, "gpu": gpu, "steps": n_prof,
         "wall_ms_per_step": 1e3 * wall / n_prof,
         "device_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / (1e3 * wall / n_prof),
@@ -124,9 +140,10 @@ def main() -> int:
     q = torch.randn(len(uids), 1, cfg.num_attention_heads, cfg.head_dim_,
                     device="cuda", dtype=torch.bfloat16)
     cache = sm.kv_cache.cache
+    cache, scales = cache if isinstance(cache, tuple) else (cache, None)
 
     def k4():
-        paged_attention(q, cache, 5, bt, seen, lens, page_size=64)
+        paged_attention(q, cache, 5, bt, seen, lens, page_size=64, cache_scales=scales)
 
     for _ in range(3):
         k4()
@@ -137,12 +154,15 @@ def main() -> int:
         k4()
     end.record()
     end.synchronize()
-    kv_bytes = int(lens.sum()) * cfg.num_key_value_heads * cfg.head_dim_ * 2 * 2
-    print(json.dumps({"part": "k4_decode", "gpu": gpu, "seqs": len(uids),
-                      "history": [int(x) for x in lens.tolist()],
+    # K and V of each visible token and head: D bf16 values, or D int8
+    # codes and a 4-byte scale
+    hd = cfg.head_dim_
+    per_head = hd + 4 if scales is not None else 2 * hd
+    kv_bytes = int(lens.sum()) * cfg.num_key_value_heads * per_head * 2
+    print(json.dumps({"part": "k4_decode", "variant": variant, "gpu": gpu,
+                      "seqs": len(uids), "history": [int(x) for x in lens.tolist()],
                       "ms": start.elapsed_time(end) / 50,
                       "bound_ms": kv_bytes / 3.35e12 * 1e3}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":
