@@ -14,8 +14,9 @@
 //   block_table [S, B], seen [S], lens [S] (int32)
 //   out    [S, N, H, D]     in q's dtype
 // Query row (n, g) of sequence s sees key position p iff p <= seen+n and
-// p < lens; scores are q.k*scale, softmax online in fp32; a row that sees
-// no key outputs 0 (the TPU kernel's l == 0 finalize).
+// p < lens, and, with a sliding window W > 0, p > seen+n - W (the TPU
+// kernel's mask, :106); scores are q.k*scale, softmax online in fp32; a row
+// that sees no key outputs 0 (the TPU kernel's l == 0 finalize).
 //
 // Bound on the H100: bytes for decode (each query row meets every history
 // key once, about 4 flops per 2 bytes of K/V read), and, for long prefill
@@ -33,14 +34,24 @@
 // - The loop stops at the last page the tile can see (causal from seen+n,
 //   bounded by lens), so short sequences do not pay for the block-table
 //   bucket, and padding sequences (lens 0) read nothing.
+// - With a window W it also starts late: page b is live only if
+//   (b+1)*page_size - 1 > seen - W (the TPU kernel's skip, :90, with seen the
+//   chunk's first query), and a tile skips the pages older than the window
+//   of its own first query too. Pages before the first live one are never
+//   staged: the engine has freed them (their table entries hold block 0,
+//   which another sequence owns) once the sequence decoded past them.
 // - Decode has few query rows (S * KV blocks of G rows: 64 blocks for 8
 //   sequences, half the SMs, each walking its pages alone). When the grid
 //   is small, plan() splits each sequence's pages over `splits` blocks
 //   (flash-decoding): each writes its rows' partial max, sum and fp32
 //   accumulator to a workspace, and combine_kernel rescales them to the
 //   common max and divides. The result is the same online softmax, summed
-//   in another order. The caller asks dstt_paged_attention_workspace for
-//   the workspace size, so the grid rule lives only in this file.
+//   in another order. With a window the splits cover the live span, at
+//   most ceil((W + N - 1) / page_size) + 1 pages from the sequence's first
+//   live page, not the whole table width: a split past the span, or whose
+//   pages the tile skips, writes l = 0 and no accumulator, and the combine
+//   leaves it out. The caller asks dstt_paged_attention_workspace for the
+//   workspace size, so the grid rule lives only in this file.
 // - Scores: one lane per key, the K row padded in shared memory to an odd
 //   number of 4-byte words so the 32 lanes hit 32 banks. P.V: one lane per
 //   output dim, with the page's probabilities broadcast from shared memory.
@@ -76,8 +87,10 @@ struct PagedArgs {
   int S, N, H, D, KV, B;
   long long slots;
   int layer, page_size;
+  int window;  // sliding window in keys; 0 = global attention
   float scale;
-  // split over pages: block split k covers pages [k*P, (k+1)*P); with
+  // split over pages: block split k covers pages [f + k*P, f + (k+1)*P),
+  // f the sequence's first live page (0 without a window); with
   // splits > 1 each split writes its partial (max, sum, accumulator) to
   // ws_ml / ws_acc and combine_kernel merges them
   int splits, pages_per_split;
@@ -169,8 +182,15 @@ paged_attention_kernel(PagedArgs a) {
   const int n_last = min(a.N - 1, (min(row0 + RPB, rows) - 1) / G);
   const int last_key = min(hist - 1, seen + n_last);
   const int n_pages = last_key < 0 ? 0 : min(a.B, last_key / ps + 1);
-  const int b_begin = split * a.pages_per_split;
-  const int b_end = min(n_pages, b_begin + a.pages_per_split);
+  // with a window: the sequence's first live page (where the splits
+  // start) and this tile's, from the query of its first row
+  int seq_first = 0, tile_first = 0;
+  if (a.window > 0) {
+    seq_first = max(0, seen - a.window + 1) / ps;
+    tile_first = max(0, seen + row0 / G - a.window + 1) / ps;
+  }
+  const int b_begin = max(tile_first, seq_first + split * a.pages_per_split);
+  const int b_end = min(n_pages, seq_first + (split + 1) * a.pages_per_split);
 
   float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
@@ -227,6 +247,8 @@ paged_attention_kernel(PagedArgs a) {
       if (r >= rows) continue;  // warp-uniform
       const int q_abs = seen + r / G;
       if (key0 > q_abs || key0 >= hist) continue;  // page fully masked
+      if (a.window > 0 && key0 + ps - 1 <= q_abs - a.window)
+        continue;  // page wholly older than this row's window
       const float* qr = Qs + rl * D;
 
       float sc[kMaxPage / 32];
@@ -237,7 +259,7 @@ paged_attention_kernel(PagedArgs a) {
         float v = kNegInf;
         if (j < ps) {
           const int key = key0 + j;
-          if (key <= q_abs && key < hist) {
+          if (key <= q_abs && key < hist && (a.window <= 0 || key > q_abs - a.window)) {
             const S* kr = Kt + j * kstride;
             // four independent chains: the loop is latency-bound otherwise
             float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
@@ -320,10 +342,14 @@ paged_attention_kernel(PagedArgs a) {
 }
 
 // Merge the splits of one query row: rescale each split's sum and
-// accumulator to the common max, add, divide. One warp per row.
+// accumulator to the common max, add, divide. One warp per row. Each
+// split's weight exp(m_k - max) is computed once, by one lane of a chunk of
+// 32 splits, and broadcast; lane i keeps output dims i, i+32, ... in
+// registers across the splits.
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 combine_kernel(PagedArgs a) {
+  constexpr int DPL = kMaxHeadDim / 32;
   const int G = a.H / a.KV, rows = a.N * G, D = a.D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * kAttnWarps + warp, h = blockIdx.y, s = blockIdx.z;
@@ -333,16 +359,33 @@ combine_kernel(PagedArgs a) {
   float mx = kNegInf;
   for (int k = lane; k < a.splits; k += 32) mx = fmaxf(mx, ml[2 * k]);
   mx = warp_max(mx);
-  float lsum = 0.f;
-  for (int k = lane; k < a.splits; k += 32) lsum += ml[2 * k + 1] * expf(ml[2 * k] - mx);
+  float lsum = 0.f, v[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) v[i] = 0.f;
+  for (int k0 = 0; k0 < a.splits; k0 += 32) {
+    const int k = k0 + lane;
+    // an empty split (l = 0) wrote no accumulator: weight 0, never read
+    const float w = k < a.splits && ml[2 * k + 1] > 0.f ? expf(ml[2 * k] - mx) : 0.f;
+    if (k < a.splits) lsum += ml[2 * k + 1] * w;
+    const int nk = min(32, a.splits - k0);
+    for (int j = 0; j < nk; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      if (wj == 0.f) continue;  // warp-uniform
+      const float* acc = a.ws_acc + (part0 + k0 + j) * D;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) v[i] += acc[d] * wj;
+      }
+    }
+  }
   lsum = warp_sum(lsum);
   const int n = r / G, head = h * G + r % G;
   T* orow = reinterpret_cast<T*>(a.out) + ((long long)(s * a.N + n) * a.H + head) * D;
-  for (int d = lane; d < D; d += 32) {
-    float v = 0.f;
-    for (int k = 0; k < a.splits; ++k)
-      if (ml[2 * k + 1] > 0.f) v += a.ws_acc[(part0 + k) * D + d] * expf(ml[2 * k] - mx);
-    orow[d] = from_float<T>(lsum > 0.f ? v / lsum : 0.f);
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) orow[d] = from_float<T>(lsum > 0.f ? v[i] / lsum : 0.f);
   }
 }
 
@@ -359,26 +402,32 @@ inline int sm_count() {
   return n;
 }
 
-// The grid: query rows per warp, and the split of each sequence's B pages.
+// The grid: query rows per warp, and the split of each sequence's pages.
 // Few rows (decode: G rows per sequence and head) take one row per warp;
 // prefill tiles take four rows per warp, sharing each staged page. The
-// pages are split over enough blocks that the grid holds about 16 blocks
-// per SM (splits past a sequence's last page exit at once); 1 split when
-// the query rows alone fill the card.
+// span of pages a sequence can read (all B without a window; with window
+// W, at most ceil((W + N - 1) / page_size) + 1 from its first live page) is
+// split over enough blocks that the grid holds about 16 blocks per SM
+// (splits past a sequence's last page exit at once); 1 split when the
+// query rows alone fill the card.
 struct Plan {
   int rpw, splits, pages_per_split;
 };
 
-inline Plan plan(int S, int N, int H, int KV, int B, int sms) {
+inline Plan plan(int S, int N, int H, int KV, int B, int page_size, int window,
+                 int sms) {
   const int rows = N * (H / KV);
   Plan p;
   p.rpw = rows <= kAttnWarps ? 1 : 4;
   const long long tiles = (rows + kAttnWarps * p.rpw - 1) / (kAttnWarps * p.rpw);
   const long long blocks = tiles * KV * S;
   const long long want = (16LL * sms + blocks - 1) / blocks;
-  const int splits = (int)std::min<long long>(B, std::max<long long>(1, want));
-  p.pages_per_split = (B + splits - 1) / splits;
-  p.splits = (B + p.pages_per_split - 1) / p.pages_per_split;
+  const int span = window > 0
+      ? (int)std::min<long long>(B, ((long long)window + N - 1 + page_size - 1) / page_size + 1)
+      : B;
+  const int splits = (int)std::min<long long>(span, std::max<long long>(1, want));
+  p.pages_per_split = (span + splits - 1) / splits;
+  p.splits = (span + p.pages_per_split - 1) / p.pages_per_split;
   return p;
 }
 
@@ -430,34 +479,37 @@ inline bool valid_shape(int S, int N, int H, int D, int KV, int B) {
 // Workspace (fp32 words) that dstt_paged_attention needs for this shape on
 // the current device; 0 when the pages are not split.
 extern "C" int dstt_paged_attention_workspace(int S, int N, int H, int D, int KV,
-                                              int B, long long* floats) {
+                                              int B, int page_size, int window,
+                                              long long* floats) {
   using namespace dstt;
-  if (!valid_shape(S, N, H, D, KV, B)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(S, N, H, D, KV, B) || page_size <= 0 || window < 0)
+    return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  *floats = (long long)workspace_floats(plan(S, N, H, KV, B, sms), S, N, H, D);
+  *floats = (long long)workspace_floats(plan(S, N, H, KV, B, page_size, window, sms),
+                                        S, N, H, D);
   return (int)cudaSuccess;
 }
 
 // dtype: the query's and output's; cache_dtype: the same, or kInt8 with
-// cache_scales
+// cache_scales; window: the sliding window in keys, 0 for none
 extern "C" int dstt_paged_attention(const void* q, const void* cache,
                                     const void* cache_scales, void* out,
                                     const void* block_table, const void* seen,
                                     const void* lens, int S, int N, int H, int D,
                                     int KV, int B, long long slots, int layer,
-                                    int page_size, float scale, int dtype,
+                                    int page_size, int window, float scale, int dtype,
                                     int cache_dtype, void* workspace,
                                     long long workspace_len, void* stream) {
   using namespace dstt;
   const int cache_bytes = cache_dtype == kFloat32 ? 4 : cache_dtype == kBFloat16 ? 2 : 1;
   if (!valid_shape(S, N, H, D, KV, B) || page_size <= 0 || page_size > kMaxPage ||
-      slots % page_size != 0 || (D * cache_bytes) % 4 != 0 ||
+      window < 0 || slots % page_size != 0 || (D * cache_bytes) % 4 != 0 ||
       (cache_dtype == kInt8) != (cache_scales != nullptr))
     return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  const Plan p = plan(S, N, H, KV, B, sms);
+  const Plan p = plan(S, N, H, KV, B, page_size, window, sms);
   const size_t need = workspace_floats(p, S, N, H, D);
   if (need > 0 && (workspace == nullptr || (size_t)workspace_len < need))
     return (int)cudaErrorInvalidValue;
@@ -465,7 +517,7 @@ extern "C" int dstt_paged_attention(const void* q, const void* cache,
   const size_t parts = (size_t)S * N * H * p.splits;
   PagedArgs a{q, cache, (const float*)cache_scales, out, (const int*)block_table,
               (const int*)seen,
-              (const int*)lens, S, N, H, D, KV, B, slots, layer, page_size, scale,
+              (const int*)lens, S, N, H, D, KV, B, slots, layer, page_size, window, scale,
               p.splits, p.pages_per_split, ws, ws ? ws + parts * D : nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;

@@ -1,20 +1,32 @@
-"""Ragged (paged-KV) Llama model for the v2 engine (port of
-``deepspeed_tpu/inference/v2/model.py``: ``RaggedLlamaModel`` :246 and
-``_ragged_forward`` :915, the rmsnorm/rope/swiglu/GQA path with the paged
-attention backend).
+"""Ragged (paged-KV) decoder model for the v2 engine (port of
+``deepspeed_tpu/inference/v2/model.py``: ``_norm_tok`` :195, ``_mlp_tok``
+:218, ``RaggedLlamaModel`` :246 with ``maybe_free_kv`` :543 and
+``_uniform_window`` :564, and ``_ragged_forward`` :915 with the paged
+attention backend). It serves the Llama family (rmsnorm, rope, swiglu, GQA)
+and StarCoder2's knobs (``SERVING_FAMILY`` in ``models/llama.py``).
 
-One forward: embed → L × (rmsnorm → q/k/v → rope → paged KV write → paged
-attention → o_proj → residual → rmsnorm → swiglu MLP → residual) → final
-rmsnorm → fp32 logits for each sequence's last token. The two Pallas
-kernels of the JAX path become the CUDA kernels in ``ops/`` (paged
-attention once per layer, RMSNorm 2L+1 times); the matmuls, embedding
-gather, rope and KV write stay plain PyTorch, as they were plain XLA.
+One forward: embed → L × (norm → q/k/v (+ bias) → rope → paged KV write →
+paged attention (sliding window per layer) → o_proj (+ bias) → residual →
+norm → MLP → residual) → final norm → fp32 logits for each sequence's last
+token. The MLP is swiglu or the biased fc1 → tanh-gelu → fc2 form; the norm
+is RMSNorm or LayerNorm with scale and bias. The Pallas kernels of the JAX
+path become the CUDA kernels in ``ops/`` (paged attention once per layer,
+the norm 2L+1 times: K5 RMSNorm, or K5b LayerNorm, which the JAX forward
+computes in jnp with the same arithmetic); the matmuls, embedding gather,
+rope and KV write stay plain PyTorch, as they were plain XLA.
+
+With a sliding window on every layer, ``maybe_free_kv`` returns a
+sequence's leading KV blocks to the allocator once every later query is
+past their window, as the JAX engine does; their block-table entries read
+0 from then on, and the kernel never reads those pages.
 
 Type promotion follows the JAX program: projections run in the model
 dtype, rope multiplies by the fp32 tables (bf16 × fp32 → fp32) and casts
 back, attention returns the query dtype, and the unembed multiplies the
 fp32 final hidden rows by an fp32 ``lm_head`` (held in fp32, as the JAX
-engine holds it), so the logits are the same fp32 product.
+engine holds it), so the logits are the same fp32 product. Tied embeddings
+unembed through an fp32 copy of the embedding table made once at build
+(the JAX forward casts it in the traced program).
 
 Two int8 options, as in the JAX model. ``quantize="int8"`` (weight-only):
 every layer kernel is held as int8 + per-block scales (K6 at build) and
@@ -36,9 +48,9 @@ from .ragged.ragged_wrapper import RaggedBatch
 from .ragged.sequence_descriptor import BaseSequenceDescriptor
 from ...linear.config import QuantizationConfig
 from ...linear.quantization import QuantizedParameter
-from ...models.llama import (LLAMA_FAMILY, LlamaConfig, LlamaModel,
-                             check_supported, precompute_rope)
-from ...ops.normalization import rms_norm
+from ...models.llama import (SERVING_FAMILY, LlamaConfig, LlamaModel,
+                             _layer_window, check_supported, precompute_rope)
+from ...ops.normalization import layer_norm, rms_norm
 from ...ops.paged_attention import paged_attention
 from ...ops.quantizer import true_div_127
 from ...utils.dtypes import resolve_dtype
@@ -63,12 +75,38 @@ def quantize_kv(w):
     return codes, sc
 
 
+def _norm_tok(x, norm, cfg):
+    """K5b LayerNorm (``scale``, ``bias``) or K5 RMSNorm (``weight``), per
+    ``cfg.norm_type``."""
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, norm.scale, norm.bias, cfg.rms_norm_eps)
+    return rms_norm(x, norm.weight, cfg.rms_norm_eps)
+
+
+def _proj(x, dense, kernel):
+    """``x @ kernel(dense)``, plus the bias after the product in the model
+    dtype where the projection has one (the JAX forward's :1029-1030)."""
+    y = x @ kernel(dense)
+    return y if dense.bias is None else y + dense.bias
+
+
+def _mlp_tok(x, mlp, kernel):
+    """swiglu, or the fc form: fc1 (+ bias), tanh-approximate gelu, fc2
+    (+ bias) (the JAX ``_mlp_tok``'s ``gelu_tanh_fc``)."""
+    if mlp.fc:
+        return _proj(F.gelu(_proj(x, mlp.fc1, kernel), approximate="tanh"),
+                     mlp.fc2, kernel)
+    inner = F.silu(x @ kernel(mlp.gate_proj)) * (x @ kernel(mlp.up_proj))
+    return inner @ kernel(mlp.down_proj)
+
+
 def layer_kernels(layer):
-    """The seven projection modules of a decoder layer that weight-only
-    quantization covers."""
+    """The projection modules of a decoder layer that weight-only
+    quantization covers: q/k/v/o and the MLP's (gate/up/down, or fc1/fc2)."""
     attn, mlp = layer.self_attn, layer.mlp
-    return (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj,
-            mlp.gate_proj, mlp.up_proj, mlp.down_proj)
+    return (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj) + (
+        (mlp.fc1, mlp.fc2) if mlp.fc else
+        (mlp.gate_proj, mlp.up_proj, mlp.down_proj))
 
 
 class RaggedLlamaModel:
@@ -84,7 +122,7 @@ class RaggedLlamaModel:
                  dtype=torch.bfloat16, kv_block_size: int = 64,
                  quantize: Optional[str] = None,
                  kv_cache_dtype: Optional[str] = None):
-        check_supported(config, "RaggedLlamaModel", LLAMA_FAMILY)
+        check_supported(config, "RaggedLlamaModel", SERVING_FAMILY)
         if quantize not in (None, "int8", "fp6", "int4"):
             raise ValueError("quantize must be None, 'int8', 'fp6' or 'int4', "
                              f"got {quantize!r}")
@@ -110,6 +148,16 @@ class RaggedLlamaModel:
         self.rope_cos, self.rope_sin = precompute_rope(
             config.head_dim_, config.max_position_embeddings,
             config.rope_theta, device=self.device)
+        # tied embeddings: the fp32 unembed, cast once here and not in
+        # every forward (0.9 GB at StarCoder2-7B's width)
+        self._tied_unembed = (model.embed_tokens.weight.detach().float()
+                              if model.lm_head is None else None)
+        self._layer_windows = [_layer_window(config, l)
+                               for l in range(config.num_hidden_layers)]
+        # the window when EVERY layer attends locally, else None: one global
+        # layer pins the whole history
+        self._uniform_window = (None if None in self._layer_windows
+                                else max(self._layer_windows))
         self._state_manager = None
         self._scratch = None
         if quantize is not None:
@@ -190,8 +238,20 @@ class RaggedLlamaModel:
             seq_desc.extend_kv_cache(self._state_manager.allocate_blocks(req))
 
     def maybe_free_kv(self, seq_desc) -> None:
-        """No-op: global attention keeps every block until flush. The
-        trailing-window release comes with K4's window option."""
+        """Trailing-window block release (the JAX model's :543-561). Global
+        attention keeps every block until flush. When every layer attends
+        through a window W, the next query (position ``seen``) sees keys
+        ``> seen - W``, so the blocks wholly below ``seen - W + 1`` are dead
+        and go back to the allocator while the sequence keeps decoding."""
+        W = self._uniform_window
+        if W is None:
+            return
+        first_needed = seq_desc.seen_tokens - W + 1
+        if first_needed <= 0:
+            return
+        freed = seq_desc.free_prefix_blocks(first_needed // self.kv_block_size)
+        if freed:
+            self._state_manager.release_blocks(freed)
 
     # ---- forward ----
 
@@ -203,23 +263,27 @@ class RaggedLlamaModel:
         return _ragged_forward(self.model, cache, batch, config=self.config,
                                block_size=self.kv_block_size,
                                cos=self.rope_cos, sin=self.rope_sin,
-                               kernel=self._kernel, cache_scales=scales)
+                               kernel=self._kernel, windows=self._layer_windows,
+                               tied_unembed=self._tied_unembed,
+                               cache_scales=scales)
 
 
 @torch.inference_mode()
 def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
                     *, config: LlamaConfig, block_size: int, cos: torch.Tensor,
-                    sin: torch.Tensor, kernel,
+                    sin: torch.Tensor, kernel, windows,
+                    tied_unembed: Optional[torch.Tensor] = None,
                     cache_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One ragged step: embed → L×(paged attn + mlp) → final-token logits.
     Writes this step's K/V into ``cache`` (and an int8 cache's
     ``cache_scales``) in place. ``kernel(module)`` gives a projection's
-    weight."""
+    weight; ``windows[l]`` is layer l's sliding window (None = global);
+    ``tied_unembed`` the fp32 embedding table when the embeddings are
+    tied."""
     cfg = config
     T = batch.tokens.shape[0]
     S = batch.block_table.shape[0]
     hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
-    eps = cfg.rms_norm_eps
     n_real = batch.n_tokens
 
     x = model.embed_tokens.weight[batch.tokens]  # [T, E]
@@ -237,10 +301,10 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
 
     for l, layer in enumerate(model.layers):
         attn = layer.self_attn
-        h = rms_norm(x, layer.input_layernorm.weight, eps)
-        q = (h @ kernel(attn.q_proj)).reshape(T, nq, hd)
-        k = (h @ kernel(attn.k_proj)).reshape(T, nkv, hd)
-        v = (h @ kernel(attn.v_proj)).reshape(T, nkv, hd)
+        h = _norm_tok(x, layer.input_layernorm, cfg)
+        q = _proj(h, attn.q_proj, kernel).reshape(T, nq, hd)
+        k = _proj(h, attn.k_proj, kernel).reshape(T, nkv, hd)
+        v = _proj(h, attn.v_proj, kernel).reshape(T, nkv, hd)
         q = _rope_tok(q, rope_c, rope_s)
         k = _rope_tok(k, rope_c, rope_s)
 
@@ -257,18 +321,17 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
         q_s = q[q_tok_idx]  # [S, N, nq, hd], head-major, kv-major heads
         ctx = paged_attention(q_s, cache, l, batch.block_table,
                               batch.seq_seen, seq_lens, page_size=block_size,
-                              attn_scale=cfg.attn_scale, cache_scales=cache_scales)
+                              window=windows[l], attn_scale=cfg.attn_scale,
+                              cache_scales=cache_scales)
         ctx = ctx.to(x.dtype).reshape(S, N, nq * hd)
 
         ctx_tok = ctx[ctx_rows]  # [T, H*D]
-        x = x + ctx_tok @ kernel(attn.o_proj)
-        h2 = rms_norm(x, layer.post_attention_layernorm.weight, eps)
-        mlp = layer.mlp
-        inner = F.silu(h2 @ kernel(mlp.gate_proj)) * (h2 @ kernel(mlp.up_proj))
-        x = x + inner @ kernel(mlp.down_proj)
+        x = x + _proj(ctx_tok, attn.o_proj, kernel)
+        x = x + _mlp_tok(_norm_tok(x, layer.post_attention_layernorm, cfg),
+                         layer.mlp, kernel)
 
-    x = rms_norm(x, model.norm.weight, eps)
+    x = _norm_tok(x, model.norm, cfg)
     final = x[batch.last_token_idx].float()  # [S, E]
-    if model.lm_head is None:  # tied embeddings
-        return final @ model.embed_tokens.weight.float().T
+    if tied_unembed is not None:
+        return final @ tied_unembed.T
     return final @ model.lm_head.kernel

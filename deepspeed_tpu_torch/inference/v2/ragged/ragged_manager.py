@@ -95,3 +95,10 @@ class DSStateManager:
 
     def allocate_blocks(self, n_blocks: int):
         return self._allocator.allocate(n_blocks)
+
+    def release_blocks(self, blocks) -> None:
+        """Return single blocks in the middle of a sequence (the
+        trailing-window release, ``model.maybe_free_kv``) without touching
+        sequence tracking."""
+        if len(blocks):
+            self._allocator.free(blocks)

@@ -1,8 +1,9 @@
 """Llama-family decoder (port of ``deepspeed_tpu/models/llama.py``:
 ``LlamaConfig`` :35-172, ``precompute_rope`` :175, ``apply_rope`` :182,
-``RMSNorm`` :206, ``LlamaAttention`` :308 (the flash branch), ``LlamaMLP``
-:440 (swiglu), ``LlamaDecoderLayer`` :522 (the pre-norm branch),
-``LMHead`` :566, ``LlamaModel`` :625,
+``RMSNorm`` :206, ``_BarrierDense`` :257 with its bias, ``_make_norm``
+:285, ``_layer_window`` :296, ``LlamaAttention`` :308 (the flash branch),
+``LlamaMLP`` :440 (swiglu and the fc form), ``LlamaDecoderLayer`` :522 (the
+pre-norm branch), ``LMHead`` :566, ``LlamaModel`` :625,
 ``cross_entropy_loss`` :713, ``LlamaForCausalLM`` :725 and the
 ``init_llama`` initializers).
 
@@ -26,14 +27,16 @@ from torch import nn
 
 from ..ops.attention import flash_attention
 from ..ops.chunked_ce import chunked_cross_entropy_loss, matmul_fp32
+from ..ops.normalization import layer_norm_reference
 
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Decoder-family config, same fields and defaults as the JAX package's.
-    The port serves the Llama subset (rmsnorm, rope, swiglu, GQA); the
-    other variant knobs are kept so configs carry over, and the serving
-    model refuses the ones it does not implement yet."""
+    The port trains the Llama subset (rmsnorm, rope, swiglu, GQA) and
+    serves it and the StarCoder2 knobs (``SERVING_FAMILY``); the other
+    variant knobs are kept so configs carry over, and the models refuse the
+    ones they do not implement yet."""
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 14336
@@ -109,8 +112,8 @@ class LlamaConfig:
                                      num_key_value_heads=8, scan_layers=True), **over})
 
 
-# LlamaConfig knobs whose non-default values the port does not run yet:
-# it runs the Llama rmsnorm/rope/swiglu/GQA family
+# LlamaConfig knobs whose non-default values the training forward does not
+# run yet: it runs the Llama rmsnorm/rope/swiglu/GQA family
 LLAMA_FAMILY = dict(
     attention_bias=False, attention_out_bias=False, norm_type="rmsnorm",
     pos_embedding="rope", embed_layernorm=False, rotary_dim=None,
@@ -121,17 +124,34 @@ LLAMA_FAMILY = dict(
     parallel_residual=False, lm_head_bias=False, num_local_experts=0)
 # and what the training forward does not run yet on top of that
 TRAINING_DEFAULTS = dict(remat=False, scan_layers=False)
+# what the serving forward runs: the Llama family and StarCoder2's knobs
+# (LayerNorm with bias, q/k/v/o biases, the biased gelu-tanh fc MLP, sliding
+# windows on all or some layers); a tuple lists the values it takes
+SERVING_FAMILY = {
+    **{k: v for k, v in LLAMA_FAMILY.items() if k != "sliding_window"},
+    "norm_type": ("rmsnorm", "layernorm"), "attention_bias": (False, True),
+    "attention_out_bias": (False, True), "mlp_type": ("swiglu", "gelu_tanh_fc"),
+    "mlp_bias": (False, True)}
 
 
-def check_supported(config, who: str, defaults: dict) -> None:
-    """Raise ``NotImplementedError`` naming every option of ``config`` that
-    differs from ``defaults``."""
-    bad = {k: getattr(config, k) for k, v in defaults.items()
-           if getattr(config, k) != v}
+def check_supported(config, who: str, family: dict) -> None:
+    """Raise ``NotImplementedError`` naming every option of ``config``
+    outside ``family`` (option -> its one value, or a tuple of values)."""
+    bad = {k: getattr(config, k) for k, v in family.items()
+           if getattr(config, k) not in (v if isinstance(v, tuple) else (v, ))}
     if bad:
         raise NotImplementedError(
-            f"{who}: config options {bad} are not ported yet (the port runs "
-            "the Llama rmsnorm/rope/swiglu/GQA family)")
+            f"{who}: config options {bad} are not ported yet")
+
+
+def _layer_window(cfg, layer_idx: int):
+    """Sliding window for this layer (None = global attention)."""
+    if cfg.sliding_window is None:
+        return None
+    if (cfg.sliding_window_layers is not None
+            and layer_idx not in cfg.sliding_window_layers):
+        return None
+    return cfg.sliding_window
 
 
 def precompute_rope(head_dim: int, max_len: int, theta: float,
@@ -157,15 +177,21 @@ def apply_rope(x, cos, sin, positions):
 
 class Dense(nn.Module):
     """Projection weight ``kernel`` of shape ``[in, out]`` (the flax
-    layout), applied as ``x @ kernel`` in the kernel's dtype."""
+    layout), applied as ``x @ kernel`` in the kernel's dtype, and with
+    ``bias`` a ``[out]`` bias (zeros, as flax initializes it) added after
+    the product."""
 
-    def __init__(self, fan_in: int, fan_out: int, dtype, device):
+    def __init__(self, fan_in: int, fan_out: int, dtype, device,
+                 bias: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(
             torch.empty(fan_in, fan_out, dtype=dtype, device=device))
+        self.bias = (nn.Parameter(torch.zeros(fan_out, dtype=dtype, device=device))
+                     if bias else None)
 
     def forward(self, x):
-        return x.to(self.kernel.dtype) @ self.kernel
+        y = x.to(self.kernel.dtype) @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 class RMSNormWeight(nn.Module):
@@ -184,16 +210,39 @@ class RMSNormWeight(nn.Module):
         return (xf * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
 
 
+class LayerNormWeight(nn.Module):
+    """LayerNorm with ``scale`` and ``bias`` (flax ``nn.LayerNorm``, the
+    ``norm_type="layernorm"`` branch of ``_make_norm``): fp32 statistics
+    with the centred variance, output in x's dtype. Plain PyTorch: the
+    serving forward sends it to K5b (``ops/normalization.layer_norm``)."""
+
+    def __init__(self, dim: int, dtype, device, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return layer_norm_reference(x, self.scale, self.bias, self.eps)
+
+
+def _make_norm(cfg: LlamaConfig, dtype, device) -> nn.Module:
+    if cfg.norm_type == "layernorm":
+        return LayerNormWeight(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
+    return RMSNormWeight(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype, device):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim_
         nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
         self.config = cfg
-        self.q_proj = Dense(h, nq * hd, dtype, device)
-        self.k_proj = Dense(h, nkv * hd, dtype, device)
-        self.v_proj = Dense(h, nkv * hd, dtype, device)
-        self.o_proj = Dense(nq * hd, h, dtype, device)
+        bias = cfg.attention_bias
+        self.q_proj = Dense(h, nq * hd, dtype, device, bias)
+        self.k_proj = Dense(h, nkv * hd, dtype, device, bias)
+        self.v_proj = Dense(h, nkv * hd, dtype, device, bias)
+        self.o_proj = Dense(nq * hd, h, dtype, device, cfg.attention_out_bias)
 
     def forward(self, x, cos, sin, positions):
         """The flash branch of the JAX layer: K1/K2 forward and backward."""
@@ -210,25 +259,34 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
+    """swiglu (``gate_proj``, ``up_proj``, ``down_proj``) or, for
+    ``mlp_type="gelu_tanh_fc"``, the fc form: ``fc1``, tanh-approximate
+    gelu, ``fc2``, each with a bias when ``mlp_bias``."""
+
     def __init__(self, cfg: LlamaConfig, dtype, device):
         super().__init__()
         h, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Dense(h, i, dtype, device)
-        self.up_proj = Dense(h, i, dtype, device)
-        self.down_proj = Dense(i, h, dtype, device)
+        self.fc = cfg.mlp_type == "gelu_tanh_fc"
+        if self.fc:
+            self.fc1 = Dense(h, i, dtype, device, cfg.mlp_bias)
+            self.fc2 = Dense(i, h, dtype, device, cfg.mlp_bias)
+        else:
+            self.gate_proj = Dense(h, i, dtype, device)
+            self.up_proj = Dense(h, i, dtype, device)
+            self.down_proj = Dense(i, h, dtype, device)
 
     def forward(self, x):
+        if self.fc:
+            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype, device):
         super().__init__()
-        eps = cfg.rms_norm_eps
-        self.input_layernorm = RMSNormWeight(cfg.hidden_size, dtype, device, eps)
+        self.input_layernorm = _make_norm(cfg, dtype, device)
         self.self_attn = LlamaAttention(cfg, dtype, device)
-        self.post_attention_layernorm = RMSNormWeight(cfg.hidden_size, dtype,
-                                                      device, eps)
+        self.post_attention_layernorm = _make_norm(cfg, dtype, device)
         self.mlp = LlamaMLP(cfg, dtype, device)
 
     def forward(self, x, cos, sin, positions):
@@ -274,7 +332,7 @@ class LlamaModel(nn.Module):
                                          dtype=dtype, device=device)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype, device)
                                     for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNormWeight(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
+        self.norm = _make_norm(cfg, dtype, device)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else Dense(cfg.hidden_size, cfg.vocab_size,
                                    dtype if trainable else torch.float32, device))
@@ -371,7 +429,8 @@ def init_llama(config: LlamaConfig, seed: int = 0, dtype=None,
                device=None) -> LlamaModel:
     """Seeded random serving weights on ``device`` (default ``cuda``),
     following ``init_llama``'s initializers: lecun-normal projection
-    kernels, normal(0.02) embeddings, ones for norm scales. The numbers
+    kernels, normal(0.02) embeddings, ones for norm scales, zeros for
+    biases (projections' and LayerNorm's). The numbers
     differ from JAX's (another generator); load JAX weights through
     ``models/convert.params_from_jax`` to compare the two."""
     model = LlamaModel(config, dtype=dtype, device=torch.device(device or "cuda"))

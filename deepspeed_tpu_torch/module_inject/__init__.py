@@ -1,0 +1,5 @@
+"""HF checkpoint conversion (port of ``deepspeed_tpu/module_inject``):
+``policy_for(arch).config_from_hf`` and ``convert_hf_checkpoint``."""
+
+from .replace_module import convert_hf_checkpoint  # noqa: F401
+from .replace_policy import STARCODER2_7B, policy_for  # noqa: F401

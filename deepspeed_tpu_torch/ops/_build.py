@@ -40,14 +40,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, w, out, rows, d, eps, dtype, stream
     "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _P),
-    # S, N, H, D, KV, B, out: workspace length in fp32 words
-    "dstt_paged_attention_workspace": (_I, _I, _I, _I, _I, _I,
+    # x, w, b, out, rows, d, eps, dtype, stream
+    "dstt_layer_norm": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
+    # S, N, H, D, KV, B, page_size, window, out: workspace length in fp32
+    # words
+    "dstt_paged_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I,
                                        ctypes.POINTER(_L)),
     # q, cache, cache_scales, out, block_table, seen, lens, S, N, H, D, KV,
-    # B, slots, layer, page_size, scale, q dtype, cache dtype, workspace,
-    # workspace length, stream
+    # B, slots, layer, page_size, window, scale, q dtype, cache dtype,
+    # workspace, workspace length, stream
     "dstt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _L, _I, _I, _F, _I, _I, _P, _L, _P),
+                             _I, _L, _I, _I, _I, _F, _I, _I, _P, _L, _P),
     # x, n, block, dtype, values, scales, stream
     "dstt_quantize_int8": (_P, _L, _I, _I, _P, _P, _P),
     # values, scales, n, block, out, dtype, stream

@@ -1,9 +1,11 @@
-"""RMSNorm (port of ``deepspeed_tpu/ops/normalization.py`` ``rms_norm``).
+"""RMSNorm and LayerNorm (port of ``deepspeed_tpu/ops/normalization.py``
+``rms_norm`` and ``layer_norm``).
 
-``rms_norm`` dispatches on the tensor's device: a CPU tensor takes the
-plain PyTorch version (``rms_norm_reference``), a CUDA tensor launches the
-hand-written kernel in ``csrc/rms_norm.cu`` or raises. ``rms_norm.launches``
-counts kernel launches.
+Each wrapper dispatches on the tensor's device: a CPU tensor takes the
+plain PyTorch version (``rms_norm_reference``, ``layer_norm_reference``),
+a CUDA tensor launches the hand-written kernel in ``csrc/rms_norm.cu`` or
+``csrc/layer_norm.cu``, or raises. ``rms_norm.launches`` and
+``layer_norm.launches`` count kernel launches.
 """
 
 import torch
@@ -19,30 +21,51 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
+def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """y = (x - mean) * rsqrt(var + eps) * weight + bias with fp32
+    statistics (var of the centred values), weight and bias cast to fp32,
+    output in x's dtype."""
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    var = (xc * xc).mean(-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * weight.float() + bias.float()).to(x.dtype)
+
+
+def _check_row_call(name: str, x: torch.Tensor, *params: torch.Tensor) -> int:
+    """The rows of ``x`` a norm kernel takes with ``params`` (each ``[d]``):
+    one CUDA device, contiguous, all float32 or all bfloat16."""
+    if x.device.type != "cuda" or any(p.device != x.device for p in params):
+        raise ValueError(f"{name}: x on {x.device}, params on "
+                         f"{[str(p.device) for p in params]}; all must be on "
+                         "one CUDA device")
+    d = x.shape[-1]
+    for p in params:
+        if p.shape != (d, ):
+            raise ValueError(f"{name}: param shape {tuple(p.shape)} != ({d},)")
+    if not x.is_contiguous() or not all(p.is_contiguous() for p in params):
+        raise ValueError(f"{name}: x and its params must be contiguous")
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            any(p.dtype != x.dtype for p in params):
+        raise TypeError(f"{name}: x {x.dtype} / params "
+                        f"{[str(p.dtype) for p in params]}; the kernel takes "
+                        "all float32 or all bfloat16")
+    return x.numel() // d if d else 0
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """y = x / rms(x) * weight over the last dim (reference rms_norm.cu)."""
     if x.device.type == "cpu":
         return rms_norm_reference(x, weight, eps)
-    if x.device.type != "cuda" or weight.device != x.device:
-        raise ValueError(f"rms_norm: x on {x.device}, weight on "
-                         f"{weight.device}; both must be on one CUDA device")
-    d = x.shape[-1]
-    if weight.shape != (d, ):
-        raise ValueError(f"rms_norm: weight shape {tuple(weight.shape)} != ({d},)")
-    if not x.is_contiguous() or not weight.is_contiguous():
-        raise ValueError("rms_norm: x and weight must be contiguous")
-    if weight.dtype != x.dtype or x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rms_norm: x {x.dtype} / weight {weight.dtype}; the "
-                        "kernel takes both float32 or both bfloat16")
+    rows = _check_row_call("rms_norm", x, weight)
     out = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
     if rows == 0:
         return out
     lib = _build.lib()
     with torch.cuda.device(x.device):
         err = lib.dstt_rms_norm(
-            x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d,
+            x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, x.shape[-1],
             float(eps), _build.dtype_code(x.dtype),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rms_norm")
@@ -50,4 +73,26 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Standard LayerNorm with scale and bias over the last dim (reference
+    layer_norm.cu)."""
+    if x.device.type == "cpu":
+        return layer_norm_reference(x, weight, bias, eps)
+    rows = _check_row_call("layer_norm", x, weight, bias)
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        err = lib.dstt_layer_norm(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            rows, x.shape[-1], float(eps), _build.dtype_code(x.dtype),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "layer_norm")
+    layer_norm.launches += 1
+    return out
+
+
 rms_norm.launches = 0
+layer_norm.launches = 0

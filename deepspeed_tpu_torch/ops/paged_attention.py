@@ -12,8 +12,10 @@ the plain PyTorch version (``paged_attention_reference``, the dense-gather
 path, which dequantizes an int8 window in fp32), a CUDA tensor launches
 ``csrc/paged_attention.cu`` or raises. ``paged_attention.launches`` counts
 launches over a float cache, ``paged_attention.int8_launches`` over an
-int8 cache. The kernel covers the Llama-3 configuration; the JAX kernel's
-sliding window, ALiBi and softcap raise ``NotImplementedError`` here.
+int8 cache. Both take the JAX kernel's sliding ``window``: a query at
+absolute position ``q`` sees keys ``q - window < key <= q``, and the kernel
+never reads a page wholly older than the window of the chunk's first
+query. ALiBi and softcap raise ``NotImplementedError`` here.
 """
 
 import ctypes
@@ -27,10 +29,10 @@ from . import _build
 NEG_INF = -1e30
 
 
-def _check_options(window, use_alibi, slopes, softcap):
+def _check_options(use_alibi, slopes, softcap):
     unsupported = [name for name, off in (
-        ("window", window is None), ("use_alibi", not use_alibi),
-        ("slopes", slopes is None), ("softcap", softcap is None)) if not off]
+        ("use_alibi", not use_alibi), ("slopes", slopes is None),
+        ("softcap", softcap is None)) if not off]
     if unsupported:
         raise NotImplementedError(
             f"paged_attention: option(s) {unsupported} are not ported yet")
@@ -62,9 +64,9 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
                               cache_scales=None,
                               softcap: Optional[float] = None):
     """Dense-gather reference: gathers each sequence's ``B*page_size``
-    history window (an int8 window dequantized in fp32), masks, softmaxes
-    in fp32."""
-    _check_options(window, use_alibi, slopes, softcap)
+    history window (an int8 window dequantized in fp32; freed table entries
+    gather block 0 and are masked), masks, softmaxes in fp32."""
+    _check_options(use_alibi, slopes, softcap)
     S, N, H, D = q.shape
     _check_cache_scales(cache, cache_scales, D)
     B = block_table.shape[1]
@@ -88,6 +90,8 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
     q_abs = seq_seen[:, None] + torch.arange(N, dtype=torch.int32,
                                              device=dev)[None, :]
     mask = (key_pos <= q_abs[:, :, None]) & (key_pos < seq_lens[:, None, None])
+    if window is not None:
+        mask &= key_pos > q_abs[:, :, None] - window
     scores = torch.where(mask[:, :, None, None, :], scores,
                          torch.full((), NEG_INF, device=dev))
     probs = torch.softmax(scores, dim=-1)
@@ -99,13 +103,14 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
 
 @functools.lru_cache(maxsize=256)
 def _workspace_len(device_index: int, S: int, N: int, H: int, D: int, KV: int,
-                   B: int) -> int:
+                   B: int, page_size: int, window: int) -> int:
     """fp32 words of workspace the kernel's grid plan (page splits, made in
     csrc/paged_attention.cu) needs for this shape on this device."""
     n = ctypes.c_longlong(0)
     with torch.cuda.device(device_index):
         _build.check(_build.lib().dstt_paged_attention_workspace(
-            S, N, H, D, KV, B, ctypes.byref(n)), "paged_attention")
+            S, N, H, D, KV, B, page_size, window, ctypes.byref(n)),
+            "paged_attention")
     return n.value
 
 
@@ -124,6 +129,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
       block_table: ``[S, B]`` int32 page ids per sequence.
       seq_seen: ``[S]`` int32 history length before this step.
       seq_lens: ``[S]`` int32 seen + n_new (valid key region).
+      window: sliding window in keys (None = global attention).
       attn_scale: overrides ``1/sqrt(D)``.
       cache_scales: ``[2L, num_slots, KV]`` fp32 scales of an int8 cache.
     Returns:
@@ -135,7 +141,9 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             page_size=page_size, window=window, attn_scale=attn_scale,
             use_alibi=use_alibi, slopes=slopes, cache_scales=cache_scales,
             softcap=softcap)
-    _check_options(window, use_alibi, slopes, softcap)
+    _check_options(use_alibi, slopes, softcap)
+    if window is not None and window < 1:
+        raise ValueError(f"paged_attention: the kernel takes window >= 1, got {window}")
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     S, N, H, D = q.shape
@@ -175,7 +183,8 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
     out = torch.empty_like(q)
     scale = attn_scale if attn_scale is not None else 1.0 / (D ** 0.5)
     KV = KVD // D
-    ws_len = _workspace_len(q.device.index, S, N, H, D, KV, B)
+    window = int(window or 0)  # 0: global attention
+    ws_len = _workspace_len(q.device.index, S, N, H, D, KV, B, page_size, window)
     workspace = (torch.empty(ws_len, dtype=torch.float32, device=q.device)
                  if ws_len else None)
     lib = _build.lib()
@@ -185,7 +194,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             None if cache_scales is None else cache_scales.data_ptr(),
             out.data_ptr(), block_table.data_ptr(), seq_seen.data_ptr(),
             seq_lens.data_ptr(), S, N, H, D, KV, B, slots, int(layer),
-            page_size, float(scale), _build.dtype_code(q.dtype),
+            page_size, window, float(scale), _build.dtype_code(q.dtype),
             _build.dtype_code(cache.dtype),
             None if workspace is None else workspace.data_ptr(), ws_len,
             torch.cuda.current_stream(q.device).cuda_stream)

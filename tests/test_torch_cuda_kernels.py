@@ -15,7 +15,8 @@ from deepspeed_tpu_torch.ops.attention import (
     attention_delta, flash_attention, flash_attention_bwd_dkdv,
     flash_attention_bwd_dq, flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference)
-from deepspeed_tpu_torch.ops.normalization import rms_norm, rms_norm_reference
+from deepspeed_tpu_torch.ops.normalization import (
+    layer_norm, layer_norm_reference, rms_norm, rms_norm_reference)
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
 from deepspeed_tpu_torch.ops.quantizer import (
@@ -151,7 +152,9 @@ def test_paged_attention_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         paged_attention(q.transpose(1, 2), cache, layer, bt, seen, lens, page_size=ps)
     with pytest.raises(NotImplementedError):
-        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, window=4)
+        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, softcap=5.0)
+    with pytest.raises(ValueError):
+        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, window=0)
     codes, scales = int8_cache(cache, q.shape[-1])
     with pytest.raises(ValueError):  # an int8 cache needs its scales
         paged_attention(q, codes, layer, bt, seen, lens, page_size=ps)
@@ -165,6 +168,85 @@ def test_paged_attention_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         paged_attention(wide, torch.zeros(4, cache.shape[1], 2 * 256, device=cuda_device),
                         layer, bt, seen, lens, page_size=ps)
+
+
+# ---- K4 with a sliding window ----
+
+# (seed, S, N, KV, G, D, page_size, B, seen, n_new, layer, window): G 3 at
+# narrow widths (decode, a chunk, padding); then StarCoder2-7B's widths
+# (H 36, KV 4, G 9, D 128, 64-token pages, window 4096): a decode step of 8
+# sequences, most past the window, and a 768-row prefill chunk straddling
+# the window's edge beside one wholly past it
+PAGED_WINDOW = {
+    "window_small": (6, 4, 3, 2, 3, 32, 16, 10, [5, 40, 120, 0], [2, 1, 3, 0], 1, 24),
+    "window_decode_sc2": (7, 8, 1, 4, 9, 128, 64, 126,
+                          [4200, 5000, 4500, 6000, 300, 4095, 4096, 8000], [1] * 8,
+                          1, 4096),
+    "window_chunk_sc2": (8, 2, 768, 4, 9, 128, 64, 84, [3700, 4608], [768, 512], 0, 4096),
+}
+
+
+def _window_inputs(case, dtype, device):
+    """Random cache and queries; the block table holds distinct pages, and
+    the entries of blocks wholly below the window of a sequence's first
+    query hold 0, as the engine leaves them once it has freed them."""
+    seed, S, N, KV, G, D, ps, B, seen, n_new, layer, window = PAGED_WINDOW[case]
+    rng = np.random.default_rng(seed)
+    n_pages = S * B + 1
+    cache = torch.from_numpy(rng.normal(size=(2 * 2, n_pages * ps, KV * D))
+                             .astype(np.float32)).to(device, dtype)
+    q = torch.from_numpy(rng.normal(size=(S, N, KV * G, D))
+                         .astype(np.float32)).to(device, dtype)
+    bt = (1 + rng.permutation(S * B)).reshape(S, B).astype(np.int32)
+    freed = [max(0, s - window + 1) // ps for s in seen]
+    for i, f in enumerate(freed):
+        bt[i, :f] = 0
+    seen = np.asarray(seen, np.int32)
+    lens = seen + np.asarray(n_new, np.int32)
+    meta = [torch.from_numpy(a).to(device) for a in (bt, seen, lens)]
+    return (q, cache, layer, *meta), ps, window, freed
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_WINDOW))
+def test_paged_attention_window_kernel_matches_plain(case, dtype, int8, cuda_device):
+    """The window's mask and page skip against the plain version's mask,
+    with the tolerances of the global cases. Then the freed entries point
+    far past the cache: the kernel must read none of them (an out-of-range
+    page would fault), and gives the same output bit for bit."""
+    (q, cache, layer, bt, seen, lens), ps, window, freed = _window_inputs(
+        case, dtype, cuda_device)
+    kw = {}
+    if int8:
+        cache, kw["cache_scales"] = int8_cache(cache, q.shape[-1])
+    counter = "int8_launches" if int8 else "launches"
+    before = getattr(paged_attention, counter)
+    out_k = paged_attention(q, cache, layer, bt, seen, lens, page_size=ps,
+                            window=window, **kw)
+    assert getattr(paged_attention, counter) == before + 1
+    out_r = paged_attention_reference(q, cache, layer, bt, seen, lens, page_size=ps,
+                                      window=window, **kw)
+    global_r = paged_attention_reference(q, cache, layer, bt, seen, lens,
+                                         page_size=ps, **kw)
+    far = bt.clone()
+    for i, f in enumerate(freed):
+        far[i, :f] = 1 << 30
+    out_far = paged_attention(q, cache, layer, far, seen, lens, page_size=ps,
+                              window=window, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_far, out_k)
+    assert (out_r.float() - global_r.float()).abs().max().item() > 0.05  # the mask bites
+    if int8:
+        control = paged_attention_reference(
+            q, staged_cache(cache, kw["cache_scales"], q.shape[-1]), layer, bt, seen,
+            lens, page_size=ps, window=window)
+        torch.testing.assert_close(out_k.float(), control.float(),
+                                   atol=PAGED_TOL[dtype], rtol=0)
+        assert rows_err(out_k, out_r) <= rows_err(control, out_r) + OUT_ROUNDING[dtype]
+    else:
+        torch.testing.assert_close(out_k.float(), out_r.float(),
+                                   atol=PAGED_TOL[dtype], rtol=0)
 
 
 # ---- K6 quantizer and the dequantize helper ----
@@ -226,6 +308,64 @@ def test_quantizer_refuses_what_the_kernel_does_not_take(cuda_device):
         dequantize_int8_blockwise(v, s, (65, 64), 512)
     with pytest.raises(TypeError):
         dequantize_int8_blockwise(v, s, (64, 64), 512, dtype=torch.half)
+
+
+# ---- K5b LayerNorm ----
+
+# fp32: summation order only, and for the row of mean 300 a few ulps of
+# 300 in its fp32 mean (2^-23 relative each), which move every centred
+# value of that row; bf16: both round the fp32 result once
+LN_SHIFT = 300.0
+LN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5 + 2.0 ** -21 * LN_SHIFT),
+          torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", sorted(LN_TOL, key=str))
+@pytest.mark.parametrize("shape", [(8, 4608), (768, 4608), (37, 100), (3, 7),
+                                   (2, 5, 256), (4, 10000)])
+def test_layer_norm_kernel_matches_plain(shape, dtype, cuda_device):
+    """StarCoder2's rows (4608: all in registers), odd widths (the scalar
+    tail alone) and a row wider than the registers hold (registers, then
+    the scalar tail); one row with a mean
+    of 300 and a spread of 1, which E[x^2] - E[x]^2 would cancel."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=shape).astype(np.float32)
+    x.reshape(-1, shape[-1])[0] += LN_SHIFT
+    x = torch.from_numpy(x).to(cuda_device, dtype)
+    w = torch.from_numpy((1 + 0.1 * rng.normal(size=shape[-1:])).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.normal(size=shape[-1:])).astype(np.float32))
+    w, b = w.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    before = layer_norm.launches
+    out_k = layer_norm(x, w, b, 1e-5)
+    assert layer_norm.launches == before + 1
+    assert out_k.dtype == dtype and out_k.shape == x.shape
+    torch.testing.assert_close(out_k.float(), layer_norm_reference(x, w, b, 1e-5).float(),
+                               **LN_TOL[dtype])
+
+
+def test_layer_norm_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.randn(4, 256, device=cuda_device, dtype=torch.bfloat16)
+    ones = torch.ones(256, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # bias dtype differs from x's
+        layer_norm(x, ones, torch.zeros(256, device=cuda_device))
+    with pytest.raises(TypeError):
+        layer_norm(x.half(), ones.half(), ones.half())
+    with pytest.raises(ValueError):
+        layer_norm(x, ones, ones[:128])
+    with pytest.raises(ValueError):
+        layer_norm(x.t(), ones[:4], ones[:4])
+    with pytest.raises(ValueError):
+        layer_norm(x, ones.cpu(), ones)
+
+
+def test_layer_norm_unaligned_view_takes_scalar_path(cuda_device):
+    flat = torch.randn(4 * 4608 + 1, device=cuda_device, dtype=torch.bfloat16)
+    x = flat[1:].view(4, 4608)  # contiguous, 2 bytes past a 16-byte boundary
+    w = torch.full((4608, ), 1.5, device=cuda_device, dtype=torch.bfloat16)
+    b = torch.full((4608, ), 0.25, device=cuda_device, dtype=torch.bfloat16)
+    torch.testing.assert_close(layer_norm(x, w, b).float(),
+                               layer_norm_reference(x, w, b).float(),
+                               **LN_TOL[torch.bfloat16])
 
 
 # ---- K5 RMSNorm ----

@@ -1,16 +1,20 @@
-"""deepspeed_tpu_torch RMSNorm against the JAX package's kernel.
+"""deepspeed_tpu_torch RMSNorm and LayerNorm against the JAX package's
+kernels.
 
-Same numpy inputs through ``deepspeed_tpu.ops.normalization.rms_norm`` (the
-Pallas kernel in interpret mode) and the port's ``rms_norm`` (the plain
-PyTorch version on CPU tensors)."""
+Same numpy inputs through ``deepspeed_tpu.ops.normalization.rms_norm`` and
+``layer_norm`` (the Pallas kernels in interpret mode, and for LayerNorm also
+its jnp branch, which the JAX serving forward computes) and the port's
+``rms_norm`` and ``layer_norm`` (the plain PyTorch versions on CPU
+tensors)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from deepspeed_tpu.ops.normalization import layer_norm as jax_layer_norm
 from deepspeed_tpu.ops.normalization import rms_norm as jax_rms_norm
-from deepspeed_tpu_torch.ops.normalization import rms_norm
+from deepspeed_tpu_torch.ops.normalization import layer_norm, rms_norm
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -51,3 +55,43 @@ def test_fp32_weight_on_bf16_rows():
     assert out_t.dtype == torch.bfloat16
     np.testing.assert_allclose(out_t.float().numpy(),
                                np.asarray(out_j, np.float32), **TOL["bfloat16"])
+
+
+def _ln_inputs(seed, shape, dtype, shift):
+    """Rows of N(0, 1) plus ``shift`` on the first row: a large mean that
+    E[x^2] - E[x]^2 would cancel, the centred variance keeps."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    x.reshape(-1, shape[-1])[0] += shift
+    w = (1.0 + 0.1 * rng.normal(size=shape[-1:])).astype(np.float32)
+    b = (0.1 * rng.normal(size=shape[-1:])).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return ([jnp.asarray(a, jd) for a in (x, w, b)],
+            [torch.from_numpy(a).to(td) for a in (x, w, b)])
+
+
+@pytest.mark.parametrize("branch", ["kernel", "jnp"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape, shift", [((8, 96), 0.0), ((37, 100), 300.0),
+                                          ((2, 5, 256), 0.0), ((3, 4608), 1000.0)])
+def test_layer_norm_matches_jax(shape, shift, dtype, branch):
+    """Against the Pallas kernel (interpret mode) and the jnp branch. The
+    tolerances of RMSNorm: fp32 summation order; bf16 one ulp of the
+    output. The mean of a shifted row is a sum of values near ``shift`` in
+    fp32, in another order on each side: a few ulps of ``shift`` (2^-23
+    relative each) move every centred value of that row, so fp32 allows
+    2^-21 * shift more. A row of mean 1000 and spread 1 still normalizes
+    to spread 1."""
+    jargs, targs = _ln_inputs(2, shape, dtype, shift)
+    out_j = jax_layer_norm(*jargs, 1e-5, force_pallas=False,
+                           interpret=branch == "kernel")
+    out_t = layer_norm(*targs, 1e-5)
+    assert out_t.dtype == targs[0].dtype and out_t.shape == targs[0].shape
+    tol = dict(TOL[dtype])
+    if dtype == "float32":
+        tol["atol"] += 2.0 ** -21 * shift
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j, np.float32), **tol)
+    if dtype == "float32":
+        row = out_t.reshape(-1, shape[-1])[0]
+        assert abs(row.std(unbiased=False).item() - 1.0) < 0.15

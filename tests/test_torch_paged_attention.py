@@ -5,7 +5,8 @@ Pallas kernel in interpret mode, as its own tests run it on the CPU) and
 through the port's ``paged_attention``, which on CPU tensors takes the
 plain PyTorch version. The cases are those of
 ``tests/unit/ops/test_paged_attention.py``, then the int8 cache of
-``tests/unit/inference/v2/test_kv_cache_int8.py``."""
+``tests/unit/inference/v2/test_kv_cache_int8.py``, then the sliding window
+over both caches."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -87,6 +88,14 @@ def test_unsupported_option_raises(option):
     q, cache, bt, seen, lens = _setup(rng, 2, 1, 2, 2, 16, 8, 8, 2, [3, 4], [1, 1])
     args = [torch.from_numpy(a) for a in (q, cache)]
     meta = [torch.from_numpy(a) for a in (bt, seen, lens)]
+    if "window" in option:
+        # ported: the JAX reference's window mask
+        out = paged_attention(*args, 0, *meta, page_size=8, **option)
+        want = jax_paged_ref(*(jnp.asarray(a) for a in (q, cache)), 0,
+                             *(jnp.asarray(a) for a in (bt, seen, lens)),
+                             page_size=8, **option)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5)
+        return
     if "cache_scales" in option:
         # ported: an int8 cache with unit scales attends as the float cache
         # of its codes; scales beside a float cache are refused
@@ -183,3 +192,64 @@ def test_int8_cache_needs_its_scales(bad):
         paged_attention(torch.from_numpy(q), torch.from_numpy(codes), 0,
                         torch.from_numpy(bt), torch.from_numpy(seen),
                         torch.from_numpy(lens), page_size=8, cache_scales=scales)
+
+
+# ---- sliding window ----
+
+# (seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, layer, window), G 3,
+# window 16 over 4-token pages: decode rows past the window, a prefill
+# chunk straddling its edge, a mixed batch with padding
+WINDOW_CASES = {
+    "decode_past_window": (6, 3, 1, 2, 3, 16, 4, 40, 10, [20, 33, 7], [1, 1, 1], 1, 16),
+    "chunk_straddles_edge": (7, 2, 8, 2, 3, 16, 4, 40, 10, [12, 30], [8, 6], 0, 16),
+    "mixed_padding": (8, 4, 4, 2, 3, 32, 4, 48, 10, [25, 0, 14, 0], [1, 4, 4, 0], 1, 16),
+}
+
+
+def _freed(bt, seen, window, ps):
+    """The table with the entries the engine has freed set to 0: blocks
+    wholly below the window of each sequence's first query."""
+    bt = bt.copy()
+    for i, s in enumerate(seen):
+        bt[i, :max(0, int(s) - window + 1) // ps] = 0
+    return bt
+
+
+@pytest.mark.parametrize("cache_type", ["float", "int8"])
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_window_matches_jax(case, cache_type):
+    """The window's mask (``key > q - window``) against the JAX kernel
+    (interpret mode, which also skips pages older than the window) and its
+    reference, with freed placeholders in the table. Tolerances as above:
+    fp32 2e-5; an int8 cache within 2e-5 of the JAX reference and each row
+    within 2^-6 of the JAX kernel, which rounds K/V to bf16."""
+    seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, layer, window = WINDOW_CASES[case]
+    if cache_type == "int8":
+        q, cache, sc, bt, seen, lens = _int8_setup(seed, S, N, KV, G, D, ps,
+                                                   n_pages, B, seen, n_new)
+    else:
+        q, cache, bt, seen, lens = _setup(np.random.default_rng(seed), S, N, KV,
+                                          G, D, ps, n_pages, B, seen, n_new)
+        sc = None
+    bt = _freed(bt, seen, window, ps)
+    jargs = (jnp.asarray(q), jnp.asarray(cache), layer, jnp.asarray(bt),
+             jnp.asarray(seen), jnp.asarray(lens))
+    jkw = dict(page_size=ps, window=window,
+               cache_scales=None if sc is None else jnp.asarray(sc))
+    out_kernel = np.asarray(jax_paged(*jargs, interpret=True, **jkw), np.float32)
+    out_ref = np.asarray(jax_paged_ref(*jargs, **jkw), np.float32)
+    out_t = paged_attention(torch.from_numpy(q), torch.from_numpy(cache), layer,
+                            torch.from_numpy(bt), torch.from_numpy(seen),
+                            torch.from_numpy(lens), page_size=ps, window=window,
+                            cache_scales=None if sc is None else torch.from_numpy(sc))
+    out_t = out_t.numpy()
+    np.testing.assert_allclose(out_t, out_ref, atol=2e-5, rtol=0)
+    if sc is None:
+        np.testing.assert_allclose(out_t, out_kernel, atol=2e-5)
+    else:
+        assert row_rel_err(out_t, out_kernel) <= INT8_ROW_TOL
+    glob = paged_attention(torch.from_numpy(q), torch.from_numpy(cache), layer,
+                           torch.from_numpy(bt), torch.from_numpy(seen),
+                           torch.from_numpy(lens), page_size=ps,
+                           cache_scales=None if sc is None else torch.from_numpy(sc))
+    assert np.abs(glob.numpy() - out_t).max() > 0.05  # the window masks keys

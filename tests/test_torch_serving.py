@@ -187,8 +187,8 @@ def test_init_llama_follows_jax_initializers():
 
 
 def test_unported_config_option_raises():
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        build_llama_engine(LlamaConfig.tiny(sliding_window=8), device="cpu",
+    with pytest.raises(NotImplementedError, match="pos_embedding"):
+        build_llama_engine(LlamaConfig.tiny(pos_embedding="alibi"), device="cpu",
                            dtype=torch.float32)
 
 

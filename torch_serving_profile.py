@@ -2,18 +2,22 @@
 """Where a decode step of the deepspeed_tpu_torch serving engine spends its
 time, on one CUDA GPU.
 
-    python3 torch_serving_profile.py
+    python3 torch_serving_profile.py [bf16] [int8] [starcoder2]
 
-For each variant, the bf16 engine and the int8 one (``quantize="int8",
-kv_cache_dtype="int8"``), one after the other: builds
-``build_llama_engine(LlamaConfig.llama3_8b())`` with seeded random bf16
-weights, prefills ``SEQS`` sequences of 128, 256, ... tokens, then runs
-``STEPS`` decode steps (one token per sequence per ``put``):
+For each variant named (all three by default), one after the other: the
+bf16 Llama-3-8B engine, the int8 one (``quantize="int8",
+kv_cache_dtype="int8"``), and StarCoder2-7B (``STARCODER2_7B`` through
+``policy_for("starcoder2").config_from_hf``, window 4096). Each builds
+``build_llama_engine`` with seeded random bf16 weights and 8 GiB of
+64-token KV blocks, prefills ``SEQS`` sequences (Llama: 128, 256, ...
+tokens; StarCoder2: 5120, 4608, 2048, ... 128 tokens, most of them past
+the window), then runs ``STEPS`` decode steps (one token per sequence per
+``put``):
   - step time on the host clock, each step ending in a device sync;
   - a ``torch.profiler`` trace of a few steps: device time per kernel name,
-    summed into groups (K4 paged attention, K5 RMSNorm, the int8 weights'
-    dequantize, matmuls, other), and the device's busy share of the traced
-    wall time;
+    summed into groups (K4 paged attention, K5 RMSNorm, K5b LayerNorm, the
+    int8 weights' dequantize, matmuls, other), and the device's busy share
+    of the traced wall time;
   - the paged-attention kernel alone at this decode batch (CUDA events).
 Prints one JSON line per part, each naming its variant, and exits non-zero
 without a CUDA device.
@@ -28,7 +32,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 16  # timed decode steps
 SEQS = 8    # live sequences, prompts of 128, 256, ..., 128 * SEQS tokens
-VARIANTS = {"bf16": {}, "int8": {"quantize": "int8", "kv_cache_dtype": "int8"}}
+# variant -> (model, build options, prompt lengths, KV blocks of 8 GiB)
+VARIANTS = {
+    "bf16": ("llama3_8b", {}, [128 * (i + 1) for i in range(SEQS)], 1024),
+    "int8": ("llama3_8b", {"quantize": "int8", "kv_cache_dtype": "int8"},
+             [128 * (i + 1) for i in range(SEQS)], 1024),
+    "starcoder2": ("starcoder2_7b", {}, [5120, 4608, 2048, 1024, 512, 256, 128, 128],
+                   2048),
+}
+
+
+def model_config(name: str):
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.module_inject import STARCODER2_7B, policy_for
+    if name == "starcoder2_7b":
+        return policy_for("starcoder2").config_from_hf(STARCODER2_7B)
+    return LlamaConfig.llama3_8b()
 
 
 def _group(name: str) -> str:
@@ -37,6 +56,8 @@ def _group(name: str) -> str:
         return "K4 paged_attention"
     if "rms_norm" in n:
         return "K5 rms_norm"
+    if "layer_norm" in n:
+        return "K5b layer_norm"
     if "dequantize" in n:
         return "int8 weight dequantize"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul")):
@@ -53,28 +74,35 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    for variant, build_kw in VARIANTS.items():
-        profile_variant(variant, build_kw, gpu)
+    names = sys.argv[1:] or list(VARIANTS)
+    unknown = sorted(set(names) - set(VARIANTS))
+    if unknown:
+        print(f"torch_serving_profile: unknown variant(s) {unknown}; "
+              f"choose from {list(VARIANTS)}", file=sys.stderr)
+        return 2
+    for variant in names:
+        profile_variant(variant, *VARIANTS[variant], gpu)
         torch.cuda.empty_cache()
     return 0
 
 
-def profile_variant(variant: str, build_kw: dict, gpu: str) -> None:
+def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
+                    kv_blocks: int, gpu: str) -> None:
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
-    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.models.llama import _layer_window
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 
-    cfg = LlamaConfig.llama3_8b()
+    cfg = model_config(model)
     engine = build_llama_engine(
-        cfg, engine_config=RaggedInferenceEngineConfig(num_kv_blocks=1024),
+        cfg, engine_config=RaggedInferenceEngineConfig(num_kv_blocks=kv_blocks),
         seed=0, dtype=torch.bfloat16, kv_block_size=64, **build_kw)
     rng = np.random.default_rng(0)
     uids = list(range(SEQS))
     for u in uids:  # prefill one sequence per put (<= 768 tokens per chunk)
-        prompt = rng.integers(0, cfg.vocab_size, 128 * (u + 1)).tolist()
+        prompt = rng.integers(0, cfg.vocab_size, prompt_lens[u]).tolist()
         for ofs in range(0, len(prompt), 768):
             engine.put([u], [prompt[ofs:ofs + 768]], do_checks=False)
     torch.cuda.synchronize()
@@ -91,7 +119,7 @@ def profile_variant(variant: str, build_kw: dict, gpu: str) -> None:
         step()
         times.append(time.monotonic() - t)
     print(json.dumps({"part": "decode_steps", "variant": variant, "gpu": gpu,
-                      "seqs": SEQS,
+                      "model": model, "seqs": SEQS,
                       "steps": STEPS, "step_ms": [1e3 * t for t in times],
                       "step_ms_mean": 1e3 * sum(times) / len(times),
                       "tokens_per_s": SEQS * len(times) / sum(times)}),
@@ -141,9 +169,11 @@ def profile_variant(variant: str, build_kw: dict, gpu: str) -> None:
                     device="cuda", dtype=torch.bfloat16)
     cache = sm.kv_cache.cache
     cache, scales = cache if isinstance(cache, tuple) else (cache, None)
+    window = _layer_window(cfg, 5)
 
     def k4():
-        paged_attention(q, cache, 5, bt, seen, lens, page_size=64, cache_scales=scales)
+        paged_attention(q, cache, 5, bt, seen, lens, page_size=64, window=window,
+                        cache_scales=scales)
 
     for _ in range(3):
         k4()
@@ -155,12 +185,14 @@ def profile_variant(variant: str, build_kw: dict, gpu: str) -> None:
     end.record()
     end.synchronize()
     # K and V of each visible token and head: D bf16 values, or D int8
-    # codes and a 4-byte scale
+    # codes and a 4-byte scale; with a window, at most the window's keys
     hd = cfg.head_dim_
     per_head = hd + 4 if scales is not None else 2 * hd
-    kv_bytes = int(lens.sum()) * cfg.num_key_value_heads * per_head * 2
+    visible = lens.clamp(max=window) if window else lens
+    kv_bytes = int(visible.sum()) * cfg.num_key_value_heads * per_head * 2
     print(json.dumps({"part": "k4_decode", "variant": variant, "gpu": gpu,
                       "seqs": len(uids), "history": [int(x) for x in lens.tolist()],
+                      "window": window,
                       "ms": start.elapsed_time(end) / 50,
                       "bound_ms": kv_bytes / 3.35e12 * 1e3}), flush=True)
 
