@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the deepspeed_tpu_torch serving (bf16 and int8) and
-training paths on one CUDA GPU.
+training paths (bf16 and fp16, each optimizer K7 runs) on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -22,6 +22,14 @@ Phases, each printing one JSON line:
                       rounding of the exact fp32 output on the same inputs.
                       K5b and K4 with StarCoder2's sliding window (freed
                       table entries included) at that model's widths.
+                      K1/K2's fp16 instance at the training shape, row by
+                      row as the bf16 cases. K7's bodies (AdamW, Adam with
+                      L2, Lion, LAMB's first pass) at one Llama-3-8B
+                      layer's parameters (218,112,000) and at a ragged
+                      12,391, and the whole LAMB step over that layer's 9
+                      tensors, each output within 2 fp32 ulps of the plain
+                      version; torch.optim's fused Adam/AdamW step beside
+                      the Adam rows.
   3. parity         — the tiny Llama config in fp32 through the whole serving
                       engine on the GPU (kernels) and on the CPU (plain
                       versions), same weights: logits must agree; then the
@@ -30,15 +38,32 @@ Phases, each printing one JSON line:
                       (clipping, WarmupLR) of the training engine on the GPU
                       and on the CPU: losses and parameters must agree.
   5. training       — initialize() at the Llama-3-8B width cut to 4 layers
-                      (seeded random bf16 weights, fp32 masters and AdamW
-                      state, chunked CE), 6 forward/backward/step on one
-                      repeated batch of 2 x 2048 tokens; checks finite and
-                      falling losses and L launches per step of each flash
-                      kernel; reports step time, tokens/s, peak memory and
-                      the model-FLOP share; then, after the counts are
+                      (seeded random bf16 weights, flat fp32 masters and
+                      AdamW state, chunked CE), 6 forward/backward/step on
+                      one repeated batch of 2 x 2048 tokens; checks finite
+                      and falling losses, L launches per step of each flash
+                      kernel and one K7 launch per step, and holds the
+                      last step's K7 launch against the plain version over
+                      the whole flat buffer (1.923e9 elements, within 2
+                      fp32 ulps); reports step time, tokens/s, peak memory
+                      and the model-FLOP share; then, after the counts are
                       read, two more steps: one split into forward,
                       backward and optimizer step, one traced by
-                      torch.profiler and summed by kernel group.
+                      torch.profiler and summed by kernel group (K7's time
+                      inside the optimizer step); last, K7 and
+                      torch.optim's fused AdamW timed on the engine's flat
+                      state.
+  5b. training_optimizers — the same model and batch with Lion (bf16, 3
+                      steps), LAMB (bf16, weight decay 0.01, 3 steps) and
+                      AdamW in fp16 with dynamic loss scaling (6 steps, an
+                      inf injected into steps 3 and 5's gradients): losses, step
+                      and optimizer-step ms, K7 launches equal to the
+                      applied steps, the last step's K7 launch held
+                      against the plain version over the whole flat buffer
+                      as in phase 5; for fp16 the skipped steps keep the
+                      flat state's fingerprints, the scale follows
+                      update_scale replayed on the overflow flags, and the
+                      fp16 flash instances run L times per step.
   6. serving        — build_llama_engine at the full Llama-3-8B width (32
                       layers, seeded random bf16 weights, 1024 KV blocks of
                       64 tokens), greedy generate on 8 prompts of 128..1024
@@ -68,7 +93,7 @@ Phases, each printing one JSON line:
                       card (and that forward without the window or the
                       biases outside it), and prefill against decode past
                       the window.
-Each main path (phases 5, 6, 7 and 8) runs with the launch counts of its
+Each main path (phases 5, 5b, 6, 7 and 8) runs with the launch counts of its
 kernels set to 0 just before and read just after. Then a ``{"kernels": [...]}``
 line, the GPU's name and power limit, and, as the last line, ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero before that line. Without a
@@ -76,6 +101,7 @@ CUDA device it exits 2 and prints no result.
 """
 
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -371,33 +397,36 @@ def _dequant_case(gen, shape: tuple) -> dict:
             "bound_by": "bytes"}
 
 
-def row_rel_err(x, ref) -> float:
+def row_rel_err(x, ref, floor: float = 2.0 ** -10) -> float:
     """The largest ||x - ref|| / ||ref|| over the rows of the last dim
-    (a head's D values at one position). A row's norm is floored at 2^-10
-    of the RMS row norm: a row whose exact value cancels to ~0 (dq of a
-    query that sees only its own key) carries fp32 noise, ~1.4e-6 of the
-    RMS row, and FLASH_ROW_TOL x 2^-10 allows it 2^-16."""
+    (a head's D values at one position). A row's norm is floored at
+    ``floor`` of the RMS row norm: a row whose exact value cancels to ~0
+    (dq of a query that sees only its own key) carries fp32 noise, up to
+    ~1.1e-5 of the RMS row on the H100 (fp16; bf16 ~7e-6), and the flash
+    cases set the floor so that their tolerance allows it 2^-16 (2^-10 at
+    bf16's 2^-6)."""
     x, ref = x.float().flatten(0, -2), ref.float().flatten(0, -2)
     den = ref.norm(dim=-1)
-    floor = 2.0 ** -10 * den.square().mean().sqrt()
-    return ((x - ref).norm(dim=-1) / den.clamp_min(floor)).max().item()
+    rms = den.square().mean().sqrt()
+    return ((x - ref).norm(dim=-1) / den.clamp_min(floor * rms)).max().item()
 
 
-def _flash_case(gen, name: str, B: int, S: int, causal: bool) -> dict:
+def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None) -> dict:
     """K1 and both K2 passes at the training path's Llama-3-8B widths (H 32,
-    KV 8, D 128) in bf16, each against its plain version on identical
-    inputs (the backward passes take the plain forward's o and lse). Each
-    also stands beside the exact value, the plain version on the same
-    inputs in fp32 (no rounding of P, dS or the output), with the plain
-    bf16 version's error and one bf16 rounding of the exact value as
-    controls."""
+    KV 8, D 128) in bf16 (or ``dtype``, fp16 for fp16 training), each
+    against its plain version on identical inputs (the backward passes
+    take the plain forward's o and lse). Each also stands beside the exact
+    value, the plain version on the same inputs in fp32 (no rounding of P,
+    dS or the output), with the plain version's error and one rounding of
+    the exact value to ``dtype`` as controls."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import attention as fa
     H, KV, D = 32, 8, 128
+    dtype = dtype or torch.bfloat16
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v, do = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), rnd(B, S, H, D)
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -414,15 +443,20 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool) -> dict:
              "dkdv": list(fa.flash_attention_bwd_dkdv_reference(*exact_args, D ** -0.5))}
     torch.cuda.synchronize()
     got = {"fwd": [(o, o_ref)], "dq": [(dq, dq_ref)], "dkdv": [(dk, dk_ref), (dv, dv_ref)]}
+    # the floor gives a cancelling row 2^-16 of the RMS row at any
+    # tolerance; against the exact value, FLASH_EXACT_FLOOR
+    name_dtype = str(dtype).replace("torch.", "")
+    floor = 2.0 ** -16 / FLASH_ROW_TOL[name_dtype]
+    vs = dict(floor=FLASH_EXACT_FLOOR[name_dtype])
     errs = {}
     for key, pairs in got.items():
         errs[key] = {
             "max_abs_err": max((x.float() - r.float()).abs().max().item() for x, r in pairs),
-            "row_rel_err": max(row_rel_err(x, r) for x, r in pairs),
+            "row_rel_err": max(row_rel_err(x, r, floor) for x, r in pairs),
             "vs_exact": {
-                "kernel": max(row_rel_err(x, e) for (x, _), e in zip(pairs, exact[key])),
-                "plain": max(row_rel_err(r, e) for (_, r), e in zip(pairs, exact[key])),
-                "bf16_rounding": max(row_rel_err(e.to(torch.bfloat16), e)
+                "kernel": max(row_rel_err(x, e, **vs) for (x, _), e in zip(pairs, exact[key])),
+                "plain": max(row_rel_err(r, e, **vs) for (_, r), e in zip(pairs, exact[key])),
+                "one_rounding": max(row_rel_err(e.to(dtype), e, **vs)
                                      for e in exact[key])}}
     lse_err = (lse - lse_ref).abs().max().item()
     del o, o_ref, lse, dq, dk, dv, dq_ref, dk_ref, dv_ref, exact, exact_args, got
@@ -460,12 +494,13 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool) -> dict:
                  lib_fb - lib_fwd),
     }
     rec = {"case": name, "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
-                                   "causal": causal}, "lse_max_abs_err": lse_err}
+                                   "causal": causal},
+           "dtype": name_dtype, "lse_max_abs_err": lse_err}
     for key, (kernel, plain, library) in timed.items():
         flops = work[key][0] * D * pairs * H * B
         bound_flops = flops / BF16_FLOPS * 1e3
         bound_bytes = work[key][1] / HBM_BYTES_PER_S * 1e3
-        rec[key] = {**errs[key], "tolerance": FLASH_ROW_TOL,
+        rec[key] = {**errs[key], "tolerance": FLASH_ROW_TOL[rec["dtype"]],
                     "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5),
                     # SDPA's backward computes dq, dk and dv in one call: the
                     # same time stands beside both K2 passes
@@ -500,8 +535,16 @@ PAGED_ROW_SLACK = 2.0 ** -8
 # unit roundoff) each, so 2^-6 of the row. Against the exact value the
 # kernel may be at most FLASH_EXACT_RATIO times as far off as the plain
 # bf16 version.
-FLASH_ROW_TOL = 2.0 ** -6
+# fp16 rounds P, dS and the output at its unit roundoff 2^-11: 2^-8.
+FLASH_ROW_TOL = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -8}
 FLASH_EXACT_RATIO = 2.0
+# against the exact value a row's norm is floored at this share of the RMS
+# row: a row that cancels to ~0 carries the kernel's fp32 noise (up to
+# ~7e-6 of the RMS row in bf16, ~1.1e-5 in fp16, where the plain version
+# shares the exact value's einsum and so its noise), which must read below
+# FLASH_EXACT_RATIO x the plain version's error, ~2^-8 of a row in bf16
+# and ~2^-11 in fp16: 2^-10 and 2^-6 let it through
+FLASH_EXACT_FLOOR = {"bfloat16": 2.0 ** -10, "float16": 2.0 ** -6}
 LSE_TOL = 1e-3         # fp32 lse of ~10: summation order only
 # K4 over an int8 cache stages each K/V element as the TPU kernel does,
 # bf16(code) * bf16(scale) rounded to bf16, where the plain version
@@ -514,6 +557,134 @@ PAGED_TOLERANCE = (f"max abs <= {PAGED_TOL}; the largest row error ||kernel - pl
 FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:88"),
                  ("dq", "flash_attention_bwd_dq", "deepspeed_tpu/ops/attention.py:273"),
                  ("dkdv", "flash_attention_bwd_dkdv", "deepspeed_tpu/ops/attention.py:350"))
+
+
+
+def ulp_distance(x, ref) -> int:
+    """The largest distance in units in the last place between two float
+    tensors of one dtype (fp32 or a 16-bit type), both signs ordered on one
+    integer line."""
+    import torch
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}[ref.dtype]
+    bits = torch.iinfo(ints).bits
+
+    def key(t):
+        i = t.contiguous().view(ints).long()
+        return torch.where(i >= 0, i, -(1 << (bits - 1)) - i)
+
+    return int((key(x) - key(ref)).abs().max().item())
+
+
+# K7 at the training phase's width: one Llama-3-8B layer's parameters (its
+# 9 tensors: two norms, q/k/v/o, gate/up/down) and a ragged tail
+LAYER_SEGMENTS = (4096, 4096 * 4096, 4096 * 1024, 4096 * 1024, 4096 * 4096, 4096,
+                  4096 * 14336, 4096 * 14336, 14336 * 4096)
+LAYER_PARAMS = sum(LAYER_SEGMENTS)  # 218,112,000
+K7_TAIL = 12_391
+K7_ULPS = 2
+# peak fp32 rate outside the tensor cores (NVIDIA data sheet, H100 SXM)
+FP32_FLOPS = 67e12
+# per element: bytes (each input read once, each output written once, fp32)
+# and fp32 operations of each body; lamb_step is the whole step through
+# fused_lamb_step (p, g, m, v in; p, m, v out), trust ratio included
+K7_WORK = {"adamw": (28, 15), "adam_l2": (28, 15), "lion": (20, 8),
+           "lamb_pass": (24, 12), "lamb_step": (28, 19)}
+K7_KERNELS = (("fused_adam_step", "adam_step_", ("adamw", "adam_l2"),
+               "deepspeed_tpu/ops/fused_optimizer.py:67"),
+              ("fused_lion_step", "lion_step_", ("lion", ),
+               "deepspeed_tpu/ops/fused_optimizer.py:115"),
+              ("fused_lamb_step", "lamb_update_", ("lamb_pass", "lamb_step"),
+               "deepspeed_tpu/ops/fused_optimizer.py:152"))
+
+
+def _k7_case(gen, body: str, n: int) -> dict:
+    """One K7 body over flat fp32 buffers of ``n`` elements at update count
+    3 (p ~ 0.02 N(0,1), g ~ 1e-3 N(0,1), m ~ 1e-4 N(0,1), v ~ 1e-8 U(0,1);
+    the first 5 elements with g = m = v = 0), against its plain version on
+    the same inputs: the largest ulp distance of each output. Kernel time
+    from a CUDA graph of 20 in-place calls, the plain version's with events;
+    beside adam, torch.optim's fused Adam/AdamW step on the same tensors."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+
+    def rnd(scale, uniform=False):
+        x = (torch.rand if uniform else torch.randn)(n, generator=gen, device="cuda")
+        return scale * x
+
+    p, g, m, v = rnd(0.02), rnd(1e-3), rnd(1e-4), rnd(1e-8, uniform=True)
+    for t in (g, m, v):
+        t[:5] = 0
+    lr, step, wd = 1e-4, 3, 0.1 if body in ("adamw", "lion") else 0.01
+    bounds = (0, ) + tuple(itertools.accumulate(LAYER_SEGMENTS))
+    segments = bounds if n == LAYER_PARAMS else None
+    st = [t.clone() for t in (p, m, v)]  # the kernel's in-place state
+    if body in ("adamw", "adam_l2"):
+        l2 = body == "adam_l2"
+        ref = fo.adam_update_reference(p, g, m, v, lr, step, weight_decay=wd, l2=l2)
+
+        def kernel():
+            return fo.adam_step_(st[0], g, st[1], st[2], lr, step, weight_decay=wd, l2=l2)
+
+        def plain():
+            return fo.adam_update_reference(p, g, m, v, lr, step, weight_decay=wd, l2=l2)
+    elif body == "lion":
+        ref = fo.lion_update_reference(p, g, m, lr, weight_decay=wd)
+
+        def kernel():
+            return fo.lion_step_(st[0], g, st[1], lr, weight_decay=wd)
+
+        def plain():
+            return fo.lion_update_reference(p, g, m, lr, weight_decay=wd)
+    elif body == "lamb_pass":
+        ref = fo.lamb_update_reference(g, m, v, step)
+        u = torch.empty_like(g)
+
+        def kernel():
+            return fo.lamb_update_(g, st[1], st[2], step, out=u), st[1], st[2]
+
+        def plain():
+            return fo.lamb_update_reference(g, m, v, step)
+    else:  # lamb_step: the pass and the per-segment trust ratio
+        ref = fo.fused_lamb_step_reference(p, g, m, v, lr, step, weight_decay=wd,
+                                           segments=segments)
+
+        def kernel():
+            return fo.fused_lamb_step(p, g, m, v, lr, step, weight_decay=wd,
+                                      segments=segments)
+
+        def plain():
+            return fo.fused_lamb_step_reference(p, g, m, v, lr, step, weight_decay=wd,
+                                                segments=segments)
+    got = kernel()
+    torch.cuda.synchronize()
+    names = "umv" if body == "lamb_pass" else "pm" if body == "lion" else "pmv"
+    ulps = {k: ulp_distance(x, r) for k, x, r in zip(names, got, ref)}
+    errs = max((x - r).abs().max().item() for x, r in zip(got, ref))
+    del got, ref
+    nbytes, flops = (w * n for w in K7_WORK[body])
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_flops = flops / FP32_FLOPS * 1e3
+    large = n >= LAYER_PARAMS
+    rec = {"case": body, "n": n, "segments": len(bounds) - 1 if segments else 1,
+           "ulps": ulps, "max_ulps": max(ulps.values()), "max_abs_err": errs,
+           "timing": "cuda graph (kernel), events (plain, library)",
+           "ms": (time_ms if body == "lamb_step" else graph_time_ms)(kernel),
+           "plain_ms": time_ms(plain, iters=5 if large else 20),
+           "library_ms": None, "bound_ms": max(bound_bytes, bound_flops),
+           "bound_by": "bytes" if bound_bytes >= bound_flops else "operations"}
+    if body in ("adamw", "adam_l2"):
+        # the same function in one PyTorch call: Adam (L2) or AdamW, fused
+        lib_p = p.clone().requires_grad_()
+        lib_p.grad = g
+        cls = torch.optim.AdamW if body == "adamw" else torch.optim.Adam
+        opt = cls([lib_p], lr=lr, weight_decay=wd, fused=True)
+        rec["library_ms"] = time_ms(opt.step, iters=20 if large else 50)
+        rec["library"] = f"torch.optim.{cls.__name__}(fused=True).step"
+        del opt, lib_p
+    del p, g, m, v, st
+    free_memory()
+    return rec
 
 
 def phase_kernels() -> list:
@@ -572,6 +743,13 @@ def phase_kernels() -> list:
         _flash_case(gen, "ragged_s1000", 2, 1000, True),  # S not a tile multiple
         _flash_case(gen, "full_s1000", 1, 1000, False),   # no causal mask
     ]
+    # the fp16 instance at the training phase's shape (fp16 training)
+    flash_fp16 = [_flash_case(gen, "main_fp16", 2, 2048, True, torch.float16)]
+    # K7: each body at one layer's parameters and at a ragged tail; the
+    # whole LAMB step over the layer's 9 tensors
+    k7_cases = [_k7_case(gen, body, n) for body in ("adamw", "adam_l2", "lion", "lamb_pass")
+                for n in (LAYER_PARAMS, K7_TAIL)]
+    k7_cases += [_k7_case(gen, "lamb_step", LAYER_PARAMS)]
     all_paged = paged_cases + paged_int8_cases + paged_window_cases
     paged_ok = [c.get("staged_row_rel_err", c["row_rel_err"])
                 <= c["rounding_row_rel_err"] + PAGED_ROW_SLACK
@@ -583,9 +761,11 @@ def phase_kernels() -> list:
         all(c["max_abs_err"] <= c["tolerance"] for c in ln) and all(paged_ok) and \
         all(c["equal"] for c in quant_cases) and dequant["equal"] and \
         quant_cases[-1]["zero_block_scales"] == [1.0, 1.0] and \
-        all(c[key]["row_rel_err"] <= FLASH_ROW_TOL and c["lse_max_abs_err"] <= LSE_TOL
+        all(c[key]["row_rel_err"] <= FLASH_ROW_TOL[c["dtype"]]
+            and c["lse_max_abs_err"] <= LSE_TOL
             and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
-            for c in flash_cases for key, _, _ in FLASH_KERNELS)
+            for c in flash_cases + flash_fp16 for key, _, _ in FLASH_KERNELS) and \
+        all(c["max_ulps"] <= K7_ULPS for c in k7_cases)
     main = rms[1]
     kernels = [
         {"name": "paged_attention", "route": "cuda",
@@ -662,7 +842,27 @@ def phase_kernels() -> list:
          **{k: flash_cases[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
          "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in flash_cases]}
-        for key, name, replaces in FLASH_KERNELS]
+        for key, name, replaces in FLASH_KERNELS] + [
+        {"name": name + "_fp16", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+         "replaces": replaces, "launches": None,
+         "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-8; "
+                      "against the exact fp32 value at most 2x the plain version's",
+         "max_abs_err": flash_fp16[0][key]["max_abs_err"],
+         "row_rel_err": flash_fp16[0][key]["row_rel_err"],
+         **{k: flash_fp16[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")},
+         "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in flash_fp16]}
+        for key, name, replaces in FLASH_KERNELS] + [
+        {"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/fused_optimizer.cu",
+         "replaces": replaces, "launches": None,
+         "tolerance": f"each output within {K7_ULPS} fp32 ulps of the plain version",
+         "max_ulps": max(c["max_ulps"] for c in k7_cases if c["case"] in bodies),
+         "max_abs_err": max(c["max_abs_err"] for c in k7_cases if c["case"] in bodies),
+         **{k: next(c for c in k7_cases if c["case"] == bodies[0])[k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "cases": [c for c in k7_cases if c["case"] in bodies]}
+        for name, _, bodies, replaces in K7_KERNELS]
     emit({"phase": "kernels", "ok": ok, "gpu": gpu_identity(), "kernels": kernels})
     if not ok:
         raise SystemExit("kernel mismatch against the plain version")
@@ -772,12 +972,20 @@ def phase_train_parity() -> dict:
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
+    if is_k7(n):  # launched through ctypes, so under no op of the range
+        return "optimizer step"
     if "flash" in n:
         return ("K1 flash fwd" if "fwd_kernel" in n else
                 "K2 flash dq" if "dq_kernel" in n else "K2 flash dk/dv")
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul")):
         return "matmul (layers)"
     return "other"
+
+
+def is_k7(kernel_name: str) -> bool:
+    n = kernel_name.lower()
+    return "optim::" in n and any(b in n for b in ("adam_kernel", "lion_kernel",
+                                                   "lamb_kernel"))
 
 
 def _kernels_under(ev):
@@ -836,9 +1044,71 @@ def profile_step(step) -> dict:
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"split": split, "wall_ms": wall_ms, "device_ms": device_ms,
+            "k7_ms": sum(ms for name, ms in by_name.items() if is_k7(name)),
             "device_busy_share": device_ms / wall_ms, "host_gap_ms": wall_ms - device_ms,
             "kernel_launches": len(kernels), "group_ms": groups,
             "top_kernels_ms": [[k[:100], v] for k, v in top]}
+
+
+def capture_k7_inputs(engine) -> dict:
+    """Arms the engine's optimizer for its next update: just before it
+    launches K7, the returned dict receives copies on the card of the flat
+    masters, gradients (unscaled and clipped) and moments it takes, with
+    its learning rate and update count. The launch itself is the engine's."""
+    opt, taken = engine.optimizer, {}
+    step = opt.step
+
+    def capturing_step(grads):
+        taken.update(lr=opt.current_lr(), count=opt.count + 1, p=opt.params.clone(),
+                     g=grads.clone(), **{k: t.clone() for k, t in opt.state.items()})
+        del opt.step  # the class's step again
+        return step(grads)
+
+    opt.step = capturing_step
+    return taken
+
+
+def k7_vs_plain_at_path_size(engine, taken: dict, chunk: int = 1 << 26) -> dict:
+    """What the engine's K7 update (taken by ``capture_k7_inputs``, then
+    run) wrote over the whole flat buffer against the plain version on the
+    same inputs, ``chunk`` elements at a time: the largest ulp distance of
+    each output. LAMB: the plain first pass writes u over the gradient
+    copy, then ``lamb_apply_trust_`` (the engine's own) over the copies."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    from deepspeed_tpu_torch.runtime import optimizers as opts
+    opt = engine.optimizer
+    n, lr, t = opt.params.numel(), taken["lr"], taken["count"]
+    got = {"p": opt.params, **opt.state}
+    ulps = {k: 0 for k in got}
+
+    def hold(name, sl, ref):
+        ulps[name] = max(ulps[name], ulp_distance(got[name][sl], ref))
+
+    for a in range(0, n, chunk):
+        sl = slice(a, min(a + chunk, n))
+        p, g, m = taken["p"][sl], taken["g"][sl], taken["m"][sl]
+        if isinstance(opt, opts.Adam):
+            ref = fo.adam_update_reference(p, g, m, taken["v"][sl], lr, t, *opt.betas,
+                                           opt.eps, opt.weight_decay, l2=opt.l2)
+            refs = zip("pmv", ref)
+        elif isinstance(opt, opts.Lion):
+            refs = zip("pm", fo.lion_update_reference(p, g, m, lr, *opt.betas,
+                                                      opt.weight_decay))
+        else:
+            u, m_n, v_n = fo.lamb_update_reference(g, m, taken["v"][sl], t, *opt.betas,
+                                                   opt.eps)
+            g.copy_(u)
+            refs = (("m", m_n), ("v", v_n))
+        for name, ref in refs:
+            hold(name, sl, ref)
+    if isinstance(opt, opts.Lamb):
+        fo.lamb_apply_trust_(taken["p"], taken["g"], lr, opt.weight_decay, opt.bounds)
+        for a in range(0, n, chunk):
+            sl = slice(a, min(a + chunk, n))
+            hold("p", sl, taken["p"][sl])
+    torch.cuda.synchronize()
+    return {"n": n, "update": t, "ulps": ulps, "max_ulps": max(ulps.values())}
 
 
 def phase_training() -> dict:
@@ -850,6 +1120,7 @@ def phase_training() -> dict:
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
     from deepspeed_tpu_torch.ops import attention as fa
+    from deepspeed_tpu_torch.ops.fused_optimizer import adam_step_
 
     L, B, S, n_steps = 4, 2, 2048, 6
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=L, ce_chunk_size=8192)
@@ -868,12 +1139,18 @@ def phase_training() -> dict:
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S))).cuda()
 
-    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv,
+               adam_step_)
     torch.cuda.reset_peak_memory_stats()
     for f in kernels:
         f.launches = 0
     losses, step_s, per_step = [], [], []
-    for _ in range(n_steps):
+    for i in range(n_steps):
+        if i == n_steps - 1:
+            # the last step's K7 launch is held against the plain version
+            # over the whole buffer; its copies stay out of the peak
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            taken = capture_k7_inputs(engine)
         before = [f.launches for f in kernels]
         torch.cuda.synchronize()
         t = time.monotonic()
@@ -885,7 +1162,9 @@ def phase_training() -> dict:
         losses.append(loss.item())
         per_step.append([f.launches - b for f, b in zip(kernels, before)])
     launches = {f.__name__: f.launches for f in kernels}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    k7_path = k7_vs_plain_at_path_size(engine, taken)
+    del taken
+    free_memory()
 
     def step(events):
         mark = (lambda i: events[i].record()) if events else (lambda i: None)
@@ -899,6 +1178,21 @@ def phase_training() -> dict:
 
     profile = profile_step(step)
 
+    # K7 and the library's fused AdamW, each timed on the engine's flat
+    # state (the library with moments of its own); this moves the masters,
+    # so it comes last
+    opt = engine.optimizer
+    state = (opt.params, engine._flat_grad, opt.state["m"], opt.state["v"])
+    same_state = {"k7_ms": time_ms(lambda: adam_step_(
+        *state, opt.current_lr(), opt.count + 1, *opt.betas, opt.eps, opt.weight_decay))}
+    lib_p = torch.nn.Parameter(opt.params)
+    lib_p.grad = engine._flat_grad
+    lib = torch.optim.AdamW([lib_p], lr=opt.current_lr(), betas=opt.betas, eps=opt.eps,
+                            weight_decay=opt.weight_decay, fused=True)
+    same_state["library_ms"] = time_ms(lib.step)
+    same_state["library"] = "torch.optim.AdamW(fused=True).step"
+    del lib, lib_p, state
+
     # model FLOPs of a step: 6 x tokens x matmul weights (the layers'
     # projections and the unembed; the embedding is a gather) plus the
     # attention products, 12*D per visible pair and query head (forward 4,
@@ -910,14 +1204,17 @@ def phase_training() -> dict:
     tokens = B * S
     attn_flops = 12 * hd * (S * (S + 1) // 2) * nq * B * L
     model_flops = 6 * tokens * matmul_w + attn_flops
-    steady = sum(step_s[1:]) / (n_steps - 1)
+    steady = sum(step_s[1:-1]) / (n_steps - 2)  # not the first, nor the checked one
     checks = {
         "losses_finite": all(np.isfinite(losses)),
         "last_loss_below_first": losses[-1] < losses[0],
-        "flash_launches_L_per_step": all(c == [L, L, L] for c in per_step),
+        "flash_launches_L_per_step": all(c[:3] == [L, L, L] for c in per_step),
+        "k7_one_launch_per_applied_step": all(c[3] == 1 for c in per_step)
+        and engine.skipped_steps == 0,
+        "k7_at_path_size_within_ulps": k7_path["max_ulps"] <= K7_ULPS,
     }
     rec = {"phase": "training", "config": "llama3_8b(num_hidden_layers=4, "
-           "ce_chunk_size=8192), random bf16 weights, fp32 masters, AdamW lr 1e-4 + "
+           "ce_chunk_size=8192), random bf16 weights, fp32 masters, AdamW (K7) lr 1e-4 + "
            "WarmupLR(linear, 4 steps) + clip 1.0, batch 2 x 2048 (one repeated batch)",
            "gpu": gpu_identity(), "params": n_params, "engine_build_s": build_s,
            "losses": losses, "step_s": step_s, "steady_step_ms": steady * 1e3,
@@ -926,12 +1223,161 @@ def phase_training() -> dict:
            "model_flop_share": model_flops / (steady * BF16_FLOPS),
            "grad_norm_last": engine.get_global_grad_norm(), "lr_last": engine.get_lr()[0],
            "launches": launches, "launches_per_step": per_step,
-           "profile": profile, "checks": checks, "ok": all(checks.values())}
+           "optimizer_step_ms": profile["group_ms"].get("optimizer step"),
+           "k7_ms": profile["k7_ms"], "k7_path_check": k7_path,
+           "same_state": same_state, "profile": profile, "checks": checks, "ok": all(checks.values())}
     emit(rec)
     del engine, model, ids, loss
     free_memory()
     if not rec["ok"]:
         raise SystemExit(f"training checks failed: {checks}")
+    return rec
+
+
+def fingerprint(t, chunk: int = 1 << 26) -> list:
+    """Three int64 sums over the 32-bit (or 16-bit) words of ``t``: of the
+    words, of each word times an odd weight of its position in its chunk,
+    and of the words' squares (all wrapping). Two buffers that differ in any
+    bit give other sums except by a collision of all three; no copy of the
+    buffer is kept, so a step can be checked without doubling its state."""
+    import torch
+    words = t.reshape(-1).view(torch.int32 if t.element_size() == 4 else torch.int16)
+    pos = torch.arange(1, 2 * min(chunk, words.numel()), 2, device=t.device)
+    acc = torch.zeros(3, dtype=torch.int64, device=t.device)
+    for c0 in range(0, words.numel(), chunk):
+        w = words[c0:c0 + chunk].long()
+        acc += torch.stack([w.sum(), (w * pos[:w.numel()]).sum(), (w * w).sum()])
+    return acc.tolist()
+
+
+# the training_optimizers phase: name, optimizer section, precision, steps
+TRAIN_OPTIMIZER_RUNS = (
+    ("lion_bf16", {"type": "Lion", "params": {"lr": 1e-5, "weight_decay": 0.01}},
+     {"bf16": {"enabled": True}}, 3),
+    ("lamb_bf16", {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+     {"bf16": {"enabled": True}}, 3),
+    ("adamw_fp16", {"type": "AdamW", "params": {"lr": 1e-4}},
+     {"fp16": {"enabled": True}}, 6),
+)
+# the fp16 run's steps (0-based) whose gradients get an inf, so that skips
+# are exercised whatever the natural overflows: the first burns the
+# hysteresis (2), the second halves the scale
+FP16_INJECTED_STEPS = (2, 4)
+
+
+def phase_training_optimizers() -> dict:
+    """initialize() at phase 5's width (Llama-3-8B cut to 4 layers, batch
+    2 x 2048) with Lion (bf16), LAMB (bf16, weight decay 0.01) and AdamW
+    under fp16 with dynamic loss scaling (defaults: 2^16, hysteresis 2):
+    losses, step and optimizer-step ms, K7 launches per applied step. In
+    the fp16 run, steps 3 and 5 get an inf in one gradient element; around
+    every skipped step the flat masters, moments and compute copy keep
+    their fingerprints, and the scale trajectory is ``update_scale``
+    replayed on the observed overflow flags. The last step of each run
+    holds its K7 launch against the plain version over the whole flat
+    buffer (``capture_k7_inputs``): that step's times include the copies
+    and its memory stays out of the peak. Step times leave out the
+    fingerprints. Each engine is freed before the next."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    from deepspeed_tpu_torch.ops import attention as fa
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    from deepspeed_tpu_torch.runtime import loss_scaler
+
+    L, B, S = 4, 2, 2048
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=L, ce_chunk_size=8192)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    wrappers = {"adamw": fo.adam_step_, "lion": fo.lion_step_, "lamb": fo.lamb_update_}
+    flash = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv)
+    runs, checks = {}, {}
+    for name, optimizer, precision, n_steps in TRAIN_OPTIMIZER_RUNS:
+        model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+            "train_batch_size": B, "optimizer": optimizer, "gradient_clipping": 1.0,
+            **precision})
+        fp16 = "fp16" in precision
+        k7 = wrappers[name.split("_")[0]]
+        torch.cuda.reset_peak_memory_stats()
+        for f in (k7, *flash):
+            f.launches = 0
+        losses, step_ms, opt_ms, overflows, scales, kept = [], [], [], [], [], []
+        for i in range(n_steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            loss = engine.forward(ids, labels=ids)
+            engine.backward(loss)
+            torch.cuda.synchronize()
+            fwd_bwd_s = time.monotonic() - t
+            if fp16 and i in FP16_INJECTED_STEPS:
+                engine._grad_acc[0].view(-1)[0] = float("inf")
+            if fp16:
+                state = {"masters": engine.optimizer.params, "compute": engine._flat_compute,
+                         **engine.optimizer.state}
+                before = {k: fingerprint(v) for k, v in state.items()}
+            if i == n_steps - 1:
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                taken = capture_k7_inputs(engine)
+            skipped = engine.skipped_steps
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            ev[0].record()
+            engine.step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (fwd_bwd_s + time.monotonic() - t))
+            opt_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(loss.item())
+            overflows.append(engine.skipped_steps > skipped)
+            scales.append(engine.cur_scale)
+            if fp16 and overflows[-1]:
+                kept.append(all(fingerprint(v) == before[k] for k, v in state.items()))
+        # the last step's K7 launch over the whole buffer, against the plain
+        # version (none if that step overflowed)
+        k7_path = k7_vs_plain_at_path_size(engine, taken) if taken else None
+        del taken
+        applied = n_steps - engine.skipped_steps
+        run = {"config": {"optimizer": optimizer, **precision}, "steps": n_steps,
+               "losses": losses, "step_ms": step_ms, "optimizer_step_ms": opt_ms,
+               "k7": k7.__name__, "k7_launches": k7.launches, "applied_steps": applied,
+               "peak_memory_gib": peak, "k7_path_check": k7_path}
+        checks[f"{name}_losses_finite"] = bool(np.isfinite(losses).all())
+        checks[f"{name}_k7_one_launch_per_applied_step"] = k7.launches == applied > 0
+        checks[f"{name}_k7_at_path_size_within_ulps"] = (
+            k7_path is not None and k7_path["max_ulps"] <= K7_ULPS)
+        if fp16:
+            fp16_cfg = engine._config.fp16_config
+            replay, st = [], loss_scaler.initial_state(fp16_cfg)
+            for ov in overflows:
+                st = loss_scaler.next_state(fp16_cfg, st, ov)
+                replay.append(st.cur_scale)
+            run.update({"overflows": overflows, "cur_scale": scales,
+                        "replayed_scale": replay, "injected_steps": FP16_INJECTED_STEPS,
+                        "skipped_steps": engine.skipped_steps,
+                        "skipped_state_kept": kept,
+                        "flash_fp16_launches": {f.__name__: f.launches for f in flash}})
+            checks.update({
+                "fp16_injected_steps_skipped": all(overflows[i] for i in FP16_INJECTED_STEPS),
+                "fp16_skipped_steps_keep_state": len(kept) == sum(overflows) and all(kept),
+                "fp16_scale_follows_update_scale": scales == replay,
+                "fp16_skipped_and_scale_agree": engine.skipped_steps == sum(overflows)
+                and engine.cur_scale == replay[-1],
+                "fp16_flash_launches_L_per_step": all(
+                    f.launches == L * n_steps for f in flash),
+            })
+        runs[name] = run
+        del engine, model, loss
+        free_memory()
+    rec = {"phase": "training_optimizers", "config": "llama3_8b(num_hidden_layers=4, "
+           "ce_chunk_size=8192), random bf16 weights, batch 2 x 2048 (one repeated batch), "
+           "clip 1.0", "gpu": gpu_identity(), "runs": runs, "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"training_optimizers checks failed: {checks}")
     return rec
 
 
@@ -1340,14 +1786,33 @@ def main() -> int:
     phase_parity()
     phase_train_parity()
     training = phase_training()
+    optimizers = phase_training_optimizers()
     bf16 = phase_serving(kernels)
     phase_serving_int8(kernels, bf16)
     del bf16
     free_memory()
     phase_serving_starcoder2(kernels)
+    runs = optimizers["runs"]
+    launches = {**training["launches"],
+                "lion_step_": runs["lion_bf16"]["k7_launches"],
+                "lamb_update_": runs["lamb_bf16"]["k7_launches"],
+                **{name + "_fp16": n for name, n in
+                   runs["adamw_fp16"]["flash_fp16_launches"].items()}}
+    wrapper = {name: w for name, w, _, _ in K7_KERNELS}
+    # each K7 body's launches over the whole flat buffer on the training
+    # paths, against the plain version (phases 5 and 5b)
+    path_checks = {"adam_step_": {"training": training["k7_path_check"],
+                                  "adamw_fp16": runs["adamw_fp16"]["k7_path_check"]},
+                   "lion_step_": {"lion_bf16": runs["lion_bf16"]["k7_path_check"]},
+                   "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
     for k in kernels:
-        if k["name"] in training["launches"]:
-            k["launches"] = training["launches"][k["name"]]
+        key = wrapper.get(k["name"], k["name"])
+        if key in launches:
+            k["launches"] = launches[key]
+        if key in path_checks:
+            k["main_path"] = path_checks[key]
+            k["max_ulps"] = max([k["max_ulps"]] + [c["max_ulps"]
+                                                   for c in path_checks[key].values()])
     emit({"kernels": kernels})
     print(gpu_identity(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,10 @@ hand-written CUDA kernels, paged attention and RMSNorm, and its int8
 options (weight-only int8 through the blockwise quantizer and an int8 KV
 cache, ``linear/``); and Llama
 training (``initialize`` -> ``engine.forward/backward/step``,
-``train_batch``, ``eval_batch``) with ZeRO stage 0 on one device, carried by
-the flash-attention forward and backward kernels (``ops/``, ``csrc/``).
+``train_batch``, ``eval_batch``) with ZeRO stage 0 on one device, in bf16,
+fp16 (dynamic loss scaling) or fp32, carried by the flash-attention forward
+and backward kernels and the fused optimizer kernel over flat fp32 state
+(``ops/``, ``csrc/``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

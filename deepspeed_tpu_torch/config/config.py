@@ -6,10 +6,12 @@ Keys, as in the JAX package's JSON config: the batch triangle
 ``gradient_accumulation_steps``, resolved as ``config.py:236
 _configure_train_batch_size`` does for a world of one device),
 ``optimizer`` (``type``, ``params``), ``scheduler`` (``type``,
-``params``), ``bf16`` (``enabled``), ``gradient_clipping`` and
-``zero_optimization`` with ``stage`` 0. Any other key (``fp16``, ``mesh``,
-...), or one of these set to what the port does not run yet (ZeRO stage >
-0), raises: nothing is ignored silently.
+``params``), ``bf16`` (``enabled``), ``fp16`` (``feature_configs.py:137
+FP16Config``: dynamic or static loss scaling), ``gradient_clipping`` and
+``zero_optimization`` with ``stage`` 0. Any other key (``mesh``, ...), or
+one of these set to what the port does not run yet (ZeRO stage > 0, fp16
+``auto_cast`` or ``fp16_master_weights_and_grads``), raises: nothing is
+ignored silently.
 """
 
 import json
@@ -21,7 +23,7 @@ TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
 GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 
 _KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
-         GRADIENT_ACCUMULATION_STEPS, "optimizer", "scheduler", "bf16",
+         GRADIENT_ACCUMULATION_STEPS, "optimizer", "scheduler", "bf16", "fp16",
          "gradient_clipping", "zero_optimization"}
 
 
@@ -37,6 +39,28 @@ def _section(pd: Dict[str, Any], key: str, allowed) -> Dict[str, Any]:
     if extra:
         raise NotImplementedError(f"config {key}: keys {extra} are not ported yet")
     return sec
+
+
+class FP16Config:
+    """The ``fp16`` section with the JAX package's defaults and bounds
+    (``feature_configs.py:137``). ``loss_scale`` 0 means dynamic scaling
+    from ``2**initial_scale_power``."""
+
+    _DEFAULTS = {"enabled": False, "auto_cast": False, "loss_scale": 0.0,
+                 "initial_scale_power": 16, "loss_scale_window": 1000,
+                 "hysteresis": 2, "consecutive_hysteresis": False,
+                 "min_loss_scale": 1.0, "fp16_master_weights_and_grads": False}
+
+    def __init__(self, section: Dict[str, Any]):
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, type(default)(section.get(key, default)))
+        for key in ("loss_scale", "initial_scale_power", "loss_scale_window",
+                    "hysteresis", "min_loss_scale"):
+            if getattr(self, key) < 0:
+                raise DeepSpeedConfigError(f"fp16.{key} must be >= 0")
+        for key in ("auto_cast", "fp16_master_weights_and_grads"):
+            if getattr(self, key):
+                raise NotImplementedError(f"config fp16.{key} is not ported yet")
 
 
 class DeepSpeedTorchConfig:
@@ -70,6 +94,10 @@ class DeepSpeedTorchConfig:
         self.scheduler_params = dict(sched.get("params") or {})
 
         self.bf16_enabled = bool(_section(pd, "bf16", ("enabled", )).get("enabled", False))
+        self.fp16_config = FP16Config(_section(pd, "fp16", FP16Config._DEFAULTS))
+        self.fp16_enabled = self.fp16_config.enabled
+        if self.fp16_enabled and self.bf16_enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 modes cannot both be enabled")
         zero = _section(pd, "zero_optimization", ("stage", ))
         if int(zero.get("stage", 0)) != 0:
             raise NotImplementedError(

@@ -15,11 +15,14 @@
 //   dq = dS k, dk = dS^T q and dv = P^T dO, both summed over the G query
 //   heads of each KV head.
 //
-// Numerics: bf16 operands on mma.sync m16n8k16 with fp32 accumulation, the
-// softmax and its statistics in fp32. P (forward and dk/dv) and dS (dq and
-// dk/dv) are rounded to the input dtype before their products, as the
-// Pallas kernel does. An fp32 instantiation runs the same tiles on the CUDA
-// cores in fp32 (tests and fp32 parity runs; no tensor-core product is fp32).
+// Numerics: bf16 or fp16 operands on mma.sync m16n8k16 with fp32
+// accumulation, the softmax and its statistics in fp32. P (forward and
+// dk/dv) and dS (dq and dk/dv) are rounded to the input dtype before their
+// products, as the Pallas kernel does. The fp16 instance (fp16 training
+// under loss scaling) is the bf16 one with the f16 form of the product:
+// ldmatrix moves 16-bit elements either way. An fp32 instantiation runs the
+// same tiles on the CUDA cores in fp32 (tests and fp32 parity runs; no
+// tensor-core product is fp32).
 //
 // Bound on the H100: operations. At Llama-3-8B width (D 128, G 4) a key row
 // is reused by 64 query rows of a block, so a block does ~64 flops per byte
@@ -146,13 +149,22 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                  : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a b on the tensor cores, 16-bit operands of T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ void mma_16bit(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // C[16 x 8*N8] += A[16 x K] B for one warp. A is row-major in shared
@@ -162,7 +174,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // ISA): lane l holds rows l/4 and l/4+8, columns 2*(l%4) and 2*(l%4)+1 of
 // each 8-column tile.
 //
-// bf16: the A fragment (16 x 16) is one ldmatrix.x4: lanes 0-15 point at
+// bf16 and fp16: the A fragment (16 x 16) is one ldmatrix.x4: lanes 0-15 point at
 // rows 0-15 of column 0, lanes 16-31 at rows 0-15 of column 8. The B
 // fragments of two 8-column tiles are one more: for Bt, rows n..n+15 at
 // columns k and k+8; for B[k][n], the transposing load of rows k..k+15 at
@@ -200,8 +212,8 @@ __device__ __forceinline__ void warp_gemm(float (&c)[N8][4], const T* A, int lda
           ldmatrix_x4<false>(b, B + (n * 8 + r8 + hi) * ldb + k0 + mid);
         else
           ldmatrix_x4<true>(b, B + (k0 + r8 + mid) * ldb + n * 8 + hi);
-        mma_bf16(c[n], a, b[0], b[1]);
-        mma_bf16(c[n + 1], a, b[2], b[3]);
+        mma_16bit<T>(c[n], a, b[0], b[1]);
+        mma_16bit<T>(c[n + 1], a, b[2], b[3]);
       }
     }
   }
@@ -222,6 +234,10 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store2(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 // sum / max over the four lanes that share an accumulator row
@@ -628,6 +644,8 @@ inline int run(Pass pass, const Args& a, int dtype, void* stream) {
     case kBFloat16:
       return (int)(narrow ? launch<__nv_bfloat16, 64>(pass, a, s)
                           : launch<__nv_bfloat16, 128>(pass, a, s));
+    case kFloat16:
+      return (int)(narrow ? launch<__half, 64>(pass, a, s) : launch<__half, 128>(pass, a, s));
     default:
       return (int)cudaErrorInvalidValue;
   }

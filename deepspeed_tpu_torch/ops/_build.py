@@ -64,6 +64,17 @@ _SIGNATURES = {
     # stream
     "dstt_flash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _F, _I, _I, _P),
+    # p, g, m, v, n, lr, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
+    # weight decay, mode, p dtype, g dtype, stream
+    "dstt_adam_step": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                       _F, _I, _I, _I, _P),
+    # p, g, m, n, lr, b1, 1 - b1, b2, 1 - b2, weight decay, mode, p dtype,
+    # g dtype, stream
+    "dstt_lion_step": (_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
+    # g, m, v, u, n, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
+    # g dtype, stream
+    "dstt_lamb_update": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F,
+                         _I, _P),
 }
 
 _lock = threading.Lock()
@@ -163,7 +174,7 @@ def check(err: int, name: str) -> None:
 
 
 # kernel dtype codes (csrc/common.cuh)
-DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "float16": 3}
 
 
 def dtype_code(dtype) -> int:

@@ -161,8 +161,8 @@ def _check_cuda(name, tensors, q, k):
     if D > 128 or D % 8:
         raise ValueError(f"{name}: the kernel takes head_dim <= 128 and a "
                          f"multiple of 8, got {D}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"{name}: the kernel takes float32, bfloat16 or float16, "
                         f"got {q.dtype}")
     for t in tensors:
         if t.device != q.device:

@@ -1,0 +1,253 @@
+"""Fused optimizer steps over flat buffers (port of
+``deepspeed_tpu/ops/fused_optimizer.py``, K7: ``fused_adam_step :86``,
+``fused_lion_step :126``, ``fused_lamb_step :165``).
+
+Each function takes flat ``[N]`` buffers: params in any float dtype,
+grads in any float dtype, moments fp32; ``lr`` and ``step`` (the 1-based
+update count) are scalars. The functional forms keep the JAX signatures
+and defaults (LAMB's eps is 1e-6 there) and return new ``(params, m[,
+v])``. Beside them, the in-place forms the engine calls: ``adam_step_``
+(with ``l2=True`` the weight decay goes into the gradient before the
+moments, the engine's ``adam``), ``lion_step_`` and ``lamb_update_`` (LAMB's
+first pass; ``out`` may be the gradient buffer, which is dead by then),
+and ``lamb_apply_trust_``, the per-segment trust ratio and write that the
+JAX function computes outside Pallas (``:199-219``).
+
+The arithmetic is the Pallas body's, in the order it writes it: the bias
+corrections are ``1 - exp(step * log b)`` in fp32 (``:75-76``; optax and
+the jnp branch take ``1 - b**step``, which differs by ulps of ``b**step``:
+at step 1 and b 0.999 that is ~6e-5 of ``bc2``), and every quotient
+divides by a tensor (PyTorch's CUDA division by a Python scalar multiplies
+by the reciprocal), so on the card a kernel equals its plain version to
+the last bit of ``expf``. The in-place wrappers take the plain version
+(``*_reference``) for CPU tensors and launch ``csrc/fused_optimizer.cu``
+for CUDA tensors or raise; each counts its kernel launches in
+``.launches``.
+"""
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+ADAM_NO_DECAY, ADAM_DECOUPLED, ADAM_L2 = 0, 1, 2  # csrc/fused_optimizer.cu AdamMode
+
+
+def bias_correction(b: float, step, device) -> torch.Tensor:
+    """``1 - exp(step * log b)`` in fp32 on ``device``, with ``log b``
+    taken in double and rounded to fp32, as K7 computes it."""
+    t = torch.tensor([float(step), math.log(b)], dtype=torch.float32, device=device)
+    return 1 - torch.exp(t[0] * t[1])
+
+
+def adam_update_reference(p, g, m, v, lr, step, b1=0.9, b2=0.999, eps=1e-8,
+                          weight_decay=0.0, l2=False):
+    """Plain Adam/AdamW step (``:99-108``): new ``(p in p's dtype, m, v)``.
+    ``l2``: ``g + wd * p`` before the moments and no decoupled decay."""
+    pf, gf = p.float(), g.float()
+    if weight_decay and l2:
+        gf = gf + weight_decay * pf
+    m_n = b1 * m + (1 - b1) * gf
+    v_n = b2 * v + (1 - b2) * gf * gf
+    bc1 = bias_correction(b1, step, m.device)
+    bc2 = bias_correction(b2, step, m.device)
+    upd = (m_n / bc1) / (torch.sqrt(v_n / bc2) + eps)
+    if weight_decay and not l2:
+        upd = upd + weight_decay * pf
+    return (pf - float(lr) * upd).to(p.dtype), m_n, v_n
+
+
+def lion_update_reference(p, g, m, lr, b1=0.9, b2=0.99, weight_decay=0.0):
+    """Plain Lion step (``:140-145``): new ``(p in p's dtype, m)``."""
+    pf, gf = p.float(), g.float()
+    u = torch.sign(b1 * m + (1 - b1) * gf)
+    if weight_decay:
+        u = u + weight_decay * pf
+    return (pf - float(lr) * u).to(p.dtype), b2 * m + (1 - b2) * gf
+
+
+def lamb_update_reference(g, m, v, step, b1=0.9, b2=0.999, eps=1e-6):
+    """Plain LAMB first pass (``:191-197``): new ``(u, m, v)``, all fp32."""
+    gf = g.float()
+    m_n = b1 * m + (1 - b1) * gf
+    v_n = b2 * v + (1 - b2) * gf * gf
+    bc1 = bias_correction(b1, step, m.device)
+    bc2 = bias_correction(b2, step, m.device)
+    return (m_n / bc1) / (torch.sqrt(v_n / bc2) + eps), m_n, v_n
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name, tensors, fp32):
+    """``tensors``: the flat buffers of one call, ``fp32`` the ones that
+    must be fp32 (moments, LAMB's u)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n = tensors[0].numel()
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all buffers must be on one device")
+        if t.dim() != 1 or t.numel() != n:
+            raise ValueError(f"{name}: buffers must be flat [N] of one length, got "
+                             f"{[tuple(x.shape) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: buffers must be contiguous")
+        if t.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"{name}: the kernel takes float32, bfloat16 or "
+                            f"float16, got {t.dtype}")
+    for t in fp32:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: moments (and LAMB's u) must be float32, "
+                            f"got {t.dtype}")
+    return n
+
+
+def adam_step_(p, g, m, v, lr, step, b1=0.9, b2=0.999, eps=1e-8,
+               weight_decay=0.0, l2=False):
+    """One Adam/AdamW step in place on flat ``p``, ``m``, ``v``
+    (kernel ``dstt_adam_step``)."""
+    if p.device.type == "cpu":
+        for t, new in zip((p, m, v), adam_update_reference(
+                p, g, m, v, lr, step, b1, b2, eps, weight_decay, l2)):
+            t.copy_(new)
+        return p, m, v
+    n = _check_cuda("adam_step_", (p, g, m, v), (m, v))
+    mode = ADAM_NO_DECAY if not weight_decay else ADAM_L2 if l2 else ADAM_DECOUPLED
+    if n:
+        with torch.cuda.device(p.device):
+            err = _build.lib().dstt_adam_step(
+                p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), n, float(lr),
+                float(step), b1, 1 - b1, math.log(b1), b2, 1 - b2, math.log(b2), eps,
+                float(weight_decay), mode, _build.dtype_code(p.dtype),
+                _build.dtype_code(g.dtype), _stream(p))
+        _build.check(err, "adam_step_")
+        adam_step_.launches += 1
+    return p, m, v
+
+
+def lion_step_(p, g, m, lr, b1=0.9, b2=0.99, weight_decay=0.0):
+    """One Lion step in place on flat ``p``, ``m`` (kernel
+    ``dstt_lion_step``)."""
+    if p.device.type == "cpu":
+        for t, new in zip((p, m), lion_update_reference(p, g, m, lr, b1, b2,
+                                                         weight_decay)):
+            t.copy_(new)
+        return p, m
+    n = _check_cuda("lion_step_", (p, g, m), (m, ))
+    mode = ADAM_DECOUPLED if weight_decay else ADAM_NO_DECAY
+    if n:
+        with torch.cuda.device(p.device):
+            err = _build.lib().dstt_lion_step(
+                p.data_ptr(), g.data_ptr(), m.data_ptr(), n, float(lr), b1, 1 - b1,
+                b2, 1 - b2, float(weight_decay), mode, _build.dtype_code(p.dtype),
+                _build.dtype_code(g.dtype), _stream(p))
+        _build.check(err, "lion_step_")
+        lion_step_.launches += 1
+    return p, m
+
+
+def lamb_update_(g, m, v, step, b1=0.9, b2=0.999, eps=1e-6, out=None):
+    """LAMB's first pass in place on flat ``m``, ``v``; writes the update
+    into ``out`` (fp32; may be ``g`` itself) or a new buffer, and returns
+    it (kernel ``dstt_lamb_update``)."""
+    if out is None:
+        out = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    if g.device.type == "cpu":
+        u, m_n, v_n = lamb_update_reference(g, m, v, step, b1, b2, eps)
+        for t, new in ((m, m_n), (v, v_n), (out, u)):
+            t.copy_(new)
+        return out
+    n = _check_cuda("lamb_update_", (g, m, v, out), (m, v, out))
+    if n:
+        with torch.cuda.device(g.device):
+            err = _build.lib().dstt_lamb_update(
+                g.data_ptr(), m.data_ptr(), v.data_ptr(), out.data_ptr(), n,
+                float(step), b1, 1 - b1, math.log(b1), b2, 1 - b2, math.log(b2), eps,
+                _build.dtype_code(g.dtype), _stream(g))
+        _build.check(err, "lamb_update_")
+        lamb_update_.launches += 1
+    return out
+
+
+adam_step_.launches = 0
+lion_step_.launches = 0
+lamb_update_.launches = 0
+
+
+def segment_bounds(segments: Optional[Sequence[int]], n: int):
+    """JAX ``segments`` (boundary offsets ``(0, n1, ..., N)``; None or two
+    entries: the whole buffer) as ``[(start, end), ...]``."""
+    if segments is None or len(segments) <= 2:
+        return [(0, n)]
+    return list(zip(segments[:-1], segments[1:]))
+
+
+def lamb_apply_trust_(p, u, lr, weight_decay, bounds):
+    """The rest of the LAMB step (``:199-219``) in place, fp32 flat ``p``
+    and ``u``: ``u += wd * p``; per segment the trust ratio ``||p|| /
+    ||u||`` (1 where either norm is 0); ``p -= (lr * trust) * u``. ``u``
+    ends scaled. No temporary of the buffer's size."""
+    ps = [p[a:b] for a, b in bounds]
+    us = [u[a:b] for a, b in bounds]
+    if weight_decay:
+        torch._foreach_add_(us, ps, alpha=float(weight_decay))
+    pn = torch.stack(torch._foreach_norm(ps))
+    un = torch.stack(torch._foreach_norm(us))
+    trust = torch.where((pn > 0) & (un > 0), pn / un.clamp_min(1e-30),
+                        torch.ones_like(pn))
+    torch._foreach_mul_(us, list((float(lr) * trust).unbind()))
+    p.sub_(u)
+    return p
+
+
+def fused_adam_step(params, grads, m, v, lr, step, b1: float = 0.9,
+                    b2: float = 0.999, eps: float = 1e-8,
+                    weight_decay: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """One AdamW step over flat buffers ``[N]``. Returns new
+    ``(params, m, v)``; ``step`` is the 1-based step count."""
+    p, m_n, v_n = params.clone(), m.clone(), v.clone()
+    return adam_step_(p, grads, m_n, v_n, lr, step, b1, b2, eps, weight_decay)
+
+
+def fused_lion_step(params, grads, m, lr, b1: float = 0.9, b2: float = 0.99,
+                    weight_decay: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """One Lion step over flat buffers ``[N]`` (optax.lion semantics).
+    Returns new ``(params, m)``."""
+    p, m_n = params.clone(), m.clone()
+    return lion_step_(p, grads, m_n, lr, b1, b2, weight_decay)
+
+
+def _lamb_step(pass_fn, params, grads, m, v, lr, step, b1, b2, eps, weight_decay,
+               segments):
+    u, m_n, v_n = pass_fn(grads, m, v, step, b1, b2, eps)
+    pf = params.float().clone()
+    lamb_apply_trust_(pf, u, lr, weight_decay, segment_bounds(segments, pf.numel()))
+    return pf.to(params.dtype), m_n, v_n
+
+
+def _lamb_pass(g, m, v, step, b1, b2, eps):
+    m_n, v_n = m.clone(), v.clone()
+    return lamb_update_(g, m_n, v_n, step, b1, b2, eps), m_n, v_n
+
+
+def fused_lamb_step(params, grads, m, v, lr, step, b1: float = 0.9,
+                    b2: float = 0.999, eps: float = 1e-6, weight_decay: float = 0.0,
+                    segments: Optional[Tuple[int, ...]] = None) -> Tuple[torch.Tensor, ...]:
+    """One LAMB step over flat buffers ``[N]``: the first pass (K7), then
+    the trust ratio per segment (``segments``: boundary offsets ``(0, n1,
+    ..., N)``; default one segment). Returns new ``(params, m, v)``."""
+    return _lamb_step(_lamb_pass, params, grads, m, v, lr, step, b1, b2, eps,
+                      weight_decay, segments)
+
+
+def fused_lamb_step_reference(params, grads, m, v, lr, step, b1=0.9, b2=0.999,
+                              eps=1e-6, weight_decay=0.0, segments=None):
+    """:func:`fused_lamb_step` with the plain first pass on any device."""
+    return _lamb_step(lamb_update_reference, params, grads, m, v, lr, step, b1, b2,
+                      eps, weight_decay, segments)

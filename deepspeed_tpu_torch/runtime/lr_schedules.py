@@ -1,7 +1,9 @@
 """LR schedules (port of ``deepspeed_tpu/runtime/lr_schedules.py``:
-``WarmupLR :155``, ``WarmupDecayLR :190``, ``WarmupCosineLR :218`` and
-``get_lr_schedule :261``), with the reference's JSON param keys and its
-``step()``/``get_last_lr()``.
+``LRRangeTest :67``, ``OneCycle :93``, ``WarmupLR :155``, ``WarmupDecayLR
+:190``, ``WarmupCosineLR :218`` and ``get_lr_schedule :261``), with the
+reference's JSON param keys and its ``step()``/``get_last_lr()``.
+``OneCycle.get_mom`` reports the cycled momentum; as in the JAX engine,
+nothing feeds it into the optimizer.
 
 ``lr_at(step)`` is the learning rate of optimizer update ``step + 1``: the
 optimizer evaluates the schedule at its update count before that count
@@ -12,6 +14,8 @@ under log ``WarmupLR`` that is ``warmup_min_lr``.
 import math
 from typing import Optional
 
+LR_RANGE_TEST = "LRRangeTest"
+ONE_CYCLE = "OneCycle"
 WARMUP_LR = "WarmupLR"
 WARMUP_DECAY_LR = "WarmupDecayLR"
 WARMUP_COSINE_LR = "WarmupCosineLR"
@@ -40,6 +44,86 @@ class _LRScheduleBase:
             last_batch_iteration = self.last_batch_iteration + 1
         self.last_batch_iteration = last_batch_iteration
         self._last_lr = [self._lr(self.last_batch_iteration)]
+
+
+class LRRangeTest(_LRScheduleBase):
+    """LR range test: ``min_lr * (1 + count * step_rate)`` with ``count =
+    step / step_size``, floored when ``staircase``."""
+
+    def __init__(self, lr_range_test_min_lr: float = 1e-3,
+                 lr_range_test_step_size: int = 2000,
+                 lr_range_test_step_rate: float = 1.0,
+                 lr_range_test_staircase: bool = False,
+                 last_batch_iteration: int = -1):
+        super().__init__(last_batch_iteration)
+        if lr_range_test_min_lr <= 0:
+            raise ValueError(f"LR range test minimum lr={lr_range_test_min_lr}, must be > 0")
+        self.min_lr = lr_range_test_min_lr
+        self.step_size = lr_range_test_step_size
+        self.step_rate = lr_range_test_step_rate
+        self.staircase = lr_range_test_staircase
+
+    def _lr(self, step):
+        count = step / self.step_size
+        if self.staircase:
+            count = math.floor(count)
+        return self.min_lr * (1 + count * self.step_rate)
+
+
+class OneCycle(_LRScheduleBase):
+    """1-cycle policy: up from ``cycle_min_lr`` to ``cycle_max_lr`` over
+    the first step size, back down over the second, then decay
+    ``cycle_min_lr / (1 + count * decay_lr_rate)`` (count floored to
+    ``decay_step_size`` steps when that is > 0). The stair counts are
+    accepted and unused, as in the JAX schedule."""
+
+    def __init__(self, cycle_min_lr: float = 1e-4, cycle_max_lr: float = 1e-3,
+                 decay_lr_rate: float = 0.0, cycle_first_step_size: int = 2000,
+                 cycle_second_step_size: Optional[int] = None,
+                 cycle_first_stair_count: int = 0,
+                 cycle_second_stair_count: Optional[int] = None,
+                 decay_step_size: int = 0, cycle_momentum: bool = True,
+                 cycle_min_mom: float = 0.8, cycle_max_mom: float = 0.9,
+                 decay_mom_rate: float = 0.0, last_batch_iteration: int = -1):
+        super().__init__(last_batch_iteration)
+        self.cycle_min_lr = cycle_min_lr
+        self.cycle_max_lr = cycle_max_lr
+        self.decay_lr_rate = decay_lr_rate
+        self.first_step_size = cycle_first_step_size
+        self.second_step_size = cycle_second_step_size or cycle_first_step_size
+        self.decay_step_size = decay_step_size
+        self.total_cycle_size = self.first_step_size + self.second_step_size
+        self.cycle_momentum = cycle_momentum
+        self.cycle_min_mom = cycle_min_mom
+        self.cycle_max_mom = cycle_max_mom
+        self.decay_mom_rate = decay_mom_rate
+
+    def _lr(self, step):
+        span = self.cycle_max_lr - self.cycle_min_lr
+        if step < self.first_step_size:
+            frac = min(max(step / max(self.first_step_size, 1), 0.0), 1.0)
+            return self.cycle_min_lr + span * frac
+        if step < self.total_cycle_size:
+            frac = min(max((step - self.first_step_size) / max(self.second_step_size, 1),
+                           0.0), 1.0)
+            return self.cycle_max_lr - span * frac
+        decay = max(step - self.total_cycle_size, 0.0)
+        if self.decay_step_size > 0:
+            decay = math.floor(decay / self.decay_step_size)
+        return self.cycle_min_lr / (1.0 + decay * self.decay_lr_rate)
+
+    def get_mom(self):
+        """The cycled momentum at the current iteration (a report only)."""
+        if not self.cycle_momentum:
+            return None
+        step = max(self.last_batch_iteration, 0)
+        span = self.cycle_max_mom - self.cycle_min_mom
+        if step < self.first_step_size:
+            return self.cycle_max_mom - span * (step / max(self.first_step_size, 1))
+        if step < self.total_cycle_size:
+            return self.cycle_min_mom + span * ((step - self.first_step_size)
+                                                / max(self.second_step_size, 1))
+        return self.cycle_max_mom
 
 
 class WarmupLR(_LRScheduleBase):
@@ -112,6 +196,8 @@ class WarmupCosineLR(_LRScheduleBase):
 
 
 SCHEDULE_CLASSES = {
+    LR_RANGE_TEST: LRRangeTest,
+    ONE_CYCLE: OneCycle,
     WARMUP_LR: WarmupLR,
     WARMUP_DECAY_LR: WarmupDecayLR,
     WARMUP_COSINE_LR: WarmupCosineLR,
@@ -119,8 +205,7 @@ SCHEDULE_CLASSES = {
 
 
 def get_lr_schedule(name: str, params: dict, base_lr: Optional[float] = None):
-    """The schedule named by the config's ``scheduler.type``. The JAX
-    package's ``LRRangeTest`` and ``OneCycle`` are not ported yet."""
+    """The schedule named by the config's ``scheduler.type``."""
     if name not in SCHEDULE_CLASSES:
         raise NotImplementedError(
             f"LR schedule {name!r} is not ported; the port has "

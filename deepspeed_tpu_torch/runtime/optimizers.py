@@ -1,82 +1,199 @@
 """Optimizer construction from config (port of
-``deepspeed_tpu/runtime/optimizers.py:37 build_optimizer``) for Adam and
-AdamW, with optax's semantics, which the JAX engine runs:
+``deepspeed_tpu/runtime/optimizers.py:37 build_optimizer``) over ONE flat
+fp32 master buffer, with the optax semantics the JAX engine runs:
 
-- ``adamw``: ``optax.adamw`` decays every parameter (no mask):
-  ``u = m_hat / (sqrt(v_hat) + eps) + wd * p`` and ``p -= lr * u``;
-- ``adam``: ``optax.adam``; with ``weight_decay``, torch-Adam's L2 form,
-  ``g += wd * p`` before the moments (the JAX chain
-  ``add_decayed_weights -> scale_by_adam -> scale_by_learning_rate``).
+- ``adam``: ``optax.adam``; with ``weight_decay``, L2 into the gradient
+  before the moments (``add_decayed_weights -> scale_by_adam``, ``:55-61``);
+- ``adamw``: ``optax.adamw``, decoupled decay of every parameter:
+  ``u = m_hat / (sqrt(v_hat) + eps) + wd * p``;
+- ``lamb``: ``optax.lamb``: the AdamW update scaled per parameter by the
+  trust ratio ``||p|| / ||u||`` (1 where either is 0); eps from the config
+  (default 1e-8, not ``fused_lamb_step``'s 1e-6);
+- ``lion``: ``optax.lion``, ``u = sign(b1 m + (1 - b1) g) + wd * p`` and
+  ``m = b2 m + (1 - b2) g``; betas default to (0.9, 0.99) (``:48-49``);
+- ``sgd``: ``add_decayed_weights -> optax.sgd(momentum, nesterov)``: the
+  trace ``t = g + momentum * t`` and ``u = g + momentum * t`` (nesterov)
+  or ``t``; plain ``u = g`` without momentum;
+- ``adagrad``: ``optax.adagrad(lr, eps)``: ``s = g^2 + s`` from 0.1,
+  ``u = g * rsqrt(s + eps)`` (0 where s is 0); no weight decay. This is not
+  ``torch.optim.Adagrad``.
 
-Moments ``m = b1 m + (1 - b1) g`` and ``v = b2 v + (1 - b2) g^2`` and the
-bias corrections ``1 - b^t`` at update count ``t`` (1 for the first
-update). The learning rate of update ``t`` is ``lr_fn(t - 1)`` when a
-schedule is given (optax reads the count before it increments), else the
-constant ``lr``. The update is ``torch.optim.Adam``/``AdamW`` with
-``fused=True``: one pass over each master, its gradient and moments, in
-place. Its AdamW decays first, ``p *= 1 - lr * wd``, then subtracts
-``lr * m_hat / (sqrt(v_hat) + eps)``: optax's update, rounded at other
-points. Other optimizer names raise.
+Every update is ``p -= lr * u`` at update count ``t`` (1 for the first),
+with Adam's bias corrections at ``t`` and the learning rate ``lr_fn(t -
+1)`` when a schedule is given (optax reads the count before it
+increments), else the constant ``lr``. adam, adamw, lion and lamb run one
+K7 pass over the whole flat buffer (``ops/fused_optimizer.py``); LAMB
+writes its update into the gradient buffer, which is dead by then, and
+applies the trust ratio in PyTorch. sgd and adagrad are a few PyTorch
+ops. muP and the 1-bit optimizers raise ``NotImplementedError`` (they need
+the comm layer); so does any other name.
 """
 
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops.fused_optimizer import (adam_step_, lamb_apply_trust_, lamb_update_,
+                                   lion_step_)
+
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
+LION_OPTIMIZER = "lion"
+SGD_OPTIMIZER = "sgd"
+ADAGRAD_OPTIMIZER = "adagrad"
+MU_OPTIMIZERS = ("muadam", "muadamw", "musgd")
+ONEBIT_OPTIMIZERS = ("onebitadam", "zerooneadam", "onebitlamb")
 ADAM_DEFAULT_BETAS = (0.9, 0.999)
+LION_DEFAULT_BETAS = (0.9, 0.99)
+ADAGRAD_INITIAL_ACCUMULATOR = 0.1
+_COMMON_KEYS = {"lr", "betas", "eps", "weight_decay"}
 
 
-class ScheduledAdam:
-    """Adam/AdamW over a list of fp32 master tensors, the learning rate of
-    each update read from ``lr_fn`` at the update count."""
+class FlatOptimizer:
+    """An optimizer over the flat fp32 buffer ``params``; ``bounds`` are
+    the ``(start, end)`` of each parameter in it (LAMB's trust ratio is
+    per parameter). Subclasses define ``_update(grads, lr, count)`` and
+    keep their state as flat fp32 buffers in ``self.state``."""
 
-    def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-3,
-                 betas=ADAM_DEFAULT_BETAS, eps: float = 1e-8,
-                 weight_decay: float = 0.0, decoupled: bool = True,
-                 lr_fn: Optional[Callable[[int], float]] = None):
-        self.params = list(params)
+    def __init__(self, params: torch.Tensor, bounds: Sequence[Tuple[int, int]],
+                 lr: float, lr_fn: Optional[Callable[[int], float]]):
+        if params.dtype != torch.float32 or params.dim() != 1:
+            raise ValueError("the optimizer takes one flat fp32 master buffer")
+        self.params = params
+        self.bounds = list(bounds)
         self.lr = float(lr)
         self.lr_fn = lr_fn
         self.count = 0
-        cls = torch.optim.AdamW if decoupled else torch.optim.Adam
-        self.torch_optimizer = cls(self.params, lr=self.lr, betas=tuple(betas),
-                                   eps=float(eps), weight_decay=float(weight_decay),
-                                   fused=True)
+        self.state: Dict[str, torch.Tensor] = {}
+
+    def _zeros(self):
+        return torch.zeros_like(self.params)
 
     def current_lr(self) -> float:
         """The learning rate the next update uses."""
         return float(self.lr_fn(self.count)) if self.lr_fn is not None else self.lr
 
     @torch.no_grad()
-    def step(self, grads):
-        """One update of every parameter from ``grads`` (fp32, same order)."""
-        self.torch_optimizer.param_groups[0]["lr"] = self.current_lr()
+    def step(self, grads: torch.Tensor) -> None:
+        """One update of the masters from the flat fp32 ``grads`` (which
+        the update may overwrite)."""
+        lr = self.current_lr()
         self.count += 1
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.torch_optimizer.step()
-        for p in self.params:
-            p.grad = None
+        self._update(grads, lr, self.count)
+
+    def _update(self, grads, lr, count):
+        raise NotImplementedError
 
 
-def build_optimizer(name: Optional[str], params: Iterable[torch.Tensor],
+class Adam(FlatOptimizer):
+    """Adam (``l2``: weight decay into the gradient) or AdamW: one K7 pass."""
+
+    def __init__(self, params, bounds, lr, lr_fn, betas, eps, weight_decay, l2):
+        super().__init__(params, bounds, lr, lr_fn)
+        self.betas, self.eps, self.weight_decay, self.l2 = tuple(betas), eps, weight_decay, l2
+        self.state = {"m": self._zeros(), "v": self._zeros()}
+
+    def _update(self, grads, lr, count):
+        adam_step_(self.params, grads, self.state["m"], self.state["v"], lr, count,
+                   *self.betas, self.eps, self.weight_decay, l2=self.l2)
+
+
+class Lion(FlatOptimizer):
+    """Lion: one K7 pass."""
+
+    def __init__(self, params, bounds, lr, lr_fn, betas, weight_decay):
+        super().__init__(params, bounds, lr, lr_fn)
+        self.betas, self.weight_decay = tuple(betas), weight_decay
+        self.state = {"m": self._zeros()}
+
+    def _update(self, grads, lr, count):
+        lion_step_(self.params, grads, self.state["m"], lr, *self.betas, self.weight_decay)
+
+
+class Lamb(FlatOptimizer):
+    """LAMB: K7's first pass writes the update over ``grads``, then the
+    per-parameter trust ratio and the write of the masters."""
+
+    def __init__(self, params, bounds, lr, lr_fn, betas, eps, weight_decay):
+        super().__init__(params, bounds, lr, lr_fn)
+        self.betas, self.eps, self.weight_decay = tuple(betas), eps, weight_decay
+        self.state = {"m": self._zeros(), "v": self._zeros()}
+
+    def _update(self, grads, lr, count):
+        u = lamb_update_(grads, self.state["m"], self.state["v"], count, *self.betas,
+                         self.eps, out=grads)
+        lamb_apply_trust_(self.params, u, lr, self.weight_decay, self.bounds)
+
+
+class SGD(FlatOptimizer):
+    """SGD with optional (nesterov) momentum and L2 weight decay."""
+
+    def __init__(self, params, bounds, lr, lr_fn, momentum, nesterov, weight_decay):
+        super().__init__(params, bounds, lr, lr_fn)
+        self.momentum, self.nesterov, self.weight_decay = momentum, nesterov, weight_decay
+        if momentum:
+            self.state = {"trace": self._zeros()}
+
+    def _update(self, grads, lr, count):
+        u = grads + self.weight_decay * self.params if self.weight_decay else grads
+        if self.momentum:
+            trace = self.state["trace"].mul_(self.momentum).add_(u)
+            u = u + self.momentum * trace if self.nesterov else trace
+        self.params.sub_(lr * u)
+
+
+class Adagrad(FlatOptimizer):
+    """optax's adagrad: accumulators from 0.1, ``g * rsqrt(s + eps)``."""
+
+    def __init__(self, params, bounds, lr, lr_fn, eps):
+        super().__init__(params, bounds, lr, lr_fn)
+        self.eps = eps
+        self.state = {"sum_of_squares": torch.full_like(params, ADAGRAD_INITIAL_ACCUMULATOR)}
+
+    def _update(self, grads, lr, count):
+        s = self.state["sum_of_squares"].add_(grads * grads)
+        inv = torch.where(s > 0, torch.rsqrt(s + self.eps), torch.zeros_like(s))
+        self.params.sub_(lr * (inv * grads))
+
+
+def build_optimizer(name: Optional[str], params: torch.Tensor,
                     opt_params: Optional[Dict] = None,
-                    lr_fn: Optional[Callable[[int], float]] = None) -> ScheduledAdam:
+                    lr_fn: Optional[Callable[[int], float]] = None,
+                    bounds: Optional[Sequence[Tuple[int, int]]] = None) -> FlatOptimizer:
     """The optimizer for config ``optimizer.type`` (default ``adamw``)
-    over the fp32 masters ``params``; ``opt_params`` takes ``lr``,
-    ``betas``, ``eps`` and ``weight_decay``."""
+    over the flat fp32 master buffer ``params``; ``bounds``: each
+    parameter's ``(start, end)`` in it (default: one parameter).
+    ``opt_params`` takes ``lr``, ``betas``, ``eps`` and ``weight_decay``,
+    and for sgd ``momentum`` and ``nesterov``."""
     opt_params = dict(opt_params or {})
     name = (name or ADAMW_OPTIMIZER).lower()
-    if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported; the port has adam and adamw")
-    extra = sorted(set(opt_params) - {"lr", "betas", "eps", "weight_decay"})
+    if name in MU_OPTIMIZERS or name in ONEBIT_OPTIMIZERS:
+        raise NotImplementedError(f"optimizer {name!r} is not ported yet: it needs "
+                                  "the comm layer (muP widths, compressed allreduce)")
+    allowed = _COMMON_KEYS | ({"momentum", "nesterov"} if name == SGD_OPTIMIZER else set())
+    extra = sorted(set(opt_params) - allowed)
     if extra:
         raise NotImplementedError(f"optimizer params {extra} are not ported yet")
-    return ScheduledAdam(params, lr=float(opt_params.get("lr", 1e-3)),
-                         betas=opt_params.get("betas", ADAM_DEFAULT_BETAS),
-                         eps=float(opt_params.get("eps", 1e-8)),
-                         weight_decay=float(opt_params.get("weight_decay", 0.0)),
-                         decoupled=name == ADAMW_OPTIMIZER, lr_fn=lr_fn)
+    bounds = bounds if bounds is not None else [(0, params.numel())]
+    lr = float(opt_params.get("lr", 1e-3))
+    user_betas = opt_params.get("betas")
+    betas = tuple(user_betas) if user_betas is not None else ADAM_DEFAULT_BETAS
+    eps = float(opt_params.get("eps", 1e-8))
+    wd = float(opt_params.get("weight_decay", 0.0))
+    common = (params, bounds, lr, lr_fn)
+    if name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
+        return Adam(*common, betas, eps, wd, l2=name == ADAM_OPTIMIZER)
+    if name == LAMB_OPTIMIZER:
+        return Lamb(*common, betas, eps, wd)
+    if name == LION_OPTIMIZER:
+        return Lion(*common, tuple(user_betas) if user_betas is not None
+                    else LION_DEFAULT_BETAS, wd)
+    if name == SGD_OPTIMIZER:
+        return SGD(*common, float(opt_params.get("momentum", 0.0)),
+                   bool(opt_params.get("nesterov", False)), wd)
+    if name == ADAGRAD_OPTIMIZER:
+        return Adagrad(*common, eps)
+    raise NotImplementedError(
+        f"optimizer {name!r} is not ported; the port has adam, adamw, lamb, lion, "
+        "sgd and adagrad")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.inference.v2.model import quantize_kv
+from deepspeed_tpu_torch.ops import fused_optimizer as fo
 from deepspeed_tpu_torch.ops.attention import (
     attention_delta, flash_attention, flash_attention_bwd_dkdv,
     flash_attention_bwd_dq, flash_attention_bwd_reference, flash_attention_fwd,
@@ -425,6 +426,8 @@ FLASH = {
     "bf16_8b_main": (2, 2048, 32, 8, 128, True, torch.bfloat16),
     "bf16_8b_s1000": (1, 1000, 32, 8, 128, True, torch.bfloat16),
     "bf16_8b_full": (1, 1000, 32, 8, 128, False, torch.bfloat16),
+    "fp16_small": (2, 100, 4, 2, 32, True, torch.float16),
+    "fp16_8b_main": (2, 2048, 32, 8, 128, True, torch.float16),
 }
 
 
@@ -435,7 +438,8 @@ FLASH = {
 # rounds P before dividing by the row sum): a few roundings of 2^-8 (bf16's
 # unit roundoff) each; at the main shape the largest reading is 5.4e-3 and
 # one bf16 rounding of the exact value gives 2.3e-3 (chip_smoke.py)
-ROW_TOL = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -6}
+# fp16: the same roundings at fp16's unit roundoff, 2^-11: 2^-8
+ROW_TOL = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -8}
 # A row whose exact value cancels to ~0 (dq of a query that sees only its
 # own key) carries the fp32 noise of that cancellation, 1.4e-6 of the RMS
 # row norm on the H100: every row is allowed 2^-16 of the RMS row norm
@@ -507,7 +511,7 @@ def test_flash_autograd_launches_all_three_kernels(cuda_device):
 def test_flash_refuses_what_the_kernel_does_not_take(cuda_device):
     q, k, v, do, causal, _ = _flash_inputs("g1_causal", cuda_device)
     with pytest.raises(TypeError):
-        flash_attention_fwd(q.half(), k.half(), v.half(), causal)
+        flash_attention_fwd(q.double(), k.double(), v.double(), causal)
     with pytest.raises(ValueError):  # head_dim not a multiple of 8
         flash_attention_fwd(q[..., :12].contiguous(), k[..., :12].contiguous(),
                             v[..., :12].contiguous(), causal)
@@ -516,6 +520,128 @@ def test_flash_refuses_what_the_kernel_does_not_take(cuda_device):
     o, lse = flash_attention_fwd(q, k, v, causal)
     with pytest.raises(ValueError):  # lse must be fp32 [B, S, H]
         flash_attention_bwd_dq(q, k, v, do, lse.double(), lse, causal)
+
+
+# ---- K7 fused optimizers (adam/adamw/L2, lion, lamb's first pass) ----
+
+def ulp_distance(x, ref):
+    """The largest distance in units in the last place between same-dtype
+    float tensors (fp32, or the 16-bit types), both signs ordered on one
+    integer line."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}[ref.dtype]
+    bits = torch.iinfo(ints).bits
+
+    def key(t):
+        i = t.contiguous().view(ints).long()
+        return torch.where(i >= 0, i, -(1 << (bits - 1)) - i)
+
+    return (key(x) - key(ref)).abs().max().item()
+
+
+# (n, params dtype, grads dtype, offset): offset 1 takes a view one element
+# into the buffers (not 16-byte aligned: the scalar path over everything)
+K7_CASES = {
+    "fp32_ragged": (12391, torch.float32, torch.float32, 0),
+    "fp32_1m": (1 << 20, torch.float32, torch.float32, 0),
+    "fp32_unaligned_view": (4099, torch.float32, torch.float32, 1),
+    "bf16_params": (12391, torch.bfloat16, torch.float32, 0),
+    "bf16_grads": (12388, torch.float32, torch.bfloat16, 0),
+    "fp16_grads": (12388, torch.float32, torch.float16, 0),
+}
+# at most 2 ulps: the plain version repeats the kernel's roundings in its
+# order, so they differ by at most the last bit of expf in the bias
+# corrections (the same libdevice function on both sides)
+K7_ULPS = 2
+
+
+def _k7_inputs(case, device):
+    n, p_dt, g_dt, off = K7_CASES[case]
+    rng = np.random.default_rng(sorted(K7_CASES).index(case))
+
+    def buf(a, dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype)[off:]
+
+    size = n + off
+    p = buf(0.02 * rng.normal(size=size), p_dt)
+    g = buf(1e-3 * rng.normal(size=size), g_dt)
+    m = buf(1e-4 * rng.normal(size=size), torch.float32)
+    v = buf(1e-8 * rng.random(size=size), torch.float32)
+    g[:5] = 0  # sign(0) = 0 for lion; u = 0 for adam's fresh moments
+    m[:5] = 0
+    v[:5] = 0
+    return p, g, m, v
+
+
+@pytest.mark.parametrize("mode", ["adam", "adamw", "adam_l2"])
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_fused_adam_kernel_matches_plain(case, mode, cuda_device):
+    p, g, m, v = _k7_inputs(case, cuda_device)
+    wd = 0.0 if mode == "adam" else 0.01
+    for step in (1, 7):
+        ref = fo.adam_update_reference(p, g, m, v, 1e-3, step, weight_decay=wd,
+                                       l2=mode == "adam_l2")
+        got = [t.clone() for t in (p, m, v)]
+        before = fo.adam_step_.launches
+        fo.adam_step_(got[0], g, got[1], got[2], 1e-3, step, weight_decay=wd,
+                      l2=mode == "adam_l2")
+        torch.cuda.synchronize()
+        assert fo.adam_step_.launches == before + 1
+        for name, x, r in zip("pmv", got, ref):
+            assert ulp_distance(x, r) <= K7_ULPS, (name, step)
+        p, m, v = got
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_fused_lion_kernel_matches_plain(case, wd, cuda_device):
+    p, g, m, _ = _k7_inputs(case, cuda_device)
+    ref = fo.lion_update_reference(p, g, m, 1e-4, weight_decay=wd)
+    got = fo.fused_lion_step(p, g, m, 1e-4, weight_decay=wd)
+    torch.cuda.synchronize()
+    for name, x, r in zip("pm", got, ref):
+        assert ulp_distance(x, r) <= K7_ULPS, name
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_fused_lamb_kernel_matches_plain(case, cuda_device):
+    p, g, m, v = _k7_inputs(case, cuda_device)
+    before = fo.lamb_update_.launches
+    u, m_k, v_k = fo._lamb_pass(g, m, v, 3, 0.9, 0.999, 1e-6)
+    assert fo.lamb_update_.launches == before + 1
+    ref = fo.lamb_update_reference(g, m, v, 3)
+    torch.cuda.synchronize()
+    for name, x, r in zip("umv", (u, m_k, v_k), ref):
+        assert ulp_distance(x, r) <= K7_ULPS, name
+    # the whole step, trust ratio per segment included
+    n = p.numel()
+    segs = (0, n // 3, n // 2, n)
+    got = fo.fused_lamb_step(p, g, m, v, 1e-3, 3, weight_decay=0.01, segments=segs)
+    ref = fo.fused_lamb_step_reference(p, g, m, v, 1e-3, 3, weight_decay=0.01,
+                                       segments=segs)
+    for name, x, r in zip("pmv", got, ref):
+        assert ulp_distance(x, r) <= K7_ULPS, name
+
+
+def test_lamb_update_in_place_over_the_gradient(cuda_device):
+    p, g, m, v = _k7_inputs("fp32_ragged", cuda_device)
+    ref = fo.lamb_update_reference(g, m, v, 2)
+    u = fo.lamb_update_(g, m, v, 2, out=g)
+    assert u is g
+    for x, r in zip((g, m, v), ref):
+        assert ulp_distance(x, r) <= K7_ULPS
+
+
+def test_fused_optimizer_refuses_what_the_kernel_does_not_take(cuda_device):
+    p, g, m, v = _k7_inputs("fp32_ragged", cuda_device)
+    with pytest.raises(TypeError):  # moments must be fp32
+        fo.adam_step_(p, g, m.bfloat16(), v, 1e-3, 1)
+    with pytest.raises(ValueError):  # one length
+        fo.lion_step_(p, g[:-1], m, 1e-3)
+    with pytest.raises(ValueError):  # flat buffers
+        fo.adam_step_(p.view(-1, 1), g.view(-1, 1), m.view(-1, 1), v.view(-1, 1), 1e-3, 1)
+    with pytest.raises(ValueError):  # one device
+        fo.lamb_update_(g, m.cpu(), v, 1)
 
 
 # ---- the whole engine, tiny config: GPU kernels vs CPU plain path ----
@@ -603,3 +729,41 @@ def test_training_engine_gpu_matches_cpu(cuda_device):
 
 
 MAX_FLIPPED = 4
+
+
+@pytest.mark.parametrize("optimizer", [
+    {"type": "Adam", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+    {"type": "Lion", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+], ids=["adam_l2", "lion", "lamb"])
+def test_training_engine_optimizers_gpu_match_cpu(optimizer, cuda_device):
+    """The engine's K7 step on the card against the plain version on the
+    CPU, 3 steps on the same weights and batches: one launch per step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.tiny(dtype=torch.float32, num_key_value_heads=2)
+    config = {"train_batch_size": 2, "optimizer": optimizer, "gradient_clipping": 1.0}
+    rng = np.random.default_rng(1)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 70))) for _ in range(3)]
+    kernel = {"Adam": fo.adam_step_, "Lion": fo.lion_step_,
+              "Lamb": fo.lamb_update_}[optimizer["type"]]
+    runs = []
+    for device in ("cpu", cuda_device):
+        model = init_llama_for_causal_lm(cfg, seed=3, device="cpu")
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device=device)
+        before = kernel.launches
+        for ids in batches:
+            engine.backward(engine.forward(ids, labels=ids))
+            engine.step()
+        assert kernel.launches - before == (3 if device != "cpu" else 0)
+        runs.append({n: m.cpu() for n, m in engine.master_params().items()})
+    # as test_training_engine_gpu_matches_cpu: 5% of a step, at most
+    # MAX_FLIPPED elements beyond it, none beyond the path of both sides
+    lr = optimizer["params"]["lr"]
+    n_off = 0
+    for name in runs[0]:
+        diff = (runs[1][name] - runs[0][name]).abs()
+        assert diff.max().item() <= 2 * 3 * lr, name
+        n_off += int((diff > 0.05 * lr).sum())
+    assert n_off <= MAX_FLIPPED, f"{n_off} elements off"

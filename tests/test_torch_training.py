@@ -78,6 +78,19 @@ SCHEDULES = {
                                            warmup_num_steps=4)),
     "warmup_cosine": ("WarmupCosineLR", dict(total_num_steps=12, warmup_num_steps=3,
                                              warmup_min_ratio=0.1)),
+    "range_test": ("LRRangeTest", dict(lr_range_test_min_lr=1e-3, lr_range_test_step_size=4,
+                                       lr_range_test_step_rate=0.5)),
+    "range_test_staircase": ("LRRangeTest", dict(lr_range_test_min_lr=1e-3,
+                                                 lr_range_test_step_size=4,
+                                                 lr_range_test_step_rate=0.5,
+                                                 lr_range_test_staircase=True)),
+    # up over 4 steps, down over 3, then decay every step / every 2 steps
+    "one_cycle": ("OneCycle", dict(cycle_min_lr=1e-4, cycle_max_lr=1e-3,
+                                   cycle_first_step_size=4, cycle_second_step_size=3,
+                                   decay_lr_rate=0.1)),
+    "one_cycle_staircase": ("OneCycle", dict(cycle_min_lr=1e-4, cycle_max_lr=1e-3,
+                                             cycle_first_step_size=5, decay_lr_rate=0.2,
+                                             decay_step_size=2, cycle_first_stair_count=2)),
 }
 
 
@@ -91,10 +104,35 @@ def test_lr_schedules_match_jax(case):
         np.testing.assert_allclose(got.lr_at(step), float(ref.lr_at(step)),
                                    rtol=1e-6, atol=1e-12, err_msg=f"step {step}")
     assert got.lr_at(0) == params.get("warmup_min_lr", got.lr_at(0))
+    if name == "OneCycle":  # the cycled momentum, reported after each step
+        for step in range(15):
+            ref.step()
+            got.step()
+            np.testing.assert_allclose(got.get_mom(), ref.get_mom(), rtol=1e-12)
 
 
-@pytest.mark.parametrize("name,wd", [("adamw", 0.1), ("adam", 0.0), ("adam", 0.05)])
-def test_optimizer_updates_match_optax(name, wd):
+# optimizer, params beyond the common lr 1e-2, betas (0.8, 0.95), eps 1e-6
+OPTIMIZER_CASES = {
+    "adamw-0.1": ("adamw", {"weight_decay": 0.1}),
+    "adam-0.0": ("adam", {"weight_decay": 0.0}),
+    "adam-0.05": ("adam", {"weight_decay": 0.05}),
+    "lamb-0.01": ("lamb", {"weight_decay": 0.01}),
+    "lamb-0.0": ("lamb", {}),
+    "lion-0.05": ("lion", {"weight_decay": 0.05}),
+    "lion-default_betas": ("lion", {"betas": None}),
+    "sgd-momentum": ("sgd", {"weight_decay": 0.01, "momentum": 0.9}),
+    "sgd-nesterov": ("sgd", {"momentum": 0.9, "nesterov": True}),
+    "sgd-plain": ("sgd", {"weight_decay": 0.01}),
+    "adagrad": ("adagrad", {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTIMIZER_CASES))
+def test_optimizer_updates_match_optax(case):
+    """The port's optimizer over one flat buffer (two parameters) against
+    the JAX package's optax transform on a dict of the same two leaves,
+    three updates under a WarmupLR schedule."""
+    name, extra = OPTIMIZER_CASES[case]
     rng = np.random.default_rng(3)
     shapes = {"a": (4, 5), "b": (7, )}
     params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
@@ -103,22 +141,28 @@ def test_optimizer_updates_match_optax(name, wd):
     sched = jax_sched.get_lr_schedule("WarmupLR", dict(warmup_min_lr=1e-3,
                                                        warmup_max_lr=1e-2,
                                                        warmup_num_steps=3))
-    opt_params = {"lr": 1e-2, "weight_decay": wd, "betas": (0.8, 0.95), "eps": 1e-6}
+    opt_params = {"lr": 1e-2, "betas": (0.8, 0.95), "eps": 1e-6, **extra}
+    opt_params = {k: v for k, v in opt_params.items() if v is not None}
     tx, _ = jax_build_optimizer(name, opt_params, lr_fn=sched.lr_at)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
-    masters = [torch.from_numpy(params[k].copy()) for k in shapes]
-    opt = build_optimizer(name, masters, opt_params,
+    flat = torch.from_numpy(np.concatenate([params[k].ravel() for k in shapes]))
+    bounds = [(0, 20), (20, 27)]
+    opt = build_optimizer(name, flat, opt_params,
                           lr_fn=lr_schedules.get_lr_schedule(
                               "WarmupLR", dict(warmup_min_lr=1e-3, warmup_max_lr=1e-2,
-                                               warmup_num_steps=3)).lr_at)
+                                               warmup_num_steps=3)).lr_at,
+                          bounds=bounds)
     for g in grads:
         upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
         jp = optax.apply_updates(jp, upd)
-        opt.step([torch.from_numpy(g[k]) for k in shapes])
-    for k, m in zip(shapes, masters):
-        # fp32: the same elementwise formula, rounded at other points
-        np.testing.assert_allclose(m.numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
+        opt.step(torch.from_numpy(np.concatenate([g[k].ravel() for k in shapes])))
+    assert opt.count == 3
+    for k, (a, b) in zip(shapes, bounds):
+        # fp32: the same elementwise formula, rounded at other points (K7's
+        # bias corrections 1 - exp(t log b) against optax's 1 - b**t)
+        np.testing.assert_allclose(flat[a:b].numpy(), np.asarray(jp[k]).ravel(),
+                                   rtol=1e-6, atol=1e-7)
 
 
 # The updates use lr_at(0..2) of the engine config's linear WarmupLR
@@ -318,10 +362,11 @@ def test_training_model_refuses_unported_options(option):
 
 @pytest.mark.parametrize("config,match", [
     ({"train_batch_size": 2, "zero_optimization": {"stage": 2}}, "stage"),
-    ({"train_batch_size": 2, "fp16": {"enabled": True}}, "fp16"),
+    ({"train_batch_size": 2, "fp16": {"enabled": True,
+                                      "fp16_master_weights_and_grads": True}}, "fp16"),
     ({"train_batch_size": 2, "mesh": {"fsdp": 2}}, "mesh"),
-    ({"train_batch_size": 2, "optimizer": {"type": "Lamb"}}, "lamb"),
-    ({"train_batch_size": 2, "scheduler": {"type": "OneCycle"}}, "OneCycle"),
+    ({"train_batch_size": 2, "optimizer": {"type": "OneBitLamb"}}, "lamb"),
+    ({"train_batch_size": 2, "optimizer": {"type": "MuAdamW"}}, "muadamw"),
 ])
 def test_engine_refuses_unported_config(config, match):
     model = init_llama_for_causal_lm(LlamaConfig.tiny(dtype=torch.float32),
