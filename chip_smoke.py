@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the deepspeed_tpu_torch serving (bf16 and int8) and
-training paths (bf16 and fp16, each optimizer K7 runs) on one CUDA GPU.
+training paths (bf16 and fp16, each optimizer K7 runs, Mistral-7B's
+windowed attention through both kernel layouts) on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,7 @@ Phases, each printing one JSON line:
   2. kernels        — every kernel of both paths against its plain PyTorch
                       version at main-path shapes in bf16: the error
                       beside the stated tolerance (flash: row by row, with
-                      the exact fp32 value as a control), kernel / plain / library
+                      the exact fp64 value as a control), kernel / plain / library
                       time and the least time the card could take (bound).
                       Large cases are timed with CUDA events around 20
                       calls; the small ones (K5, K4 decode) by replaying 20
@@ -23,9 +24,16 @@ Phases, each printing one JSON line:
                       K5b and K4 with StarCoder2's sliding window (freed
                       table entries included) at that model's widths.
                       K1/K2's fp16 instance at the training shape, row by
-                      row as the bf16 cases. K7's bodies (AdamW, Adam with
-                      L2, Lion, LAMB's first pass) at one Llama-3-8B
-                      layer's parameters (218,112,000) and at a ragged
+                      row as the bf16 cases. K1/K2 with Mistral's window
+                      at its S 8192 (and without it, for what the window
+                      saves) and with softcap 50 at the training shape;
+                      K3 (the folded layout) at the training shape, the
+                      Mistral shape and with the softcap (SDPA with a
+                      boolean mask is the window's library time; no
+                      library call computes the softcap). K7's bodies
+                      (AdamW, Adam with L2, Lion, LAMB's first pass) at
+                      one Llama-3-8B layer's parameters (218,112,000) and
+                      at a ragged
                       12,391, and the whole LAMB step over that layer's 9
                       tensors, each output within 2 fp32 ulps of the plain
                       version; torch.optim's fused Adam/AdamW step beside
@@ -34,7 +42,8 @@ Phases, each printing one JSON line:
                       engine on the GPU (kernels) and on the CPU (plain
                       versions), same weights: logits must agree; then the
                       same with int8 weights and an int8 KV cache.
-  4. train_parity   — the tiny config in fp32, same weights, 3 AdamW steps
+  4. train_parity   — the tiny config in fp32, and the same with a 48-token
+                      window and softcap 30, same weights, 3 AdamW steps
                       (clipping, WarmupLR) of the training engine on the GPU
                       and on the CPU: losses and parameters must agree.
   5. training       — initialize() at the Llama-3-8B width cut to 4 layers
@@ -64,6 +73,15 @@ Phases, each printing one JSON line:
                       flat state's fingerprints, the scale follows
                       update_scale replayed on the overflow flags, and the
                       fp16 flash instances run L times per step.
+  5c. training_mistral — Mistral-7B-v0.1's published widths from
+                      policy_for("mistral").config_from_hf(MISTRAL_7B), cut
+                      to 4 layers, one 8192-token sequence, bf16, AdamW
+                      (K7), 6 steps, twice from the same weights: the route
+                      as resolved (K1/K2, each 4 per step) and pinned to
+                      folded by DS_TPU_ATTN_FWD/BWD (K3, each 4 per step);
+                      losses of the two runs agree at every step; step
+                      ms, tokens/s, model-FLOP share, peak memory and a
+                      profiled step per run.
   6. serving        — build_llama_engine at the full Llama-3-8B width (32
                       layers, seeded random bf16 weights, 1024 KV blocks of
                       64 tokens), greedy generate on 8 prompts of 128..1024
@@ -93,10 +111,17 @@ Phases, each printing one JSON line:
                       card (and that forward without the window or the
                       biases outside it), and prefill against decode past
                       the window.
-Each main path (phases 5, 5b, 6, 7 and 8) runs with the launch counts of its
-kernels set to 0 just before and read just after. Then a ``{"kernels": [...]}``
-line, the GPU's name and power limit, and, as the last line, ``{"ok": true,
-"device": {...}}``. Any failure exits non-zero before that line. Without a
+  9. attn_sweep     — python -m deepspeed_tpu_torch.ops.attn_sweep's
+                      sweep_shape once at the Mistral shape: each leg's
+                      K1/K2 and K3 times and the winners, committed to
+                      this run's cache; nothing after it reads them.
+Each main path (phases 5, 5b, 5c, 6, 7 and 8) runs with the launch counts of
+its kernels set to 0 just before and read just after. Every phase resolves
+the attention route against an empty cache directory made under build/
+(DS_TPU_ATTN_CACHE_DIR), and each training phase prints its decisions
+(kernel_dispatch.describe) and checks that both legs run kernels. Then a
+``{"kernels": [...]}`` line, the GPU's name and power limit, and, as the
+last line, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that line. Without a
 CUDA device it exits 2 and prints no result.
 """
 
@@ -106,6 +131,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -190,6 +216,7 @@ def phase_build() -> dict:
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     rec = {"phase": "build", "seconds": seconds, "library": os.path.relpath(path, ROOT),
+           "attn_cache": os.path.relpath(os.environ["DS_TPU_ATTN_CACHE_DIR"], ROOT),
            "torch": torch.__version__, "torch_cuda": torch.version.cuda,
            "nvcc": nvcc.splitlines()[-1], "gpu": gpu_identity()}
     emit(rec)
@@ -411,36 +438,61 @@ def row_rel_err(x, ref, floor: float = 2.0 ** -10) -> float:
     return ((x - ref).norm(dim=-1) / den.clamp_min(floor * rms)).max().item()
 
 
-def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None) -> dict:
-    """K1 and both K2 passes at the training path's Llama-3-8B widths (H 32,
-    KV 8, D 128) in bf16 (or ``dtype``, fp16 for fp16 training), each
-    against its plain version on identical inputs (the backward passes
-    take the plain forward's o and lse). Each also stands beside the exact
-    value, the plain version on the same inputs in fp32 (no rounding of P,
-    dS or the output), with the plain version's error and one rounding of
-    the exact value to ``dtype`` as controls."""
+def visible_pairs(S: int, causal: bool, window=None) -> int:
+    """The (query, key) pairs of one head that a mask leaves visible: all
+    S^2, the causal triangle, or under a window each query's last
+    ``window`` keys (causal) or the keys less than ``window`` behind it."""
+    if window is None:
+        return S * (S + 1) // 2 if causal else S * S
+    w = min(window, S)
+    behind = w * (w + 1) // 2 + (S - w) * w  # keys at or before the query
+    return behind if causal else behind + S * (S - 1) // 2
+
+
+def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
+                window=None, softcap=None, layout: str = "per_head") -> dict:
+    """K1 and both K2 passes (``layout="per_head"``) or K3's three passes
+    (``"folded"``) at the training path's Llama-3-8B / Mistral-7B widths
+    (H 32, KV 8, D 128) in bf16 (or ``dtype``, fp16 for fp16 training),
+    with the ``window`` and ``softcap`` options, each against its plain
+    version on identical inputs (the backward passes take the plain
+    forward's o and lse). Each also stands beside the exact value, the
+    plain version on the same inputs in fp64 (no rounding of P, dS or the
+    output, and no fp32 rounding either: a row that cancels to fp32 noise
+    reads that noise in the plain version as in the kernel), with the
+    plain version's error and one rounding of the exact value to
+    ``dtype`` as controls. The library time is SDPA's (an
+    explicit boolean mask serves the window; no library call computes the
+    softcap)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import attention as fa
+    from deepspeed_tpu_torch.ops import attention_folded as ff
     H, KV, D = 32, 8, 128
     dtype = dtype or torch.bfloat16
+    opts = dict(window=window, softcap=softcap)
+    fwd_k, dq_k, dkdv_k = ((fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                            fa.flash_attention_bwd_dkdv) if layout == "per_head" else
+                           (ff.folded_attention_fwd, ff.folded_attention_bwd_dq,
+                            ff.folded_attention_bwd_dkdv))
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v, do = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), rnd(B, S, H, D)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal)
-    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
+    o, lse = fwd_k(q, k, v, causal, **opts)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal, **opts)
     delta = fa.attention_delta(o_ref, do)
     bwd_args = (q, k, v, do, lse_ref, delta, causal)
-    dq = fa.flash_attention_bwd_dq(*bwd_args)
-    dk, dv = fa.flash_attention_bwd_dkdv(*bwd_args)
-    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_args, D ** -0.5)
-    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_args, D ** -0.5)
-    exact_args = (q.float(), k.float(), v.float(), do.float(), lse_ref, delta, causal)
-    exact = {"fwd": [fa.flash_attention_fwd_reference(*exact_args[:3], causal)[0]],
-             "dq": [fa.flash_attention_bwd_dq_reference(*exact_args, D ** -0.5)],
-             "dkdv": list(fa.flash_attention_bwd_dkdv_reference(*exact_args, D ** -0.5))}
+    dq = dq_k(*bwd_args, **opts)
+    dk, dv = dkdv_k(*bwd_args, **opts)
+    dq_ref = fa.flash_attention_bwd_dq_reference(*bwd_args, D ** -0.5, **opts)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkdv_reference(*bwd_args, D ** -0.5, **opts)
+    exact_args = tuple(t.double() for t in (q, k, v, do, lse_ref, delta)) + (causal, )
+    exact = {"fwd": [fa.flash_attention_fwd_reference(*exact_args[:3], causal, **opts)[0]],
+             "dq": [fa.flash_attention_bwd_dq_reference(*exact_args, D ** -0.5, **opts)],
+             "dkdv": list(fa.flash_attention_bwd_dkdv_reference(*exact_args, D ** -0.5,
+                                                                **opts))}
     torch.cuda.synchronize()
     got = {"fwd": [(o, o_ref)], "dq": [(dq, dq_ref)], "dkdv": [(dk, dk_ref), (dv, dv_ref)]}
     # the floor gives a cancelling row 2^-16 of the RMS row at any
@@ -464,38 +516,53 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None) -> dic
     free_memory()
 
     # SDPA, timed as the yardstick only: forward, and forward + backward
-    # less the forward for the backward
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    # less the forward for the backward. A window goes in as a boolean
+    # mask, over K/V repeated to the query heads (SDPA's masked kernels do
+    # not take GQA); no SDPA call computes the softcap.
+    lib_fwd = lib_bwd = None
+    if softcap is None:
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        kw = dict(is_causal=causal, enable_gqa=True)
+        if window is not None:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[:, None] - pos[None, :]) < window
+            if causal:
+                mask &= pos[None, :] <= pos[:, None]
+            kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+            kw = dict(attn_mask=mask)
+        leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
 
-    def sdpa(a, b, c):
-        return F.scaled_dot_product_attention(a, b, c, is_causal=causal, enable_gqa=True)
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, **kw)
 
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt))
-    lib_fb = time_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dot))
-    del qt, kt, vt, dot, leaves
+        lib_fwd = time_ms(lambda: sdpa(qt, kt, vt))
+        lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dot)) - lib_fwd
+        del qt, kt, vt, dot, leaves, kw
+        free_memory()
 
     # operations: 4*D (fwd), 6*D (dq: QK^T, dO V^T, dS K), 8*D (dk/dv: QK^T,
     # dO V^T, P^T dO, dS^T Q) per visible (query, key) pair and query head;
     # bytes: each input read once, each output written once
-    pairs = S * (S + 1) // 2 if causal else S * S
+    pairs = visible_pairs(S, causal, window)
     qb, kvb, rb = B * S * H * D * 2, B * S * KV * D * 2, B * S * H * 4
     work = {"fwd": (4, 2 * qb + 2 * kvb + rb),
             "dq": (6, 3 * qb + 2 * kvb + 2 * rb),
             "dkdv": (8, 2 * qb + 4 * kvb + 2 * rb)}
     timed = {
-        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, causal),
-                lambda: fa.flash_attention_fwd_reference(q, k, v, causal), lib_fwd),
-        "dq": (lambda: fa.flash_attention_bwd_dq(*bwd_args),
-               lambda: fa.flash_attention_bwd_dq_reference(*bwd_args, D ** -0.5),
-               lib_fb - lib_fwd),
-        "dkdv": (lambda: fa.flash_attention_bwd_dkdv(*bwd_args),
-                 lambda: fa.flash_attention_bwd_dkdv_reference(*bwd_args, D ** -0.5),
-                 lib_fb - lib_fwd),
+        "fwd": (lambda: fwd_k(q, k, v, causal, **opts),
+                lambda: fa.flash_attention_fwd_reference(q, k, v, causal, **opts), lib_fwd),
+        "dq": (lambda: dq_k(*bwd_args, **opts),
+               lambda: fa.flash_attention_bwd_dq_reference(*bwd_args, D ** -0.5, **opts),
+               lib_bwd),
+        "dkdv": (lambda: dkdv_k(*bwd_args, **opts),
+                 lambda: fa.flash_attention_bwd_dkdv_reference(*bwd_args, D ** -0.5,
+                                                              **opts),
+                 lib_bwd),
     }
-    rec = {"case": name, "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
-                                   "causal": causal},
-           "dtype": name_dtype, "lse_max_abs_err": lse_err}
+    rec = {"case": name, "layout": layout,
+           "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": causal,
+                     "window": window, "softcap": softcap},
+           "visible_pairs_per_head": pairs, "dtype": name_dtype, "lse_max_abs_err": lse_err}
     for key, (kernel, plain, library) in timed.items():
         flops = work[key][0] * D * pairs * H * B
         bound_flops = flops / BF16_FLOPS * 1e3
@@ -503,7 +570,7 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None) -> dic
         rec[key] = {**errs[key], "tolerance": FLASH_ROW_TOL[rec["dtype"]],
                     "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5),
                     # SDPA's backward computes dq, dk and dv in one call: the
-                    # same time stands beside both K2 passes
+                    # same time stands beside both backward passes
                     "library_ms": library, "gflop": flops / 1e9,
                     "bound_ms": max(bound_flops, bound_bytes),
                     "bound_by": "operations" if bound_flops >= bound_bytes else "bytes"}
@@ -539,13 +606,18 @@ PAGED_ROW_SLACK = 2.0 ** -8
 FLASH_ROW_TOL = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -8}
 FLASH_EXACT_RATIO = 2.0
 # against the exact value a row's norm is floored at this share of the RMS
-# row: a row that cancels to ~0 carries the kernel's fp32 noise (up to
-# ~7e-6 of the RMS row in bf16, ~1.1e-5 in fp16, where the plain version
-# shares the exact value's einsum and so its noise), which must read below
-# FLASH_EXACT_RATIO x the plain version's error, ~2^-8 of a row in bf16
-# and ~2^-11 in fp16: 2^-10 and 2^-6 let it through
+# row: a row that cancels to ~0 (dq at position 0, which sees one key)
+# carries fp32 noise, up to ~7e-6 of the RMS row in bf16 at S 2048 and
+# ~1.1e-5 at S 8192 (the RMS row shrinks as P spreads over more keys),
+# ~1.1e-5 in fp16. The exact value is computed in fp64, so that noise
+# shows in the plain version's error as in the kernel's; before, the exact
+# value was the plain version's own fp32 einsums, which read 0 there.
 FLASH_EXACT_FLOOR = {"bfloat16": 2.0 ** -10, "float16": 2.0 ** -6}
 LSE_TOL = 1e-3         # fp32 lse of ~10: summation order only
+# the Mistral phase's attention: S 8192 under a 4096-token window; the
+# softcap the phase-2 cases take (Gemma-2's 50.0)
+MISTRAL_S, MISTRAL_WINDOW = 8192, 4096
+FLASH_SOFTCAP = 50.0
 # K4 over an int8 cache stages each K/V element as the TPU kernel does,
 # bf16(code) * bf16(scale) rounded to bf16, where the plain version
 # dequantizes in fp32. Against the plain version on those staged values
@@ -557,6 +629,10 @@ PAGED_TOLERANCE = (f"max abs <= {PAGED_TOL}; the largest row error ||kernel - pl
 FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:88"),
                  ("dq", "flash_attention_bwd_dq", "deepspeed_tpu/ops/attention.py:273"),
                  ("dkdv", "flash_attention_bwd_dkdv", "deepspeed_tpu/ops/attention.py:350"))
+FOLDED_KERNELS = (
+    ("fwd", "folded_attention_fwd", "deepspeed_tpu/ops/attention_folded.py:69"),
+    ("dq", "folded_attention_bwd_dq", "deepspeed_tpu/ops/attention_folded.py:146"),
+    ("dkdv", "folded_attention_bwd_dkdv", "deepspeed_tpu/ops/attention_folded.py:215"))
 
 
 
@@ -742,6 +818,20 @@ def phase_kernels() -> list:
         _flash_case(gen, "main", 2, 2048, True),          # the training phase's shape
         _flash_case(gen, "ragged_s1000", 2, 1000, True),  # S not a tile multiple
         _flash_case(gen, "full_s1000", 1, 1000, False),   # no causal mask
+        # the training_mistral phase's shape, with Mistral's window and
+        # without it (what the window saves)
+        _flash_case(gen, "mistral_window", 1, MISTRAL_S, True, window=MISTRAL_WINDOW),
+        _flash_case(gen, "causal_s8192", 1, MISTRAL_S, True),
+        _flash_case(gen, "main_softcap", 2, 2048, True, softcap=FLASH_SOFTCAP),
+    ]
+    # K3 at the training phase's shape, at the Mistral phase's and with the
+    # softcap
+    folded_cases = [
+        _flash_case(gen, "main", 2, 2048, True, layout="folded"),
+        _flash_case(gen, "mistral_window", 1, MISTRAL_S, True, window=MISTRAL_WINDOW,
+                    layout="folded"),
+        _flash_case(gen, "main_softcap", 2, 2048, True, softcap=FLASH_SOFTCAP,
+                    layout="folded"),
     ]
     # the fp16 instance at the training phase's shape (fp16 training)
     flash_fp16 = [_flash_case(gen, "main_fp16", 2, 2048, True, torch.float16)]
@@ -764,7 +854,7 @@ def phase_kernels() -> list:
         all(c[key]["row_rel_err"] <= FLASH_ROW_TOL[c["dtype"]]
             and c["lse_max_abs_err"] <= LSE_TOL
             and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
-            for c in flash_cases + flash_fp16 for key, _, _ in FLASH_KERNELS) and \
+            for c in flash_cases + flash_fp16 + folded_cases for key, _, _ in FLASH_KERNELS) and \
         all(c["max_ulps"] <= K7_ULPS for c in k7_cases)
     main = rms[1]
     kernels = [
@@ -836,7 +926,7 @@ def phase_kernels() -> list:
          "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces, "launches": None,
          "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-6; "
-                      "against the exact fp32 value at most 2x the plain version's",
+                      "against the exact fp64 value at most 2x the plain version's",
          "max_abs_err": max(c[key]["max_abs_err"] for c in flash_cases),
          "row_rel_err": max(c[key]["row_rel_err"] for c in flash_cases),
          **{k: flash_cases[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -847,13 +937,24 @@ def phase_kernels() -> list:
          "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces, "launches": None,
          "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-8; "
-                      "against the exact fp32 value at most 2x the plain version's",
+                      "against the exact fp64 value at most 2x the plain version's",
          "max_abs_err": flash_fp16[0][key]["max_abs_err"],
          "row_rel_err": flash_fp16[0][key]["row_rel_err"],
          **{k: flash_fp16[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
          "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in flash_fp16]}
         for key, name, replaces in FLASH_KERNELS] + [
+        {"name": name, "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_attention_folded.cu",
+         "replaces": replaces, "launches": None,
+         "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-6; "
+                      "against the exact fp64 value at most 2x the plain version's",
+         "max_abs_err": max(c[key]["max_abs_err"] for c in folded_cases),
+         "row_rel_err": max(c[key]["row_rel_err"] for c in folded_cases),
+         **{k: folded_cases[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+         "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in folded_cases]}
+        for key, name, replaces in FOLDED_KERNELS] + [
         {"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/fused_optimizer.cu",
          "replaces": replaces, "launches": None,
          "tolerance": f"each output within {K7_ULPS} fp32 ulps of the plain version",
@@ -921,8 +1022,16 @@ TRAIN_PARITY_CONFIG = {
     "gradient_clipping": 1.0}
 
 
+# phase 4's configs: the tiny Llama, and the same with a 48-token window on
+# every layer (shorter than a 64-key tile and not a multiple of it) and the
+# attention-logit softcap, both through K1/K2's options on the card
+TRAIN_PARITY_MODELS = {"llama": dict(num_key_value_heads=2),
+                       "window48_softcap30": dict(num_key_value_heads=2, sliding_window=48,
+                                                  attn_logit_softcapping=30.0)}
+
+
 def phase_train_parity() -> dict:
-    """Training engine, tiny config, fp32, 3 steps: GPU (kernels) vs CPU
+    """Training engine, tiny configs, fp32, 3 steps: GPU (kernels) vs CPU
     (plain versions) from the same weights and batches."""
     import numpy as np
     import torch
@@ -930,40 +1039,45 @@ def phase_train_parity() -> dict:
     from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig.tiny(dtype=torch.float32, num_key_value_heads=2)
-    rng = np.random.default_rng(0)
-    # S = 100: the kernels' last 64-row tile is ragged
-    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100))) for _ in range(3)]
-    losses, masters, norms = {}, {}, {}
-    for device in ("cpu", "cuda"):
-        model = init_llama_for_causal_lm(cfg, seed=1, device="cpu")
-        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_PARITY_CONFIG,
-                                                    device=device)
-        losses[device], norms[device] = [], []
-        for ids in batches:
-            loss = engine.forward(ids, labels=ids)
-            engine.backward(loss)
-            engine.step()
-            losses[device].append(loss.item())
-            norms[device].append(engine.get_global_grad_norm())
-        # the loss of the trained weights on the first batch
-        losses[device].append(engine.eval_batch(batches[0], labels=batches[0]).item())
-        masters[device] = {n: m.cpu() for n, m in engine.master_params().items()}
-    loss_err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
-    param_err = max((masters["cpu"][n] - masters["cuda"][n]).abs().max().item()
-                    for n in masters["cpu"])
     # fp32 on both sides, sums in another order. Adam's m/sqrt(v) is a
     # ratio: an element whose gradient nearly cancels carries its relative
     # difference into the update, up to the whole step. The parameters are
     # held to 5% of the path the 3 updates can move an element (lr 1e-4 +
     # 4e-4 + 7e-4 = 1.2e-3), the losses to 1e-4 of ~6
     loss_tol, param_tol = 1e-4, 0.05 * 1.2e-3
-    rec = {"phase": "train_parity", "config": "tiny(num_key_value_heads=2) fp32, "
-           "AdamW + WarmupLR + clip 1.0, 3 steps of 2 x 100 tokens",
-           "losses_then_eval": losses, "grad_norms": norms, "loss_max_abs_err": loss_err,
-           "loss_tolerance": loss_tol, "param_max_abs_err": param_err,
-           "param_tolerance": param_tol,
-           "ok": loss_err <= loss_tol and param_err <= param_tol}
+    configs = {}
+    for cname, over in TRAIN_PARITY_MODELS.items():
+        cfg = LlamaConfig.tiny(dtype=torch.float32, **over)
+        rng = np.random.default_rng(0)
+        # S = 100: the kernels' last 64-row tile is ragged
+        batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100)))
+                   for _ in range(3)]
+        losses, masters, norms = {}, {}, {}
+        for device in ("cpu", "cuda"):
+            model = init_llama_for_causal_lm(cfg, seed=1, device="cpu")
+            engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                        config=TRAIN_PARITY_CONFIG,
+                                                        device=device)
+            losses[device], norms[device] = [], []
+            for ids in batches:
+                loss = engine.forward(ids, labels=ids)
+                engine.backward(loss)
+                engine.step()
+                losses[device].append(loss.item())
+                norms[device].append(engine.get_global_grad_norm())
+            # the loss of the trained weights on the first batch
+            losses[device].append(engine.eval_batch(batches[0], labels=batches[0]).item())
+            masters[device] = {n: m.cpu() for n, m in engine.master_params().items()}
+        loss_err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+        param_err = max((masters["cpu"][n] - masters["cuda"][n]).abs().max().item()
+                        for n in masters["cpu"])
+        configs[cname] = {"config": f"tiny({over}) fp32", "losses_then_eval": losses,
+                          "grad_norms": norms, "loss_max_abs_err": loss_err,
+                          "param_max_abs_err": param_err,
+                          "ok": loss_err <= loss_tol and param_err <= param_tol}
+    rec = {"phase": "train_parity", "run": "AdamW + WarmupLR + clip 1.0, 3 steps of "
+           "2 x 100 tokens", "configs": configs, "loss_tolerance": loss_tol,
+           "param_tolerance": param_tol, "ok": all(c["ok"] for c in configs.values())}
     emit(rec)
     if not rec["ok"]:
         raise SystemExit("GPU training engine disagrees with the CPU engine")
@@ -974,6 +1088,9 @@ def _kernel_group(name: str) -> str:
     n = name.lower()
     if is_k7(n):  # launched through ctypes, so under no op of the range
         return "optimizer step"
+    if "folded_" in n:  # K3, dstt::flash::folded_*_kernel
+        return ("K3 folded fwd" if "fwd_kernel" in n else
+                "K3 folded dq" if "dq_kernel" in n else "K3 folded dk/dv")
     if "flash" in n:
         return ("K1 flash fwd" if "fwd_kernel" in n else
                 "K2 flash dq" if "dq_kernel" in n else "K2 flash dk/dv")
@@ -1111,6 +1228,24 @@ def k7_vs_plain_at_path_size(engine, taken: dict, chunk: int = 1 << 26) -> dict:
     return {"n": n, "update": t, "ulps": ulps, "max_ulps": max(ulps.values())}
 
 
+def attention_route(cfg, B: int, S: int, dtype) -> dict:
+    """The attention route's Decisions for a model's calls at batch B x S
+    (``kernel_dispatch.resolve`` for each layer's window and the softcap,
+    on this card's kind and the cache the phase sees): the ``describe()``
+    notes, and whether both legs of every layer resolve to kernels."""
+    from deepspeed_tpu_torch.models.llama import _layer_window
+    from deepspeed_tpu_torch.ops import kernel_dispatch as kd
+    sigs = {kd.make_sig((B, S, cfg.num_attention_heads, cfg.head_dim_),
+                        cfg.num_key_value_heads, S, dtype, True, _layer_window(cfg, i),
+                        cfg.attn_logit_softcapping)
+            for i in range(cfg.num_hidden_layers)}
+    decisions = [kd.resolve(sig) for sig in sigs]
+    return {"describe": sorted({kd.describe(*d) for d in decisions}),
+            "table": kd.table_source(),
+            "impls": sorted({d.impl for pair in decisions for d in pair}),
+            "on_kernels": all(d.impl != kd.IMPL_XLA for pair in decisions for d in pair)}
+
+
 def phase_training() -> dict:
     """initialize() -> forward/backward/step at the Llama-3-8B width, depth
     cut to 4 layers so the fp32 masters, AdamW moments and gradient buffer
@@ -1141,6 +1276,8 @@ def phase_training() -> dict:
 
     kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv,
                adam_step_)
+    route = attention_route(cfg, B, S, torch.bfloat16)
+    print(f"training attention route: {route['describe']}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     for f in kernels:
         f.launches = 0
@@ -1212,8 +1349,10 @@ def phase_training() -> dict:
         "k7_one_launch_per_applied_step": all(c[3] == 1 for c in per_step)
         and engine.skipped_steps == 0,
         "k7_at_path_size_within_ulps": k7_path["max_ulps"] <= K7_ULPS,
+        "attention_route_on_kernels": route["on_kernels"],
     }
-    rec = {"phase": "training", "config": "llama3_8b(num_hidden_layers=4, "
+    rec = {"phase": "training", "attention_route": route,
+           "config": "llama3_8b(num_hidden_layers=4, "
            "ce_chunk_size=8192), random bf16 weights, fp32 masters, AdamW (K7) lr 1e-4 + "
            "WarmupLR(linear, 4 steps) + clip 1.0, batch 2 x 2048 (one repeated batch)",
            "gpu": gpu_identity(), "params": n_params, "engine_build_s": build_s,
@@ -1300,6 +1439,10 @@ def phase_training_optimizers() -> dict:
             **precision})
         fp16 = "fp16" in precision
         k7 = wrappers[name.split("_")[0]]
+        route = attention_route(cfg, B, S, torch.float16 if fp16 else torch.bfloat16)
+        print(f"training_optimizers {name} attention route: {route['describe']}",
+              flush=True)
+        checks[f"{name}_attention_route_on_kernels"] = route["on_kernels"]
         torch.cuda.reset_peak_memory_stats()
         for f in (k7, *flash):
             f.launches = 0
@@ -1342,6 +1485,7 @@ def phase_training_optimizers() -> dict:
         applied = n_steps - engine.skipped_steps
         run = {"config": {"optimizer": optimizer, **precision}, "steps": n_steps,
                "losses": losses, "step_ms": step_ms, "optimizer_step_ms": opt_ms,
+               "attention_route": route,
                "k7": k7.__name__, "k7_launches": k7.launches, "applied_steps": applied,
                "peak_memory_gib": peak, "k7_path_check": k7_path}
         checks[f"{name}_losses_finite"] = bool(np.isfinite(losses).all())
@@ -1378,6 +1522,173 @@ def phase_training_optimizers() -> dict:
     emit(rec)
     if not rec["ok"]:
         raise SystemExit(f"training_optimizers checks failed: {checks}")
+    return rec
+
+
+# the Mistral phase's steps per run. Both runs apply the same per-head
+# body, in the same order and without atomics, to every (query tile, KV
+# head) (K3 walks a tile's KV heads in one block), so the two runs' losses
+# must be equal bit for bit at every step
+MISTRAL_STEPS = 6
+
+
+def phase_training_mistral() -> dict:
+    """initialize() at the published mistralai/Mistral-7B-v0.1 widths
+    (``policy_for("mistral").config_from_hf(MISTRAL_7B)``: hidden 4096,
+    intermediate 14336, 32 / 8 heads, vocab 32000, rope theta 10000,
+    sliding window 4096, untied embeddings), depth cut to 4 layers as in
+    phase 5 (1.134e9 parameters, ~18 GB of fp32 state), seeded random bf16
+    weights, one 8192-token sequence (one repeated batch), AdamW (K7) lr
+    1e-4 + WarmupLR(linear, 4 steps) + clip 1.0, 6 steps, twice from the
+    same initial weights and batch: run ``resolved`` with the route as it
+    resolves on an empty cache (K1/K2 on both legs), run ``folded`` with
+    both legs pinned by ``DS_TPU_ATTN_FWD``/``DS_TPU_ATTN_BWD=folded``
+    (K3). Checks each run's decisions, 4 x 6 launches of each of its three
+    attention kernels and none of the other layout's, one K7 launch per
+    step, finite falling losses, and the two runs' losses equal bit for
+    bit at every step. Reports per run the step time on the
+    host clock (mean of steps 2-6) and on CUDA events, tokens/s, the
+    model-FLOP share (the window's visible pairs), the peak memory, and
+    after the counts are read a profiled step by kernel group."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import init_llama_for_causal_lm
+    from deepspeed_tpu_torch.module_inject import MISTRAL_7B, policy_for
+    from deepspeed_tpu_torch.ops import attention as fa
+    from deepspeed_tpu_torch.ops import attention_folded as ff
+    from deepspeed_tpu_torch.ops.fused_optimizer import adam_step_
+
+    L, B, S, n_steps = 4, 1, MISTRAL_S, MISTRAL_STEPS
+    cfg = dataclasses.replace(policy_for("mistral").config_from_hf(MISTRAL_7B),
+                              num_hidden_layers=L, ce_chunk_size=8192)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    layouts = {"per_head": (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                            fa.flash_attention_bwd_dkdv),
+               "folded": (ff.folded_attention_fwd, ff.folded_attention_bwd_dq,
+                          ff.folded_attention_bwd_dkdv)}
+    counted = layouts["per_head"] + layouts["folded"] + (adam_step_, )
+    # model FLOPs of a step, as phase 5's, the attention over the window's
+    # visible pairs
+    h, hd, nq, nkv, inter = (cfg.hidden_size, cfg.head_dim_, cfg.num_attention_heads,
+                             cfg.num_key_value_heads, cfg.intermediate_size)
+    matmul_w = L * (h * hd * (2 * nq + 2 * nkv) + 3 * h * inter) + h * cfg.vocab_size
+    pairs = visible_pairs(S, True, cfg.sliding_window)
+    model_flops = 6 * B * S * matmul_w + 12 * hd * pairs * nq * B * L
+    runs, checks = {}, {}
+    for name, pin, layout in (("resolved", None, "per_head"),
+                              ("folded", "folded", "folded")):
+        for var in ("DS_TPU_ATTN_FWD", "DS_TPU_ATTN_BWD"):
+            if pin:
+                os.environ[var] = pin
+            else:
+                os.environ.pop(var, None)
+        route = attention_route(cfg, B, S, torch.bfloat16)
+        print(f"training_mistral {name} attention route: {route['describe']}", flush=True)
+        model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+            "train_batch_size": B, "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+            "scheduler": {"type": "WarmupLR", "params": {
+                "warmup_min_lr": 0.0, "warmup_max_lr": 1e-4, "warmup_num_steps": 4,
+                "warmup_type": "linear"}},
+            "gradient_clipping": 1.0})
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counted:
+            f.launches = 0
+        losses, step_s, step_ev_ms = [], [], []
+        for _ in range(n_steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            ev[0].record()
+            loss = engine.forward(ids, labels=ids)
+            engine.backward(loss)
+            engine.step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t)
+            step_ev_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(loss.item())
+        launches = {f.__name__: f.launches for f in counted}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def step(events):
+            mark = (lambda i: events[i].record()) if events else (lambda i: None)
+            mark(0)
+            out = engine.forward(ids, labels=ids)
+            mark(1)
+            engine.backward(out)
+            mark(2)
+            engine.step()
+            mark(3)
+
+        profile = profile_step(step)
+        steady = sum(step_s[1:]) / (n_steps - 1)
+        other = "folded" if layout == "per_head" else "per_head"
+        checks.update({
+            f"{name}_route": route["impls"] == [pin or "pallas"],
+            f"{name}_{layout}_launches_L_per_step": all(
+                launches[f.__name__] == L * n_steps for f in layouts[layout]),
+            f"{name}_no_{other}_launches": all(
+                launches[f.__name__] == 0 for f in layouts[other]),
+            f"{name}_k7_one_launch_per_step": launches["adam_step_"] == n_steps,
+            f"{name}_losses_finite": bool(np.isfinite(losses).all()),
+            f"{name}_last_loss_below_first": losses[-1] < losses[0],
+        })
+        runs[name] = {"pin": pin, "attention_route": route, "params": n_params,
+                      "losses": losses, "step_s": step_s, "step_event_ms": step_ev_ms,
+                      "steady_step_ms": steady * 1e3,
+                      "steady_step_event_ms": sum(step_ev_ms[1:]) / (n_steps - 1),
+                      "tokens_per_s": B * S / steady,
+                      "model_flop_share": model_flops / (steady * BF16_FLOPS),
+                      "peak_memory_gib": peak, "launches": launches, "profile": profile}
+        del engine, model, loss
+        free_memory()
+    for var in ("DS_TPU_ATTN_FWD", "DS_TPU_ATTN_BWD"):
+        os.environ.pop(var, None)
+    a, b = runs["resolved"]["losses"], runs["folded"]["losses"]
+    checks["losses_bit_equal"] = a == b
+    rec = {"phase": "training_mistral",
+           "config": "policy_for('mistral').config_from_hf(MISTRAL_7B) with "
+                     "num_hidden_layers=4 (cut from 32), ce_chunk_size=8192; random bf16 "
+                     "weights (seed 0), fp32 masters, AdamW (K7) lr 1e-4 + WarmupLR(linear, "
+                     "4 steps) + clip 1.0, batch 1 x 8192 (one repeated batch)",
+           "reduced": {"num_hidden_layers": [32, 4]},
+           "gpu": gpu_identity(), "visible_pairs_per_head": pairs,
+           "model_tflop_per_step": model_flops / 1e12, "runs": runs,
+           "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"training_mistral checks failed: {checks}")
+    return rec
+
+
+def phase_attn_sweep() -> dict:
+    """The attention sweep (``ops/attn_sweep.py``) once at the Mistral
+    phase's shape, into the run's fresh cache directory: each leg's K1/K2
+    and K3 times and the winners it commits. Nothing after this phase
+    reads them. On a card the sweep's candidates are the kernels only; the
+    plain forward's time at this shape is phase 2's."""
+    from deepspeed_tpu_torch.ops import attn_sweep
+    from deepspeed_tpu_torch.ops import kernel_dispatch as kd
+    results = attn_sweep.sweep_shape(1, MISTRAL_S, 32, 8, 128, "bfloat16", True,
+                                     window=MISTRAL_WINDOW, iters=10)
+    rec = {"phase": "attn_sweep", "shape": {"B": 1, "S": MISTRAL_S, "H": 32, "KV": 8,
+                                            "D": 128, "causal": True,
+                                            "window": MISTRAL_WINDOW},
+           "winners": {leg: entry for leg, (entry, _) in results.items()},
+           "rows": {leg: [list(row) for row in rows] for leg, (_, rows) in results.items()},
+           "table": kd.table_source()}
+    rec["ok"] = set(rec["winners"]) == {"fwd", "bwd"}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("attn_sweep committed no winner for a leg")
     return rec
 
 
@@ -1781,23 +2092,38 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # every phase resolves the attention route against an empty table of
+    # measurements: no entry of an earlier run decides a main path
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    os.environ["DS_TPU_ATTN_CACHE_DIR"] = tempfile.mkdtemp(prefix="attn_cache_",
+                                                           dir=build_dir)
     phase_build()
     kernels = phase_kernels()
     phase_parity()
     phase_train_parity()
     training = phase_training()
     optimizers = phase_training_optimizers()
+    mistral = phase_training_mistral()
     bf16 = phase_serving(kernels)
     phase_serving_int8(kernels, bf16)
     del bf16
     free_memory()
     phase_serving_starcoder2(kernels)
+    phase_attn_sweep()
     runs = optimizers["runs"]
-    launches = {**training["launches"],
-                "lion_step_": runs["lion_bf16"]["k7_launches"],
-                "lamb_update_": runs["lamb_bf16"]["k7_launches"],
-                **{name + "_fp16": n for name, n in
-                   runs["adamw_fp16"]["flash_fp16_launches"].items()}}
+    # each kernel's launches in the main-path runs that count it: phase 5
+    # and the Mistral runs for the attention kernels of bf16 training
+    by_phase = {name: {"training": n} for name, n in training["launches"].items()}
+    for run, rec in mistral["runs"].items():
+        for name, n in rec["launches"].items():
+            if n:
+                by_phase.setdefault(name, {})[f"training_mistral/{run}"] = n
+    by_phase["lion_step_"] = {"training_optimizers/lion_bf16": runs["lion_bf16"]["k7_launches"]}
+    by_phase["lamb_update_"] = {
+        "training_optimizers/lamb_bf16": runs["lamb_bf16"]["k7_launches"]}
+    for name, n in runs["adamw_fp16"]["flash_fp16_launches"].items():
+        by_phase[name + "_fp16"] = {"training_optimizers/adamw_fp16": n}
     wrapper = {name: w for name, w, _, _ in K7_KERNELS}
     # each K7 body's launches over the whole flat buffer on the training
     # paths, against the plain version (phases 5 and 5b)
@@ -1807,8 +2133,9 @@ def main() -> int:
                    "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
     for k in kernels:
         key = wrapper.get(k["name"], k["name"])
-        if key in launches:
-            k["launches"] = launches[key]
+        if key in by_phase:
+            k["launches"] = sum(by_phase[key].values())
+            k["launches_by_phase"] = by_phase[key]
         if key in path_checks:
             k["main_path"] = path_checks[key]
             k["max_ulps"] = max([k["max_ulps"]] + [c["max_ulps"]

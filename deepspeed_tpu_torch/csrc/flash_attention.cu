@@ -1,655 +1,42 @@
-// Flash attention for training: the forward (K1) and the two backward passes
-// (K2: dq, and dk/dv), on the tensor cores.
-//
-// Replaces the TPU kernels deepspeed_tpu/ops/attention.py:88 _fwd_kernel
-// (launched by _flash_fwd :237), :273 _dq_kernel (launched at :457) and :350
-// _dkdv_kernel (launched at :473). The same function, on another grid:
-//   q [B, S, H, D], k/v [B, S, KV, D], H = KV*G; query head kv*G+g reads KV
-//   head kv (GQA, K/V never repeated).
-//   s = (q . k) * scale in fp32; causal keeps key <= query position; keys
-//   past S (the ragged edge of the last tile) are masked here.
-//   forward: o = softmax(s) v in q's dtype, lse [B, S, H] fp32 (LSE_MASKED,
-//   1e30, and o = 0 for a row that sees no key).
-//   backward (delta = rowsum(dO * O) [B, S, H] fp32 comes from the caller):
-//   P = exp(s - lse), dS = P * (dP - delta) * scale with dP = dO v^T,
-//   dq = dS k, dk = dS^T q and dv = P^T dO, both summed over the G query
-//   heads of each KV head.
-//
-// Numerics: bf16 or fp16 operands on mma.sync m16n8k16 with fp32
-// accumulation, the softmax and its statistics in fp32. P (forward and
-// dk/dv) and dS (dq and dk/dv) are rounded to the input dtype before their
-// products, as the Pallas kernel does. The fp16 instance (fp16 training
-// under loss scaling) is the bf16 one with the f16 form of the product:
-// ldmatrix moves 16-bit elements either way. An fp32 instantiation runs the
-// same tiles on the CUDA cores in fp32 (tests and fp32 parity runs; no
-// tensor-core product is fp32).
-//
-// Bound on the H100: operations. At Llama-3-8B width (D 128, G 4) a key row
-// is reused by 64 query rows of a block, so a block does ~64 flops per byte
-// of K/V it reads: the forward is 4*D flops per visible (query, key) pair
-// and head, the backward 14*D (68.8 and 241 GFLOP at B 2, S 2048, H 32,
-// causal; 0.070 and 0.243 ms at 989 TFLOP/s). What the design does:
-// - The TPU's GQA fold stays: a block owns 64 folded query rows of one
-//   (batch, KV head), rows ordered query-major (row f is position f/G, head
-//   f%G), so every G query heads that share a KV head meet each staged K/V
-//   tile once, and any G works. Four warps own 16 rows each.
-// - The TPU's sequential kv grid axis becomes a loop inside the block over
-//   64-key tiles staged in shared memory, with the online softmax (m, l,
-//   fp32 accumulator) in registers. Causal tiles wholly above the diagonal
-//   are never visited; only edge tiles (diagonal, ragged end) build masks.
-// - dq: one block per (64 folded rows, KV head, batch) sweeping the K/V
-//   tiles, P rebuilt from lse. dk/dv: one block per (64 keys, KV head,
-//   batch) sweeping 32-row tiles of folded query rows, which runs over the
-//   G heads too: that sum is the GQA reduction of _dkdv_kernel :388-400,
-//   done without atomics, so dk and dv are deterministic.
-// - Fragments come from shared memory by ldmatrix (the transposing form for
-//   an operand held [k][n]: V, dO, K and Q on the right of a product), rows
-//   padded by 16 bytes so each 8-row phase meets 32 different banks.
-// - The swept tiles are double-buffered with cp.async: the next tile's copy
-//   is in flight while the current one is used.
-// Later versions: more rows per warp, P kept in registers, then TMA and wgmma.
-#include <math.h>
-
-#include <type_traits>
-
-#include "common.cuh"
+// K1 and K2: the per-head flash kernels, one block per (64 folded query
+// rows or 64 keys, KV head, batch). What they replace, their numerics and
+// their bound are in flash_attention.cuh, which holds the bodies they share
+// with K3 (flash_attention_folded.cu).
+#include "flash_attention.cuh"
 
 namespace dstt {
 namespace flash {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // folded query rows per block (fwd, dq)
-constexpr int kKeys = 64;           // keys per K/V tile; keys per dk/dv block
-constexpr int kBwdRows = 32;        // folded query rows per step of the dk/dv sweep
-constexpr int kPad = 8;             // elements of padding per shared-memory row
-constexpr float kLseMasked = 1e30f;  // attention.py LSE_MASKED
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;    // backward: dO [B, S, H, D]
-  const float* lse;    // backward: [B, S, H]
-  const float* delta;  // backward: [B, S, H]
-  void* out;           // forward: o; dq pass: dq; dk/dv pass: dk
-  void* out2;          // dk/dv pass: dv
-  float* lse_out;      // forward: [B, S, H]
-  int B, S, H, KV, D;
-  float scale;
-  int causal;
-};
-
-// element row (in units of D) of folded query row f of (b, kv), in q/o/dO,
-// which is also its index in lse and delta
-__device__ __forceinline__ long long q_row(const Args& a, int b, int kv, int f) {
-  const int G = a.H / a.KV;
-  return ((long long)b * a.S + f / G) * a.H + kv * G + f % G;
-}
-
-__device__ __forceinline__ long long kv_row(const Args& a, int b, int kv, int key) {
-  return ((long long)b * a.S + key) * a.KV + kv;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// asynchronous global -> shared copies of `bytes` (4 or 16); a copy that is
-// not `valid` reads nothing and writes zeros
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  if (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most kPending committed groups of this thread are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Start staging n rows of DMAX elements into shared memory (row stride
-// DMAX+kPad): row r is src[row(r) * D : +D] where row(r) >= 0, zeros
-// otherwise, and the columns D..DMAX are zero. 16-byte copies (the wrapper
-// checks D % 8 == 0 and 16-byte aligned pointers); the caller commits and
-// waits.
-template <typename T, int DMAX, typename RowFn>
-__device__ __forceinline__ void load_tile(T* dst, int n, const T* src, int D, RowFn row) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int kChunks = DMAX / V;
-  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * V;
-    const long long g = row(r);
-    const bool valid = g >= 0 && c < D;
-    cp_async<16>(dst + r * (DMAX + kPad) + c, valid ? src + g * D + c : src, valid);
-  }
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-// and each lane receives, in r[i], the two elements (row lane/4, columns
-// 2*(lane%4) and +1) of matrix i (of its transpose with kTrans)
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  if (kTrans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-// c += a b on the tensor cores, 16-bit operands of T (bf16 or fp16)
-template <typename T>
-__device__ __forceinline__ void mma_16bit(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  if constexpr (std::is_same<T, __half>::value)
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  else
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// C[16 x 8*N8] += A[16 x K] B for one warp. A is row-major in shared
-// memory; B is read as Bt[n][k] (kNT: the product A Bt^T) or as B[k][n],
-// row stride ldb; K, a multiple of 16, is fixed at compile time so the
-// loop unrolls and loads overlap products. Accumulator layout of m16n8 (PTX
-// ISA): lane l holds rows l/4 and l/4+8, columns 2*(l%4) and 2*(l%4)+1 of
-// each 8-column tile.
-//
-// bf16 and fp16: the A fragment (16 x 16) is one ldmatrix.x4: lanes 0-15 point at
-// rows 0-15 of column 0, lanes 16-31 at rows 0-15 of column 8. The B
-// fragments of two 8-column tiles are one more: for Bt, rows n..n+15 at
-// columns k and k+8; for B[k][n], the transposing load of rows k..k+15 at
-// columns n and n+8.
-template <typename T, bool kNT, int K, int N8>
-__device__ __forceinline__ void warp_gemm(float (&c)[N8][4], const T* A, int lda,
-                                          const T* B, int ldb, int lane) {
-  if constexpr (std::is_same<T, float>::value) {
-    // fp32: each lane sums its accumulator elements on the CUDA cores
-    const int g = lane >> 2, q2 = (lane & 3) * 2;
-#pragma unroll 1
-    for (int k0 = 0; k0 < K; k0 += 16)
-#pragma unroll
-      for (int n = 0; n < N8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = g + (e >> 1) * 8, col = n * 8 + q2 + (e & 1);
-          float s = 0.f;
-#pragma unroll
-          for (int kk = k0; kk < k0 + 16; ++kk)
-            s += A[row * lda + kk] * (kNT ? B[col * ldb + kk] : B[kk * ldb + col]);
-          c[n][e] += s;
-        }
-  } else {
-    static_assert(N8 % 2 == 0, "B fragments load two 8-column tiles at a time");
-    const int r8 = lane & 7, hi = (lane >> 4) * 8, mid = ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t a[4];
-      ldmatrix_x4<false>(a, A + (lane & 15) * lda + k0 + hi);
-#pragma unroll
-      for (int n = 0; n < N8; n += 2) {
-        uint32_t b[4];
-        if (kNT)
-          ldmatrix_x4<false>(b, B + (n * 8 + r8 + hi) * ldb + k0 + mid);
-        else
-          ldmatrix_x4<true>(b, B + (k0 + r8 + mid) * ldb + n * 8 + hi);
-        mma_16bit<T>(c[n], a, b[0], b[1]);
-        mma_16bit<T>(c[n + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-template <int N8>
-__device__ __forceinline__ void zero(float (&c)[N8][4]) {
-#pragma unroll
-  for (int n = 0; n < N8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-}
-
-// two adjacent elements (the pair a lane holds in an accumulator row) in one store
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-__device__ __forceinline__ void store2(__half* p, float x, float y) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
-}
-
-// sum / max over the four lanes that share an accumulator row
-__device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float row_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-// store a warp's [16 x DMAX] fp32 accumulator rows (rows[i] >= 0: element
-// row of accumulator row lane/4 + 8*i) as T, columns < D
-template <typename T, int N8>
-__device__ __forceinline__ void store_rows(T* out, const float (&c)[N8][4],
-                                           const long long rows[2], const float mul[2],
-                                           int D, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] < 0) continue;
-    T* o = out + rows[i] * D;
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const int col = n * 8 + (lane & 3) * 2;
-      if (col < D)  // D % 8 == 0: col + 1 < D too
-        store2(o + col, c[n][2 * i] * mul[i], c[n][2 * i + 1] * mul[i]);
-    }
-  }
-}
-
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kCap>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
-  constexpr int LD = DMAX + kPad, LP = kKeys + kPad, N8 = DMAX / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* KVs = Qs + kRows * LD;        // two buffers of [K tile, V tile]
-  T* Ps = KVs + 4 * kKeys * LD;    // [kRows][LP], 16 rows per warp
-
-  const int G = a.H / a.KV, rows = a.S * G, D = a.D;
-  const int f0 = blockIdx.x * kRows, kv = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* q = reinterpret_cast<const T*>(a.q);
-  const T* k = reinterpret_cast<const T*>(a.k);
-  const T* v = reinterpret_cast<const T*>(a.v);
-  auto load_kv = [&](int t) {  // K/V tile t into buffer t % 2
-    const int k0 = t * kKeys;
-    auto key_row = [&](int r) { return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL; };
-    T* Kb = KVs + (t & 1) * 2 * kKeys * LD;
-    load_tile<T, DMAX>(Kb, kKeys, k, D, key_row);
-    load_tile<T, DMAX>(Kb + kKeys * LD, kKeys, v, D, key_row);
-  };
-
-  load_tile<T, DMAX>(Qs, kRows, q, D, [&](int r) {
-    return f0 + r < rows ? q_row(a, b, kv, f0 + r) : -1LL;
-  });
-  load_kv(0);
-  cp_async_commit();
-
-  int fr[2], pos[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    fr[i] = f0 + warp * 16 + (lane >> 2) + 8 * i;
-    pos[i] = fr[i] / G;
-  }
-  const int p_first = f0 / G;
-  const int p_last = (min(f0 + kRows, rows) - 1) / G;
-  const int n_tiles = a.causal ? p_last / kKeys + 1 : (a.S + kKeys - 1) / kKeys;
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[N8][4];
-  zero(acc);
-  const T* Qw = Qs + warp * 16 * LD;
-  T* Pw = Ps + warp * 16 * LP;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kKeys;
-    // the next tile's copy runs while this one is used; the buffer it
-    // fills was released by the __syncthreads ending the previous step
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t (and Q) visible to every warp
-    const T* Ks = KVs + (t & 1) * 2 * kKeys * LD;
-    const T* Vs = Ks + kKeys * LD;
-
-    float s[kKeys / 8][4];
-    zero(s);
-    warp_gemm<T, true, DMAX>(s, Qw, LD, Ks, LD, lane);
-    // interior tiles (every key at or before every row, none past S) skip the mask
-    const bool edge = (a.causal && k0 + kKeys - 1 > p_first) || k0 + kKeys > a.S;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, key = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
-        float x = s[n][e] * a.scale;
-        if (edge && (key >= a.S || (a.causal && key > pos[i]))) x = -INFINITY;
-        s[n][e] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-    float mu[2], corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], row_max(mx[i]));
-      mu[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
-      corr[i] = expf(m[i] - mu[i]);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float p0 = expf(s[n][2 * i] - mu[i]), p1 = expf(s[n][2 * i + 1] - mu[i]);
-        rs[i] += p0 + p1;
-        store2(Pw + ((lane >> 2) + 8 * i) * LP + n * 8 + (lane & 3) * 2, p0, p1);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + row_sum(rs[i]);
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-    __syncwarp();
-    warp_gemm<T, false, kKeys>(acc, Pw, LP, Vs, LD, lane);
-    __syncthreads();  // every warp is done with this K/V buffer (and its Pw)
-  }
-
-  long long orow[2];
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    orow[i] = fr[i] < rows ? q_row(a, b, kv, fr[i]) : -1LL;
-    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    if (orow[i] >= 0 && (lane & 3) == 0)
-      a.lse_out[orow[i]] = l[i] > 0.f ? m[i] + logf(l[i]) : kLseMasked;
-  }
-  store_rows<T>(reinterpret_cast<T*>(a.out), acc, orow, inv, D, lane);
+  fwd_block<T, DMAX, kCap>(a, blockIdx.x * kRows, blockIdx.y, blockIdx.z, smem);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kCap>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
-  constexpr int LD = DMAX + kPad, LP = kKeys + kPad, N8 = DMAX / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Os = Qs + kRows * LD;       // dO
-  T* KVs = Os + kRows * LD;      // two buffers of [K tile, V tile]
-  T* Ps = KVs + 4 * kKeys * LD;  // dS, [kRows][LP]
-
-  const int G = a.H / a.KV, rows = a.S * G, D = a.D;
-  const int f0 = blockIdx.x * kRows, kv = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* k = reinterpret_cast<const T*>(a.k);
-  const T* v = reinterpret_cast<const T*>(a.v);
-  auto load_kv = [&](int t) {  // K/V tile t into buffer t % 2
-    const int k0 = t * kKeys;
-    auto key_row = [&](int r) { return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL; };
-    T* Kb = KVs + (t & 1) * 2 * kKeys * LD;
-    load_tile<T, DMAX>(Kb, kKeys, k, D, key_row);
-    load_tile<T, DMAX>(Kb + kKeys * LD, kKeys, v, D, key_row);
-  };
-
-  auto q_tile_row = [&](int r) { return f0 + r < rows ? q_row(a, b, kv, f0 + r) : -1LL; };
-  load_tile<T, DMAX>(Qs, kRows, reinterpret_cast<const T*>(a.q), D, q_tile_row);
-  load_tile<T, DMAX>(Os, kRows, reinterpret_cast<const T*>(a.dout), D, q_tile_row);
-  load_kv(0);
-  cp_async_commit();
-
-  int pos[2];
-  long long qr[2];
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int f = f0 + warp * 16 + (lane >> 2) + 8 * i;
-    pos[i] = f / G;
-    qr[i] = f < rows ? q_row(a, b, kv, f) : -1LL;
-    lse[i] = qr[i] >= 0 ? a.lse[qr[i]] : kLseMasked;  // masked rows: P = 0
-    dl[i] = qr[i] >= 0 ? a.delta[qr[i]] : 0.f;
-  }
-  const int p_first = f0 / G;
-  const int p_last = (min(f0 + kRows, rows) - 1) / G;
-  const int n_tiles = a.causal ? p_last / kKeys + 1 : (a.S + kKeys - 1) / kKeys;
-
-  float dq[N8][4];
-  zero(dq);
-  const T* Qw = Qs + warp * 16 * LD;
-  const T* Ow = Os + warp * 16 * LD;
-  T* Pw = Ps + warp * 16 * LP;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kKeys;
-    if (t + 1 < n_tiles) {  // as in fwd_kernel
-      load_kv(t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* Ks = KVs + (t & 1) * 2 * kKeys * LD;
-    const T* Vs = Ks + kKeys * LD;
-
-    float s[kKeys / 8][4], dp[kKeys / 8][4];
-    zero(s);
-    zero(dp);
-    warp_gemm<T, true, DMAX>(s, Qw, LD, Ks, LD, lane);
-    warp_gemm<T, true, DMAX>(dp, Ow, LD, Vs, LD, lane);
-    const bool edge = (a.causal && k0 + kKeys - 1 > p_first) || k0 + kKeys > a.S;
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, key = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
-        const bool masked = edge && (key >= a.S || (a.causal && key > pos[i]));
-        const float p = masked ? 0.f : expf(s[n][e] * a.scale - lse[i]);
-        ds[e] = p * (dp[n][e] - dl[i]) * a.scale;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        store2(Pw + ((lane >> 2) + 8 * i) * LP + n * 8 + (lane & 3) * 2, ds[2 * i],
-               ds[2 * i + 1]);
-    }
-    __syncwarp();
-    warp_gemm<T, false, kKeys>(dq, Pw, LP, Ks, LD, lane);
-    __syncthreads();
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows<T>(reinterpret_cast<T*>(a.out), dq, qr, one, D, lane);
+  dq_block<T, DMAX, kCap>(a, blockIdx.x * kRows, blockIdx.y, blockIdx.z, smem);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kCap>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a) {
-  constexpr int LD = DMAX + kPad, LP = kBwdRows + kPad, N8 = DMAX / 8;
-  constexpr int C8 = kBwdRows / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kKeys * LD;
-  T* QOs = Vs + kKeys * LD;         // two buffers of [Q tile, dO tile]
-  T* Ps = QOs + 4 * kBwdRows * LD;  // P^T, then dS^T: [kKeys][LP], 16 key rows per warp
-  // two buffers of [lse, delta] of the row tile
-  float* LDs = reinterpret_cast<float*>(Ps + kKeys * LP);
+  dkdv_block<T, DMAX, kCap>(a, blockIdx.x * kKeys, blockIdx.y, blockIdx.z, smem);
+}
 
-  const int G = a.H / a.KV, rows = a.S * G, D = a.D;
-  const int k0 = blockIdx.x * kKeys, kv = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* q = reinterpret_cast<const T*>(a.q);
-  const T* dout = reinterpret_cast<const T*>(a.dout);
-
-  // the row tile at f0 into buffer `buf`: Q, dO, and lse/delta (zeros for
-  // rows past the end, which the mask below drops)
-  auto load_rows = [&](int f0, int buf) {
-    auto q_tile_row = [&](int r) { return f0 + r < rows ? q_row(a, b, kv, f0 + r) : -1LL; };
-    T* Qb = QOs + buf * 2 * kBwdRows * LD;
-    load_tile<T, DMAX>(Qb, kBwdRows, q, D, q_tile_row);
-    load_tile<T, DMAX>(Qb + kBwdRows * LD, kBwdRows, dout, D, q_tile_row);
-    if (threadIdx.x < kBwdRows) {
-      const long long r = q_tile_row(threadIdx.x);
-      float* Lb = LDs + buf * 2 * kBwdRows;
-      cp_async<4>(Lb + threadIdx.x, r >= 0 ? a.lse + r : a.lse, r >= 0);
-      cp_async<4>(Lb + kBwdRows + threadIdx.x, r >= 0 ? a.delta + r : a.delta, r >= 0);
-    }
-  };
-
-  int key[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) key[i] = k0 + warp * 16 + (lane >> 2) + 8 * i;
-  // under causal, folded rows before position k0 see none of these keys
-  const int f_begin = a.causal ? (int)((long long)k0 * G / kBwdRows) * kBwdRows : 0;
-
-  auto key_row = [&](int r) { return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL; };
-  load_tile<T, DMAX>(Ks, kKeys, reinterpret_cast<const T*>(a.k), D, key_row);
-  load_tile<T, DMAX>(Vs, kKeys, reinterpret_cast<const T*>(a.v), D, key_row);
-  if (f_begin < rows) load_rows(f_begin, 0);
-  cp_async_commit();
-
-  float dk[N8][4], dv[N8][4];
-  zero(dk);
-  zero(dv);
-  const T* Kw = Ks + warp * 16 * LD;
-  const T* Vw = Vs + warp * 16 * LD;
-  T* Pw = Ps + warp * 16 * LP;
-
-  for (int f0 = f_begin, it = 0; f0 < rows; f0 += kBwdRows, ++it) {
-    const int buf = it & 1;
-    if (f0 + kBwdRows < rows) {  // the next row tile's copy runs meanwhile
-      load_rows(f0 + kBwdRows, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this row tile (and K, V) visible to every warp
-    const T* Qs = QOs + buf * 2 * kBwdRows * LD;
-    const T* Os = Qs + kBwdRows * LD;  // dO
-    const float* Ls = LDs + buf * 2 * kBwdRows;
-    const float* Dl = Ls + kBwdRows;
-
-    // S^T = K Q^T: rows are this warp's 16 keys, columns the tile's 32 rows
-    float s[C8][4], dp[C8][4];
-    zero(s);
-    zero(dp);
-    warp_gemm<T, true, DMAX>(s, Kw, LD, Qs, LD, lane);
-    const bool edge = (a.causal && k0 + kKeys - 1 > f0 / G) || k0 + kKeys > a.S ||
-                      f0 + kBwdRows > rows;
-#pragma unroll
-    for (int n = 0; n < C8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, col = n * 8 + (lane & 3) * 2 + (e & 1);
-        const bool masked = edge && (key[i] >= a.S || f0 + col >= rows ||
-                                     (a.causal && key[i] > (f0 + col) / G));
-        s[n][e] = masked ? 0.f : expf(s[n][e] * a.scale - Ls[col]);
-      }
-#pragma unroll
-    for (int n = 0; n < C8; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        store2(Pw + ((lane >> 2) + 8 * i) * LP + n * 8 + (lane & 3) * 2, s[n][2 * i],
-               s[n][2 * i + 1]);
-    __syncwarp();
-    warp_gemm<T, false, kBwdRows>(dv, Pw, LP, Os, LD, lane);  // dv += P^T dO
-    warp_gemm<T, true, DMAX>(dp, Vw, LD, Os, LD, lane);       // dP^T = V dO^T
-    __syncwarp();  // every lane has read P^T before dS^T overwrites it
-#pragma unroll
-    for (int n = 0; n < C8; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int col = n * 8 + (lane & 3) * 2;
-        store2(Pw + ((lane >> 2) + 8 * i) * LP + col,
-               s[n][2 * i] * (dp[n][2 * i] - Dl[col]) * a.scale,
-               s[n][2 * i + 1] * (dp[n][2 * i + 1] - Dl[col + 1]) * a.scale);
-      }
-    __syncwarp();
-    warp_gemm<T, false, kBwdRows>(dk, Pw, LP, Qs, LD, lane);  // dk += dS^T Q
-    __syncthreads();  // every warp is done with this row-tile buffer
+struct PerHead {
+  template <typename T, int DMAX, bool kCap>
+  static Kernel kernel(Pass pass) {
+    if (pass == kFwd) return &fwd_kernel<T, DMAX, kCap>;
+    if (pass == kDq) return &dq_kernel<T, DMAX, kCap>;
+    return &dkdv_kernel<T, DMAX, kCap>;
   }
-
-  long long kr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) kr[i] = key[i] < a.S ? kv_row(a, b, kv, key[i]) : -1LL;
-  const float one[2] = {1.f, 1.f};
-  store_rows<T>(reinterpret_cast<T*>(a.out), dk, kr, one, D, lane);
-  store_rows<T>(reinterpret_cast<T*>(a.out2), dv, kr, one, D, lane);
-}
-
-template <typename T, int DMAX>
-constexpr size_t fwd_smem() {  // Q, two K/V buffers, P
-  return ((size_t)(kRows + 4 * kKeys) * (DMAX + kPad) + kRows * (kKeys + kPad)) * sizeof(T);
-}
-
-template <typename T, int DMAX>
-constexpr size_t dq_smem() {  // Q, dO, two K/V buffers, dS
-  return ((size_t)(2 * kRows + 4 * kKeys) * (DMAX + kPad) + kRows * (kKeys + kPad)) * sizeof(T);
-}
-
-template <typename T, int DMAX>
-constexpr size_t dkdv_smem() {  // K, V, two Q/dO buffers, P^T/dS^T, two lse/delta buffers
-  return ((size_t)(2 * kKeys + 4 * kBwdRows) * (DMAX + kPad) + kKeys * (kBwdRows + kPad)) *
-             sizeof(T) +
-         4 * kBwdRows * sizeof(float);
-}
-
-enum Pass { kFwd, kDq, kDkdv };
-
-template <typename T, int DMAX>
-cudaError_t launch(Pass pass, const Args& a, cudaStream_t stream) {
-  const int rows = a.S * (a.H / a.KV);
-  const dim3 grid_q((rows + kRows - 1) / kRows, a.KV, a.B);
-  const dim3 grid_k((a.S + kKeys - 1) / kKeys, a.KV, a.B);
-  void (*kern)(Args);
-  size_t smem;
-  dim3 grid;
-  switch (pass) {
-    case kFwd: kern = fwd_kernel<T, DMAX>; smem = fwd_smem<T, DMAX>(); grid = grid_q; break;
-    case kDq: kern = dq_kernel<T, DMAX>; smem = dq_smem<T, DMAX>(); grid = grid_q; break;
-    default: kern = dkdv_kernel<T, DMAX>; smem = dkdv_smem<T, DMAX>(); grid = grid_k; break;
+  static dim3 grid(Pass pass, const Args& a) {
+    if (pass == kDkdv) return dim3((a.S + kKeys - 1) / kKeys, a.KV, a.B);
+    return dim3((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.KV, a.B);
   }
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-inline int run(Pass pass, const Args& a, int dtype, void* stream) {
-  const bool shape_ok = a.B > 0 && a.B <= 65535 && a.S > 0 && a.KV > 0 && a.KV <= 65535 &&
-                        a.H % a.KV == 0 && a.D > 0 && a.D <= 128 && a.D % 8 == 0 &&
-                        (long long)a.S * (a.H / a.KV) < (1LL << 31);
-  if (!shape_ok) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool narrow = a.D <= 64;
-  switch (dtype) {
-    case kFloat32:
-      return (int)(narrow ? launch<float, 64>(pass, a, s) : launch<float, 128>(pass, a, s));
-    case kBFloat16:
-      return (int)(narrow ? launch<__nv_bfloat16, 64>(pass, a, s)
-                          : launch<__nv_bfloat16, 128>(pass, a, s));
-    case kFloat16:
-      return (int)(narrow ? launch<__half, 64>(pass, a, s) : launch<__half, 128>(pass, a, s));
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
+};
 
 }  // namespace flash
 }  // namespace dstt
@@ -657,29 +44,33 @@ inline int run(Pass pass, const Args& a, int dtype, void* stream) {
 // o, lse = attention(q, k, v); lse [B, S, H] fp32
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int S, int H, int KV, int D, float scale, int causal,
-                              int dtype, void* stream) {
+                              int window, float softcap, int dtype, void* stream) {
   using namespace dstt::flash;
-  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, (float*)lse,
-         B, S, H, KV, D, scale, causal};
-  return run(kFwd, a, dtype, stream);
+  return run<PerHead>(kFwd,
+                      make_args(q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse, B, S, H,
+                                KV, D, scale, causal, window, softcap),
+                      dtype, stream);
 }
 
 extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int B, int S,
-                                 int H, int KV, int D, float scale, int causal, int dtype,
-                                 void* stream) {
+                                 int H, int KV, int D, float scale, int causal, int window,
+                                 float softcap, int dtype, void* stream) {
   using namespace dstt::flash;
-  Args a{q, k, v, dout, (const float*)lse, (const float*)delta, dq, nullptr, nullptr,
-         B, S, H, KV, D, scale, causal};
-  return run(kDq, a, dtype, stream);
+  return run<PerHead>(kDq,
+                      make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, S, H, KV,
+                                D, scale, causal, window, softcap),
+                      dtype, stream);
 }
 
 extern "C" int dstt_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dk, void* dv, int B, int S, int H, int KV, int D,
-                                   float scale, int causal, int dtype, void* stream) {
+                                   float scale, int causal, int window, float softcap,
+                                   int dtype, void* stream) {
   using namespace dstt::flash;
-  Args a{q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, nullptr,
-         B, S, H, KV, D, scale, causal};
-  return run(kDkdv, a, dtype, stream);
+  return run<PerHead>(kDkdv,
+                      make_args(q, k, v, dout, lse, delta, dk, dv, nullptr, B, S, H, KV, D,
+                                scale, causal, window, softcap),
+                      dtype, stream);
 }

@@ -33,8 +33,10 @@ from ..ops.normalization import layer_norm_reference
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Decoder-family config, same fields and defaults as the JAX package's.
-    The port trains the Llama subset (rmsnorm, rope, swiglu, GQA) and
-    serves it and the StarCoder2 knobs (``SERVING_FAMILY``); the other
+    The port trains the Llama subset (rmsnorm, rope, swiglu, GQA) with
+    Mistral's sliding window and the attention-logit softcap
+    (``TRAINING_FAMILY``), and serves the Llama subset and the StarCoder2
+    knobs (``SERVING_FAMILY``); the other
     variant knobs are kept so configs carry over, and the models refuse the
     ones they do not implement yet."""
     vocab_size: int = 32000
@@ -122,7 +124,11 @@ LLAMA_FAMILY = dict(
     norm_plus_one=False, embed_scale=None, attn_logit_softcapping=None,
     final_logit_softcapping=None, mlp_type="swiglu", mlp_bias=False,
     parallel_residual=False, lm_head_bias=False, num_local_experts=0)
-# and what the training forward does not run yet on top of that
+# what the training forward runs: the Llama family with a sliding window
+# (on all or some layers, Mistral) and the attention-logit softcap, both
+# passed to flash_attention; and what it does not run yet on top of that
+TRAINING_FAMILY = {k: v for k, v in LLAMA_FAMILY.items()
+                   if k not in ("sliding_window", "attn_logit_softcapping")}
 TRAINING_DEFAULTS = dict(remat=False, scan_layers=False)
 # what the serving forward runs: the Llama family and StarCoder2's knobs
 # (LayerNorm with bias, q/k/v/o biases, the biased gelu-tanh fc MLP, sliding
@@ -233,11 +239,12 @@ def _make_norm(cfg: LlamaConfig, dtype, device) -> nn.Module:
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype, device):
+    def __init__(self, cfg: LlamaConfig, dtype, device, layer_idx: int = 0):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim_
         nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
         self.config = cfg
+        self.layer_idx = layer_idx
         bias = cfg.attention_bias
         self.q_proj = Dense(h, nq * hd, dtype, device, bias)
         self.k_proj = Dense(h, nkv * hd, dtype, device, bias)
@@ -245,7 +252,9 @@ class LlamaAttention(nn.Module):
         self.o_proj = Dense(nq * hd, h, dtype, device, cfg.attention_out_bias)
 
     def forward(self, x, cos, sin, positions):
-        """The flash branch of the JAX layer: K1/K2 forward and backward."""
+        """The flash branch of the JAX layer (``:365-368``): the attention
+        route (``ops/attention.flash_attention``) with this layer's window
+        and the attention-logit softcap."""
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -254,7 +263,9 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(b, s, cfg.num_key_value_heads, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-        attn = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale)
+        attn = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale,
+                               window=_layer_window(cfg, self.layer_idx),
+                               softcap=cfg.attn_logit_softcapping)
         return self.o_proj(attn.reshape(b, s, -1))
 
 
@@ -282,10 +293,10 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype, device):
+    def __init__(self, cfg: LlamaConfig, dtype, device, layer_idx: int = 0):
         super().__init__()
         self.input_layernorm = _make_norm(cfg, dtype, device)
-        self.self_attn = LlamaAttention(cfg, dtype, device)
+        self.self_attn = LlamaAttention(cfg, dtype, device, layer_idx)
         self.post_attention_layernorm = _make_norm(cfg, dtype, device)
         self.mlp = LlamaMLP(cfg, dtype, device)
 
@@ -330,8 +341,8 @@ class LlamaModel(nn.Module):
         self.config = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dtype, device=device)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype, device)
-                                    for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype, device, i)
+                                    for i in range(cfg.num_hidden_layers))
         self.norm = _make_norm(cfg, dtype, device)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else Dense(cfg.hidden_size, cfg.vocab_size,
@@ -381,7 +392,7 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, dtype=None, device=None):
         super().__init__()
         check_supported(config, "LlamaForCausalLM",
-                        {**LLAMA_FAMILY, **TRAINING_DEFAULTS})
+                        {**TRAINING_FAMILY, **TRAINING_DEFAULTS})
         self.config = config
         self.model = LlamaModel(config, dtype, device, trainable=True)
 

@@ -7,10 +7,12 @@ every HF tensor, the parameter it fills in the JAX package's tree layout
 (``layers_3/self_attn/q_proj/kernel``) and whether it is transposed (torch
 ``Linear`` stores ``[out, in]``, the kernels ``[in, out]``). The port keeps
 the layout, so ``replace_module.convert_hf_checkpoint`` loads the same
-names. Only the architectures the port serves are registered: Llama and
-StarCoder2. Every other one raises ``NotImplementedError``.
+names. Only the architectures the port runs are registered: Llama,
+Mistral (trained) and StarCoder2 (served). Every other one raises
+``NotImplementedError``.
 """
 
+import dataclasses
 from typing import Dict, Tuple
 
 from ..models.llama import LlamaConfig
@@ -92,6 +94,36 @@ class HFCheckpointPolicy:
         return out
 
 
+# mistralai/Mistral-7B-v0.1 config.json, as published; keys the port does
+# not read (dropouts, initializer_range, token ids, torch_dtype,
+# hidden_act "silu", which is the swiglu MLP's) are left out
+MISTRAL_7B = {
+    "architectures": ["MistralForCausalLM"],
+    "model_type": "mistral",
+    "vocab_size": 32000,
+    "hidden_size": 4096,
+    "intermediate_size": 14336,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-05,
+    "rope_theta": 10000.0,
+    "sliding_window": 4096,
+    "tie_word_embeddings": False,
+}
+
+
+class MistralPolicy(HFCheckpointPolicy):
+    """Mistral: the Llama graph with sliding-window attention; Llama's
+    weight map."""
+    arch = "mistral"
+
+    def config_from_hf(self, hf_config):
+        cfg = super().config_from_hf(hf_config)
+        return dataclasses.replace(cfg, sliding_window=hf_config.get("sliding_window"))
+
+
 class Starcoder2Policy(HFCheckpointPolicy):
     """StarCoder2: GQA, LayerNorm with bias, biased gelu-tanh fc MLP,
     sliding window, tied embeddings."""
@@ -156,6 +188,8 @@ class Starcoder2Policy(HFCheckpointPolicy):
 _POLICIES = {
     "llama": HFCheckpointPolicy,
     "LlamaForCausalLM": HFCheckpointPolicy,
+    "mistral": MistralPolicy,
+    "MistralForCausalLM": MistralPolicy,
     "starcoder2": Starcoder2Policy,
     "Starcoder2ForCausalLM": Starcoder2Policy,
 }

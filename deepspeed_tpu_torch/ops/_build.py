@@ -55,15 +55,24 @@ _SIGNATURES = {
     "dstt_quantize_int8": (_P, _L, _I, _I, _P, _P, _P),
     # values, scales, n, block, out, dtype, stream
     "dstt_dequantize_int8": (_P, _P, _L, _I, _P, _I, _P),
-    # q, k, v, o, lse, B, S, H, KV, D, scale, causal, dtype, stream
-    "dstt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
-    # q, k, v, dO, lse, delta, dq, B, S, H, KV, D, scale, causal, dtype, stream
+    # q, k, v, o, lse, B, S, H, KV, D, scale, causal, window, softcap, dtype,
+    # stream (the folded K3 entry point takes the same)
+    "dstt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F,
+                       _I, _P),
+    "dstt_flash_folded_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _I, _F, _I, _P),
+    # q, k, v, dO, lse, delta, dq, B, S, H, KV, D, scale, causal, window,
+    # softcap, dtype, stream
     "dstt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _I, _I, _P),
-    # q, k, v, dO, lse, delta, dk, dv, B, S, H, KV, D, scale, causal, dtype,
-    # stream
+                          _I, _I, _F, _I, _P),
+    "dstt_flash_folded_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _F, _I, _I, _F, _I, _P),
+    # q, k, v, dO, lse, delta, dk, dv, B, S, H, KV, D, scale, causal, window,
+    # softcap, dtype, stream
     "dstt_flash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _F, _I, _I, _P),
+                            _I, _F, _I, _I, _F, _I, _P),
+    "dstt_flash_folded_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _F, _I, _I, _F, _I, _P),
     # p, g, m, v, n, lr, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
     # weight decay, mode, p dtype, g dtype, stream
     "dstt_adam_step": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F,

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.inference.v2.model import quantize_kv
+from deepspeed_tpu_torch.ops import attention_folded as ff
 from deepspeed_tpu_torch.ops import fused_optimizer as fo
 from deepspeed_tpu_torch.ops.attention import (
     attention_delta, flash_attention, flash_attention_bwd_dkdv,
@@ -520,6 +521,156 @@ def test_flash_refuses_what_the_kernel_does_not_take(cuda_device):
     o, lse = flash_attention_fwd(q, k, v, causal)
     with pytest.raises(ValueError):  # lse must be fp32 [B, S, H]
         flash_attention_bwd_dq(q, k, v, do, lse.double(), lse, causal)
+
+
+# ---- K1/K2 with window and softcap, K3 (the folded layout), the route ----
+
+# (B, S, H, KV, D, causal, window, softcap, dtype): windows smaller than a
+# 64-key tile, not a multiple of it, and covering the sequence; the softcap
+# alone and with a window; a window without the causal mask; then bf16 at
+# the smoke's main-path shapes (Llama-3-8B with softcap 50, Mistral's S
+# 8192 with its 4096 window)
+FLASH_OPTIONS = {
+    "w16_s128": (1, 128, 4, 2, 32, True, 16, None, torch.float32),
+    "w100_s300": (2, 300, 8, 2, 64, True, 100, None, torch.float32),
+    "w500_s200": (1, 200, 4, 4, 128, True, 500, None, torch.float32),
+    "softcap_s190": (1, 190, 4, 1, 64, True, None, 5.0, torch.float32),
+    "w64_softcap_s333": (1, 333, 6, 3, 64, True, 64, 7.0, torch.float32),
+    "w70_full_s256": (1, 256, 4, 4, 32, False, 70, 20.0, torch.float32),
+    "bf16_w48_s200": (1, 200, 8, 2, 64, True, 48, None, torch.bfloat16),
+    "fp16_w64_softcap": (1, 333, 6, 3, 64, True, 64, 7.0, torch.float16),
+    "bf16_8b_softcap": (2, 2048, 32, 8, 128, True, None, 50.0, torch.bfloat16),
+    "bf16_mistral": (1, 8192, 32, 8, 128, True, 4096, None, torch.bfloat16),
+}
+
+
+def _option_inputs(case, device):
+    B, S, H, KV, D, causal, window, softcap, dtype = FLASH_OPTIONS[case]
+    rng = np.random.default_rng(200 + sorted(FLASH_OPTIONS).index(case))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to(device, dtype) for shape in (
+                       (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    return (q, k, v, do), dict(causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("layout", ["per_head", "folded"])
+@pytest.mark.parametrize("case", sorted(FLASH_OPTIONS))
+def test_flash_options_kernels_match_plain(case, layout, cuda_device):
+    """K1/K2 (per head) and K3 (folded) with the window and softcap against
+    the plain versions on the same inputs; ROW_TOL as above."""
+    (q, k, v, do), opts = _option_inputs(case, cuda_device)
+    kernels = ((flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkdv)
+               if layout == "per_head" else
+               (ff.folded_attention_fwd, ff.folded_attention_bwd_dq,
+                ff.folded_attention_bwd_dkdv))
+    before = [f.launches for f in kernels]
+    o, lse = kernels[0](q, k, v, **opts)
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert_rows_close(o, o_ref, "o")
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    delta = attention_delta(o_ref, do)
+    args = (q, k, v, do, lse_ref, delta)
+    dq = kernels[1](*args, **opts)
+    dk, dv = kernels[2](*args, **opts)
+    grads_ref = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, **opts)
+    torch.cuda.synchronize()
+    for name, g, g_ref in zip("qkv", (dq, dk, dv), grads_ref):
+        assert_rows_close(g, g_ref, f"d{name}")
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+
+
+def test_folded_equals_per_head_kernels(cuda_device):
+    """K3 runs K1/K2's body per KV head: the same bits on the same inputs."""
+    (q, k, v, do), opts = _option_inputs("w64_softcap_s333", cuda_device)
+    o, lse = flash_attention_fwd(q, k, v, **opts)
+    of, lsef = ff.folded_attention_fwd(q, k, v, **opts)
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts)
+    dqf = ff.folded_attention_bwd_dq(q, k, v, do, lse, delta, **opts)
+    dkv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **opts)
+    dkvf = ff.folded_attention_bwd_dkdv(q, k, v, do, lse, delta, **opts)
+    for a, b in [(o, of), (lse, lsef), (dq, dqf), *zip(dkv, dkvf)]:
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fwd,bwd", [("pallas", "pallas"), ("folded", "folded"),
+                                     ("xla", "folded"), ("folded", "xla"),
+                                     ("pallas", "folded")])
+def test_route_launches_the_kernels_it_resolved(fwd, bwd, cuda_device):
+    """Each pin launches its legs' kernels once and nothing else, and the
+    route's output and gradients match the plain versions. In fp32, as
+    test_flash_autograd_launches_all_three_kernels: in bf16 a kernel
+    forward's o differs from the plain one's by bf16 roundings, and the
+    backward's delta = rowsum(dO * o) carries that into every gradient."""
+    (q, k, v, do), opts = _option_inputs("w64_softcap_s333", cuda_device)
+    per_leg = {"pallas": ((flash_attention_fwd, ), (flash_attention_bwd_dq,
+                                                   flash_attention_bwd_dkdv)),
+               "folded": ((ff.folded_attention_fwd, ), (ff.folded_attention_bwd_dq,
+                                                        ff.folded_attention_bwd_dkdv)),
+               "xla": ((), ())}
+    counted = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkdv,
+               ff.folded_attention_fwd, ff.folded_attention_bwd_dq,
+               ff.folded_attention_bwd_dkdv)
+    before = {f: f.launches for f in counted}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, impl_fwd=fwd, impl_bwd=bwd, **opts)
+    out.backward(do)
+    torch.cuda.synchronize()
+    expect = set(per_leg[fwd][0]) | set(per_leg[bwd][1])
+    assert {f: f.launches - before[f] for f in counted} == {
+        f: int(f in expect) for f in counted}
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, **opts)
+    grads_ref = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, **opts)
+    assert_rows_close(out.detach(), o_ref, "o")
+    for name, t, g_ref in zip("qkv", leaves, grads_ref):
+        assert_rows_close(t.grad, g_ref, f"d{name}")
+
+
+@pytest.mark.parametrize("cache", ["empty", "measured_xla"])
+def test_route_at_d64_s1024_runs_the_kernels(cache, cuda_device, monkeypatch, tmp_path):
+    """At head_dim 64, S 1024 and no window the JAX package's TPU heuristic
+    sends the forward to xla; on the card the route runs K1 and K2 once
+    each, also over a measured xla entry for the card's kind. fp32, as
+    test_route_launches_the_kernels_it_resolved."""
+    from deepspeed_tpu_torch.ops import kernel_dispatch as kd
+    from deepspeed_tpu_torch.ops.autotune_cache import get_cache
+    monkeypatch.setenv("DS_TPU_ATTN_CACHE_DIR", str(tmp_path))
+    rng = np.random.default_rng(64)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(1, 1024, n, 64)).astype(np.float32))
+                   .to(cuda_device) for n in (8, 2, 2, 8))
+    if cache == "measured_xla":
+        sig = kd.make_sig(q.shape, 2, 1024, q.dtype, True, None, None)
+        for leg in ("fwd", "bwd"):
+            get_cache().commit(kd.signature(leg, sig, kd.device_kind(q.device)),
+                               {"impl": "xla", "block_q": 256, "block_k": 512})
+    counted = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkdv,
+               ff.folded_attention_fwd, ff.folded_attention_bwd_dq,
+               ff.folded_attention_bwd_dkdv)
+    before = [f.launches for f in counted]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counted, before)] == [1, 1, 1, 0, 0, 0]
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal=True)
+    grads_ref = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal=True)
+    assert_rows_close(out.detach(), o_ref, "o")
+    for name, t, g_ref in zip("qkv", leaves, grads_ref):
+        assert_rows_close(t.grad, g_ref, f"d{name}")
+
+
+def test_folded_refuses_what_the_kernel_does_not_take(cuda_device):
+    (q, k, v, do), opts = _option_inputs("bf16_w48_s200", cuda_device)
+    with pytest.raises(TypeError):
+        ff.folded_attention_fwd(q.double(), k.double(), v.double(), **opts)
+    with pytest.raises(ValueError):
+        ff.folded_attention_fwd(q.transpose(1, 2), k, v, **opts)
+    with pytest.raises(ValueError, match="window"):
+        ff.folded_attention_fwd(q, k, v, causal=True, window=0)
+    o, lse = ff.folded_attention_fwd(q, k, v, **opts)
+    with pytest.raises(ValueError):  # lse must be fp32 [B, S, H]
+        ff.folded_attention_bwd_dq(q, k, v, do, lse.double(), lse, **opts)
 
 
 # ---- K7 fused optimizers (adam/adamw/L2, lion, lamb's first pass) ----

@@ -314,7 +314,8 @@ def test_llama_policy_matches_jax():
     assert policy_for("llama").global_map(False) == jax_policy_for("llama").global_map(False)
 
 
-@pytest.mark.parametrize("arch", ["mistral", "Phi3ForCausalLM", "no_such_arch"])
+# Mistral is registered now (tests/test_torch_mistral.py); Qwen2 is not
+@pytest.mark.parametrize("arch", ["qwen2", "Phi3ForCausalLM", "no_such_arch"])
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match=arch):
         policy_for(arch)
