@@ -289,17 +289,20 @@ def staged_kv(codes, scales, D: int):
 LLAMA_PAGED = dict(L=32, KV=8, G=4, D=128, ps=64, n_pages=160, layer=17)
 SC2_PAGED = dict(L=4, KV=4, G=9, D=128, ps=64, n_pages=1009, layer=3)
 SC2_WINDOW = 4096
+# BLOOM-7B1's (MHA: KV 32, G 1, D 128; 4 layers of cache, pages for the
+# serving phase's 8 sequences of up to 2048 + 32 tokens)
+BLOOM_PAGED = dict(L=4, KV=32, G=1, D=128, ps=64, n_pages=300, layer=3)
 
 
 def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                 graph: bool = False, int8: bool = False, widths=LLAMA_PAGED,
-                window=None) -> dict:
+                window=None, alibi: bool = False) -> dict:
     """One paged-attention batch over a cache of ``widths``, bf16 or
-    (``int8``) int8 with its scales. A sequence with ``n_new`` 0 is a
-    padding row (zero block table, no tokens). With a ``window``, the
-    table entries of blocks wholly below the window of each sequence's
-    first query hold 0, as the engine leaves them once it has freed
-    them."""
+    (``int8``) int8 with its scales, with BLOOM's ALiBi bias where
+    ``alibi``. A sequence with ``n_new`` 0 is a padding row (zero block
+    table, no tokens). With a ``window``, the table entries of blocks
+    wholly below the window of each sequence's first query hold 0, as the
+    engine leaves them once it has freed them."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
@@ -309,7 +312,7 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     S = len(seen)
     cache = torch.randn(2 * L, n_pages * ps, KV * D, generator=gen,
                         device="cuda", dtype=torch.bfloat16)
-    kw = {"window": window}
+    kw = {"window": window, "use_alibi": alibi}
     if int8:
         cache, kw["cache_scales"] = int8_kv(cache, D)
     q = torch.randn(S, N, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -329,7 +332,7 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     # kernel reads (an int8 cache's staged bf16 values)
     staged = staged_kv(cache, kw["cache_scales"], D) if int8 else cache
     exact = paged_attention_reference(q.float(), staged, layer, bt, seen_t, lens_t,
-                                      page_size=ps, window=window)
+                                      page_size=ps, window=window, use_alibi=alibi)
     control = exact.to(q.dtype)  # one rounding of it; for a bf16 cache, = ref
     torch.cuda.synchronize()
     errs = {"max_abs_err": (y.float() - ref.float()).abs().max().item(),
@@ -357,6 +360,7 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     rec = {"case": name, "shape": {"S": S, "N": N, "B": B, "H": H, "KV": KV,
                                    "D": D, "page_size": ps, "layers": L,
                                    "seen": seen, "n_new": n_new, "window": window,
+                                   "alibi": alibi,
                                    "cache": "int8" if int8 else "bfloat16"},
            **errs, "timing": "cuda graph" if graph else "events",
            "ms": timer(lambda: paged_attention(*args, page_size=ps, **kw)),
@@ -518,9 +522,21 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     # SDPA, timed as the yardstick only: forward, and forward + backward
     # less the forward for the backward. A window goes in as a boolean
     # mask, over K/V repeated to the query heads (SDPA's masked kernels do
-    # not take GQA); no SDPA call computes the softcap.
-    lib_fwd = lib_bwd = None
-    if softcap is None:
+    # not take GQA); no SDPA call computes the softcap: flex_attention with
+    # the softcap as its score_mod does
+    if softcap is not None:
+        def cap(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap)
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            keep = kv_idx <= q_idx if causal else q_idx >= 0
+            return keep & (q_idx - kv_idx < window) if window is not None else keep
+
+        flex = _flex_times(*(x.transpose(1, 2).contiguous() for x in (q, k, v, do)),
+                           mask_mod, score_mod=cap)
+        lib_fwd, lib_bwd = flex["fwd"], flex["bwd"]
+        free_memory()
+    else:
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
         kw = dict(is_causal=causal, enable_gqa=True)
         if window is not None:
@@ -562,7 +578,8 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     rec = {"case": name, "layout": layout,
            "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": causal,
                      "window": window, "softcap": softcap},
-           "visible_pairs_per_head": pairs, "dtype": name_dtype, "lse_max_abs_err": lse_err}
+           "visible_pairs_per_head": pairs, "dtype": name_dtype, "lse_max_abs_err": lse_err,
+           "library": "flex_attention (compiled, softcap score_mod)" if softcap else "SDPA"}
     for key, (kernel, plain, library) in timed.items():
         flops = work[key][0] * D * pairs * H * B
         bound_flops = flops / BF16_FLOPS * 1e3
@@ -763,6 +780,178 @@ def _k7_case(gen, body: str, n: int) -> dict:
     return rec
 
 
+# K8 at BERT-large's attention width (hidden 1024, 16 heads: head_dim 64),
+# S 4096, B 4, bf16, under the reference's default layouts at block 16
+# (sparsity_config.py), plus the fixed layout at block 64
+SPLASH_SHAPE = dict(B=4, H=16, S=4096, D=64)
+SPLASH_LAYOUTS = (("fixed", "FixedSparsityConfig", 16), ("bigbird", "BigBirdSparsityConfig", 16),
+                  ("bslongformer", "BSLongformerSparsityConfig", 16),
+                  ("fixed_block64", "FixedSparsityConfig", 64))
+SPLASH_KERNELS = (
+    ("fwd", "splash_attention_fwd", "deepspeed_tpu/ops/sparse_attention/splash.py:63"),
+    ("dq", "splash_attention_bwd_dq", "deepspeed_tpu/ops/sparse_attention/splash.py:165"),
+    ("dkdv", "splash_attention_bwd_dkdv",
+     "deepspeed_tpu/ops/sparse_attention/splash.py:201"))
+SPLASH_SOURCES = {"fwd": "deepspeed_tpu_torch/csrc/splash_attention.cu",
+                  "dq": "deepspeed_tpu_torch/csrc/splash_attention_bwd_dq.cu",
+                  "dkdv": "deepspeed_tpu_torch/csrc/splash_attention_bwd_dkdv.cu"}
+
+
+def splash_layout(config: str, block: int):
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+    cfg = getattr(sc, config)(num_heads=SPLASH_SHAPE["H"], block=block)
+    return cfg, cfg.make_layout(SPLASH_SHAPE["S"])
+
+
+def _flex_times(q, k, v, do, mask_mod, score_mod=None):
+    """flex_attention (compiled) over q ``[B, H, S, D]`` and k/v ``[B, KV,
+    S, D]`` with a BlockMask from ``mask_mod`` (and ``score_mod``): forward
+    ms, and forward + backward less the forward. A yardstick only, but it
+    stands on the kernels line: a failure raises."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    B, H, S, _ = q.shape
+    bm = create_block_mask(mask_mod, B=None, H=H, Q_LEN=S, KV_LEN=S, device="cuda")
+    flex = torch.compile(flex_attention)
+    kw = dict(block_mask=bm, score_mod=score_mod, enable_gqa=k.shape[1] != H)
+    fwd = time_ms(lambda: flex(q, k, v, **kw), iters=5)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    both = time_ms(lambda: torch.autograd.grad(flex(*leaves, **kw), leaves, do), iters=5)
+    return {"fwd": fwd, "bwd": both - fwd}
+
+
+def layout_mask_mod(layout, block: int):
+    """flex_attention's mask_mod of a block-sparse layout: row b*H + h
+    reads layout head h % layout_heads, as K8 does."""
+    import numpy as np
+    import torch
+    lay = torch.from_numpy(np.asarray(layout).astype(bool)).cuda()
+    Lh = lay.shape[0]
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return lay[h % Lh, q_idx // block, kv_idx // block]
+
+    return mask_mod
+
+
+def _splash_case(gen, name: str, config: str, block: int) -> dict:
+    """K8's forward, dq and dk/dv at ``SPLASH_SHAPE`` in bf16 under one
+    layout, each against its plain version on identical inputs (the
+    backward passes take the plain forward's o and lse), and beside the
+    exact value (the plain versions in fp64) with the plain version's
+    error and one rounding of it as controls, under phase 2's flash rule.
+    Library times: flex_attention with a BlockMask from the layout, and
+    SDPA with the dense boolean mask of ``layout_to_mask``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import attention_delta
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as sp
+    from deepspeed_tpu_torch.ops.sparse_attention import splash_flops
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import \
+        layout_to_mask
+    B, H, S, D = (SPLASH_SHAPE[k] for k in ("B", "H", "S", "D"))
+    _, layout = splash_layout(config, block)
+    tables = sp.SplashTables.build(layout, block, "cuda")
+
+    def rnd():
+        return torch.randn(B, H, S, D, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    o, lse = sp.splash_attention_fwd(q, k, v, tables)
+    o_ref, lse_ref = sp.splash_attention_fwd_reference(q, k, v, layout, block)
+    delta = attention_delta(o_ref, do)
+    bwd_args = (q, k, v, do, lse_ref, delta)
+    dq = sp.splash_attention_bwd_dq(*bwd_args, tables)
+    dk, dv = sp.splash_attention_bwd_dkdv(*bwd_args, tables)
+    dq_ref = sp.splash_attention_bwd_dq_reference(*bwd_args, layout, block)
+    dk_ref, dv_ref = sp.splash_attention_bwd_dkdv_reference(*bwd_args, layout, block)
+    ex = tuple(t.double() for t in bwd_args)
+    exact = {"fwd": [sp.splash_attention_fwd_reference(*ex[:3], layout, block)[0]],
+             "dq": [sp.splash_attention_bwd_dq_reference(*ex, layout, block)],
+             "dkdv": list(sp.splash_attention_bwd_dkdv_reference(*ex, layout, block))}
+    torch.cuda.synchronize()
+    got = {"fwd": [(o, o_ref)], "dq": [(dq, dq_ref)], "dkdv": [(dk, dk_ref), (dv, dv_ref)]}
+    floor = 2.0 ** -16 / FLASH_ROW_TOL["bfloat16"]
+    vs = dict(floor=FLASH_EXACT_FLOOR["bfloat16"])
+    errs = {}
+    for key, pairs in got.items():
+        errs[key] = {
+            "max_abs_err": max((x.float() - r.float()).abs().max().item() for x, r in pairs),
+            "row_rel_err": max(row_rel_err(x, r, floor) for x, r in pairs),
+            "vs_exact": {
+                "kernel": max(row_rel_err(x, e, **vs) for (x, _), e in zip(pairs, exact[key])),
+                "plain": max(row_rel_err(r, e, **vs) for (_, r), e in zip(pairs, exact[key])),
+                "one_rounding": max(row_rel_err(e.to(torch.bfloat16), e, **vs)
+                                     for e in exact[key])}}
+    seen = lse_ref < sp.LSE_EMPTY  # lse compared only on rows that see a key
+    lse_err = (lse[seen] - lse_ref[seen]).abs().max().item()
+    lse_empty_ok = bool((lse[~seen] == sp.LSE_EMPTY).all())
+    del o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref, exact, ex, got
+    free_memory()
+
+    flex = _flex_times(q, k, v, do, layout_mask_mod(layout, block))
+    free_memory()
+    mask = torch.from_numpy(layout_to_mask(layout, block)).cuda()[None]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask)
+
+    sdpa_fwd = time_ms(lambda: sdpa(q, k, v), iters=5)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, do),
+                       iters=5) - sdpa_fwd
+    del mask, leaves
+    free_memory()
+
+    # operations per active (q-block, k-block) pair of a (batch, head) row:
+    # 4·D (fwd), 6·D (dq), 8·D (dk/dv) per (query, key) pair in it; bytes:
+    # each input read once, each output written once, and of each pass's
+    # block table the counts and the live entries (the loop stops at the
+    # count, so a row's padding is never read)
+    active = int(layout.sum()) * (B * H // layout.shape[0])
+    pairs = active * block * block
+    qb, rb = B * H * S * D * 2, B * H * S * 4
+    tb = 4 * (int(tables.counts.sum()) + tables.counts.numel())
+    tbt = 4 * (int(tables.counts_t.sum()) + tables.counts_t.numel())
+    work = {"fwd": (4, 4 * qb + rb + tb), "dq": (6, 5 * qb + 2 * rb + tb),
+            "dkdv": (8, 6 * qb + 2 * rb + tbt)}
+    timed = {
+        "fwd": (lambda: sp.splash_attention_fwd(q, k, v, tables),
+                lambda: sp.splash_attention_fwd_reference(q, k, v, layout, block),
+                flex["fwd"], sdpa_fwd),
+        "dq": (lambda: sp.splash_attention_bwd_dq(*bwd_args, tables),
+               lambda: sp.splash_attention_bwd_dq_reference(*bwd_args, layout, block),
+               flex["bwd"], sdpa_bwd),
+        "dkdv": (lambda: sp.splash_attention_bwd_dkdv(*bwd_args, tables),
+                 lambda: sp.splash_attention_bwd_dkdv_reference(*bwd_args, layout, block),
+                 flex["bwd"], sdpa_bwd),
+    }
+    counts = tables.counts.cpu().numpy()
+    rec = {"case": name, "shape": {**SPLASH_SHAPE, "block": block, "layout": config,
+                                   "layout_heads": int(layout.shape[0])},
+           "active_blocks": active, "dtype": "bfloat16", "lse_max_abs_err": lse_err,
+           "lse_empty_rows_marked": lse_empty_ok,
+           "widest_row": int(counts.max()), "widest_transposed_row":
+               int(tables.counts_t.max().item()), "mean_row": float(np.mean(counts)),
+           "splash_flops": splash_flops(layout, block, D, batch=B)}
+    for key, (kernel, plain, flex_ms, sdpa_ms) in timed.items():
+        flops = work[key][0] * D * pairs
+        bound_flops = flops / BF16_FLOPS * 1e3
+        bound_bytes = work[key][1] / HBM_BYTES_PER_S * 1e3
+        rec[key] = {**errs[key], "tolerance": FLASH_ROW_TOL["bfloat16"],
+                    "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=3),
+                    # flex's and SDPA's backward compute dq, dk and dv in one
+                    # call: the same time stands beside both backward passes
+                    "library_ms": flex_ms, "library": "flex_attention (compiled, BlockMask)",
+                    "sdpa_ms": sdpa_ms, "gflop": flops / 1e9,
+                    "bound_ms": max(bound_flops, bound_bytes),
+                    "bound_by": "operations" if bound_flops >= bound_bytes else "bytes"}
+    del q, k, v, do, delta, bwd_args, timed, tables
+    free_memory()
+    return rec
+
+
 def phase_kernels() -> list:
     import torch
     gen = torch.Generator(device="cuda")
@@ -835,12 +1024,25 @@ def phase_kernels() -> list:
     ]
     # the fp16 instance at the training phase's shape (fp16 training)
     flash_fp16 = [_flash_case(gen, "main_fp16", 2, 2048, True, torch.float16)]
+    # K8 under the reference's three default layouts at block 16, and at
+    # block 64
+    splash_cases = [_splash_case(gen, name, config, block)
+                    for name, config, block in SPLASH_LAYOUTS]
+    # K4's ALiBi instance at BLOOM-7B1's widths: a decode step of the
+    # serving phase's 8 sequences, and a 768-row prefill chunk
+    alibi_kw = dict(widths=BLOOM_PAGED, alibi=True)
+    paged_alibi_cases = [
+        _paged_case(gen, "alibi_decode", [2048 + 5, 1536 + 9, 1024 + 13, 1024 + 17, 512 + 21,
+                                          256 + 25, 128 + 29, 128 + 31], [1] * 8, N=1,
+                    B=33, graph=True, **alibi_kw),
+        _paged_case(gen, "alibi_prefill_chunk", [768], [768], N=768, B=24, **alibi_kw),
+    ]
     # K7: each body at one layer's parameters and at a ragged tail; the
     # whole LAMB step over the layer's 9 tensors
     k7_cases = [_k7_case(gen, body, n) for body in ("adamw", "adam_l2", "lion", "lamb_pass")
                 for n in (LAYER_PARAMS, K7_TAIL)]
     k7_cases += [_k7_case(gen, "lamb_step", LAYER_PARAMS)]
-    all_paged = paged_cases + paged_int8_cases + paged_window_cases
+    all_paged = paged_cases + paged_int8_cases + paged_window_cases + paged_alibi_cases
     paged_ok = [c.get("staged_row_rel_err", c["row_rel_err"])
                 <= c["rounding_row_rel_err"] + PAGED_ROW_SLACK
                 and c.get("control_max_abs_err", c["max_abs_err"]) <= PAGED_TOL
@@ -855,6 +1057,10 @@ def phase_kernels() -> list:
             and c["lse_max_abs_err"] <= LSE_TOL
             and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
             for c in flash_cases + flash_fp16 + folded_cases for key, _, _ in FLASH_KERNELS) and \
+        all(c[key]["row_rel_err"] <= FLASH_ROW_TOL[c["dtype"]]
+            and c["lse_max_abs_err"] <= LSE_TOL and c["lse_empty_rows_marked"]
+            and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
+            for c in splash_cases for key, _, _ in SPLASH_KERNELS) and \
         all(c["max_ulps"] <= K7_ULPS for c in k7_cases)
     main = rms[1]
     kernels = [
@@ -879,6 +1085,15 @@ def phase_kernels() -> list:
          **{k: paged_int8_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
          "cases": paged_int8_cases},
+        {"name": "paged_attention_alibi", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:125",
+         "launches": None, "tolerance": PAGED_TOLERANCE,
+         "max_abs_err": max(c["max_abs_err"] for c in paged_alibi_cases),
+         "row_rel_err": max(c["row_rel_err"] for c in paged_alibi_cases),
+         **{k: paged_alibi_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+         "cases": paged_alibi_cases},
         {"name": "paged_attention_window", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deepspeed_tpu/ops/paged_attention.py:87-106",
@@ -955,6 +1170,20 @@ def phase_kernels() -> list:
                                                  "library_ms")},
          "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in folded_cases]}
         for key, name, replaces in FOLDED_KERNELS] + [
+        {"name": name, "route": "cuda", "source": SPLASH_SOURCES[key],
+         "replaces": replaces, "launches": None,
+         "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-6; "
+                      "against the exact fp64 value at most 2x the plain version's; "
+                      "lse within 1e-3 on rows that see a key, +1e30 on the others",
+         "max_abs_err": max(c[key]["max_abs_err"] for c in splash_cases),
+         "row_rel_err": max(c[key]["row_rel_err"] for c in splash_cases),
+         **{k: splash_cases[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+         "cases": [{"case": c["case"], "shape": c["shape"], "active_blocks": c["active_blocks"],
+                    "widest_row": c["widest_row"],
+                    "widest_transposed_row": c["widest_transposed_row"], **c[key]}
+                   for c in splash_cases]}
+        for key, name, replaces in SPLASH_KERNELS] + [
         {"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/fused_optimizer.cu",
          "replaces": replaces, "launches": None,
          "tolerance": f"each output within {K7_ULPS} fp32 ulps of the plain version",
@@ -1694,6 +1923,114 @@ def phase_attn_sweep() -> dict:
 
 SERVING_PROMPTS = [128 * (i + 1) for i in range(8)]  # prompt lengths
 SERVING_NEW_TOKENS = 32
+def phase_sparse_attention() -> dict:
+    """SparseSelfAttention(cfg) at ``SPLASH_SHAPE`` in bf16 under the three
+    default layouts at block 16, through the user's entry point: the
+    forward, then ``backward()`` through autograd. With no padding mask on
+    the card the call takes K8; each of its three kernels must launch once
+    per call (counts set to 0 just before, read just after). The same
+    inputs through the dense path (``use_kernel=False``): o, dq, dk and dv
+    of both stand beside the exact value (K8's plain versions in fp64), and
+    the kernel path may be at most FLASH_EXACT_RATIO times as far off as
+    the dense path, row by row, plus what the splash backward's own
+    algorithm adds: it takes delta = rowsum(dO * O) from the forward's
+    output rounded to bf16 (the JAX ``_splash_bwd``'s ``:253-256``, where the
+    dense path's autograd sums over fp32 probabilities), and dS = P (dP -
+    delta) amplifies that rounding where dP - delta cancels (BigBird's and
+    Longformer's global rows, which see every key). That part is measured
+    as a control: the exact backward with delta from the kernel's rounded
+    o, against the exact value. The two paths' row difference is
+    reported."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import attention_delta
+    from deepspeed_tpu_torch.ops.sparse_attention import (SparseSelfAttention,
+                                                          sparse_attention, splash_flops)
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as sp
+    B, H, S, D = (SPLASH_SHAPE[k] for k in ("B", "H", "S", "D"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    kernels = {name: getattr(sp, name) for _, name, _ in SPLASH_KERNELS}
+    vs = dict(floor=FLASH_EXACT_FLOOR["bfloat16"])
+    runs, checks = {}, {}
+
+    def events(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    for name, config, block in SPLASH_LAYOUTS[:3]:
+        cfg, layout = splash_layout(config, block)
+        attn = SparseSelfAttention(cfg)
+        q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        # one call to build the tables and warm up, not counted
+        warm = [x.clone().requires_grad_() for x in (q, k, v)]
+        attn(*warm).backward(do)
+        del warm
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        out, fwd_ms = events(lambda: attn(*leaves))
+        _, bwd_ms = events(lambda: out.backward(do))
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        dense = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref, dense_fwd_ms = events(lambda: sparse_attention(*dense, layout, block,
+                                                            use_kernel=False))
+        _, dense_bwd_ms = events(lambda: ref.backward(do))
+        assert all(fn.launches == launches[n] for n, fn in kernels.items())
+        # the exact value: K8's plain versions in fp64 on the same inputs
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+        o64, lse64 = sp.splash_attention_fwd_reference(q64, k64, v64, layout, block)
+
+        def exact_grads(delta):
+            bargs = (q64, k64, v64, do64, lse64, delta, layout, block)
+            return [sp.splash_attention_bwd_dq_reference(*bargs),
+                    *sp.splash_attention_bwd_dkdv_reference(*bargs)]
+
+        exact = [o64] + exact_grads(attention_delta(o64, do64))
+        # the control: delta from the exact o rounded to bf16, as the
+        # kernel path takes it from its bf16 o (JAX ``_splash_bwd`` :254)
+        from_rounded_o = [o64] + exact_grads(
+            attention_delta(o64.to(torch.bfloat16).double(), do64))
+        del q64, k64, v64, do64, lse64, o64
+        torch.cuda.synchronize()
+        errs = {}
+        for part, kx, dx, ex, rx in zip(("o", "dq", "dk", "dv"),
+                                        [out.detach()] + [t.grad for t in leaves],
+                                        [ref.detach()] + [t.grad for t in dense], exact,
+                                        from_rounded_o):
+            errs[part] = {"kernel_vs_dense_row_rel_err": row_rel_err(kx, dx, **vs),
+                          "kernel_vs_exact": row_rel_err(kx, ex, **vs),
+                          "dense_vs_exact": row_rel_err(dx, ex, **vs),
+                          "delta_of_rounded_o_vs_exact": row_rel_err(rx, ex, **vs),
+                          "finite": bool(torch.isfinite(kx.float()).all())}
+        del exact, from_rounded_o, out, ref, leaves, dense
+        free_memory()
+        runs[name] = {"block": block, "layout": config, "launches": launches,
+                      "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "dense_fwd_ms": dense_fwd_ms,
+                      "dense_bwd_ms": dense_bwd_ms,
+                      "splash_flops": splash_flops(layout, block, D, batch=B), "errors": errs}
+        checks[f"{name}_each_kernel_launched_once"] = all(n == 1 for n in launches.values())
+        checks[f"{name}_kernel_path_matches_dense_path"] = all(
+            e["finite"] and e["kernel_vs_exact"] <= FLASH_EXACT_RATIO * e["dense_vs_exact"]
+            + e["delta_of_rounded_o_vs_exact"] for e in errs.values())
+    rec = {"phase": "sparse_attention", "gpu": gpu_identity(),
+           "config": f"SparseSelfAttention(cfg), B {B}, H {H}, S {S}, D {D}, bf16; "
+                     "forward, then backward() through autograd",
+           "tolerance": "row by row against the exact fp64 value, the kernel path at most "
+                        f"{FLASH_EXACT_RATIO}x the dense path's error plus the exact "
+                        "backward's own error with delta from the exact o rounded to bf16",
+           "runs": runs, "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"sparse attention checks failed: {checks}")
+    return rec
+
+
 SERVING_KV_BYTES = 8 << 30  # the KV budget of the serving phases
 SC2_PROMPTS = [5120, 4608, 2048, 1024, 512, 256, 128, 128]
 SC2_NEW_TOKENS = 64
@@ -1919,21 +2256,27 @@ def phase_serving_int8(kernels: list, bf16: dict) -> dict:
 
 
 def plain_forward_fp32(model, cfg, tokens: list, q_block: int = 1024,
-                       window: bool = True, biases: bool = True):
+                       window: bool = True, biases: bool = True, alibi: bool = True,
+                       embed_ln: bool = True):
     """The last token's logits of ``tokens`` from a plain fp32 forward of
-    a StarCoder2-form ``model`` (LayerNorm with bias, biased projections,
-    the gelu-tanh fc MLP, a sliding window on every layer, tied
-    embeddings): every weight cast to fp32 where it is used, no KV cache
+    a StarCoder2- or BLOOM-form ``model`` (LayerNorm with bias, biased
+    projections, the gelu-tanh fc MLP, tied embeddings; StarCoder2's rope
+    and sliding window on every layer, or BLOOM's ALiBi and embedding
+    LayerNorm): every weight cast to fp32 where it is used, no KV cache
     and no kernel of the port; each block of ``q_block`` queries attends
-    over the whole sequence under a dense causal + window mask. The
-    controls: ``window=False`` attends to every earlier key, ``biases=False``
-    leaves out the projections' biases."""
+    over the whole sequence under a dense causal (+ window) mask. The
+    controls: ``window=False`` attends to every earlier key,
+    ``biases=False`` leaves out the projections' biases, ``alibi=False``
+    the ALiBi bias and ``embed_ln=False`` the embedding LayerNorm."""
     import torch
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.models.llama import alibi_slopes
     assert cfg.norm_type == "layernorm" and cfg.mlp_type == "gelu_tanh_fc" and \
         cfg.tie_word_embeddings and cfg.sliding_window_layers is None
     dev = model.embed_tokens.weight.device
-    T, W = len(tokens), cfg.sliding_window if window else len(tokens)
+    T = len(tokens)
+    W = cfg.sliding_window if window and cfg.sliding_window else T
+    use_alibi = cfg.pos_embedding == "alibi"
     hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
     pos = torch.arange(T, device=dev)
     inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2, device=dev,
@@ -1954,18 +2297,26 @@ def plain_forward_fp32(model, cfg, tokens: list, q_block: int = 1024,
         x1, x2 = x.chunk(2, -1)
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
+    slopes = torch.from_numpy(alibi_slopes(nq)).to(dev)[:, None, None]  # [H, 1, 1]
     x = model.embed_tokens.weight[torch.tensor(tokens, device=dev)].float()
+    if cfg.embed_layernorm and embed_ln:
+        x = norm(x, model.embed_layernorm)
     for layer in model.layers:
         a = layer.self_attn
         h = norm(x, layer.input_layernorm)
-        q = rope(lin(h, a.q_proj).view(T, nq, hd))
+        q = lin(h, a.q_proj).view(T, nq, hd)
         # query head j reads KV head j // G (the kv-major head order)
-        k = rope(lin(h, a.k_proj).view(T, nkv, hd)).repeat_interleave(nq // nkv, 1)
+        k = lin(h, a.k_proj).view(T, nkv, hd)
+        if not use_alibi:
+            q, k = rope(q), rope(k)
+        k = k.repeat_interleave(nq // nkv, 1)
         v = lin(h, a.v_proj).view(T, nkv, hd).repeat_interleave(nq // nkv, 1)
         ctx = torch.empty(T, nq, hd, device=dev)
         for q0 in range(0, T, q_block):
             qp = pos[q0:q0 + q_block, None]
             scores = torch.einsum("qhd,khd->hqk", q[q0:q0 + q_block], k) * hd ** -0.5
+            if use_alibi and alibi:
+                scores = scores + slopes * (pos[None, :] - qp).float()
             keep = (pos[None, :] <= qp) & (pos[None, :] > qp - W)
             probs = scores.masked_fill(~keep, float("-inf")).softmax(-1)
             ctx[q0:q0 + q_block] = torch.einsum("hqk,khd->qhd", probs, v)
@@ -2081,8 +2432,113 @@ def phase_serving_starcoder2(kernels: list) -> dict:
     for k in kernels:
         if k["name"] == "layer_norm":
             k["launches"] = launches["layer_norm"]
+            k["launches_by_phase"] = {"serving_starcoder2": launches["layer_norm"]}
         elif k["name"] == "paged_attention_window":
             k["launches"] = launches["paged_attention"]
+    return rec
+
+
+# BLOOM-7B1: 8 prompts of 128..2048 tokens (the model's trained length), 32
+# new tokens each, in the phases' 8 GiB KV budget (273 blocks of 64 tokens
+# at 480 KiB per token)
+BLOOM_PROMPTS = [2048, 1536, 1024, 1024, 512, 256, 128, 128]
+BLOOM_NEW_TOKENS = 32
+# the bf16 engine against the plain fp32 forward on the 2048-token prompt,
+# as phase 8's StarCoder2 limit (30 layers rounding to bf16); every run
+# reads three controls, the plain forward without ALiBi, without the
+# biases and without the embedding LayerNorm, and fails if any is within
+# the limit
+BLOOM_COSINE = 0.999
+
+
+def phase_serving_bloom(kernels: list) -> dict:
+    """BLOOM-7B1 through the user's entry points: the published config
+    through ``policy_for("bloom").config_from_hf(BLOOM_7B1)``, a seeded
+    random bf16 ``LlamaModel`` (biases and LayerNorm parameters off their
+    zero / one initial values, so they count), ``build_llama_engine``,
+    ``generate``, at full width and depth. K4's ALiBi instance L times and
+    K5b 2L+2 times per forward (the embedding LayerNorm included)."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import init_llama
+    from deepspeed_tpu_torch.module_inject import BLOOM_7B1, policy_for
+    from deepspeed_tpu_torch.ops.normalization import layer_norm, rms_norm
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = policy_for("bloom").config_from_hf(BLOOM_7B1)
+
+    def make_params():
+        model = init_llama(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(".bias") or name.endswith(".scale"):
+                    noise = torch.randn(p.shape, generator=gen, device="cuda")
+                    p.copy_(0.02 * noise if name.endswith(".bias") else 1 + 0.1 * noise)
+        return model
+
+    def inspect(engine, prompts, prefill_logits):
+        model = engine.model().model
+        got = prefill_logits[0].cuda()
+
+        def cosine(a, b):
+            return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+
+        t = time.monotonic()
+        with torch.no_grad():
+            ref = plain_forward_fp32(model, cfg, prompts[0])
+        torch.cuda.synchronize()
+        forward_s = time.monotonic() - t
+        controls = {}
+        for name, kw in (("no_alibi", {"alibi": False}), ("no_biases", {"biases": False}),
+                         ("no_embed_ln", {"embed_ln": False})):
+            with torch.no_grad():
+                ctl = plain_forward_fp32(model, cfg, prompts[0], **kw)
+            controls[name] = {"cosine_vs_plain_fp32": cosine(ctl, ref),
+                              "cosine_vs_engine": cosine(ctl, got)}
+        cos = cosine(got, ref)
+        n_params = sum(p.numel() for p in model.parameters())
+        rec = {"plain_fp32_forward_s": forward_s, "parameters": n_params,
+               "prefill_logits_cosine_vs_plain_fp32": cos,
+               "plain_fp32_prompt_tokens": len(prompts[0]),
+               "prefill_vs_plain_max_abs_diff": (got - ref).abs().max().item(),
+               "cosine_controls": controls}
+        return rec, {"prefill_logits_cosine_vs_plain_fp32": cos >= BLOOM_COSINE,
+                     "cosine_controls_outside_the_limit": all(
+                         c["cosine_vs_plain_fp32"] < BLOOM_COSINE for c in controls.values())}
+
+    counters = {"layer_norm": (layer_norm, "launches"),
+                "paged_attention_alibi": (paged_attention, "alibi_launches"),
+                "paged_attention": (paged_attention, "launches"),
+                "paged_attention_int8": (paged_attention, "int8_launches"),
+                "rms_norm": (rms_norm, "launches")}
+    run = _drive_serving(counters, cfg=cfg, prompt_lens=BLOOM_PROMPTS,
+                         new_tokens=BLOOM_NEW_TOKENS, make_params=make_params,
+                         check_prompt=1, inspect=inspect)
+    rec, checks, L = run["rec"], run["checks"], run["layers"]
+    n_fwd, launches = rec["forwards"], rec["launches"]
+    checks.update({
+        "paged_attention_alibi_launches_per_forward":
+            launches["paged_attention_alibi"] == L * n_fwd,
+        "layer_norm_launches_per_forward": launches["layer_norm"] == (2 * L + 2) * n_fwd,
+        "no_other_k4_instance_or_rms_norm": launches["paged_attention"] == 0
+        and launches["paged_attention_int8"] == 0 and launches["rms_norm"] == 0,
+    })
+    rec = {"phase": "serving_bloom",
+           "config": "BLOOM_7B1 via policy_for('bloom').config_from_hf (30 layers, hidden "
+                     "4096, 32 heads, MHA, ALiBi, embedding LayerNorm, vocab 250880, tied "
+                     "embeddings; random bf16 weights)",
+           **rec, "cosine_tolerance": BLOOM_COSINE, "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"BLOOM serving checks failed: {checks}")
+    for k in kernels:
+        if k["name"] == "paged_attention_alibi":
+            k["launches"] = launches["paged_attention_alibi"]
+        elif k["name"] == "layer_norm":
+            k["launches_by_phase"]["serving_bloom"] = launches["layer_norm"]
+            k["launches"] = sum(k["launches_by_phase"].values())
     return rec
 
 
@@ -2110,6 +2566,8 @@ def main() -> int:
     del bf16
     free_memory()
     phase_serving_starcoder2(kernels)
+    phase_serving_bloom(kernels)
+    sparse = phase_sparse_attention()
     phase_attn_sweep()
     runs = optimizers["runs"]
     # each kernel's launches in the main-path runs that count it: phase 5
@@ -2124,6 +2582,9 @@ def main() -> int:
         "training_optimizers/lamb_bf16": runs["lamb_bf16"]["k7_launches"]}
     for name, n in runs["adamw_fp16"]["flash_fp16_launches"].items():
         by_phase[name + "_fp16"] = {"training_optimizers/adamw_fp16": n}
+    for run, rec in sparse["runs"].items():
+        for name, n in rec["launches"].items():
+            by_phase.setdefault(name, {})[f"sparse_attention/{run}"] = n
     wrapper = {name: w for name, w, _, _ in K7_KERNELS}
     # each K7 body's launches over the whole flat buffer on the training
     # paths, against the plain version (phases 5 and 5b)

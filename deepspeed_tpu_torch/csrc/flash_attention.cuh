@@ -146,14 +146,14 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Start staging n rows of DMAX elements into shared memory (row stride
 // DMAX+kPad): row r is src[row(r) * D : +D] where row(r) >= 0, zeros
-// otherwise, and the columns D..DMAX are zero. 16-byte copies (the wrapper
-// checks D % 8 == 0 and 16-byte aligned pointers); the caller commits and
-// waits.
-template <typename T, int DMAX, typename RowFn>
+// otherwise, and the columns D..DMAX are zero. 16-byte copies by the NT
+// threads of the block (the wrapper checks D % 8 == 0 and 16-byte aligned
+// pointers); the caller commits and waits.
+template <typename T, int DMAX, int NT = kThreads, typename RowFn>
 __device__ __forceinline__ void load_tile(T* dst, int n, const T* src, int D, RowFn row) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kChunks = DMAX / V;
-  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < n * kChunks; i += NT) {
     const int r = i / kChunks, c = (i % kChunks) * V;
     const long long g = row(r);
     const bool valid = g >= 0 && c < D;

@@ -13,10 +13,14 @@
 //                           head h at a slot is cache * scale[row, slot, h]
 //   block_table [S, B], seen [S], lens [S] (int32)
 //   out    [S, N, H, D]     in q's dtype
+//   slopes [KV, G] fp32     ALiBi only (BLOOM): query head h*G+g's slope
 // Query row (n, g) of sequence s sees key position p iff p <= seen+n and
 // p < lens, and, with a sliding window W > 0, p > seen+n - W (the TPU
-// kernel's mask, :106); scores are q.k*scale, softmax online in fp32; a row
-// that sees no key outputs 0 (the TPU kernel's l == 0 finalize).
+// kernel's mask, :106); scores are q.k*scale, plus with ALiBi
+// slopes[h, g] * (p - (seen+n)) in fp32 (the TPU kernel's :125-131; the
+// bias depends only on positions and the head, so every split of a
+// sequence's pages biases alike); softmax online in fp32; a row that sees
+// no key outputs 0 (the TPU kernel's l == 0 finalize).
 //
 // Bound on the H100: bytes for decode (each query row meets every history
 // key once, about 4 flops per 2 bytes of K/V read), and, for long prefill
@@ -80,6 +84,7 @@ struct PagedArgs {
   const void* q;
   const void* cache;
   const float* cache_scales;  // int8 cache only
+  const float* slopes;        // [KV, G] ALiBi slopes; ALiBi instances only
   void* out;
   const int* block_table;
   const int* seen;
@@ -136,8 +141,10 @@ __device__ __forceinline__ uint2 dequant4(uint32_t w, float scale) {
 }
 
 // T: the query's and output's type; C: the cache's (T, or int8).
-// DPL: output dims per lane (D <= 32*DPL); RPW: query rows per warp
-template <typename T, typename C, int DPL, int RPW>
+// DPL: output dims per lane (D <= 32*DPL); RPW: query rows per warp;
+// kAlibi: add the ALiBi bias (a template flag, so the other instances keep
+// their code as it was)
+template <typename T, typename C, int DPL, int RPW, bool kAlibi>
 __global__ void __launch_bounds__(kAttnThreads)
 paged_attention_kernel(PagedArgs a) {
   using S = typename Staged<C>::type;
@@ -250,6 +257,7 @@ paged_attention_kernel(PagedArgs a) {
       if (a.window > 0 && key0 + ps - 1 <= q_abs - a.window)
         continue;  // page wholly older than this row's window
       const float* qr = Qs + rl * D;
+      const float slope = kAlibi ? a.slopes[h * G + r % G] : 0.f;
 
       float sc[kMaxPage / 32];
       float mx = kNegInf;
@@ -272,6 +280,9 @@ paged_attention_kernel(PagedArgs a) {
             }
             for (; d < D; ++d) d0 += qr[d] * to_float(kr[d]);
             v = ((d0 + d1) + (d2 + d3)) * a.scale;
+            // the plain version's order: the product, then the sum, each
+            // rounded (no fma)
+            if constexpr (kAlibi) v = __fadd_rn(v, __fmul_rn(slope, (float)(key - q_abs)));
           }
         }
         sc[t] = v;
@@ -436,12 +447,12 @@ inline size_t workspace_floats(const Plan& p, int S, int N, int H, int D) {
   return p.splits > 1 ? (size_t)S * N * H * p.splits * (D + 2) : 0;
 }
 
-template <typename T, typename C, int DPL, int RPW>
+template <typename T, typename C, int DPL, int RPW, bool kAlibi>
 cudaError_t launch_paged(const PagedArgs& a, cudaStream_t stream) {
   const int rows = a.N * (a.H / a.KV);
   constexpr int RPB = kAttnWarps * RPW;
   const size_t smem = smem_bytes<typename Staged<C>::type>(a.D, a.page_size, RPB);
-  auto kern = paged_attention_kernel<T, C, DPL, RPW>;
+  auto kern = paged_attention_kernel<T, C, DPL, RPW, kAlibi>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -456,17 +467,23 @@ cudaError_t launch_paged(const PagedArgs& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <typename T, typename C, int DPL>
+template <typename T, typename C, int DPL, bool kAlibi>
 cudaError_t launch_paged_rpw(const PagedArgs& a, int rpw, cudaStream_t stream) {
-  return rpw == 1 ? launch_paged<T, C, DPL, 1>(a, stream)
-                  : launch_paged<T, C, DPL, 4>(a, stream);
+  return rpw == 1 ? launch_paged<T, C, DPL, 1, kAlibi>(a, stream)
+                  : launch_paged<T, C, DPL, 4, kAlibi>(a, stream);
+}
+
+template <typename T, typename C, int DPL>
+cudaError_t launch_paged_alibi(const PagedArgs& a, int rpw, cudaStream_t stream) {
+  return a.slopes ? launch_paged_rpw<T, C, DPL, true>(a, rpw, stream)
+                  : launch_paged_rpw<T, C, DPL, false>(a, rpw, stream);
 }
 
 // DPL 1 serves the narrow test widths (D <= 32), DPL 4 Llama's D = 128
 template <typename T, typename C>
 cudaError_t launch_paged_dpl(const PagedArgs& a, int rpw, cudaStream_t stream) {
-  return a.D <= 32 ? launch_paged_rpw<T, C, 1>(a, rpw, stream)
-                   : launch_paged_rpw<T, C, 4>(a, rpw, stream);
+  return a.D <= 32 ? launch_paged_alibi<T, C, 1>(a, rpw, stream)
+                   : launch_paged_alibi<T, C, 4>(a, rpw, stream);
 }
 
 inline bool valid_shape(int S, int N, int H, int D, int KV, int B) {
@@ -492,9 +509,10 @@ extern "C" int dstt_paged_attention_workspace(int S, int N, int H, int D, int KV
 }
 
 // dtype: the query's and output's; cache_dtype: the same, or kInt8 with
-// cache_scales; window: the sliding window in keys, 0 for none
+// cache_scales; slopes: the [KV, G] fp32 ALiBi slopes, or null for none;
+// window: the sliding window in keys, 0 for none
 extern "C" int dstt_paged_attention(const void* q, const void* cache,
-                                    const void* cache_scales, void* out,
+                                    const void* cache_scales, const void* slopes, void* out,
                                     const void* block_table, const void* seen,
                                     const void* lens, int S, int N, int H, int D,
                                     int KV, int B, long long slots, int layer,
@@ -515,7 +533,8 @@ extern "C" int dstt_paged_attention(const void* q, const void* cache,
     return (int)cudaErrorInvalidValue;
   float* ws = need > 0 ? (float*)workspace : nullptr;
   const size_t parts = (size_t)S * N * H * p.splits;
-  PagedArgs a{q, cache, (const float*)cache_scales, out, (const int*)block_table,
+  PagedArgs a{q, cache, (const float*)cache_scales, (const float*)slopes, out,
+              (const int*)block_table,
               (const int*)seen,
               (const int*)lens, S, N, H, D, KV, B, slots, layer, page_size, window, scale,
               p.splits, p.pages_per_split, ws, ws ? ws + parts * D : nullptr};

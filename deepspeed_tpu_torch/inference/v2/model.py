@@ -2,18 +2,22 @@
 ``deepspeed_tpu/inference/v2/model.py``: ``_norm_tok`` :195, ``_mlp_tok``
 :218, ``RaggedLlamaModel`` :246 with ``maybe_free_kv`` :543 and
 ``_uniform_window`` :564, and ``_ragged_forward`` :915 with the paged
-attention backend). It serves the Llama family (rmsnorm, rope, swiglu, GQA)
-and StarCoder2's knobs (``SERVING_FAMILY`` in ``models/llama.py``).
+attention backend). It serves the Llama family (rmsnorm, rope, swiglu, GQA),
+StarCoder2's knobs and BLOOM's (``SERVING_FAMILY`` in ``models/llama.py``).
 
-One forward: embed → L × (norm → q/k/v (+ bias) → rope → paged KV write →
-paged attention (sliding window per layer) → o_proj (+ bias) → residual →
-norm → MLP → residual) → final norm → fp32 logits for each sequence's last
-token. The MLP is swiglu or the biased fc1 → tanh-gelu → fc2 form; the norm
-is RMSNorm or LayerNorm with scale and bias. The Pallas kernels of the JAX
-path become the CUDA kernels in ``ops/`` (paged attention once per layer,
-the norm 2L+1 times: K5 RMSNorm, or K5b LayerNorm, which the JAX forward
-computes in jnp with the same arithmetic); the matmuls, embedding gather,
-rope and KV write stay plain PyTorch, as they were plain XLA.
+One forward: embed (→ embedding LayerNorm) → L × (norm → q/k/v (+ bias) →
+rope → paged KV write → paged attention (sliding window per layer, or
+ALiBi) → o_proj (+ bias) → residual → norm → MLP → residual) → final norm →
+fp32 logits for each sequence's last token. The MLP is swiglu or the biased
+fc1 → tanh-gelu → fc2 form; the norm is RMSNorm or LayerNorm with scale and
+bias. With ``pos_embedding="alibi"`` (BLOOM) no rope is applied and K4 adds
+the ALiBi bias; with ``embed_layernorm`` a LayerNorm follows the embedding
+gather (the JAX forward's ``:950-952``). The Pallas kernels of the JAX path
+become the CUDA kernels in ``ops/`` (paged attention once per layer, the
+norm 2L+1 times, 2L+2 with the embedding LayerNorm: K5 RMSNorm, or K5b
+LayerNorm, which the JAX forward computes in jnp with the same
+arithmetic); the matmuls, embedding gather, rope and KV write stay plain
+PyTorch, as they were plain XLA.
 
 With a sliding window on every layer, ``maybe_free_kv`` returns a
 sequence's leading KV blocks to the allocator once every later query is
@@ -144,10 +148,12 @@ class RaggedLlamaModel:
         self.device = model.embed_tokens.weight.device
         self._kv_cache_dtype = kv_cache_dtype
         # the JAX forward rebuilds this table at every trace; here it is
-        # computed once, on the model's device
-        self.rope_cos, self.rope_sin = precompute_rope(
-            config.head_dim_, config.max_position_embeddings,
-            config.rope_theta, device=self.device)
+        # computed once, on the model's device (none under ALiBi)
+        self.rope_cos = self.rope_sin = None
+        if config.pos_embedding == "rope":
+            self.rope_cos, self.rope_sin = precompute_rope(
+                config.head_dim_, config.max_position_embeddings,
+                config.rope_theta, device=self.device)
         # tied embeddings: the fp32 unembed, cast once here and not in
         # every forward (0.9 GB at StarCoder2-7B's width)
         self._tied_unembed = (model.embed_tokens.weight.detach().float()
@@ -279,7 +285,8 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
     ``cache_scales``) in place. ``kernel(module)`` gives a projection's
     weight; ``windows[l]`` is layer l's sliding window (None = global);
     ``tied_unembed`` the fp32 embedding table when the embeddings are
-    tied."""
+    tied; ``cos``/``sin`` the rope tables (None under ALiBi, which K4
+    adds)."""
     cfg = config
     T = batch.tokens.shape[0]
     S = batch.block_table.shape[0]
@@ -287,15 +294,21 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
     n_real = batch.n_tokens
 
     x = model.embed_tokens.weight[batch.tokens]  # [T, E]
+    if cfg.embed_layernorm:  # BLOOM word_embeddings_layernorm, through K5b
+        ln = model.embed_layernorm
+        x = layer_norm(x, ln.scale, ln.bias, cfg.rms_norm_eps)
     q_tok_idx = batch.q_tok_idx
     N = q_tok_idx.shape[1]
     seq_lens = batch.seq_seen + batch.seq_n_new  # valid key region per seq
     # token → (seq, rel) gather-back indices
     rel = batch.token_pos - batch.seq_seen[batch.token_seq]  # [T]
     ctx_rows = (batch.token_seq, rel.clamp(0, N - 1))
-    # rope rows of this step's positions, shared by every layer
-    rope_c = cos[batch.token_pos][:, None, :]
-    rope_s = sin[batch.token_pos][:, None, :]
+    # rope rows of this step's positions, shared by every layer (none
+    # under ALiBi, whose positions may pass the rope table's length)
+    alibi = cfg.pos_embedding == "alibi"
+    if not alibi:
+        rope_c = cos[batch.token_pos][:, None, :]
+        rope_s = sin[batch.token_pos][:, None, :]
     # KV write: real tokens only (padding carries slot == total_slots)
     slots = batch.token_slot[:n_real].long()
 
@@ -305,8 +318,9 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
         q = _proj(h, attn.q_proj, kernel).reshape(T, nq, hd)
         k = _proj(h, attn.k_proj, kernel).reshape(T, nkv, hd)
         v = _proj(h, attn.v_proj, kernel).reshape(T, nkv, hd)
-        q = _rope_tok(q, rope_c, rope_s)
-        k = _rope_tok(k, rope_c, rope_s)
+        if not alibi:
+            q = _rope_tok(q, rope_c, rope_s)
+            k = _rope_tok(k, rope_c, rope_s)
 
         # paged write into [2L, slot, KV*D]: k row 2l, v row 2l+1
         for row, w in ((2 * l, k), (2 * l + 1, v)):
@@ -322,7 +336,7 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
         ctx = paged_attention(q_s, cache, l, batch.block_table,
                               batch.seq_seen, seq_lens, page_size=block_size,
                               window=windows[l], attn_scale=cfg.attn_scale,
-                              cache_scales=cache_scales)
+                              use_alibi=alibi, cache_scales=cache_scales)
         ctx = ctx.to(x.dtype).reshape(S, N, nq * hd)
 
         ctx_tok = ctx[ctx_rows]  # [T, H*D]

@@ -5,8 +5,9 @@ checkpoint of it), with numpy leaves: ``tree['model']['layers_0']
 ['self_attn']['q_proj']['kernel']`` of shape ``[in, out]``,
 ``['model']['embed_tokens']['embedding']`` of shape ``[vocab, hidden]``,
 RMSNorm scales under ``['weight']``, LayerNorm ones under ``['scale']`` and
-``['bias']``, projection biases (q/k/v/o, ``mlp/fc1``, ``mlp/fc2``) under
-``['bias']``. Shapes carry over unchanged, because the
+``['bias']`` (BLOOM's embedding LayerNorm too, as ``['model']
+['embed_layernorm']``), projection biases (q/k/v/o, ``mlp/fc1``,
+``mlp/fc2``) under ``['bias']``. Shapes carry over unchanged, because the
 port keeps the flax layout; :func:`jax_key_path` maps a port parameter
 name onto its path in the tree. :func:`quantized_from_jax` carries a JAX
 ``QuantizedParameter``'s stored int8 values and scales over as they are.

@@ -1,7 +1,7 @@
 """Llama-family decoder (port of ``deepspeed_tpu/models/llama.py``:
 ``LlamaConfig`` :35-172, ``precompute_rope`` :175, ``apply_rope`` :182,
-``RMSNorm`` :206, ``_BarrierDense`` :257 with its bias, ``_make_norm``
-:285, ``_layer_window`` :296, ``LlamaAttention`` :308 (the flash branch),
+``RMSNorm`` :206, ``alibi_slopes`` :225, ``_BarrierDense`` :257 with its
+bias, ``_make_norm`` :285, ``_layer_window`` :296, ``LlamaAttention`` :308 (the flash branch),
 ``LlamaMLP`` :440 (swiglu and the fc form), ``LlamaDecoderLayer`` :522 (the
 pre-norm branch), ``LMHead`` :566, ``LlamaModel`` :625,
 ``cross_entropy_loss`` :713, ``LlamaForCausalLM`` :725 and the
@@ -21,6 +21,7 @@ import dataclasses
 import math
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,8 +36,8 @@ class LlamaConfig:
     """Decoder-family config, same fields and defaults as the JAX package's.
     The port trains the Llama subset (rmsnorm, rope, swiglu, GQA) with
     Mistral's sliding window and the attention-logit softcap
-    (``TRAINING_FAMILY``), and serves the Llama subset and the StarCoder2
-    knobs (``SERVING_FAMILY``); the other
+    (``TRAINING_FAMILY``), and serves the Llama subset, the StarCoder2
+    knobs and BLOOM's (``SERVING_FAMILY``); the other
     variant knobs are kept so configs carry over, and the models refuse the
     ones they do not implement yet."""
     vocab_size: int = 32000
@@ -130,14 +131,16 @@ LLAMA_FAMILY = dict(
 TRAINING_FAMILY = {k: v for k, v in LLAMA_FAMILY.items()
                    if k not in ("sliding_window", "attn_logit_softcapping")}
 TRAINING_DEFAULTS = dict(remat=False, scan_layers=False)
-# what the serving forward runs: the Llama family and StarCoder2's knobs
+# what the serving forward runs: the Llama family, StarCoder2's knobs
 # (LayerNorm with bias, q/k/v/o biases, the biased gelu-tanh fc MLP, sliding
-# windows on all or some layers); a tuple lists the values it takes
+# windows on all or some layers) and BLOOM's (ALiBi in place of rope, the
+# embedding LayerNorm); a tuple lists the values it takes
 SERVING_FAMILY = {
     **{k: v for k, v in LLAMA_FAMILY.items() if k != "sliding_window"},
     "norm_type": ("rmsnorm", "layernorm"), "attention_bias": (False, True),
     "attention_out_bias": (False, True), "mlp_type": ("swiglu", "gelu_tanh_fc"),
-    "mlp_bias": (False, True)}
+    "mlp_bias": (False, True), "pos_embedding": ("rope", "alibi"),
+    "embed_layernorm": (False, True)}
 
 
 def check_supported(config, who: str, family: dict) -> None:
@@ -148,6 +151,19 @@ def check_supported(config, who: str, family: dict) -> None:
     if bad:
         raise NotImplementedError(
             f"{who}: config options {bad} are not ported yet")
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes (HF ``build_alibi_tensor`` formula, including the
+    non-power-of-2 interpolation). Press et al., "Train Short, Test Long"."""
+    closest = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = base ** np.arange(1, closest + 1)
+    if closest != n_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        extra = extra_base ** np.arange(1, 2 * (n_heads - closest), 2)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
 
 
 def _layer_window(cfg, layer_idx: int):
@@ -326,8 +342,9 @@ class _MatmulFp32(torch.autograd.Function):
 class LlamaModel(nn.Module):
     """A Llama decoder, named as the JAX tree's ``model`` node:
     ``embed_tokens.weight`` ``[vocab, hidden]`` (the tree's
-    ``embed_tokens/embedding``), ``layers[i]`` (``layers_{i}``), ``norm``
-    and ``lm_head``. For serving (``trainable=False``) the weights take no
+    ``embed_tokens/embedding``), with ``embed_layernorm`` (``scale``,
+    ``bias``) where the config sets it (BLOOM's word-embeddings LayerNorm),
+    ``layers[i]`` (``layers_{i}``), ``norm`` and ``lm_head``. For serving (``trainable=False``) the weights take no
     gradient and ``lm_head`` is held in fp32: the serving forward computes
     fp32 logits of fp32 operands, as the JAX engine does. For training
     every weight takes a gradient and ``lm_head`` is in ``dtype`` like
@@ -341,6 +358,9 @@ class LlamaModel(nn.Module):
         self.config = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dtype, device=device)
+        self.embed_layernorm = (LayerNormWeight(cfg.hidden_size, dtype, device,
+                                                cfg.rms_norm_eps)
+                                if cfg.embed_layernorm else None)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype, device, i)
                                     for i in range(cfg.num_hidden_layers))
         self.norm = _make_norm(cfg, dtype, device)

@@ -35,9 +35,11 @@ def convert_hf_checkpoint(arch: str, hf_state_dict: Dict[str, Any],
     ``(LlamaConfig, LlamaModel)`` for serving, the weights in ``dtype`` on
     ``device`` (default ``cuda``; the unembed in fp32, as
     ``build_llama_engine`` holds it). Torch ``[out, in]`` weights are
-    transposed to ``[in, out]``. A name the policy maps that the state dict
-    lacks raises ``KeyError``; tensors no map names are logged and
-    skipped."""
+    transposed to ``[in, out]``. Fused tensors the policy names in
+    ``special_hf_names`` go through its ``convert_special`` (the JAX
+    converter's ``:72-81``), which splits each into several parameters. A
+    name the policy maps that the state dict lacks raises ``KeyError``;
+    tensors no map names are logged and skipped."""
     policy = policy_for(arch)
     cfg = policy.config_from_hf(hf_config)
     model = LlamaModel(cfg, dtype=dtype, device=torch.device(device or "cuda"))
@@ -46,22 +48,34 @@ def convert_hf_checkpoint(arch: str, hf_state_dict: Dict[str, Any],
     for layer in range(cfg.num_hidden_layers):
         maps.update(policy.weight_map(layer, attention_bias=cfg.attention_bias))
     filled = set()
-    for hf_name, (path, transpose) in maps.items():
+    consumed = set(maps)
+
+    def get_tensor(hf_name):
         if hf_name not in hf_state_dict:
             raise KeyError(f"HF checkpoint missing '{hf_name}' (arch={arch})")
-        w = _to_numpy(hf_state_dict[hf_name]).astype(np.float32)
-        if transpose:
-            w = w.T  # torch Linear [out, in] -> kernel [in, out]
+        consumed.add(hf_name)
+        return _to_numpy(hf_state_dict[hf_name]).astype(np.float32)
+
+    def put(path, w, source):
         dst = params[path]
         if tuple(w.shape) != tuple(dst.shape):
-            raise ValueError(f"{hf_name}: shape {w.shape} != {tuple(dst.shape)} "
+            raise ValueError(f"{source}: shape {w.shape} != {tuple(dst.shape)} "
                              f"of {path}")
-        dst.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)))
         filled.add(path)
+
+    for hf_name, (path, transpose) in maps.items():
+        w = get_tensor(hf_name)
+        # torch Linear [out, in] -> kernel [in, out]
+        put(path, w.T if transpose else w, hf_name)
+    if hasattr(policy, "convert_special"):
+        for layer in range(cfg.num_hidden_layers):
+            policy.convert_special(layer, cfg, get_tensor,
+                                   lambda path, w: put(path, np.asarray(w), path))
     unfilled = sorted(set(params) - filled)
     if unfilled:
         raise ValueError(f"{arch}: the policy fills no HF tensor into {unfilled[:8]}")
-    leftovers = [k for k in hf_state_dict if k not in maps
+    leftovers = [k for k in hf_state_dict if k not in consumed
                  and not k.endswith("rotary_emb.inv_freq")]
     if leftovers:
         logger.warning(f"unconverted HF tensors: {leftovers[:8]}"

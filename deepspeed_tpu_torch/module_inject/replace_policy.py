@@ -1,19 +1,23 @@
 """Per-architecture HF checkpoint policies (port of
 ``deepspeed_tpu/module_inject/replace_policy.py``: ``HFCheckpointPolicy``
-:23, ``Starcoder2Policy`` :1035, ``policy_for`` :1343).
+:23, ``BloomPolicy`` :825, ``Starcoder2Policy`` :1035, ``policy_for`` :1343).
 
 A policy maps an HF config dict onto a :class:`LlamaConfig` and names, for
 every HF tensor, the parameter it fills in the JAX package's tree layout
 (``layers_3/self_attn/q_proj/kernel``) and whether it is transposed (torch
 ``Linear`` stores ``[out, in]``, the kernels ``[in, out]``). The port keeps
 the layout, so ``replace_module.convert_hf_checkpoint`` loads the same
-names. Only the architectures the port runs are registered: Llama,
-Mistral (trained) and StarCoder2 (served). Every other one raises
-``NotImplementedError``.
+names. A policy may also name fused HF tensors (``special_hf_names``) that
+its ``convert_special`` splits into several parameters (BLOOM's
+``query_key_value``). Only the architectures the port runs are registered:
+Llama, Mistral (trained), StarCoder2 and BLOOM (served). Every other one
+raises ``NotImplementedError``.
 """
 
 import dataclasses
 from typing import Dict, Tuple
+
+import numpy as np
 
 from ..models.llama import LlamaConfig
 
@@ -185,6 +189,97 @@ class Starcoder2Policy(HFCheckpointPolicy):
         return out
 
 
+# bigscience/bloom-7b1 config.json, as published; keys the port does not
+# read (dropouts, initializer_range, token ids, the fused-kernel flags,
+# offset_alibi, pretraining_tp) are left out. seq_length is absent there,
+# so the policy reads 2048, the length BLOOM was trained at.
+BLOOM_7B1 = {
+    "architectures": ["BloomForCausalLM"],
+    "model_type": "bloom",
+    "vocab_size": 250880,
+    "hidden_size": 4096,
+    "n_layer": 30,
+    "n_head": 32,
+    "layer_norm_epsilon": 1e-05,
+    "apply_residual_connection_post_layernorm": False,
+}
+
+
+class BloomPolicy(HFCheckpointPolicy):
+    """BLOOM: ALiBi positions, embedding LayerNorm, per-head-interleaved
+    fused query_key_value, gelu-tanh MLP, biases everywhere, tied
+    embeddings."""
+    arch = "bloom"
+
+    def config_from_hf(self, hf_config):
+        if hf_config.get("apply_residual_connection_post_layernorm"):
+            raise ValueError("bloom apply_residual_connection_post_layernorm=True "
+                             "is not supported (pre-LN residual only)")
+        h = hf_config.get("hidden_size") or hf_config["n_embed"]
+        return LlamaConfig(
+            vocab_size=hf_config["vocab_size"],
+            hidden_size=h,
+            intermediate_size=4 * h,
+            num_hidden_layers=hf_config["n_layer"],
+            num_attention_heads=hf_config["n_head"],
+            num_key_value_heads=hf_config["n_head"],
+            max_position_embeddings=hf_config.get("seq_length", 2048),
+            rms_norm_eps=hf_config.get("layer_norm_epsilon", 1e-5),
+            tie_word_embeddings=True,
+            attention_bias=True,
+            attention_out_bias=True,
+            norm_type="layernorm",
+            pos_embedding="alibi",
+            embed_layernorm=True,
+            mlp_type="gelu_tanh_fc",  # BloomGelu = tanh approximation
+            mlp_bias=True,
+        )
+
+    def weight_map(self, layer: int, attention_bias: bool = False):
+        p = f"transformer.h.{layer}."
+        f = f"layers_{layer}/"
+        return {
+            p + "input_layernorm.weight": (f + "input_layernorm/scale", False),
+            p + "input_layernorm.bias": (f + "input_layernorm/bias", False),
+            p + "post_attention_layernorm.weight": (f + "post_attention_layernorm/scale",
+                                                    False),
+            p + "post_attention_layernorm.bias": (f + "post_attention_layernorm/bias",
+                                                  False),
+            p + "self_attention.dense.weight": (f + "self_attn/o_proj/kernel", True),
+            p + "self_attention.dense.bias": (f + "self_attn/o_proj/bias", False),
+            p + "mlp.dense_h_to_4h.weight": (f + "mlp/fc1/kernel", True),
+            p + "mlp.dense_h_to_4h.bias": (f + "mlp/fc1/bias", False),
+            p + "mlp.dense_4h_to_h.weight": (f + "mlp/fc2/kernel", True),
+            p + "mlp.dense_4h_to_h.bias": (f + "mlp/fc2/bias", False),
+        }
+
+    def special_hf_names(self, layer: int):
+        p = f"transformer.h.{layer}.self_attention.query_key_value."
+        return [p + "weight", p + "bias"]
+
+    def convert_special(self, layer: int, cfg: LlamaConfig, get_tensor, put):
+        """Fused qkv rows are grouped per head as [q_i | k_i | v_i]."""
+        p = f"transformer.h.{layer}.self_attention.query_key_value."
+        hd = cfg.head_dim_
+        nq = cfg.num_attention_heads
+        w = np.asarray(get_tensor(p + "weight")).reshape(nq, 3, hd, cfg.hidden_size)
+        b = np.asarray(get_tensor(p + "bias")).reshape(nq, 3, hd)
+        f = f"layers_{layer}/self_attn/"
+        for i, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            put(f + f"{proj}/kernel", w[:, i].reshape(nq * hd, cfg.hidden_size).T)
+            put(f + f"{proj}/bias", b[:, i].reshape(nq * hd))
+
+    def global_map(self, tie_embeddings: bool):
+        return {
+            "transformer.word_embeddings.weight": ("embed_tokens/embedding", False),
+            "transformer.word_embeddings_layernorm.weight": ("embed_layernorm/scale",
+                                                             False),
+            "transformer.word_embeddings_layernorm.bias": ("embed_layernorm/bias", False),
+            "transformer.ln_f.weight": ("norm/scale", False),
+            "transformer.ln_f.bias": ("norm/bias", False),
+        }
+
+
 _POLICIES = {
     "llama": HFCheckpointPolicy,
     "LlamaForCausalLM": HFCheckpointPolicy,
@@ -192,6 +287,8 @@ _POLICIES = {
     "MistralForCausalLM": MistralPolicy,
     "starcoder2": Starcoder2Policy,
     "Starcoder2ForCausalLM": Starcoder2Policy,
+    "bloom": BloomPolicy,
+    "BloomForCausalLM": BloomPolicy,
 }
 
 

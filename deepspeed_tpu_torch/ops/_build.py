@@ -46,11 +46,11 @@ _SIGNATURES = {
     # words
     "dstt_paged_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I,
                                        ctypes.POINTER(_L)),
-    # q, cache, cache_scales, out, block_table, seen, lens, S, N, H, D, KV,
-    # B, slots, layer, page_size, window, scale, q dtype, cache dtype,
-    # workspace, workspace length, stream
-    "dstt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _L, _I, _I, _I, _F, _I, _I, _P, _L, _P),
+    # q, cache, cache_scales, slopes, out, block_table, seen, lens, S, N, H,
+    # D, KV, B, slots, layer, page_size, window, scale, q dtype, cache
+    # dtype, workspace, workspace length, stream
+    "dstt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _L, _I, _I, _I, _F, _I, _I, _P, _L, _P),
     # x, n, block, dtype, values, scales, stream
     "dstt_quantize_int8": (_P, _L, _I, _I, _P, _P, _P),
     # values, scales, n, block, out, dtype, stream
@@ -73,6 +73,18 @@ _SIGNATURES = {
                             _I, _F, _I, _I, _F, _I, _P),
     "dstt_flash_folded_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _F, _I, _P),
+    # q, k, v, o, lse, table, counts, BH, S, D, layout heads, table width,
+    # block, scale, dtype, stream
+    "dstt_splash_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                        _I, _P),
+    # q, k, v, dO, lse, delta, dq, table, counts, BH, S, D, layout heads,
+    # table width, block, scale, dtype, stream
+    "dstt_splash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _P),
+    # q, k, v, dO, lse, delta, dk, dv, transposed table, its counts, BH, S,
+    # D, layout heads, table width, block, scale, dtype, stream
+    "dstt_splash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _F, _I, _P),
     # p, g, m, v, n, lr, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
     # weight decay, mode, p dtype, g dtype, stream
     "dstt_adam_step": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F,

@@ -12,10 +12,15 @@ the plain PyTorch version (``paged_attention_reference``, the dense-gather
 path, which dequantizes an int8 window in fp32), a CUDA tensor launches
 ``csrc/paged_attention.cu`` or raises. ``paged_attention.launches`` counts
 launches over a float cache, ``paged_attention.int8_launches`` over an
-int8 cache. Both take the JAX kernel's sliding ``window``: a query at
-absolute position ``q`` sees keys ``q - window < key <= q``, and the kernel
-never reads a page wholly older than the window of the chunk's first
-query. ALiBi and softcap raise ``NotImplementedError`` here.
+int8 cache, and ``paged_attention.alibi_launches`` those with ALiBi (over
+either cache; those count in neither of the other two). All take the JAX
+kernel's sliding ``window``: a query at absolute position ``q`` sees keys
+``q - window < key <= q``, and the kernel never reads a page wholly older
+than the window of the chunk's first query. ALiBi (BLOOM,
+``use_alibi``/``slopes``) adds ``slopes[kv, g] * (key_pos - q_abs)`` in fp32
+to the scaled scores before the masks (the JAX kernel's ``:125-131``);
+``slopes`` ``[KV, G]`` fp32 defaults to ``alibi_slopes(H).reshape(KV, G)``.
+The softcap (Gemma-2) raises ``NotImplementedError`` here.
 """
 
 import ctypes
@@ -29,13 +34,34 @@ from . import _build
 NEG_INF = -1e30
 
 
-def _check_options(use_alibi, slopes, softcap):
-    unsupported = [name for name, off in (
-        ("use_alibi", not use_alibi), ("slopes", slopes is None),
-        ("softcap", softcap is None)) if not off]
-    if unsupported:
+def _check_options(softcap):
+    if softcap is not None:
         raise NotImplementedError(
-            f"paged_attention: option(s) {unsupported} are not ported yet")
+            "paged_attention: the softcap (Gemma-2's attention-logit softcap) "
+            "is not ported yet")
+
+
+@functools.lru_cache(maxsize=64)
+def _default_slopes(H: int, device: torch.device) -> torch.Tensor:
+    """``alibi_slopes(H)`` on ``device``, copied there once (a copy per
+    call could not be captured in a CUDA graph)."""
+    from ..models.llama import alibi_slopes
+    return torch.from_numpy(alibi_slopes(H)).to(device)
+
+
+def _alibi_slopes(use_alibi, slopes, H: int, KV: int, device):
+    """The ``[KV, G]`` fp32 slope table, or None without ALiBi: ``slopes``
+    as given (explicit slopes imply ALiBi), else ``alibi_slopes(H)`` in
+    kv-major head order."""
+    if slopes is None and not use_alibi:
+        return None
+    if slopes is None:
+        slopes = _default_slopes(H, torch.device(device))
+    slopes = torch.as_tensor(slopes)
+    if slopes.numel() != H:
+        raise ValueError(f"paged_attention: slopes must hold [KV, G] = [{KV}, "
+                         f"{H // KV}] values, got {tuple(slopes.shape)}")
+    return slopes.to(device=device, dtype=torch.float32).reshape(KV, H // KV).contiguous()
 
 
 def _check_cache_scales(cache, cache_scales, D: int) -> None:
@@ -65,8 +91,9 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
                               softcap: Optional[float] = None):
     """Dense-gather reference: gathers each sequence's ``B*page_size``
     history window (an int8 window dequantized in fp32; freed table entries
-    gather block 0 and are masked), masks, softmaxes in fp32."""
-    _check_options(use_alibi, slopes, softcap)
+    gather block 0 and are masked), adds the ALiBi bias, masks, softmaxes
+    in fp32."""
+    _check_options(softcap)
     S, N, H, D = q.shape
     _check_cache_scales(cache, cache_scales, D)
     B = block_table.shape[1]
@@ -92,6 +119,11 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
     mask = (key_pos <= q_abs[:, :, None]) & (key_pos < seq_lens[:, None, None])
     if window is not None:
         mask &= key_pos > q_abs[:, :, None] - window
+    slope_table = _alibi_slopes(use_alibi, slopes, H, KV, dev)
+    if slope_table is not None:
+        dist = (key_pos[:, :, None, None, :]
+                - q_abs[:, :, None, None, None]).float()       # [S, N, 1, 1, L]
+        scores = scores + slope_table[None, None, :, :, None] * dist
     scores = torch.where(mask[:, :, None, None, :], scores,
                          torch.full((), NEG_INF, device=dev))
     probs = torch.softmax(scores, dim=-1)
@@ -131,6 +163,8 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
       seq_lens: ``[S]`` int32 seen + n_new (valid key region).
       window: sliding window in keys (None = global attention).
       attn_scale: overrides ``1/sqrt(D)``.
+      use_alibi: add BLOOM's ALiBi bias with ``alibi_slopes(H)``.
+      slopes: explicit ``[KV, G]`` ALiBi slopes (implies ALiBi).
       cache_scales: ``[2L, num_slots, KV]`` fp32 scales of an int8 cache.
     Returns:
       ``[S, N, H, D]`` in q.dtype.
@@ -141,7 +175,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             page_size=page_size, window=window, attn_scale=attn_scale,
             use_alibi=use_alibi, slopes=slopes, cache_scales=cache_scales,
             softcap=softcap)
-    _check_options(use_alibi, slopes, softcap)
+    _check_options(softcap)
     if window is not None and window < 1:
         raise ValueError(f"paged_attention: the kernel takes window >= 1, got {window}")
     if q.device.type != "cuda":
@@ -167,6 +201,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
         raise ValueError(f"paged_attention: an int8 cache needs head_dim % 4 "
                          f"== 0, got {D}")
     _check_cache_scales(cache, cache_scales, D)
+    slope_table = _alibi_slopes(use_alibi, slopes, H, KVD // D, q.device)
     B = block_table.shape[1]
     for name, t, shape in (("block_table", block_table, (S, B)),
                            ("seq_seen", seq_seen, (S, )),
@@ -192,6 +227,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
         err = lib.dstt_paged_attention(
             q.data_ptr(), cache.data_ptr(),
             None if cache_scales is None else cache_scales.data_ptr(),
+            None if slope_table is None else slope_table.data_ptr(),
             out.data_ptr(), block_table.data_ptr(), seq_seen.data_ptr(),
             seq_lens.data_ptr(), S, N, H, D, KV, B, slots, int(layer),
             page_size, window, float(scale), _build.dtype_code(q.dtype),
@@ -199,7 +235,9 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             None if workspace is None else workspace.data_ptr(), ws_len,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
-    if cache.dtype == torch.int8:
+    if slope_table is not None:
+        paged_attention.alibi_launches += 1
+    elif cache.dtype == torch.int8:
         paged_attention.int8_launches += 1
     else:
         paged_attention.launches += 1
@@ -208,3 +246,4 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
 
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
+paged_attention.alibi_launches = 0

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.inference.v2.model import quantize_kv
+from deepspeed_tpu_torch.models.llama import alibi_slopes
 from deepspeed_tpu_torch.ops import attention_folded as ff
 from deepspeed_tpu_torch.ops import fused_optimizer as fo
 from deepspeed_tpu_torch.ops.attention import (
@@ -24,6 +25,10 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 from deepspeed_tpu_torch.ops.quantizer import (
     dequantize_int8_blockwise, dequantize_int8_blockwise_reference,
     quantize_int8_blockwise, quantize_int8_blockwise_reference)
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+from deepspeed_tpu_torch.ops.sparse_attention import (sparse_attention,
+                                                      splash_sparse_attention)
+from deepspeed_tpu_torch.ops.sparse_attention import splash as sp
 
 pytestmark = pytest.mark.cuda
 
@@ -918,3 +923,305 @@ def test_training_engine_optimizers_gpu_match_cpu(optimizer, cuda_device):
         assert diff.max().item() <= 2 * 3 * lr, name
         n_off += int((diff > 0.05 * lr).sum())
     assert n_off <= MAX_FLIPPED, f"{n_off} elements off"
+
+
+# ---- K4 with ALiBi (BLOOM) ----
+
+# (seed, S, N, KV, G, D, page_size, n_pages, B, seen, n_new, layer, window):
+# BLOOM-7B1's widths (KV 32, G 1, D 128, 64-token pages) at decode and a
+# prefill wave, small G 1 and G 3 cases, and ALiBi under a window
+PAGED_ALIBI = {
+    "g1_small": (9, 4, 2, 4, 1, 32, 16, 32, 4, [5, 0, 37, 0], [2, 1, 2, 0], 1, None),
+    "g3_small": (10, 2, 3, 2, 3, 16, 8, 16, 6, [9, 20], [3, 1], 0, None),
+    "g1_window": (11, 3, 4, 4, 1, 64, 16, 40, 8, [50, 0, 90], [1, 4, 2], 1, 40),
+    "decode_bloom": (12, 8, 1, 32, 1, 128, 64, 280, 33,
+                     [2048, 1536, 1024, 1024, 512, 256, 128, 128], [1] * 8, 1, None),
+    "prefill_bloom": (13, 4, 768, 32, 1, 128, 64, 64, 12, [0, 0, 0, 0],
+                      [768, 512, 128, 0], 0, None),
+}
+
+
+def _alibi_inputs(case, dtype, device):
+    seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, layer, window = PAGED_ALIBI[case]
+    rng = np.random.default_rng(seed)
+    cache = torch.from_numpy(rng.normal(size=(2 * 2, n_pages * ps, KV * D))
+                             .astype(np.float32)).to(device, dtype)
+    q = torch.from_numpy(rng.normal(size=(S, N, KV * G, D))
+                         .astype(np.float32)).to(device, dtype)
+    bt = rng.permutation(n_pages)[:S * B].reshape(S, B).astype(np.int32)
+    seen = np.asarray(seen, np.int32)
+    lens = seen + np.asarray(n_new, np.int32)
+    meta = [torch.from_numpy(a).to(device) for a in (bt, seen, lens)]
+    return (q, cache, layer, *meta), ps, window
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_ALIBI))
+def test_paged_attention_alibi_kernel_matches_plain(case, dtype, int8, cuda_device):
+    """The ALiBi instance against the plain version, with the tolerances of
+    the other K4 cases; it counts in ``alibi_launches`` only, and the bias
+    moves the output."""
+    (q, cache, layer, bt, seen, lens), ps, window = _alibi_inputs(case, dtype, cuda_device)
+    kw = dict(page_size=ps, window=window)
+    if int8:
+        cache, kw["cache_scales"] = int8_cache(cache, q.shape[-1])
+    counts = lambda: (paged_attention.launches, paged_attention.int8_launches,  # noqa: E731
+                      paged_attention.alibi_launches)
+    before = counts()
+    out_k = paged_attention(q, cache, layer, bt, seen, lens, use_alibi=True, **kw)
+    assert counts() == (before[0], before[1], before[2] + 1)
+    out_r = paged_attention_reference(q, cache, layer, bt, seen, lens, use_alibi=True,
+                                      **kw)
+    no_bias = paged_attention_reference(q, cache, layer, bt, seen, lens, **kw)
+    torch.cuda.synchronize()
+    assert out_k.dtype == dtype and out_k.shape == q.shape
+    assert (out_r.float() - no_bias.float()).abs().max().item() > 0.05
+    rounding = alibi_rounding(q, cache, seen, kw.get("cache_scales"))
+    if int8:
+        control = paged_attention_reference(
+            q, staged_cache(cache, kw["cache_scales"], q.shape[-1]), layer, bt, seen,
+            lens, page_size=ps, window=window, use_alibi=True)
+        torch.testing.assert_close(out_k.float(), control.float(),
+                                   atol=PAGED_TOL[dtype] + rounding, rtol=0)
+        assert rows_err(out_k, out_r) <= \
+            rows_err(control, out_r) + OUT_ROUNDING[dtype] + rounding
+    else:
+        torch.testing.assert_close(out_k.float(), out_r.float(),
+                                   atol=PAGED_TOL[dtype] + rounding, rtol=0)
+
+
+def alibi_rounding(q, cache, seen, cache_scales=None):
+    """What the fp32 rounding of the biased scores may add to an output:
+    a score carrying a bias b rounds to 2^-24 |b|, which moves its weight
+    by that much relative, so an output by up to 2^-23 * max |b| * max |v|.
+    The largest bias is the largest slope times the farthest (query, key)
+    distance; it is ~300 on a padding query row of the prefill cases (a
+    query past its sequence's length still attends to the sequence's keys),
+    where the kernel and the plain version sum the q.k products in another
+    order before the bias is added."""
+    H = q.shape[2]
+    far = int((seen.long() + q.shape[1] - 1).max())
+    bias = float(alibi_slopes(H).max()) * far
+    v_max = cache.float().abs().max().item()
+    if cache_scales is not None:
+        v_max *= cache_scales.max().item()
+    return 2.0 ** -23 * bias * v_max
+
+
+def test_paged_attention_explicit_slopes_and_softcap(cuda_device):
+    """Explicit [KV, G] slopes take the ALiBi instance with those slopes;
+    the softcap still raises."""
+    (q, cache, layer, bt, seen, lens), ps, _ = _alibi_inputs("g3_small", torch.float32,
+                                                             cuda_device)
+    slopes = torch.linspace(0.05, 0.6, 6, device=cuda_device).reshape(2, 3)
+    out_k = paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, slopes=slopes)
+    out_r = paged_attention_reference(q, cache, layer, bt, seen, lens, page_size=ps,
+                                      slopes=slopes)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_k, out_r, atol=PAGED_TOL[torch.float32], rtol=0)
+    with pytest.raises(ValueError, match="slopes"):
+        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, slopes=slopes[:1])
+    with pytest.raises(NotImplementedError, match="Gemma-2"):
+        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, softcap=30.0)
+
+
+def test_bloom_engine_gpu_matches_cpu(cuda_device):
+    """A tiny BLOOM (ALiBi, embedding LayerNorm, biases, tied embeddings)
+    through the serving engine on the card and on the CPU, same weights:
+    K4's ALiBi instance L times and K5b 2L+2 times per forward."""
+    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
+    from deepspeed_tpu_torch.models.llama import init_llama
+    from deepspeed_tpu_torch.module_inject import policy_for
+    cfg = policy_for("bloom").config_from_hf(dict(vocab_size=256, hidden_size=96,
+                                                  n_layer=2, n_head=6))
+    engines = []
+    for device in ("cpu", cuda_device):
+        model = init_llama(cfg, seed=1, dtype=torch.float32, device="cpu")
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(2)
+            for name, p in model.named_parameters():
+                if name.endswith((".bias", ".scale")):
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
+        engines.append(build_llama_engine(
+            cfg, params=model.to(device), dtype=torch.float32, kv_block_size=16,
+            device=device, engine_config=RaggedInferenceEngineConfig(
+                num_kv_blocks=64, state_manager=dict(
+                    max_ragged_batch_size=32, max_ragged_sequence_count=8,
+                    max_context=256))))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 30, 11)]
+    from deepspeed_tpu_torch.ops.normalization import layer_norm
+    before = (paged_attention.alibi_launches, layer_norm.launches)
+    logits = [e.put([7, 8], [prompts[0], prompts[2]]).cpu() for e in engines]
+    assert (paged_attention.alibi_launches - before[0],
+            layer_norm.launches - before[1]) == (2, 6)
+    torch.testing.assert_close(logits[1], logits[0], atol=1e-4, rtol=1e-4)
+    for e in engines:
+        e.flush(7)
+        e.flush(8)
+    outs = [e.generate(prompts, max_new_tokens=8) for e in engines]
+    assert outs[0] == outs[1]
+
+
+# ---- K8 splash block-sparse attention ----
+
+# (B, H, layout heads, S, D, block, family, dtype): every block size and
+# head_dim the kernels take, in each dtype, over the four layout families
+# and a broadcast (one-head) layout
+SPLASH = {
+    "f32_b16_d16": (1, 2, 2, 256, 16, 16, "fixed", torch.float32),
+    "f32_b32_d32": (2, 2, 1, 256, 32, 32, "bigbird", torch.float32),
+    "f32_b64_d64": (1, 4, 4, 512, 64, 64, "longformer", torch.float32),
+    "f32_b128_d128": (1, 2, 2, 512, 128, 128, "variable", torch.float32),
+    "bf16_b16_d64": (2, 4, 4, 1024, 64, 16, "fixed", torch.bfloat16),
+    "bf16_b32_d128": (1, 4, 1, 512, 128, 32, "bigbird", torch.bfloat16),
+    "bf16_b64_d32": (2, 2, 2, 512, 32, 64, "longformer", torch.bfloat16),
+    "bf16_b128_d16": (1, 2, 2, 768, 16, 128, "variable", torch.bfloat16),
+    "f16_b16_d128": (1, 2, 2, 256, 128, 16, "bigbird", torch.float16),
+    "f16_b32_d64": (1, 4, 4, 512, 64, 32, "variable", torch.float16),
+    "f16_b64_d16": (2, 2, 1, 512, 16, 64, "fixed", torch.float16),
+    "f16_b128_d32": (1, 2, 2, 512, 32, 128, "longformer", torch.float16),
+}
+
+
+def _splash_layout(family, heads, block, S):
+    kw = dict(num_heads=heads, block=block)
+    cfg = {"fixed": lambda: sc.FixedSparsityConfig(num_local_blocks=2, **kw),
+           "bigbird": lambda: sc.BigBirdSparsityConfig(num_random_blocks=2,
+                                                       different_layout_per_head=True,
+                                                       **kw),
+           "longformer": lambda: sc.BSLongformerSparsityConfig(
+               global_block_indices=[0, 2], **kw),
+           "variable": lambda: sc.VariableSparsityConfig(
+               num_random_blocks=1, local_window_blocks=[1, 2], **kw)}[family]()
+    return cfg.make_layout(S)
+
+
+def _splash_inputs(B, H, S, D, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32))
+            .to(device, dtype) for _ in range(4)]
+
+
+def _check_splash(q, k, v, do, layout, block):
+    tables = sp.SplashTables.build(layout, block, q.device)
+    kernels = (sp.splash_attention_fwd, sp.splash_attention_bwd_dq,
+               sp.splash_attention_bwd_dkdv)
+    before = [f.launches for f in kernels]
+    o, lse = sp.splash_attention_fwd(q, k, v, tables)
+    o_ref, lse_ref = sp.splash_attention_fwd_reference(q, k, v, layout, block)
+    delta = attention_delta(o_ref, do)
+    dq = sp.splash_attention_bwd_dq(q, k, v, do, lse_ref, delta, tables)
+    dk, dv = sp.splash_attention_bwd_dkdv(q, k, v, do, lse_ref, delta, tables)
+    dq_ref = sp.splash_attention_bwd_dq_reference(q, k, v, do, lse_ref, delta, layout,
+                                                  block)
+    dk_ref, dv_ref = sp.splash_attention_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
+                                                            layout, block)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+    assert_rows_close(o, o_ref, "o")
+    seen = lse_ref < sp.LSE_EMPTY
+    torch.testing.assert_close(lse[seen], lse_ref[seen], atol=1e-4, rtol=1e-5)
+    assert (lse[~seen] == sp.LSE_EMPTY).all()
+    for name, g, g_ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert g.dtype == q.dtype
+        assert_rows_close(g, g_ref, name)
+    return o, dq, dk, dv
+
+
+@pytest.mark.parametrize("case", sorted(SPLASH))
+def test_splash_kernels_match_plain(case, cuda_device):
+    """K8's forward, dq and dk/dv against their plain versions on identical
+    inputs (the backward passes take the plain forward's lse), row by row
+    with the flash tolerances; each launches once."""
+    B, H, Lh, S, D, block, family, dtype = SPLASH[case]
+    layout = _splash_layout(family, Lh, block, S)
+    q, k, v, do = _splash_inputs(B, H, S, D, dtype, cuda_device, sorted(SPLASH).index(case))
+    _check_splash(q, k, v, do, layout, block)
+
+
+@pytest.mark.parametrize("block", [16, 64, 128])
+def test_splash_empty_rows_and_unseen_keys(block, cuda_device):
+    """A q-block that sees nothing gets o = 0 and lse = +1e30, exactly 0
+    gradients; k-blocks no q-block sees get dk = dv = 0."""
+    nb, H, D = 4, 2, 32
+    S = block * nb
+    layout = np.zeros((H, nb, nb), np.bool_)
+    layout[:, 1:, :2] = True
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _splash_inputs(1, H, S, D, dtype, cuda_device, block)
+        o, dq, dk, dv = _check_splash(q, k, v, do, layout, block)
+        assert not o[:, :, :block].any() and not dq[:, :, :block].any()
+        assert not dk[:, :, 2 * block:].any() and not dv[:, :, 2 * block:].any()
+        for t in (o, dq, dk, dv):
+            assert torch.isfinite(t.float()).all()
+
+
+def test_splash_autograd_and_dispatch_launch_the_kernels(cuda_device):
+    """sparse_attention on the card with no padding mask runs K8: the
+    forward and backward each launch once per call and match the dense
+    path; with a padding mask the dense path runs and launches nothing."""
+    B, H, S, D, block = 2, 4, 512, 64, 16
+    layout = _splash_layout("bigbird", H, block, S)
+    q, k, v, do = _splash_inputs(B, H, S, D, torch.bfloat16, cuda_device, 99)
+    kernels = (sp.splash_attention_fwd, sp.splash_attention_bwd_dq,
+               sp.splash_attention_bwd_dkdv)
+    before = [f.launches for f in kernels]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = sparse_attention(*leaves, layout, block)
+    out.backward(do)
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+    dense = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = sparse_attention(*dense, layout, block, use_kernel=False)
+    ref.backward(do)
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+    assert_rows_close(out.detach(), ref.detach(), "o")
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, dense):
+        assert_rows_close(a.grad, b.grad, name)
+    sparse_attention(q, k, v, layout, block, torch.ones(B, S, device=cuda_device))
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+
+
+def test_sparse_self_attention_holds_its_kernel_tables(cuda_device):
+    """SparseSelfAttention keeps K8's function beside its layout: a second
+    call at the same length neither rebuilds the tables nor looks them up
+    by the layout's bytes, and gives the same output."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (FixedSparsityConfig,
+                                                          SparseSelfAttention)
+    attn = SparseSelfAttention(FixedSparsityConfig(num_heads=4, block=16))
+    q, k, v, _ = _splash_inputs(1, 4, 256, 64, torch.bfloat16, cuda_device, 5)
+    first = attn(q, k, v)
+    lookups = sp._cached_splash_fn.cache_info()
+    launches = sp.splash_attention_fwd.launches
+    second = attn(q, k, v)
+    info = sp._cached_splash_fn.cache_info()
+    assert (info.hits, info.misses) == (lookups.hits, lookups.misses)
+    assert sp.splash_attention_fwd.launches == launches + 1
+    assert torch.equal(first, second)
+
+
+def test_splash_refuses_what_the_kernel_does_not_take(cuda_device):
+    layout = _splash_layout("fixed", 2, 16, 256)
+    q, k, v, _ = _splash_inputs(1, 2, 256, 64, torch.bfloat16, cuda_device, 0)
+    tables = sp.SplashTables.build(layout, 16, cuda_device)
+    with pytest.raises(TypeError):
+        sp.splash_attention_fwd(q.double(), k.double(), v.double(), tables)
+    q20 = torch.zeros(1, 2, 256, 20, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        sp.splash_attention_fwd(q20, q20, q20, tables)
+    lay8 = np.ones((2, 32, 32), np.bool_)
+    with pytest.raises(ValueError, match="block"):
+        sp.splash_attention_fwd(q, k, v, sp.SplashTables.build(lay8, 8, cuda_device))
+    with pytest.raises(ValueError, match="cover"):
+        sp.splash_attention_fwd(q[:, :, :128], k[:, :, :128], v[:, :, :128], tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.splash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                                tables)
+    with pytest.raises(ValueError, match="key_padding_mask"):
+        sparse_attention(q, k, v, layout, 16, torch.ones(1, 256, device=cuda_device),
+                         use_kernel=True)
+    # the function's own checks, as the JAX package's
+    with pytest.raises(ValueError, match="not divisible"):
+        splash_sparse_attention(q[:, :, :100], k[:, :, :100], v[:, :, :100], layout, 16)

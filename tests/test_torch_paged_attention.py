@@ -88,8 +88,8 @@ def test_unsupported_option_raises(option):
     q, cache, bt, seen, lens = _setup(rng, 2, 1, 2, 2, 16, 8, 8, 2, [3, 4], [1, 1])
     args = [torch.from_numpy(a) for a in (q, cache)]
     meta = [torch.from_numpy(a) for a in (bt, seen, lens)]
-    if "window" in option:
-        # ported: the JAX reference's window mask
+    if "window" in option or "use_alibi" in option:
+        # ported: the JAX reference's window mask and ALiBi bias
         out = paged_attention(*args, 0, *meta, page_size=8, **option)
         want = jax_paged_ref(*(jnp.asarray(a) for a in (q, cache)), 0,
                              *(jnp.asarray(a) for a in (bt, seen, lens)),

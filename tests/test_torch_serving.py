@@ -187,8 +187,10 @@ def test_init_llama_follows_jax_initializers():
 
 
 def test_unported_config_option_raises():
+    # ALiBi serves now (BLOOM, tests/test_torch_bloom.py); OPT's learned
+    # positions do not
     with pytest.raises(NotImplementedError, match="pos_embedding"):
-        build_llama_engine(LlamaConfig.tiny(pos_embedding="alibi"), device="cpu",
+        build_llama_engine(LlamaConfig.tiny(pos_embedding="learned"), device="cpu",
                            dtype=torch.float32)
 
 

@@ -2,17 +2,18 @@
 """Where a decode step of the deepspeed_tpu_torch serving engine spends its
 time, on one CUDA GPU.
 
-    python3 torch_serving_profile.py [bf16] [int8] [starcoder2]
+    python3 torch_serving_profile.py [bf16] [int8] [starcoder2] [bloom]
 
-For each variant named (all three by default), one after the other: the
+For each variant named (all four by default), one after the other: the
 bf16 Llama-3-8B engine, the int8 one (``quantize="int8",
-kv_cache_dtype="int8"``), and StarCoder2-7B (``STARCODER2_7B`` through
-``policy_for("starcoder2").config_from_hf``, window 4096). Each builds
-``build_llama_engine`` with seeded random bf16 weights and 8 GiB of
-64-token KV blocks, prefills ``SEQS`` sequences (Llama: 128, 256, ...
-tokens; StarCoder2: 5120, 4608, 2048, ... 128 tokens, most of them past
-the window), then runs ``STEPS`` decode steps (one token per sequence per
-``put``):
+kv_cache_dtype="int8"``), StarCoder2-7B (``STARCODER2_7B`` through
+``policy_for("starcoder2").config_from_hf``, window 4096) and BLOOM-7B1
+(``BLOOM_7B1`` through ``policy_for("bloom").config_from_hf``: ALiBi, MHA).
+Each builds ``build_llama_engine`` with seeded random bf16 weights and 8
+GiB of 64-token KV blocks, prefills ``SEQS`` sequences (Llama: 128, 256,
+... tokens; StarCoder2: 5120, 4608, 2048, ... 128 tokens, most of them past
+the window; BLOOM: 2048, 1536, ... 128 tokens), then runs ``STEPS`` decode
+steps (one token per sequence per ``put``):
   - step time on the host clock, each step ending in a device sync;
   - a ``torch.profiler`` trace of a few steps: device time per kernel name,
     summed into groups (K4 paged attention, K5 RMSNorm, K5b LayerNorm, the
@@ -39,14 +40,17 @@ VARIANTS = {
              [128 * (i + 1) for i in range(SEQS)], 1024),
     "starcoder2": ("starcoder2_7b", {}, [5120, 4608, 2048, 1024, 512, 256, 128, 128],
                    2048),
+    "bloom": ("bloom_7b1", {}, [2048, 1536, 1024, 1024, 512, 256, 128, 128], 273),
 }
 
 
 def model_config(name: str):
     from deepspeed_tpu_torch.models.llama import LlamaConfig
-    from deepspeed_tpu_torch.module_inject import STARCODER2_7B, policy_for
+    from deepspeed_tpu_torch.module_inject import BLOOM_7B1, STARCODER2_7B, policy_for
     if name == "starcoder2_7b":
         return policy_for("starcoder2").config_from_hf(STARCODER2_7B)
+    if name == "bloom_7b1":
+        return policy_for("bloom").config_from_hf(BLOOM_7B1)
     return LlamaConfig.llama3_8b()
 
 
@@ -171,9 +175,11 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
     cache, scales = cache if isinstance(cache, tuple) else (cache, None)
     window = _layer_window(cfg, 5)
 
+    alibi = cfg.pos_embedding == "alibi"  # BLOOM
+
     def k4():
         paged_attention(q, cache, 5, bt, seen, lens, page_size=64, window=window,
-                        cache_scales=scales)
+                        cache_scales=scales, use_alibi=alibi)
 
     for _ in range(3):
         k4()
@@ -192,7 +198,7 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
     kv_bytes = int(visible.sum()) * cfg.num_key_value_heads * per_head * 2
     print(json.dumps({"part": "k4_decode", "variant": variant, "gpu": gpu,
                       "seqs": len(uids), "history": [int(x) for x in lens.tolist()],
-                      "window": window,
+                      "window": window, "alibi": alibi,
                       "ms": start.elapsed_time(end) / 50,
                       "bound_ms": kv_bytes / 3.35e12 * 1e3}), flush=True)
 
