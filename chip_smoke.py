@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke run of the deepspeed_tpu_torch serving (bf16 and int8) and
-training paths (bf16 and fp16, each optimizer K7 runs, Mistral-7B's
-windowed attention through both kernel layouts) on one CUDA GPU.
+"""Smoke run of the deepspeed_tpu_torch serving (bf16 and int8; Llama,
+StarCoder2, BLOOM, Gemma-2) and training paths (bf16 and fp16, each
+optimizer K7 runs, Mistral-7B's windowed attention through both kernel
+layouts, Gemma-2 at head_dim 256 with its softcaps) on one CUDA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
   1. build          — compile the CUDA kernels from deepspeed_tpu_torch/csrc
                       with nvcc (sm_90a, one process per source) and load
-                      them; report versions and the GPU.
+                      them; report versions, the GPU, each source's
+                      seconds and ptxas's registers and spill bytes of
+                      the flash kernels' head-width-256 instances.
   2. kernels        — every kernel of both paths against its plain PyTorch
                       version at main-path shapes in bf16: the error
                       beside the stated tolerance (flash: row by row, with
@@ -37,15 +40,31 @@ Phases, each printing one JSON line:
                       12,391, and the whole LAMB step over that layer's 9
                       tensors, each output within 2 fp32 ulps of the plain
                       version; torch.optim's fused Adam/AdamW step beside
-                      the Adam rows.
+                      the Adam rows. Gemma-2-9B's widths (H 16, KV 8, D
+                      256, caps 50, queries scaled so that about a fifth
+                      of the scaled scores pass cap / 2, each case
+                      recording that share): K4's softcap instance at
+                      decode through the page split (without and with
+                      the 4096 window, bf16 and int8 caches) and on a
+                      768-row chunk straddling the window's edge; K1/K2
+                      at S 8192 (window 4096, and causal alone; fp16 at
+                      the window's shape) and K3 at the window's shape,
+                      flex_attention with the cap as its score_mod the
+                      library time, SDPA without the cap beside it; the
+                      other D-256 instances (per-head fp32, folded fp16
+                      and fp32) at S 2048 under a 512 window, with no
+                      library time; K5's fp32-scale instance at [8, 3584]
+                      and [768, 3584].
   3. parity         — the tiny Llama config in fp32 through the whole serving
                       engine on the GPU (kernels) and on the CPU (plain
                       versions), same weights: logits must agree; then the
                       same with int8 weights and an int8 KV cache.
-  4. train_parity   — the tiny config in fp32, and the same with a 48-token
-                      window and softcap 30, same weights, 3 AdamW steps
-                      (clipping, WarmupLR) of the training engine on the GPU
-                      and on the CPU: losses and parameters must agree.
+  4. train_parity   — the tiny config in fp32, the same with a 48-token
+                      window and softcap 30, and a tiny Gemma-2 (head_dim
+                      256: the fp32 D-256 instances; window on layer 0),
+                      same weights, 3 AdamW steps (clipping, WarmupLR) of
+                      the training engine on the GPU and on the CPU:
+                      losses and parameters must agree.
   5. training       — initialize() at the Llama-3-8B width cut to 4 layers
                       (seeded random bf16 weights, flat fp32 masters and
                       AdamW state, chunked CE), 6 forward/backward/step on
@@ -82,6 +101,14 @@ Phases, each printing one JSON line:
                       losses of the two runs agree at every step; step
                       ms, tokens/s, model-FLOP share, peak memory and a
                       profiled step per run.
+  5d. training_gemma2 — google/gemma-2-9b's published widths from
+                      policy_for("gemma2").config_from_hf(GEMMA2_9B), cut
+                      to 4 layers (windows on layers 0 and 2), one
+                      8192-token sequence, bf16, AdamW (K7), the chunked
+                      CE with the final softcap, 6 steps: K1/K2 at head_dim
+                      256 with the softcap 4 times per step each, finite
+                      falling losses, step ms, tokens/s, model-FLOP share,
+                      peak memory and a profiled step.
   6. serving        — build_llama_engine at the full Llama-3-8B width (32
                       layers, seeded random bf16 weights, 1024 KV blocks of
                       64 tokens), greedy generate on 8 prompts of 128..1024
@@ -111,16 +138,33 @@ Phases, each printing one JSON line:
                       card (and that forward without the window or the
                       biases outside it), and prefill against decode past
                       the window.
+  serving_gemma2   — Gemma-2-9B at its published widths and depth (42
+                      layers) with seeded random bf16 weights (norm deltas
+                      N(0, 0.1), q/k and the embedding drawn wide enough
+                      that both caps bite), 390 KV blocks of 64 (8 GiB), 8
+                      prompts of 128..5120 tokens (four past the window),
+                      32 new tokens each: K4's softcap instance L and K5's
+                      fp32-scale instance 4L+1 times per forward, no KV
+                      block freed while the odd layers attend globally,
+                      the 5120-token prompt's prefill logits and its last
+                      token's decode step within cosine 0.999 of a plain
+                      fp32 forward (and of each other) and five controls
+                      (no attention cap, no final cap, no post norms, no
+                      embedding scale, a window on every layer) outside
+                      it; then the fp32 engine at the weights as first
+                      drawn on that prompt, prefill and decode within
+                      cosine 0.9999 of the plain fp32 forward.
   9. attn_sweep     — python -m deepspeed_tpu_torch.ops.attn_sweep's
                       sweep_shape once at the Mistral shape: each leg's
                       K1/K2 and K3 times and the winners, committed to
                       this run's cache; nothing after it reads them.
-Each main path (phases 5, 5b, 5c, 6, 7 and 8) runs with the launch counts of
+Each main path (phases 5, 5b, 5c, 5d, 6, 7, 8 and the BLOOM and Gemma-2
+serving phases) runs with the launch counts of
 its kernels set to 0 just before and read just after. Every phase resolves
 the attention route against an empty cache directory made under build/
 (DS_TPU_ATTN_CACHE_DIR), and each training phase prints its decisions
-(kernel_dispatch.describe) and checks that both legs run kernels. Then a
-``{"kernels": [...]}`` line, the GPU's name and power limit, and, as the
+(kernel_dispatch.describe) and checks that both legs run kernels. Then
+each phase's seconds, a ``{"kernels": [...]}`` line, the GPU's name and power limit, and, as the
 last line, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that line. Without a
 CUDA device it exits 2 and prints no result.
 """
@@ -218,18 +262,39 @@ def phase_build() -> dict:
     rec = {"phase": "build", "seconds": seconds, "library": os.path.relpath(path, ROOT),
            "attn_cache": os.path.relpath(os.environ["DS_TPU_ATTN_CACHE_DIR"], ROOT),
            "torch": torch.__version__, "torch_cuda": torch.version.cuda,
-           "nvcc": nvcc.splitlines()[-1], "gpu": gpu_identity()}
+           "nvcc": nvcc.splitlines()[-1], "gpu": gpu_identity(),
+           # ptxas's registers and spill bytes of the flash kernels'
+           # head-width-256 instances
+           "d256_resource_usage": _build.resource_usage("Li256E")}
     emit(rec)
     return rec
 
 
-def _rms_case(rows: int, d: int, gen) -> dict:
+def d256_usage(build: dict, wrapper: str, dtype: str) -> list:
+    """ptxas's report for one flash pass at head width 256 (``wrapper``:
+    e.g. ``flash_attention_bwd_dq``, ``folded_attention_fwd``) in ``dtype``,
+    both softcap instances."""
+    kernel = {"fwd": "fwd_kernel", "bwd_dq": "dq_kernel",
+              "bwd_dkdv": "dkdv_kernel"}[wrapper.split("_attention_")[1]]
+    if wrapper.startswith("folded"):
+        kernel = "folded_" + kernel
+    ctype = {"bfloat16": "__nv_bfloat16", "float16": "__half", "float32": "float"}[dtype]
+    return [e for e in build["d256_resource_usage"]
+            if f"::{kernel}<{ctype}," in e["kernel"]]
+
+
+def _rms_case(rows: int, d: int, gen, fp32_scale: bool = False) -> dict:
+    """K5 on bf16 rows with a bf16 weight 1 + N(0, 0.1), or (``fp32_scale``,
+    Gemma's serving norm) with the fp32 scale 1 + w, w ~ N(0, 1e-3)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.normalization import rms_norm, rms_norm_reference
-    eps = 1e-5
+    eps = 1e-6 if fp32_scale else 1e-5
     x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
-    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+    if fp32_scale:
+        w = 1.0 + 1e-3 * torch.randn(d, generator=gen, device="cuda")
+    else:
+        w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
     y = rms_norm(x, w, eps)
     ref = rms_norm_reference(x, w, eps)
     torch.cuda.synchronize()
@@ -292,17 +357,29 @@ SC2_WINDOW = 4096
 # BLOOM-7B1's (MHA: KV 32, G 1, D 128; 4 layers of cache, pages for the
 # serving phase's 8 sequences of up to 2048 + 32 tokens)
 BLOOM_PAGED = dict(L=4, KV=32, G=1, D=128, ps=64, n_pages=300, layer=3)
+# Gemma-2-9B's (KV 8, G 2, D 256; 4 layers of cache, pages for 8 sequences
+# of up to 5120 + 32 tokens), its window and caps, and the query scale that
+# makes the attention cap bite on N(0, 1) keys: scaled scores ~ N(0, 20^2),
+# about a fifth of them past cap / 2. (At 40, half of them, P is nearly one
+# key per row, and the plain version's own dq reads 0.024 from the exact
+# value, past the row tolerance against it.)
+GEMMA2_PAGED = dict(L=4, KV=8, G=2, D=256, ps=64, n_pages=700, layer=3)
+GEMMA2_WINDOW, GEMMA2_ATTN_CAP = 4096, 50.0
+CAP_Q_SCALE = 20.0
 
 
 def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                 graph: bool = False, int8: bool = False, widths=LLAMA_PAGED,
-                window=None, alibi: bool = False) -> dict:
+                window=None, alibi: bool = False, softcap=None,
+                q_scale: float = 1.0) -> dict:
     """One paged-attention batch over a cache of ``widths``, bf16 or
     (``int8``) int8 with its scales, with BLOOM's ALiBi bias where
-    ``alibi``. A sequence with ``n_new`` 0 is a padding row (zero block
-    table, no tokens). With a ``window``, the table entries of blocks
-    wholly below the window of each sequence's first query hold 0, as the
-    engine leaves them once it has freed them."""
+    ``alibi`` and Gemma-2's ``softcap`` (queries drawn ``q_scale`` times
+    wider, so that it bites: the record holds the share of visible scaled
+    scores past cap / 2). A sequence with ``n_new`` 0 is a padding row
+    (zero block table, no tokens). With a ``window``, the table entries of
+    blocks wholly below the window of each sequence's first query hold 0,
+    as the engine leaves them once it has freed them."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
@@ -312,10 +389,10 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     S = len(seen)
     cache = torch.randn(2 * L, n_pages * ps, KV * D, generator=gen,
                         device="cuda", dtype=torch.bfloat16)
-    kw = {"window": window, "use_alibi": alibi}
+    kw = {"window": window, "use_alibi": alibi, "softcap": softcap}
     if int8:
         cache, kw["cache_scales"] = int8_kv(cache, D)
-    q = torch.randn(S, N, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+    q = (q_scale * torch.randn(S, N, H, D, generator=gen, device="cuda")).to(torch.bfloat16)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     bt = perm[:S * B].reshape(S, B).to(torch.int32)
     for i, n in enumerate(n_new):
@@ -332,7 +409,10 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     # kernel reads (an int8 cache's staged bf16 values)
     staged = staged_kv(cache, kw["cache_scales"], D) if int8 else cache
     exact = paged_attention_reference(q.float(), staged, layer, bt, seen_t, lens_t,
-                                      page_size=ps, window=window, use_alibi=alibi)
+                                      page_size=ps, window=window, use_alibi=alibi,
+                                      softcap=softcap)
+    bite = (cap_bite_share(q, staged, layer, bt, seen, n_new, ps, window, softcap)
+            if softcap else None)
     control = exact.to(q.dtype)  # one rounding of it; for a bf16 cache, = ref
     torch.cuda.synchronize()
     errs = {"max_abs_err": (y.float() - ref.float()).abs().max().item(),
@@ -360,7 +440,7 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     rec = {"case": name, "shape": {"S": S, "N": N, "B": B, "H": H, "KV": KV,
                                    "D": D, "page_size": ps, "layers": L,
                                    "seen": seen, "n_new": n_new, "window": window,
-                                   "alibi": alibi,
+                                   "alibi": alibi, "softcap": softcap, "q_scale": q_scale,
                                    "cache": "int8" if int8 else "bfloat16"},
            **errs, "timing": "cuda graph" if graph else "events",
            "ms": timer(lambda: paged_attention(*args, page_size=ps, **kw)),
@@ -368,9 +448,57 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
            "library_ms": None,
            "bound_ms": max(bound_bytes, bound_flops),
            "bound_by": "bytes" if bound_bytes >= bound_flops else "operations"}
+    if softcap:
+        rec["cap_bite_share"] = bite
     del cache, kw
     torch.cuda.empty_cache()
     return rec
+
+
+def cap_bite_share(q, cache, layer: int, bt, seen: list, n_new: list, ps: int, window,
+                   cap: float) -> float:
+    """The share of K4's visible scaled scores (q.k / sqrt(D), over each
+    real query row's visible keys and every head) with |s| > cap / 2: where
+    the cap changes a score by more than 8%."""
+    import torch
+    S, N, H, D = q.shape
+    KV = cache.shape[-1] // D
+    big = total = 0
+    for s, (sn, nn) in enumerate(zip(seen, n_new)):
+        if nn == 0:
+            continue
+        keys = torch.arange(sn + nn, device=q.device)
+        slots = bt[s].long()[keys // ps] * ps + keys % ps
+        k = cache[2 * layer][slots].float().view(-1, KV, 1, D)
+        qs = q[s, :nn].float().view(nn, KV, H // KV, D)
+        sc = torch.einsum("nkgd,pkgd->nkgp", qs, k.expand(-1, -1, H // KV, -1)) * D ** -0.5
+        qpos = sn + torch.arange(nn, device=q.device)[:, None]
+        vis = keys[None, :] <= qpos
+        if window:
+            vis &= keys[None, :] > qpos - window
+        vis = vis[:, None, None, :].expand_as(sc)
+        big += int((sc.abs() > cap / 2)[vis].sum())
+        total += int(vis.sum())
+    return big / total
+
+
+def flash_cap_bite_share(q, k, causal: bool, window, cap: float, rows: int = 256) -> float:
+    """The share of the flash kernels' visible scaled scores with |s| >
+    cap / 2, over ``rows`` evenly spaced query positions, every head."""
+    import torch
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    pos = torch.linspace(0, S - 1, rows, device=q.device).long()
+    qs = q[:, pos].float().view(B, rows, KV, H // KV, D)
+    sc = torch.einsum("bqkgd,bpkd->bkgqp", qs, k.float()) * D ** -0.5
+    keys = torch.arange(S, device=q.device)
+    vis = torch.ones(rows, S, dtype=torch.bool, device=q.device)
+    if causal:
+        vis &= keys[None, :] <= pos[:, None]
+    if window:
+        vis &= pos[:, None] - keys[None, :] < window
+    vis = vis.expand_as(sc)
+    return float((sc.abs() > cap / 2)[vis].float().mean())
 
 
 def _quant_case(gen, name: str, shape: tuple, zero_block: bool = False) -> dict:
@@ -454,7 +582,8 @@ def visible_pairs(S: int, causal: bool, window=None) -> int:
 
 
 def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
-                window=None, softcap=None, layout: str = "per_head") -> dict:
+                window=None, softcap=None, layout: str = "per_head",
+                widths=(32, 8, 128), q_scale: float = 1.0, library: bool = True) -> dict:
     """K1 and both K2 passes (``layout="per_head"``) or K3's three passes
     (``"folded"``) at the training path's Llama-3-8B / Mistral-7B widths
     (H 32, KV 8, D 128) in bf16 (or ``dtype``, fp16 for fp16 training),
@@ -466,13 +595,18 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     reads that noise in the plain version as in the kernel), with the
     plain version's error and one rounding of the exact value to
     ``dtype`` as controls. The library time is SDPA's (an
-    explicit boolean mask serves the window; no library call computes the
-    softcap)."""
+    explicit boolean mask serves the window), or with the softcap
+    flex_attention's with the cap as its ``score_mod``; at head width 256
+    (Gemma-2's ``widths``, H 16, KV 8) SDPA's causal time without the cap
+    stands beside it too. With the softcap, q is drawn ``q_scale`` times
+    wider and the record holds the share of scaled scores past cap / 2.
+    ``library=False`` times no library call (the head-width-256 instances
+    in fp16 and fp32 beside the bf16 cases that time flex_attention)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import attention as fa
     from deepspeed_tpu_torch.ops import attention_folded as ff
-    H, KV, D = 32, 8, 128
+    H, KV, D = widths
     dtype = dtype or torch.bfloat16
     opts = dict(window=window, softcap=softcap)
     fwd_k, dq_k, dkdv_k = ((fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
@@ -484,6 +618,10 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v, do = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), rnd(B, S, H, D)
+    esize = q.element_size()
+    if q_scale != 1.0:
+        q = (q.float() * q_scale).to(dtype)
+    bite = flash_cap_bite_share(q, k, causal, window, softcap) if softcap else None
     o, lse = fwd_k(q, k, v, causal, **opts)
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal, **opts)
     delta = fa.attention_delta(o_ref, do)
@@ -502,6 +640,7 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     # the floor gives a cancelling row 2^-16 of the RMS row at any
     # tolerance; against the exact value, FLASH_EXACT_FLOOR
     name_dtype = str(dtype).replace("torch.", "")
+    row_tol = FLASH_D256_ROW_TOL if D > 128 and esize == 2 else FLASH_ROW_TOL[name_dtype]
     floor = 2.0 ** -16 / FLASH_ROW_TOL[name_dtype]
     vs = dict(floor=FLASH_EXACT_FLOOR[name_dtype])
     errs = {}
@@ -519,12 +658,30 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
 
     free_memory()
 
+    def sdpa_times(**kw):
+        """SDPA's forward, and forward + backward less the forward."""
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, **kw)
+
+        f = time_ms(lambda: sdpa(qt, kt, vt))
+        return f, time_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dot)) - f
+
+    # at head width 256, SDPA's causal attention without the cap as a
+    # second yardstick
+    sdpa_nocap = (sdpa_times(is_causal=causal, enable_gqa=True)
+                  if library and D > 128 and softcap is not None else None)
+    free_memory()
     # SDPA, timed as the yardstick only: forward, and forward + backward
     # less the forward for the backward. A window goes in as a boolean
     # mask, over K/V repeated to the query heads (SDPA's masked kernels do
     # not take GQA); no SDPA call computes the softcap: flex_attention with
     # the softcap as its score_mod does
-    if softcap is not None:
+    if not library:
+        lib_fwd = lib_bwd = None
+    elif softcap is not None:
         def cap(score, b, h, q_idx, kv_idx):
             return softcap * torch.tanh(score / softcap)
 
@@ -560,7 +717,8 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     # dO V^T, P^T dO, dS^T Q) per visible (query, key) pair and query head;
     # bytes: each input read once, each output written once
     pairs = visible_pairs(S, causal, window)
-    qb, kvb, rb = B * S * H * D * 2, B * S * KV * D * 2, B * S * H * 4
+    qb, kvb, rb = B * S * H * D * esize, B * S * KV * D * esize, B * S * H * 4
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS  # fp32: CUDA cores
     work = {"fwd": (4, 2 * qb + 2 * kvb + rb),
             "dq": (6, 3 * qb + 2 * kvb + 2 * rb),
             "dkdv": (8, 2 * qb + 4 * kvb + 2 * rb)}
@@ -577,14 +735,20 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     }
     rec = {"case": name, "layout": layout,
            "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": causal,
-                     "window": window, "softcap": softcap},
+                     "window": window, "softcap": softcap, "q_scale": q_scale},
            "visible_pairs_per_head": pairs, "dtype": name_dtype, "lse_max_abs_err": lse_err,
-           "library": "flex_attention (compiled, softcap score_mod)" if softcap else "SDPA"}
+           "row_tolerance": row_tol,
+           "library": (None if not library else
+                       "flex_attention (compiled, softcap score_mod)" if softcap else "SDPA")}
+    if softcap is not None:
+        rec["cap_bite_share"] = bite
+    if sdpa_nocap is not None:
+        rec["sdpa_causal_without_cap_ms"] = {"fwd": sdpa_nocap[0], "bwd": sdpa_nocap[1]}
     for key, (kernel, plain, library) in timed.items():
         flops = work[key][0] * D * pairs * H * B
-        bound_flops = flops / BF16_FLOPS * 1e3
+        bound_flops = flops / peak * 1e3
         bound_bytes = work[key][1] / HBM_BYTES_PER_S * 1e3
-        rec[key] = {**errs[key], "tolerance": FLASH_ROW_TOL[rec["dtype"]],
+        rec[key] = {**errs[key], "tolerance": rec["row_tolerance"],
                     "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=5),
                     # SDPA's backward computes dq, dk and dv in one call: the
                     # same time stands beside both backward passes
@@ -620,7 +784,9 @@ PAGED_ROW_SLACK = 2.0 ** -8
 # kernel may be at most FLASH_EXACT_RATIO times as far off as the plain
 # bf16 version.
 # fp16 rounds P, dS and the output at its unit roundoff 2^-11: 2^-8.
-FLASH_ROW_TOL = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -8}
+# fp32 (head width 256): both compute and keep fp32 throughout and differ by
+# summation order only: 2^-14.
+FLASH_ROW_TOL = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -8, "float32": 2.0 ** -14}
 FLASH_EXACT_RATIO = 2.0
 # against the exact value a row's norm is floored at this share of the RMS
 # row: a row that cancels to ~0 (dq at position 0, which sees one key)
@@ -629,12 +795,23 @@ FLASH_EXACT_RATIO = 2.0
 # ~1.1e-5 in fp16. The exact value is computed in fp64, so that noise
 # shows in the plain version's error as in the kernel's; before, the exact
 # value was the plain version's own fp32 einsums, which read 0 there.
-FLASH_EXACT_FLOOR = {"bfloat16": 2.0 ** -10, "float16": 2.0 ** -6}
+# fp32 takes the floor of its comparison with the plain version (2^-16 /
+# 2^-14).
+FLASH_EXACT_FLOOR = {"bfloat16": 2.0 ** -10, "float16": 2.0 ** -6, "float32": 2.0 ** -2}
 LSE_TOL = 1e-3         # fp32 lse of ~10: summation order only
 # the Mistral phase's attention: S 8192 under a 4096-token window; the
 # softcap the phase-2 cases take (Gemma-2's 50.0)
 MISTRAL_S, MISTRAL_WINDOW = 8192, 4096
 FLASH_SOFTCAP = 50.0
+# a softcap case must change scores: at least this share of its visible
+# scaled scores past cap / 2 (where the cap moves a score by more than 8%)
+CAP_BITES = 0.1
+# at head width 256 the kernel against the plain version row by row, in
+# every dtype: a dq row sums 256-wide products of dS rounded to the input
+# dtype over thousands of keys, and where it cancels an fp16 pair of them
+# read 4.8e-3 in the cuda tests (fp16's 2^-8 holds at the narrower widths);
+# against the exact value FLASH_EXACT_RATIO holds as everywhere
+FLASH_D256_ROW_TOL = 2.0 ** -6
 # K4 over an int8 cache stages each K/V element as the TPU kernel does,
 # bf16(code) * bf16(scale) rounded to bf16, where the plain version
 # dequantizes in fp32. Against the plain version on those staged values
@@ -646,6 +823,8 @@ PAGED_TOLERANCE = (f"max abs <= {PAGED_TOL}; the largest row error ||kernel - pl
 FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:88"),
                  ("dq", "flash_attention_bwd_dq", "deepspeed_tpu/ops/attention.py:273"),
                  ("dkdv", "flash_attention_bwd_dkdv", "deepspeed_tpu/ops/attention.py:350"))
+FLASH_D256_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention_d256.cu"
+FOLDED_D256_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention_folded_d256.cu"
 FOLDED_KERNELS = (
     ("fwd", "folded_attention_fwd", "deepspeed_tpu/ops/attention_folded.py:69"),
     ("dq", "folded_attention_bwd_dq", "deepspeed_tpu/ops/attention_folded.py:146"),
@@ -812,6 +991,9 @@ def _flex_times(q, k, v, do, mask_mod, score_mod=None):
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
     B, H, S, _ = q.shape
     bm = create_block_mask(mask_mod, B=None, H=H, Q_LEN=S, KV_LEN=S, device="cuda")
+    # a fresh compile for each case: past dynamo's recompile limit (8 per
+    # function) flex_attention would run unfused
+    torch._dynamo.reset()
     flex = torch.compile(flex_attention)
     kw = dict(block_mask=bm, score_mod=score_mod, enable_gqa=k.shape[1] != H)
     fwd = time_ms(lambda: flex(q, k, v, **kw), iters=5)
@@ -957,6 +1139,10 @@ def phase_kernels() -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rms = [_rms_case(8, 4096, gen), _rms_case(768, 4096, gen)]
+    # Gemma-2's serving norm: bf16 rows with the fp32 scale 1 + w, at a
+    # decode step's 8 rows and a 768-row prefill chunk of hidden 3584
+    rms_fp32 = [_rms_case(8, 3584, gen, fp32_scale=True),
+                _rms_case(768, 3584, gen, fp32_scale=True)]
     paged_cases = [
         # mixed batch: six decode rows at histories 100..999, a
         # 16-token prefill chunk after 300 seen tokens, one padding row
@@ -1037,26 +1223,73 @@ def phase_kernels() -> list:
                     B=33, graph=True, **alibi_kw),
         _paged_case(gen, "alibi_prefill_chunk", [768], [768], N=768, B=24, **alibi_kw),
     ]
+    # K4's softcap instance at Gemma-2-9B's widths (H 16, KV 8, D 256, cap
+    # 50, queries scaled so that the cap bites): a decode step of the
+    # serving phase's 8 sequences through the page split, without and with
+    # the window 4096, over both caches; a 768-row prefill chunk
+    # straddling the window's edge
+    gemma_seen = [5120 + 5, 4864 + 9, 4352 + 13, 3072 + 17, 2048 + 21, 1024 + 25, 512 + 29,
+                  128 + 31]
+    cap_kw = dict(widths=GEMMA2_PAGED, softcap=GEMMA2_ATTN_CAP, q_scale=CAP_Q_SCALE)
+    paged_softcap_cases = [
+        _paged_case(gen, "softcap_decode", gemma_seen, [1] * 8, N=1, B=82, graph=True,
+                    **cap_kw),
+        _paged_case(gen, "softcap_decode_window", gemma_seen, [1] * 8, N=1, B=82,
+                    graph=True, window=GEMMA2_WINDOW, **cap_kw),
+        _paged_case(gen, "softcap_decode", gemma_seen, [1] * 8, N=1, B=82, graph=True,
+                    int8=True, **cap_kw),
+        _paged_case(gen, "softcap_decode_window", gemma_seen, [1] * 8, N=1, B=82,
+                    graph=True, window=GEMMA2_WINDOW, int8=True, **cap_kw),
+        _paged_case(gen, "softcap_chunk_window", [3700], [768], N=768, B=70,
+                    window=GEMMA2_WINDOW, **cap_kw),
+    ]
+    # K1/K2 at head width 256 (Gemma-2-9B: H 16, KV 8, D 256, cap 50, q
+    # scaled so that it bites) over the training phase's S 8192: causal with
+    # the window 4096 (the even layers) and causal alone (the odd ones); the
+    # fp16 instance and K3 at the window's shape
+    d256_kw = dict(widths=(16, 8, 256), softcap=GEMMA2_ATTN_CAP, q_scale=CAP_Q_SCALE)
+    flash_d256 = [
+        _flash_case(gen, "gemma2_window", 1, MISTRAL_S, True, window=GEMMA2_WINDOW,
+                    **d256_kw),
+        _flash_case(gen, "gemma2_causal", 1, MISTRAL_S, True, **d256_kw),
+    ]
+    flash_d256_fp16 = [_flash_case(gen, "gemma2_window_fp16", 1, MISTRAL_S, True,
+                                   torch.float16, window=GEMMA2_WINDOW, **d256_kw)]
+    folded_d256 = [_flash_case(gen, "gemma2_window", 1, MISTRAL_S, True,
+                               window=GEMMA2_WINDOW, layout="folded", **d256_kw)]
+    # the other D-256 instances (per-head fp32; folded fp16 and fp32) at S
+    # 2048 under a 512 window, with no library time
+    other_kw = dict(window=512, library=False, **d256_kw)
+    flash_d256_fp32 = [_flash_case(gen, "gemma2_float32_s2048", 1, 2048, True,
+                                   torch.float32, **other_kw)]
+    folded_d256_fp16, folded_d256_fp32 = (
+        [_flash_case(gen, f"gemma2_{str(dtype)[6:]}_s2048", 1, 2048, True, dtype,
+                     layout="folded", **other_kw)] for dtype in (torch.float16, torch.float32))
     # K7: each body at one layer's parameters and at a ragged tail; the
     # whole LAMB step over the layer's 9 tensors
     k7_cases = [_k7_case(gen, body, n) for body in ("adamw", "adam_l2", "lion", "lamb_pass")
                 for n in (LAYER_PARAMS, K7_TAIL)]
     k7_cases += [_k7_case(gen, "lamb_step", LAYER_PARAMS)]
-    all_paged = paged_cases + paged_int8_cases + paged_window_cases + paged_alibi_cases
+    all_paged = (paged_cases + paged_int8_cases + paged_window_cases + paged_alibi_cases
+                 + paged_softcap_cases)
     paged_ok = [c.get("staged_row_rel_err", c["row_rel_err"])
                 <= c["rounding_row_rel_err"] + PAGED_ROW_SLACK
                 and c.get("control_max_abs_err", c["max_abs_err"]) <= PAGED_TOL
                 and ("control_row_rel_err" not in c
                      or c["row_rel_err"] <= c["control_row_rel_err"] + PAGED_ROW_SLACK)
                 for c in all_paged]
-    ok = all(c["max_abs_err"] <= RMS_TOL for c in rms) and \
+    d256_cases = (flash_d256 + flash_d256_fp16 + flash_d256_fp32 + folded_d256
+                  + folded_d256_fp16 + folded_d256_fp32)
+    all_flash = flash_cases + flash_fp16 + folded_cases + d256_cases
+    ok = all(c["max_abs_err"] <= RMS_TOL for c in rms + rms_fp32) and \
+        all(c["cap_bite_share"] >= CAP_BITES for c in paged_softcap_cases + d256_cases) and \
         all(c["max_abs_err"] <= c["tolerance"] for c in ln) and all(paged_ok) and \
         all(c["equal"] for c in quant_cases) and dequant["equal"] and \
         quant_cases[-1]["zero_block_scales"] == [1.0, 1.0] and \
-        all(c[key]["row_rel_err"] <= FLASH_ROW_TOL[c["dtype"]]
+        all(c[key]["row_rel_err"] <= c["row_tolerance"]
             and c["lse_max_abs_err"] <= LSE_TOL
             and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
-            for c in flash_cases + flash_fp16 + folded_cases for key, _, _ in FLASH_KERNELS) and \
+            for c in all_flash for key, _, _ in FLASH_KERNELS) and \
         all(c[key]["row_rel_err"] <= FLASH_ROW_TOL[c["dtype"]]
             and c["lse_max_abs_err"] <= LSE_TOL and c["lse_empty_rows_marked"]
             and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
@@ -1065,7 +1298,7 @@ def phase_kernels() -> list:
     main = rms[1]
     kernels = [
         {"name": "paged_attention", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
          "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
          "launches": None, "tolerance": PAGED_TOLERANCE,
          "max_abs_err": max(c["max_abs_err"] for c in paged_cases),
@@ -1074,7 +1307,7 @@ def phase_kernels() -> list:
                                   "library_ms")},
          "cases": paged_cases},
         {"name": "paged_attention_int8", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
          "replaces": "deepspeed_tpu/ops/paged_attention.py:111",
          "launches": None,
          "tolerance": "against the plain version on the staged bf16 K/V: as "
@@ -1086,7 +1319,7 @@ def phase_kernels() -> list:
                                                 "library_ms")},
          "cases": paged_int8_cases},
         {"name": "paged_attention_alibi", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
          "replaces": "deepspeed_tpu/ops/paged_attention.py:125",
          "launches": None, "tolerance": PAGED_TOLERANCE,
          "max_abs_err": max(c["max_abs_err"] for c in paged_alibi_cases),
@@ -1095,7 +1328,7 @@ def phase_kernels() -> list:
                                                  "library_ms")},
          "cases": paged_alibi_cases},
         {"name": "paged_attention_window", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
          "replaces": "deepspeed_tpu/ops/paged_attention.py:87-106",
          "launches": None,
          "tolerance": "bf16 cache: as paged_attention; int8 cache: as "
@@ -1129,6 +1362,26 @@ def phase_kernels() -> list:
          **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
          "cases": rms},
+        {"name": "rms_norm_fp32_scale", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/rms_norm.cu",
+         "replaces": "deepspeed_tpu/ops/normalization.py:26",
+         "note": "bf16 rows, fp32 scale (Gemma's 1 + w); the JAX kernel casts any scale",
+         "launches": None, "tolerance": RMS_TOL,
+         "max_abs_err": max(c["max_abs_err"] for c in rms_fp32),
+         **{k: rms_fp32[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+         "cases": rms_fp32},
+        {"name": "paged_attention_softcap", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:122",
+         "launches": None,
+         "tolerance": "bf16 cache: as paged_attention; int8 cache: as paged_attention_int8; "
+                      f"each case's cap_bite_share >= {CAP_BITES}",
+         "max_abs_err": max(c["max_abs_err"] for c in paged_softcap_cases),
+         "row_rel_err": max(c["row_rel_err"] for c in paged_softcap_cases),
+         **{k: paged_softcap_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")},
+         "cases": paged_softcap_cases},
         {"name": "layer_norm", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/layer_norm.cu",
          "replaces": "deepspeed_tpu/ops/normalization.py:32",
@@ -1170,6 +1423,28 @@ def phase_kernels() -> list:
                                                  "library_ms")},
          "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in folded_cases]}
         for key, name, replaces in FOLDED_KERNELS] + [
+        {"name": name + suffix, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": None,
+         "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= "
+                      + ("2^-14" if suffix.endswith("float32") else "2^-6")
+                      + "; against the exact fp64 value at most 2x the plain version's; "
+                      f"each case's cap_bite_share >= {CAP_BITES}",
+         "max_abs_err": max(c[key]["max_abs_err"] for c in cases),
+         "row_rel_err": max(c[key]["row_rel_err"] for c in cases),
+         **{k: cases[0][key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+         "cases": [{"case": c["case"], "shape": c["shape"], "dtype": c["dtype"],
+                    "cap_bite_share": c["cap_bite_share"],
+                    "sdpa_causal_without_cap_ms": c.get("sdpa_causal_without_cap_ms"),
+                    **c[key]} for c in cases]}
+        for suffix, source, cases, table in (
+            ("_d256", FLASH_D256_SOURCE, flash_d256, FLASH_KERNELS),
+            ("_d256_fp16", FLASH_D256_SOURCE, flash_d256_fp16, FLASH_KERNELS),
+            ("_d256_float32", FLASH_D256_SOURCE, flash_d256_fp32, FLASH_KERNELS),
+            ("_d256", FOLDED_D256_SOURCE, folded_d256, FOLDED_KERNELS),
+            ("_d256_float16", FOLDED_D256_SOURCE, folded_d256_fp16, FOLDED_KERNELS),
+            ("_d256_float32", FOLDED_D256_SOURCE, folded_d256_fp32, FOLDED_KERNELS))
+        for key, name, replaces in table] + [
         {"name": name, "route": "cuda", "source": SPLASH_SOURCES[key],
          "replaces": replaces, "launches": None,
          "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-6; "
@@ -1256,7 +1531,17 @@ TRAIN_PARITY_CONFIG = {
 # attention-logit softcap, both through K1/K2's options on the card
 TRAIN_PARITY_MODELS = {"llama": dict(num_key_value_heads=2),
                        "window48_softcap30": dict(num_key_value_heads=2, sliding_window=48,
-                                                  attn_logit_softcapping=30.0)}
+                                                  attn_logit_softcapping=30.0),
+                       # a tiny Gemma-2: head_dim 256 (the fp32 instances
+                       # of K1/K2 at 256), G 2, a 48-token window on layer 0
+                       # only, Gemma-2's caps, the sandwich and (1 + w)
+                       # norms, the embedding scale, the tanh-gelu gate
+                       "gemma2_d256": dict(num_key_value_heads=2, head_dim=256,
+                                           sliding_window=48, sliding_window_layers=(0, ),
+                                           attn_logit_softcapping=50.0,
+                                           final_logit_softcapping=30.0, sandwich_norm=True,
+                                           norm_plus_one=True, embed_scale=8.0,
+                                           mlp_type="geglu_tanh", tie_word_embeddings=True)}
 
 
 def phase_train_parity() -> dict:
@@ -1898,6 +2183,432 @@ def phase_training_mistral() -> dict:
     return rec
 
 
+# Gemma-2-9B serving: 8 prompts of 128..5120 tokens, four past the 4096
+# window of the even layers, 32 new tokens each: 21,376 tokens in 338 of
+# the 390 KV blocks of 64 that the 8 GiB budget holds at 344,064 bytes per
+# token (42 layers)
+GEMMA2_PROMPTS = [5120, 4864, 4352, 3072, 2048, 1024, 512, 128]
+GEMMA2_NEW_TOKENS = 32
+# the random weights: the norm deltas w ~ N(0, 0.1) (HF's test of the model
+# draws them so), q_proj and k_proj 4.5x lecun-normal (scaled scores ~ N(0,
+# 20^2): the attention cap of 50 bites on ~22% of them), and the embedding
+# 20x normal(0.02) (final logits ~ N(0, 24^2): the final cap of 30 bites on
+# ~half of them). The sharp attention the cap bites makes 42 layers
+# chaotic: with the embedding as drawn, one bf16 rounding of the embedded
+# input moves the plain fp32 forward to a cosine of 0.41, and fp32's own
+# roundings move the fp32 engine to 0.9996 (on the H100). The wide
+# embedding leads the residual stream and holds that rounding to 0.999996.
+GEMMA2_QK_SCALE, GEMMA2_EMBED_SCALE = 4.5, 20.0
+# the bf16 engine against the plain fp32 forward on the 5120-token prompt,
+# its prefill and the decode step of its last token, and the two against
+# each other (the final cap bounds max|logit|, so the limit is a cosine),
+# as StarCoder2's and BLOOM's limit; every run reads five controls (no
+# attention cap, no final cap, no post norms, no embedding scale, a window
+# on every layer) and fails if any is within the limit
+GEMMA2_COSINE = 0.999
+# the fp32 engine at the weights as first drawn (the norm deltas alone:
+# no chaos, one bf16 rounding of the input moves the forward by ~1e-5 of
+# cosine) against the same forward of those weights
+GEMMA2_FP32_COSINE = 0.9999
+GEMMA2_FP32_BLOCKS = 96  # the 5120-token prompt and its decode step
+
+
+def gemma2_random_model(cfg, dtype, qk_scale: float = 1.0, embed_scale: float = 1.0):
+    """Gemma-2-form seeded random weights on the card: ``init_llama``'s
+    draw, the norm deltas ~ N(0, 0.1), q_proj and k_proj ``qk_scale``
+    times wider and the embedding ``embed_scale`` times."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import RMSNormWeight, init_llama
+    model = init_llama(cfg, seed=0, dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, RMSNormWeight):
+                mod.weight.copy_(0.1 * torch.randn(mod.weight.shape, generator=gen,
+                                                   device="cuda"))
+        for layer in model.layers:
+            layer.self_attn.q_proj.kernel.mul_(qk_scale)
+            layer.self_attn.k_proj.kernel.mul_(qk_scale)
+        model.embed_tokens.weight.mul_(embed_scale)
+    return model
+
+
+def prefill_and_decode(engine, uid: int, tokens: list):
+    """``tokens`` fed in chunks of the batch budget, the last chunk's
+    logits (prefill); then fed again without the last token, and that
+    token's decode step's logits. Both sequences are flushed."""
+    budget = engine._config.state_manager.max_ragged_batch_size
+
+    def feed(u, toks):
+        for ofs in range(0, len(toks), budget):
+            logits = engine.put([u], [toks[ofs:ofs + budget]])
+        return logits
+
+    full = feed(uid, tokens).float()[0]
+    engine.flush(uid)
+    feed(uid + 1, tokens[:-1])
+    step = engine.put([uid + 1], [[tokens[-1]]]).float()[0]
+    engine.flush(uid + 1)
+    return full, step
+
+
+def plain_forward_gemma2_fp32(model, cfg, tokens: list, q_block: int = 1024,
+                              attn_cap: bool = True, final_cap: bool = True,
+                              post_norms: bool = True, embed_scale: bool = True,
+                              window_everywhere: bool = False, round_input: bool = False):
+    """The last token's logits of ``tokens`` from a plain fp32 forward of a
+    Gemma-2-form ``model`` (the (1 + w) RMSNorm, sandwich norms, rope, G
+    query heads per KV head, the attention scale, cap and window of the
+    config's layers, the tanh-gelu gate, tied embeddings times the
+    embedding scale, the final cap): every weight cast to fp32 where it is
+    used, no KV cache and no kernel of the port; each block of ``q_block``
+    queries attends over the whole sequence under a dense mask. The
+    controls leave out the attention cap, the final cap, the post norms
+    (``post_attention_layernorm`` and ``post_feedforward_layernorm``) or
+    the embedding scale, or put the window on every layer;
+    ``round_input`` rounds the scaled embedded input once to bf16. Also returns
+    the share of visible scaled scores past the attention cap / 2 and of
+    the logits past the final cap / 2."""
+    import torch
+    import torch.nn.functional as F
+    dev = model.embed_tokens.weight.device
+    T = len(tokens)
+    hd, nq, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
+    pos = torch.arange(T, device=dev)
+    inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2, device=dev,
+                                                      dtype=torch.float32) / hd))
+    ang = pos.float()[:, None] * inv_freq[None, :]
+    cos, sin = ang.cos()[:, None, :], ang.sin()[:, None, :]
+
+    def norm(x, mod):
+        scale = 1.0 + mod.weight.float()
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.rms_norm_eps) * scale
+
+    def lin(x, dense):
+        return x @ dense.kernel.float()
+
+    def rope(x):
+        x1, x2 = x.chunk(2, -1)
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    emb = model.embed_tokens.weight
+    x = emb[torch.tensor(tokens, device=dev)].float()
+    if embed_scale:
+        x = x * cfg.embed_scale
+    if round_input:
+        x = x.bfloat16().float()
+    cap, bites, seen = cfg.attn_logit_softcapping, 0, 0
+    for l, layer in enumerate(model.layers):
+        a = layer.self_attn
+        W = cfg.sliding_window if (window_everywhere or l in cfg.sliding_window_layers) else T
+        h = norm(x, layer.input_layernorm)
+        q = rope(lin(h, a.q_proj).view(T, nq, hd))
+        k = rope(lin(h, a.k_proj).view(T, nkv, hd)).repeat_interleave(nq // nkv, 1)
+        v = lin(h, a.v_proj).view(T, nkv, hd).repeat_interleave(nq // nkv, 1)
+        ctx = torch.empty(T, nq, hd, device=dev)
+        for q0 in range(0, T, q_block):
+            qp = pos[q0:q0 + q_block, None]
+            scores = torch.einsum("qhd,khd->hqk", q[q0:q0 + q_block], k) * cfg.attn_scale
+            keep = (pos[None, :] <= qp) & (pos[None, :] > qp - W)
+            bites += int(((scores.abs() > cap / 2) & keep).sum())
+            seen += int(keep.sum()) * nq
+            if attn_cap:
+                scores = cap * torch.tanh(scores / cap)
+            probs = scores.masked_fill(~keep, float("-inf")).softmax(-1)
+            ctx[q0:q0 + q_block] = torch.einsum("hqk,khd->qhd", probs, v)
+        attn = lin(ctx.reshape(T, nq * hd), a.o_proj)
+        x = x + (norm(attn, layer.post_attention_layernorm) if post_norms else attn)
+        m, h2 = layer.mlp, norm(x, layer.pre_feedforward_layernorm)
+        mlp = lin(F.gelu(lin(h2, m.gate_proj), approximate="tanh") * lin(h2, m.up_proj),
+                  m.down_proj)
+        x = x + (norm(mlp, layer.post_feedforward_layernorm) if post_norms else mlp)
+    x = norm(x[-1:], model.norm)
+    logits = (x @ emb.float().T)[0]
+    fcap = cfg.final_logit_softcapping
+    shares = {"attn_cap_bite_share": bites / seen,
+              "final_cap_bite_share": float((logits.abs() > fcap / 2).float().mean())}
+    if final_cap:
+        logits = fcap * torch.tanh(logits / fcap)
+    return logits, shares
+
+
+def phase_serving_gemma2(kernels: list) -> dict:
+    """Gemma-2-9B through the user's entry points at full width and depth:
+    the published config through ``policy_for("gemma2")
+    .config_from_hf(GEMMA2_9B)`` (42 layers, hidden 3584, 16 / 8 heads of
+    256, window 4096 on the even layers, caps 50 and 30, vocab 256000,
+    tied), seeded random bf16 weights (``gemma2_random_model``, q/k
+    GEMMA2_QK_SCALE and the embedding GEMMA2_EMBED_SCALE times),
+    ``build_llama_engine``,
+    ``generate``. K4's softcap instance L times and K5's fp32-scale
+    instance 4L+1 times per forward; no KV block freed while the odd
+    layers attend globally; the 5120-token prompt's prefill logits and its
+    last token's decode step against a plain fp32 forward and five
+    controls. Then the fp32 engine at the weights as first drawn (the
+    norm deltas alone) on the same prompt against the plain fp32 forward
+    of those weights."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
+    from deepspeed_tpu_torch.module_inject import GEMMA2_9B, policy_for
+    from deepspeed_tpu_torch.ops.normalization import layer_norm, rms_norm
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = policy_for("gemma2").config_from_hf(GEMMA2_9B)
+    blocks = {"freed": [], "max_live": {}}
+
+    def cosine(a, b):
+        return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+
+    def on_put(engine, uids):
+        """Every allocated block stays live: the odd layers attend to the
+        whole history."""
+        for u in uids:
+            seq = engine._state_manager.get_sequence(u)
+            if seq is None:
+                continue
+            live = len(seq.kv_blocks)
+            if live != seq.cur_allocated_blocks:
+                blocks["freed"].append([u, seq.seen_tokens, live, seq.cur_allocated_blocks])
+            blocks["max_live"][u] = max(blocks["max_live"].get(u, 0), live)
+
+    refs = {}
+
+    def inspect(engine, prompts, prefill_logits):
+        model = engine.model().model
+        got = prefill_logits[0].cuda()
+        t = time.monotonic()
+        with torch.no_grad():
+            ref, shares = plain_forward_gemma2_fp32(model, cfg, prompts[0])
+        torch.cuda.synchronize()
+        forward_s = time.monotonic() - t
+        controls = {}
+        for name, kw in (("no_attn_cap", {"attn_cap": False}),
+                         ("no_final_cap", {"final_cap": False}),
+                         ("no_post_norms", {"post_norms": False}),
+                         ("no_embed_scale", {"embed_scale": False}),
+                         ("window_every_layer", {"window_everywhere": True})):
+            with torch.no_grad():
+                ctl, _ = plain_forward_gemma2_fp32(model, cfg, prompts[0], **kw)
+            controls[name] = {"cosine_vs_plain_fp32": cosine(ctl, ref),
+                              "cosine_vs_engine": cosine(ctl, got)}
+        with torch.no_grad():
+            rounded, _ = plain_forward_gemma2_fp32(model, cfg, prompts[0], round_input=True)
+        refs["plain_fp32"] = ref.cpu()
+        cos = cosine(got, ref)
+        n_params = sum(p.numel() for p in model.parameters())
+        rec = {"plain_fp32_forward_s": forward_s, "parameters": n_params,
+               "prefill_logits_cosine_vs_plain_fp32": cos,
+               "plain_fp32_prompt_tokens": len(prompts[0]),
+               "prefill_vs_plain_max_abs_diff": (got - ref).abs().max().item(),
+               "plain_fp32_input_rounded_to_bf16_cosine": cosine(rounded, ref),
+               **shares, "cosine_controls": controls}
+        return rec, {"prefill_logits_cosine_vs_plain_fp32": cos >= GEMMA2_COSINE,
+                     "cosine_controls_outside_the_limit": all(
+                         c["cosine_vs_plain_fp32"] < GEMMA2_COSINE
+                         for c in controls.values()),
+                     "both_caps_bite": min(shares.values()) >= CAP_BITES,
+                     "parameters_9241705984": n_params == 9_241_705_984}
+
+    counters = {"paged_attention_softcap": (paged_attention, "softcap_launches"),
+                "rms_norm_fp32_scale": (rms_norm, "fp32_scale_launches"),
+                "paged_attention": (paged_attention, "launches"),
+                "paged_attention_int8": (paged_attention, "int8_launches"),
+                "paged_attention_alibi": (paged_attention, "alibi_launches"),
+                "rms_norm": (rms_norm, "launches"), "layer_norm": (layer_norm, "launches")}
+    run = _drive_serving(
+        counters, cfg=cfg, prompt_lens=GEMMA2_PROMPTS, new_tokens=GEMMA2_NEW_TOKENS,
+        make_params=lambda: gemma2_random_model(cfg, torch.bfloat16, GEMMA2_QK_SCALE,
+                                                GEMMA2_EMBED_SCALE),
+        check_prompt=0, on_put=on_put, inspect=inspect)
+    rec, checks, L = run["rec"], run["checks"], run["layers"]
+    n_fwd, launches = rec["forwards"], rec["launches"]
+    max_live = blocks["max_live"]
+    # prefill against decode on the 5120-token prompt, and its decode step
+    # against the plain fp32 forward
+    full, step = run["check_logits"]
+    decode_cos, pd_cos = cosine(step, refs["plain_fp32"]), cosine(full, step)
+    rec.update({"decode_logits_cosine_vs_plain_fp32": decode_cos,
+                "prefill_decode_cosine": pd_cos})
+    checks.update({
+        "decode_logits_cosine_vs_plain_fp32": decode_cos >= GEMMA2_COSINE,
+        "prefill_decode_consistent": pd_cos >= GEMMA2_COSINE,
+        "paged_attention_softcap_launches_per_forward":
+            launches["paged_attention_softcap"] == L * n_fwd,
+        "rms_norm_fp32_scale_launches_per_forward":
+            launches["rms_norm_fp32_scale"] == (4 * L + 1) * n_fwd,
+        "no_other_k4_or_norm_instance": all(
+            launches[k] == 0 for k in ("paged_attention", "paged_attention_int8",
+                                       "paged_attention_alibi", "rms_norm", "layer_norm")),
+        "no_block_freed_while_odd_layers_are_global": not blocks["freed"],
+        "longest_prompt_holds_all_its_blocks": max_live[0] == (5120 + 32 + 63) // 64,
+    })
+
+    # the fp32 engine at the weights as first drawn, on the same prompt
+    prompt = run["prompts"][0]
+    model = gemma2_random_model(cfg, torch.float32)
+    engine = build_llama_engine(
+        cfg, params=model, dtype=torch.float32, kv_block_size=64,
+        engine_config=RaggedInferenceEngineConfig(num_kv_blocks=GEMMA2_FP32_BLOCKS))
+    full32, step32 = prefill_and_decode(engine, 2000, prompt)
+    with torch.no_grad():
+        ref32, shares32 = plain_forward_gemma2_fp32(model, cfg, prompt)
+        rounded32, _ = plain_forward_gemma2_fp32(model, cfg, prompt, round_input=True)
+    fp32 = {"weights": "norm deltas N(0, 0.1), the rest as init_llama draws it",
+            "cosine_tolerance": GEMMA2_FP32_COSINE,
+            "prefill_cosine_vs_plain_fp32": cosine(full32, ref32),
+            "decode_cosine_vs_plain_fp32": cosine(step32, ref32),
+            "prefill_decode_max_abs_diff": (full32 - step32).abs().max().item(),
+            "plain_fp32_input_rounded_to_bf16_cosine": cosine(rounded32, ref32), **shares32}
+    del engine, model, full32, step32, ref32, rounded32
+    free_memory()
+    checks["fp32_engine_prefill_and_decode_vs_plain_fp32"] = min(
+        fp32["prefill_cosine_vs_plain_fp32"],
+        fp32["decode_cosine_vs_plain_fp32"]) >= GEMMA2_FP32_COSINE
+
+    rec = {"phase": "serving_gemma2",
+           "config": "GEMMA2_9B via policy_for('gemma2').config_from_hf (42 layers, hidden "
+                     "3584, 16/8 heads of 256, window 4096 on the even layers, caps 50/30, "
+                     "vocab 256000, tied embeddings; random bf16 weights)",
+           "weights": f"norm deltas N(0, 0.1), q/k x{GEMMA2_QK_SCALE}, embedding "
+                      f"x{GEMMA2_EMBED_SCALE}",
+           **rec, "max_live_blocks": [max_live[u] for u in sorted(max_live) if u < 8],
+           "freed_blocks_seen": blocks["freed"][:8],
+           "cosine_tolerance": GEMMA2_COSINE, "fp32_engine": fp32,
+           "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"Gemma-2 serving checks failed: {checks}")
+    for k in kernels:
+        if k["name"] in ("paged_attention_softcap", "rms_norm_fp32_scale"):
+            k["launches"] = launches[k["name"]]
+            k["launches_by_phase"] = {"serving_gemma2": launches[k["name"]]}
+    return rec
+
+
+GEMMA2_STEPS = 6
+
+
+def phase_training_gemma2() -> dict:
+    """initialize() at the published google/gemma-2-9b widths
+    (``policy_for("gemma2").config_from_hf(GEMMA2_9B)``), depth cut to 4
+    layers (two windowed, two global; 1,710,288,384 parameters), seeded
+    random bf16 weights, one 8192-token sequence (one repeated batch),
+    AdamW (K7) lr 1e-4 + WarmupLR(linear, 4 steps) + clip 1.0, the chunked
+    CE with the final softcap, 6 steps, the route as it resolves on an
+    empty cache. Checks K1/K2 at head width 256 with the softcap 4 times
+    per step each (K3 none), one K7 launch per step, finite falling losses.
+    Reports the step time on the host clock (mean of steps 2-6) and on
+    CUDA events, tokens/s, the model-FLOP share (the window's visible pairs
+    on the even layers), the peak memory, and after the counts are read a
+    profiled step by kernel group."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import _layer_window, init_llama_for_causal_lm
+    from deepspeed_tpu_torch.module_inject import GEMMA2_9B, policy_for
+    from deepspeed_tpu_torch.ops import attention as fa
+    from deepspeed_tpu_torch.ops import attention_folded as ff
+    from deepspeed_tpu_torch.ops.fused_optimizer import adam_step_
+
+    L, B, S, n_steps = 4, 1, MISTRAL_S, GEMMA2_STEPS
+    cfg = dataclasses.replace(policy_for("gemma2").config_from_hf(GEMMA2_9B),
+                              num_hidden_layers=L, ce_chunk_size=8192)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    per_head = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    folded = (ff.folded_attention_fwd, ff.folded_attention_bwd_dq,
+              ff.folded_attention_bwd_dkdv)
+    counted = per_head + folded + (adam_step_, )
+    h, hd, nq, nkv, inter = (cfg.hidden_size, cfg.head_dim_, cfg.num_attention_heads,
+                             cfg.num_key_value_heads, cfg.intermediate_size)
+    matmul_w = L * (h * hd * (2 * nq + 2 * nkv) + 3 * h * inter) + h * cfg.vocab_size
+    pairs = [visible_pairs(S, True, _layer_window(cfg, i)) for i in range(L)]
+    model_flops = 6 * B * S * matmul_w + 12 * hd * sum(pairs) * nq * B
+    for var in ("DS_TPU_ATTN_FWD", "DS_TPU_ATTN_BWD"):
+        os.environ.pop(var, None)
+    route = attention_route(cfg, B, S, torch.bfloat16)
+    print(f"training_gemma2 attention route: {route['describe']}", flush=True)
+    model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": B, "bf16": {"enabled": True},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+        "scheduler": {"type": "WarmupLR", "params": {
+            "warmup_min_lr": 0.0, "warmup_max_lr": 1e-4, "warmup_num_steps": 4,
+            "warmup_type": "linear"}},
+        "gradient_clipping": 1.0})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counted:
+        f.launches = 0
+    losses, step_s, step_ev_ms = [], [], []
+    for _ in range(n_steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        ev[0].record()
+        loss = engine.forward(ids, labels=ids)
+        engine.backward(loss)
+        engine.step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t)
+        step_ev_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(loss.item())
+    launches = {f.__name__: f.launches for f in counted}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def step(events):
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        mark(0)
+        out = engine.forward(ids, labels=ids)
+        mark(1)
+        engine.backward(out)
+        mark(2)
+        engine.step()
+        mark(3)
+
+    profile = profile_step(step)
+    steady = sum(step_s[1:]) / (n_steps - 1)
+    checks = {
+        "route_on_k1_k2": route["impls"] == ["pallas"],
+        "k1_k2_d256_launches_L_per_step": all(
+            launches[f.__name__] == L * n_steps for f in per_head),
+        "no_k3_launches": all(launches[f.__name__] == 0 for f in folded),
+        "k7_one_launch_per_step": launches["adam_step_"] == n_steps,
+        "parameters_1710288384": n_params == 1_710_288_384,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "last_loss_below_first": losses[-1] < losses[0],
+    }
+    rec = {"phase": "training_gemma2",
+           "config": "policy_for('gemma2').config_from_hf(GEMMA2_9B) with "
+                     "num_hidden_layers=4 (cut from 42; windows on layers 0 and 2), "
+                     "ce_chunk_size=8192; random bf16 weights (seed 0), fp32 masters, "
+                     "AdamW (K7) lr 1e-4 + WarmupLR(linear, 4 steps) + clip 1.0, batch "
+                     "1 x 8192 (one repeated batch)",
+           "reduced": {"num_hidden_layers": [42, 4]},
+           "gpu": gpu_identity(), "attention_route": route, "params": n_params,
+           "visible_pairs_per_head_by_layer": pairs,
+           "model_tflop_per_step": model_flops / 1e12, "losses": losses,
+           "step_s": step_s, "step_event_ms": step_ev_ms, "steady_step_ms": steady * 1e3,
+           "steady_step_event_ms": sum(step_ev_ms[1:]) / (n_steps - 1),
+           "tokens_per_s": B * S / steady,
+           "model_flop_share": model_flops / (steady * BF16_FLOPS),
+           "peak_memory_gib": peak, "launches": launches, "profile": profile,
+           "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    del engine, model, loss
+    free_memory()
+    if not rec["ok"]:
+        raise SystemExit(f"training_gemma2 checks failed: {checks}")
+    return rec
+
+
 def phase_attn_sweep() -> dict:
     """The attention sweep (``ops/attn_sweep.py``) once at the Mistral
     phase's shape, into the run's fresh cache directory: each leg's K1/K2
@@ -2058,8 +2769,10 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     prefill logits (the last ``put`` that fed it more than one token),
     calls ``on_put(engine, uids)`` after every ``put``, then checks
     prefill against decode on prompt ``check_prompt`` (fed in chunks of
-    the batch budget) and hands the engine to ``inspect(engine, prompts,
-    prefill_logits)``, whose (record, checks) join the phase's."""
+    the batch budget; a model with a final softcap leaves that check to
+    the caller, which gets both logits as ``check_logits``) and hands the
+    engine to ``inspect(engine, prompts, prefill_logits)``, whose (record,
+    checks) join the phase's."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference.v2.config_v2 import (KVCacheConfig,
@@ -2130,23 +2843,14 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     free_after = engine.free_blocks
 
     # prefill vs decode: the same last-token logits either way
-    budget = engine._config.state_manager.max_ragged_batch_size
-
-    def feed(uid, toks):
-        for ofs in range(0, len(toks), budget):
-            logits = engine.put([uid], [toks[ofs:ofs + budget]])
-        return logits
-
-    p = prompts[check_prompt]
-    full = feed(1000, p).float()[0]
-    engine.flush(1000)
-    feed(1001, p[:-1])
-    step = engine.put([1001], [[p[-1]]]).float()[0]
-    engine.flush(1001)
+    full, step = prefill_and_decode(engine, 1000, prompts[check_prompt])
     diff = (full - step).abs().max().item()
     # bf16 activations: 32 layers round the residual stream to bf16 (2^-9
-    # relative) on two different reduction orders; allow 5% of max|logit|
-    consistency_tol = 0.05 * full.abs().max().item()
+    # relative) on two different reduction orders; allow 5% of max|logit|.
+    # A final softcap bounds max|logit| whatever the spread before it: the
+    # caller holds such a model's two against the logits before the cap
+    capped = bool(cfg.final_logit_softcapping)
+    consistency_tol = None if capped else 0.05 * full.abs().max().item()
 
     pre = [(n, s) for n, dec, s in steps if not dec]
     dec = [(n, s) for n, dec, s in steps if dec]
@@ -2173,16 +2877,18 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
         "prefill_logits_of_every_prompt":
             sorted(prefill_logits) == list(range(len(prompts))),
         "free_blocks_back_to_total": free_after == num_blocks,
-        "prefill_decode_consistent": diff <= consistency_tol,
     }
+    if not capped:
+        checks["prefill_decode_consistent"] = diff <= consistency_tol
     if inspect:
         more_rec, more_checks = inspect(engine, prompts, prefill_logits)
         rec.update(more_rec)
         checks.update(more_checks)
-    del engine, model, full, step
+    del engine, model
     free_memory()
     return {"rec": rec, "checks": checks, "prefill_logits": prefill_logits,
-            "layers": cfg.num_hidden_layers}
+            "layers": cfg.num_hidden_layers, "prompts": prompts,
+            "check_logits": (full.cpu(), step.cpu())}
 
 
 def phase_serving(kernels: list) -> dict:
@@ -2554,21 +3260,32 @@ def main() -> int:
     os.makedirs(build_dir, exist_ok=True)
     os.environ["DS_TPU_ATTN_CACHE_DIR"] = tempfile.mkdtemp(prefix="attn_cache_",
                                                            dir=build_dir)
-    phase_build()
-    kernels = phase_kernels()
-    phase_parity()
-    phase_train_parity()
-    training = phase_training()
-    optimizers = phase_training_optimizers()
-    mistral = phase_training_mistral()
-    bf16 = phase_serving(kernels)
-    phase_serving_int8(kernels, bf16)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.monotonic()
+        out = fn(*args)
+        seconds[name] = time.monotonic() - t
+        return out
+
+    build = timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels)
+    timed("parity", phase_parity)
+    timed("train_parity", phase_train_parity)
+    training = timed("training", phase_training)
+    optimizers = timed("training_optimizers", phase_training_optimizers)
+    mistral = timed("training_mistral", phase_training_mistral)
+    gemma_training = timed("training_gemma2", phase_training_gemma2)
+    bf16 = timed("serving", phase_serving, kernels)
+    timed("serving_int8", phase_serving_int8, kernels, bf16)
     del bf16
     free_memory()
-    phase_serving_starcoder2(kernels)
-    phase_serving_bloom(kernels)
-    sparse = phase_sparse_attention()
-    phase_attn_sweep()
+    timed("serving_starcoder2", phase_serving_starcoder2, kernels)
+    timed("serving_bloom", phase_serving_bloom, kernels)
+    timed("serving_gemma2", phase_serving_gemma2, kernels)
+    sparse = timed("sparse_attention", phase_sparse_attention)
+    timed("attn_sweep", phase_attn_sweep)
+    emit({"phase_seconds": seconds})
     runs = optimizers["runs"]
     # each kernel's launches in the main-path runs that count it: phase 5
     # and the Mistral runs for the attention kernels of bf16 training
@@ -2585,6 +3302,11 @@ def main() -> int:
     for run, rec in sparse["runs"].items():
         for name, n in rec["launches"].items():
             by_phase.setdefault(name, {})[f"sparse_attention/{run}"] = n
+    # the head-width-256 instances: K1/K2's launches in training_gemma2,
+    # where they are the only flash launches (K3 has none on a main path)
+    for name, n in gemma_training["launches"].items():
+        if "attention" in name:
+            by_phase[name + "_d256"] = {"training_gemma2": n}
     wrapper = {name: w for name, w, _, _ in K7_KERNELS}
     # each K7 body's launches over the whole flat buffer on the training
     # paths, against the plain version (phases 5 and 5b)
@@ -2593,6 +3315,10 @@ def main() -> int:
                    "lion_step_": {"lion_bf16": runs["lion_bf16"]["k7_path_check"]},
                    "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
     for k in kernels:
+        if "_d256" in k["name"]:
+            wrapper_name, suffix = k["name"].split("_d256")
+            dtype = {"": "bfloat16", "_fp16": "float16"}.get(suffix, suffix[1:])
+            k["registers_and_spills"] = d256_usage(build, wrapper_name, dtype)
         key = wrapper.get(k["name"], k["name"])
         if key in by_phase:
             k["launches"] = sum(by_phase[key].values())

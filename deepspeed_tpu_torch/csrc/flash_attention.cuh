@@ -69,6 +69,14 @@
 //   padded by 16 bytes so each 8-row phase meets 32 different banks.
 // - The swept tiles are double-buffered with cp.async: the next tile's copy
 //   is in flight while the current one is used.
+// - Head width 256 (Gemma-2): a warp's 16 x 256 fp32 accumulator is 128
+//   registers a thread, so the forward and dq sweep 32-key tiles (their
+//   score fragments halve), and a dk/dv block owns 128 of the 256 columns
+//   of dk and dv (two blocks per 64 keys, each recomputing the full-width
+//   S^T and dP^T: 1.5x the dk/dv products), since dk and dv of 16 keys at
+//   256 columns would be 256 registers, past the 255 a thread has. The fp32
+//   instance at 256 also takes 16-key tiles and 16-row dk/dv steps so its
+//   staged tiles fit the 227 KB of shared memory (Tiles below).
 // Later versions: more rows per warp, P kept in registers, then TMA and
 // wgmma; K3 could prefetch the next KV head's first tile across heads.
 #pragma once
@@ -89,6 +97,20 @@ constexpr int kKeys = 64;           // keys per K/V tile; keys per dk/dv block
 constexpr int kBwdRows = 32;        // folded query rows per step of the dk/dv sweep
 constexpr int kPad = 8;             // elements of padding per shared-memory row
 constexpr float kLseMasked = 1e30f;  // attention.py LSE_MASKED
+
+// the tiles of a (T, DMAX) instance: keys per K/V tile of the forward and
+// dq sweeps, folded query rows per step of the dk/dv sweep, and the
+// columns of dk and dv one dk/dv block owns (kColSplits blocks per 64
+// keys). The widths <= 128 keep 64, 32 and every column.
+template <typename T, int DMAX>
+struct Tiles {
+  static constexpr bool kWide = DMAX > 128;
+  static constexpr bool kWideF32 = kWide && std::is_same<T, float>::value;
+  static constexpr int kKeyTile = kWideF32 ? 16 : kWide ? 32 : kKeys;
+  static constexpr int kRowTile = kWideF32 ? 16 : kBwdRows;
+  static constexpr int kCols = kWide ? 128 : DMAX;
+  static constexpr int kColSplits = DMAX / kCols;
+};
 
 struct Args {
   const void* q;
@@ -206,7 +228,19 @@ __device__ __forceinline__ void mma_16bit(float (&c)[4], const uint32_t (&a)[4],
 // fragments of two 8-column tiles are one more: for Bt, rows n..n+15 at
 // columns k and k+8; for B[k][n], the transposing load of rows k..k+15 at
 // columns n and n+8.
-template <typename T, bool kNT, int K, int N8>
+//
+// kStepSums: each 16-deep step's product goes to a fresh fragment that is
+// then added to C in rounded fp32. The tensor cores add products into the
+// accumulator after aligning them to the largest magnitude among them and
+// C, cutting the bits below; with a large C that drops ~2^-23 |C| per
+// product, all in one direction. dq's dP = dO V^T needs the fresh sums:
+// dS = P (dP - delta) subtracts two nearly equal numbers where a row's
+// softmax is nearly one key, and the cut bits of a 256-deep dP took dq's
+// error to 2.5x the plain version's at head width 256 with scores of
+// ~N(0, 20^2) under the softcap. The fresh sums cost dq ~10% of its time,
+// and no case at head width 128 or below shows the drift, so dq takes
+// them at head width 256 only.
+template <typename T, bool kNT, int K, bool kStepSums = false, int N8>
 __device__ __forceinline__ void warp_gemm(float (&c)[N8][4], const T* A, int lda,
                                           const T* B, int ldb, int lane) {
   if constexpr (std::is_same<T, float>::value) {
@@ -239,8 +273,19 @@ __device__ __forceinline__ void warp_gemm(float (&c)[N8][4], const T* A, int lda
           ldmatrix_x4<false>(b, B + (n * 8 + r8 + hi) * ldb + k0 + mid);
         else
           ldmatrix_x4<true>(b, B + (k0 + r8 + mid) * ldb + n * 8 + hi);
-        mma_16bit<T>(c[n], a, b[0], b[1]);
-        mma_16bit<T>(c[n + 1], a, b[2], b[3]);
+        if constexpr (kStepSums) {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_16bit<T>(t0, a, b[0], b[1]);
+          mma_16bit<T>(t1, a, b[2], b[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            c[n][e] += t0[e];
+            c[n + 1][e] += t1[e];
+          }
+        } else {
+          mma_16bit<T>(c[n], a, b[0], b[1]);
+          mma_16bit<T>(c[n + 1], a, b[2], b[3]);
+        }
       }
     }
   }
@@ -278,20 +323,21 @@ __device__ __forceinline__ float row_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// store a warp's [16 x DMAX] fp32 accumulator rows (rows[i] >= 0: element
-// row of accumulator row lane/4 + 8*i) as T, columns < D
+// store a warp's [16 x 8*N8] fp32 accumulator rows (rows[i] >= 0: element
+// row of accumulator row lane/4 + 8*i) as T into columns c0.. of the row,
+// columns < D
 template <typename T, int N8>
 __device__ __forceinline__ void store_rows(T* out, const float (&c)[N8][4],
                                            const long long rows[2], const float mul[2],
-                                           int D, int lane) {
+                                           int D, int lane, int c0 = 0) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] < 0) continue;
-    T* o = out + rows[i] * D;
+    T* o = out + rows[i] * D + c0;
 #pragma unroll
     for (int n = 0; n < N8; ++n) {
       const int col = n * 8 + (lane & 3) * 2;
-      if (col < D)  // D % 8 == 0: col + 1 < D too
+      if (c0 + col < D)  // D % 8 == 0: col + 1 too
         store2(o + col, c[n][2 * i] * mul[i], c[n][2 * i + 1] * mul[i]);
     }
   }
@@ -318,18 +364,21 @@ __device__ __forceinline__ bool masked_pair(const Args& a, int pos, int key) {
   return key >= a.S || (a.causal && key > pos) || (a.window > 0 && pos - key >= a.window);
 }
 
-// the key tiles [t_begin, t_end) that query positions p_first..p_last can
-// see: none above the causal diagonal, none wholly older than the window
+// the key tiles of KT keys [t_begin, t_end) that query positions
+// p_first..p_last can see: none above the causal diagonal, none wholly
+// older than the window
+template <int KT>
 __device__ __forceinline__ void key_tiles(const Args& a, int p_first, int p_last, int& t_begin,
                                           int& t_end) {
-  t_begin = a.window > 0 ? max(0, p_first - a.window + 1) / kKeys : 0;
-  t_end = a.causal ? p_last / kKeys + 1 : (a.S + kKeys - 1) / kKeys;
+  t_begin = a.window > 0 ? max(0, p_first - a.window + 1) / KT : 0;
+  t_end = a.causal ? p_last / KT + 1 : (a.S + KT - 1) / KT;
 }
 
-// a key tile at k0 where some pair of positions p_first..p_last is masked
-// (the others, interior tiles, skip the mask)
+// a tile of KT keys at k0 where some pair of positions p_first..p_last is
+// masked (the others, interior tiles, skip the mask)
+template <int KT>
 __device__ __forceinline__ bool edge_tile(const Args& a, int k0, int p_first, int p_last) {
-  return (a.causal && k0 + kKeys - 1 > p_first) || k0 + kKeys > a.S ||
+  return (a.causal && k0 + KT - 1 > p_first) || k0 + KT > a.S ||
          (a.window > 0 && p_last - k0 >= a.window);
 }
 
@@ -337,10 +386,11 @@ __device__ __forceinline__ bool edge_tile(const Args& a, int k0, int p_first, in
 template <typename T, int DMAX, bool kCap>
 __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
                                           unsigned char* smem) {
-  constexpr int LD = DMAX + kPad, LP = kKeys + kPad, N8 = DMAX / 8;
+  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  constexpr int LD = DMAX + kPad, LP = KT + kPad, N8 = DMAX / 8;
   T* Qs = reinterpret_cast<T*>(smem);
-  T* KVs = Qs + kRows * LD;        // two buffers of [K tile, V tile]
-  T* Ps = KVs + 4 * kKeys * LD;    // [kRows][LP], 16 rows per warp
+  T* KVs = Qs + kRows * LD;     // two buffers of [K tile, V tile]
+  T* Ps = KVs + 4 * KT * LD;    // [kRows][LP], 16 rows per warp
 
   const int G = a.H / a.KV, rows = a.S * G, D = a.D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -348,11 +398,11 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
   const T* k = reinterpret_cast<const T*>(a.k);
   const T* v = reinterpret_cast<const T*>(a.v);
   auto load_kv = [&](int t) {  // K/V tile t into buffer t % 2
-    const int k0 = t * kKeys;
+    const int k0 = t * KT;
     auto key_row = [&](int r) { return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL; };
-    T* Kb = KVs + (t & 1) * 2 * kKeys * LD;
-    load_tile<T, DMAX>(Kb, kKeys, k, D, key_row);
-    load_tile<T, DMAX>(Kb + kKeys * LD, kKeys, v, D, key_row);
+    T* Kb = KVs + (t & 1) * 2 * KT * LD;
+    load_tile<T, DMAX>(Kb, KT, k, D, key_row);
+    load_tile<T, DMAX>(Kb + KT * LD, KT, v, D, key_row);
   };
 
   int fr[2], pos[2];
@@ -364,7 +414,7 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
   const int p_first = f0 / G;
   const int p_last = (min(f0 + kRows, rows) - 1) / G;
   int t_begin, t_end;
-  key_tiles(a, p_first, p_last, t_begin, t_end);
+  key_tiles<KT>(a, p_first, p_last, t_begin, t_end);
 
   load_tile<T, DMAX>(Qs, kRows, q, D, [&](int r) {
     return f0 + r < rows ? q_row(a, b, kv, f0 + r) : -1LL;
@@ -379,7 +429,7 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
   T* Pw = Ps + warp * 16 * LP;
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kKeys;
+    const int k0 = t * KT;
     // the next tile's copy runs while this one is used; the buffer it
     // fills was released by the __syncthreads ending the previous step
     if (t + 1 < t_end) {
@@ -390,16 +440,16 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t (and Q) visible to every warp
-    const T* Ks = KVs + (t & 1) * 2 * kKeys * LD;
-    const T* Vs = Ks + kKeys * LD;
+    const T* Ks = KVs + (t & 1) * 2 * KT * LD;
+    const T* Vs = Ks + KT * LD;
 
-    float s[kKeys / 8][4];
+    float s[KT / 8][4];
     zero(s);
     warp_gemm<T, true, DMAX>(s, Qw, LD, Ks, LD, lane);
-    const bool edge = edge_tile(a, k0, p_first, p_last);
+    const bool edge = edge_tile<KT>(a, k0, p_first, p_last);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
+    for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, key = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
@@ -418,7 +468,7 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
       m[i] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
+    for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float p0 = expf(s[n][2 * i] - mu[i]), p1 = expf(s[n][2 * i + 1] - mu[i]);
@@ -432,7 +482,7 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
     __syncwarp();
-    warp_gemm<T, false, kKeys>(acc, Pw, LP, Vs, LD, lane);
+    warp_gemm<T, false, KT>(acc, Pw, LP, Vs, LD, lane);
     __syncthreads();  // every warp is done with this K/V buffer (and its Pw)
   }
 
@@ -452,22 +502,23 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
 template <typename T, int DMAX, bool kCap>
 __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
                                          unsigned char* smem) {
-  constexpr int LD = DMAX + kPad, LP = kKeys + kPad, N8 = DMAX / 8;
+  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  constexpr int LD = DMAX + kPad, LP = KT + kPad, N8 = DMAX / 8;
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Os = Qs + kRows * LD;       // dO
-  T* KVs = Os + kRows * LD;      // two buffers of [K tile, V tile]
-  T* Ps = KVs + 4 * kKeys * LD;  // dS, [kRows][LP]
+  T* Os = Qs + kRows * LD;    // dO
+  T* KVs = Os + kRows * LD;   // two buffers of [K tile, V tile]
+  T* Ps = KVs + 4 * KT * LD;  // dS, [kRows][LP]
 
   const int G = a.H / a.KV, rows = a.S * G, D = a.D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* k = reinterpret_cast<const T*>(a.k);
   const T* v = reinterpret_cast<const T*>(a.v);
   auto load_kv = [&](int t) {  // K/V tile t into buffer t % 2
-    const int k0 = t * kKeys;
+    const int k0 = t * KT;
     auto key_row = [&](int r) { return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL; };
-    T* Kb = KVs + (t & 1) * 2 * kKeys * LD;
-    load_tile<T, DMAX>(Kb, kKeys, k, D, key_row);
-    load_tile<T, DMAX>(Kb + kKeys * LD, kKeys, v, D, key_row);
+    T* Kb = KVs + (t & 1) * 2 * KT * LD;
+    load_tile<T, DMAX>(Kb, KT, k, D, key_row);
+    load_tile<T, DMAX>(Kb + KT * LD, KT, v, D, key_row);
   };
 
   int pos[2];
@@ -484,7 +535,7 @@ __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
   const int p_first = f0 / G;
   const int p_last = (min(f0 + kRows, rows) - 1) / G;
   int t_begin, t_end;
-  key_tiles(a, p_first, p_last, t_begin, t_end);
+  key_tiles<KT>(a, p_first, p_last, t_begin, t_end);
 
   auto q_tile_row = [&](int r) { return f0 + r < rows ? q_row(a, b, kv, f0 + r) : -1LL; };
   load_tile<T, DMAX>(Qs, kRows, reinterpret_cast<const T*>(a.q), D, q_tile_row);
@@ -499,7 +550,7 @@ __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
   T* Pw = Ps + warp * 16 * LP;
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kKeys;
+    const int k0 = t * KT;
     if (t + 1 < t_end) {  // as in fwd_block
       load_kv(t + 1);
       cp_async_commit();
@@ -508,17 +559,17 @@ __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Ks = KVs + (t & 1) * 2 * kKeys * LD;
-    const T* Vs = Ks + kKeys * LD;
+    const T* Ks = KVs + (t & 1) * 2 * KT * LD;
+    const T* Vs = Ks + KT * LD;
 
-    float s[kKeys / 8][4], dp[kKeys / 8][4];
+    float s[KT / 8][4], dp[KT / 8][4];
     zero(s);
     zero(dp);
     warp_gemm<T, true, DMAX>(s, Qw, LD, Ks, LD, lane);
-    warp_gemm<T, true, DMAX>(dp, Ow, LD, Vs, LD, lane);
-    const bool edge = edge_tile(a, k0, p_first, p_last);
+    warp_gemm<T, true, DMAX, (DMAX > 128)>(dp, Ow, LD, Vs, LD, lane);  // see warp_gemm
+    const bool edge = edge_tile<KT>(a, k0, p_first, p_last);
 #pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n) {
+    for (int n = 0; n < KT / 8; ++n) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -534,23 +585,25 @@ __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
                ds[2 * i + 1]);
     }
     __syncwarp();
-    warp_gemm<T, false, kKeys>(dq, Pw, LP, Ks, LD, lane);
+    warp_gemm<T, false, KT>(dq, Pw, LP, Ks, LD, lane);
     __syncthreads();
   }
   const float one[2] = {1.f, 1.f};
   store_rows<T>(reinterpret_cast<T*>(a.out), dq, qr, one, D, lane);
 }
 
-// dk and dv of the 64 keys k0.. of (batch b, KV head kv)
+// dk and dv, columns c0.. (Tiles::kCols of them), of the 64 keys k0.. of
+// (batch b, KV head kv)
 template <typename T, int DMAX, bool kCap>
-__device__ __forceinline__ void dkdv_block(const Args& a, int k0, int kv, int b,
+__device__ __forceinline__ void dkdv_block(const Args& a, int k0, int c0, int kv, int b,
                                            unsigned char* smem) {
-  constexpr int LD = DMAX + kPad, LP = kBwdRows + kPad, N8 = DMAX / 8;
-  constexpr int C8 = kBwdRows / 8;
+  constexpr int BR = Tiles<T, DMAX>::kRowTile;
+  constexpr int LD = DMAX + kPad, LP = BR + kPad, N8 = Tiles<T, DMAX>::kCols / 8;
+  constexpr int C8 = BR / 8;
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + kKeys * LD;
-  T* QOs = Vs + kKeys * LD;         // two buffers of [Q tile, dO tile]
-  T* Ps = QOs + 4 * kBwdRows * LD;  // P^T, then dS^T: [kKeys][LP], 16 key rows per warp
+  T* QOs = Vs + kKeys * LD;   // two buffers of [Q tile, dO tile]
+  T* Ps = QOs + 4 * BR * LD;  // P^T, then dS^T: [kKeys][LP], 16 key rows per warp
   // two buffers of [lse, delta] of the row tile
   float* LDs = reinterpret_cast<float*>(Ps + kKeys * LP);
 
@@ -563,14 +616,14 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int kv, int b,
   // rows past the end, which the mask below drops)
   auto load_rows = [&](int f0, int buf) {
     auto q_tile_row = [&](int r) { return f0 + r < rows ? q_row(a, b, kv, f0 + r) : -1LL; };
-    T* Qb = QOs + buf * 2 * kBwdRows * LD;
-    load_tile<T, DMAX>(Qb, kBwdRows, q, D, q_tile_row);
-    load_tile<T, DMAX>(Qb + kBwdRows * LD, kBwdRows, dout, D, q_tile_row);
-    if (threadIdx.x < kBwdRows) {
+    T* Qb = QOs + buf * 2 * BR * LD;
+    load_tile<T, DMAX>(Qb, BR, q, D, q_tile_row);
+    load_tile<T, DMAX>(Qb + BR * LD, BR, dout, D, q_tile_row);
+    if (threadIdx.x < BR) {
       const long long r = q_tile_row(threadIdx.x);
-      float* Lb = LDs + buf * 2 * kBwdRows;
+      float* Lb = LDs + buf * 2 * BR;
       cp_async<4>(Lb + threadIdx.x, r >= 0 ? a.lse + r : a.lse, r >= 0);
-      cp_async<4>(Lb + kBwdRows + threadIdx.x, r >= 0 ? a.delta + r : a.delta, r >= 0);
+      cp_async<4>(Lb + BR + threadIdx.x, r >= 0 ? a.delta + r : a.delta, r >= 0);
     }
   };
 
@@ -580,7 +633,7 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int kv, int b,
   // under causal, folded rows before position k0 see none of these keys;
   // under a window, rows at or past position k0 + kKeys - 1 + window see
   // none either
-  const int f_begin = a.causal ? (int)((long long)k0 * G / kBwdRows) * kBwdRows : 0;
+  const int f_begin = a.causal ? (int)((long long)k0 * G / BR) * BR : 0;
   const int f_end =
       a.window > 0
           ? (int)min((long long)rows, ((long long)k0 + kKeys - 1 + a.window) * G)
@@ -599,29 +652,29 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int kv, int b,
   const T* Vw = Vs + warp * 16 * LD;
   T* Pw = Ps + warp * 16 * LP;
 
-  for (int f0 = f_begin, it = 0; f0 < f_end; f0 += kBwdRows, ++it) {
+  for (int f0 = f_begin, it = 0; f0 < f_end; f0 += BR, ++it) {
     const int buf = it & 1;
-    if (f0 + kBwdRows < f_end) {  // the next row tile's copy runs meanwhile
-      load_rows(f0 + kBwdRows, buf ^ 1);
+    if (f0 + BR < f_end) {  // the next row tile's copy runs meanwhile
+      load_rows(f0 + BR, buf ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // this row tile (and K, V) visible to every warp
-    const T* Qs = QOs + buf * 2 * kBwdRows * LD;
-    const T* Os = Qs + kBwdRows * LD;  // dO
-    const float* Ls = LDs + buf * 2 * kBwdRows;
-    const float* Dl = Ls + kBwdRows;
+    const T* Qs = QOs + buf * 2 * BR * LD;
+    const T* Os = Qs + BR * LD;  // dO
+    const float* Ls = LDs + buf * 2 * BR;
+    const float* Dl = Ls + BR;
 
-    // S^T = K Q^T: rows are this warp's 16 keys, columns the tile's 32 rows
+    // S^T = K Q^T: rows are this warp's 16 keys, columns the tile's BR rows
     float s[C8][4], dp[C8][4], dcap[C8][4];
     zero(s);
     zero(dp);
     warp_gemm<T, true, DMAX>(s, Kw, LD, Qs, LD, lane);
-    const int p_last = (min(f0 + kBwdRows, rows) - 1) / G;
+    const int p_last = (min(f0 + BR, rows) - 1) / G;
     const bool edge = (a.causal && k0 + kKeys - 1 > f0 / G) || k0 + kKeys > a.S ||
-                      f0 + kBwdRows > rows || (a.window > 0 && p_last - k0 >= a.window);
+                      f0 + BR > rows || (a.window > 0 && p_last - k0 >= a.window);
 #pragma unroll
     for (int n = 0; n < C8; ++n)
 #pragma unroll
@@ -641,8 +694,8 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int kv, int b,
         store2(Pw + ((lane >> 2) + 8 * i) * LP + n * 8 + (lane & 3) * 2, s[n][2 * i],
                s[n][2 * i + 1]);
     __syncwarp();
-    warp_gemm<T, false, kBwdRows>(dv, Pw, LP, Os, LD, lane);  // dv += P^T dO
-    warp_gemm<T, true, DMAX>(dp, Vw, LD, Os, LD, lane);       // dP^T = V dO^T
+    warp_gemm<T, false, BR>(dv, Pw, LP, Os + c0, LD, lane);  // dv += P^T dO
+    warp_gemm<T, true, DMAX>(dp, Vw, LD, Os, LD, lane);      // dP^T = V dO^T
     __syncwarp();  // every lane has read P^T before dS^T overwrites it
 #pragma unroll
     for (int n = 0; n < C8; ++n)
@@ -655,7 +708,7 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int kv, int b,
                    dcap[n][2 * i + 1]);
       }
     __syncwarp();
-    warp_gemm<T, false, kBwdRows>(dk, Pw, LP, Qs, LD, lane);  // dk += dS^T Q
+    warp_gemm<T, false, BR>(dk, Pw, LP, Qs + c0, LD, lane);  // dk += dS^T Q
     __syncthreads();  // every warp is done with this row-tile buffer
   }
 
@@ -663,32 +716,128 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int kv, int b,
 #pragma unroll
   for (int i = 0; i < 2; ++i) kr[i] = key[i] < a.S ? kv_row(a, b, kv, key[i]) : -1LL;
   const float one[2] = {1.f, 1.f};
-  store_rows<T>(reinterpret_cast<T*>(a.out), dk, kr, one, D, lane);
-  store_rows<T>(reinterpret_cast<T*>(a.out2), dv, kr, one, D, lane);
+  store_rows<T>(reinterpret_cast<T*>(a.out), dk, kr, one, D, lane, c0);
+  store_rows<T>(reinterpret_cast<T*>(a.out2), dv, kr, one, D, lane, c0);
 }
 
+// bytes of shared memory per block; at D 256: bf16/fp16 106,496 (fwd),
+// 140,288 (dq), 140,800 (dk/dv); fp32 141,312, 208,896 and 209,152
 template <typename T, int DMAX>
 constexpr size_t fwd_smem() {  // Q, two K/V buffers, P
-  return ((size_t)(kRows + 4 * kKeys) * (DMAX + kPad) + kRows * (kKeys + kPad)) * sizeof(T);
+  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  return ((size_t)(kRows + 4 * KT) * (DMAX + kPad) + kRows * (KT + kPad)) * sizeof(T);
 }
 
 template <typename T, int DMAX>
 constexpr size_t dq_smem() {  // Q, dO, two K/V buffers, dS
-  return ((size_t)(2 * kRows + 4 * kKeys) * (DMAX + kPad) + kRows * (kKeys + kPad)) * sizeof(T);
+  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  return ((size_t)(2 * kRows + 4 * KT) * (DMAX + kPad) + kRows * (KT + kPad)) * sizeof(T);
 }
 
 template <typename T, int DMAX>
 constexpr size_t dkdv_smem() {  // K, V, two Q/dO buffers, P^T/dS^T, two lse/delta buffers
-  return ((size_t)(2 * kKeys + 4 * kBwdRows) * (DMAX + kPad) + kKeys * (kBwdRows + kPad)) *
-             sizeof(T) +
-         4 * kBwdRows * sizeof(float);
+  constexpr int BR = Tiles<T, DMAX>::kRowTile;
+  return ((size_t)(2 * kKeys + 4 * BR) * (DMAX + kPad) + kKeys * (BR + kPad)) * sizeof(T) +
+         4 * BR * sizeof(float);
 }
 
 enum Pass { kFwd, kDq, kDkdv };
 using Kernel = void (*)(Args);
 
-// Layout::kernel<T, DMAX, kCap>(pass) and Layout::grid(pass, a) name the
-// kernels of one layout (per-head K1/K2 or folded K3) and their grids
+// The two layouts' kernels. K1/K2 (flash_attention.cu): one block per (64
+// folded query rows, KV head, batch), or per (64 keys, column split, KV
+// head, batch) for dk/dv.
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_block<T, DMAX, kCap>(a, blockIdx.x * kRows, blockIdx.y, blockIdx.z, smem);
+}
+
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dq_block<T, DMAX, kCap>(a, blockIdx.x * kRows, blockIdx.y, blockIdx.z, smem);
+}
+
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Ti = Tiles<T, DMAX>;
+  dkdv_block<T, DMAX, kCap>(a, (blockIdx.x / Ti::kColSplits) * kKeys,
+                            (blockIdx.x % Ti::kColSplits) * Ti::kCols, blockIdx.y, blockIdx.z,
+                            smem);
+}
+
+// K3 (flash_attention_folded.cu): one block per (64 folded query rows,
+// batch), or (64 keys, column split, batch) for dk/dv, walking every KV
+// head through the same buffers. The query tiles run last-first: under
+// causal the longest blocks start first and the short ones fill the tail.
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kThreads) folded_fwd_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * kRows;
+  for (int kv = 0; kv < a.KV; ++kv) {
+    fwd_block<T, DMAX, kCap>(a, f0, kv, blockIdx.y, smem);
+    __syncthreads();  // the next head restages Q and K/V in the same buffers
+  }
+}
+
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kThreads) folded_dq_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * kRows;
+  for (int kv = 0; kv < a.KV; ++kv) {
+    dq_block<T, DMAX, kCap>(a, f0, kv, blockIdx.y, smem);
+    __syncthreads();
+  }
+}
+
+// under causal the first key tiles have the most rows to sweep: natural order
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kThreads) folded_dkdv_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Ti = Tiles<T, DMAX>;
+  for (int kv = 0; kv < a.KV; ++kv) {
+    dkdv_block<T, DMAX, kCap>(a, (blockIdx.x / Ti::kColSplits) * kKeys,
+                              (blockIdx.x % Ti::kColSplits) * Ti::kCols, kv, blockIdx.y, smem);
+    __syncthreads();
+  }
+}
+
+// Layout::kernel<T, DMAX, kCap>(pass) and Layout::grid(pass, a, splits)
+// name the kernels of one layout and their grids (splits: dk/dv blocks per
+// 64 keys). Layout::run_d256 launches the head-width-256 instances, which
+// are compiled in sources of their own (flash_attention_d256.cu,
+// flash_attention_folded_d256.cu), so the build runs them in parallel with
+// the narrower ones.
+struct PerHead {
+  template <typename T, int DMAX, bool kCap>
+  static Kernel kernel(Pass pass) {
+    if (pass == kFwd) return &fwd_kernel<T, DMAX, kCap>;
+    if (pass == kDq) return &dq_kernel<T, DMAX, kCap>;
+    return &dkdv_kernel<T, DMAX, kCap>;
+  }
+  static dim3 grid(Pass pass, const Args& a, int splits) {
+    if (pass == kDkdv) return dim3((a.S + kKeys - 1) / kKeys * splits, a.KV, a.B);
+    return dim3((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.KV, a.B);
+  }
+  static int run_d256(Pass pass, const Args& a, int dtype, cudaStream_t stream);
+};
+
+struct Folded {
+  template <typename T, int DMAX, bool kCap>
+  static Kernel kernel(Pass pass) {
+    if (pass == kFwd) return &folded_fwd_kernel<T, DMAX, kCap>;
+    if (pass == kDq) return &folded_dq_kernel<T, DMAX, kCap>;
+    return &folded_dkdv_kernel<T, DMAX, kCap>;
+  }
+  static dim3 grid(Pass pass, const Args& a, int splits) {
+    if (pass == kDkdv) return dim3((a.S + kKeys - 1) / kKeys * splits, a.B);
+    return dim3((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.B);
+  }
+  static int run_d256(Pass pass, const Args& a, int dtype, cudaStream_t stream);
+};
+
 template <class Layout, typename T, int DMAX, bool kCap>
 cudaError_t launch_cap(Pass pass, const Args& a, cudaStream_t stream) {
   const Kernel kern = Layout::template kernel<T, DMAX, kCap>(pass);
@@ -700,7 +849,7 @@ cudaError_t launch_cap(Pass pass, const Args& a, cudaStream_t stream) {
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<Layout::grid(pass, a), kThreads, smem, stream>>>(a);
+  kern<<<Layout::grid(pass, a, Tiles<T, DMAX>::kColSplits), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -710,28 +859,28 @@ cudaError_t launch(Pass pass, const Args& a, cudaStream_t stream) {
                          : launch_cap<Layout, T, DMAX, false>(pass, a, stream);
 }
 
+// the instances of one head width DMAX, by dtype
+template <class Layout, int DMAX>
+int run_width(Pass pass, const Args& a, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case kFloat32: return (int)launch<Layout, float, DMAX>(pass, a, s);
+    case kBFloat16: return (int)launch<Layout, __nv_bfloat16, DMAX>(pass, a, s);
+    case kFloat16: return (int)launch<Layout, __half, DMAX>(pass, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <class Layout>
 int run(Pass pass, const Args& a, int dtype, void* stream) {
   const bool shape_ok = a.B > 0 && a.B <= 65535 && a.S > 0 && a.KV > 0 && a.KV <= 65535 &&
-                        a.H % a.KV == 0 && a.D > 0 && a.D <= 128 && a.D % 8 == 0 &&
+                        a.H % a.KV == 0 && a.D > 0 && a.D <= 256 && a.D % 8 == 0 &&
                         (long long)a.S * (a.H / a.KV) < (1LL << 31) && a.window >= 0 &&
                         a.softcap >= 0.f;
   if (!shape_ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool narrow = a.D <= 64;
-  switch (dtype) {
-    case kFloat32:
-      return (int)(narrow ? launch<Layout, float, 64>(pass, a, s)
-                          : launch<Layout, float, 128>(pass, a, s));
-    case kBFloat16:
-      return (int)(narrow ? launch<Layout, __nv_bfloat16, 64>(pass, a, s)
-                          : launch<Layout, __nv_bfloat16, 128>(pass, a, s));
-    case kFloat16:
-      return (int)(narrow ? launch<Layout, __half, 64>(pass, a, s)
-                          : launch<Layout, __half, 128>(pass, a, s));
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (a.D <= 64) return run_width<Layout, 64>(pass, a, dtype, s);
+  if (a.D <= 128) return run_width<Layout, 128>(pass, a, dtype, s);
+  return Layout::run_d256(pass, a, dtype, s);
 }
 
 // the entry points' arguments, shared by both layouts

@@ -11,59 +11,9 @@
 // flash_attention.cuh. The fold answers the TPU's fixed cost per grid step,
 // which the H100 does not have: here it leaves KV times fewer blocks than
 // K1/K2 (64 dk/dv blocks at B 2, S 2048 for 132 SMs), and dk/dv takes ~4x
-// K2's time there (PERF.md).
+// K2's time there (PERF.md). The kernels are in flash_attention.cuh; head
+// width 256 is built in flash_attention_folded_d256.cu.
 #include "flash_attention.cuh"
-
-namespace dstt {
-namespace flash {
-
-// the query tiles run last-first: under causal the longest blocks start
-// first and the short ones fill the tail
-template <typename T, int DMAX, bool kCap>
-__global__ void __launch_bounds__(kThreads) folded_fwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * kRows;
-  for (int kv = 0; kv < a.KV; ++kv) {
-    fwd_block<T, DMAX, kCap>(a, f0, kv, blockIdx.y, smem);
-    __syncthreads();  // the next head restages Q and K/V in the same buffers
-  }
-}
-
-template <typename T, int DMAX, bool kCap>
-__global__ void __launch_bounds__(kThreads) folded_dq_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * kRows;
-  for (int kv = 0; kv < a.KV; ++kv) {
-    dq_block<T, DMAX, kCap>(a, f0, kv, blockIdx.y, smem);
-    __syncthreads();
-  }
-}
-
-// under causal the first key tiles have the most rows to sweep: natural order
-template <typename T, int DMAX, bool kCap>
-__global__ void __launch_bounds__(kThreads) folded_dkdv_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  for (int kv = 0; kv < a.KV; ++kv) {
-    dkdv_block<T, DMAX, kCap>(a, blockIdx.x * kKeys, kv, blockIdx.y, smem);
-    __syncthreads();
-  }
-}
-
-struct Folded {
-  template <typename T, int DMAX, bool kCap>
-  static Kernel kernel(Pass pass) {
-    if (pass == kFwd) return &folded_fwd_kernel<T, DMAX, kCap>;
-    if (pass == kDq) return &folded_dq_kernel<T, DMAX, kCap>;
-    return &folded_dkdv_kernel<T, DMAX, kCap>;
-  }
-  static dim3 grid(Pass pass, const Args& a) {
-    if (pass == kDkdv) return dim3((a.S + kKeys - 1) / kKeys, a.B);
-    return dim3((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.B);
-  }
-};
-
-}  // namespace flash
-}  // namespace dstt
 
 // o, lse = attention(q, k, v) with k/v folded [B, S, KV*D]; lse [B, S, H] fp32
 extern "C" int dstt_flash_folded_fwd(const void* q, const void* k, const void* v, void* o,

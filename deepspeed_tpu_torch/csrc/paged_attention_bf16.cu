@@ -1,0 +1,7 @@
+// K4's instances for bf16 queries over a bf16 cache (every head width, rows per
+// warp, ALiBi and softcap flag); the kernel is in paged_attention.cuh.
+#include "paged_attention.cuh"
+
+namespace dstt {
+template cudaError_t launch_cache<__nv_bfloat16, __nv_bfloat16>(const PagedArgs&, int, cudaStream_t);
+}  // namespace dstt

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel deepspeed_tpu/ops/normalization.py:26 _rms_kernel
 // (driven by _row_call :41 via rms_norm :65). Same contract: statistics in
 // fp32, the weight cast to fp32, output in x's dtype, any row width d. x and
-// the weight share one dtype, bf16 (the serving path) or fp32.
+// the weight share one dtype, bf16 (the serving path) or fp32; or x is bf16
+// and the weight fp32 (Gemma's 1 + w, which must stay fp32: in bf16 its
+// ~1e-3 deltas round away against 1.0).
 //
 // Bound on the H100: bytes. Each element is read, squared and added once,
 // then scaled and written once: about 3 flops per 4 bytes moved in bf16,
@@ -23,9 +25,10 @@ namespace dstt {
 
 constexpr int kNormThreads = 256;
 
-template <typename T, bool kVec>
+// T: x's and the output's type; W: the weight's (T, or fp32)
+template <typename T, typename W, bool kVec>
 __global__ void __launch_bounds__(kNormThreads)
-rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+rms_norm_kernel(const T* __restrict__ x, const W* __restrict__ w,
                 T* __restrict__ out, int d, float eps) {
   constexpr int V = 16 / sizeof(T);
   const long long row = blockIdx.x;
@@ -84,7 +87,7 @@ rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 void launch_rms_norm(const void* x, const void* w, void* out, long long rows,
                      int d, float eps, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
@@ -92,25 +95,30 @@ void launch_rms_norm(const void* x, const void* w, void* out, long long rows,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16) == 0;
   const dim3 grid((unsigned)rows);
   if (vec)
-    rms_norm_kernel<T, true><<<grid, kNormThreads, 0, stream>>>(
-        (const T*)x, (const T*)w, (T*)out, d, eps);
+    rms_norm_kernel<T, W, true><<<grid, kNormThreads, 0, stream>>>(
+        (const T*)x, (const W*)w, (T*)out, d, eps);
   else
-    rms_norm_kernel<T, false><<<grid, kNormThreads, 0, stream>>>(
-        (const T*)x, (const T*)w, (T*)out, d, eps);
+    rms_norm_kernel<T, W, false><<<grid, kNormThreads, 0, stream>>>(
+        (const T*)x, (const W*)w, (T*)out, d, eps);
 }
 
 }  // namespace dstt
 
+// dtype: x's and the output's; w_dtype: the weight's, dtype or (for a bf16
+// x) fp32
 extern "C" int dstt_rms_norm(const void* x, const void* w, void* out,
                              long long rows, int d, float eps, int dtype,
-                             void* stream) {
+                             int w_dtype, void* stream) {
   using namespace dstt;
   if (rows <= 0 || rows > 0x7fffffffLL || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case kFloat32: launch_rms_norm<float>(x, w, out, rows, d, eps, s); break;
-    case kBFloat16: launch_rms_norm<__nv_bfloat16>(x, w, out, rows, d, eps, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == kFloat32 && w_dtype == kFloat32)
+    launch_rms_norm<float, float>(x, w, out, rows, d, eps, s);
+  else if (dtype == kBFloat16 && w_dtype == kBFloat16)
+    launch_rms_norm<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, eps, s);
+  else if (dtype == kBFloat16 && w_dtype == kFloat32)
+    launch_rms_norm<__nv_bfloat16, float>(x, w, out, rows, d, eps, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 :218, ``RaggedLlamaModel`` :246 with ``maybe_free_kv`` :543 and
 ``_uniform_window`` :564, and ``_ragged_forward`` :915 with the paged
 attention backend). It serves the Llama family (rmsnorm, rope, swiglu, GQA),
-StarCoder2's knobs and BLOOM's (``SERVING_FAMILY`` in ``models/llama.py``).
+StarCoder2's knobs, BLOOM's and Gemma-2's (``SERVING_FAMILY`` in
+``models/llama.py``).
 
 One forward: embed (→ embedding LayerNorm) → L × (norm → q/k/v (+ bias) →
 rope → paged KV write → paged attention (sliding window per layer, or
@@ -12,7 +13,12 @@ fp32 logits for each sequence's last token. The MLP is swiglu or the biased
 fc1 → tanh-gelu → fc2 form; the norm is RMSNorm or LayerNorm with scale and
 bias. With ``pos_embedding="alibi"`` (BLOOM) no rope is applied and K4 adds
 the ALiBi bias; with ``embed_layernorm`` a LayerNorm follows the embedding
-gather (the JAX forward's ``:950-952``). The Pallas kernels of the JAX path
+gather (the JAX forward's ``:950-952``). Gemma-2 (the JAX forward's
+``:948-949``, ``:1216-1220`` and ``:1252-1254``): the embedding scale after
+the gather, the (1 + w) RMSNorm (K5's fp32-scale instance: the sum is made
+in fp32 once at build, since in bf16 its ~1e-3 deltas round away against
+1.0), the tanh-gelu gated MLP, the sandwich norms (4L+1 norms per forward),
+K4's softcap, and the final softcap on the fp32 logits. The Pallas kernels of the JAX path
 become the CUDA kernels in ``ops/`` (paged attention once per layer, the
 norm 2L+1 times, 2L+2 with the embedding LayerNorm: K5 RMSNorm, or K5b
 LayerNorm, which the JAX forward computes in jnp with the same
@@ -52,8 +58,9 @@ from .ragged.ragged_wrapper import RaggedBatch
 from .ragged.sequence_descriptor import BaseSequenceDescriptor
 from ...linear.config import QuantizationConfig
 from ...linear.quantization import QuantizedParameter
-from ...models.llama import (SERVING_FAMILY, LlamaConfig, LlamaModel,
-                             _layer_window, check_supported, precompute_rope)
+from ...models.llama import (SERVING_FAMILY, LlamaConfig, LlamaModel, RMSNormWeight,
+                             _layer_window, check_supported, embed_scale, final_softcap,
+                             gate_act, precompute_rope)
 from ...ops.normalization import layer_norm, rms_norm
 from ...ops.paged_attention import paged_attention
 from ...ops.quantizer import true_div_127
@@ -79,12 +86,14 @@ def quantize_kv(w):
     return codes, sc
 
 
-def _norm_tok(x, norm, cfg):
-    """K5b LayerNorm (``scale``, ``bias``) or K5 RMSNorm (``weight``), per
+def _norm_tok(x, norm, cfg, norm_scales=None):
+    """K5b LayerNorm (``scale``, ``bias``) or K5 RMSNorm (``weight``, or
+    for Gemma's (1 + w) norms its fp32 scale from ``norm_scales``), per
     ``cfg.norm_type``."""
     if cfg.norm_type == "layernorm":
         return layer_norm(x, norm.scale, norm.bias, cfg.rms_norm_eps)
-    return rms_norm(x, norm.weight, cfg.rms_norm_eps)
+    w = norm_scales[norm] if norm_scales is not None else norm.weight
+    return rms_norm(x, w, cfg.rms_norm_eps)
 
 
 def _proj(x, dense, kernel):
@@ -95,12 +104,13 @@ def _proj(x, dense, kernel):
 
 
 def _mlp_tok(x, mlp, kernel):
-    """swiglu, or the fc form: fc1 (+ bias), tanh-approximate gelu, fc2
-    (+ bias) (the JAX ``_mlp_tok``'s ``gelu_tanh_fc``)."""
+    """swiglu or Gemma's tanh-gelu gate (``geglu_tanh``), or the fc form:
+    fc1 (+ bias), tanh-approximate gelu, fc2 (+ bias) (the JAX
+    ``_mlp_tok``'s ``gelu_tanh_fc``)."""
     if mlp.fc:
         return _proj(F.gelu(_proj(x, mlp.fc1, kernel), approximate="tanh"),
                      mlp.fc2, kernel)
-    inner = F.silu(x @ kernel(mlp.gate_proj)) * (x @ kernel(mlp.up_proj))
+    inner = gate_act(x @ kernel(mlp.gate_proj), mlp.mlp_type) * (x @ kernel(mlp.up_proj))
     return inner @ kernel(mlp.down_proj)
 
 
@@ -158,6 +168,10 @@ class RaggedLlamaModel:
         # every forward (0.9 GB at StarCoder2-7B's width)
         self._tied_unembed = (model.embed_tokens.weight.detach().float()
                               if model.lm_head is None else None)
+        # Gemma's (1 + w) norms: each fp32 scale, summed once here
+        self._norm_scales = ({m: m.scale() for m in model.modules()
+                              if isinstance(m, RMSNormWeight)}
+                             if config.norm_plus_one else None)
         self._layer_windows = [_layer_window(config, l)
                                for l in range(config.num_hidden_layers)]
         # the window when EVERY layer attends locally, else None: one global
@@ -271,7 +285,7 @@ class RaggedLlamaModel:
                                cos=self.rope_cos, sin=self.rope_sin,
                                kernel=self._kernel, windows=self._layer_windows,
                                tied_unembed=self._tied_unembed,
-                               cache_scales=scales)
+                               cache_scales=scales, norm_scales=self._norm_scales)
 
 
 @torch.inference_mode()
@@ -279,14 +293,16 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
                     *, config: LlamaConfig, block_size: int, cos: torch.Tensor,
                     sin: torch.Tensor, kernel, windows,
                     tied_unembed: Optional[torch.Tensor] = None,
-                    cache_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    cache_scales: Optional[torch.Tensor] = None,
+                    norm_scales: Optional[dict] = None) -> torch.Tensor:
     """One ragged step: embed → L×(paged attn + mlp) → final-token logits.
     Writes this step's K/V into ``cache`` (and an int8 cache's
     ``cache_scales``) in place. ``kernel(module)`` gives a projection's
     weight; ``windows[l]`` is layer l's sliding window (None = global);
     ``tied_unembed`` the fp32 embedding table when the embeddings are
     tied; ``cos``/``sin`` the rope tables (None under ALiBi, which K4
-    adds)."""
+    adds); ``norm_scales`` each RMSNorm's fp32 scale under Gemma's
+    (1 + w) norms."""
     cfg = config
     T = batch.tokens.shape[0]
     S = batch.block_table.shape[0]
@@ -294,6 +310,8 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
     n_real = batch.n_tokens
 
     x = model.embed_tokens.weight[batch.tokens]  # [T, E]
+    if cfg.embed_scale is not None:  # Gemma, rounded to the model dtype
+        x = x * embed_scale(cfg, x.dtype)
     if cfg.embed_layernorm:  # BLOOM word_embeddings_layernorm, through K5b
         ln = model.embed_layernorm
         x = layer_norm(x, ln.scale, ln.bias, cfg.rms_norm_eps)
@@ -312,9 +330,12 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
     # KV write: real tokens only (padding carries slot == total_slots)
     slots = batch.token_slot[:n_real].long()
 
+    def norm(x, mod):
+        return _norm_tok(x, mod, cfg, norm_scales)
+
     for l, layer in enumerate(model.layers):
         attn = layer.self_attn
-        h = _norm_tok(x, layer.input_layernorm, cfg)
+        h = norm(x, layer.input_layernorm)
         q = _proj(h, attn.q_proj, kernel).reshape(T, nq, hd)
         k = _proj(h, attn.k_proj, kernel).reshape(T, nkv, hd)
         v = _proj(h, attn.v_proj, kernel).reshape(T, nkv, hd)
@@ -336,16 +357,21 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
         ctx = paged_attention(q_s, cache, l, batch.block_table,
                               batch.seq_seen, seq_lens, page_size=block_size,
                               window=windows[l], attn_scale=cfg.attn_scale,
-                              use_alibi=alibi, cache_scales=cache_scales)
+                              use_alibi=alibi, cache_scales=cache_scales,
+                              softcap=cfg.attn_logit_softcapping)
         ctx = ctx.to(x.dtype).reshape(S, N, nq * hd)
 
         ctx_tok = ctx[ctx_rows]  # [T, H*D]
-        x = x + _proj(ctx_tok, attn.o_proj, kernel)
-        x = x + _mlp_tok(_norm_tok(x, layer.post_attention_layernorm, cfg),
-                         layer.mlp, kernel)
+        attn_out = _proj(ctx_tok, attn.o_proj, kernel)
+        if cfg.sandwich_norm:  # Gemma-2: each sublayer's output normed too
+            x = x + norm(attn_out, layer.post_attention_layernorm)
+            mlp_out = _mlp_tok(norm(x, layer.pre_feedforward_layernorm), layer.mlp, kernel)
+            x = x + norm(mlp_out, layer.post_feedforward_layernorm)
+            continue
+        x = x + attn_out
+        x = x + _mlp_tok(norm(x, layer.post_attention_layernorm), layer.mlp, kernel)
 
-    x = _norm_tok(x, model.norm, cfg)
+    x = norm(x, model.norm)
     final = x[batch.last_token_idx].float()  # [S, E]
-    if tied_unembed is not None:
-        return final @ tied_unembed.T
-    return final @ model.lm_head.kernel
+    unembed = tied_unembed.T if tied_unembed is not None else model.lm_head.kernel
+    return final_softcap(final @ unembed, cfg.final_logit_softcapping)

@@ -1,9 +1,12 @@
 """Llama-family decoder (port of ``deepspeed_tpu/models/llama.py``:
 ``LlamaConfig`` :35-172, ``precompute_rope`` :175, ``apply_rope`` :182,
-``RMSNorm`` :206, ``alibi_slopes`` :225, ``_BarrierDense`` :257 with its
-bias, ``_make_norm`` :285, ``_layer_window`` :296, ``LlamaAttention`` :308 (the flash branch),
-``LlamaMLP`` :440 (swiglu and the fc form), ``LlamaDecoderLayer`` :522 (the
-pre-norm branch), ``LMHead`` :566, ``LlamaModel`` :625,
+``RMSNorm`` :206 (with Gemma's ``plus_one``), ``alibi_slopes`` :225,
+``_BarrierDense`` :257 with its bias, ``_make_norm`` :285, ``_layer_window``
+:296, ``LlamaAttention`` :308 (the flash branch), ``LlamaMLP`` :440 (swiglu,
+Gemma's tanh-gelu gate and the fc form), ``LlamaDecoderLayer`` :522 (the
+pre-norm branch and Gemma-2's sandwich norms), ``LMHead`` :566,
+``LlamaModel`` :625 (with Gemma's embedding scale and Gemma-2's final
+logit softcap),
 ``cross_entropy_loss`` :713, ``LlamaForCausalLM`` :725 and the
 ``init_llama`` initializers).
 
@@ -35,11 +38,10 @@ from ..ops.normalization import layer_norm_reference
 class LlamaConfig:
     """Decoder-family config, same fields and defaults as the JAX package's.
     The port trains the Llama subset (rmsnorm, rope, swiglu, GQA) with
-    Mistral's sliding window and the attention-logit softcap
-    (``TRAINING_FAMILY``), and serves the Llama subset, the StarCoder2
-    knobs and BLOOM's (``SERVING_FAMILY``); the other
-    variant knobs are kept so configs carry over, and the models refuse the
-    ones they do not implement yet."""
+    Mistral's sliding window and Gemma-2's knobs (``TRAINING_FAMILY``), and
+    serves the Llama subset, the StarCoder2 knobs, BLOOM's and Gemma-2's
+    (``SERVING_FAMILY``); the other variant knobs are kept so configs carry
+    over, and the models refuse the ones they do not implement yet."""
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 14336
@@ -125,20 +127,28 @@ LLAMA_FAMILY = dict(
     norm_plus_one=False, embed_scale=None, attn_logit_softcapping=None,
     final_logit_softcapping=None, mlp_type="swiglu", mlp_bias=False,
     parallel_residual=False, lm_head_bias=False, num_local_experts=0)
+# Gemma's and Gemma-2's knobs, which both forwards run: the (1 + w) RMSNorm,
+# the embedding scale, the tanh-gelu gated MLP, the sandwich norms, the
+# attention-logit softcap (into the attention kernels) and the final logit
+# softcap; a knob missing from a family takes any value
+GEMMA_KNOBS = ("norm_plus_one", "embed_scale", "sandwich_norm", "attn_logit_softcapping",
+               "final_logit_softcapping")
 # what the training forward runs: the Llama family with a sliding window
-# (on all or some layers, Mistral) and the attention-logit softcap, both
-# passed to flash_attention; and what it does not run yet on top of that
-TRAINING_FAMILY = {k: v for k, v in LLAMA_FAMILY.items()
-                   if k not in ("sliding_window", "attn_logit_softcapping")}
+# (on all or some layers, Mistral) and Gemma-2's knobs; a tuple lists the
+# values it takes
+TRAINING_FAMILY = {**{k: v for k, v in LLAMA_FAMILY.items()
+                      if k not in ("sliding_window", ) + GEMMA_KNOBS},
+                   "mlp_type": ("swiglu", "geglu_tanh")}
 TRAINING_DEFAULTS = dict(remat=False, scan_layers=False)
 # what the serving forward runs: the Llama family, StarCoder2's knobs
 # (LayerNorm with bias, q/k/v/o biases, the biased gelu-tanh fc MLP, sliding
-# windows on all or some layers) and BLOOM's (ALiBi in place of rope, the
-# embedding LayerNorm); a tuple lists the values it takes
+# windows on all or some layers), BLOOM's (ALiBi in place of rope, the
+# embedding LayerNorm) and Gemma-2's
 SERVING_FAMILY = {
-    **{k: v for k, v in LLAMA_FAMILY.items() if k != "sliding_window"},
+    **{k: v for k, v in LLAMA_FAMILY.items() if k not in ("sliding_window", ) + GEMMA_KNOBS},
     "norm_type": ("rmsnorm", "layernorm"), "attention_bias": (False, True),
-    "attention_out_bias": (False, True), "mlp_type": ("swiglu", "gelu_tanh_fc"),
+    "attention_out_bias": (False, True),
+    "mlp_type": ("swiglu", "geglu_tanh", "gelu_tanh_fc"),
     "mlp_bias": (False, True), "pos_embedding": ("rope", "alibi"),
     "embed_layernorm": (False, True)}
 
@@ -218,18 +228,29 @@ class Dense(nn.Module):
 
 class RMSNormWeight(nn.Module):
     """RMSNorm (``RMSNorm :206``): fp32 statistics, scaled by the fp32
-    cast of ``weight``, output in x's dtype. Plain PyTorch: the JAX
-    training model runs it as jnp, not as the K5 kernel."""
+    cast of ``weight``, output in x's dtype. With ``plus_one`` (Gemma) the
+    stored ``weight`` is the scale less one, zeros at init, and the scale
+    is ``1 + weight`` summed in fp32. Plain PyTorch: the JAX training
+    model runs it as jnp, not as the K5 kernel."""
 
-    def __init__(self, dim: int, dtype, device, eps: float = 1e-5):
+    def __init__(self, dim: int, dtype, device, eps: float = 1e-5,
+                 plus_one: bool = False):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.plus_one = plus_one
+        init = torch.zeros if plus_one else torch.ones
+        self.weight = nn.Parameter(init(dim, dtype=dtype, device=device))
+
+    def scale(self) -> torch.Tensor:
+        """The fp32 scale: ``1 + weight`` with ``plus_one``, else the
+        weight's cast."""
+        w = self.weight.float()
+        return 1.0 + w if self.plus_one else w
 
     def forward(self, x):
         xf = x.float()
         var = (xf * xf).mean(-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
+        return (xf * torch.rsqrt(var + self.eps) * self.scale()).to(x.dtype)
 
 
 class LayerNormWeight(nn.Module):
@@ -251,7 +272,8 @@ class LayerNormWeight(nn.Module):
 def _make_norm(cfg: LlamaConfig, dtype, device) -> nn.Module:
     if cfg.norm_type == "layernorm":
         return LayerNormWeight(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
-    return RMSNormWeight(cfg.hidden_size, dtype, device, cfg.rms_norm_eps)
+    return RMSNormWeight(cfg.hidden_size, dtype, device, cfg.rms_norm_eps,
+                         plus_one=cfg.norm_plus_one)
 
 
 class LlamaAttention(nn.Module):
@@ -285,14 +307,22 @@ class LlamaAttention(nn.Module):
         return self.o_proj(attn.reshape(b, s, -1))
 
 
+def gate_act(gate, mlp_type: str):
+    """The gated MLP's activation of its gate projection: silu (swiglu) or
+    the tanh-approximate gelu (``geglu_tanh``)."""
+    return F.silu(gate) if mlp_type == "swiglu" else F.gelu(gate, approximate="tanh")
+
+
 class LlamaMLP(nn.Module):
-    """swiglu (``gate_proj``, ``up_proj``, ``down_proj``) or, for
-    ``mlp_type="gelu_tanh_fc"``, the fc form: ``fc1``, tanh-approximate
-    gelu, ``fc2``, each with a bias when ``mlp_bias``."""
+    """swiglu (``gate_proj``, ``up_proj``, ``down_proj``), the same gated
+    form with a tanh-approximate gelu gate for ``mlp_type="geglu_tanh"``
+    (Gemma), or, for ``mlp_type="gelu_tanh_fc"``, the fc form: ``fc1``,
+    tanh-approximate gelu, ``fc2``, each with a bias when ``mlp_bias``."""
 
     def __init__(self, cfg: LlamaConfig, dtype, device):
         super().__init__()
         h, i = cfg.hidden_size, cfg.intermediate_size
+        self.mlp_type = cfg.mlp_type
         self.fc = cfg.mlp_type == "gelu_tanh_fc"
         if self.fc:
             self.fc1 = Dense(h, i, dtype, device, cfg.mlp_bias)
@@ -305,7 +335,7 @@ class LlamaMLP(nn.Module):
     def forward(self, x):
         if self.fc:
             return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(gate_act(self.gate_proj(x), self.mlp_type) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -315,10 +345,21 @@ class LlamaDecoderLayer(nn.Module):
         self.self_attn = LlamaAttention(cfg, dtype, device, layer_idx)
         self.post_attention_layernorm = _make_norm(cfg, dtype, device)
         self.mlp = LlamaMLP(cfg, dtype, device)
+        self.sandwich = cfg.sandwich_norm
+        if self.sandwich:
+            self.pre_feedforward_layernorm = _make_norm(cfg, dtype, device)
+            self.post_feedforward_layernorm = _make_norm(cfg, dtype, device)
 
     def forward(self, x, cos, sin, positions):
-        """The pre-norm branch (``:548-563``)."""
-        h = x + self.self_attn(self.input_layernorm(x), cos, sin, positions)
+        """The pre-norm branch (``:548-563``), or Gemma-2's sandwich norms
+        (``:529-536``): the attention's and the MLP's outputs are normed
+        too, before each residual add."""
+        attn = self.self_attn(self.input_layernorm(x), cos, sin, positions)
+        if self.sandwich:
+            h = x + self.post_attention_layernorm(attn)
+            return h + self.post_feedforward_layernorm(
+                self.mlp(self.pre_feedforward_layernorm(h)))
+        h = x + attn
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -379,6 +420,8 @@ class LlamaModel(nn.Module):
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)
             positions = positions[None, :].expand(input_ids.shape)
         x = self.embed_tokens(input_ids)
+        if cfg.embed_scale is not None:
+            x = x * embed_scale(cfg, x.dtype)
         cos, sin = precompute_rope(cfg.head_dim_, cfg.max_position_embeddings,
                                    cfg.rope_theta, device=x.device)
         for layer in self.layers:
@@ -389,7 +432,21 @@ class LlamaModel(nn.Module):
         if return_unembed:
             return x, w
         b, s, h = x.shape
-        return _MatmulFp32.apply(x.reshape(b * s, h), w.to(x.dtype)).reshape(b, s, -1)
+        logits = _MatmulFp32.apply(x.reshape(b * s, h), w.to(x.dtype)).reshape(b, s, -1)
+        return final_softcap(logits, cfg.final_logit_softcapping)
+
+
+def embed_scale(cfg: LlamaConfig, dtype) -> torch.Tensor:
+    """Gemma's embedding scale (sqrt of the hidden size) rounded to the
+    compute dtype first, as HF and the JAX model do (``:640-642``):
+    sqrt(3584) = 59.866 is 59.75 in bf16."""
+    return torch.tensor(cfg.embed_scale, dtype=dtype)
+
+
+def final_softcap(logits, cap):
+    """Gemma-2's final logit softcap ``cap * tanh(logits / cap)`` on fp32
+    logits (``:707-709``); the logits as they are without a cap."""
+    return logits if cap is None else cap * torch.tanh(logits / cap)
 
 
 def cross_entropy_loss(logits, labels, ignore_index: int = -100):
@@ -425,7 +482,8 @@ class LlamaForCausalLM(nn.Module):
         if labels is not None and cfg.ce_chunk_size:
             x, w = self.model(input_ids, positions, return_unembed=True)
             return chunked_cross_entropy_loss(x, w, labels, cfg.ce_chunk_size,
-                                              compute_dtype=x.dtype)
+                                              compute_dtype=x.dtype,
+                                              softcap=cfg.final_logit_softcapping)
         logits = self.model(input_ids, positions)
         if labels is None:
             return logits
@@ -460,8 +518,9 @@ def init_llama(config: LlamaConfig, seed: int = 0, dtype=None,
                device=None) -> LlamaModel:
     """Seeded random serving weights on ``device`` (default ``cuda``),
     following ``init_llama``'s initializers: lecun-normal projection
-    kernels, normal(0.02) embeddings, ones for norm scales, zeros for
-    biases (projections' and LayerNorm's). The numbers
+    kernels, normal(0.02) embeddings, ones for norm scales (zeros for
+    Gemma's ``1 + w`` norms), zeros for biases (projections' and
+    LayerNorm's). The numbers
     differ from JAX's (another generator); load JAX weights through
     ``models/convert.params_from_jax`` to compare the two."""
     model = LlamaModel(config, dtype=dtype, device=torch.device(device or "cuda"))

@@ -1,6 +1,7 @@
 """Per-architecture HF checkpoint policies (port of
 ``deepspeed_tpu/module_inject/replace_policy.py``: ``HFCheckpointPolicy``
-:23, ``BloomPolicy`` :825, ``Starcoder2Policy`` :1035, ``policy_for`` :1343).
+:23, ``GemmaPolicy`` :262, ``Gemma2Policy`` :280, ``BloomPolicy`` :825,
+``Starcoder2Policy`` :1035, ``policy_for`` :1343).
 
 A policy maps an HF config dict onto a :class:`LlamaConfig` and names, for
 every HF tensor, the parameter it fills in the JAX package's tree layout
@@ -10,8 +11,9 @@ the layout, so ``replace_module.convert_hf_checkpoint`` loads the same
 names. A policy may also name fused HF tensors (``special_hf_names``) that
 its ``convert_special`` splits into several parameters (BLOOM's
 ``query_key_value``). Only the architectures the port runs are registered:
-Llama, Mistral (trained), StarCoder2 and BLOOM (served). Every other one
-raises ``NotImplementedError``.
+Llama, Mistral (trained), Gemma and Gemma-2 (served and trained),
+StarCoder2 and BLOOM (served). Every other one raises
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -126,6 +128,75 @@ class MistralPolicy(HFCheckpointPolicy):
     def config_from_hf(self, hf_config):
         cfg = super().config_from_hf(hf_config)
         return dataclasses.replace(cfg, sliding_window=hf_config.get("sliding_window"))
+
+
+# google/gemma-2-9b config.json, as published; keys the port does not read
+# (dropouts, initializer_range, token ids, torch_dtype, cache_implementation,
+# hidden_act) are left out. hidden_activation "gelu_pytorch_tanh" is the
+# policy's tanh-gelu gate; tie_word_embeddings is absent there and the
+# policy ties them, as Gemma does. 9,241,705,984 parameters.
+GEMMA2_9B = {
+    "architectures": ["Gemma2ForCausalLM"],
+    "model_type": "gemma2",
+    "vocab_size": 256000,
+    "hidden_size": 3584,
+    "intermediate_size": 14336,
+    "num_hidden_layers": 42,
+    "num_attention_heads": 16,
+    "num_key_value_heads": 8,
+    "head_dim": 256,
+    "max_position_embeddings": 8192,
+    "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0,
+    "sliding_window": 4096,
+    "query_pre_attn_scalar": 256,
+    "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0,
+    "hidden_activation": "gelu_pytorch_tanh",
+}
+
+
+class GemmaPolicy(HFCheckpointPolicy):
+    """Gemma (v1): the Llama graph with the (1 + w) RMSNorm, the sqrt(hidden)
+    embedding scale (rounded through the compute dtype, as HF does), the
+    tanh-gelu gated MLP, an explicit head_dim and tied embeddings; Llama's
+    weight map."""
+    arch = "gemma"
+
+    def config_from_hf(self, hf_config):
+        cfg = super().config_from_hf(hf_config)
+        return dataclasses.replace(
+            cfg, tie_word_embeddings=True, norm_plus_one=True,
+            head_dim=hf_config.get(
+                "head_dim", hf_config["hidden_size"] // hf_config["num_attention_heads"]),
+            embed_scale=float(hf_config["hidden_size"]) ** 0.5,
+            mlp_type="geglu_tanh")
+
+
+class Gemma2Policy(GemmaPolicy):
+    """Gemma-2: Gemma with the sandwich norms (pre and post around both
+    sublayers), the attention and final logit softcaps, the scale from
+    query_pre_attn_scalar, and a sliding window on every even layer (HF:
+    ``not bool(layer_idx % 2)``)."""
+    arch = "gemma2"
+
+    def config_from_hf(self, hf_config):
+        cfg = super().config_from_hf(hf_config)
+        return dataclasses.replace(
+            cfg, sandwich_norm=True,
+            attn_scale=float(hf_config.get("query_pre_attn_scalar", 256)) ** -0.5,
+            attn_logit_softcapping=hf_config.get("attn_logit_softcapping", 50.0),
+            final_logit_softcapping=hf_config.get("final_logit_softcapping", 30.0),
+            sliding_window=hf_config.get("sliding_window"),
+            sliding_window_layers=tuple(range(0, hf_config["num_hidden_layers"], 2)))
+
+    def weight_map(self, layer: int, attention_bias: bool = False):
+        out = super().weight_map(layer, attention_bias)
+        p = f"model.layers.{layer}."
+        f = f"layers_{layer}/"
+        for norm in ("pre_feedforward_layernorm", "post_feedforward_layernorm"):
+            out[p + f"{norm}.weight"] = (f + f"{norm}/weight", False)
+        return out
 
 
 class Starcoder2Policy(HFCheckpointPolicy):
@@ -285,6 +356,10 @@ _POLICIES = {
     "LlamaForCausalLM": HFCheckpointPolicy,
     "mistral": MistralPolicy,
     "MistralForCausalLM": MistralPolicy,
+    "gemma": GemmaPolicy,
+    "GemmaForCausalLM": GemmaPolicy,
+    "gemma2": Gemma2Policy,
+    "Gemma2ForCausalLM": Gemma2Policy,
     "starcoder2": Starcoder2Policy,
     "Starcoder2ForCausalLM": Starcoder2Policy,
     "bloom": BloomPolicy,

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "deepspeed_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo", "--resource-usage")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,8 +38,8 @@ _F = ctypes.c_float
 
 # C signatures (see csrc/*.cu); all return int (a cudaError_t)
 _SIGNATURES = {
-    # x, w, out, rows, d, eps, dtype, stream
-    "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _P),
+    # x, w, out, rows, d, eps, dtype, weight dtype, stream
+    "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _I, _P),
     # x, w, b, out, rows, d, eps, dtype, stream
     "dstt_layer_norm": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     # S, N, H, D, KV, B, page_size, window, out: workspace length in fp32
@@ -47,10 +47,10 @@ _SIGNATURES = {
     "dstt_paged_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I,
                                        ctypes.POINTER(_L)),
     # q, cache, cache_scales, slopes, out, block_table, seen, lens, S, N, H,
-    # D, KV, B, slots, layer, page_size, window, scale, q dtype, cache
-    # dtype, workspace, workspace length, stream
+    # D, KV, B, slots, layer, page_size, window, scale, softcap, q dtype,
+    # cache dtype, workspace, workspace length, stream
     "dstt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _L, _I, _I, _I, _F, _I, _I, _P, _L, _P),
+                             _I, _I, _L, _I, _I, _I, _F, _F, _I, _I, _P, _L, _P),
     # x, n, block, dtype, values, scales, stream
     "dstt_quantize_int8": (_P, _L, _I, _I, _P, _P, _P),
     # values, scales, n, block, out, dtype, stream
@@ -100,6 +100,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+RESOURCE_LOG = "resource_usage.txt"
 
 
 def nvcc_path() -> str:
@@ -133,17 +134,19 @@ def library_path() -> Path:
 
 def _run(cmds):
     """Run the commands at once; raise with the output of every one that
-    fails."""
+    fails; return each one's output."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    failed = []
+    outs, failed = [], []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n(exit {proc.returncode})\n{out}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return outs
 
 
 def _compile(out: Path) -> None:
@@ -151,13 +154,16 @@ def _compile(out: Path) -> None:
     then one link into ``out``. The objects and the library are written
     in a temporary directory beside ``out`` and the library is renamed
     into place, so a concurrent or interrupted build never leaves a torn
-    file."""
+    file. ptxas's report of every kernel's registers and spills
+    (``--resource-usage``) goes to ``resource_usage.txt`` beside it."""
     out.parent.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=out.parent))
     try:
         objs = [work / (src.stem + ".o") for src in sources()]
-        _run([[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-              for src, obj in zip(sources(), objs)])
+        logs = _run([[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                     for src, obj in zip(sources(), objs)])
+        (out.parent / RESOURCE_LOG).write_text("".join(
+            f"# {src.name}\n{log}" for src, log in zip(sources(), logs)))
         tmp = work / out.name
         _run([[nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *map(str, objs)]])
@@ -187,6 +193,43 @@ def lib():
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+def resource_usage(pattern: str = "") -> list:
+    """ptxas's report from the build of this library, one entry per
+    kernel whose mangled name contains ``pattern``: ``{"kernel":
+    demangled name, "registers", "spill_stores", "spill_loads"}`` (bytes
+    for the spills; ``"local_bytes"`` where ptxas reports the kernel's
+    local memory instead)."""
+    import re
+    text = (library_path().parent / RESOURCE_LOG).read_text()
+    found, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for|Function) "
+                      r"'?(_Z\w+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or pattern not in name:
+            continue
+        entry = found.setdefault(name, {"kernel": name})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line) or re.search(r"REG:(\d+)", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+        m = re.search(r"LOCAL:(\d+)", line)
+        if m:
+            entry["local_bytes"] = int(m.group(1))
+    entries = list(found.values())
+    filt = Path(nvcc_path()).parent / "cu++filt"
+    if entries and filt.exists():
+        names = subprocess.run([str(filt)], input="\n".join(e["kernel"] for e in entries),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for e, demangled in zip(entries, names):
+            e["kernel"] = demangled.strip() or e["kernel"]
+    return entries
 
 
 def check(err: int, name: str) -> None:

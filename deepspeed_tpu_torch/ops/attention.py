@@ -251,8 +251,8 @@ def _check_cuda(name, tensors, q, k):
         raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} are not [B, S, H, D] / "
                          "[B, S, KV, D] with KV dividing H")
-    if D > 128 or D % 8:
-        raise ValueError(f"{name}: the kernel takes head_dim <= 128 and a "
+    if D > 256 or D % 8:
+        raise ValueError(f"{name}: the kernel takes head_dim <= 256 and a "
                          f"multiple of 8, got {D}")
     if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"{name}: the kernel takes float32, bfloat16 or float16, "

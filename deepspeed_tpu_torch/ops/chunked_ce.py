@@ -11,7 +11,10 @@ in ``compute_dtype`` (bf16 on the training path) and fp32 accumulation and
 output (``matmul_fp32``), columns past the vocab masked to ``-inf`` (the
 last chunk is the ragged remainder; the JAX op pads it to the chunk width
 and masks the padding, which gives the same sums), ``dw`` built in fp32
-and cast to ``w``'s dtype at the end. The two sweeps run inside
+and cast to ``w``'s dtype at the end. Gemma-2's final logit softcap
+``cap * tanh(l / cap)`` is applied to each chunk's fp32 logits, and the
+backward chains through it by ``1 - tanh^2`` (``_chunk_logits :50-67``,
+``_ce_bwd :137-140``). The two sweeps run inside
 ``record_function`` ranges (``chunked_ce_forward``/``_backward``) so a
 ``torch.profiler`` trace attributes their kernels.
 """
@@ -33,23 +36,28 @@ def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def _chunk_logits(x, w, c0, c1, compute_dtype):
-    """fp32 logits of vocab columns [c0, c1)."""
-    return matmul_fp32(x.to(compute_dtype), w[:, c0:c1].to(compute_dtype))
+def _chunk_logits(x, w, c0, c1, compute_dtype, softcap=None):
+    """fp32 logits of vocab columns [c0, c1), after the softcap, and the
+    softcap's tanh (None without one)."""
+    lc = matmul_fp32(x.to(compute_dtype), w[:, c0:c1].to(compute_dtype))
+    if softcap is None:
+        return lc, None
+    t = torch.tanh(lc / softcap)
+    return softcap * t, t
 
 
 def _chunks(V, chunk):
     return [(c0, min(c0 + chunk, V)) for c0 in range(0, V, chunk)]
 
 
-def _fwd_sweep(x, w, targets, chunk, compute_dtype):
+def _fwd_sweep(x, w, targets, chunk, compute_dtype, softcap):
     """Per-token (nll, lse), both fp32 ``[T]``."""
     T = x.shape[0]
     m = torch.full((T, ), float("-inf"), dtype=torch.float32, device=x.device)
     s = torch.zeros(T, dtype=torch.float32, device=x.device)
     gold = torch.zeros(T, dtype=torch.float32, device=x.device)
     for c0, c1 in _chunks(w.shape[1], chunk):
-        lc = _chunk_logits(x, w, c0, c1, compute_dtype)
+        lc, _ = _chunk_logits(x, w, c0, c1, compute_dtype, softcap)
         m_new = torch.maximum(m, lc.amax(-1))
         # exp(-inf - -inf) guard: a first chunk must not poison s
         corr = torch.exp(torch.where(torch.isinf(m), torch.zeros_like(m),
@@ -64,7 +72,7 @@ def _fwd_sweep(x, w, targets, chunk, compute_dtype):
     return lse - gold, lse
 
 
-def _bwd_sweep(x, w, targets, lse, g, chunk, compute_dtype):
+def _bwd_sweep(x, w, targets, lse, g, chunk, compute_dtype, softcap):
     """(dx, dw) of the per-token NLL for its cotangent ``g``."""
     T, H = x.shape
     V = w.shape[1]
@@ -74,10 +82,14 @@ def _bwd_sweep(x, w, targets, lse, g, chunk, compute_dtype):
     xt = x.to(compute_dtype).t()
     rows = torch.arange(T, device=x.device)
     for c0, c1 in _chunks(V, chunk):
-        dl = torch.exp(_chunk_logits(x, w, c0, c1, compute_dtype) - lse[:, None])
+        lc, t = _chunk_logits(x, w, c0, c1, compute_dtype, softcap)
+        dl = torch.exp(lc - lse[:, None])
         hit = (targets >= c0) & (targets < c1)
         dl[rows[hit], targets[hit] - c0] -= 1.0
-        dlc = (dl * g[:, None]).to(compute_dtype)
+        dl = dl * g[:, None]
+        if t is not None:  # d/dl of cap * tanh(l / cap) is 1 - tanh^2
+            dl = dl * (1.0 - t * t)
+        dlc = dl.to(compute_dtype)
         dx += matmul_fp32(dlc, w[:, c0:c1].to(compute_dtype).t())
         dw[:, c0:c1] = matmul_fp32(xt, dlc)
     return dx.to(x.dtype), dw.to(w.dtype)
@@ -86,11 +98,11 @@ def _bwd_sweep(x, w, targets, lse, g, chunk, compute_dtype):
 class _ChunkedUnembedCE(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, targets, chunk, compute_dtype):
+    def forward(ctx, x, w, targets, chunk, compute_dtype, softcap):
         with record_function("chunked_ce_forward"):
-            nll, lse = _fwd_sweep(x, w, targets, chunk, compute_dtype)
+            nll, lse = _fwd_sweep(x, w, targets, chunk, compute_dtype, softcap)
         ctx.save_for_backward(x, w, targets, lse)
-        ctx.opts = (chunk, compute_dtype)
+        ctx.opts = (chunk, compute_dtype, softcap)
         return nll
 
     @staticmethod
@@ -98,20 +110,24 @@ class _ChunkedUnembedCE(torch.autograd.Function):
         x, w, targets, lse = ctx.saved_tensors
         with record_function("chunked_ce_backward"):
             dx, dw = _bwd_sweep(x, w, targets, lse, g, *ctx.opts)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
-def chunked_unembed_ce(x, w, targets, chunk: int, compute_dtype=torch.bfloat16):
-    """Per-token NLL of ``softmax(x @ w)`` without materializing the
-    logits. ``x`` [T, H], ``w`` [H, V], ``targets`` [T] int (callers mask
-    ignore_index outside). Returns nll [T] fp32, differentiable in x and
-    w. The JAX op's bias, logit scale and softcap wait for the first ported
-    model that sets them."""
-    return _ChunkedUnembedCE.apply(x, w, targets.long(), int(chunk), compute_dtype)
+def chunked_unembed_ce(x, w, targets, chunk: int, compute_dtype=torch.bfloat16,
+                       softcap=None):
+    """Per-token NLL of ``softmax(softcap(x @ w))`` without materializing
+    the logits. ``x`` [T, H], ``w`` [H, V], ``targets`` [T] int (callers
+    mask ignore_index outside), ``softcap`` Gemma-2's final logit cap or
+    None. Returns nll [T] fp32, differentiable in x and w. The JAX op's
+    bias and logit scale wait for the first ported model that sets them."""
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"chunked_unembed_ce: softcap must be positive, got {softcap!r}")
+    return _ChunkedUnembedCE.apply(x, w, targets.long(), int(chunk), compute_dtype,
+                                   None if softcap is None else float(softcap))
 
 
 def chunked_cross_entropy_loss(x, w, labels, chunk: int, ignore_index: int = -100,
-                               compute_dtype=torch.bfloat16):
+                               compute_dtype=torch.bfloat16, softcap=None):
     """Token-mean causal-LM CE (shift-by-one, ``ignore_index``) over a
     streamed unembed. ``x`` [B, S, H], ``labels`` [B, S]."""
     B, S, H = x.shape
@@ -119,5 +135,5 @@ def chunked_cross_entropy_loss(x, w, labels, chunk: int, ignore_index: int = -10
     tg = labels[:, 1:].reshape(B * (S - 1))
     mask = (tg != ignore_index).float()
     tg = torch.where(tg == ignore_index, torch.zeros_like(tg), tg)
-    nll = chunked_unembed_ce(xs, w, tg, chunk, compute_dtype)
+    nll = chunked_unembed_ce(xs, w, tg, chunk, compute_dtype, softcap)
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)

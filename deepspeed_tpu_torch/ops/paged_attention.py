@@ -12,15 +12,18 @@ the plain PyTorch version (``paged_attention_reference``, the dense-gather
 path, which dequantizes an int8 window in fp32), a CUDA tensor launches
 ``csrc/paged_attention.cu`` or raises. ``paged_attention.launches`` counts
 launches over a float cache, ``paged_attention.int8_launches`` over an
-int8 cache, and ``paged_attention.alibi_launches`` those with ALiBi (over
-either cache; those count in neither of the other two). All take the JAX
-kernel's sliding ``window``: a query at absolute position ``q`` sees keys
-``q - window < key <= q``, and the kernel never reads a page wholly older
-than the window of the chunk's first query. ALiBi (BLOOM,
-``use_alibi``/``slopes``) adds ``slopes[kv, g] * (key_pos - q_abs)`` in fp32
-to the scaled scores before the masks (the JAX kernel's ``:125-131``);
-``slopes`` ``[KV, G]`` fp32 defaults to ``alibi_slopes(H).reshape(KV, G)``.
-The softcap (Gemma-2) raises ``NotImplementedError`` here.
+int8 cache, ``paged_attention.alibi_launches`` those with ALiBi and
+``paged_attention.softcap_launches`` those with the softcap (over either
+cache; each launch counts once, in the first of softcap, ALiBi, int8 and
+float that applies). All take the JAX kernel's sliding ``window``: a query
+at absolute position ``q`` sees keys ``q - window < key <= q``, and the
+kernel never reads a page wholly older than the window of the chunk's
+first query. The softcap (Gemma-2, ``softcap=c``) takes the scaled scores
+to ``c * tanh(s / c)`` before any bias or mask (the JAX kernel's
+``:122-124``). ALiBi (BLOOM, ``use_alibi``/``slopes``) adds
+``slopes[kv, g] * (key_pos - q_abs)`` in fp32 to the scores before the
+masks (``:125-131``); ``slopes`` ``[KV, G]`` fp32 defaults to
+``alibi_slopes(H).reshape(KV, G)``. Head widths up to 256.
 """
 
 import ctypes
@@ -35,10 +38,8 @@ NEG_INF = -1e30
 
 
 def _check_options(softcap):
-    if softcap is not None:
-        raise NotImplementedError(
-            "paged_attention: the softcap (Gemma-2's attention-logit softcap) "
-            "is not ported yet")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"paged_attention: softcap must be positive, got {softcap!r}")
 
 
 @functools.lru_cache(maxsize=64)
@@ -91,8 +92,8 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
                               softcap: Optional[float] = None):
     """Dense-gather reference: gathers each sequence's ``B*page_size``
     history window (an int8 window dequantized in fp32; freed table entries
-    gather block 0 and are masked), adds the ALiBi bias, masks, softmaxes
-    in fp32."""
+    gather block 0 and are masked), caps the scaled scores, adds the ALiBi
+    bias, masks, softmaxes in fp32."""
     _check_options(softcap)
     S, N, H, D = q.shape
     _check_cache_scales(cache, cache_scales, D)
@@ -113,6 +114,8 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
     v_h = v_h.movedim(2, 1).float()
     qf = q.reshape(S, N, KV, G, D).float()
     scores = torch.einsum("snkgd,skld->snkgl", qf, k_h) * scale
+    if softcap is not None:  # before the bias and the masks
+        scores = softcap * torch.tanh(scores / softcap)
     key_pos = torch.arange(L, dtype=torch.int32, device=dev)[None, None, :]
     q_abs = seq_seen[:, None] + torch.arange(N, dtype=torch.int32,
                                              device=dev)[None, :]
@@ -166,6 +169,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
       use_alibi: add BLOOM's ALiBi bias with ``alibi_slopes(H)``.
       slopes: explicit ``[KV, G]`` ALiBi slopes (implies ALiBi).
       cache_scales: ``[2L, num_slots, KV]`` fp32 scales of an int8 cache.
+      softcap: Gemma-2's attention-logit cap (None = no cap).
     Returns:
       ``[S, N, H, D]`` in q.dtype.
     """
@@ -185,8 +189,8 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
     if KVD % D or H % (KVD // D):
         raise ValueError(f"paged_attention: cache minor dim {KVD} does not "
                          f"hold whole heads of D={D} dividing H={H}")
-    if D > 128:
-        raise ValueError(f"paged_attention: the kernel takes head_dim <= 128, got {D}")
+    if D > 256:
+        raise ValueError(f"paged_attention: the kernel takes head_dim <= 256, got {D}")
     if not 0 <= layer < L2 // 2:
         raise ValueError(f"paged_attention: layer {layer} out of range")
     if slots % page_size:
@@ -230,12 +234,15 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             None if slope_table is None else slope_table.data_ptr(),
             out.data_ptr(), block_table.data_ptr(), seq_seen.data_ptr(),
             seq_lens.data_ptr(), S, N, H, D, KV, B, slots, int(layer),
-            page_size, window, float(scale), _build.dtype_code(q.dtype),
+            page_size, window, float(scale), float(softcap or 0.0),
+            _build.dtype_code(q.dtype),
             _build.dtype_code(cache.dtype),
             None if workspace is None else workspace.data_ptr(), ws_len,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
-    if slope_table is not None:
+    if softcap is not None:
+        paged_attention.softcap_launches += 1
+    elif slope_table is not None:
         paged_attention.alibi_launches += 1
     elif cache.dtype == torch.int8:
         paged_attention.int8_launches += 1
@@ -247,3 +254,4 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
 paged_attention.alibi_launches = 0
+paged_attention.softcap_launches = 0

@@ -115,6 +115,9 @@ OPTION_CASES = {
     "softcap_s128": (1, 128, 4, 1, 32, True, None, 30.0),
     "w64_softcap_s192": (1, 192, 8, 4, 16, True, 64, 20.0),
     "w70_softcap_full": (1, 128, 4, 2, 32, False, 70, 20.0),
+    # head_dim 256 (Gemma-2, G 2) with the window and a softcap that bites
+    # on N(0, 1) scores
+    "d256_w64_softcap_s128": (1, 128, 4, 2, 256, True, 64, 2.0),
 }
 OPTION_BLOCK = 64
 

@@ -94,12 +94,32 @@ def test_paged_alibi_matches_jax(case, explicit):
 
 
 def test_paged_softcap_still_raises():
-    q = torch.zeros(1, 1, 2, 16)
-    cache = torch.zeros(2, 8, 32)
-    meta = (torch.zeros(1, 1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
-            torch.ones(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="Gemma-2"):
-        paged_attention(q, cache, 0, *meta, page_size=8, softcap=30.0)
+    """The softcap is ported (Gemma-2): with ALiBi too, the plain version
+    caps before the bias as the JAX reference and kernel do (fp32 within
+    2e-5); only a cap that is not positive still raises."""
+    seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, window = ALIBI_CASES["g3_mixed"]
+    rng = np.random.default_rng(seed)
+    cache = rng.normal(size=(4, n_pages * ps, KV * D)).astype(np.float32)
+    q = (3 * rng.normal(size=(S, N, KV * G, D))).astype(np.float32)
+    bt = rng.permutation(n_pages)[:S * B].reshape(S, B).astype(np.int32)
+    seen = np.asarray(seen, np.int32)
+    lens = seen + np.asarray(n_new, np.int32)
+    kw = dict(page_size=ps, window=window, use_alibi=True, softcap=5.0)
+    targs = [torch.from_numpy(a) for a in (q, cache)] + [1] + \
+        [torch.from_numpy(a) for a in (bt, seen, lens)]
+    jargs = [jnp.asarray(a) for a in (q, cache)] + [1] + \
+        [jnp.asarray(a) for a in (bt, seen, lens)]
+    out = paged_attention(*targs, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_paged_ref(*jargs, **kw)),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(jax_paged(*jargs, interpret=True, **kw)),
+                               atol=2e-5, rtol=2e-5)
+    uncapped = paged_attention(*targs, **{**kw, "softcap": None})
+    assert (uncapped - out).abs().max().item() > 1e-3
+    for bad in (0.0, -30.0):
+        with pytest.raises(ValueError, match="softcap"):
+            paged_attention(*targs, **{**kw, "softcap": bad})
 
 
 # ---- a tiny BLOOM through both engines ----

@@ -51,6 +51,31 @@ def test_chunked_unembed_ce_matches_jax(case):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(gr), err_msg=name, **TOL)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chunked_unembed_ce_softcap_matches_jax(case):
+    """Gemma-2's final logit softcap in both sweeps: nll, dx and dw against
+    the JAX op with ``softcap``; the cap of 3 bites on these logits (|l|
+    up to ~10), so without it the nll moves."""
+    x, w, tg, g, chunk = _inputs(case)
+    nll_ref, vjp = jax.vjp(
+        lambda a, b: jax_ce.chunked_unembed_ce(a, b, None, jnp.asarray(tg), chunk,
+                                               softcap=3.0, compute_dtype=jnp.float32),
+        jnp.asarray(x), jnp.asarray(w))
+    grads_ref = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w)]
+    nll = chunked_unembed_ce(*leaves, torch.from_numpy(tg), chunk, torch.float32,
+                             softcap=3.0)
+    nll.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(nll.detach().numpy(), np.asarray(nll_ref), **TOL)
+    for name, t, gr in zip(("dx", "dw"), leaves, grads_ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gr), err_msg=name, **TOL)
+    plain = chunked_unembed_ce(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(tg), chunk, torch.float32)
+    assert (plain - nll.detach()).abs().max().item() > 0.1
+    with pytest.raises(ValueError, match="softcap"):
+        chunked_unembed_ce(*leaves, torch.from_numpy(tg), chunk, torch.float32, softcap=0.0)
+
+
 def test_chunked_loss_shifts_and_ignores_like_jax():
     rng = np.random.default_rng(5)
     B, S, H, V = 2, 9, 8, 70

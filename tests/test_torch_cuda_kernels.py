@@ -16,7 +16,8 @@ from deepspeed_tpu_torch.ops import attention_folded as ff
 from deepspeed_tpu_torch.ops import fused_optimizer as fo
 from deepspeed_tpu_torch.ops.attention import (
     attention_delta, flash_attention, flash_attention_bwd_dkdv,
-    flash_attention_bwd_dq, flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_bwd_dkdv_reference, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference, flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference)
 from deepspeed_tpu_torch.ops.normalization import (
     layer_norm, layer_norm_reference, rms_norm, rms_norm_reference)
@@ -158,8 +159,8 @@ def test_paged_attention_refuses_what_the_kernel_does_not_take(cuda_device):
         paged_attention(q, cache, layer, bt.long(), seen, lens, page_size=ps)
     with pytest.raises(ValueError):
         paged_attention(q.transpose(1, 2), cache, layer, bt, seen, lens, page_size=ps)
-    with pytest.raises(NotImplementedError):
-        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, softcap=5.0)
+    with pytest.raises(ValueError):  # the softcap must be positive
+        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, softcap=0.0)
     with pytest.raises(ValueError):
         paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, window=0)
     codes, scales = int8_cache(cache, q.shape[-1])
@@ -171,9 +172,9 @@ def test_paged_attention_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):  # scales belong to an int8 cache
         paged_attention(q, cache, layer, bt, seen, lens, page_size=ps,
                         cache_scales=scales)
-    wide = torch.zeros(*q.shape[:3], 256, device=cuda_device)  # head_dim > 128
+    wide = torch.zeros(*q.shape[:3], 264, device=cuda_device)  # head_dim > 256
     with pytest.raises(ValueError):
-        paged_attention(wide, torch.zeros(4, cache.shape[1], 2 * 256, device=cuda_device),
+        paged_attention(wide, torch.zeros(4, cache.shape[1], 2 * 264, device=cuda_device),
                         layer, bt, seen, lens, page_size=ps)
 
 
@@ -398,8 +399,8 @@ def test_rms_norm_kernel_matches_plain(shape, dtype, cuda_device):
 
 def test_rms_norm_refuses_what_the_kernel_does_not_take(cuda_device):
     x = torch.randn(4, 256, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(TypeError):  # weight dtype differs from x's
-        rms_norm(x, torch.ones(256, device=cuda_device))
+    with pytest.raises(TypeError):  # a bf16 weight beside an fp32 x
+        rms_norm(x.float(), torch.ones(256, device=cuda_device, dtype=torch.bfloat16))
     with pytest.raises(TypeError):  # fp16 is not a dtype of the port
         rms_norm(x.half(), torch.ones(256, device=cuda_device, dtype=torch.half))
     with pytest.raises(ValueError):
@@ -587,7 +588,17 @@ def test_flash_options_kernels_match_plain(case, layout, cuda_device):
 
 def test_folded_equals_per_head_kernels(cuda_device):
     """K3 runs K1/K2's body per KV head: the same bits on the same inputs."""
-    (q, k, v, do), opts = _option_inputs("w64_softcap_s333", cuda_device)
+    _folded_equals_per_head("w64_softcap_s333", cuda_device)
+
+
+def test_folded_equals_per_head_kernels_d256(cuda_device):
+    """As above at head_dim 256, whose dk/dv blocks own half the columns."""
+    _folded_equals_per_head("bf16_d256_w100_softcap", cuda_device)
+
+
+def _folded_equals_per_head(case, cuda_device):
+    (q, k, v, do), opts = (_option_inputs(case, cuda_device) if case in FLASH_OPTIONS
+                           else _d256_inputs(case, cuda_device))
     o, lse = flash_attention_fwd(q, k, v, **opts)
     of, lsef = ff.folded_attention_fwd(q, k, v, **opts)
     delta = attention_delta(o, do)
@@ -663,6 +674,95 @@ def test_route_at_d64_s1024_runs_the_kernels(cache, cuda_device, monkeypatch, tm
     assert_rows_close(out.detach(), o_ref, "o")
     for name, t, g_ref in zip("qkv", leaves, grads_ref):
         assert_rows_close(t.grad, g_ref, f"d{name}")
+
+
+# head_dim 256 (Gemma-2: G 2, the softcap, a window on some layers) in each
+# dtype: fp32 with a ragged S; causal, windowed and full; a cap of 2 bites on
+# N(0, 1) scores; then Gemma-2's widths (H 16, KV 8) over 2048 tokens, and
+# the same with q 20x wider: scores ~N(0, 20^2) under the cap of 50, rows
+# whose softmax is nearly one key, where dq's dS = P (dP - delta) cancels
+# (dq summed dP in the mma accumulator read 2.5x the plain version's error
+# against the exact value at S 8192 before its step sums)
+# (B, S, H, KV, causal, window, softcap, dtype[, q scale])
+FLASH_D256 = {
+    "d256_causal_s130": (1, 130, 4, 2, True, None, None, torch.float32),
+    "d256_w64_softcap_s333": (1, 333, 4, 2, True, 64, 2.0, torch.float32),
+    "d256_w70_full_s200": (1, 200, 4, 4, False, 70, 20.0, torch.float32),
+    "bf16_d256_s300": (1, 300, 8, 4, True, None, None, torch.bfloat16),
+    "bf16_d256_w100_softcap": (1, 500, 8, 4, True, 100, 2.0, torch.bfloat16),
+    "fp16_d256_full_s200": (1, 200, 4, 2, False, None, None, torch.float16),
+    "fp16_d256_w100_softcap": (1, 500, 8, 4, True, 100, 2.0, torch.float16),
+    "bf16_gemma2_s2048": (1, 2048, 16, 8, True, 512, 50.0, torch.bfloat16),
+    "bf16_gemma2_q20_s2048": (1, 2048, 16, 8, True, 512, 50.0, torch.bfloat16, 20.0),
+}
+# Against the exact value (the plain version in fp64: no rounding of P, dS
+# or the output) a kernel row may be at most twice as far off as the plain
+# version's in the same dtype (chip_smoke.py's FLASH_EXACT_RATIO); rows
+# whose exact value cancels to ~0 are floored at 2^-10 of the RMS row.
+# Against the plain version itself, 2^-6 for every dtype: at head_dim 256
+# a dq row sums 256-wide products of dS rounded to fp16 over hundreds of
+# keys, and where it cancels the fp16 pair reads up to 4.8e-3 (2^-8 is
+# fp16's row tolerance at narrower widths).
+EXACT_RATIO, EXACT_FLOOR, D256_ROW_TOL = 2.0, 2.0 ** -10, 2.0 ** -6
+
+
+def _d256_inputs(case, device):
+    B, S, H, KV, causal, window, softcap, dtype, *q_scale = FLASH_D256[case]
+    rng = np.random.default_rng(300 + sorted(FLASH_D256).index(case))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to(device, dtype) for shape in (
+                       (B, S, H, 256), (B, S, KV, 256), (B, S, KV, 256), (B, S, H, 256)))
+    if q_scale:
+        q = (q.float() * q_scale[0]).to(dtype)
+    return (q, k, v, do), dict(causal=causal, window=window, softcap=softcap)
+
+
+def _rows_vs(x, ref, floor):
+    xf, rf = x.double().flatten(0, -2), ref.double().flatten(0, -2)
+    den = rf.norm(dim=-1)
+    den = den.clamp_min(floor * den.square().mean().sqrt())
+    return ((xf - rf).norm(dim=-1) / den).max().item()
+
+
+@pytest.mark.parametrize("layout", ["per_head", "folded"])
+@pytest.mark.parametrize("case", sorted(FLASH_D256))
+def test_flash_d256_kernels_match_plain(case, layout, cuda_device):
+    """K1/K2 and K3 at head_dim 256 against the plain versions on the same
+    inputs and against the exact value (tolerances above); each pass
+    launches once."""
+    (q, k, v, do), opts = _d256_inputs(case, cuda_device)
+    kernels = ((flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkdv)
+               if layout == "per_head" else
+               (ff.folded_attention_fwd, ff.folded_attention_bwd_dq,
+                ff.folded_attention_bwd_dkdv))
+    before = [f.launches for f in kernels]
+    o, lse = kernels[0](q, k, v, **opts)
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, **opts)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    delta = attention_delta(o_ref, do)
+    args = (q, k, v, do, lse_ref, delta)
+    dq = kernels[1](*args, **opts)
+    dk, dv = kernels[2](*args, **opts)
+    dq_ref, dk_ref, dv_ref = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do,
+                                                           **opts)
+    wide = [t.double() for t in (q, k, v, do, lse_ref, delta)]
+    o_x = flash_attention_fwd_reference(*wide[:3], **opts)[0]
+    scale = 256 ** -0.5
+    dq_x = flash_attention_bwd_dq_reference(*wide, opts["causal"], scale, opts["window"],
+                                            opts["softcap"])
+    dk_x, dv_x = flash_attention_bwd_dkdv_reference(*wide, opts["causal"], scale,
+                                                    opts["window"], opts["softcap"])
+    torch.cuda.synchronize()
+    for name, x, ref, exact in (("o", o, o_ref, o_x), ("dq", dq, dq_ref, dq_x),
+                                ("dk", dk, dk_ref, dk_x), ("dv", dv, dv_ref, dv_x)):
+        assert x.dtype == q.dtype and x.shape == ref.shape, name
+        assert _rows_vs(x, ref, ROW_FLOOR / D256_ROW_TOL) <= D256_ROW_TOL, name
+        if q.dtype != torch.float32:
+            assert _rows_vs(x, exact, EXACT_FLOOR) <= \
+                EXACT_RATIO * _rows_vs(ref, exact, EXACT_FLOOR), name
+        else:
+            assert _rows_vs(x, ref, ROW_FLOOR / ROW_TOL[q.dtype]) <= ROW_TOL[q.dtype], name
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
 
 
 def test_folded_refuses_what_the_kernel_does_not_take(cuda_device):
@@ -1011,7 +1111,7 @@ def alibi_rounding(q, cache, seen, cache_scales=None):
 
 def test_paged_attention_explicit_slopes_and_softcap(cuda_device):
     """Explicit [KV, G] slopes take the ALiBi instance with those slopes;
-    the softcap still raises."""
+    with a softcap too, the softcap instance caps before the bias."""
     (q, cache, layer, bt, seen, lens), ps, _ = _alibi_inputs("g3_small", torch.float32,
                                                              cuda_device)
     slopes = torch.linspace(0.05, 0.6, 6, device=cuda_device).reshape(2, 3)
@@ -1022,8 +1122,15 @@ def test_paged_attention_explicit_slopes_and_softcap(cuda_device):
     torch.testing.assert_close(out_k, out_r, atol=PAGED_TOL[torch.float32], rtol=0)
     with pytest.raises(ValueError, match="slopes"):
         paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, slopes=slopes[:1])
-    with pytest.raises(NotImplementedError, match="Gemma-2"):
-        paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, softcap=30.0)
+    before = paged_attention.softcap_launches
+    capped = paged_attention(q, cache, layer, bt, seen, lens, page_size=ps, slopes=slopes,
+                             softcap=2.0)
+    assert paged_attention.softcap_launches == before + 1
+    capped_r = paged_attention_reference(q, cache, layer, bt, seen, lens, page_size=ps,
+                                         slopes=slopes, softcap=2.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(capped, capped_r, atol=PAGED_TOL[torch.float32], rtol=0)
+    assert (capped_r - out_r).abs().max().item() > 0.05
 
 
 def test_bloom_engine_gpu_matches_cpu(cuda_device):
@@ -1225,3 +1332,98 @@ def test_splash_refuses_what_the_kernel_does_not_take(cuda_device):
     # the function's own checks, as the JAX package's
     with pytest.raises(ValueError, match="not divisible"):
         splash_sparse_attention(q[:, :, :100], k[:, :, :100], v[:, :, :100], layout, 16)
+
+
+# ---- Gemma-2: K4's softcap at head_dim 256, K5 with an fp32 scale ----
+
+# (seed, S, N, KV, G, D, page_size, B, seen, n_new, layer, window, softcap,
+# q scale): small G 2 cases (a cap of 2 bites on N(0, 1) scores), then
+# Gemma-2-9B's widths (H 16, KV 8, D 256, scale 256^-0.5, 64-token pages,
+# cap 50) with q scaled by 40 so that about half the scores pass cap / 2: a
+# decode step of 8 sequences (the page split) without and with the window
+# 4096, and a 768-row prefill chunk straddling the window's edge
+PAGED_SOFTCAP = {
+    "small_g2": (20, 4, 2, 2, 2, 32, 16, 4, [5, 0, 37, 0], [2, 1, 2, 0], 1, None, 2.0, 1.0),
+    "small_d256_window": (21, 3, 3, 2, 2, 256, 16, 8, [50, 0, 90], [1, 3, 2], 0, 40, 2.0,
+                          1.0),
+    "decode_gemma2": (22, 8, 1, 8, 2, 256, 64, 82,
+                      [127, 640, 1280, 2048, 3000, 4200, 4700, 5119], [1] * 8, 1, None, 50.0,
+                      40.0),
+    "decode_gemma2_window": (23, 8, 1, 8, 2, 256, 64, 82,
+                             [127, 640, 1280, 2048, 3000, 4200, 4700, 5119], [1] * 8, 1,
+                             4096, 50.0, 40.0),
+    "chunk_gemma2_window": (24, 1, 768, 8, 2, 256, 64, 70, [3700], [768], 0, 4096, 50.0,
+                            40.0),
+}
+# the largest row error against the plain version: fp32 summation order and
+# tanhf's last ulp (scores up to 50); bf16 one rounding of each output
+SOFTCAP_ROW_TOL = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -7}
+
+
+def _softcap_inputs(case, dtype, device):
+    """As _window_inputs: distinct pages, the entries below a window's
+    reach zeroed as the engine leaves them. The cache (1.4 GB of fp32 at
+    Gemma-2's widths) is drawn on the card."""
+    seed, S, N, KV, G, D, ps, B, seen, n_new, layer, window, cap, qs = PAGED_SOFTCAP[case]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_pages = S * B + 1
+    cache = torch.randn(2 * 2, n_pages * ps, KV * D, generator=gen, device=device).to(dtype)
+    q = (qs * torch.randn(S, N, KV * G, D, generator=gen, device=device)).to(dtype)
+    bt = (1 + rng.permutation(S * B)).reshape(S, B).astype(np.int32)
+    if window:
+        for i, s in enumerate(seen):
+            bt[i, :max(0, s - window + 1) // ps] = 0
+    seen = np.asarray(seen, np.int32)
+    lens = seen + np.asarray(n_new, np.int32)
+    meta = [torch.from_numpy(a).to(device) for a in (bt, seen, lens)]
+    return (q, cache, layer, *meta), dict(page_size=ps, window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_SOFTCAP))
+def test_paged_attention_softcap_kernel_matches_plain(case, dtype, int8, cuda_device):
+    """The softcap instance against the plain version row by row; it counts
+    in ``softcap_launches`` only, and the cap moves the output."""
+    (q, cache, layer, bt, seen, lens), kw = _softcap_inputs(case, dtype, cuda_device)
+    if int8:
+        cache, kw["cache_scales"] = int8_cache(cache, q.shape[-1])
+    counts = lambda: (paged_attention.launches, paged_attention.int8_launches,  # noqa: E731
+                      paged_attention.alibi_launches, paged_attention.softcap_launches)
+    before = counts()
+    out_k = paged_attention(q, cache, layer, bt, seen, lens, **kw)
+    assert counts() == before[:3] + (before[3] + 1, )
+    out_r = paged_attention_reference(q, cache, layer, bt, seen, lens, **kw)
+    uncapped = paged_attention_reference(q, cache, layer, bt, seen, lens,
+                                         **{**kw, "softcap": None})
+    torch.cuda.synchronize()
+    assert out_k.dtype == dtype and out_k.shape == q.shape
+    assert (out_r.float() - uncapped.float()).abs().max().item() > 0.05  # the cap bites
+    tol = SOFTCAP_ROW_TOL[dtype]
+    if int8:
+        control = paged_attention_reference(
+            q, staged_cache(cache, kw["cache_scales"], q.shape[-1]), layer, bt, seen, lens,
+            **{k: v for k, v in kw.items() if k != "cache_scales"})
+        assert rows_err(out_k, control) <= tol
+        assert rows_err(out_k, out_r) <= rows_err(control, out_r) + OUT_ROUNDING[dtype] + tol
+    else:
+        assert rows_err(out_k, out_r) <= tol
+
+
+@pytest.mark.parametrize("shape", [(8, 3584), (768, 3584), (37, 100), (3, 7), (2, 5, 256)])
+def test_rms_norm_fp32_scale_kernel_matches_plain(shape, cuda_device):
+    """A bf16 x with an fp32 weight (Gemma's 1 + w, deltas of ~1e-3 that a
+    bf16 weight would round away): the fp32-scale instance, counted in
+    ``fp32_scale_launches``, against the plain version."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device,
+                                                                        torch.bfloat16)
+    w = torch.from_numpy((1 + 1e-3 * rng.normal(size=shape[-1:])).astype(np.float32))
+    w = w.to(cuda_device)
+    before = (rms_norm.launches, rms_norm.fp32_scale_launches)
+    out_k = rms_norm(x, w, 1e-6)
+    assert (rms_norm.launches, rms_norm.fp32_scale_launches) == (before[0], before[1] + 1)
+    assert out_k.dtype == torch.bfloat16
+    torch.testing.assert_close(out_k.float(), rms_norm_reference(x, w, 1e-6).float(),
+                               **RMS_TOL[torch.bfloat16])

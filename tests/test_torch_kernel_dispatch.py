@@ -55,6 +55,12 @@ SCENARIOS = {
     "windowed": (dict(window=256), "TPU v5e", {}, [], {}),
     "softcapped": (dict(softcap=50.0), "TPU v5e", {}, [], {}),
     "mistral": (MISTRAL, "NVIDIA H100 80GB HBM3", {}, [], {}),
+    # Gemma-2-9B's training calls at head_dim 256 (no BLOCK_TABLE entry:
+    # both fall to DEFAULT_BLOCKS): the windowed and the global layers
+    "gemma2_d256_window": (dict(q_shape=(1, 8192, 16, 256), kv_heads=8, seq_k=8192,
+                                window=4096, softcap=50.0), "NVIDIA H100 80GB HBM3", {}, [], {}),
+    "gemma2_d256_global": (dict(q_shape=(1, 8192, 16, 256), kv_heads=8, seq_k=8192,
+                                softcap=50.0), "TPU v5e", {}, [], {}),
     "measured_fwd": ({}, "TPU v5e", {}, [("fwd", "TPU v5e", {
         "impl": "folded", "block_q": 512, "block_k": 1024, "ms": 33.3})], {}),
     "measured_other_kind": ({}, "TPU v4", {}, [("fwd", "TPU v5e", {

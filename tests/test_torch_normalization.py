@@ -57,6 +57,21 @@ def test_fp32_weight_on_bf16_rows():
                                np.asarray(out_j, np.float32), **TOL["bfloat16"])
 
 
+@pytest.mark.parametrize("shape", [(8, 3584), (3, 7)])
+def test_plus_one_scale_on_bf16_rows(shape):
+    """Gemma's serving norm: a bf16 x and the fp32 scale 1 + w, w ~1e-3
+    (deltas a bf16 scale would round away), against the JAX kernel."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=shape).astype(np.float32)
+    w = (1.0 + 1e-3 * rng.normal(size=shape[-1:])).astype(np.float32)
+    out_j = jax_rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), 1e-6,
+                         interpret=True)
+    out_t = rms_norm(torch.from_numpy(x).bfloat16(), torch.from_numpy(w), 1e-6)
+    assert out_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j, np.float32), **TOL["bfloat16"])
+
+
 def _ln_inputs(seed, shape, dtype, shift):
     """Rows of N(0, 1) plus ``shift`` on the first row: a large mean that
     E[x^2] - E[x]^2 would cancel, the centred variance keeps."""

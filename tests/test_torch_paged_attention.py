@@ -88,8 +88,8 @@ def test_unsupported_option_raises(option):
     q, cache, bt, seen, lens = _setup(rng, 2, 1, 2, 2, 16, 8, 8, 2, [3, 4], [1, 1])
     args = [torch.from_numpy(a) for a in (q, cache)]
     meta = [torch.from_numpy(a) for a in (bt, seen, lens)]
-    if "window" in option or "use_alibi" in option:
-        # ported: the JAX reference's window mask and ALiBi bias
+    if "window" in option or "use_alibi" in option or "softcap" in option:
+        # ported: the JAX reference's window mask, ALiBi bias and softcap
         out = paged_attention(*args, 0, *meta, page_size=8, **option)
         want = jax_paged_ref(*(jnp.asarray(a) for a in (q, cache)), 0,
                              *(jnp.asarray(a) for a in (bt, seen, lens)),
@@ -107,8 +107,7 @@ def test_unsupported_option_raises(option):
         with pytest.raises(ValueError):
             paged_attention(args[0], args[1], 0, *meta, page_size=8, **option)
         return
-    with pytest.raises(NotImplementedError):
-        paged_attention(args[0], args[1], 0, *meta, page_size=8, **option)
+    raise AssertionError(f"no case for {option}")
 
 
 # ---- int8 cache ----
@@ -253,3 +252,61 @@ def test_window_matches_jax(case, cache_type):
                            torch.from_numpy(lens), page_size=ps,
                            cache_scales=None if sc is None else torch.from_numpy(sc))
     assert np.abs(glob.numpy() - out_t).max() > 0.05  # the window masks keys
+
+
+# ---- softcap (Gemma-2) at head_dim 256 ----
+
+# (seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, layer, window): G 2
+# at D 256, mixed decode, prefill and padding rows, without and with a
+# window; the cap of 2 bites on N(0, 1) scores
+SOFTCAP_CASES = {
+    "d256_global": (30, 4, 3, 2, 2, 256, 8, 40, 8, [9, 0, 40, 0], [1, 3, 2, 0], 1, None),
+    "d256_window": (31, 3, 2, 2, 2, 256, 8, 40, 10, [60, 5, 33], [1, 2, 2], 0, 20),
+}
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", sorted(SOFTCAP_CASES))
+def test_softcap_d256_matches_jax(case, cache):
+    """The port's plain version with the softcap against the JAX reference
+    and the JAX kernel (interpret mode): fp32 within 2e-5 of both; bf16
+    one output rounding (2^-8 of |out| < 1) from the kernel; an int8 cache
+    as its other cases (the reference within INT8_REF_ATOL, the kernel row
+    by row within INT8_ROW_TOL)."""
+    seed, S, N, KV, G, D, ps, n_pages, B, seen, n_new, layer, window = SOFTCAP_CASES[case]
+    kw = dict(page_size=ps, window=window, softcap=2.0)
+    if cache == "int8":
+        q, codes, sc, bt, seen, lens = _int8_setup(seed, S, N, KV, G, D, ps, n_pages, B,
+                                                   seen, n_new)
+        jargs = (jnp.asarray(q), jnp.asarray(codes), layer, jnp.asarray(bt),
+                 jnp.asarray(seen), jnp.asarray(lens))
+        ref = np.asarray(jax_paged_ref(*jargs, cache_scales=jnp.asarray(sc), **kw))
+        kern = np.asarray(jax_paged(*jargs, interpret=True, cache_scales=jnp.asarray(sc),
+                                    **kw))
+        out = paged_attention(torch.from_numpy(q), torch.from_numpy(codes), layer,
+                              torch.from_numpy(bt), torch.from_numpy(seen),
+                              torch.from_numpy(lens), cache_scales=torch.from_numpy(sc),
+                              **kw).numpy()
+        np.testing.assert_allclose(out, ref, atol=INT8_REF_ATOL["float32"], rtol=0)
+        assert row_rel_err(out, kern) <= INT8_ROW_TOL
+        return
+    rng = np.random.default_rng(seed)
+    q, cache_np, bt, seen, lens = _setup(rng, S, N, KV, G, D, ps, n_pages, B, seen, n_new)
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[cache]
+    jargs = (jnp.asarray(q, jd), jnp.asarray(cache_np, jd), layer, jnp.asarray(bt),
+             jnp.asarray(seen), jnp.asarray(lens))
+    targs = (torch.from_numpy(q).to(td), torch.from_numpy(cache_np).to(td), layer,
+             torch.from_numpy(bt), torch.from_numpy(seen), torch.from_numpy(lens))
+    out = paged_attention(*targs, **kw)
+    kern = np.asarray(jax_paged(*jargs, interpret=True, **kw), np.float32)
+    assert out.dtype == td
+    if cache == "float32":
+        np.testing.assert_allclose(out.numpy(), np.asarray(jax_paged_ref(*jargs, **kw)),
+                                   atol=2e-5, rtol=0)
+        np.testing.assert_allclose(out.numpy(), kern, atol=2e-5, rtol=0)
+        uncapped = paged_attention(*targs, **{**kw, "softcap": None})
+        assert (uncapped - out).abs().max().item() > 1e-2  # the cap bites
+    else:
+        # the JAX kernel also rounds p to bf16 before P.V
+        np.testing.assert_allclose(out.float().numpy(), kern, atol=3e-2, rtol=0)

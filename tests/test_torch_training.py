@@ -349,11 +349,12 @@ def test_bf16_engine_keeps_fp32_masters_and_bf16_compute():
         assert torch.equal(p.detach(), m.to(torch.bfloat16)), name
 
 
-# sliding_window and attn_logit_softcapping train now (test_torch_mistral.py);
-# their places hold two Gemma-2 knobs that still raise
+# sliding_window and attn_logit_softcapping train now (test_torch_mistral.py),
+# and so do Gemma-2's final_logit_softcapping and sandwich_norm
+# (test_torch_gemma2.py); their places hold two knobs that still raise
 @pytest.mark.parametrize("option", [dict(remat=True), dict(scan_layers=True),
-                                    dict(final_logit_softcapping=30.0),
-                                    dict(sandwich_norm=True),
+                                    dict(qk_norm=True),
+                                    dict(post_norm=True),
                                     dict(num_local_experts=4),
                                     dict(pos_embedding="alibi"),
                                     dict(norm_type="layernorm")])

@@ -2,18 +2,22 @@
 """Where a decode step of the deepspeed_tpu_torch serving engine spends its
 time, on one CUDA GPU.
 
-    python3 torch_serving_profile.py [bf16] [int8] [starcoder2] [bloom]
+    python3 torch_serving_profile.py [bf16] [int8] [starcoder2] [bloom] [gemma2]
 
-For each variant named (all four by default), one after the other: the
+For each variant named (all five by default), one after the other: the
 bf16 Llama-3-8B engine, the int8 one (``quantize="int8",
 kv_cache_dtype="int8"``), StarCoder2-7B (``STARCODER2_7B`` through
-``policy_for("starcoder2").config_from_hf``, window 4096) and BLOOM-7B1
-(``BLOOM_7B1`` through ``policy_for("bloom").config_from_hf``: ALiBi, MHA).
-Each builds ``build_llama_engine`` with seeded random bf16 weights and 8
-GiB of 64-token KV blocks, prefills ``SEQS`` sequences (Llama: 128, 256,
-... tokens; StarCoder2: 5120, 4608, 2048, ... 128 tokens, most of them past
-the window; BLOOM: 2048, 1536, ... 128 tokens), then runs ``STEPS`` decode
-steps (one token per sequence per ``put``):
+``policy_for("starcoder2").config_from_hf``, window 4096), BLOOM-7B1
+(``BLOOM_7B1`` through ``policy_for("bloom").config_from_hf``: ALiBi, MHA)
+and Gemma-2-9B (``GEMMA2_9B`` through ``policy_for("gemma2")
+.config_from_hf``: 42 layers, head_dim 256, K4's softcap, the window on
+the even layers, K5's fp32-scale norms 4L+1 per step). Each builds
+``build_llama_engine`` with seeded random bf16 weights and 8 GiB of
+64-token KV blocks, prefills ``SEQS`` sequences (Llama: 128, 256, ...
+tokens; StarCoder2: 5120, 4608, 2048, ... 128 tokens, most of them past
+the window; BLOOM: 2048, 1536, ... 128 tokens; Gemma-2: 5120, 4864, 4352,
+... 128 tokens), then runs ``STEPS`` decode steps (one token per sequence
+per ``put``):
   - step time on the host clock, each step ending in a device sync;
   - a ``torch.profiler`` trace of a few steps: device time per kernel name,
     summed into groups (K4 paged attention, K5 RMSNorm, K5b LayerNorm, the
@@ -41,12 +45,16 @@ VARIANTS = {
     "starcoder2": ("starcoder2_7b", {}, [5120, 4608, 2048, 1024, 512, 256, 128, 128],
                    2048),
     "bloom": ("bloom_7b1", {}, [2048, 1536, 1024, 1024, 512, 256, 128, 128], 273),
+    "gemma2": ("gemma2_9b", {}, [5120, 4864, 4352, 3072, 2048, 1024, 512, 128], 390),
 }
 
 
 def model_config(name: str):
     from deepspeed_tpu_torch.models.llama import LlamaConfig
-    from deepspeed_tpu_torch.module_inject import BLOOM_7B1, STARCODER2_7B, policy_for
+    from deepspeed_tpu_torch.module_inject import (BLOOM_7B1, GEMMA2_9B, STARCODER2_7B,
+                                                   policy_for)
+    if name == "gemma2_9b":
+        return policy_for("gemma2").config_from_hf(GEMMA2_9B)
     if name == "starcoder2_7b":
         return policy_for("starcoder2").config_from_hf(STARCODER2_7B)
     if name == "bloom_7b1":
@@ -161,6 +169,7 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
         flush=True)
 
     # K4 alone at this decode batch, on the engine's own cache and tables
+    # (layer 5: global on Gemma-2, which windows the even layers)
     sm = engine._state_manager
     seqs = [sm.get_sequence(u) for u in uids]
     B = max(s.cur_allocated_blocks for s in seqs)
@@ -179,7 +188,8 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
 
     def k4():
         paged_attention(q, cache, 5, bt, seen, lens, page_size=64, window=window,
-                        cache_scales=scales, use_alibi=alibi)
+                        cache_scales=scales, use_alibi=alibi,
+                        softcap=cfg.attn_logit_softcapping)
 
     for _ in range(3):
         k4()
@@ -199,6 +209,7 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
     print(json.dumps({"part": "k4_decode", "variant": variant, "gpu": gpu,
                       "seqs": len(uids), "history": [int(x) for x in lens.tolist()],
                       "window": window, "alibi": alibi,
+                      "softcap": cfg.attn_logit_softcapping,
                       "ms": start.elapsed_time(end) / 50,
                       "bound_ms": kv_bytes / 3.35e12 * 1e3}), flush=True)
 
