@@ -10,8 +10,12 @@ Phases, each printing one JSON line:
   1. build          — compile the CUDA kernels from deepspeed_tpu_torch/csrc
                       with nvcc (sm_90a, one process per source) and load
                       them; report versions, the GPU, each source's
-                      seconds and ptxas's registers and spill bytes of
-                      the flash kernels' head-width-256 instances.
+                      seconds, ptxas's registers and spill bytes of the
+                      flash kernels' head-width-256 instances, and of each
+                      wgmma backward instance (K2's dq and dk/dv in bf16
+                      and fp16 at head widths 128 and 256) its registers,
+                      spills, dynamic shared memory and any ptxas warning
+                      that its products are serialized.
   2. kernels        — every kernel of both paths against its plain PyTorch
                       version at main-path shapes in bf16: the error
                       beside the stated tolerance (flash: row by row, with
@@ -32,8 +36,9 @@ Phases, each printing one JSON line:
                       saves) and with softcap 50 at the training shape;
                       K3 (the folded layout) at the training shape, the
                       Mistral shape and with the softcap (SDPA with a
-                      boolean mask is the window's library time; no
-                      library call computes the softcap). K7's bodies
+                      boolean mask is the window's library time;
+                      flex_attention with the cap as its score_mod the
+                      softcap's). K7's bodies
                       (AdamW, Adam with L2, Lion, LAMB's first pass) at
                       one Llama-3-8B layer's parameters (218,112,000) and
                       at a ragged
@@ -52,9 +57,9 @@ Phases, each printing one JSON line:
                       flex_attention with the cap as its score_mod the
                       library time, SDPA without the cap beside it; the
                       other D-256 instances (per-head fp32, folded fp16
-                      and fp32) at S 2048 under a 512 window, with no
-                      library time; K5's fp32-scale instance at [8, 3584]
-                      and [768, 3584].
+                      and fp32) at S 2048 under a 512 window, with
+                      flex_attention in their dtype the library time; K5's
+                      fp32-scale instance at [8, 3584] and [768, 3584].
   3. parity         — the tiny Llama config in fp32 through the whole serving
                       engine on the GPU (kernels) and on the CPU (plain
                       versions), same weights: logits must agree; then the
@@ -265,19 +270,44 @@ def phase_build() -> dict:
            "nvcc": nvcc.splitlines()[-1], "gpu": gpu_identity(),
            # ptxas's registers and spill bytes of the flash kernels'
            # head-width-256 instances
-           "d256_resource_usage": _build.resource_usage("Li256E")}
+           "d256_resource_usage": _build.resource_usage("Li256E"),
+           "wgmma_backward": wgmma_usage()}
     emit(rec)
     return rec
+
+
+def wgmma_usage() -> list:
+    """The wgmma backward instances (K2's dq and dk/dv, bf16 and fp16, head
+    widths 128 and 256, with and without the softcap): ptxas's registers
+    and spill bytes, the dynamic shared memory each launch asks for, and
+    ptxas's warnings that an instance's products are serialized."""
+    from deepspeed_tpu_torch.ops import _build
+    log = (_build.library_path().parent / _build.RESOURCE_LOG).read_text()
+    serialized = [line.strip() for line in log.splitlines() if "wgmma" in line
+                  and "serialized" in line]
+    out = []
+    for e in _build.resource_usage("wgmma"):
+        name = e["kernel"]
+        # demangled, or mangled where cu++filt is missing
+        dmax = 256 if "256" in name else 128
+        cap = int("(bool)1" in name or "Lb1E" in name)
+        dq = "dq_wgmma" in name
+        smem = _build.lib().dstt_flash_wgmma_smem(1 if dq else 2, dmax, cap)
+        out.append({**e, "dynamic_smem_bytes": smem,
+                    "serialized_warnings": [w for w in serialized
+                                            if ("dq_wgmma" if dq else "dkdv_wgmma") in w]})
+    return out
 
 
 def d256_usage(build: dict, wrapper: str, dtype: str) -> list:
     """ptxas's report for one flash pass at head width 256 (``wrapper``:
     e.g. ``flash_attention_bwd_dq``, ``folded_attention_fwd``) in ``dtype``,
     both softcap instances."""
-    kernel = {"fwd": "fwd_kernel", "bwd_dq": "dq_kernel",
-              "bwd_dkdv": "dkdv_kernel"}[wrapper.split("_attention_")[1]]
-    if wrapper.startswith("folded"):
-        kernel = "folded_" + kernel
+    part = wrapper.split("_attention_")[1]
+    # K3 launches K1/K2's kernels; bf16 and fp16 backward passes are wgmma's
+    kernel = {"fwd": "fwd_kernel", "bwd_dq": "dq_kernel", "bwd_dkdv": "dkdv_kernel"}[part]
+    if part != "fwd" and dtype != "float32":
+        kernel = kernel.replace("_kernel", "_wgmma_kernel")
     ctype = {"bfloat16": "__nv_bfloat16", "float16": "__half", "float32": "float"}[dtype]
     return [e for e in build["d256_resource_usage"]
             if f"::{kernel}<{ctype}," in e["kernel"]]
@@ -583,7 +613,7 @@ def visible_pairs(S: int, causal: bool, window=None) -> int:
 
 def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
                 window=None, softcap=None, layout: str = "per_head",
-                widths=(32, 8, 128), q_scale: float = 1.0, library: bool = True) -> dict:
+                widths=(32, 8, 128), q_scale: float = 1.0) -> dict:
     """K1 and both K2 passes (``layout="per_head"``) or K3's three passes
     (``"folded"``) at the training path's Llama-3-8B / Mistral-7B widths
     (H 32, KV 8, D 128) in bf16 (or ``dtype``, fp16 for fp16 training),
@@ -600,8 +630,7 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     (Gemma-2's ``widths``, H 16, KV 8) SDPA's causal time without the cap
     stands beside it too. With the softcap, q is drawn ``q_scale`` times
     wider and the record holds the share of scaled scores past cap / 2.
-    ``library=False`` times no library call (the head-width-256 instances
-    in fp16 and fp32 beside the bf16 cases that time flex_attention)."""
+    The library calls run in ``dtype``."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import attention as fa
@@ -672,16 +701,14 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
     # at head width 256, SDPA's causal attention without the cap as a
     # second yardstick
     sdpa_nocap = (sdpa_times(is_causal=causal, enable_gqa=True)
-                  if library and D > 128 and softcap is not None else None)
+                  if D > 128 and softcap is not None else None)
     free_memory()
     # SDPA, timed as the yardstick only: forward, and forward + backward
     # less the forward for the backward. A window goes in as a boolean
     # mask, over K/V repeated to the query heads (SDPA's masked kernels do
     # not take GQA); no SDPA call computes the softcap: flex_attention with
     # the softcap as its score_mod does
-    if not library:
-        lib_fwd = lib_bwd = None
-    elif softcap is not None:
+    if softcap is not None:
         def cap(score, b, h, q_idx, kv_idx):
             return softcap * torch.tanh(score / softcap)
 
@@ -738,8 +765,7 @@ def _flash_case(gen, name: str, B: int, S: int, causal: bool, dtype=None,
                      "window": window, "softcap": softcap, "q_scale": q_scale},
            "visible_pairs_per_head": pairs, "dtype": name_dtype, "lse_max_abs_err": lse_err,
            "row_tolerance": row_tol,
-           "library": (None if not library else
-                       "flex_attention (compiled, softcap score_mod)" if softcap else "SDPA")}
+           "library": "flex_attention (compiled, softcap score_mod)" if softcap else "SDPA"}
     if softcap is not None:
         rec["cap_bite_share"] = bite
     if sdpa_nocap is not None:
@@ -823,8 +849,20 @@ PAGED_TOLERANCE = (f"max abs <= {PAGED_TOL}; the largest row error ||kernel - pl
 FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:88"),
                  ("dq", "flash_attention_bwd_dq", "deepspeed_tpu/ops/attention.py:273"),
                  ("dkdv", "flash_attention_bwd_dkdv", "deepspeed_tpu/ops/attention.py:350"))
-FLASH_D256_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention_d256.cu"
-FOLDED_D256_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention_folded_d256.cu"
+
+
+def flash_source(layout: str, key: str, d256: bool = False, dtype: str = "bfloat16") -> str:
+    """The source that builds a flash pass's instance: K3's entry points
+    (which launch K1/K2's kernels), the wgmma backward's own source for
+    dq and dk/dv in bf16 and fp16, else K1/K2's (``_d256`` at 256)."""
+    width = "_d256" if d256 else ""
+    if layout == "folded":
+        return "deepspeed_tpu_torch/csrc/flash_attention_folded.cu"
+    if key != "fwd" and dtype != "float32":
+        return f"deepspeed_tpu_torch/csrc/flash_attention_{key}{width}.cu"
+    return f"deepspeed_tpu_torch/csrc/flash_attention{width}.cu"
+
+
 FOLDED_KERNELS = (
     ("fwd", "folded_attention_fwd", "deepspeed_tpu/ops/attention_folded.py:69"),
     ("dq", "folded_attention_bwd_dq", "deepspeed_tpu/ops/attention_folded.py:146"),
@@ -1258,8 +1296,8 @@ def phase_kernels() -> list:
     folded_d256 = [_flash_case(gen, "gemma2_window", 1, MISTRAL_S, True,
                                window=GEMMA2_WINDOW, layout="folded", **d256_kw)]
     # the other D-256 instances (per-head fp32; folded fp16 and fp32) at S
-    # 2048 under a 512 window, with no library time
-    other_kw = dict(window=512, library=False, **d256_kw)
+    # 2048 under a 512 window, flex_attention in their dtype beside them
+    other_kw = dict(window=512, **d256_kw)
     flash_d256_fp32 = [_flash_case(gen, "gemma2_float32_s2048", 1, 2048, True,
                                    torch.float32, **other_kw)]
     folded_d256_fp16, folded_d256_fp32 = (
@@ -1390,8 +1428,7 @@ def phase_kernels() -> list:
          **{k: ln[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "cases": ln},
     ] + [
-        {"name": name, "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+        {"name": name, "route": "cuda", "source": flash_source("per_head", key),
          "replaces": replaces, "launches": None,
          "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-6; "
                       "against the exact fp64 value at most 2x the plain version's",
@@ -1402,7 +1439,7 @@ def phase_kernels() -> list:
          "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in flash_cases]}
         for key, name, replaces in FLASH_KERNELS] + [
         {"name": name + "_fp16", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+         "source": flash_source("per_head", key, dtype="float16"),
          "replaces": replaces, "launches": None,
          "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-8; "
                       "against the exact fp64 value at most 2x the plain version's",
@@ -1412,8 +1449,7 @@ def phase_kernels() -> list:
                                                "library_ms")},
          "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in flash_fp16]}
         for key, name, replaces in FLASH_KERNELS] + [
-        {"name": name, "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/flash_attention_folded.cu",
+        {"name": name, "route": "cuda", "source": flash_source("folded", key),
          "replaces": replaces, "launches": None,
          "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= 2^-6; "
                       "against the exact fp64 value at most 2x the plain version's",
@@ -1423,7 +1459,8 @@ def phase_kernels() -> list:
                                                  "library_ms")},
          "cases": [{"case": c["case"], "shape": c["shape"], **c[key]} for c in folded_cases]}
         for key, name, replaces in FOLDED_KERNELS] + [
-        {"name": name + suffix, "route": "cuda", "source": source,
+        {"name": name + suffix, "route": "cuda",
+         "source": flash_source(layout, key, True, dtype),
          "replaces": replaces, "launches": None,
          "tolerance": "largest row error ||kernel - plain|| / ||plain|| <= "
                       + ("2^-14" if suffix.endswith("float32") else "2^-6")
@@ -1437,13 +1474,13 @@ def phase_kernels() -> list:
                     "cap_bite_share": c["cap_bite_share"],
                     "sdpa_causal_without_cap_ms": c.get("sdpa_causal_without_cap_ms"),
                     **c[key]} for c in cases]}
-        for suffix, source, cases, table in (
-            ("_d256", FLASH_D256_SOURCE, flash_d256, FLASH_KERNELS),
-            ("_d256_fp16", FLASH_D256_SOURCE, flash_d256_fp16, FLASH_KERNELS),
-            ("_d256_float32", FLASH_D256_SOURCE, flash_d256_fp32, FLASH_KERNELS),
-            ("_d256", FOLDED_D256_SOURCE, folded_d256, FOLDED_KERNELS),
-            ("_d256_float16", FOLDED_D256_SOURCE, folded_d256_fp16, FOLDED_KERNELS),
-            ("_d256_float32", FOLDED_D256_SOURCE, folded_d256_fp32, FOLDED_KERNELS))
+        for suffix, layout, dtype, cases, table in (
+            ("_d256", "per_head", "bfloat16", flash_d256, FLASH_KERNELS),
+            ("_d256_fp16", "per_head", "float16", flash_d256_fp16, FLASH_KERNELS),
+            ("_d256_float32", "per_head", "float32", flash_d256_fp32, FLASH_KERNELS),
+            ("_d256", "folded", "bfloat16", folded_d256, FOLDED_KERNELS),
+            ("_d256_float16", "folded", "float16", folded_d256_fp16, FOLDED_KERNELS),
+            ("_d256_float32", "folded", "float32", folded_d256_fp32, FOLDED_KERNELS))
         for key, name, replaces in table] + [
         {"name": name, "route": "cuda", "source": SPLASH_SOURCES[key],
          "replaces": replaces, "launches": None,
@@ -1602,12 +1639,9 @@ def _kernel_group(name: str) -> str:
     n = name.lower()
     if is_k7(n):  # launched through ctypes, so under no op of the range
         return "optimizer step"
-    if "folded_" in n:  # K3, dstt::flash::folded_*_kernel
-        return ("K3 folded fwd" if "fwd_kernel" in n else
-                "K3 folded dq" if "dq_kernel" in n else "K3 folded dk/dv")
-    if "flash" in n:
+    if "flash" in n:  # K3 launches these too
         return ("K1 flash fwd" if "fwd_kernel" in n else
-                "K2 flash dq" if "dq_kernel" in n else "K2 flash dk/dv")
+                "K2 flash dq" if "::dq_" in n else "K2 flash dk/dv")
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul")):
         return "matmul (layers)"
     return "other"

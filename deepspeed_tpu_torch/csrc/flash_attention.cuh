@@ -1,12 +1,12 @@
 // Flash attention for training: the forward (K1) and the two backward passes
-// (K2: dq, and dk/dv), on the tensor cores, per KV head (K1/K2) or with all
-// KV heads of a tile in one block (K3, the folded layout).
+// (K2: dq, and dk/dv). K3, the folded layout, launches the same kernels on
+// the same per-head grid (flash_attention_folded.cu).
 //
 // Replaces the TPU kernels deepspeed_tpu/ops/attention.py:88 _fwd_kernel
 // (launched by _flash_fwd :237), :273 _dq_kernel (launched at :457) and :350
 // _dkdv_kernel (launched at :473), and deepspeed_tpu/ops/attention_folded.py
 // :69 _fwd_kernel, :146 _dq_kernel and :215 _dkdv_kernel (flash_fwd_folded
-// :319, flash_bwd_folded :357 and :373). The same function, on another grid:
+// :319, flash_bwd_folded :357 and :373). The same function on both layouts:
 //   q [B, S, H, D], k/v [B, S, KV, D] (the folded [B, S, KV*D] is the same
 //   memory), H = KV*G; query head kv*G+g reads KV head kv (GQA, K/V never
 //   repeated).
@@ -23,62 +23,94 @@
 //   dq = dS k, dk = dS^T q and dv = P^T dO, both summed over the G query
 //   heads of each KV head.
 //
-// Numerics: bf16 or fp16 operands on mma.sync m16n8k16 with fp32
-// accumulation, the softmax and its statistics in fp32. P (forward and
-// dk/dv) and dS (dq and dk/dv) are rounded to the input dtype before their
-// products, as the Pallas kernel does. The fp16 instance (fp16 training
-// under loss scaling) is the bf16 one with the f16 form of the product:
-// ldmatrix moves 16-bit elements either way. An fp32 instantiation runs the
-// same tiles on the CUDA cores in fp32 (tests and fp32 parity runs; no
-// tensor-core product is fp32).
+// Numerics: 16-bit operands on the tensor cores with fp32 accumulation, the
+// softmax and its statistics in fp32. P (forward and dk/dv) and dS (dq and
+// dk/dv) are rounded to the input dtype before their products, as the
+// Pallas kernel does; dS is formed from the fp32 P. fp16 (fp16 training
+// under loss scaling) is bf16's body with the f16 form of each product. An
+// fp32 instantiation runs the mma.sync bodies' tiles on the CUDA cores in
+// fp32 (tests and fp32 parity runs; no main path runs it).
 //
-// Bound on the H100: operations. At Llama-3-8B width (D 128, G 4) a key row
-// is reused by 64 query rows of a block, so a block does ~64 flops per byte
-// of K/V it reads: the forward is 4*D flops per visible (query, key) pair
-// and head, the backward 14*D (68.8 and 241 GFLOP at B 2, S 2048, H 32,
-// causal; 0.070 and 0.243 ms at 989 TFLOP/s). A window cuts the visible
-// pairs (Mistral at S 8192, window 4096: 25.2M of 33.6M per head). What the
-// design does:
-// - The TPU's GQA fold stays: a block owns 64 folded query rows of one
-//   (batch, KV head), rows ordered query-major (row f is position f/G, head
-//   f%G), so every G query heads that share a KV head meet each staged K/V
-//   tile once, and any G works. Four warps own 16 rows each.
-// - The TPU's sequential kv grid axis becomes a loop inside the block over
-//   64-key tiles staged in shared memory, with the online softmax (m, l,
-//   fp32 accumulator) in registers. Tiles wholly above the causal diagonal
-//   or wholly older than the window are never staged or visited; only edge
-//   tiles (diagonal, window edge, ragged end) build masks.
-// - dq: one block per (64 folded rows, KV head, batch) sweeping the K/V
-//   tiles, P rebuilt from lse. dk/dv: one block per (64 keys, KV head,
-//   batch) sweeping 32-row tiles of folded query rows between the first row
-//   that sees its keys (causal) and the last (window), which runs over the
-//   G heads too: that sum is the GQA reduction of _dkdv_kernel :388-400,
-//   done without atomics, so dk and dv are deterministic.
-// - K3, the folded layout: one block per (64 folded rows, batch), or (64
-//   keys, batch) for dk/dv, covering every KV head of its tile, as the
-//   folded Pallas grid (B, num_q, num_kv) does. A folded [64, KV*D] K tile
-//   and its V tile (256 KB at KV 8, D 128 in bf16) exceed the 227 KB of
-//   shared memory, so the block streams the KV heads through it: it runs
-//   the per-head body for KV head 0, 1, ... in turn on the same buffers.
-//   Rows are read in the natural [B, S, H, D] layout with the same strided
-//   pattern as K1, so neither layout transposes anything. The forward and
-//   dq blocks take the query tiles last-first, so under causal the longest
-//   blocks start first and the short ones fill the tail.
-// - Fragments come from shared memory by ldmatrix (the transposing form for
-//   an operand held [k][n]: V, dO, K and Q on the right of a product), rows
-//   padded by 16 bytes so each 8-row phase meets 32 different banks.
-// - The swept tiles are double-buffered with cp.async: the next tile's copy
-//   is in flight while the current one is used.
-// - Head width 256 (Gemma-2): a warp's 16 x 256 fp32 accumulator is 128
-//   registers a thread, so the forward and dq sweep 32-key tiles (their
-//   score fragments halve), and a dk/dv block owns 128 of the 256 columns
-//   of dk and dv (two blocks per 64 keys, each recomputing the full-width
-//   S^T and dP^T: 1.5x the dk/dv products), since dk and dv of 16 keys at
-//   256 columns would be 256 registers, past the 255 a thread has. The fp32
-//   instance at 256 also takes 16-key tiles and 16-row dk/dv steps so its
-//   staged tiles fit the 227 KB of shared memory (Tiles below).
-// Later versions: more rows per warp, P kept in registers, then TMA and
-// wgmma; K3 could prefetch the next KV head's first tile across heads.
+// Bound on the H100: operations. At Llama-3-8B width (D 128, G 4) the
+// forward is 4*D flops per visible (query, key) pair and head, the backward
+// 14*D (68.8 and 241 GFLOP at B 2, S 2048, H 32, causal; 0.070 and 0.243 ms
+// at 989 TFLOP/s). A window cuts the visible pairs (Mistral at S 8192,
+// window 4096: 25.2M of 33.6M per head). The TPU's GQA fold stays in every
+// body: a block's folded query rows are ordered query-major (row f is
+// position f/G, head f%G), so the G query heads that share a KV head meet
+// each staged K/V tile once, and any G works. Tiles wholly above the causal
+// diagonal or wholly older than the window are never staged or visited;
+// only edge tiles (diagonal, window edge, ragged end) build masks. K/V (or
+// Q/dO) tiles are double-buffered: the next tile's copy is in flight while
+// the current one is used.
+//
+// The backward in bf16 and fp16 at head widths 65..256 (dq_wgmma_kernel,
+// dkdv_wgmma_kernel) is built on Hopper's warpgroup products (wgmma.cuh).
+// What held the mma.sync bodies back: one m16n8k16 warp product at a time,
+// each warp reloading its whole B operand from shared memory; P and dS
+// written to shared memory and read back as the next product's A operand;
+// 32-row dk/dv steps with a barrier each; and at head width 256 two dk/dv
+// blocks per 64 keys, each recomputing the full-width S^T and dP^T (1.5x
+// the products). What the design does:
+// - Every product is a wgmma.m64nNk16 of one warpgroup (128 threads)
+//   reading its operands through shared-memory descriptors: Q, dO, K and V
+//   are staged once, [rows][D] in the 128-byte swizzle, and serve as K-major
+//   operands (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T) and, by
+//   the transposed-B form, as MN-major ones (dq += dS K, dv += P^T dO,
+//   dk += dS^T Q). A score accumulator rounded to 16 bits is the A operand
+//   of the next product as it lies in registers (wgmma.cuh): P^T and dS
+//   never go through shared memory as operands.
+// - dk/dv: one block per (64 keys, KV head, batch), two warpgroups with
+//   one role each: warpgroup 0 computes S^T = K Q^T, P^T and dv += P^T dO;
+//   warpgroup 1 computes dP^T = V dO^T, dS^T and dk += dS^T Q. Each owns one
+//   accumulator of all DMAX columns (64 or 128 registers a thread), so at
+//   head width 256 one block owns its keys' 256 columns and S^T and dP^T
+//   are computed once. dS^T needs P^T: warpgroup 0 passes its fp32 P^T
+//   (and, under the softcap, 1 - t^2) through shared memory, each thread
+//   the elements that the same thread of warpgroup 1 holds of dP^T. K and V
+//   stay in shared memory for the whole sweep; Q, dO, lse and delta come in
+//   64-row steps over the folded rows that see the keys (from the first
+//   under causal to the last under a window), which runs over the G heads
+//   too: that sum is the GQA reduction of _dkdv_kernel :388-400, done
+//   without atomics, so dk and dv are deterministic. Two barriers a step.
+// - dq: one block per (128 folded query rows, KV head, batch), a
+//   warpgroup per 64 rows, each with its own S, dP, dS (registers) and dq
+//   accumulator, sweeping the K/V tiles (64 keys; 32 at head width 256,
+//   where dq alone is 128 registers a thread). The row tiles run
+//   last-first, so under causal the longest blocks start first and the
+//   short ones fill the tail.
+// - dP's drift at head width 256: the tensor cores add each product into
+//   the accumulator after aligning it to the largest magnitude among them,
+//   cutting the bits below; with a large accumulator that drops ~2^-23 |C|
+//   per product, all in one direction. dS = P (dP - delta) subtracts two
+//   nearly equal numbers where a row's softmax is nearly one key, and the
+//   cut bits of a 256-deep dP took dq's error to 2.5x the plain version's
+//   at head width 256 with scores of ~N(0, 20^2) under the softcap. So dq
+//   sums dP there from fresh 16-deep products added in fp32 (two in flight
+//   at a time); no case at head width 128 or below shows the drift.
+// - One block an SM (up to 231 KB of shared memory at head width 256 under
+//   the softcap, up to 255 registers a thread); the two warpgroups' products
+//   overlap each other on the SM's tensor cores.
+// - Around the products, a step's own instructions set its time (clock64
+//   probes and the SASS on the H100): each score's exp sat in a branch of
+//   its own (a short-circuit mask test, tanhf's internal paths), and a load
+//   of lse could not pass the previous score's store of P^T (the compiler
+//   cannot rule out aliasing), so the 32 scores of a thread ran one after
+//   the other; and each 16-byte copy found its row with three integer
+//   divisions in a loop. So masks are built without branches
+//   and only on edge tiles, tanh has a branch-free form (tanh_nb), every
+//   read of a step comes before its first write, a row's offset is found
+//   once for the two tensors staged with it by a multiply-and-shift
+//   division (FastDiv), and the next tile's copies are issued behind the
+//   step's first products. That took K2's backward at the 8B training shape
+//   from 2.11 to 0.85 ms on the H100 (PERF.md, section 6).
+// The mma.sync bodies (fwd_block, dq_block, dkdv_block) stay for the
+// forward at every width, and for the backward in fp32 and at head width
+// <= 64 (fp32 parity runs and small models; no main path of the smoke
+// runs them).
+// Later versions: TMA for the staged tiles from a producer warp under
+// mbarriers, the next step's S^T issued before this step's dk/dv products
+// complete, and the forward on wgmma.
 #pragma once
 
 #include <math.h>
@@ -86,6 +118,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace dstt {
 namespace flash {
@@ -98,10 +131,15 @@ constexpr int kBwdRows = 32;        // folded query rows per step of the dk/dv s
 constexpr int kPad = 8;             // elements of padding per shared-memory row
 constexpr float kLseMasked = 1e30f;  // attention.py LSE_MASKED
 
-// the tiles of a (T, DMAX) instance: keys per K/V tile of the forward and
-// dq sweeps, folded query rows per step of the dk/dv sweep, and the
-// columns of dk and dv one dk/dv block owns (kColSplits blocks per 64
-// keys). The widths <= 128 keep 64, 32 and every column.
+// the tiles of a (T, DMAX) instance of the mma.sync bodies: keys per K/V
+// tile of the forward and dq sweeps, folded query rows per step of the dk/dv
+// sweep, and the columns of dk and dv one dk/dv block owns (kColSplits
+// blocks per 64 keys). At head width 256 a warp's 16 x 256 fp32 accumulator
+// is 128 registers a thread, so the forward sweeps 32-key tiles; the fp32
+// instance takes 16-key tiles and 16-row dk/dv steps so its staged tiles
+// fit the 227 KB of shared memory, and its dk/dv blocks own 128 columns
+// each (dk and dv of 16 keys at 256 columns would be 256 registers). The
+// widths <= 128 keep 64, 32 and every column.
 template <typename T, int DMAX>
 struct Tiles {
   static constexpr bool kWide = DMAX > 128;
@@ -228,19 +266,7 @@ __device__ __forceinline__ void mma_16bit(float (&c)[4], const uint32_t (&a)[4],
 // fragments of two 8-column tiles are one more: for Bt, rows n..n+15 at
 // columns k and k+8; for B[k][n], the transposing load of rows k..k+15 at
 // columns n and n+8.
-//
-// kStepSums: each 16-deep step's product goes to a fresh fragment that is
-// then added to C in rounded fp32. The tensor cores add products into the
-// accumulator after aligning them to the largest magnitude among them and
-// C, cutting the bits below; with a large C that drops ~2^-23 |C| per
-// product, all in one direction. dq's dP = dO V^T needs the fresh sums:
-// dS = P (dP - delta) subtracts two nearly equal numbers where a row's
-// softmax is nearly one key, and the cut bits of a 256-deep dP took dq's
-// error to 2.5x the plain version's at head width 256 with scores of
-// ~N(0, 20^2) under the softcap. The fresh sums cost dq ~10% of its time,
-// and no case at head width 128 or below shows the drift, so dq takes
-// them at head width 256 only.
-template <typename T, bool kNT, int K, bool kStepSums = false, int N8>
+template <typename T, bool kNT, int K, int N8>
 __device__ __forceinline__ void warp_gemm(float (&c)[N8][4], const T* A, int lda,
                                           const T* B, int ldb, int lane) {
   if constexpr (std::is_same<T, float>::value) {
@@ -273,19 +299,8 @@ __device__ __forceinline__ void warp_gemm(float (&c)[N8][4], const T* A, int lda
           ldmatrix_x4<false>(b, B + (n * 8 + r8 + hi) * ldb + k0 + mid);
         else
           ldmatrix_x4<true>(b, B + (k0 + r8 + mid) * ldb + n * 8 + hi);
-        if constexpr (kStepSums) {
-          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_16bit<T>(t0, a, b[0], b[1]);
-          mma_16bit<T>(t1, a, b[2], b[3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            c[n][e] += t0[e];
-            c[n + 1][e] += t1[e];
-          }
-        } else {
-          mma_16bit<T>(c[n], a, b[0], b[1]);
-          mma_16bit<T>(c[n + 1], a, b[2], b[3]);
-        }
+        mma_16bit<T>(c[n], a, b[0], b[1]);
+        mma_16bit<T>(c[n + 1], a, b[2], b[3]);
       }
     }
   }
@@ -566,7 +581,7 @@ __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
     zero(s);
     zero(dp);
     warp_gemm<T, true, DMAX>(s, Qw, LD, Ks, LD, lane);
-    warp_gemm<T, true, DMAX, (DMAX > 128)>(dp, Ow, LD, Vs, LD, lane);  // see warp_gemm
+    warp_gemm<T, true, DMAX>(dp, Ow, LD, Vs, LD, lane);
     const bool edge = edge_tile<KT>(a, k0, p_first, p_last);
 #pragma unroll
     for (int n = 0; n < KT / 8; ++n) {
@@ -720,8 +735,8 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int c0, int kv
   store_rows<T>(reinterpret_cast<T*>(a.out2), dv, kr, one, D, lane, c0);
 }
 
-// bytes of shared memory per block; at D 256: bf16/fp16 106,496 (fwd),
-// 140,288 (dq), 140,800 (dk/dv); fp32 141,312, 208,896 and 209,152
+// bytes of shared memory per block of the mma.sync bodies; at D 256: bf16
+// and fp16 106,496 (fwd); fp32 141,312, 208,896 (dq) and 209,152 (dk/dv)
 template <typename T, int DMAX>
 constexpr size_t fwd_smem() {  // Q, two K/V buffers, P
   constexpr int KT = Tiles<T, DMAX>::kKeyTile;
@@ -744,9 +759,8 @@ constexpr size_t dkdv_smem() {  // K, V, two Q/dO buffers, P^T/dS^T, two lse/del
 enum Pass { kFwd, kDq, kDkdv };
 using Kernel = void (*)(Args);
 
-// The two layouts' kernels. K1/K2 (flash_attention.cu): one block per (64
-// folded query rows, KV head, batch), or per (64 keys, column split, KV
-// head, batch) for dk/dv.
+// The mma.sync kernels: one block per (64 folded query rows, KV head,
+// batch), or per (64 keys, column split, KV head, batch) for dk/dv.
 template <typename T, int DMAX, bool kCap>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -768,120 +782,515 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a) {
                             smem);
 }
 
-// K3 (flash_attention_folded.cu): one block per (64 folded query rows,
-// batch), or (64 keys, column split, batch) for dk/dv, walking every KV
-// head through the same buffers. The query tiles run last-first: under
-// causal the longest blocks start first and the short ones fill the tail.
-template <typename T, int DMAX, bool kCap>
-__global__ void __launch_bounds__(kThreads) folded_fwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * kRows;
-  for (int kv = 0; kv < a.KV; ++kv) {
-    fwd_block<T, DMAX, kCap>(a, f0, kv, blockIdx.y, smem);
-    __syncthreads();  // the next head restages Q and K/V in the same buffers
-  }
-}
+// ---- the backward on wgmma (bf16 and fp16, head widths 65..256) ----
 
-template <typename T, int DMAX, bool kCap>
-__global__ void __launch_bounds__(kThreads) folded_dq_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * kRows;
-  for (int kv = 0; kv < a.KV; ++kv) {
-    dq_block<T, DMAX, kCap>(a, f0, kv, blockIdx.y, smem);
-    __syncthreads();
-  }
-}
+constexpr int kWgThreads = 256;  // two warpgroups
+constexpr int kWgRows = 128;     // folded query rows of a dq block, 64 a warpgroup
+constexpr int kWgKeys = 64;      // keys of a dk/dv block
+constexpr int kWgRowStep = 64;   // folded query rows per step of the dk/dv sweep
 
-// under causal the first key tiles have the most rows to sweep: natural order
-template <typename T, int DMAX, bool kCap>
-__global__ void __launch_bounds__(kThreads) folded_dkdv_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  using Ti = Tiles<T, DMAX>;
-  for (int kv = 0; kv < a.KV; ++kv) {
-    dkdv_block<T, DMAX, kCap>(a, (blockIdx.x / Ti::kColSplits) * kKeys,
-                              (blockIdx.x % Ti::kColSplits) * Ti::kCols, kv, blockIdx.y, smem);
-    __syncthreads();
-  }
-}
-
-// Layout::kernel<T, DMAX, kCap>(pass) and Layout::grid(pass, a, splits)
-// name the kernels of one layout and their grids (splits: dk/dv blocks per
-// 64 keys). Layout::run_d256 launches the head-width-256 instances, which
-// are compiled in sources of their own (flash_attention_d256.cu,
-// flash_attention_folded_d256.cu), so the build runs them in parallel with
-// the narrower ones.
-struct PerHead {
-  template <typename T, int DMAX, bool kCap>
-  static Kernel kernel(Pass pass) {
-    if (pass == kFwd) return &fwd_kernel<T, DMAX, kCap>;
-    if (pass == kDq) return &dq_kernel<T, DMAX, kCap>;
-    return &dkdv_kernel<T, DMAX, kCap>;
-  }
-  static dim3 grid(Pass pass, const Args& a, int splits) {
-    if (pass == kDkdv) return dim3((a.S + kKeys - 1) / kKeys * splits, a.KV, a.B);
-    return dim3((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.KV, a.B);
-  }
-  static int run_d256(Pass pass, const Args& a, int dtype, cudaStream_t stream);
+// keys per K/V tile of the dq sweep
+template <int DMAX>
+struct WgKeyTile {
+  static constexpr int kKeys = DMAX > 128 ? 32 : 64;
 };
 
-struct Folded {
-  template <typename T, int DMAX, bool kCap>
-  static Kernel kernel(Pass pass) {
-    if (pass == kFwd) return &folded_fwd_kernel<T, DMAX, kCap>;
-    if (pass == kDq) return &folded_dq_kernel<T, DMAX, kCap>;
-    return &folded_dkdv_kernel<T, DMAX, kCap>;
+template <typename T, int DMAX>
+constexpr size_t dq_wgmma_smem() {  // Q, dO, two K/V stages; 1 KB to align
+  return (size_t)(2 * kWgRows + 4 * WgKeyTile<DMAX>::kKeys) * DMAX * sizeof(T) + 1024;
+}
+
+// K, V, two Q/dO stages, P^T (and 1 - t^2) from warpgroup 0, two lse/delta
+// stages; 1 KB to align. At D 256 under the softcap: 231,424 bytes
+template <typename T, int DMAX, bool kCap>
+constexpr size_t dkdv_wgmma_smem() {
+  return (size_t)(2 * kWgKeys + 4 * kWgRowStep) * DMAX * sizeof(T) +
+         (kCap ? 2 : 1) * (kWgRowStep / 2) * 128 * sizeof(float) +
+         4 * kWgRowStep * sizeof(float) + 1024;
+}
+
+// the dynamic shared memory from its first 1024-byte boundary (swizzled
+// tiles start on one)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift, the divisor's magic
+// number found once (the folded row f is position f / G, head f % G; a
+// division on the CUDA cores is some twenty dependent instructions)
+struct FastDiv {
+  uint32_t d, m, s;
+  __device__ __forceinline__ explicit FastDiv(uint32_t div) : d(div), s(0) {
+    while ((1u << s) < div) ++s;
+    m = (uint32_t)(((((uint64_t)1 << 32) * (((uint64_t)1 << s) - div)) / div) + 1);
   }
-  static dim3 grid(Pass pass, const Args& a, int splits) {
-    if (pass == kDkdv) return dim3((a.S + kKeys - 1) / kKeys * splits, a.B);
-    return dim3((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.B);
+  __device__ __forceinline__ uint32_t operator()(uint32_t n) const {
+    return (__umulhi(n, m) + n) >> s;
   }
-  static int run_d256(Pass pass, const Args& a, int dtype, cudaStream_t stream);
 };
 
-template <class Layout, typename T, int DMAX, bool kCap>
+// q_row with the fast division: element row of folded row f of (b, kv)
+__device__ __forceinline__ long long q_row_fd(const Args& a, const FastDiv& G, int b, int kv,
+                                              int f) {
+  const int pos = (int)G(f);
+  return ((long long)b * a.S + pos) * a.H + kv * (int)G.d + (f - pos * (int)G.d);
+}
+
+// masked_pair without branches: the wgmma bodies test every score of an
+// edge tile, and a branch around each score's exp serializes them
+__device__ __forceinline__ bool masked_nb(const Args& a, int pos, int key) {
+  return (key >= a.S) | ((a.causal != 0) & (key > pos)) |
+         ((a.window > 0) & (pos - key >= a.window));
+}
+
+// tanh as sign(y) (1 - 2 / (e^2|y| + 1)), the reciprocal refined by one
+// Newton step: within 1.5e-7 of the exact value (tanhf: 6e-8; under a cap
+// of 50 that moves a score by 7e-6, P by as much relative), and without
+// tanhf's branches, which serialized the scores' chains. An odd polynomial
+// for small |y| took the error to 1.1e-7 but slowed the softcap passes
+// markedly.
+__device__ __forceinline__ float tanh_nb(float y) {
+  const float d = __expf(2.f * fminf(fabsf(y), 15.f)) + 1.f;  // tanh(15) rounds to 1
+  float r = __fdividef(1.f, d);
+  r = fmaf(r, fmaf(-d, r, 1.f), r);
+  return copysignf(1.f - 2.f * r, y);
+}
+
+// capped() for the wgmma bodies: tanh_nb, and x / softcap refined from the
+// reciprocal's product by one step (within an ulp of the division)
+template <bool kCap>
+__device__ __forceinline__ float capped_nb(const Args& a, float qk, float& t) {
+  float x = qk * a.scale;
+  t = 0.f;
+  if constexpr (kCap) {
+    const float inv = __fdividef(1.f, a.softcap);
+    const float y0 = x * inv;
+    t = tanh_nb(fmaf(fmaf(-y0, a.softcap, x), inv, y0));
+    x = a.softcap * t;
+  }
+  return x;
+}
+
+// Start staging R rows of two tensors with the same rows into swizzled tiles
+// (wgmma.cuh): row r is src[row(r) * D : +D] where row(r) >= 0, zeros
+// otherwise, and the columns D..DMAX are zero. A thread copies one 16-byte
+// column chunk of R * DMAX / 8 / 256 rows of each, finding each row once;
+// the caller commits and waits.
+template <typename T, int DMAX, int R, typename RowFn>
+__device__ __forceinline__ void load_pair(T* dst0, const T* src0, T* dst1, const T* src1,
+                                          int D, RowFn row) {
+  constexpr int kChunks = DMAX / 8, kStride = kWgThreads / kChunks;
+  static_assert(R % kStride == 0, "rows a multiple of the threads' row stride");
+  const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+#pragma unroll
+  for (int j = 0; j < R / kStride; ++j) {
+    const int r = r0 + j * kStride;
+    const long long g = row(r);
+    const bool valid = g >= 0 && c * 8 < D;
+    const long long off = valid ? g * D + c * 8 : 0;
+    const int at = wgmma::swizzled<R>(r, c * 8);
+    cp_async<16>(dst0 + at, src0 + off, valid);
+    cp_async<16>(dst1 + at, src1 + off, valid);
+  }
+}
+
+// store a warpgroup's [64 x 8 R / 4] fp32 accumulator as T: the rows
+// lane / 4 + 8 i of this warp go to element rows rows[i] (none where < 0),
+// columns < D
+template <typename T, int R>
+__device__ __forceinline__ void store_acc(T* out, const float (&d)[R], const long long rows[2],
+                                          int D, int lane) {
+#pragma unroll
+  for (int n = 0; n < R / 4; ++n) {
+    const int col = 8 * n + 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rows[i] >= 0 && col < D)  // D % 8 == 0: col + 1 too
+        store2(out + rows[i] * D + col, d[4 * n + 2 * i], d[4 * n + 2 * i + 1]);
+  }
+}
+
+// dq of 128 folded query rows of (batch, KV head): a warpgroup per 64 rows
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kWgThreads, 1) dq_wgmma_kernel(Args a) {
+  constexpr int KT = WgKeyTile<DMAX>::kKeys, BM = kWgRows;
+  constexpr int R = KT / 2;  // score registers a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(align_1024(smem_raw));
+  T* Os = Qs + BM * DMAX;    // dO
+  T* KVs = Os + BM * DMAX;   // two stages of [K tile, V tile]
+
+  const FastDiv G(a.H / a.KV);
+  const int rows = a.S * (int)G.d, D = a.D;
+  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * BM, kv = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const T* k = reinterpret_cast<const T*>(a.k);
+  const T* v = reinterpret_cast<const T*>(a.v);
+  auto load_kv = [&](int t, int stage) {  // K/V tile t into `stage`
+    const int k0 = t * KT;
+    T* Kb = KVs + stage * 2 * KT * DMAX;
+    load_pair<T, DMAX, KT>(Kb, k, Kb + KT * DMAX, v, D, [&](int r) {
+      return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL;
+    });
+  };
+
+  int pos[2];
+  long long qr[2];
+  float lse[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int f = f0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * i;
+    pos[i] = (int)G(f);
+    qr[i] = f < rows ? q_row_fd(a, G, b, kv, f) : -1LL;
+    lse[i] = qr[i] >= 0 ? a.lse[qr[i]] : kLseMasked;  // masked rows: P = 0
+    dl[i] = qr[i] >= 0 ? a.delta[qr[i]] : 0.f;
+  }
+  int t_begin, t_end;  // the block's key tiles
+  key_tiles<KT>(a, (int)G(f0), (int)G(min(f0 + BM, rows) - 1), t_begin, t_end);
+  // this warpgroup's positions: a tile that its rows cannot see is an edge
+  // tile for it, wholly masked (skipping it would make the products'
+  // path divergent, which serializes them)
+  const int wf0 = f0 + 64 * wg;
+  const int wp_first = (int)G(wf0), wp_last = (int)G(min(wf0 + 64, rows) - 1);
+
+  load_pair<T, DMAX, BM>(Qs, reinterpret_cast<const T*>(a.q), Os,
+                         reinterpret_cast<const T*>(a.dout), D, [&](int r) {
+                           return f0 + r < rows ? q_row_fd(a, G, b, kv, f0 + r) : -1LL;
+                         });
+  load_kv(t_begin, 0);
+  cp_async_commit();
+
+  const uint32_t qa = smem_addr(Qs), oa = smem_addr(Os);
+  float dq[DMAX / 2];
+  wgmma::zero(dq);
+  for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+    cp_async_wait<0>();
+    wgmma::fence_proxy();
+    __syncthreads();  // tile t (and Q, dO) visible to every warp; the other stage free
+    const int k0 = t * KT;
+    const uint32_t ka = smem_addr(KVs + (it & 1) * 2 * KT * DMAX);
+    const uint32_t va = ka + KT * DMAX * sizeof(T);
+    // S = Q K^T (and at D <= 128 dP = dO V^T), in flight during the copy
+    float s[R], dp[R];
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma::mma_ss<T>(s, wgmma::desc_k<BM>(qa, 64 * wg, kk), wgmma::desc_k<KT>(ka, 0, kk),
+                       kk > 0);
+    if constexpr (DMAX <= 128) {
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk)
+        wgmma::mma_ss<T>(dp, wgmma::desc_k<BM>(oa, 64 * wg, kk), wgmma::desc_k<KT>(va, 0, kk),
+                         kk > 0);
+    }
+    wgmma::commit();
+    if (t + 1 < t_end) {  // the next tile's copy runs while this one is used
+      load_kv(t + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    if constexpr (DMAX > 128) {
+      // dP = dO V^T from fresh 16-deep products added in fp32, two in flight
+      // at a time (the note)
+      wgmma::zero(dp);
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; kk += 2) {
+        float t0[R], t1[R];
+        wgmma::fence();
+        wgmma::mma_ss<T>(t0, wgmma::desc_k<BM>(oa, 64 * wg, kk),
+                         wgmma::desc_k<KT>(va, 0, kk), 0);
+        wgmma::mma_ss<T>(t1, wgmma::desc_k<BM>(oa, 64 * wg, kk + 1),
+                         wgmma::desc_k<KT>(va, 0, kk + 1), 0);
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::hold(t0);
+        wgmma::hold(t1);
+#pragma unroll
+        for (int i = 0; i < R; ++i) dp[i] = (dp[i] + t0[i]) + t1[i];
+      }
+    } else {
+      wgmma::wait<0>();
+      wgmma::hold(dp);
+    }
+    wgmma::hold(s);
+    // dS in place of S; masks on edge tiles only
+    auto ds_at = [&](int i, bool masked) {
+      const int r = (i >> 1) & 1;
+      float tc;
+      const float x = capped_nb<kCap>(a, s[i], tc);
+      const float p = expf(masked ? -INFINITY : x - lse[r]);
+      s[i] = p * (dp[i] - dl[r]) * a.scale * (1.f - tc * tc);
+    };
+    if (edge_tile<KT>(a, k0, wp_first, wp_last)) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        ds_at(i, masked_nb(a, pos[(i >> 1) & 1], k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)));
+    } else {
+#pragma unroll
+      for (int i = 0; i < R; ++i) ds_at(i, false);
+    }
+    uint32_t ds[R / 8][4];
+    wgmma::to_a<T>(ds, s);
+    wgmma::fence();
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)  // dq += dS K
+      wgmma::mma_rs<T>(dq, ds[j], wgmma::desc_mn<KT>(ka, j));
+    wgmma::commit();
+    wgmma::wait<0>();  // K read before its stage is refilled
+    wgmma::hold(dq);
+    wgmma::hold(ds);
+  }
+  store_acc<T>(reinterpret_cast<T*>(a.out), dq, qr, D, lane);
+}
+
+// dk and dv of 64 keys of (batch, KV head): warpgroup 0 owns dv, 1 owns dk
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kWgThreads, 1) dkdv_wgmma_kernel(Args a) {
+  constexpr int BN = kWgKeys, BR = kWgRowStep;
+  constexpr int R = BR / 2;  // score registers a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(align_1024(smem_raw));
+  T* Vs = Ks + BN * DMAX;
+  T* QOs = Vs + BN * DMAX;  // two stages of [Q tile, dO tile]
+  // P^T from warpgroup 0 to 1, [R / 4][128] float4s (thread t's elements
+  // i..i+3 at i / 4 * 128 + t), then under the softcap 1 - t^2 the same way
+  float* Px = reinterpret_cast<float*>(QOs + 4 * BR * DMAX);
+  float* LDs = Px + (kCap ? 2 : 1) * R * 128;  // two stages of [lse, delta]
+
+  const FastDiv G(a.H / a.KV);
+  const int rows = a.S * (int)G.d, D = a.D;
+  const int k0 = blockIdx.x * BN, kv = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const T* q = reinterpret_cast<const T*>(a.q);
+  const T* dout = reinterpret_cast<const T*>(a.dout);
+
+  // the row tile at f0 into `stage`: Q, dO, and lse/delta (zeros for rows
+  // past the end, which the mask below drops)
+  auto load_rows = [&](int f0, int stage) {
+    auto q_tile_row = [&](int r) {
+      return f0 + r < rows ? q_row_fd(a, G, b, kv, f0 + r) : -1LL;
+    };
+    T* Qb = QOs + stage * 2 * BR * DMAX;
+    load_pair<T, DMAX, BR>(Qb, q, Qb + BR * DMAX, dout, D, q_tile_row);
+    if (threadIdx.x < BR) {
+      const long long r = q_tile_row(threadIdx.x);
+      float* Lb = LDs + stage * 2 * BR;
+      cp_async<4>(Lb + threadIdx.x, r >= 0 ? a.lse + r : a.lse, r >= 0);
+      cp_async<4>(Lb + BR + threadIdx.x, r >= 0 ? a.delta + r : a.delta, r >= 0);
+    }
+  };
+
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = k0 + 16 * warp + (lane >> 2) + 8 * i;
+  // under causal, folded rows before position k0 see none of these keys;
+  // under a window, rows at or past position k0 + BN - 1 + window see none
+  // either
+  const int f_begin = a.causal ? (int)((long long)k0 * G.d / BR) * BR : 0;
+  const int f_end =
+      a.window > 0 ? (int)min((long long)rows, ((long long)k0 + BN - 1 + a.window) * G.d)
+                   : rows;
+
+  load_pair<T, DMAX, BN>(Ks, reinterpret_cast<const T*>(a.k), Vs,
+                         reinterpret_cast<const T*>(a.v), D, [&](int r) {
+                           return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL;
+                         });
+  if (f_begin < f_end) load_rows(f_begin, 0);
+  cp_async_commit();
+
+  const uint32_t lhs = smem_addr(wg == 0 ? Ks : Vs);  // S^T = K Q^T; dP^T = V dO^T
+  float acc[DMAX / 2];                                 // warpgroup 0: dv; 1: dk
+  wgmma::zero(acc);
+  for (int f0 = f_begin, it = 0; f0 < f_end; f0 += BR, ++it) {
+    cp_async_wait<0>();
+    wgmma::fence_proxy();
+    __syncthreads();  // this row tile (and K, V) visible to every warp; the other stage free
+    const uint32_t qa = smem_addr(QOs + (it & 1) * 2 * BR * DMAX);
+    const uint32_t oa = qa + BR * DMAX * sizeof(T);
+    const float* Ls = LDs + (it & 1) * 2 * BR;
+    const float* Dl = Ls + BR;
+
+    // rows: this warpgroup's 64 keys; columns: the tile's BR folded rows
+    float s[R];
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma::mma_ss<T>(s, wgmma::desc_k<BN>(lhs, 0, kk),
+                       wgmma::desc_k<BR>(wg == 0 ? qa : oa, 0, kk), kk > 0);
+    wgmma::commit();
+    if (f0 + BR < f_end) {  // the next row tile's copy runs meanwhile
+      load_rows(f0 + BR, (it + 1) & 1);
+      cp_async_commit();
+    }
+    // this thread's R / 2 columns: 8 (j / 2) + 2 (lane % 4) + j % 2, which
+    // holds its elements 4 (j / 2) + j % 2 + {0, 2}
+    auto col_of = [&](int j) { return 8 * (j >> 1) + 2 * (lane & 3) + (j & 1); };
+    float cv[R / 2];  // warpgroup 0: lse; 1: delta, of each column
+#pragma unroll
+    for (int j = 0; j < R / 2; ++j) cv[j] = wg == 0 ? Ls[col_of(j)] : Dl[col_of(j)];
+    wgmma::wait<0>();
+    wgmma::hold(s);
+    if (wg == 0) {  // P^T, kept in s and passed on; masks on edge tiles only
+      float dc[R];
+      auto p_at = [&](int i, bool masked) {
+        float tc;
+        const float x = capped_nb<kCap>(a, s[i], tc);
+        const int j = ((i >> 2) << 1) | (i & 1);
+        s[i] = expf(masked ? -INFINITY : x - cv[j]);
+        dc[i] = 1.f - tc * tc;
+      };
+      const int p_last = (int)G(min(f0 + BR, rows) - 1);
+      if ((a.causal && k0 + BN - 1 > (int)G(f0)) || k0 + BN > a.S || f0 + BR > rows ||
+          (a.window > 0 && p_last - k0 >= a.window)) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int f = f0 + col_of(((i >> 2) << 1) | (i & 1));
+          p_at(i, (f >= rows) | masked_nb(a, (int)G(f), key[(i >> 1) & 1]));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i) p_at(i, false);
+      }
+      float4* P4 = reinterpret_cast<float4*>(Px);
+#pragma unroll
+      for (int i = 0; i < R; i += 4) {
+        P4[(i >> 2) * 128 + t] = make_float4(s[i], s[i + 1], s[i + 2], s[i + 3]);
+        if constexpr (kCap)
+          P4[(R / 4 + (i >> 2)) * 128 + t] = make_float4(dc[i], dc[i + 1], dc[i + 2], dc[i + 3]);
+      }
+    }
+    __syncthreads();  // P^T visible to warpgroup 1
+    if (wg == 1) {  // dS^T in place of dP^T
+      const float4* P4 = reinterpret_cast<const float4*>(Px);
+#pragma unroll
+      for (int i = 0; i < R; i += 4) {
+        const float4 p = P4[(i >> 2) * 128 + t];
+        float4 dc = make_float4(1.f, 1.f, 1.f, 1.f);
+        if constexpr (kCap) dc = P4[(R / 4 + (i >> 2)) * 128 + t];
+        const int j = (i >> 2) << 1;  // elements i, i + 1, i + 2, i + 3: columns j, j + 1, j, j + 1
+        s[i] = p.x * (s[i] - cv[j]) * a.scale * dc.x;
+        s[i + 1] = p.y * (s[i + 1] - cv[j + 1]) * a.scale * dc.y;
+        s[i + 2] = p.z * (s[i + 2] - cv[j]) * a.scale * dc.z;
+        s[i + 3] = p.w * (s[i + 3] - cv[j + 1]) * a.scale * dc.w;
+      }
+    }
+    uint32_t pa[R / 8][4];
+    wgmma::to_a<T>(pa, s);
+    wgmma::fence();
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)  // dv += P^T dO; dk += dS^T Q
+      wgmma::mma_rs<T>(acc, pa[j], wgmma::desc_mn<BR>(wg == 0 ? oa : qa, j));
+    wgmma::commit();
+    wgmma::wait<0>();  // Q and dO read before their stage is refilled
+    wgmma::hold(acc);
+    wgmma::hold(pa);
+  }
+  cp_async_wait<0>();  // K and V, where no row sees the keys
+
+  long long kr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kr[i] = key[i] < a.S ? kv_row(a, b, kv, key[i]) : -1LL;
+  store_acc<T>(reinterpret_cast<T*>(wg == 0 ? a.out2 : a.out), acc, kr, D, lane);
+}
+
+template <Pass P, typename T, int DMAX, bool kCap>
+cudaError_t launch_wgmma_cap(const Args& a, cudaStream_t stream) {
+  Kernel kern;
+  size_t smem;
+  dim3 grid;
+  if constexpr (P == kDq) {
+    kern = &dq_wgmma_kernel<T, DMAX, kCap>;
+    smem = dq_wgmma_smem<T, DMAX>();
+    grid = dim3((a.S * (a.H / a.KV) + kWgRows - 1) / kWgRows, a.KV, a.B);
+  } else {
+    kern = &dkdv_wgmma_kernel<T, DMAX, kCap>;
+    smem = dkdv_wgmma_smem<T, DMAX, kCap>();
+    grid = dim3((a.S + kWgKeys - 1) / kWgKeys, a.KV, a.B);
+  }
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kWgThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// one wgmma pass at one head width, by dtype and softcap; each (pass,
+// width) is compiled in a source of its own (flash_attention_dq.cu,
+// flash_attention_dkdv.cu, and their _d256 forms), so the build runs them
+// in parallel
+template <Pass P, int DMAX>
+int run_wgmma(const Args& a, int dtype, cudaStream_t s) {
+  const bool cap = a.softcap > 0.f;
+  switch (dtype) {
+    case kBFloat16:
+      return (int)(cap ? launch_wgmma_cap<P, __nv_bfloat16, DMAX, true>(a, s)
+                       : launch_wgmma_cap<P, __nv_bfloat16, DMAX, false>(a, s));
+    case kFloat16:
+      return (int)(cap ? launch_wgmma_cap<P, __half, DMAX, true>(a, s)
+                       : launch_wgmma_cap<P, __half, DMAX, false>(a, s));
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int run_dq_wgmma_128(const Args& a, int dtype, cudaStream_t s);
+int run_dkdv_wgmma_128(const Args& a, int dtype, cudaStream_t s);
+int run_dq_wgmma_256(const Args& a, int dtype, cudaStream_t s);
+int run_dkdv_wgmma_256(const Args& a, int dtype, cudaStream_t s);
+
+// the mma.sync bodies run every forward, and the backward in fp32 and at
+// head width <= 64
+template <typename T, int DMAX>
+constexpr bool kMmaBackward = std::is_same<T, float>::value || DMAX <= 64;
+
+template <typename T, int DMAX, bool kCap>
 cudaError_t launch_cap(Pass pass, const Args& a, cudaStream_t stream) {
-  const Kernel kern = Layout::template kernel<T, DMAX, kCap>(pass);
-  const size_t smem = pass == kFwd  ? fwd_smem<T, DMAX>()
-                      : pass == kDq ? dq_smem<T, DMAX>()
-                                    : dkdv_smem<T, DMAX>();
+  Kernel kern = &fwd_kernel<T, DMAX, kCap>;
+  size_t smem = fwd_smem<T, DMAX>();
+  dim3 grid((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.KV, a.B);
+  if (pass != kFwd) {
+    if constexpr (!kMmaBackward<T, DMAX>) {
+      return cudaErrorInvalidValue;  // the wgmma passes (run)
+    } else if (pass == kDq) {
+      kern = &dq_kernel<T, DMAX, kCap>;
+      smem = dq_smem<T, DMAX>();
+    } else {
+      kern = &dkdv_kernel<T, DMAX, kCap>;
+      smem = dkdv_smem<T, DMAX>();
+      grid = dim3((a.S + kKeys - 1) / kKeys * Tiles<T, DMAX>::kColSplits, a.KV, a.B);
+    }
+  }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<Layout::grid(pass, a, Tiles<T, DMAX>::kColSplits), kThreads, smem, stream>>>(a);
+  kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <class Layout, typename T, int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch(Pass pass, const Args& a, cudaStream_t stream) {
-  return a.softcap > 0.f ? launch_cap<Layout, T, DMAX, true>(pass, a, stream)
-                         : launch_cap<Layout, T, DMAX, false>(pass, a, stream);
+  return a.softcap > 0.f ? launch_cap<T, DMAX, true>(pass, a, stream)
+                         : launch_cap<T, DMAX, false>(pass, a, stream);
 }
 
-// the instances of one head width DMAX, by dtype
-template <class Layout, int DMAX>
+// the mma.sync instances of one head width DMAX, by dtype
+template <int DMAX>
 int run_width(Pass pass, const Args& a, int dtype, cudaStream_t s) {
   switch (dtype) {
-    case kFloat32: return (int)launch<Layout, float, DMAX>(pass, a, s);
-    case kBFloat16: return (int)launch<Layout, __nv_bfloat16, DMAX>(pass, a, s);
-    case kFloat16: return (int)launch<Layout, __half, DMAX>(pass, a, s);
+    case kFloat32: return (int)launch<float, DMAX>(pass, a, s);
+    case kBFloat16: return (int)launch<__nv_bfloat16, DMAX>(pass, a, s);
+    case kFloat16: return (int)launch<__half, DMAX>(pass, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <class Layout>
-int run(Pass pass, const Args& a, int dtype, void* stream) {
-  const bool shape_ok = a.B > 0 && a.B <= 65535 && a.S > 0 && a.KV > 0 && a.KV <= 65535 &&
-                        a.H % a.KV == 0 && a.D > 0 && a.D <= 256 && a.D % 8 == 0 &&
-                        (long long)a.S * (a.H / a.KV) < (1LL << 31) && a.window >= 0 &&
-                        a.softcap >= 0.f;
-  if (!shape_ok) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (a.D <= 64) return run_width<Layout, 64>(pass, a, dtype, s);
-  if (a.D <= 128) return run_width<Layout, 128>(pass, a, dtype, s);
-  return Layout::run_d256(pass, a, dtype, s);
-}
+// the head-width-256 mma.sync instances, compiled in flash_attention_d256.cu
+int run_d256(Pass pass, const Args& a, int dtype, cudaStream_t stream);
+
+// one pass of either layout (flash_attention.cu): checks the shape, then
+// launches the wgmma backward (bf16, fp16 at head widths 65..256) or a
+// mma.sync kernel
+int run(Pass pass, const Args& a, int dtype, void* stream);
 
 // the entry points' arguments, shared by both layouts
 inline Args make_args(const void* q, const void* k, const void* v, const void* dout,

@@ -36,7 +36,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C signatures (see csrc/*.cu); all return int (a cudaError_t)
+# C signatures (see csrc/*.cu); all return int (a cudaError_t, but for
+# dstt_flash_wgmma_smem)
 _SIGNATURES = {
     # x, w, out, rows, d, eps, dtype, weight dtype, stream
     "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _I, _P),
@@ -85,6 +86,9 @@ _SIGNATURES = {
     # D, layout heads, table width, block, scale, dtype, stream
     "dstt_splash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _F, _I, _P),
+    # pass (1 dq, 2 dk/dv), head width, softcap: returns the bytes of
+    # dynamic shared memory of that wgmma backward instance
+    "dstt_flash_wgmma_smem": (_I, _I, _I),
     # p, g, m, v, n, lr, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
     # weight decay, mode, p dtype, g dtype, stream
     "dstt_adam_step": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F,

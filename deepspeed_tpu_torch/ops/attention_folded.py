@@ -4,9 +4,12 @@
 ``flash_fwd_folded :309`` and ``flash_bwd_folded :345``).
 
 The same function as K1/K2 (``ops/attention.py``), in the folded layout:
-q/o/dO stay ``[B, S, H, D]``, the kernels read k/v ``[B, S, KV, D]`` as
-the folded ``[B, S, KV*D]`` (the same memory), and one block covers
-every KV head of its tile (``csrc/flash_attention_folded.cu``). Causal,
+q/o/dO stay ``[B, S, H, D]`` and the kernels read k/v ``[B, S, KV, D]`` as
+the folded ``[B, S, KV*D]`` (the same memory). K3's entry points
+(``csrc/flash_attention_folded.cu``) launch K1/K2's kernels on their
+per-head grid: the Pallas kernel folds the KV heads into one grid step to
+spread a TPU grid step's fixed cost, which the H100 does not have, so K3's
+outputs equal K1/K2's bit for bit. Causal,
 window and softcap masks as K1/K2. ``lse`` comes out ``[B, S, H]`` fp32 with K1's
 ``LSE_MASKED`` (+1e30) for a row that sees no key, where the folded Pallas
 kernel writes -1e30 (``attention_folded.py:41``): both backwards zero P
@@ -19,8 +22,8 @@ tensor (``*_reference``, K1/K2's: K3 computes their function) and
 launches its kernel for a CUDA tensor or raises; each counts its launches
 in ``.launches``. ``flash_fwd_folded`` and ``flash_bwd_folded`` keep the
 JAX signatures without ``interpret``; their ``block_q``/``block_k`` are
-accepted for that signature only and ignored, since the kernels run one
-64 x 64 tile. Unlike the Pallas kernel the sequence need not divide the
+accepted for that signature only and ignored, since the kernels choose
+their own tiles. Unlike the Pallas kernel the sequence need not divide the
 blocks: the kernels mask the ragged last tile.
 """
 

@@ -33,8 +33,8 @@ Blocks follow the same order: explicit > ``DS_TPU_FLASH_BLOCKS`` >
 measured > per-head_dim defaults. ``BLOCK_TABLE`` and ``_heuristic_impl``
 are the JAX package's rules, measured on a TPU v5e; they are kept as they
 are so that the port decides as the JAX package does for the same inputs
-on ``cpu`` and on the JAX package's TPU kinds. The CUDA kernels run one
-64 x 64 tile, so a Decision's blocks are recorded (cache entries,
+on ``cpu`` and on the JAX package's TPU kinds. The CUDA kernels choose
+their own tiles, so a Decision's blocks are recorded (cache entries,
 ``describe``) and do not change which kernel runs.
 
 On a card's kind (any kind but ``cpu`` and the TPU kinds) the heuristic

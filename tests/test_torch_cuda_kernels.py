@@ -587,12 +587,12 @@ def test_flash_options_kernels_match_plain(case, layout, cuda_device):
 
 
 def test_folded_equals_per_head_kernels(cuda_device):
-    """K3 runs K1/K2's body per KV head: the same bits on the same inputs."""
+    """K3 launches K1/K2's kernels: the same bits on the same inputs."""
     _folded_equals_per_head("w64_softcap_s333", cuda_device)
 
 
 def test_folded_equals_per_head_kernels_d256(cuda_device):
-    """As above at head_dim 256, whose dk/dv blocks own half the columns."""
+    """As above at head_dim 256 (the wgmma backward's 256-wide instances)."""
     _folded_equals_per_head("bf16_d256_w100_softcap", cuda_device)
 
 
@@ -763,6 +763,78 @@ def test_flash_d256_kernels_match_plain(case, layout, cuda_device):
         else:
             assert _rows_vs(x, ref, ROW_FLOOR / ROW_TOL[q.dtype]) <= ROW_TOL[q.dtype], name
     assert [f.launches for f in kernels] == [b + 1 for b in before]
+
+
+# ---- K2's backward on wgmma (bf16, fp16; head widths 65..256), K3 = K2 ----
+
+# (B, S, H, KV, D, causal, window, softcap, dtype) about the tiles' edges:
+# S 1 (every row sees one key), S 63 and 65 about the 64-key dk/dv block
+# and dq key tile, S 33 one past the 32-key dq tile at head width 256, S 129
+# one past the 128-row dq block at G 1, and S 1000; G 1, 2, 4 and 9; D 64
+# (the mma.sync body), 80 and 192 (columns padded inside the 128- and
+# 256-wide instances), 128 and 256; windows that cut a tile, with and
+# without the causal mask; the softcap; fp16
+WGMMA_BWD = {
+    "s1_g1_d128": (1, 1, 1, 1, 128, True, None, None, torch.bfloat16),
+    "s1_g4_d256_softcap": (2, 1, 8, 2, 256, True, None, 5.0, torch.bfloat16),
+    "s33_g2_d256_fp16": (1, 33, 4, 2, 256, True, None, None, torch.float16),
+    "s63_g2_d128_full": (2, 63, 4, 2, 128, False, None, None, torch.bfloat16),
+    "s65_g1_d128_fp16": (1, 65, 2, 2, 128, True, None, None, torch.float16),
+    "s65_g9_d128_w48": (1, 65, 18, 2, 128, True, 48, None, torch.bfloat16),
+    "s129_g1_d256": (1, 129, 2, 2, 256, True, None, None, torch.bfloat16),
+    "s200_g1_d256_full": (1, 200, 3, 3, 256, False, None, None, torch.bfloat16),
+    "s300_g4_d80_w100_full_softcap": (2, 300, 8, 2, 80, False, 100, 3.0, torch.bfloat16),
+    "s500_g2_d192_softcap_fp16": (1, 500, 4, 2, 192, True, None, 2.0, torch.float16),
+    "s1000_g2_d64_w70": (1, 1000, 4, 2, 64, True, 70, None, torch.bfloat16),
+    "s1000_g4_d128_w100_softcap": (1, 1000, 16, 4, 128, True, 100, 5.0, torch.bfloat16),
+    "s1000_g9_d256_w300_softcap_fp16": (1, 1000, 18, 2, 256, True, 300, 5.0, torch.float16),
+}
+
+
+def _wgmma_inputs(case, device):
+    B, S, H, KV, D, causal, window, softcap, dtype = WGMMA_BWD[case]
+    rng = np.random.default_rng(400 + sorted(WGMMA_BWD).index(case))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to(device, dtype) for shape in (
+                       (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    return (q, k, v, do), dict(causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("case", sorted(WGMMA_BWD))
+def test_wgmma_backward_edges_bits_and_layouts(case, cuda_device):
+    """dq, dk and dv against the plain versions on the same inputs (ROW_TOL,
+    or D256_ROW_TOL past head width 128), equal bit for bit over two
+    launches and between K2 and K3; at S 1000 also against the exact value
+    (EXACT_RATIO). At S 1 every row sees one key, P is 1 and dS = dP -
+    delta is 0 in exact arithmetic: dq and dk are held to 1e-3 instead."""
+    (q, k, v, do), opts = _wgmma_inputs(case, cuda_device)
+    D, dtype = q.shape[-1], q.dtype
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, **opts)
+    delta = attention_delta(o_ref, do)
+    args = (q, k, v, do, lse_ref, delta)
+    runs = [(flash_attention_bwd_dq(*args, **opts), *flash_attention_bwd_dkdv(*args, **opts))
+            for _ in range(2)]
+    folded = (ff.folded_attention_bwd_dq(*args, **opts),
+              *ff.folded_attention_bwd_dkdv(*args, **opts))
+    refs = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, **opts)
+    wide = [t.double() for t in (q, k, v, do, lse_ref, delta)]
+    rest = (opts["causal"], D ** -0.5, opts["window"], opts["softcap"])
+    exact = (flash_attention_bwd_dq_reference(*wide, *rest),
+             *flash_attention_bwd_dkdv_reference(*wide, *rest))
+    torch.cuda.synchronize()
+    tol = D256_ROW_TOL if D > 128 else ROW_TOL[dtype]
+    for i, name in enumerate(("dq", "dk", "dv")):
+        x = runs[0][i]
+        assert x.dtype == dtype and x.shape == refs[i].shape, name
+        assert torch.equal(x, runs[1][i]), f"{name}: two launches differ"
+        assert torch.equal(x, folded[i]), f"{name}: K3 differs from K2"
+        if q.shape[1] == 1 and name != "dv":
+            assert x.float().abs().max().item() <= 1e-3, name
+            continue
+        assert _rows_vs(x, refs[i], ROW_FLOOR / tol) <= tol, name
+        if q.shape[1] == 1000:
+            assert _rows_vs(x, exact[i], EXACT_FLOOR) <= \
+                EXACT_RATIO * _rows_vs(refs[i], exact[i], EXACT_FLOOR), name
 
 
 def test_folded_refuses_what_the_kernel_does_not_take(cuda_device):
