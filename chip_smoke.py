@@ -12,10 +12,11 @@ Phases, each printing one JSON line:
                       them; report versions, the GPU, each source's
                       seconds, ptxas's registers and spill bytes of the
                       flash kernels' head-width-256 instances, and of each
-                      wgmma backward instance (K2's dq and dk/dv in bf16
-                      and fp16 at head widths 128 and 256) its registers,
-                      spills, dynamic shared memory and any ptxas warning
-                      that its products are serialized.
+                      wgmma instance (K1's forward and K2's dq and dk/dv in
+                      bf16 and fp16 at head widths 128 and 256; K4's
+                      multi-row tiles over a bf16 and an int8 cache) its
+                      registers, spills, dynamic shared memory and any
+                      ptxas warning that its products are serialized.
   2. kernels        — every kernel of both paths against its plain PyTorch
                       version at main-path shapes in bf16: the error
                       beside the stated tolerance (flash: row by row, with
@@ -27,7 +28,14 @@ Phases, each printing one JSON line:
                       device's and not the wrapper's host cost. K6 and the
                       dequantize helper must equal their plain versions bit
                       for bit; K4 is held row by row against one bf16
-                      rounding of the exact fp32 output on the same inputs.
+                      rounding of the exact fp32 output on the same inputs,
+                      and each K4 case records which kernel ran it (the
+                      multi-row wgmma tiles from 64 folded rows N * G per
+                      sequence and KV head, else the CUDA-core kernel),
+                      checked against that rule; beside the admission
+                      wave, a 100-token chunk next to a padding sequence
+                      and a decode row, and phase 7's 768-token chunk deep
+                      in an int8 cache.
                       K5b and K4 with StarCoder2's sliding window (freed
                       table entries included) at that model's widths.
                       K1/K2's fp16 instance at the training shape, row by
@@ -118,7 +126,9 @@ Phases, each printing one JSON line:
                       layers, seeded random bf16 weights, 1024 KV blocks of
                       64 tokens), greedy generate on 8 prompts of 128..1024
                       tokens with 32 new tokens each; checks outputs, finite
-                      logits, kernel launch counts per forward, and
+                      logits, kernel launch counts per forward (K4's wgmma
+                      tiles L times in every prefill forward and never in
+                      decode, in this and every serving phase below), and
                       prefill-vs-decode consistency.
   7. serving_int8   — the same weights, prompts and KV byte budget through
                       build_llama_engine(quantize="int8",
@@ -168,7 +178,8 @@ serving phases) runs with the launch counts of
 its kernels set to 0 just before and read just after. Every phase resolves
 the attention route against an empty cache directory made under build/
 (DS_TPU_ATTN_CACHE_DIR), and each training phase prints its decisions
-(kernel_dispatch.describe) and checks that both legs run kernels. Then
+(kernel_dispatch.describe) and checks that both legs run kernels and that
+a profiled step's K1 time is the wgmma forward's. Then
 each phase's seconds, a ``{"kernels": [...]}`` line, the GPU's name and power limit, and, as the
 last line, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that line. Without a
 CUDA device it exits 2 and prints no result.
@@ -271,16 +282,18 @@ def phase_build() -> dict:
            # ptxas's registers and spill bytes of the flash kernels'
            # head-width-256 instances
            "d256_resource_usage": _build.resource_usage("Li256E"),
-           "wgmma_backward": wgmma_usage()}
+           "wgmma_kernels": wgmma_usage()}
     emit(rec)
     return rec
 
 
 def wgmma_usage() -> list:
-    """The wgmma backward instances (K2's dq and dk/dv, bf16 and fp16, head
-    widths 128 and 256, with and without the softcap): ptxas's registers
-    and spill bytes, the dynamic shared memory each launch asks for, and
-    ptxas's warnings that an instance's products are serialized."""
+    """The wgmma instances (K1's forward, K2's dq and dk/dv, bf16 and fp16,
+    head widths 128 and 256, with and without the softcap; K4's multi-row
+    tiles over a bf16 and an int8 cache, with and without ALiBi and the
+    softcap): ptxas's registers and spill bytes, the dynamic shared memory
+    each launch asks for, and ptxas's warnings that an instance's products
+    are serialized."""
     from deepspeed_tpu_torch.ops import _build
     log = (_build.library_path().parent / _build.RESOURCE_LOG).read_text()
     serialized = [line.strip() for line in log.splitlines() if "wgmma" in line
@@ -290,12 +303,17 @@ def wgmma_usage() -> list:
         name = e["kernel"]
         # demangled, or mangled where cu++filt is missing
         dmax = 256 if "256" in name else 128
-        cap = int("(bool)1" in name or "Lb1E" in name)
-        dq = "dq_wgmma" in name
-        smem = _build.lib().dstt_flash_wgmma_smem(1 if dq else 2, dmax, cap)
+        family = next(f for f in ("paged_attention_wgmma", "fwd_wgmma", "dq_wgmma",
+                                  "dkdv_wgmma") if f in name)
+        if family == "paged_attention_wgmma":
+            int8 = "signed char" in name or "IaL" in name
+            smem = _build.lib().dstt_paged_wgmma_smem(dmax, int(int8))
+        else:
+            cap = int("(bool)1" in name or "Lb1E" in name)
+            smem = _build.lib().dstt_flash_wgmma_smem(
+                ("fwd_wgmma", "dq_wgmma", "dkdv_wgmma").index(family), dmax, cap)
         out.append({**e, "dynamic_smem_bytes": smem,
-                    "serialized_warnings": [w for w in serialized
-                                            if ("dq_wgmma" if dq else "dkdv_wgmma") in w]})
+                    "serialized_warnings": [w for w in serialized if family in w]})
     return out
 
 
@@ -304,9 +322,9 @@ def d256_usage(build: dict, wrapper: str, dtype: str) -> list:
     e.g. ``flash_attention_bwd_dq``, ``folded_attention_fwd``) in ``dtype``,
     both softcap instances."""
     part = wrapper.split("_attention_")[1]
-    # K3 launches K1/K2's kernels; bf16 and fp16 backward passes are wgmma's
+    # K3 launches K1/K2's kernels; bf16 and fp16 passes are wgmma's
     kernel = {"fwd": "fwd_kernel", "bwd_dq": "dq_kernel", "bwd_dkdv": "dkdv_kernel"}[part]
-    if part != "fwd" and dtype != "float32":
+    if dtype != "float32":
         kernel = kernel.replace("_kernel", "_wgmma_kernel")
     ctype = {"bfloat16": "__nv_bfloat16", "float16": "__half", "float32": "float"}[dtype]
     return [e for e in build["d256_resource_usage"]
@@ -406,7 +424,9 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     (``int8``) int8 with its scales, with BLOOM's ALiBi bias where
     ``alibi`` and Gemma-2's ``softcap`` (queries drawn ``q_scale`` times
     wider, so that it bites: the record holds the share of visible scaled
-    scores past cap / 2). A sequence with ``n_new`` 0 is a padding row
+    scores past cap / 2). The record's ``path`` names the kernel that ran
+    (the wgmma tiles or the CUDA-core kernel, by the wrapper's
+    ``wgmma_launches``). A sequence with ``n_new`` 0 is a padding row
     (zero block table, no tokens). With a ``window``, the table entries of
     blocks wholly below the window of each sequence's first query hold 0,
     as the engine leaves them once it has freed them."""
@@ -433,7 +453,9 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     seen_t = torch.tensor(seen, dtype=torch.int32, device="cuda")
     lens_t = seen_t + torch.tensor(n_new, dtype=torch.int32, device="cuda")
     args = (q, cache, layer, bt, seen_t, lens_t)
+    wgmma_before = paged_attention.wgmma_launches
     y = paged_attention(*args, page_size=ps, **kw)
+    path = "wgmma" if paged_attention.wgmma_launches > wgmma_before else "cuda cores"
     ref = paged_attention_reference(*args, page_size=ps, **kw)
     # the exact value: the plain version in fp32 on the K/V values the
     # kernel reads (an int8 cache's staged bf16 values)
@@ -472,7 +494,7 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                                    "seen": seen, "n_new": n_new, "window": window,
                                    "alibi": alibi, "softcap": softcap, "q_scale": q_scale,
                                    "cache": "int8" if int8 else "bfloat16"},
-           **errs, "timing": "cuda graph" if graph else "events",
+           "path": path, **errs, "timing": "cuda graph" if graph else "events",
            "ms": timer(lambda: paged_attention(*args, page_size=ps, **kw)),
            "plain_ms": timer(lambda: paged_attention_reference(*args, page_size=ps, **kw)),
            "library_ms": None,
@@ -853,12 +875,13 @@ FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:
 
 def flash_source(layout: str, key: str, d256: bool = False, dtype: str = "bfloat16") -> str:
     """The source that builds a flash pass's instance: K3's entry points
-    (which launch K1/K2's kernels), the wgmma backward's own source for
-    dq and dk/dv in bf16 and fp16, else K1/K2's (``_d256`` at 256)."""
+    (which launch K1/K2's kernels), the wgmma kernels' own sources for
+    every pass in bf16 and fp16, else K1/K2's fp32 ones (``_d256`` at
+    256)."""
     width = "_d256" if d256 else ""
     if layout == "folded":
         return "deepspeed_tpu_torch/csrc/flash_attention_folded.cu"
-    if key != "fwd" and dtype != "float32":
+    if dtype != "float32":
         return f"deepspeed_tpu_torch/csrc/flash_attention_{key}{width}.cu"
     return f"deepspeed_tpu_torch/csrc/flash_attention{width}.cu"
 
@@ -1192,6 +1215,9 @@ def phase_kernels() -> list:
         # generate's first admission wave: 3 prompts in a 512-row bucket
         _paged_case(gen, "prefill", [0, 0, 0, 0], [128, 256, 384, 0],
                     N=512, B=8),
+        # a chunk of 100 tokens (400 folded rows: three 128-row tiles and
+        # 16) beside a padding sequence and a decode row
+        _paged_case(gen, "ragged_chunk", [300, 0, 77], [100, 0, 1], N=100, B=7),
     ]
     paged = paged_cases[0]
     ln = [_ln_case(768, 4608, gen, torch.bfloat16), _ln_case(8, 4608, gen, torch.bfloat16),
@@ -1217,6 +1243,8 @@ def phase_kernels() -> list:
                     [1] * 8, N=1, B=17, graph=True, int8=True),
         _paged_case(gen, "prefill", [0, 0, 0, 0], [128, 256, 384, 0],
                     N=512, B=8, int8=True),
+        # phase 7's chunk: 768 tokens deep in the cache (2200 seen)
+        _paged_case(gen, "chunk_deep", [2200], [768], N=768, B=47, int8=True),
     ]
     # Llama-3-8B's layer kernels (q/o, k/v, gate/up, down), a ragged tail
     # and all-zero blocks
@@ -1316,12 +1344,20 @@ def phase_kernels() -> list:
                 and ("control_row_rel_err" not in c
                      or c["row_rel_err"] <= c["control_row_rel_err"] + PAGED_ROW_SLACK)
                 for c in all_paged]
+    # the K4 cases that ran the multi-row tiles on wgmma: every prefill
+    # chunk and wave, and the mixed batch (16 rows of G 4)
+    wgmma_paged = [c for c in all_paged if c["path"] == "wgmma"]
+    # the plan's rule (bf16 queries, head widths 128 and 256 here): at least
+    # 64 folded rows per sequence and KV head take the wgmma tiles
+    paths_ok = all(c["path"] == ("wgmma" if c["shape"]["N"] * c["shape"]["H"]
+                                 // c["shape"]["KV"] >= 64 else "cuda cores")
+                   for c in all_paged)
     d256_cases = (flash_d256 + flash_d256_fp16 + flash_d256_fp32 + folded_d256
                   + folded_d256_fp16 + folded_d256_fp32)
     all_flash = flash_cases + flash_fp16 + folded_cases + d256_cases
     ok = all(c["max_abs_err"] <= RMS_TOL for c in rms + rms_fp32) and \
         all(c["cap_bite_share"] >= CAP_BITES for c in paged_softcap_cases + d256_cases) and \
-        all(c["max_abs_err"] <= c["tolerance"] for c in ln) and all(paged_ok) and \
+        all(c["max_abs_err"] <= c["tolerance"] for c in ln) and all(paged_ok) and paths_ok and \
         all(c["equal"] for c in quant_cases) and dequant["equal"] and \
         quant_cases[-1]["zero_block_scales"] == [1.0, 1.0] and \
         all(c[key]["row_rel_err"] <= c["row_tolerance"]
@@ -1376,6 +1412,23 @@ def phase_kernels() -> list:
          **{k: paged_window_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms")},
          "cases": paged_window_cases},
+        {"name": "paged_attention_wgmma", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention_wgmma_bf16.cu",
+         "sources": ["deepspeed_tpu_torch/csrc/paged_attention_wgmma_bf16.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention_wgmma_bf16_d256.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention_wgmma_int8.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention_wgmma_int8_d256.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention.cuh",
+                     "deepspeed_tpu_torch/csrc/flash_attention.cuh"],
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
+         "note": "K4's multi-row tiles (>= 64 folded rows N * G per sequence and KV head, "
+                 "bf16 queries) on wgmma; every K4 case above that ran it (its path)",
+         "launches": None, "tolerance": PAGED_TOLERANCE,
+         "max_abs_err": max(c["max_abs_err"] for c in wgmma_paged),
+         "row_rel_err": max(c["row_rel_err"] for c in wgmma_paged),
+         **{k: paged_cases[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+         "cases": wgmma_paged},
         {"name": "quantize_int8_blockwise", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/quantizer.cu",
          "replaces": "deepspeed_tpu/ops/quantizer.py:29",
@@ -1505,7 +1558,8 @@ def phase_kernels() -> list:
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "cases": [c for c in k7_cases if c["case"] in bodies]}
         for name, _, bodies, replaces in K7_KERNELS]
-    emit({"phase": "kernels", "ok": ok, "gpu": gpu_identity(), "kernels": kernels})
+    emit({"phase": "kernels", "ok": ok, "paged_paths_ok": paths_ok, "gpu": gpu_identity(),
+          "kernels": kernels})
     if not ok:
         raise SystemExit("kernel mismatch against the plain version")
     return kernels
@@ -1640,7 +1694,7 @@ def _kernel_group(name: str) -> str:
     if is_k7(n):  # launched through ctypes, so under no op of the range
         return "optimizer step"
     if "flash" in n:  # K3 launches these too
-        return ("K1 flash fwd" if "fwd_kernel" in n else
+        return ("K1 flash fwd" if "::fwd_" in n else
                 "K2 flash dq" if "::dq_" in n else "K2 flash dk/dv")
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul")):
         return "matmul (layers)"
@@ -1709,10 +1763,17 @@ def profile_step(step) -> dict:
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"split": split, "wall_ms": wall_ms, "device_ms": device_ms,
+            "k1_kernels": sorted(n for n in by_name if _kernel_group(n) == "K1 flash fwd"),
             "k7_ms": sum(ms for name, ms in by_name.items() if is_k7(name)),
             "device_busy_share": device_ms / wall_ms, "host_gap_ms": wall_ms - device_ms,
             "kernel_launches": len(kernels), "group_ms": groups,
             "top_kernels_ms": [[k[:100], v] for k, v in top]}
+
+
+def on_wgmma_forward(names: list) -> bool:
+    """Whether a profile's K1 group holds the wgmma forward and nothing
+    else."""
+    return bool(names) and all("fwd_wgmma_kernel" in n for n in names)
 
 
 def capture_k7_inputs(engine) -> dict:
@@ -1898,6 +1959,7 @@ def phase_training() -> dict:
         and engine.skipped_steps == 0,
         "k7_at_path_size_within_ulps": k7_path["max_ulps"] <= K7_ULPS,
         "attention_route_on_kernels": route["on_kernels"],
+        "k1_profile_on_fwd_wgmma_kernel": on_wgmma_forward(profile["k1_kernels"]),
     }
     rec = {"phase": "training", "attention_route": route,
            "config": "llama3_8b(num_hidden_layers=4, "
@@ -2060,6 +2122,15 @@ def phase_training_optimizers() -> dict:
                 "fp16_flash_launches_L_per_step": all(
                     f.launches == L * n_steps for f in flash),
             })
+            # after the counts: one more forward, traced, for K1's kernel
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                engine.forward(ids, labels=ids)
+                torch.cuda.synchronize()
+            run["k1_kernels"] = sorted({e.name for e in prof.events()
+                                        if _kernel_group(e.name) == "K1 flash fwd"})
+            checks["fp16_k1_profile_on_fwd_wgmma_kernel"] = on_wgmma_forward(
+                run["k1_kernels"]) and all("__half" in n for n in run["k1_kernels"])
         runs[name] = run
         del engine, model, loss
         free_memory()
@@ -2188,6 +2259,7 @@ def phase_training_mistral() -> dict:
             f"{name}_k7_one_launch_per_step": launches["adam_step_"] == n_steps,
             f"{name}_losses_finite": bool(np.isfinite(losses).all()),
             f"{name}_last_loss_below_first": losses[-1] < losses[0],
+            f"{name}_k1_profile_on_fwd_wgmma_kernel": on_wgmma_forward(profile["k1_kernels"]),
         })
         runs[name] = {"pin": pin, "attention_route": route, "params": n_params,
                       "losses": losses, "step_s": step_s, "step_event_ms": step_ev_ms,
@@ -2518,6 +2590,7 @@ def phase_serving_gemma2(kernels: list) -> dict:
         if k["name"] in ("paged_attention_softcap", "rms_norm_fp32_scale"):
             k["launches"] = launches[k["name"]]
             k["launches_by_phase"] = {"serving_gemma2": launches[k["name"]]}
+    count_wgmma(kernels, "serving_gemma2", rec)
     return rec
 
 
@@ -2618,6 +2691,7 @@ def phase_training_gemma2() -> dict:
         "parameters_1710288384": n_params == 1_710_288_384,
         "losses_finite": bool(np.isfinite(losses).all()),
         "last_loss_below_first": losses[-1] < losses[0],
+        "k1_profile_on_fwd_wgmma_kernel": on_wgmma_forward(profile["k1_kernels"]),
     }
     rec = {"phase": "training_gemma2",
            "config": "policy_for('gemma2').config_from_hf(GEMMA2_9B) with "
@@ -2799,7 +2873,9 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     ``SERVING_KV_BYTES``), then greedy ``generate`` on prompts of
     ``prompt_lens`` tokens. Each count of ``counters`` (name -> (wrapper,
     attribute)) is set to 0 just before the build and read after it and
-    after ``generate``. Records each forward's time and each prompt's
+    after ``generate``; K4's wgmma launches are read around each forward
+    (L in every prefill forward, none in decode; ``launches`` holds their
+    sum as ``paged_attention_wgmma``). Records each forward's time and each prompt's
     prefill logits (the last ``put`` that fed it more than one token),
     calls ``on_put(engine, uids)`` after every ``put``, then checks
     prefill against decode on prompt ``check_prompt`` (fed in chunks of
@@ -2814,6 +2890,7 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
     from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import per_token_kv_bytes
     from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 
     cfg = cfg or LlamaConfig.llama3_8b()
     per_block = 64 * per_token_kv_bytes(KVCacheConfig(
@@ -2840,17 +2917,18 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
 
     model = engine.model()
     inner_forward, inner_put = model.forward, engine.put
-    steps = []  # (real tokens, decode?, seconds)
+    steps = []  # (real tokens, decode?, seconds, K4 wgmma launches)
     bad_logits = []
     prefill_logits = {}
 
     def counted_forward(batch):
         torch.cuda.synchronize()
+        wgmma = paged_attention.wgmma_launches
         t = time.monotonic()
         logits = inner_forward(batch)
         torch.cuda.synchronize()
         steps.append((batch.n_tokens, batch.q_tok_idx.shape[1] == 1,
-                      time.monotonic() - t))
+                      time.monotonic() - t, paged_attention.wgmma_launches - wgmma))
         if logits.shape != (batch.seq_start.shape[0], cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             bad_logits.append(len(steps))
@@ -2886,8 +2964,12 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     capped = bool(cfg.final_logit_softcapping)
     consistency_tol = None if capped else 0.05 * full.abs().max().item()
 
-    pre = [(n, s) for n, dec, s in steps if not dec]
-    dec = [(n, s) for n, dec, s in steps if dec]
+    pre = [(n, s) for n, dec, s, _ in steps if not dec]
+    dec = [(n, s) for n, dec, s, _ in steps if dec]
+    # K4's wgmma tiles: L launches in every prefill forward, none in decode
+    wgmma = {"prefill": [w for _, dec, _, w in steps if not dec],
+             "decode": [w for _, dec, _, w in steps if dec]}
+    L = cfg.num_hidden_layers
     rec = {"gpu": gpu_identity(), "engine_build_s": build_s,
            "prompt_lens": list(prompt_lens), "new_tokens": new_tokens,
            "kv_blocks": num_blocks, "kv_bytes_per_block": per_block,
@@ -2896,7 +2978,8 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
            "build_peak_memory_gib": build_peak,
            "generate_s": gen_s, "forwards": len(steps), "prefill_forwards": len(pre),
            "decode_forwards": len(dec), "launches_at_build": at_build,
-           "launches": launches,
+           "launches": {**launches, "paged_attention_wgmma": sum(map(sum, wgmma.values()))},
+           "paged_attention_wgmma_per_forward": {k: sorted(set(v)) for k, v in wgmma.items()},
            "prefill_tokens_per_s": sum(n for n, _ in pre) / sum(s for _, s in pre),
            "decode_tokens_per_s": sum(n for n, _ in dec) / sum(s for _, s in dec),
            "decode_step_ms_mean": 1e3 * sum(s for _, s in dec) / len(dec),
@@ -2911,6 +2994,8 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
         "prefill_logits_of_every_prompt":
             sorted(prefill_logits) == list(range(len(prompts))),
         "free_blocks_back_to_total": free_after == num_blocks,
+        "paged_attention_wgmma_L_per_prefill_forward": all(w == L for w in wgmma["prefill"]),
+        "paged_attention_wgmma_none_in_decode": not any(wgmma["decode"]),
     }
     if not capped:
         checks["prefill_decode_consistent"] = diff <= consistency_tol
@@ -2923,6 +3008,15 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     return {"rec": rec, "checks": checks, "prefill_logits": prefill_logits,
             "layers": cfg.num_hidden_layers, "prompts": prompts,
             "check_logits": (full.cpu(), step.cpu())}
+
+
+def count_wgmma(kernels: list, phase: str, rec: dict) -> None:
+    """Adds a serving phase's K4 wgmma launches to that kernel's entry."""
+    for k in kernels:
+        if k["name"] == "paged_attention_wgmma":
+            k.setdefault("launches_by_phase", {})[phase] = \
+                rec["launches"]["paged_attention_wgmma"]
+            k["launches"] = sum(k["launches_by_phase"].values())
 
 
 def phase_serving(kernels: list) -> dict:
@@ -2941,8 +3035,9 @@ def phase_serving(kernels: list) -> dict:
     if not rec["ok"]:
         raise SystemExit(f"serving checks failed: {checks}")
     for k in kernels:
-        if k["name"] in launches:
+        if k["name"] in launches and k["name"] != "paged_attention_wgmma":
             k["launches"] = launches[k["name"]]
+    count_wgmma(kernels, "serving", rec)
     return {"rec": rec, "prefill_logits": run["prefill_logits"]}
 
 
@@ -2990,8 +3085,10 @@ def phase_serving_int8(kernels: list, bf16: dict) -> dict:
     if not rec["ok"]:
         raise SystemExit(f"int8 serving checks failed: {checks}")
     for k in kernels:
-        if k["name"] in launches and k["name"] not in ("paged_attention", "rms_norm"):
+        if k["name"] in launches and k["name"] not in ("paged_attention", "rms_norm",
+                                                       "paged_attention_wgmma"):
             k["launches"] = launches[k["name"]]
+    count_wgmma(kernels, "serving_int8", rec)
     return rec
 
 
@@ -3175,6 +3272,7 @@ def phase_serving_starcoder2(kernels: list) -> dict:
             k["launches_by_phase"] = {"serving_starcoder2": launches["layer_norm"]}
         elif k["name"] == "paged_attention_window":
             k["launches"] = launches["paged_attention"]
+    count_wgmma(kernels, "serving_starcoder2", rec)
     return rec
 
 
@@ -3279,6 +3377,7 @@ def phase_serving_bloom(kernels: list) -> dict:
         elif k["name"] == "layer_norm":
             k["launches_by_phase"]["serving_bloom"] = launches["layer_norm"]
             k["launches"] = sum(k["launches_by_phase"].values())
+    count_wgmma(kernels, "serving_bloom", rec)
     return rec
 
 
@@ -3348,7 +3447,16 @@ def main() -> int:
                                   "adamw_fp16": runs["adamw_fp16"]["k7_path_check"]},
                    "lion_step_": {"lion_bf16": runs["lion_bf16"]["k7_path_check"]},
                    "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
+    # ptxas's report beside the wgmma kernels of the narrower widths and K4's
+    wgmma_rows = {"flash_attention_fwd": ("fwd_wgmma", "__nv_bfloat16, (int)128"),
+                  "folded_attention_fwd": ("fwd_wgmma", "__nv_bfloat16, (int)128"),
+                  "flash_attention_fwd_fp16": ("fwd_wgmma", "__half, (int)128"),
+                  "paged_attention_wgmma": ("paged_attention_wgmma", "")}
     for k in kernels:
+        if k["name"] in wgmma_rows:
+            family, args = wgmma_rows[k["name"]]
+            k["registers_and_spills"] = [e for e in build["wgmma_kernels"]
+                                         if family in e["kernel"] and args in e["kernel"]]
         if "_d256" in k["name"]:
             wrapper_name, suffix = k["name"].split("_d256")
             dtype = {"": "bfloat16", "_fp16": "float16"}.get(suffix, suffix[1:])

@@ -1,10 +1,11 @@
 // K1 and K2: the entry points of the per-head flash kernels and the
 // dispatch both layouts share (run). What they replace, their numerics,
 // bound and design are in flash_attention.cuh, which holds the bodies; the
-// instances are built in this source (the forward, and the fp32 and
-// head-width-<=64 backward, at head widths <= 128), flash_attention_d256.cu
-// (the same at 256), and the wgmma backward's four sources
-// flash_attention_dq.cu, flash_attention_dkdv.cu and their _d256 forms.
+// instances are built in this source (the mma.sync bodies: every pass in
+// fp32 at head widths <= 128, and in every dtype at <= 64),
+// flash_attention_d256.cu (fp32 at 256), and the wgmma kernels' six sources
+// flash_attention_fwd.cu, flash_attention_dq.cu, flash_attention_dkdv.cu
+// and their _d256 forms.
 #include "flash_attention.cuh"
 
 namespace dstt {
@@ -18,10 +19,14 @@ int run(Pass pass, const Args& a, int dtype, void* stream) {
   if (!shape_ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (a.D <= 64) return run_width<64>(pass, a, dtype, s);
-  if (pass != kFwd && dtype != kFloat32) {
+  if (dtype != kFloat32) {
     if (a.D <= 128)
-      return pass == kDq ? run_dq_wgmma_128(a, dtype, s) : run_dkdv_wgmma_128(a, dtype, s);
-    return pass == kDq ? run_dq_wgmma_256(a, dtype, s) : run_dkdv_wgmma_256(a, dtype, s);
+      return pass == kFwd  ? run_fwd_wgmma_128(a, dtype, s)
+             : pass == kDq ? run_dq_wgmma_128(a, dtype, s)
+                           : run_dkdv_wgmma_128(a, dtype, s);
+    return pass == kFwd  ? run_fwd_wgmma_256(a, dtype, s)
+           : pass == kDq ? run_dq_wgmma_256(a, dtype, s)
+                         : run_dkdv_wgmma_256(a, dtype, s);
   }
   if (a.D <= 128) return run_width<128>(pass, a, dtype, s);
   return run_d256(pass, a, dtype, s);
@@ -64,13 +69,15 @@ extern "C" int dstt_flash_bwd_dkdv(const void* q, const void* k, const void* v,
              dtype, stream);
 }
 
-// bytes of dynamic shared memory of a wgmma backward instance (pass 1: dq,
-// 2: dk/dv; head width 128 or 256; the same in bf16 and fp16), for the
+// bytes of dynamic shared memory of a wgmma instance (pass 0: forward, 1:
+// dq, 2: dk/dv; head width 128 or 256; the same in bf16 and fp16), for the
 // build report; -1 for no such instance
 extern "C" int dstt_flash_wgmma_smem(int pass, int dmax, int softcap) {
   using namespace dstt::flash;
   using T = __nv_bfloat16;
   size_t bytes = 0;
+  if (pass == kFwd && dmax == 128) bytes = fwd_wgmma_smem<T, 128, false>();
+  if (pass == kFwd && dmax == 256) bytes = fwd_wgmma_smem<T, 256, false>();
   if (pass == kDq && dmax == 128) bytes = dq_wgmma_smem<T, 128>();
   if (pass == kDq && dmax == 256) bytes = dq_wgmma_smem<T, 256>();
   if (pass == kDkdv && dmax == 128)

@@ -44,22 +44,35 @@
 // Q/dO) tiles are double-buffered: the next tile's copy is in flight while
 // the current one is used.
 //
-// The backward in bf16 and fp16 at head widths 65..256 (dq_wgmma_kernel,
-// dkdv_wgmma_kernel) is built on Hopper's warpgroup products (wgmma.cuh).
-// What held the mma.sync bodies back: one m16n8k16 warp product at a time,
-// each warp reloading its whole B operand from shared memory; P and dS
-// written to shared memory and read back as the next product's A operand;
-// 32-row dk/dv steps with a barrier each; and at head width 256 two dk/dv
-// blocks per 64 keys, each recomputing the full-width S^T and dP^T (1.5x
-// the products). What the design does:
+// Every pass in bf16 and fp16 at head widths 65..256 (fwd_wgmma_kernel,
+// dq_wgmma_kernel, dkdv_wgmma_kernel) is built on Hopper's warpgroup
+// products (wgmma.cuh). What held the mma.sync bodies back: one m16n8k16
+// warp product at a time, each warp reloading its whole B operand from
+// shared memory; P and dS written to shared memory and read back as the
+// next product's A operand; 32-row dk/dv steps with a barrier each; and at
+// head width 256 two dk/dv blocks per 64 keys, each recomputing the
+// full-width S^T and dP^T (1.5x the products). What the design does:
 // - Every product is a wgmma.m64nNk16 of one warpgroup (128 threads)
 //   reading its operands through shared-memory descriptors: Q, dO, K and V
 //   are staged once, [rows][D] in the 128-byte swizzle, and serve as K-major
 //   operands (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T) and, by
-//   the transposed-B form, as MN-major ones (dq += dS K, dv += P^T dO,
-//   dk += dS^T Q). A score accumulator rounded to 16 bits is the A operand
-//   of the next product as it lies in registers (wgmma.cuh): P^T and dS
-//   never go through shared memory as operands.
+//   the transposed-B form, as MN-major ones (o += P V, dq += dS K, dv +=
+//   P^T dO, dk += dS^T Q). A score accumulator rounded to 16 bits is the A
+//   operand of the next product as it lies in registers (wgmma.cuh): P,
+//   P^T and dS never go through shared memory as operands.
+// - Forward: one block per (128 folded query rows, KV head, batch), a
+//   warpgroup per 64 rows sweeping double-buffered K/V tiles (64 keys; 32
+//   at head width 256, where o alone is 128 registers a thread): S = Q K^T,
+//   the scale, cap and masks, the online max and sum in registers, o
+//   rescaled once the previous tile's product retired, o += P V. The row
+//   tiles run last-first. The sweep (fwd_sweep) takes its keys and rows from
+//   a source type, so K4's multi-row tiles (paged_attention.cuh) run the
+//   same code over K/V gathered through a block table. Measured on the
+//   H100 (PERF.md, section 6): the sweep with each tile's softmax overlapped
+//   with the previous tile's P V (a third K/V stage), with both warpgroups'
+//   S issued ahead of either's P V, or with copies two tiles ahead was no
+//   faster than this one; an overlapped step whose P V was issued under a
+//   branch made ptxas serialize every product of the kernel (note C7514).
 // - dk/dv: one block per (64 keys, KV head, batch), two warpgroups with
 //   one role each: warpgroup 0 computes S^T = K Q^T, P^T and dv += P^T dO;
 //   warpgroup 1 computes dP^T = V dO^T, dS^T and dk += dS^T Q. Each owns one
@@ -79,15 +92,19 @@
 //   where dq alone is 128 registers a thread). The row tiles run
 //   last-first, so under causal the longest blocks start first and the
 //   short ones fill the tail.
-// - dP's drift at head width 256: the tensor cores add each product into
-//   the accumulator after aligning it to the largest magnitude among them,
-//   cutting the bits below; with a large accumulator that drops ~2^-23 |C|
-//   per product, all in one direction. dS = P (dP - delta) subtracts two
-//   nearly equal numbers where a row's softmax is nearly one key, and the
-//   cut bits of a 256-deep dP took dq's error to 2.5x the plain version's
-//   at head width 256 with scores of ~N(0, 20^2) under the softcap. So dq
-//   sums dP there from fresh 16-deep products added in fp32 (two in flight
-//   at a time); no case at head width 128 or below shows the drift.
+// - dP's drift: the tensor cores add each product into the accumulator
+//   after aligning it to the largest magnitude among them, cutting the bits
+//   below; with a large accumulator that drops ~2^-23 |C| per product, all
+//   in one direction. dS = P (dP - delta) subtracts two nearly equal
+//   numbers where a row's softmax is nearly one key, and the cut bits of a
+//   256-deep dP took dq's error to 2.5x the plain version's at head width
+//   256 with scores of ~N(0, 20^2) under the softcap; of a 128-deep dP, to
+//   2.25-2.94x on two seeds of three at Mistral's S 8192 under the 4096
+//   window. So dq sums dP from fresh 16-deep products added in fp32 (two in
+//   flight at a time) at every width, which brings it to the plain
+//   version's error (dq 1.25x slower at that shape; PERF.md, section 6). The
+//   forward's S reads within the plain version's error against the exact
+//   value (chip_smoke.py's control).
 // - One block an SM (up to 231 KB of shared memory at head width 256 under
 //   the softcap, up to 255 registers a thread); the two warpgroups' products
 //   overlap each other on the SM's tensor cores.
@@ -103,14 +120,15 @@
 //   once for the two tensors staged with it by a multiply-and-shift
 //   division (FastDiv), and the next tile's copies are issued behind the
 //   step's first products. That took K2's backward at the 8B training shape
-//   from 2.11 to 0.85 ms on the H100 (PERF.md, section 6).
-// The mma.sync bodies (fwd_block, dq_block, dkdv_block) stay for the
-// forward at every width, and for the backward in fp32 and at head width
-// <= 64 (fp32 parity runs and small models; no main path of the smoke
-// runs them).
+//   from 2.11 to 0.85 ms on the H100 (PERF.md, section 6), and K1's forward
+//   from 0.475 to ~0.26 ms.
+// The mma.sync bodies (fwd_block, dq_block, dkdv_block) stay for every
+// pass in fp32 and at head width <= 64 (fp32 parity runs and small models;
+// no main path of the smoke runs them).
 // Later versions: TMA for the staged tiles from a producer warp under
-// mbarriers, the next step's S^T issued before this step's dk/dv products
-// complete, and the forward on wgmma.
+// mbarriers, so that the two warpgroups no longer meet at a barrier every
+// tile and one's softmax can run under the other's products; the next
+// step's S^T issued before this step's dk/dv products complete.
 #pragma once
 
 #include <math.h>
@@ -131,21 +149,19 @@ constexpr int kBwdRows = 32;        // folded query rows per step of the dk/dv s
 constexpr int kPad = 8;             // elements of padding per shared-memory row
 constexpr float kLseMasked = 1e30f;  // attention.py LSE_MASKED
 
-// the tiles of a (T, DMAX) instance of the mma.sync bodies: keys per K/V
-// tile of the forward and dq sweeps, folded query rows per step of the dk/dv
-// sweep, and the columns of dk and dv one dk/dv block owns (kColSplits
-// blocks per 64 keys). At head width 256 a warp's 16 x 256 fp32 accumulator
-// is 128 registers a thread, so the forward sweeps 32-key tiles; the fp32
-// instance takes 16-key tiles and 16-row dk/dv steps so its staged tiles
-// fit the 227 KB of shared memory, and its dk/dv blocks own 128 columns
-// each (dk and dv of 16 keys at 256 columns would be 256 registers). The
-// widths <= 128 keep 64, 32 and every column.
-template <typename T, int DMAX>
+// the tiles of a DMAX instance of the mma.sync bodies (fp32 at every width,
+// the 16-bit types at <= 64): keys per K/V tile of the forward and dq
+// sweeps, folded query rows per step of the dk/dv sweep, and the columns of
+// dk and dv one dk/dv block owns (kColSplits blocks per 64 keys). At head
+// width 256 (fp32 only) the instance takes 16-key tiles and 16-row dk/dv
+// steps so its staged tiles fit the 227 KB of shared memory, and its dk/dv
+// blocks own 128 columns each (dk and dv of 16 keys at 256 columns would be
+// 256 registers). The widths <= 128 keep 64, 32 and every column.
+template <int DMAX>
 struct Tiles {
   static constexpr bool kWide = DMAX > 128;
-  static constexpr bool kWideF32 = kWide && std::is_same<T, float>::value;
-  static constexpr int kKeyTile = kWideF32 ? 16 : kWide ? 32 : kKeys;
-  static constexpr int kRowTile = kWideF32 ? 16 : kBwdRows;
+  static constexpr int kKeyTile = kWide ? 16 : kKeys;
+  static constexpr int kRowTile = kWide ? 16 : kBwdRows;
   static constexpr int kCols = kWide ? 128 : DMAX;
   static constexpr int kColSplits = DMAX / kCols;
 };
@@ -401,7 +417,7 @@ __device__ __forceinline__ bool edge_tile(const Args& a, int k0, int p_first, in
 template <typename T, int DMAX, bool kCap>
 __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
                                           unsigned char* smem) {
-  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  constexpr int KT = Tiles<DMAX>::kKeyTile;
   constexpr int LD = DMAX + kPad, LP = KT + kPad, N8 = DMAX / 8;
   T* Qs = reinterpret_cast<T*>(smem);
   T* KVs = Qs + kRows * LD;     // two buffers of [K tile, V tile]
@@ -517,7 +533,7 @@ __device__ __forceinline__ void fwd_block(const Args& a, int f0, int kv, int b,
 template <typename T, int DMAX, bool kCap>
 __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
                                          unsigned char* smem) {
-  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  constexpr int KT = Tiles<DMAX>::kKeyTile;
   constexpr int LD = DMAX + kPad, LP = KT + kPad, N8 = DMAX / 8;
   T* Qs = reinterpret_cast<T*>(smem);
   T* Os = Qs + kRows * LD;    // dO
@@ -612,8 +628,8 @@ __device__ __forceinline__ void dq_block(const Args& a, int f0, int kv, int b,
 template <typename T, int DMAX, bool kCap>
 __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int c0, int kv, int b,
                                            unsigned char* smem) {
-  constexpr int BR = Tiles<T, DMAX>::kRowTile;
-  constexpr int LD = DMAX + kPad, LP = BR + kPad, N8 = Tiles<T, DMAX>::kCols / 8;
+  constexpr int BR = Tiles<DMAX>::kRowTile;
+  constexpr int LD = DMAX + kPad, LP = BR + kPad, N8 = Tiles<DMAX>::kCols / 8;
   constexpr int C8 = BR / 8;
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + kKeys * LD;
@@ -735,23 +751,23 @@ __device__ __forceinline__ void dkdv_block(const Args& a, int k0, int c0, int kv
   store_rows<T>(reinterpret_cast<T*>(a.out2), dv, kr, one, D, lane, c0);
 }
 
-// bytes of shared memory per block of the mma.sync bodies; at D 256: bf16
-// and fp16 106,496 (fwd); fp32 141,312, 208,896 (dq) and 209,152 (dk/dv)
+// bytes of shared memory per block of the mma.sync bodies; at D 256 (fp32):
+// 141,312 (fwd), 208,896 (dq) and 209,152 (dk/dv)
 template <typename T, int DMAX>
 constexpr size_t fwd_smem() {  // Q, two K/V buffers, P
-  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  constexpr int KT = Tiles<DMAX>::kKeyTile;
   return ((size_t)(kRows + 4 * KT) * (DMAX + kPad) + kRows * (KT + kPad)) * sizeof(T);
 }
 
 template <typename T, int DMAX>
 constexpr size_t dq_smem() {  // Q, dO, two K/V buffers, dS
-  constexpr int KT = Tiles<T, DMAX>::kKeyTile;
+  constexpr int KT = Tiles<DMAX>::kKeyTile;
   return ((size_t)(2 * kRows + 4 * KT) * (DMAX + kPad) + kRows * (KT + kPad)) * sizeof(T);
 }
 
 template <typename T, int DMAX>
 constexpr size_t dkdv_smem() {  // K, V, two Q/dO buffers, P^T/dS^T, two lse/delta buffers
-  constexpr int BR = Tiles<T, DMAX>::kRowTile;
+  constexpr int BR = Tiles<DMAX>::kRowTile;
   return ((size_t)(2 * kKeys + 4 * BR) * (DMAX + kPad) + kKeys * (BR + kPad)) * sizeof(T) +
          4 * BR * sizeof(float);
 }
@@ -776,7 +792,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 template <typename T, int DMAX, bool kCap>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using Ti = Tiles<T, DMAX>;
+  using Ti = Tiles<DMAX>;
   dkdv_block<T, DMAX, kCap>(a, (blockIdx.x / Ti::kColSplits) * kKeys,
                             (blockIdx.x % Ti::kColSplits) * Ti::kCols, blockIdx.y, blockIdx.z,
                             smem);
@@ -859,16 +875,21 @@ __device__ __forceinline__ float tanh_nb(float y) {
 // capped() for the wgmma bodies: tanh_nb, and x / softcap refined from the
 // reciprocal's product by one step (within an ulp of the division)
 template <bool kCap>
-__device__ __forceinline__ float capped_nb(const Args& a, float qk, float& t) {
-  float x = qk * a.scale;
+__device__ __forceinline__ float cap_nb(float qk, float scale, float softcap, float& t) {
+  float x = qk * scale;
   t = 0.f;
   if constexpr (kCap) {
-    const float inv = __fdividef(1.f, a.softcap);
+    const float inv = __fdividef(1.f, softcap);
     const float y0 = x * inv;
-    t = tanh_nb(fmaf(fmaf(-y0, a.softcap, x), inv, y0));
-    x = a.softcap * t;
+    t = tanh_nb(fmaf(fmaf(-y0, softcap, x), inv, y0));
+    x = softcap * t;
   }
   return x;
+}
+
+template <bool kCap>
+__device__ __forceinline__ float capped_nb(const Args& a, float qk, float& t) {
+  return cap_nb<kCap>(qk, a.scale, a.softcap, t);
 }
 
 // Start staging R rows of two tensors with the same rows into swizzled tiles
@@ -891,6 +912,21 @@ __device__ __forceinline__ void load_pair(T* dst0, const T* src0, T* dst1, const
     const int at = wgmma::swizzled<R>(r, c * 8);
     cp_async<16>(dst0 + at, src0 + off, valid);
     cp_async<16>(dst1 + at, src1 + off, valid);
+  }
+}
+
+// load_pair for one tensor
+template <typename T, int DMAX, int R, typename RowFn>
+__device__ __forceinline__ void load_one(T* dst, const T* src, int D, RowFn row) {
+  constexpr int kChunks = DMAX / 8, kStride = kWgThreads / kChunks;
+  static_assert(R % kStride == 0, "rows a multiple of the threads' row stride");
+  const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+#pragma unroll
+  for (int j = 0; j < R / kStride; ++j) {
+    const int r = r0 + j * kStride;
+    const long long g = row(r);
+    const bool valid = g >= 0 && c * 8 < D;
+    cp_async<16>(dst + wgmma::swizzled<R>(r, c * 8), src + (valid ? g * D + c * 8 : 0), valid);
   }
 }
 
@@ -970,46 +1006,35 @@ __global__ void __launch_bounds__(kWgThreads, 1) dq_wgmma_kernel(Args a) {
     const int k0 = t * KT;
     const uint32_t ka = smem_addr(KVs + (it & 1) * 2 * KT * DMAX);
     const uint32_t va = ka + KT * DMAX * sizeof(T);
-    // S = Q K^T (and at D <= 128 dP = dO V^T), in flight during the copy
+    // S = Q K^T, in flight during the copy
     float s[R], dp[R];
     wgmma::fence();
 #pragma unroll
     for (int kk = 0; kk < DMAX / 16; ++kk)
       wgmma::mma_ss<T>(s, wgmma::desc_k<BM>(qa, 64 * wg, kk), wgmma::desc_k<KT>(ka, 0, kk),
                        kk > 0);
-    if constexpr (DMAX <= 128) {
-#pragma unroll
-      for (int kk = 0; kk < DMAX / 16; ++kk)
-        wgmma::mma_ss<T>(dp, wgmma::desc_k<BM>(oa, 64 * wg, kk), wgmma::desc_k<KT>(va, 0, kk),
-                         kk > 0);
-    }
     wgmma::commit();
     if (t + 1 < t_end) {  // the next tile's copy runs while this one is used
       load_kv(t + 1, (it + 1) & 1);
       cp_async_commit();
     }
-    if constexpr (DMAX > 128) {
-      // dP = dO V^T from fresh 16-deep products added in fp32, two in flight
-      // at a time (the note)
-      wgmma::zero(dp);
+    // dP = dO V^T from fresh 16-deep products added in fp32, two in flight
+    // at a time (the note)
+    wgmma::zero(dp);
 #pragma unroll
-      for (int kk = 0; kk < DMAX / 16; kk += 2) {
-        float t0[R], t1[R];
-        wgmma::fence();
-        wgmma::mma_ss<T>(t0, wgmma::desc_k<BM>(oa, 64 * wg, kk),
-                         wgmma::desc_k<KT>(va, 0, kk), 0);
-        wgmma::mma_ss<T>(t1, wgmma::desc_k<BM>(oa, 64 * wg, kk + 1),
-                         wgmma::desc_k<KT>(va, 0, kk + 1), 0);
-        wgmma::commit();
-        wgmma::wait<0>();
-        wgmma::hold(t0);
-        wgmma::hold(t1);
-#pragma unroll
-        for (int i = 0; i < R; ++i) dp[i] = (dp[i] + t0[i]) + t1[i];
-      }
-    } else {
+    for (int kk = 0; kk < DMAX / 16; kk += 2) {
+      float t0[R], t1[R];
+      wgmma::fence();
+      wgmma::mma_ss<T>(t0, wgmma::desc_k<BM>(oa, 64 * wg, kk), wgmma::desc_k<KT>(va, 0, kk),
+                       0);
+      wgmma::mma_ss<T>(t1, wgmma::desc_k<BM>(oa, 64 * wg, kk + 1),
+                       wgmma::desc_k<KT>(va, 0, kk + 1), 0);
+      wgmma::commit();
       wgmma::wait<0>();
-      wgmma::hold(dp);
+      wgmma::hold(t0);
+      wgmma::hold(t1);
+#pragma unroll
+      for (int i = 0; i < R; ++i) dp[i] = (dp[i] + t0[i]) + t1[i];
     }
     wgmma::hold(s);
     // dS in place of S; masks on edge tiles only
@@ -1192,12 +1217,255 @@ __global__ void __launch_bounds__(kWgThreads, 1) dkdv_wgmma_kernel(Args a) {
   store_acc<T>(reinterpret_cast<T*>(wg == 0 ? a.out2 : a.out), acc, kr, D, lane);
 }
 
+// ---- the forward on wgmma: K1 (and K3) here, K4's multi-row tiles in
+// paged_attention.cuh, one sweep ----
+
+// bytes of one staging slot of a K4 int8 tile: the codes of K and V
+// ([KT][DMAX] bytes each) and, per thread, the scales of the rows it copies
+template <int DMAX>
+__host__ __device__ constexpr int staged_slot_bytes() {
+  constexpr int KT = WgKeyTile<DMAX>::kKeys;
+  constexpr int kRowsPerThread = KT * (DMAX / 16) / kWgThreads;  // 2 at 128 and 256
+  return 2 * KT * DMAX + 2 * kRowsPerThread * kWgThreads * 4;
+}
+
+// Q, two K/V stages, and (kStaged: K4 over an int8 cache) two staging
+// slots of int8 codes and scales; 1 KB to align
+template <typename T, int DMAX, bool kStaged>
+constexpr size_t fwd_wgmma_smem() {
+  constexpr int KT = WgKeyTile<DMAX>::kKeys;
+  return (size_t)(kWgRows + 4 * KT) * DMAX * sizeof(T) +
+         (kStaged ? 2 * staged_slot_bytes<DMAX>() : 0) + 1024;
+}
+
+// The forward of the 128 folded query rows f0.. of one block, a warpgroup
+// per 64: o (unnormalized), the running max m and sum l of this thread's
+// two rows (lane / 4 + 8 i of its warp's 16). Src says where the rows and
+// keys are (FlashSrc below: dense K/V; paged_attention.cuh PagedSrc: K/V
+// gathered through a block table):
+//   q, D, rows, scale, softcap; q_row(f): element row of folded row f of
+//   q (-1 past rows); pos(f): its query position; key_tiles<KT>(p_first,
+//   p_last, t_begin, t_end): the key tiles the block visits; edge<KT>(k0,
+//   p_first, p_last): whether a tile needs masks for those positions;
+//   masked(pos, key), branch-free; load<KT, DMAX>(t, K, V, slot): start
+//   this thread's copies of key tile t, into the 16-bit K and V tiles or
+//   (kStaged) into a staging slot; where kAlibi, slope(f): ALiBi's slope
+//   of row f; where kStaged, dequant<KT, DMAX>(slot, K, V): the staged
+//   codes this thread copied into the 16-bit tiles (no other thread's, so
+//   no barrier between).
+// Step t: S = Q K^T (K-major operands), in flight while the next tile's
+// copies are issued; the scale, cap, bias and (edge tiles only) masks; the
+// online max and sum in registers; o rescaled (the previous step's product
+// retired); then o += P V with P rounded to T as the A operand from
+// registers (to_a) and V as an MN-major operand. A staged tile t+1 is
+// dequantized at the end of step t from codes copied a step earlier. One
+// barrier a step: tile t visible, the other stage free.
+template <typename T, int DMAX, bool kCap, typename Src>
+__device__ __forceinline__ void fwd_sweep(const Src& src, int f0, unsigned char* smem,
+                                          float (&o)[DMAX / 2], float (&m)[2], float (&l)[2]) {
+  constexpr int KT = WgKeyTile<DMAX>::kKeys, BM = kWgRows;
+  constexpr int R = KT / 2;  // score registers a thread
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* KVs = Qs + BM * DMAX;  // two stages of [K tile, V tile]
+  unsigned char* staging = reinterpret_cast<unsigned char*>(KVs + 4 * KT * DMAX);
+  auto K_at = [&](int it) { return KVs + (it & 1) * 2 * KT * DMAX; };
+  auto slot_at = [&](int it) { return staging + (it & 1) * staged_slot_bytes<DMAX>(); };
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+
+  int pos[2];
+  float slope[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int f = f0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * i;
+    pos[i] = src.pos(f);
+    if constexpr (Src::kAlibi) slope[i] = src.slope(f);
+  }
+  int t_begin, t_end;  // the block's key tiles
+  src.template key_tiles<KT>(src.pos(f0), src.pos(min(f0 + BM, src.rows) - 1), t_begin, t_end);
+  // this warpgroup's positions: a tile that its rows cannot see is an edge
+  // tile for it, wholly masked (as in dq_wgmma_kernel)
+  const int wf0 = f0 + 64 * wg;
+  const int wp_first = src.pos(wf0), wp_last = src.pos(min(wf0 + 64, src.rows) - 1);
+
+  load_one<T, DMAX, BM>(Qs, src.q, src.D, [&](int r) { return src.q_row(f0 + r); });
+  if (t_begin < t_end) src.template load<KT, DMAX>(t_begin, K_at(0), K_at(0) + KT * DMAX,
+                                                   slot_at(0));
+  cp_async_commit();
+  if constexpr (Src::kStaged) {  // tile 0 dequantized, tile 1's codes in flight
+    if (t_begin + 1 < t_end) {
+      src.template load<KT, DMAX>(t_begin + 1, nullptr, nullptr, slot_at(1));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (t_begin < t_end) src.template dequant<KT, DMAX>(slot_at(0), K_at(0), K_at(0) + KT * DMAX);
+  }
+
+  const uint32_t qa = smem_addr(Qs);
+  wgmma::zero(o);
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+    if constexpr (!Src::kStaged) cp_async_wait<0>();  // tile t (and Q) copied
+    wgmma::fence_proxy();
+    __syncthreads();  // tile t visible to every warp; the other stage free
+    const int k0 = t * KT;
+    const uint32_t ka = smem_addr(K_at(it)), va = ka + KT * DMAX * sizeof(T);
+    float s[R];
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma::mma_ss<T>(s, wgmma::desc_k<BM>(qa, 64 * wg, kk), wgmma::desc_k<KT>(ka, 0, kk),
+                       kk > 0);
+    wgmma::commit();
+    // the next copies run while this tile is used: tile t+1 into the other
+    // stage, or a staged tile's codes two steps ahead
+    if constexpr (Src::kStaged) {
+      if (t + 2 < t_end) {
+        src.template load<KT, DMAX>(t + 2, nullptr, nullptr, slot_at(it));
+        cp_async_commit();
+      }
+    } else if (t + 1 < t_end) {
+      src.template load<KT, DMAX>(t + 1, K_at(it + 1), K_at(it + 1) + KT * DMAX, nullptr);
+      cp_async_commit();
+    }
+    wgmma::wait<0>();
+    wgmma::hold(s);
+    // scores in place of S: scale, cap, bias; masks on edge tiles only
+    float mx[2] = {-INFINITY, -INFINITY};
+    auto score = [&](int i, bool masked) {
+      const int r = (i >> 1) & 1;
+      float tc;
+      float x = cap_nb<kCap>(s[i], src.scale, src.softcap, tc);
+      if constexpr (Src::kAlibi)  // the plain version's order, each op rounded
+        x = __fadd_rn(x, __fmul_rn(slope[r],
+                                   (float)(k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1) -
+                                           pos[r])));
+      s[i] = masked ? -INFINITY : x;
+      mx[r] = fmaxf(mx[r], s[i]);
+    };
+    if (src.template edge<KT>(k0, wp_first, wp_last)) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        score(i, src.masked(pos[(i >> 1) & 1], k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)));
+    } else {
+#pragma unroll
+      for (int i = 0; i < R; ++i) score(i, false);
+    }
+    float mu[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], row_max(mx[r]));
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+      corr[r] = expf(m[r] - mu[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      s[i] = expf(s[i] - mu[(i >> 1) & 1]);
+      rs[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + row_sum(rs[r]);
+    // the previous step's product retired (wait and hold below): o is ours
+#pragma unroll
+    for (int i = 0; i < DMAX / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    uint32_t pa[R / 8][4];
+    wgmma::to_a<T>(pa, s);
+    wgmma::fence();
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)  // o += P V
+      wgmma::mma_rs<T>(o, pa[j], wgmma::desc_mn<KT>(va, j));
+    wgmma::commit();
+    wgmma::wait<0>();  // K and V read before their stage is refilled
+    wgmma::hold(o);
+    wgmma::hold(pa);
+    if constexpr (Src::kStaged) {  // tile t+1 from the codes this thread copied
+      if (t + 1 < t_end) {
+        if (t + 2 < t_end) cp_async_wait<1>();
+        else cp_async_wait<0>();
+        src.template dequant<KT, DMAX>(slot_at(it + 1), K_at(it + 1),
+                                       K_at(it + 1) + KT * DMAX);
+      }
+    }
+  }
+  cp_async_wait<0>();  // Q, where the block visits no key
+}
+
+// K1's keys and rows: dense K/V of (batch b, KV head kv); folded row f is
+// position f / G, head kv * G + f % G
+template <typename T>
+struct FlashSrc {
+  static constexpr bool kAlibi = false, kStaged = false;
+  const Args& a;
+  FastDiv G;
+  int b, kv, rows, D;
+  const T* q;
+  float scale, softcap;
+  __device__ __forceinline__ FlashSrc(const Args& args, int b_, int kv_)
+      : a(args), G(args.H / args.KV), b(b_), kv(kv_), rows(args.S * (args.H / args.KV)),
+        D(args.D), q(reinterpret_cast<const T*>(args.q)), scale(args.scale),
+        softcap(args.softcap) {}
+  __device__ __forceinline__ long long q_row(int f) const {
+    return f < rows ? q_row_fd(a, G, b, kv, f) : -1LL;
+  }
+  __device__ __forceinline__ int pos(int f) const { return (int)G(f); }
+  template <int KT>
+  __device__ __forceinline__ void key_tiles(int p_first, int p_last, int& t_begin,
+                                            int& t_end) const {
+    flash::key_tiles<KT>(a, p_first, p_last, t_begin, t_end);
+  }
+  template <int KT>
+  __device__ __forceinline__ bool edge(int k0, int p_first, int p_last) const {
+    return edge_tile<KT>(a, k0, p_first, p_last);
+  }
+  __device__ __forceinline__ bool masked(int p, int key) const { return masked_nb(a, p, key); }
+  template <int KT, int DMAX>
+  __device__ __forceinline__ void load(int t, T* Kb, T* Vb, unsigned char*) const {
+    const int k0 = t * KT;
+    load_pair<T, DMAX, KT>(Kb, reinterpret_cast<const T*>(a.k), Vb,
+                           reinterpret_cast<const T*>(a.v), D, [&](int r) {
+                             return k0 + r < a.S ? kv_row(a, b, kv, k0 + r) : -1LL;
+                           });
+  }
+};
+
+// o and lse of 128 folded query rows of (batch, KV head): a warpgroup per
+// 64 rows; the row tiles run last-first, so under causal the longest
+// blocks start first
+template <typename T, int DMAX, bool kCap>
+__global__ void __launch_bounds__(kWgThreads, 1) fwd_wgmma_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FlashSrc<T> src(a, blockIdx.z, blockIdx.y);
+  const int f0 = (int)(gridDim.x - 1 - blockIdx.x) * kWgRows;
+  float o[DMAX / 2], m[2], l[2];
+  fwd_sweep<T, DMAX, kCap>(src, f0, align_1024(smem_raw), o, m, l);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  long long orow[2];
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    orow[i] = src.q_row(f0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * i);
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (orow[i] >= 0 && (lane & 3) == 0)
+      a.lse_out[orow[i]] = l[i] > 0.f ? m[i] + logf(l[i]) : kLseMasked;
+  }
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  store_acc<T>(reinterpret_cast<T*>(a.out), o, orow, a.D, lane);
+}
+
 template <Pass P, typename T, int DMAX, bool kCap>
 cudaError_t launch_wgmma_cap(const Args& a, cudaStream_t stream) {
   Kernel kern;
   size_t smem;
   dim3 grid;
-  if constexpr (P == kDq) {
+  if constexpr (P == kFwd) {
+    kern = &fwd_wgmma_kernel<T, DMAX, kCap>;
+    smem = fwd_wgmma_smem<T, DMAX, false>();
+    grid = dim3((a.S * (a.H / a.KV) + kWgRows - 1) / kWgRows, a.KV, a.B);
+  } else if constexpr (P == kDq) {
     kern = &dq_wgmma_kernel<T, DMAX, kCap>;
     smem = dq_wgmma_smem<T, DMAX>();
     grid = dim3((a.S * (a.H / a.KV) + kWgRows - 1) / kWgRows, a.KV, a.B);
@@ -1214,9 +1482,9 @@ cudaError_t launch_wgmma_cap(const Args& a, cudaStream_t stream) {
 }
 
 // one wgmma pass at one head width, by dtype and softcap; each (pass,
-// width) is compiled in a source of its own (flash_attention_dq.cu,
-// flash_attention_dkdv.cu, and their _d256 forms), so the build runs them
-// in parallel
+// width) is compiled in a source of its own (flash_attention_fwd.cu,
+// flash_attention_dq.cu, flash_attention_dkdv.cu, and their _d256 forms),
+// so the build runs them in parallel
 template <Pass P, int DMAX>
 int run_wgmma(const Args& a, int dtype, cudaStream_t s) {
   const bool cap = a.softcap > 0.f;
@@ -1231,40 +1499,43 @@ int run_wgmma(const Args& a, int dtype, cudaStream_t s) {
   }
 }
 
+int run_fwd_wgmma_128(const Args& a, int dtype, cudaStream_t s);
 int run_dq_wgmma_128(const Args& a, int dtype, cudaStream_t s);
 int run_dkdv_wgmma_128(const Args& a, int dtype, cudaStream_t s);
+int run_fwd_wgmma_256(const Args& a, int dtype, cudaStream_t s);
 int run_dq_wgmma_256(const Args& a, int dtype, cudaStream_t s);
 int run_dkdv_wgmma_256(const Args& a, int dtype, cudaStream_t s);
 
-// the mma.sync bodies run every forward, and the backward in fp32 and at
-// head width <= 64
+// the mma.sync bodies run every pass in fp32 and at head width <= 64
+// (fp32 parity runs and small models); bf16 and fp16 at 65..256 are
+// wgmma's, and their mma.sync instances are never compiled
 template <typename T, int DMAX>
-constexpr bool kMmaBackward = std::is_same<T, float>::value || DMAX <= 64;
+constexpr bool kMmaBody = std::is_same<T, float>::value || DMAX <= 64;
 
 template <typename T, int DMAX, bool kCap>
 cudaError_t launch_cap(Pass pass, const Args& a, cudaStream_t stream) {
-  Kernel kern = &fwd_kernel<T, DMAX, kCap>;
-  size_t smem = fwd_smem<T, DMAX>();
-  dim3 grid((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.KV, a.B);
-  if (pass != kFwd) {
-    if constexpr (!kMmaBackward<T, DMAX>) {
-      return cudaErrorInvalidValue;  // the wgmma passes (run)
-    } else if (pass == kDq) {
+  if constexpr (!kMmaBody<T, DMAX>) {
+    return cudaErrorInvalidValue;  // the wgmma kernels (run)
+  } else {
+    Kernel kern = &fwd_kernel<T, DMAX, kCap>;
+    size_t smem = fwd_smem<T, DMAX>();
+    dim3 grid((a.S * (a.H / a.KV) + kRows - 1) / kRows, a.KV, a.B);
+    if (pass == kDq) {
       kern = &dq_kernel<T, DMAX, kCap>;
       smem = dq_smem<T, DMAX>();
-    } else {
+    } else if (pass == kDkdv) {
       kern = &dkdv_kernel<T, DMAX, kCap>;
       smem = dkdv_smem<T, DMAX>();
-      grid = dim3((a.S + kKeys - 1) / kKeys * Tiles<T, DMAX>::kColSplits, a.KV, a.B);
+      grid = dim3((a.S + kKeys - 1) / kKeys * Tiles<DMAX>::kColSplits, a.KV, a.B);
     }
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    kern<<<grid, kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T, int DMAX>
@@ -1284,12 +1555,13 @@ int run_width(Pass pass, const Args& a, int dtype, cudaStream_t s) {
   }
 }
 
-// the head-width-256 mma.sync instances, compiled in flash_attention_d256.cu
+// the head-width-256 mma.sync instances (fp32), compiled in
+// flash_attention_d256.cu
 int run_d256(Pass pass, const Args& a, int dtype, cudaStream_t stream);
 
 // one pass of either layout (flash_attention.cu): checks the shape, then
-// launches the wgmma backward (bf16, fp16 at head widths 65..256) or a
-// mma.sync kernel
+// launches a wgmma kernel (bf16, fp16 at head widths 65..256) or a
+// mma.sync one
 int run(Pass pass, const Args& a, int dtype, void* stream);
 
 // the entry points' arguments, shared by both layouts

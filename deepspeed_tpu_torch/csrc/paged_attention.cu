@@ -1,8 +1,10 @@
 // K4 paged attention: the entry points (the grid plan, its workspace, the
-// dispatch on dtypes). What the kernel replaces, computes and is bound by
-// is in paged_attention.cuh, which holds it; each (query, cache) type
-// pair's instances are compiled in their own source
-// (paged_attention_{f32,bf16,int8_f32,int8_bf16}.cu).
+// dispatch on dtypes and on the two kernels). What the kernels replace,
+// compute and are bound by is in paged_attention.cuh, which holds them;
+// each (query, cache) type pair's CUDA-core instances are compiled in their
+// own source (paged_attention_{f32,bf16,int8_f32,int8_bf16}.cu), and the
+// wgmma instances by cache type and head width
+// (paged_attention_wgmma_{bf16,int8}{,_d256}.cu).
 #include "paged_attention.cuh"
 
 namespace dstt {
@@ -20,26 +22,39 @@ inline int sm_count() {
   return n;
 }
 
-// The grid: query rows per warp, and the split of each sequence's pages.
-// Few rows (decode: G rows per sequence and head) take one row per warp;
-// prefill tiles take four rows per warp, sharing each staged page. The
-// span of pages a sequence can read (all B without a window; with window
-// W, at most ceil((W + N - 1) / page_size) + 1 from its first live page) is
-// split over enough blocks that the grid holds about 16 blocks per SM
+// The grid. A bf16 query over a bf16 or int8 cache at head widths 65..256
+// (D % 8 == 0; an int8 cache D % 16 == 0) with at least kWgmmaMinRows
+// folded rows per (sequence, KV head) takes the wgmma kernel, 128 rows a
+// block; every other launch (decode, fp32 queries, narrow heads) the
+// CUDA-core kernel, whose few rows (decode: G rows per sequence and head)
+// take one row per warp and whose prefill tiles take four rows per warp,
+// sharing each staged page. The span of pages a sequence can read (all B
+// without a window; with window W, at most ceil((W + N - 1) / page_size)
+// + 1 from its first live page) is split over enough blocks that the
+// CUDA-core grid holds about 16 blocks per SM, the wgmma grid two waves
 // (splits past a sequence's last page exit at once); 1 split when the
 // query rows alone fill the card.
 struct Plan {
+  bool wgmma;
   int rpw, splits, pages_per_split;
 };
 
-inline Plan plan(int S, int N, int H, int KV, int B, int page_size, int window,
-                 int sms) {
+inline bool takes_wgmma(int N, int H, int KV, int D, int dtype, int cache_dtype) {
+  return dtype == kBFloat16 && D > 64 && D <= 256 && D % 8 == 0 &&
+         (cache_dtype == kBFloat16 || (cache_dtype == kInt8 && D % 16 == 0)) &&
+         (long long)N * (H / KV) >= kWgmmaMinRows;
+}
+
+inline Plan plan(int S, int N, int H, int D, int KV, int B, int page_size, int window,
+                 int dtype, int cache_dtype, int sms) {
   const int rows = N * (H / KV);
   Plan p;
+  p.wgmma = takes_wgmma(N, H, KV, D, dtype, cache_dtype);
   p.rpw = rows <= kAttnWarps ? 1 : 4;
-  const long long tiles = (rows + kAttnWarps * p.rpw - 1) / (kAttnWarps * p.rpw);
-  const long long blocks = tiles * KV * S;
-  const long long want = (16LL * sms + blocks - 1) / blocks;
+  const int row_tile = p.wgmma ? flash::kWgRows : kAttnWarps * p.rpw;
+  const long long blocks = (long long)(rows + row_tile - 1) / row_tile * KV * S;
+  const long long target = p.wgmma ? 2LL * sms : 16LL * sms;
+  const long long want = p.wgmma && blocks >= sms ? 1 : (target + blocks - 1) / blocks;
   const int span = window > 0
       ? (int)std::min<long long>(B, ((long long)window + N - 1 + page_size - 1) / page_size + 1)
       : B;
@@ -61,19 +76,35 @@ inline bool valid_shape(int S, int N, int H, int D, int KV, int B) {
 
 }  // namespace dstt
 
-// Workspace (fp32 words) that dstt_paged_attention needs for this shape on
-// the current device; 0 when the pages are not split.
-extern "C" int dstt_paged_attention_workspace(int S, int N, int H, int D, int KV,
-                                              int B, int page_size, int window,
-                                              long long* floats) {
+// The plan of dstt_paged_attention for this shape and these dtypes on the
+// current device: the fp32 words of workspace it needs (0 when the pages
+// are not split) and whether it launches the wgmma kernel (1) or the
+// CUDA-core one (0).
+extern "C" int dstt_paged_attention_plan(int S, int N, int H, int D, int KV, int B,
+                                         int page_size, int window, int dtype,
+                                         int cache_dtype, long long* floats, int* wgmma) {
   using namespace dstt;
   if (!valid_shape(S, N, H, D, KV, B) || page_size <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  *floats = (long long)workspace_floats(plan(S, N, H, KV, B, page_size, window, sms),
-                                        S, N, H, D);
+  const Plan p = plan(S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, sms);
+  *floats = (long long)workspace_floats(p, S, N, H, D);
+  *wgmma = p.wgmma ? 1 : 0;
   return (int)cudaSuccess;
+}
+
+// bytes of dynamic shared memory of a wgmma instance (head width 128 or
+// 256; a bf16 cache 0, an int8 cache 1), for the build report; -1 for no
+// such instance
+extern "C" int dstt_paged_wgmma_smem(int dmax, int int8_cache) {
+  using namespace dstt;
+  size_t bytes = 0;
+  if (dmax == 128) bytes = int8_cache ? paged_wgmma_smem<int8_t, 128>()
+                                      : paged_wgmma_smem<__nv_bfloat16, 128>();
+  if (dmax == 256) bytes = int8_cache ? paged_wgmma_smem<int8_t, 256>()
+                                      : paged_wgmma_smem<__nv_bfloat16, 256>();
+  return bytes ? (int)bytes : -1;
 }
 
 // dtype: the query's and output's; cache_dtype: the same, or kInt8 with
@@ -98,7 +129,7 @@ extern "C" int dstt_paged_attention(const void* q, const void* cache,
     return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  const Plan p = plan(S, N, H, KV, B, page_size, window, sms);
+  const Plan p = plan(S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, sms);
   const size_t need = workspace_floats(p, S, N, H, D);
   if (need > 0 && (workspace == nullptr || (size_t)workspace_len < need))
     return (int)cudaErrorInvalidValue;
@@ -111,7 +142,13 @@ extern "C" int dstt_paged_attention(const void* q, const void* cache,
               softcap, p.splits, p.pages_per_split, ws, ws ? ws + parts * D : nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (dtype == kFloat32 && cache_dtype == kFloat32)
+  if (p.wgmma)
+    e = cache_dtype == kInt8
+            ? (D <= 128 ? launch_paged_wgmma<int8_t, 128>(a, s)
+                        : launch_paged_wgmma<int8_t, 256>(a, s))
+            : (D <= 128 ? launch_paged_wgmma<__nv_bfloat16, 128>(a, s)
+                        : launch_paged_wgmma<__nv_bfloat16, 256>(a, s));
+  else if (dtype == kFloat32 && cache_dtype == kFloat32)
     e = launch_cache<float, float>(a, p.rpw, s);
   else if (dtype == kBFloat16 && cache_dtype == kBFloat16)
     e = launch_cache<__nv_bfloat16, __nv_bfloat16>(a, p.rpw, s);

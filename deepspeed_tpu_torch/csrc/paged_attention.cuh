@@ -26,9 +26,34 @@
 // dims of each query row it owns.
 //
 // Bound on the H100: bytes for decode (each query row meets every history
-// key once, about 4 flops per 2 bytes of K/V read), and, for long prefill
-// chunks, the CUDA-core flops, since this first version does the two
-// products on CUDA cores, not on tensor cores. What the design does:
+// key once, about 4 flops per 2 bytes of K/V read); operations for prefill
+// chunks (a 768-token chunk meets thousands of keys per row). Two kernels:
+// - Multi-row tiles on wgmma (paged_attention_wgmma_kernel): a bf16 query
+//   over a bf16 or int8 cache at head widths 65..256 with at least
+//   kWgmmaMinRows folded rows N * G per (sequence, KV head): prefill
+//   chunks, admission waves, mixed batches. It is K1's forward sweep
+//   (flash_attention.cuh fwd_sweep) with a source of its own (PagedSrc):
+//   one block per (128 folded rows, KV head, sequence, split), a
+//   warpgroup per 64 rows, key tiles of 64 (32 at head width 256) gathered
+//   through the block table (key j is slot block_table[s, j / page_size] *
+//   page_size + j % page_size, 16-byte cp.async rows into the swizzled
+//   tile, any page size), positions seen + f / G, ALiBi's head h * G + f % G
+//   (FastDiv for both), S = Q K^T and o += P V on the tensor cores with P
+//   rounded to bf16 as the JAX kernel rounds it (:147); the CUDA-core
+//   kernel keeps P in fp32. An int8 tile's codes and scales are copied two
+//   tiles ahead and each thread dequantizes the codes it copied, with the
+//   numerics below, into the bf16 tile. The block's keys are [kmin, kmax]:
+//   from its first row's window (the entries the engine freed below it are
+//   never read) or its split's first page, to the last key its last row
+//   sees; keys outside are never copied and always masked. Where the grid
+//   is under a wave of SMs, the pages are split as below. What held the
+//   CUDA-core kernel back on these shapes: one lane per key with D fp32
+//   FMAs from shared memory for QK, one lane per output dim for PV, so a
+//   768-row Gemma-2 chunk ran 13.2 ms against a 0.05 ms bound on the
+//   H100; the tiles take it to ~0.31 ms (PERF.md, section 6).
+// - The CUDA-core kernel (paged_attention_kernel): decode (N = 1), fp32
+//   queries, narrow heads, and rows fewer than a warpgroup's.
+// What the CUDA-core kernel's design does:
 // - One thread block per (tile of query rows, KV head, sequence). The G
 //   query heads that share a KV head sit in one block, so each K/V page is
 //   read from device memory once per tile, never once per query head (GQA
@@ -57,8 +82,9 @@
 //   most ceil((W + N - 1) / page_size) + 1 pages from the sequence's first
 //   live page, not the whole table width: a split past the span, or whose
 //   pages the tile skips, writes l = 0 and no accumulator, and the combine
-//   leaves it out. The caller asks dstt_paged_attention_workspace for the
-//   workspace size, so the grid rule lives only in this file.
+//   leaves it out. The caller asks dstt_paged_attention_plan for the
+//   workspace size and the kernel, so the grid rule lives only in
+//   paged_attention.cu.
 // - Scores: one lane per key, the K row padded in shared memory to an odd
 //   number of 4-byte words so the 32 lanes hit 32 banks. P.V: one lane per
 //   output dim, with the page's probabilities broadcast from shared memory.
@@ -69,13 +95,15 @@
 //   staged K/V are the bf16 values the TPU kernel feeds its dot. The rest of
 //   the kernel reads them as it reads a bf16 page. It moves about half the
 //   bytes of a bf16 page: D + 4 bytes per (slot, head) instead of 2*D.
-// Later versions move both products to wgmma with TMA-fed page rings.
+// Later versions: decode on wgmma too (its rows fill a warpgroup only
+// across sequences), TMA-fed page rings.
 #pragma once
 
 #include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace dstt {
 
@@ -454,6 +482,228 @@ cudaError_t launch_cache(const PagedArgs& a, int rpw, cudaStream_t stream) {
   return a.D <= 128 ? launch_paged_cap<T, C, 4>(a, rpw, stream)
                     : launch_paged_cap<T, C, 8>(a, rpw, stream);
 }
+
+// ---- multi-row tiles on wgmma: bf16 queries over a bf16 or int8 cache ----
+
+// folded rows (n * G + g) per (sequence, KV head) from which a launch takes
+// the wgmma kernel (plan()): one warpgroup's 64
+constexpr int kWgmmaMinRows = 64;
+
+// K4's keys and rows for flash::fwd_sweep (flash_attention.cuh): folded row
+// f = n * G + g of sequence s and KV head h is query (n, h * G + g) at
+// position seen + n; key j is slot block_table[s, j / page_size] *
+// page_size + j % page_size of the cache's rows 2 * layer (K) and
+// 2 * layer + 1 (V). The block's keys are [kmin, kmax]: from the first
+// row's window (the freed entries below it are never read) or its split's
+// first page, to the last key its last row sees (causal, < lens) or its
+// split's last page. Keys outside it are never copied and always masked.
+template <typename C, bool kAlibiFlag>
+struct PagedSrc {
+  using T = __nv_bfloat16;
+  static constexpr bool kAlibi = kAlibiFlag;
+  static constexpr bool kStaged = std::is_same<C, int8_t>::value;
+  flash::FastDiv G, PS;
+  int rows, D, ps, KV, window, seen, kmin, kmax;
+  float scale, softcap;
+  const T* q;
+  const int* bt;        // this sequence's block-table row
+  const C* kc;          // the cache row of K, at KV head h
+  const C* vc;          // of V
+  const float* ksc;     // int8: the scales of K's row, at KV head h
+  const float* vsc;     // of V
+  const float* slopes;  // ALiBi: the slopes of KV head h's G query heads
+  long long q_base;     // element row of (sequence s, n 0, head h * G)
+  int H;
+
+  __device__ __forceinline__ PagedSrc(const PagedArgs& a, int s, int h, int f0, int split)
+      : G(a.H / a.KV), PS(a.page_size), rows(a.N * (a.H / a.KV)), D(a.D), ps(a.page_size),
+        KV(a.KV), window(a.window), seen(a.seen[s]), scale(a.scale), softcap(a.softcap),
+        q(reinterpret_cast<const T*>(a.q)), bt(a.block_table + (long long)s * a.B), H(a.H) {
+    const long long kvd = (long long)a.KV * a.D;
+    kc = reinterpret_cast<const C*>(a.cache) + 2LL * a.layer * a.slots * kvd + (long long)h * a.D;
+    vc = kc + a.slots * kvd;
+    ksc = a.cache_scales ? a.cache_scales + 2LL * a.layer * a.slots * a.KV + h : nullptr;
+    vsc = ksc ? ksc + a.slots * a.KV : nullptr;
+    slopes = a.slopes ? a.slopes + (long long)h * (int)G.d : nullptr;
+    q_base = (long long)s * a.N * a.H + (long long)h * (int)G.d;
+    const int n_first = (int)G(f0), n_last = (int)G(min(f0 + flash::kWgRows, rows) - 1);
+    const int hist = a.lens[s];
+    kmin = window > 0 ? max(0, seen + n_first - window + 1) : 0;
+    kmax = min(hist - 1, seen + n_last);
+    // the split's pages, from the sequence's first live page (as
+    // paged_attention_kernel)
+    const int seq_first = window > 0 ? max(0, seen - window + 1) / ps : 0;
+    kmin = max(kmin, (seq_first + split * a.pages_per_split) * ps);
+    kmax = min(kmax, min(a.B, seq_first + (split + 1) * a.pages_per_split) * ps - 1);
+  }
+  __device__ __forceinline__ long long q_row(int f) const {
+    if (f >= rows) return -1LL;
+    const int n = (int)G(f);
+    return q_base + (long long)n * H + (f - n * (int)G.d);
+  }
+  __device__ __forceinline__ int pos(int f) const { return seen + (int)G(f); }
+  template <int KT>
+  __device__ __forceinline__ void key_tiles(int, int, int& t_begin, int& t_end) const {
+    t_begin = max(kmin, 0) / KT;
+    t_end = kmin <= kmax ? kmax / KT + 1 : t_begin;
+  }
+  template <int KT>
+  __device__ __forceinline__ bool edge(int k0, int p_first, int p_last) const {
+    return k0 < kmin || k0 + KT - 1 > kmax || k0 + KT - 1 > p_first ||
+           (window > 0 && p_last - k0 >= window);
+  }
+  __device__ __forceinline__ bool masked(int p, int key) const {
+    return (key < kmin) | (key > kmax) | (key > p) | ((window > 0) & (p - key >= window));
+  }
+  __device__ __forceinline__ float slope(int f) const {
+    return slopes[f - (int)G(f) * (int)G.d];
+  }
+  // the cache row (in units of D) of key k0 + r, -1 outside [kmin, kmax]
+  __device__ __forceinline__ long long key_row(int key) const {
+    if (key < kmin || key > kmax) return -1LL;
+    const int page = (int)PS(key);
+    return ((long long)bt[page] * ps + (key - page * ps)) * KV;
+  }
+  template <int KT, int DMAX>
+  __device__ __forceinline__ void load(int t, T* Kb, T* Vb, unsigned char* slot) const {
+    const int k0 = t * KT;
+    if constexpr (!kStaged) {
+      flash::load_pair<T, DMAX, KT>(Kb, kc, Vb, vc, D, [&](int r) { return key_row(k0 + r); });
+    } else {
+      // the int8 codes ([KT][DMAX] bytes of K, then of V), 16 codes a copy,
+      // and each copied row's two scales into this thread's own slots
+      constexpr int kChunks = DMAX / 16, kStride = flash::kWgThreads / kChunks;
+      static_assert(KT % kStride == 0, "key rows a multiple of the threads' row stride");
+      float* sc = reinterpret_cast<float*>(slot + 2 * KT * DMAX);
+      const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+#pragma unroll
+      for (int j = 0; j < KT / kStride; ++j) {
+        const int r = r0 + j * kStride;
+        const long long g = key_row(k0 + r);
+        const bool valid = g >= 0 && c * 16 < D;
+        const long long off = valid ? g * D + c * 16 : 0;
+        flash::cp_async<16>(slot + r * DMAX + c * 16, kc + off, valid);
+        flash::cp_async<16>(slot + (KT + r) * DMAX + c * 16, vc + off, valid);
+        flash::cp_async<4>(sc + (2 * j) * flash::kWgThreads + threadIdx.x,
+                           g >= 0 ? ksc + g : ksc, g >= 0);
+        flash::cp_async<4>(sc + (2 * j + 1) * flash::kWgThreads + threadIdx.x,
+                           g >= 0 ? vsc + g : vsc, g >= 0);
+      }
+    }
+  }
+  // the codes this thread copied into the bf16 K and V tiles, the TPU
+  // kernel's numerics: bf16(code) * bf16(scale), rounded to bf16
+  // (dequant4); columns past D were copied as zero codes
+  template <int KT, int DMAX>
+  __device__ __forceinline__ void dequant(const unsigned char* slot, T* Kb, T* Vb) const {
+    constexpr int kChunks = DMAX / 16, kStride = flash::kWgThreads / kChunks;
+    const float* sc = reinterpret_cast<const float*>(slot + 2 * KT * DMAX);
+    const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+#pragma unroll
+    for (int j = 0; j < KT / kStride; ++j) {
+      const int r = r0 + j * kStride;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const uint4 w = *reinterpret_cast<const uint4*>(slot + (kv * KT + r) * DMAX + c * 16);
+        const float scale_r = __bfloat162float(
+            __float2bfloat16(sc[(2 * j + kv) * flash::kWgThreads + threadIdx.x]));
+        const uint2 a0 = dequant4(w.x, scale_r), a1 = dequant4(w.y, scale_r);
+        const uint2 a2 = dequant4(w.z, scale_r), a3 = dequant4(w.w, scale_r);
+        T* dst = kv ? Vb : Kb;
+        *reinterpret_cast<uint4*>(dst + wgmma::swizzled<KT>(r, c * 16)) =
+            make_uint4(a0.x, a0.y, a1.x, a1.y);
+        *reinterpret_cast<uint4*>(dst + wgmma::swizzled<KT>(r, c * 16 + 8)) =
+            make_uint4(a2.x, a2.y, a3.x, a3.y);
+      }
+    }
+  }
+};
+
+// 128 folded query rows (n * G + g) of one (sequence, KV head), a warpgroup
+// per 64, through flash::fwd_sweep; the row tiles run last-first (later
+// rows see more keys). With splits > 1 each block covers one split of the
+// sequence's pages and writes its rows' (max, sum, fp32 accumulator) to the
+// workspace for combine_kernel, as paged_attention_kernel does.
+template <typename C, int DMAX, bool kAlibi, bool kCap>
+__global__ void __launch_bounds__(flash::kWgThreads, 1)
+paged_attention_wgmma_kernel(PagedArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tiles = (int)gridDim.x / a.splits;
+  const int tile = tiles - 1 - (int)blockIdx.x / a.splits, split = (int)blockIdx.x % a.splits;
+  const int f0 = tile * flash::kWgRows, h = blockIdx.y, s = blockIdx.z;
+  const PagedSrc<C, kAlibi> src(a, s, h, f0, split);
+  float o[DMAX / 2], m[2], l[2];
+  flash::fwd_sweep<T, DMAX, kCap>(src, f0, flash::align_1024(smem_raw), o, m, l);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  long long rows_at[2];
+  if (a.splits > 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int f = f0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * i;
+      const long long part =
+          f < src.rows ? (((long long)s * a.KV + h) * src.rows + f) * a.splits + split : -1LL;
+      if (part >= 0 && (lane & 3) == 0) {
+        a.ws_ml[2 * part] = l[i] > 0.f ? m[i] : kNegInf;
+        a.ws_ml[2 * part + 1] = l[i];
+      }
+      rows_at[i] = l[i] > 0.f ? part : -1LL;  // combine_kernel reads no empty split
+    }
+    flash::store_acc<float>(a.ws_acc, o, rows_at, a.D, lane);
+    return;
+  }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows_at[i] = src.q_row(f0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * i);
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  flash::store_acc<T>(reinterpret_cast<T*>(a.out), o, rows_at, a.D, lane);
+}
+
+template <typename C, int DMAX>
+constexpr size_t paged_wgmma_smem() {
+  return flash::fwd_wgmma_smem<__nv_bfloat16, DMAX, std::is_same<C, int8_t>::value>();
+}
+
+template <typename C, int DMAX, bool kAlibi, bool kCap>
+cudaError_t launch_paged_wgmma_inst(const PagedArgs& a, cudaStream_t stream) {
+  auto kern = paged_attention_wgmma_kernel<C, DMAX, kAlibi, kCap>;
+  const size_t smem = paged_wgmma_smem<C, DMAX>();
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int rows = a.N * (a.H / a.KV);
+  const dim3 grid((rows + flash::kWgRows - 1) / flash::kWgRows * a.splits, a.KV, a.S);
+  kern<<<grid, flash::kWgThreads, smem, stream>>>(a);
+  if (a.splits > 1) {
+    const dim3 cgrid((rows + kAttnWarps - 1) / kAttnWarps, a.KV, a.S);
+    combine_kernel<__nv_bfloat16, DMAX / 32><<<cgrid, kAttnThreads, 0, stream>>>(a);
+  }
+  return cudaSuccess;
+}
+
+// The wgmma instances over one cache type at one head width (ALiBi and the
+// softcap as template flags), each (cache, width) compiled in a source of
+// its own (paged_attention_wgmma_{bf16,int8}{,_d256}.cu)
+template <typename C, int DMAX>
+cudaError_t launch_paged_wgmma(const PagedArgs& a, cudaStream_t stream) {
+  const bool cap = a.softcap > 0.f;
+  if (a.slopes)
+    return cap ? launch_paged_wgmma_inst<C, DMAX, true, true>(a, stream)
+               : launch_paged_wgmma_inst<C, DMAX, true, false>(a, stream);
+  return cap ? launch_paged_wgmma_inst<C, DMAX, false, true>(a, stream)
+             : launch_paged_wgmma_inst<C, DMAX, false, false>(a, stream);
+}
+
+extern template cudaError_t launch_paged_wgmma<__nv_bfloat16, 128>(const PagedArgs&,
+                                                                   cudaStream_t);
+extern template cudaError_t launch_paged_wgmma<__nv_bfloat16, 256>(const PagedArgs&,
+                                                                   cudaStream_t);
+extern template cudaError_t launch_paged_wgmma<int8_t, 128>(const PagedArgs&, cudaStream_t);
+extern template cudaError_t launch_paged_wgmma<int8_t, 256>(const PagedArgs&, cudaStream_t);
 
 extern template cudaError_t launch_cache<float, float>(const PagedArgs&, int, cudaStream_t);
 extern template cudaError_t launch_cache<__nv_bfloat16, __nv_bfloat16>(const PagedArgs&, int,

@@ -37,16 +37,19 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # C signatures (see csrc/*.cu); all return int (a cudaError_t, but for
-# dstt_flash_wgmma_smem)
+# dstt_flash_wgmma_smem and dstt_paged_wgmma_smem)
 _SIGNATURES = {
     # x, w, out, rows, d, eps, dtype, weight dtype, stream
     "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _I, _P),
     # x, w, b, out, rows, d, eps, dtype, stream
     "dstt_layer_norm": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
-    # S, N, H, D, KV, B, page_size, window, out: workspace length in fp32
-    # words
-    "dstt_paged_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I,
-                                       ctypes.POINTER(_L)),
+    # S, N, H, D, KV, B, page_size, window, q dtype, cache dtype, out:
+    # workspace length in fp32 words, out: 1 where the wgmma kernel runs
+    "dstt_paged_attention_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  ctypes.POINTER(_L), ctypes.POINTER(_I)),
+    # head width, int8 cache: returns the bytes of dynamic shared memory of
+    # that K4 wgmma instance
+    "dstt_paged_wgmma_smem": (_I, _I),
     # q, cache, cache_scales, slopes, out, block_table, seen, lens, S, N, H,
     # D, KV, B, slots, layer, page_size, window, scale, softcap, q dtype,
     # cache dtype, workspace, workspace length, stream
@@ -86,8 +89,8 @@ _SIGNATURES = {
     # D, layout heads, table width, block, scale, dtype, stream
     "dstt_splash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _F, _I, _P),
-    # pass (1 dq, 2 dk/dv), head width, softcap: returns the bytes of
-    # dynamic shared memory of that wgmma backward instance
+    # pass (0 forward, 1 dq, 2 dk/dv), head width, softcap: returns the
+    # bytes of dynamic shared memory of that flash wgmma instance
     "dstt_flash_wgmma_smem": (_I, _I, _I),
     # p, g, m, v, n, lr, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
     # weight decay, mode, p dtype, g dtype, stream

@@ -15,14 +15,19 @@ launches over a float cache, ``paged_attention.int8_launches`` over an
 int8 cache, ``paged_attention.alibi_launches`` those with ALiBi and
 ``paged_attention.softcap_launches`` those with the softcap (over either
 cache; each launch counts once, in the first of softcap, ALiBi, int8 and
-float that applies). All take the JAX kernel's sliding ``window``: a query
-at absolute position ``q`` sees keys ``q - window < key <= q``, and the
-kernel never reads a page wholly older than the window of the chunk's
-first query. The softcap (Gemma-2, ``softcap=c``) takes the scaled scores
-to ``c * tanh(s / c)`` before any bias or mask (the JAX kernel's
-``:122-124``). ALiBi (BLOOM, ``use_alibi``/``slopes``) adds
-``slopes[kv, g] * (key_pos - q_abs)`` in fp32 to the scores before the
-masks (``:125-131``); ``slopes`` ``[KV, G]`` fp32 defaults to
+float that applies). ``paged_attention.wgmma_launches`` counts, beside
+them, the launches that ran the multi-row tiles on wgmma (a bf16 query
+over a bf16 or int8 cache with at least 64 folded rows ``N * G`` per
+sequence and KV head, at head widths 65..256); the others, decode among
+them, run the CUDA-core kernel. The kernel's plan decides
+(``dstt_paged_attention_plan``). All take the JAX kernel's sliding
+``window``: a query at absolute position ``q`` sees keys ``q - window <
+key <= q``, and the kernel never reads a page wholly older than the
+window of the chunk's first query. The softcap (Gemma-2, ``softcap=c``)
+takes the scaled scores to ``c * tanh(s / c)`` before any bias or mask
+(the JAX kernel's ``:122-124``). ALiBi (BLOOM, ``use_alibi``/``slopes``)
+adds ``slopes[kv, g] * (key_pos - q_abs)`` in fp32 to the scores before
+the masks (``:125-131``); ``slopes`` ``[KV, G]`` fp32 defaults to
 ``alibi_slopes(H).reshape(KV, G)``. Head widths up to 256.
 """
 
@@ -137,16 +142,17 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
 
 
 @functools.lru_cache(maxsize=256)
-def _workspace_len(device_index: int, S: int, N: int, H: int, D: int, KV: int,
-                   B: int, page_size: int, window: int) -> int:
-    """fp32 words of workspace the kernel's grid plan (page splits, made in
-    csrc/paged_attention.cu) needs for this shape on this device."""
-    n = ctypes.c_longlong(0)
+def _plan(device_index: int, S: int, N: int, H: int, D: int, KV: int, B: int,
+          page_size: int, window: int, dtype: int, cache_dtype: int):
+    """The kernel's grid plan (made in csrc/paged_attention.cu) for this
+    shape on this device: the fp32 words of workspace its page splits need,
+    and whether it runs the wgmma kernel."""
+    n, wgmma = ctypes.c_longlong(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _build.check(_build.lib().dstt_paged_attention_workspace(
-            S, N, H, D, KV, B, page_size, window, ctypes.byref(n)),
-            "paged_attention")
-    return n.value
+        _build.check(_build.lib().dstt_paged_attention_plan(
+            S, N, H, D, KV, B, page_size, window, dtype, cache_dtype,
+            ctypes.byref(n), ctypes.byref(wgmma)), "paged_attention")
+    return n.value, bool(wgmma.value)
 
 
 def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
@@ -223,7 +229,8 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
     scale = attn_scale if attn_scale is not None else 1.0 / (D ** 0.5)
     KV = KVD // D
     window = int(window or 0)  # 0: global attention
-    ws_len = _workspace_len(q.device.index, S, N, H, D, KV, B, page_size, window)
+    codes = (_build.dtype_code(q.dtype), _build.dtype_code(cache.dtype))
+    ws_len, wgmma = _plan(q.device.index, S, N, H, D, KV, B, page_size, window, *codes)
     workspace = (torch.empty(ws_len, dtype=torch.float32, device=q.device)
                  if ws_len else None)
     lib = _build.lib()
@@ -234,9 +241,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             None if slope_table is None else slope_table.data_ptr(),
             out.data_ptr(), block_table.data_ptr(), seq_seen.data_ptr(),
             seq_lens.data_ptr(), S, N, H, D, KV, B, slots, int(layer),
-            page_size, window, float(scale), float(softcap or 0.0),
-            _build.dtype_code(q.dtype),
-            _build.dtype_code(cache.dtype),
+            page_size, window, float(scale), float(softcap or 0.0), *codes,
             None if workspace is None else workspace.data_ptr(), ws_len,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
@@ -248,10 +253,13 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
         paged_attention.int8_launches += 1
     else:
         paged_attention.launches += 1
+    if wgmma:
+        paged_attention.wgmma_launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.wgmma_launches = 0
 paged_attention.int8_launches = 0
 paged_attention.alibi_launches = 0
 paged_attention.softcap_launches = 0

@@ -1,24 +1,106 @@
 #!/usr/bin/env python3
-"""A/B of the flash kernels of one source tree at the training shape on a
-CUDA GPU: K2's dq and dk/dv, per head and folded, in fp16 over three
-seeds (the row error against the plain version and each one's distance
-from the exact fp64 value), then K1/K2 in bf16 at the main shape with and
-without softcap 50, each pass's time beside SDPA's (or flex_attention's).
+"""A/B of the attention kernels of one source tree on a CUDA GPU: K1's
+forward (Llama-3-8B's training shape, with softcap 50, causal at S 8192,
+Gemma-2's D 256 under the 4096 window with its cap) and K4 on the
+multi-row shapes of the serving paths (Gemma-2's and StarCoder2's 768-row
+chunks straddling the window, BLOOM's ALiBi chunk, Llama's prefill wave,
+Llama's 768-row chunk over an int8 cache deep in the cache, the mixed
+batch), each time beside the row error against the plain version.
 
-    python3 flash_ab.py TREE TAG
+    python3 flash_ab.py TREE TAG [--flex]
 
 TREE is the root of a checkout (this one: ``.``; another commit: unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists,
-e.g. ``build/parent``); its own ``chip_smoke.py`` cases and kernels run,
-its library built under it. Prints one JSON line tagged TAG. To compare
-two commits on one card, run them in turns in one command: parent,
-change, change, parent.
+e.g. ``build/parent``); its own kernels, wrappers and ``chip_smoke.py``
+cases run, its library built under it. ``--flex`` adds, for reference
+only, flex_attention over Gemma-2's and StarCoder2's K4 chunks with their
+keys gathered into contiguous K/V (the cap and the window as its
+``score_mod`` and mask): not K4's function, which reads the paged cache.
+Prints one JSON line tagged TAG. To compare two commits on one card, run them in turns in one
+command: parent, change, change, parent.
 """
 
 import json
 import os
 import sys
 import time
+
+
+def fwd_case(cs, gen, name, B, S, causal, widths=(32, 8, 128), window=None, softcap=None,
+             q_scale=1.0):
+    """K1's forward in bf16 at one shape: ms (CUDA events, 20 calls), the
+    bound, and o's row error against the plain version."""
+    import torch
+    from deepspeed_tpu_torch.ops import attention as fa
+    H, KV, D = widths
+    q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (H, KV, KV))
+    if q_scale != 1.0:
+        q = (q.float() * q_scale).to(torch.bfloat16)
+    opts = dict(window=window, softcap=softcap)
+    o, _ = fa.flash_attention_fwd(q, k, v, causal, **opts)
+    o_ref, _ = fa.flash_attention_fwd_reference(q, k, v, causal, **opts)
+    torch.cuda.synchronize()
+    err = cs.row_rel_err(o, o_ref, 2.0 ** -16 / cs.FLASH_ROW_TOL["bfloat16"])
+    del o, o_ref
+    pairs = cs.visible_pairs(S, causal, window)
+    rec = {"case": name, "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": causal,
+                                   "window": window, "softcap": softcap},
+           "row_rel_err": err,
+           "ms": cs.time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, **opts)),
+           "bound_ms": 4 * D * pairs * H * B / cs.BF16_FLOPS * 1e3}
+    del q, k, v
+    cs.free_memory()
+    return rec
+
+
+# K4 cases: (name, seen, n_new, N, B, options), the chip_smoke.py phase-2
+# shapes; widths by name
+PAGED = (
+    ("gemma2_chunk_window", [3700], [768], 768, 70, "gemma2"),
+    ("starcoder2_chunk_window", [3700], [768], 768, 84, "starcoder2"),
+    ("bloom_alibi_chunk", [768], [768], 768, 24, "bloom"),
+    ("llama_prefill_wave", [0, 0, 0, 0], [128, 256, 384, 0], 512, 8, "llama"),
+    ("llama_chunk_int8_deep", [2200], [768], 768, 47, "llama_int8"),
+    ("llama_mixed", [100, 250, 400, 550, 700, 999, 300, 0], [1, 1, 1, 1, 1, 1, 16, 0], 16,
+     16, "llama"),
+)
+
+
+def paged_kw(cs, kind):
+    return {"gemma2": dict(widths=cs.GEMMA2_PAGED, window=cs.GEMMA2_WINDOW,
+                           softcap=cs.GEMMA2_ATTN_CAP, q_scale=cs.CAP_Q_SCALE),
+            "starcoder2": dict(widths=cs.SC2_PAGED, window=cs.SC2_WINDOW),
+            "bloom": dict(widths=cs.BLOOM_PAGED, alibi=True),
+            "llama": {}, "llama_int8": dict(int8=True)}[kind]
+
+
+def flex_chunk(cs, gen, seen, n_new, widths, window=None, softcap=None, q_scale=1.0):
+    """flex_attention (compiled) over one sequence's chunk with its keys
+    gathered contiguous: [1, H, N, D] queries at positions seen.., [1, KV,
+    seen + N, D] keys, causal from seen and the window as the mask, the cap
+    as the score_mod. A yardstick only: K4 reads the paged cache."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    KV, G, D = widths["KV"], widths["G"], widths["D"]
+    H, L = KV * G, seen + n_new
+    q = (q_scale * torch.randn(1, H, n_new, D, generator=gen, device="cuda")).to(torch.bfloat16)
+    k, v = (torch.randn(1, KV, L, D, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = kv_idx <= q_idx + seen
+        return keep & (q_idx + seen - kv_idx < window) if window else keep
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(mask_mod, B=None, H=None, Q_LEN=n_new, KV_LEN=L, device="cuda")
+    torch._dynamo.reset()  # a fresh compile for each case
+    fn = torch.compile(flex_attention)
+    kw = dict(block_mask=mask, enable_gqa=True, score_mod=cap if softcap else None)
+    fn(q, k, v, **kw)
+    return cs.time_ms(lambda: fn(q, k, v, **kw))
 
 
 def main() -> int:
@@ -34,24 +116,30 @@ def main() -> int:
     t = time.monotonic()
     _build.lib()
     out = {"tree": tag, "gpu": cs.gpu_identity(), "build_s": time.monotonic() - t,
-           "cases": []}
-    for seed in range(3):
-        for layout in ("per_head", "folded"):
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(100 + seed)
-            r = cs._flash_case(gen, "main_fp16", 2, 2048, True, torch.float16, layout=layout)
-            out["cases"].append({"seed": 100 + seed, "layout": layout, "dtype": "float16",
-                                 **{k: {"row_rel_err": r[k]["row_rel_err"], "ms": r[k]["ms"],
-                                        "vs_exact": r[k]["vs_exact"]}
-                                    for k in ("dq", "dkdv")}})
+           "fwd": [], "paged": []}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    for name, kw in (("main", {}), ("main_softcap", {"softcap": 50.0})):
-        r = cs._flash_case(gen, name, 2, 2048, True, **kw)
-        out["cases"].append({"case": name, "dtype": "bfloat16",
-                             **{k: {"row_rel_err": r[k]["row_rel_err"], "ms": r[k]["ms"],
-                                    "library_ms": r[k]["library_ms"], "vs_exact": r[k]["vs_exact"]}
-                                for k in ("fwd", "dq", "dkdv")}})
+    out["fwd"] = [
+        fwd_case(cs, gen, "main", 2, 2048, True),
+        fwd_case(cs, gen, "main_softcap", 2, 2048, True, softcap=50.0),
+        fwd_case(cs, gen, "causal_s8192", 1, 8192, True),
+        fwd_case(cs, gen, "gemma2_window", 1, 8192, True, widths=(16, 8, 256), window=4096,
+                 softcap=50.0, q_scale=cs.CAP_Q_SCALE),
+    ]
+    for name, seen, n_new, N, B, kind in PAGED:
+        r = cs._paged_case(gen, name, seen, n_new, N=N, B=B, **paged_kw(cs, kind))
+        out["paged"].append({k: r.get(k) for k in ("case", "path", "ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "row_rel_err",
+                                                    "rounding_row_rel_err",
+                                                    "staged_row_rel_err")})
+    if "--flex" in sys.argv:
+        for name, seen, n_new, N, B, kind in PAGED[:2]:
+            kw = paged_kw(cs, kind)
+            out["paged"].append({
+                "case": name + " (flex_attention, keys gathered contiguous; not K4)",
+                "ms": flex_chunk(cs, gen, seen[0], n_new[0], kw["widths"], kw.get("window"),
+                                 kw.get("softcap"), kw.get("q_scale", 1.0))})
+            cs.free_memory()
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1499,3 +1499,203 @@ def test_rms_norm_fp32_scale_kernel_matches_plain(shape, cuda_device):
     assert out_k.dtype == torch.bfloat16
     torch.testing.assert_close(out_k.float(), rms_norm_reference(x, w, 1e-6).float(),
                                **RMS_TOL[torch.bfloat16])
+
+
+# ---- K1's forward on wgmma (bf16, fp16; head widths 65..256), K3 = K1 ----
+
+# (B, S, H, KV, D, causal, window, softcap, dtype) about the tiles' edges:
+# S 1 (every row sees one key), 63 and 65 about the 64-key tile, 129 one
+# past the 128-row block at G 1, and 1000; G 1, 3, 4 and 9; D 72 and 200
+# (columns padded inside the 128- and 256-wide instances), 128 and 256;
+# causal, a window with and without it, the softcap; bf16 and fp16
+FLASH_FWD_WGMMA = {
+    "s1_g1_d128": (1, 1, 1, 1, 128, True, None, None, torch.bfloat16),
+    "s63_g3_d72": (2, 63, 6, 2, 72, True, None, None, torch.bfloat16),
+    "s65_g4_d128_fp16": (1, 65, 8, 2, 128, True, None, None, torch.float16),
+    "s129_g9_d200_softcap": (1, 129, 18, 2, 200, True, None, 5.0, torch.bfloat16),
+    "s129_g1_d256_full_fp16": (1, 129, 2, 2, 256, False, None, None, torch.float16),
+    "s1000_g1_d256_softcap": (2, 1000, 2, 2, 256, True, None, 30.0, torch.bfloat16),
+    "s1000_g3_d72_w70_full": (1, 1000, 6, 2, 72, False, 70, None, torch.bfloat16),
+    "s1000_g4_d128_w100_softcap": (1, 1000, 16, 4, 128, True, 100, 5.0, torch.bfloat16),
+    "s1000_g9_d256_w300_fp16": (1, 1000, 18, 2, 256, True, 300, None, torch.float16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_FWD_WGMMA))
+def test_wgmma_forward_edges_bits_and_layouts(case, cuda_device):
+    """o against the plain version row by row (ROW_TOL, D256_ROW_TOL past
+    head width 128) and lse within summation order; o and lse equal bit for
+    bit over two launches and between K1 and K3; at S 1000 o also against
+    the exact value (EXACT_RATIO); each launch counted once."""
+    B, S, H, KV, D, causal, window, softcap, dtype = FLASH_FWD_WGMMA[case]
+    rng = np.random.default_rng(500 + sorted(FLASH_FWD_WGMMA).index(case))
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, dtype) for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    before = (flash_attention_fwd.launches, ff.folded_attention_fwd.launches)
+    runs = [flash_attention_fwd(q, k, v, **opts) for _ in range(2)]
+    folded = ff.folded_attention_fwd(q, k, v, **opts)
+    assert (flash_attention_fwd.launches, ff.folded_attention_fwd.launches) == \
+        (before[0] + 2, before[1] + 1)
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, **opts)
+    o_x = flash_attention_fwd_reference(q.double(), k.double(), v.double(), **opts)[0]
+    torch.cuda.synchronize()
+    o, lse = runs[0]
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == (B, S, H)
+    for a, b in (runs[1], folded):
+        assert torch.equal(o, a) and torch.equal(lse, b)
+    tol = D256_ROW_TOL if D > 128 else ROW_TOL[dtype]
+    assert _rows_vs(o, o_ref, ROW_FLOOR / tol) <= tol
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if S == 1000:
+        assert _rows_vs(o, o_x, EXACT_FLOOR) <= EXACT_RATIO * _rows_vs(o_ref, o_x, EXACT_FLOOR)
+
+
+# ---- K4's multi-row tiles on wgmma ----
+
+# (seed, S, N, KV, G, D, page_size, B, seen, n_new, layer, options): the
+# CPU tests' multi-row cases (tests/test_torch_paged_attention.py
+# MULTI_ROW_CASES) in bf16: one full 128-row tile, a tile and a partial
+# one, two tiles and a partial one; G 1 and 9, D 128 and 256, pages of 16
+# and 64; a window straddling the chunk with freed entries, ALiBi, the
+# softcap and the int8 cache; a padding sequence beside a chunk; then
+# Llama-3-8B's widths: a 768-row chunk deep in the cache over the int8
+# cache, and a chunk of 100 rows (not a tile multiple) beside a padding
+# sequence and a decode row
+PAGED_WGMMA = {
+    "g1_d128_one_tile_padding": (40, 2, 64, 2, 1, 128, 16, 6, [30, 0], [64, 0], 1, {}),
+    "g9_d128_window_freed": (41, 2, 16, 1, 9, 128, 16, 8, [70, 5], [16, 9], 0,
+                             {"window": 40}),
+    "g1_d256_softcap_ps64": (42, 1, 130, 2, 1, 256, 64, 4, [100], [130], 1,
+                             {"softcap": 5.0}),
+    "g1_d128_alibi": (43, 2, 96, 2, 1, 128, 16, 10, [40, 12], [96, 50], 1,
+                      {"use_alibi": True}),
+    "g9_d128_int8_ps64": (44, 2, 30, 1, 9, 128, 64, 3, [60, 0], [30, 0], 0, {"int8": True}),
+    "g9_d256_window_int8_softcap": (45, 1, 8, 1, 9, 256, 16, 8, [90], [8], 1,
+                                    {"window": 24, "int8": True, "softcap": 5.0}),
+    "llama_chunk_int8_deep": (46, 1, 768, 8, 4, 128, 64, 48, [2200], [768], 1,
+                              {"int8": True}),
+    "llama_ragged_chunk_padding": (47, 3, 25, 8, 4, 128, 64, 8, [300, 0, 77], [25, 0, 1],
+                                   0, {}),
+}
+
+
+def _paged_wgmma_inputs(case, device):
+    """Random bf16 cache and queries (an int8 cache quantized from it),
+    distinct pages, a window's freed entries and a padding sequence's
+    table zeroed as the engine leaves them."""
+    seed, S, N, KV, G, D, ps, B, seen, n_new, layer, opts = PAGED_WGMMA[case]
+    opts = dict(opts)
+    int8 = opts.pop("int8", False)
+    rng = np.random.default_rng(seed)
+    n_pages = S * B + 1
+    cache = torch.from_numpy(rng.normal(size=(2 * 2, n_pages * ps, KV * D))
+                             .astype(np.float32)).to(device, torch.bfloat16)
+    q = torch.from_numpy(rng.normal(size=(S, N, KV * G, D))
+                         .astype(np.float32)).to(device, torch.bfloat16)
+    bt = (1 + rng.permutation(S * B)).reshape(S, B).astype(np.int32)
+    freed = [max(0, s - opts["window"] + 1) // ps if "window" in opts else 0 for s in seen]
+    for i, (f, n) in enumerate(zip(freed, n_new)):
+        bt[i, :f] = 0
+        if n == 0:
+            bt[i] = 0
+    seen = np.asarray(seen, np.int32)
+    lens = seen + np.asarray(n_new, np.int32)
+    meta = [torch.from_numpy(a).to(device) for a in (bt, seen, lens)]
+    if int8:
+        cache, opts["cache_scales"] = int8_cache(cache, D)
+    return (q, cache, layer, *meta), dict(page_size=ps, **opts), freed
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_WGMMA))
+def test_paged_attention_wgmma_matches_plain(case, cuda_device):
+    """The wgmma tiles against the plain version row by row, the rule of
+    chip_smoke.py's K4 cases: the largest row error at most one bf16
+    rounding of the exact fp32 output plus 2^-8 (an int8 cache: against the
+    plain version on the staged bf16 K/V, and against the plain version
+    itself the staged version's own error plus 2^-8); max abs within
+    PAGED_TOL. One launch, counted in wgmma_launches and in its option's
+    counter. Freed entries pointed far past the cache are never read: the
+    same output bit for bit. A padding sequence gives zeros."""
+    (q, cache, layer, bt, seen, lens), kw, freed = _paged_wgmma_inputs(case, cuda_device)
+    before = (paged_attention.wgmma_launches, paged_attention.softcap_launches,
+              paged_attention.alibi_launches, paged_attention.int8_launches,
+              paged_attention.launches)
+    out_k = paged_attention(q, cache, layer, bt, seen, lens, **kw)
+    after = (paged_attention.wgmma_launches, paged_attention.softcap_launches,
+             paged_attention.alibi_launches, paged_attention.int8_launches,
+             paged_attention.launches)
+    assert after[0] == before[0] + 1 and sum(after[1:]) == sum(before[1:]) + 1
+    out_r = paged_attention_reference(q, cache, layer, bt, seen, lens, **kw)
+    D = q.shape[-1]
+    scales = kw.get("cache_scales")
+    plain_kw = {k: v for k, v in kw.items() if k != "cache_scales"}
+    staged = staged_cache(cache, scales, D) if scales is not None else cache
+    exact = paged_attention_reference(q.float(), staged, layer, bt, seen, lens, **plain_kw)
+    control = exact.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out_k.dtype == torch.bfloat16 and out_k.shape == q.shape
+    rounding = rows_err(control, exact)
+    if scales is None:
+        assert rows_err(out_k, out_r) <= rounding + 2.0 ** -8
+        torch.testing.assert_close(out_k.float(), out_r.float(), atol=PAGED_TOL[torch.bfloat16],
+                                   rtol=0)
+    else:
+        assert rows_err(out_k, control) <= rounding + 2.0 ** -8
+        assert rows_err(out_k, out_r) <= rows_err(control, out_r) + 2.0 ** -8
+        torch.testing.assert_close(out_k.float(), control.float(),
+                                   atol=PAGED_TOL[torch.bfloat16], rtol=0)
+    for i in (lens == 0).nonzero().flatten().tolist():
+        assert not out_k[i].any()
+    if any(freed):
+        far = bt.clone()
+        for i, f in enumerate(freed):
+            far[i, :f] = 1 << 30
+        out_far = paged_attention(q, cache, layer, far, seen, lens, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out_far, out_k)
+
+
+# (N, G, D, q dtype, cache, wgmma?): the plan's rule. At least 64 folded
+# rows N * G of a bf16 query over a bf16 or int8 cache at head widths
+# 65..256 take the wgmma tiles; decode (N 1), 63 rows, fp32 queries, head
+# width 64 and an int8 cache at a width that is not a multiple of 16 take
+# the CUDA-core kernel
+PAGED_PATHS = [
+    (1, 4, 128, torch.bfloat16, "bf16", False),
+    (1, 9, 256, torch.bfloat16, "int8", False),
+    (7, 9, 128, torch.bfloat16, "bf16", False),
+    (16, 4, 128, torch.bfloat16, "bf16", True),
+    (8, 9, 256, torch.bfloat16, "int8", True),
+    (64, 1, 72, torch.bfloat16, "bf16", True),
+    (64, 1, 72, torch.bfloat16, "int8", False),
+    (64, 4, 128, torch.float32, "float", False),
+    (64, 4, 64, torch.bfloat16, "bf16", False),
+]
+
+
+@pytest.mark.parametrize("N,G,D,dtype,cache_kind,wgmma", PAGED_PATHS)
+def test_paged_attention_path_and_counter(N, G, D, dtype, cache_kind, wgmma, cuda_device):
+    """Which kernel a launch runs, by ``wgmma_launches``, and that either
+    path agrees with the plain version (PAGED_TOL)."""
+    rng = np.random.default_rng(N * 1000 + G * 10 + D)
+    S, KV, ps, B = 3, 2, 16, 12
+    cache = torch.from_numpy(rng.normal(size=(4, (S * B + 1) * ps, KV * D))
+                             .astype(np.float32)).to(cuda_device, dtype)
+    q = torch.from_numpy(rng.normal(size=(S, N, KV * G, D)).astype(np.float32)).to(
+        cuda_device, dtype)
+    bt = torch.from_numpy((1 + rng.permutation(S * B)).reshape(S, B).astype(np.int32)).to(
+        cuda_device)
+    seen = torch.tensor([100, 33, 0], dtype=torch.int32, device=cuda_device)
+    lens = seen + torch.tensor([N, max(1, N // 2), 0], dtype=torch.int32, device=cuda_device)
+    kw = dict(page_size=ps)
+    if cache_kind == "int8":
+        cache, kw["cache_scales"] = int8_cache(cache, D)
+    before = paged_attention.wgmma_launches
+    out_k = paged_attention(q, cache, 1, bt, seen, lens, **kw)
+    assert paged_attention.wgmma_launches == before + int(wgmma)
+    if cache_kind == "int8":
+        cache = staged_cache(cache, kw.pop("cache_scales"), D)
+    out_r = paged_attention_reference(q, cache, 1, bt, seen, lens, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_k.float(), out_r.float(), atol=PAGED_TOL[dtype], rtol=0)

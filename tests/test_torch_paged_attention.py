@@ -310,3 +310,83 @@ def test_softcap_d256_matches_jax(case, cache):
     else:
         # the JAX kernel also rounds p to bf16 before P.V
         np.testing.assert_allclose(out.float().numpy(), kern, atol=3e-2, rtol=0)
+
+
+# ---- multi-row tiles: the shapes of the kernel's wgmma path ----
+
+# (seed, S, N, KV, G, D, ps, B, seen, n_new, layer, options): at least 64
+# folded rows N * G per (sequence, KV head), the rows that take the CUDA
+# kernel's wgmma tiles of 128: one full tile, a tile and a partial one,
+# two tiles and a partial one; G 1 and 9, D 128 and 256, pages of 16 and
+# 64; a window straddling the chunk with freed entries, ALiBi, the softcap
+# and the int8 cache; a padding sequence beside a chunk
+MULTI_ROW_CASES = {
+    "g1_d128_one_tile_padding": (40, 2, 64, 2, 1, 128, 16, 6, [30, 0], [64, 0], 1, {}),
+    "g9_d128_window_freed": (41, 2, 16, 1, 9, 128, 16, 8, [70, 5], [16, 9], 0,
+                             {"window": 40}),
+    "g1_d256_softcap_ps64": (42, 1, 130, 2, 1, 256, 64, 4, [100], [130], 1,
+                             {"softcap": 5.0}),
+    "g1_d128_alibi": (43, 2, 96, 2, 1, 128, 16, 10, [40, 12], [96, 50], 1,
+                      {"use_alibi": True}),
+    "g9_d128_int8_ps64": (44, 2, 30, 1, 9, 128, 64, 3, [60, 0], [30, 0], 0, {"int8": True}),
+    "g9_d256_window_int8_softcap": (45, 1, 8, 1, 9, 256, 16, 8, [90], [8], 1,
+                                    {"window": 24, "int8": True, "softcap": 5.0}),
+}
+
+
+def _multi_row_setup(case):
+    seed, S, N, KV, G, D, ps, B, seen, n_new, layer, opts = MULTI_ROW_CASES[case]
+    opts = dict(opts)
+    int8 = opts.pop("int8", False)
+    n_pages = S * B + 1
+    if int8:
+        q, cache, sc, bt, seen, lens = _int8_setup(seed, S, N, KV, G, D, ps, n_pages, B,
+                                                   seen, n_new)
+    else:
+        q, cache, bt, seen, lens = _setup(np.random.default_rng(seed), S, N, KV, G, D, ps,
+                                          n_pages, B, seen, n_new)
+        sc = None
+    if "window" in opts:
+        bt = _freed(bt, seen, opts["window"], ps)
+    for i, n in enumerate(n_new):
+        if n == 0:
+            bt[i] = 0  # a padding sequence: zero table, no keys
+    return q, cache, sc, bt, seen, lens, layer, dict(page_size=ps, **opts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(MULTI_ROW_CASES))
+def test_multi_row_tiles_match_jax(case, dtype):
+    """The port's plain version at the wgmma path's shapes against the JAX
+    reference and the JAX kernel (interpret mode). fp32 within 2e-5 of both
+    (an int8 cache: of the reference, and row by row within INT8_ROW_TOL of
+    the kernel, which rounds K/V to bf16); bf16 queries and float cache 3e-2
+    from the kernel (it rounds p to bf16 before P.V; outputs round to
+    bf16), an int8 cache INT8_REF_ATOL from the reference and INT8_ROW_TOL
+    from the kernel. A padding sequence gives zeros."""
+    q, cache, sc, bt, seen, lens, layer, kw = _multi_row_setup(case)
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    int8 = sc is not None
+    cd = (jnp.int8, torch.int8) if int8 else (jd, td)
+    jargs = (jnp.asarray(q, jd), jnp.asarray(cache, cd[0]), layer, jnp.asarray(bt),
+             jnp.asarray(seen), jnp.asarray(lens))
+    jkw = dict(kw, cache_scales=None if sc is None else jnp.asarray(sc))
+    out_kernel = np.asarray(jax_paged(*jargs, interpret=True, **jkw), np.float32)
+    out_ref = np.asarray(jax_paged_ref(*jargs, **jkw), np.float32)
+    out = paged_attention(torch.from_numpy(q).to(td), torch.from_numpy(cache).to(cd[1]),
+                          layer, torch.from_numpy(bt), torch.from_numpy(seen),
+                          torch.from_numpy(lens),
+                          cache_scales=None if sc is None else torch.from_numpy(sc), **kw)
+    assert out.dtype == td and tuple(out.shape) == q.shape
+    out = out.float().numpy()
+    if int8:
+        np.testing.assert_allclose(out, out_ref, atol=INT8_REF_ATOL[dtype], rtol=0)
+        assert row_rel_err(out, out_kernel) <= INT8_ROW_TOL
+    elif dtype == "float32":
+        np.testing.assert_allclose(out, out_ref, atol=2e-5, rtol=0)
+        np.testing.assert_allclose(out, out_kernel, atol=2e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(out, out_kernel, atol=3e-2, rtol=0)
+    for i in np.flatnonzero(lens == 0):
+        assert not out[i].any()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a decode step of the deepspeed_tpu_torch serving engine spends its
-time, on one CUDA GPU.
+"""Where a prefill chunk and a decode step of the deepspeed_tpu_torch
+serving engine spend their time, on one CUDA GPU.
 
     python3 torch_serving_profile.py [bf16] [int8] [starcoder2] [bloom] [gemma2]
 
@@ -13,7 +13,11 @@ and Gemma-2-9B (``GEMMA2_9B`` through ``policy_for("gemma2")
 .config_from_hf``: 42 layers, head_dim 256, K4's softcap, the window on
 the even layers, K5's fp32-scale norms 4L+1 per step). Each builds
 ``build_llama_engine`` with seeded random bf16 weights and 8 GiB of
-64-token KV blocks, prefills ``SEQS`` sequences (Llama: 128, 256, ...
+64-token KV blocks; feeds one sequence ``PREFILL_DEPTH`` tokens in chunks
+of ``CHUNK``, traces its next chunk of ``CHUNK`` tokens (device time by
+group as below, K4's multi-row wgmma tiles apart from its CUDA-core
+kernel, the busy share and the chunk's tokens/s) and frees it; then
+prefills ``SEQS`` sequences (Llama: 128, 256, ...
 tokens; StarCoder2: 5120, 4608, 2048, ... 128 tokens, most of them past
 the window; BLOOM: 2048, 1536, ... 128 tokens; Gemma-2: 5120, 4864, 4352,
 ... 128 tokens), then runs ``STEPS`` decode steps (one token per sequence
@@ -37,6 +41,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 16  # timed decode steps
 SEQS = 8    # live sequences, prompts of 128, 256, ..., 128 * SEQS tokens
+CHUNK = 768  # tokens of a traced prefill chunk (the engine's batch budget)
+PREFILL_DEPTH = 3072  # tokens in the cache before it
 # variant -> (model, build options, prompt lengths, KV blocks of 8 GiB)
 VARIANTS = {
     "bf16": ("llama3_8b", {}, [128 * (i + 1) for i in range(SEQS)], 1024),
@@ -64,6 +70,8 @@ def model_config(name: str):
 
 def _group(name: str) -> str:
     n = name.lower()
+    if "paged_attention_wgmma" in n:  # K4's multi-row tiles
+        return "K4 paged_attention (wgmma tiles)"
     if "paged_attention" in n or "dstt::combine" in n:  # K4 and its split merge
         return "K4 paged_attention"
     if "rms_norm" in n:
@@ -98,6 +106,39 @@ def main() -> int:
     return 0
 
 
+def trace(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` under torch.profiler: wall and device ms per
+    call, the device's busy share, device ms per group and the top
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t = time.monotonic()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+    by_name = {}
+    for ev in prof.key_averages():
+        # device-side events only: a host op's row repeats its kernels' time
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
+    groups = {}
+    for name, us in by_name.items():
+        groups[_group(name)] = groups.get(_group(name), 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms_per_call": 1e3 * wall / n, "device_ms_per_call": busy_ms,
+            "device_busy_share": busy_ms / (1e3 * wall / n),
+            "group_ms_per_call": {k: v / 1e3 / n for k, v in groups.items()},
+            "top_kernels_ms_per_call": [[k[:120], v / 1e3 / n] for k, v in top]}
+
+
 def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
                     kv_blocks: int, gpu: str) -> None:
     import numpy as np
@@ -111,6 +152,24 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
     engine = build_llama_engine(
         cfg, engine_config=RaggedInferenceEngineConfig(num_kv_blocks=kv_blocks),
         seed=0, dtype=torch.bfloat16, kv_block_size=64, **build_kw)
+    # a prefill chunk at depth: PREFILL_DEPTH tokens fed, the next CHUNK
+    # traced (the earlier chunks ran the same kernels at the same bucket).
+    # The wgmma count reads 0 on a tree whose K4 has no wgmma tiles.
+    uid = 1 << 20
+    chunked = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                PREFILL_DEPTH + CHUNK).tolist()
+    for ofs in range(0, PREFILL_DEPTH, CHUNK):
+        engine.put([uid], [chunked[ofs:ofs + CHUNK]], do_checks=False)
+    torch.cuda.synchronize()
+    wgmma = getattr(paged_attention, "wgmma_launches", 0)
+    prefill = trace(lambda: engine.put([uid], [chunked[PREFILL_DEPTH:]], do_checks=False), 1)
+    print(json.dumps({"part": "prefill_chunk", "variant": variant, "gpu": gpu,
+                      "model": model, "seen": PREFILL_DEPTH, "chunk_tokens": CHUNK,
+                      "layers": cfg.num_hidden_layers,
+                      "k4_wgmma_launches": getattr(paged_attention, "wgmma_launches", 0) - wgmma,
+                      "tokens_per_s": CHUNK / (prefill["wall_ms_per_call"] / 1e3),
+                      **prefill}), flush=True)
+    engine.flush(uid)
     rng = np.random.default_rng(0)
     uids = list(range(SEQS))
     for u in uids:  # prefill one sequence per put (<= 768 tokens per chunk)
@@ -137,36 +196,15 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
                       "tokens_per_s": SEQS * len(times) / sum(times)}),
           flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
     n_prof = 4
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t = time.monotonic()
-        for _ in range(n_prof):
-            step()
-        wall = time.monotonic() - t
-    from torch.autograd import DeviceType
-    by_name = {}
-    for ev in prof.key_averages():
-        # device-side events only: a host op's row repeats its kernels' time
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = ev.self_device_time_total
-        if dev_us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
-    groups = {}
-    for name, us in by_name.items():
-        groups[_group(name)] = groups.get(_group(name), 0.0) + us
-    busy_ms = sum(by_name.values()) / 1e3 / n_prof
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    decode = trace(step, n_prof)
     print(json.dumps({
         "part": "profile", "variant": variant, "gpu": gpu, "steps": n_prof,
-        "wall_ms_per_step": 1e3 * wall / n_prof,
-        "device_ms_per_step": busy_ms,
-        "device_busy_share": busy_ms / (1e3 * wall / n_prof),
-        "group_ms_per_step": {k: v / 1e3 / n_prof for k, v in groups.items()},
-        "top_kernels_ms_per_step": [[k[:120], v / 1e3 / n_prof] for k, v in top]}),
-        flush=True)
+        "wall_ms_per_step": decode["wall_ms_per_call"],
+        "device_ms_per_step": decode["device_ms_per_call"],
+        "device_busy_share": decode["device_busy_share"],
+        "group_ms_per_step": decode["group_ms_per_call"],
+        "top_kernels_ms_per_step": decode["top_kernels_ms_per_call"]}), flush=True)
 
     # K4 alone at this decode batch, on the engine's own cache and tables
     # (layer 5: global on Gemma-2, which windows the even layers)
