@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                       bf16 and fp16 at head widths 128 and 256; K4's
                       multi-row tiles over a bf16 and an int8 cache) its
                       registers, spills, dynamic shared memory and any
-                      ptxas warning that its products are serialized.
+                      ptxas warning that its products are serialized; the
+                      same (but the warnings) for each instance of K4's
+                      decode kernel.
   2. kernels        — every kernel of both paths against its plain PyTorch
                       version at main-path shapes in bf16: the error
                       beside the stated tolerance (flash: row by row, with
@@ -30,9 +32,19 @@ Phases, each printing one JSON line:
                       for bit; K4 is held row by row against one bf16
                       rounding of the exact fp32 output on the same inputs,
                       and each K4 case records which kernel ran it (the
-                      multi-row wgmma tiles from 64 folded rows N * G per
-                      sequence and KV head, else the CUDA-core kernel),
-                      checked against that rule; beside the admission
+                      multi-row wgmma tiles from the plan's folded rows N * G
+                      per sequence and KV head, else the decode kernel; every
+                      decode step, over both caches, in the decode
+                      kernel), checked against that rule, and the tiles'
+                      crossover against the decode kernel is swept at 8
+                      to 64 folded rows (BLOOM's G 1, Gemma-2's G 2,
+                      Llama's G 4, StarCoder2's G 9), graph-timed, each
+                      launch held as the cases are; fp32 queries run the
+                      CUDA-core kernel (Gemma-2's decode over an fp32
+                      cache, as its fp32 engine runs it, and Llama's over
+                      int8, held to the plain version that follows its
+                      page split with P rounded);
+                      beside the admission
                       wave, a 100-token chunk next to a padding sequence
                       and a decode row, and phase 7's 768-token chunk deep
                       in an int8 cache.
@@ -128,8 +140,10 @@ Phases, each printing one JSON line:
                       tokens with 32 new tokens each; checks outputs, finite
                       logits, kernel launch counts per forward (K4's wgmma
                       tiles L times in every prefill forward and never in
-                      decode, in this and every serving phase below), and
-                      prefill-vs-decode consistency.
+                      decode, its decode kernel L times in every decode
+                      forward, its CUDA-core kernel never, in this and
+                      every serving phase below), and prefill-vs-decode
+                      consistency.
   7. serving_int8   — the same weights, prompts and KV byte budget through
                       build_llama_engine(quantize="int8",
                       kv_cache_dtype="int8") (K6 at build, the dequantize
@@ -282,9 +296,25 @@ def phase_build() -> dict:
            # ptxas's registers and spill bytes of the flash kernels'
            # head-width-256 instances
            "d256_resource_usage": _build.resource_usage("Li256E"),
-           "wgmma_kernels": wgmma_usage()}
+           "wgmma_kernels": wgmma_usage(), "decode_kernels": decode_usage()}
     emit(rec)
     return rec
+
+
+def decode_usage() -> list:
+    """K4's decode kernel instances (bf16 and int8 caches, head widths 64,
+    128 and 256, with and without ALiBi and the softcap): ptxas's registers
+    and spill bytes and the dynamic shared memory each launch asks for."""
+    import re
+    from deepspeed_tpu_torch.ops import _build
+    out = []
+    for e in _build.resource_usage("paged_decode_kernel"):
+        name = e["kernel"]  # demangled, or mangled where cu++filt is missing
+        dmax = int((re.search(r"\(int\)(\d+)", name) or re.search(r"Li(\d+)E", name)).group(1))
+        int8 = "signed char" in name or "IaL" in name
+        out.append({**e, "dynamic_smem_bytes": _build.lib().dstt_paged_decode_smem(dmax,
+                                                                                  int(int8))})
+    return out
 
 
 def wgmma_usage() -> list:
@@ -416,33 +446,25 @@ GEMMA2_WINDOW, GEMMA2_ATTN_CAP = 4096, 50.0
 CAP_Q_SCALE = 20.0
 
 
-def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
-                graph: bool = False, int8: bool = False, widths=LLAMA_PAGED,
-                window=None, alibi: bool = False, softcap=None,
-                q_scale: float = 1.0) -> dict:
-    """One paged-attention batch over a cache of ``widths``, bf16 or
-    (``int8``) int8 with its scales, with BLOOM's ALiBi bias where
-    ``alibi`` and Gemma-2's ``softcap`` (queries drawn ``q_scale`` times
-    wider, so that it bites: the record holds the share of visible scaled
-    scores past cap / 2). The record's ``path`` names the kernel that ran
-    (the wgmma tiles or the CUDA-core kernel, by the wrapper's
-    ``wgmma_launches``). A sequence with ``n_new`` 0 is a padding row
-    (zero block table, no tokens). With a ``window``, the table entries of
-    blocks wholly below the window of each sequence's first query hold 0,
-    as the engine leaves them once it has freed them."""
+def _paged_inputs(gen, seen: list, n_new: list, N: int, B: int, int8: bool = False,
+                  widths=LLAMA_PAGED, window=None, alibi: bool = False, softcap=None,
+                  q_scale: float = 1.0, dtype=None):
+    """A paged-attention batch over a cache of ``widths`` as _paged_case
+    describes it: (q, cache, layer, block table, seen, lens) and the
+    wrapper's keywords (page size, window, ALiBi, softcap, int8 scales).
+    Queries and a float cache are ``dtype`` (bf16 by default); an int8
+    cache quantizes a bf16 one, as the engine does."""
     import torch
-    from deepspeed_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_reference)
+    dtype = dtype or torch.bfloat16
     L, KV, G, D, ps, n_pages, layer = (widths[k] for k in (
         "L", "KV", "G", "D", "ps", "n_pages", "layer"))
-    H = KV * G
     S = len(seen)
-    cache = torch.randn(2 * L, n_pages * ps, KV * D, generator=gen,
-                        device="cuda", dtype=torch.bfloat16)
-    kw = {"window": window, "use_alibi": alibi, "softcap": softcap}
+    cache = torch.randn(2 * L, n_pages * ps, KV * D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16 if int8 else dtype)
+    kw = {"page_size": ps, "window": window, "use_alibi": alibi, "softcap": softcap}
     if int8:
         cache, kw["cache_scales"] = int8_kv(cache, D)
-    q = (q_scale * torch.randn(S, N, H, D, generator=gen, device="cuda")).to(torch.bfloat16)
+    q = (q_scale * torch.randn(S, N, KV * G, D, generator=gen, device="cuda")).to(dtype)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     bt = perm[:S * B].reshape(S, B).to(torch.int32)
     for i, n in enumerate(n_new):
@@ -452,10 +474,64 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
             bt[i, :max(0, seen[i] - window + 1) // ps] = 0
     seen_t = torch.tensor(seen, dtype=torch.int32, device="cuda")
     lens_t = seen_t + torch.tensor(n_new, dtype=torch.int32, device="cuda")
-    args = (q, cache, layer, bt, seen_t, lens_t)
-    wgmma_before = paged_attention.wgmma_launches
-    y = paged_attention(*args, page_size=ps, **kw)
-    path = "wgmma" if paged_attention.wgmma_launches > wgmma_before else "cuda cores"
+    return (q, cache, layer, bt, seen_t, lens_t), kw
+
+
+def k4_path(fn):
+    """Runs ``fn`` (one K4 launch) and names the kernel that ran, by the
+    wrapper's counters: the wgmma tiles, the decode kernel or the CUDA-core
+    kernel (one of them and no other must have counted it)."""
+    from deepspeed_tpu_torch.ops.paged_attention import KERNELS
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention as pa
+
+    def counts():
+        return (pa.cuda_core_launches, pa.wgmma_launches, pa.decode_launches)
+    before = counts()
+    out = fn()
+    ran = [k for k, a, b in zip(KERNELS, counts(), before) if a != b]
+    return out, ran[0] if len(ran) == 1 and sum(counts()) == sum(before) + 1 else str(ran)
+
+
+def k4_expected_path(shape: dict) -> str:
+    """The kernel the plan's rule gives (csrc/paged_attention.cu plan()):
+    for a bf16 query the wgmma tiles from the plan's wgmma_min_rows(D)
+    folded rows at head widths 65..256, else the decode kernel at widths D
+    % 16 == 0; the CUDA-core kernel for the rest and for fp32 queries."""
+    from deepspeed_tpu_torch.ops.paged_attention import wgmma_min_rows
+    rows, D = shape["N"] * shape["H"] // shape["KV"], shape["D"]
+    if shape["dtype"] != "bfloat16":
+        return "cuda cores"
+    if 64 < D <= 256 and rows >= wgmma_min_rows(D):
+        return "wgmma"
+    return "decode" if D % 16 == 0 else "cuda cores"
+
+
+def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
+                graph: bool = False, int8: bool = False, widths=LLAMA_PAGED,
+                window=None, alibi: bool = False, softcap=None,
+                q_scale: float = 1.0, dtype=None) -> dict:
+    """One paged-attention batch over a cache of ``widths``, bf16 or
+    (``int8``) int8 with its scales, with BLOOM's ALiBi bias where
+    ``alibi`` and Gemma-2's ``softcap`` (queries drawn ``q_scale`` times
+    wider, so that it bites: the record holds the share of visible scaled
+    scores past cap / 2). The record's ``path`` names the kernel that ran
+    (the wgmma tiles, the decode kernel or the CUDA-core kernel, by the
+    wrapper's counters). A sequence with ``n_new`` 0 is a padding row
+    (zero block table, no tokens). With a ``window``, the table entries of
+    blocks wholly below the window of each sequence's first query hold 0,
+    as the engine leaves them once it has freed them. fp32 queries
+    (``dtype``, over an fp32 or an int8 cache) run the CUDA-core kernel and
+    are held to fp32's tolerances as well (FP32_PAGED_TOL)."""
+    import torch
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        kernel_plan, paged_attention, paged_attention_reference, round_p_flip_bound)
+    KV, G, D, ps, L = (widths[k] for k in ("KV", "G", "D", "ps", "L"))
+    H, S = KV * G, len(seen)
+    args, kw = _paged_inputs(gen, seen, n_new, N, B, int8, widths, window, alibi, softcap,
+                             q_scale, dtype)
+    q, cache, layer, bt, seen_t, lens_t = args
+    kw.pop("page_size")
+    y, path = k4_path(lambda: paged_attention(*args, page_size=ps, **kw))
     ref = paged_attention_reference(*args, page_size=ps, **kw)
     # the exact value: the plain version in fp32 on the K/V values the
     # kernel reads (an int8 cache's staged bf16 values)
@@ -474,26 +550,48 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
         errs.update({"staged_row_rel_err": row_rel_err(y, control),
                      "control_row_rel_err": row_rel_err(control, ref),
                      "control_max_abs_err": (y.float() - control.float()).abs().max().item()})
+    if q.dtype == torch.float32 and int8:
+        # the kernel rounds P to bf16 against each split's running max: the
+        # plain version that follows its split, and what summation order
+        # can move through that rounding
+        _, pages = kernel_plan(q, cache, bt, page_size=ps, window=window)
+        rkw = dict(page_size=ps, window=window, use_alibi=alibi, softcap=softcap,
+                   split_pages=pages)
+        rounded = paged_attention_reference(q, staged, layer, bt, seen_t, lens_t,
+                                            round_p=True, **rkw)
+        flips = round_p_flip_bound(q, staged, layer, bt, seen_t, lens_t, **rkw)
+        gap = (y - rounded).abs()
+        errs.update({"split_pages": pages,
+                     "round_p_max_abs_err": gap.max().item(),
+                     "round_p_excess": (gap - FP32_PAGED_TOL - flips).max().item(),
+                     "flip_bound_max": flips.max().item(),
+                     "unrounded_outside_share": ((exact - rounded).abs()
+                                                 > FP32_PAGED_TOL + flips).float().mean().item()})
+        del rounded, flips, gap
+    elif q.dtype == torch.float32:
+        errs["fp32_row_rel_err"] = errs["row_rel_err"]
     del ref, staged, exact, control
     # bytes: q read + out written + each sequence's visible K and V rows
     # (int8: D codes and a 4-byte scale per head); with a window, the keys
     # some query of the sequence sees
     W = window or (1 << 30)
     kv_tokens = sum(s + n - max(0, s - W + 1) for s, n in zip(seen, n_new) if n)
-    row_bytes = KV * (D + 4) if int8 else KV * D * 2
+    row_bytes = KV * (D + 4) if int8 else KV * D * cache.element_size()
     nbytes = (2 * q.numel() * q.element_size() + 2 * kv_tokens * row_bytes
               + bt.numel() * 4 + 2 * S * 4)
-    # flops: QK and PV for each real query row and head over its visible keys
+    # flops: QK and PV for each real query row and head over its visible
+    # keys, at the tensor cores' bf16 rate, or fp32's for fp32 queries
     visible = sum(min(s + n + 1, W) for s, nn in zip(seen, n_new) for n in range(nn))
     flops = 4 * D * H * visible
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_flops = flops / BF16_FLOPS * 1e3
+    bound_flops = flops / (FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS) * 1e3
     timer = graph_time_ms if graph else time_ms
     rec = {"case": name, "shape": {"S": S, "N": N, "B": B, "H": H, "KV": KV,
                                    "D": D, "page_size": ps, "layers": L,
                                    "seen": seen, "n_new": n_new, "window": window,
                                    "alibi": alibi, "softcap": softcap, "q_scale": q_scale,
-                                   "cache": "int8" if int8 else "bfloat16"},
+                                   "dtype": str(q.dtype)[6:],
+                                   "cache": "int8" if int8 else str(cache.dtype)[6:]},
            "path": path, **errs, "timing": "cuda graph" if graph else "events",
            "ms": timer(lambda: paged_attention(*args, page_size=ps, **kw)),
            "plain_ms": timer(lambda: paged_attention_reference(*args, page_size=ps, **kw)),
@@ -824,6 +922,16 @@ PAGED_TOL = 1.6e-2     # |out| < 1 (softmax-weighted mean of N(0,1) values)
 # thousands of keys (StarCoder2's window) an output is ~0.03 and max abs
 # says little; a dropped 64-key page moves a row by ~10% of its norm.
 PAGED_ROW_SLACK = 2.0 ** -8
+# K4 with fp32 queries (the CUDA-core kernel). Over an fp32 cache both keep
+# fp32 throughout and differ by summation order and tanhf's last ulp under
+# the softcap (scores up to 50): the largest row error 2^-14. Over an int8
+# cache the kernel rounds P to bf16 before P V against each split's running
+# max: element by element within 2e-5 of the plain version that follows its
+# split (round_p, split_pages), plus round_p_flip_bound, what summation
+# order can move through that rounding (one bf16 ulp of each P that lies
+# within 512 fp32 ulps of a rounding tie)
+FP32_PAGED_TOL = 2e-5
+FP32_PAGED_ROW_TOL = 2.0 ** -14
 # flash, held row by row (a head's D values at one position): the largest
 # ||kernel - plain|| / ||plain|| of any row. Both round P (or dS) to bf16
 # before its product and the output once, at other points (the kernel
@@ -1195,6 +1303,61 @@ def _splash_case(gen, name: str, config: str, block: int) -> dict:
     return rec
 
 
+# the tiles' crossover: tokens N per sequence (folded rows N * G per
+# sequence and KV head) at each serving family's widths and options, 8
+# sequences at its phase-2 decode histories: BLOOM-7B1 (G 1, ALiBi),
+# Gemma-2-9B (G 2, the cap, global layers), Llama-3-8B (G 4) and
+# StarCoder2-7B (G 9, its window); 8 to 64 rows, and every count from 16
+# to 24 that G reaches (at G 2, whose head width takes 33, 34 and 40 too)
+CROSSOVER_N = {1: (8, 16, 17, 20, 24, 32, 48, 64), 2: (4, 8, 9, 10, 12, 16, 17, 20, 24, 32),
+               4: (2, 4, 5, 6, 8, 12, 16), 9: (1, 2, 3, 4, 5, 7)}
+
+
+def crossover_sweep(gen) -> dict:
+    """K4's wgmma tiles against its decode kernel (``run_kernel`` names
+    each) at CROSSOVER_N tokens a sequence, each launch graph-timed and held
+    row by row against the plain version as the phase's K4 cases are (one
+    bf16 rounding of the exact value + 2^-8); ``tiles_win_from`` is, at each
+    G, the fewest swept rows from which the tiles are as fast at every
+    larger count, beside the plan's wgmma_min_rows(D)."""
+    import torch
+    from deepspeed_tpu_torch.ops.paged_attention import (paged_attention_reference,
+                                                         run_kernel, wgmma_min_rows)
+    points, ok = [], True
+    for widths, seen, B, opts in (
+            (BLOOM_PAGED, [2048 + 5, 1536 + 9, 1024 + 13, 1024 + 17, 512 + 21, 256 + 25,
+                           128 + 29, 128 + 31], 34, {"alibi": True}),
+            (GEMMA2_PAGED, [5120 + 5, 4864 + 9, 4352 + 13, 3072 + 17, 2048 + 21, 1024 + 25,
+                            512 + 29, 128 + 31], 82,
+             {"softcap": GEMMA2_ATTN_CAP, "q_scale": CAP_Q_SCALE}),
+            (LLAMA_PAGED, [128 * (i + 1) + 22 for i in range(8)], 17, {}),
+            (SC2_PAGED, [4200, 4608, 5000, 5184, 6000, 4095, 8000, 300], 126,
+             {"window": SC2_WINDOW})):
+        G = widths["G"]
+        for N in CROSSOVER_N[G]:
+            args, kw = _paged_inputs(gen, seen, [N] * 8, N, B, widths=widths, **opts)
+            ref = paged_attention_reference(*args, **kw)
+            exact = paged_attention_reference(args[0].float(), *args[1:], **kw)
+            rounding = row_rel_err(exact.to(torch.bfloat16), exact)
+            point = {"G": G, "N": N, "rows": N * G,
+                     "options": sorted(k for k in opts if k != "q_scale")}
+            for kernel in ("wgmma", "decode"):
+                err = row_rel_err(run_kernel(kernel, *args, **kw), ref)
+                ok &= err <= rounding + PAGED_ROW_SLACK
+                point[kernel + "_row_rel_err"] = err
+                point[kernel + "_ms"] = graph_time_ms(lambda: run_kernel(kernel, *args, **kw))
+            points.append(point)
+            del args, ref, exact
+            torch.cuda.empty_cache()
+    wins = {}
+    for G in sorted({p["G"] for p in points}):
+        mine = [p for p in points if p["G"] == G]
+        wins[f"G{G}"] = next((p["rows"] for i, p in enumerate(mine)
+                              if all(q["wgmma_ms"] <= q["decode_ms"] for q in mine[i:])), None)
+    return {"timing": "cuda graph", "points": points, "ok": ok, "tiles_win_from": wins,
+            "wgmma_min_rows": {f"D{D}": wgmma_min_rows(D) for D in (128, 256)}}
+
+
 def phase_kernels() -> list:
     import torch
     gen = torch.Generator(device="cuda")
@@ -1283,11 +1446,14 @@ def phase_kernels() -> list:
     # K4's ALiBi instance at BLOOM-7B1's widths: a decode step of the
     # serving phase's 8 sequences, and a 768-row prefill chunk
     alibi_kw = dict(widths=BLOOM_PAGED, alibi=True)
+    bloom_seen = [2048 + 5, 1536 + 9, 1024 + 13, 1024 + 17, 512 + 21, 256 + 25, 128 + 29,
+                  128 + 31]
     paged_alibi_cases = [
-        _paged_case(gen, "alibi_decode", [2048 + 5, 1536 + 9, 1024 + 13, 1024 + 17, 512 + 21,
-                                          256 + 25, 128 + 29, 128 + 31], [1] * 8, N=1,
-                    B=33, graph=True, **alibi_kw),
+        _paged_case(gen, "alibi_decode", bloom_seen, [1] * 8, N=1, B=33, graph=True,
+                    **alibi_kw),
         _paged_case(gen, "alibi_prefill_chunk", [768], [768], N=768, B=24, **alibi_kw),
+        _paged_case(gen, "alibi_decode", bloom_seen, [1] * 8, N=1, B=33, graph=True,
+                    int8=True, **alibi_kw),
     ]
     # K4's softcap instance at Gemma-2-9B's widths (H 16, KV 8, D 256, cap
     # 50, queries scaled so that the cap bites): a decode step of the
@@ -1308,6 +1474,20 @@ def phase_kernels() -> list:
                     graph=True, window=GEMMA2_WINDOW, int8=True, **cap_kw),
         _paged_case(gen, "softcap_chunk_window", [3700], [768], N=768, B=70,
                     window=GEMMA2_WINDOW, **cap_kw),
+    ]
+    # the CUDA-core kernel at its main path's shape: fp32 queries over an
+    # fp32 cache, as serving_gemma2's fp32 engine runs it (Gemma-2's decode
+    # step with the cap); and fp32 queries over an int8 cache at Llama's
+    # decode step, whose pages the plan splits one a block (drawn from a
+    # generator of their own, which leaves the later cases' inputs as they
+    # were)
+    gen32 = torch.Generator(device="cuda")
+    gen32.manual_seed(1)
+    paged_fp32_cases = [
+        _paged_case(gen32, "softcap_decode_fp32", gemma_seen, [1] * 8, N=1, B=82, graph=True,
+                    dtype=torch.float32, **cap_kw),
+        _paged_case(gen32, "decode_fp32_int8", [128 * (i + 1) + 22 for i in range(8)],
+                    [1] * 8, N=1, B=17, graph=True, int8=True, dtype=torch.float32),
     ]
     # K1/K2 at head width 256 (Gemma-2-9B: H 16, KV 8, D 256, cap 50, q
     # scaled so that it bites) over the training phase's S 8192: causal with
@@ -1337,27 +1517,36 @@ def phase_kernels() -> list:
                 for n in (LAYER_PARAMS, K7_TAIL)]
     k7_cases += [_k7_case(gen, "lamb_step", LAYER_PARAMS)]
     all_paged = (paged_cases + paged_int8_cases + paged_window_cases + paged_alibi_cases
-                 + paged_softcap_cases)
+                 + paged_softcap_cases + paged_fp32_cases)
     paged_ok = [c.get("staged_row_rel_err", c["row_rel_err"])
                 <= c["rounding_row_rel_err"] + PAGED_ROW_SLACK
                 and c.get("control_max_abs_err", c["max_abs_err"]) <= PAGED_TOL
                 and ("control_row_rel_err" not in c
                      or c["row_rel_err"] <= c["control_row_rel_err"] + PAGED_ROW_SLACK)
+                and c.get("round_p_excess", 0.0) <= 0.0
+                and c.get("fp32_row_rel_err", 0.0) <= FP32_PAGED_ROW_TOL
                 for c in all_paged]
-    # the K4 cases that ran the multi-row tiles on wgmma: every prefill
-    # chunk and wave, and the mixed batch (16 rows of G 4)
+    # the K4 cases that ran the multi-row tiles on wgmma (every prefill
+    # chunk and wave, and the mixed batch: 16 rows of G 4), those that ran
+    # the decode kernel (every bf16 decode step) and those that ran the
+    # CUDA-core kernel (the fp32 queries)
     wgmma_paged = [c for c in all_paged if c["path"] == "wgmma"]
-    # the plan's rule (bf16 queries, head widths 128 and 256 here): at least
-    # 64 folded rows per sequence and KV head take the wgmma tiles
-    paths_ok = all(c["path"] == ("wgmma" if c["shape"]["N"] * c["shape"]["H"]
-                                 // c["shape"]["KV"] >= 64 else "cuda cores")
-                   for c in all_paged)
+    decode_paged = [c for c in all_paged if c["path"] == "decode"]
+    # the plan's rule (head widths 128 and 256 here); the int8 fp32 case
+    # must split its pages
+    paths_ok = all(c["path"] == k4_expected_path(c["shape"]) for c in all_paged) and \
+        all(c["path"] == "decode" for c in all_paged
+            if c["shape"]["N"] == 1 and c["shape"]["dtype"] == "bfloat16") and \
+        all(c["path"] == "cuda cores" for c in paged_fp32_cases) and \
+        paged_fp32_cases[1]["split_pages"] < paged_fp32_cases[1]["shape"]["B"]
+    crossover = crossover_sweep(gen)
     d256_cases = (flash_d256 + flash_d256_fp16 + flash_d256_fp32 + folded_d256
                   + folded_d256_fp16 + folded_d256_fp32)
     all_flash = flash_cases + flash_fp16 + folded_cases + d256_cases
     ok = all(c["max_abs_err"] <= RMS_TOL for c in rms + rms_fp32) and \
         all(c["cap_bite_share"] >= CAP_BITES for c in paged_softcap_cases + d256_cases) and \
         all(c["max_abs_err"] <= c["tolerance"] for c in ln) and all(paged_ok) and paths_ok and \
+        crossover["ok"] and \
         all(c["equal"] for c in quant_cases) and dequant["equal"] and \
         quant_cases[-1]["zero_block_scales"] == [1.0, 1.0] and \
         all(c[key]["row_rel_err"] <= c["row_tolerance"]
@@ -1421,7 +1610,8 @@ def phase_kernels() -> list:
                      "deepspeed_tpu_torch/csrc/paged_attention.cuh",
                      "deepspeed_tpu_torch/csrc/flash_attention.cuh"],
          "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
-         "note": "K4's multi-row tiles (>= 64 folded rows N * G per sequence and KV head, "
+         "note": "K4's multi-row tiles (>= 17 folded rows N * G per sequence and KV head, "
+                 "33 past head width 128, "
                  "bf16 queries) on wgmma; every K4 case above that ran it (its path)",
          "launches": None, "tolerance": PAGED_TOLERANCE,
          "max_abs_err": max(c["max_abs_err"] for c in wgmma_paged),
@@ -1429,6 +1619,45 @@ def phase_kernels() -> list:
          **{k: paged_cases[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
          "cases": wgmma_paged},
+        {"name": "paged_attention_decode", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_decode.cuh",
+         "sources": ["deepspeed_tpu_torch/csrc/paged_decode_bf16.cu",
+                     "deepspeed_tpu_torch/csrc/paged_decode_bf16_d256.cu",
+                     "deepspeed_tpu_torch/csrc/paged_decode_int8.cu",
+                     "deepspeed_tpu_torch/csrc/paged_decode_int8_d256.cu",
+                     "deepspeed_tpu_torch/csrc/paged_decode.cuh",
+                     "deepspeed_tpu_torch/csrc/paged_attention.cuh"],
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
+         "note": "K4's decode kernel (bf16 queries under the tiles' rows, D % 16 == 0) on "
+                 "mma.sync with warps splitting the keys and a cp.async ring; every K4 case "
+                 "above that ran it (its path)",
+         "launches": None, "tolerance": PAGED_TOLERANCE,
+         "max_abs_err": max(c["max_abs_err"] for c in decode_paged),
+         "row_rel_err": max(c["row_rel_err"] for c in decode_paged),
+         **{k: paged_cases[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+         "cases": decode_paged, "crossover": crossover},
+        {"name": "paged_attention_cuda_cores", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
+         "sources": ["deepspeed_tpu_torch/csrc/paged_attention_f32.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention_bf16.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention_int8_f32.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention_int8_bf16.cu",
+                     "deepspeed_tpu_torch/csrc/paged_attention.cuh"],
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
+         "note": "K4's CUDA-core kernel (fp32 queries; bf16 ones at widths not a multiple "
+                 "of 16), P rounded to bf16 over bf16-staged K/V; its launches are those of "
+                 "serving_gemma2's fp32 engine",
+         "launches": None,
+         "tolerance": f"fp32 cache: the largest row error <= {FP32_PAGED_ROW_TOL}; int8 "
+                      f"cache: within {FP32_PAGED_TOL} + round_p_flip_bound of the plain "
+                      "version that follows the kernel's split with P rounded (round_p); "
+                      "and each as paged_attention",
+         "max_abs_err": max(c["max_abs_err"] for c in paged_fp32_cases),
+         "row_rel_err": max(c["row_rel_err"] for c in paged_fp32_cases),
+         **{k: paged_fp32_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+         "cases": paged_fp32_cases},
         {"name": "quantize_int8_blockwise", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/quantizer.cu",
          "replaces": "deepspeed_tpu/ops/quantizer.py:29",
@@ -2551,18 +2780,30 @@ def phase_serving_gemma2(kernels: list) -> dict:
         "longest_prompt_holds_all_its_blocks": max_live[0] == (5120 + 32 + 63) // 64,
     })
 
-    # the fp32 engine at the weights as first drawn, on the same prompt
+    # the fp32 engine at the weights as first drawn, on the same prompt: K4's
+    # CUDA-core kernel once per layer in every forward, no other K4 kernel
     prompt = run["prompts"][0]
     model = gemma2_random_model(cfg, torch.float32)
     engine = build_llama_engine(
         cfg, params=model, dtype=torch.float32, kv_block_size=64,
         engine_config=RaggedInferenceEngineConfig(num_kv_blocks=GEMMA2_FP32_BLOCKS))
+    inner32, forwards32 = engine.model().forward, []
+
+    def counted32(batch):
+        forwards32.append(batch.n_tokens)
+        return inner32(batch)
+    engine.model().forward = counted32
+    pa = paged_attention
+    pa.cuda_core_launches = pa.wgmma_launches = pa.decode_launches = 0
     full32, step32 = prefill_and_decode(engine, 2000, prompt)
+    k4_fp32 = {"cuda_cores": pa.cuda_core_launches, "wgmma": pa.wgmma_launches,
+               "decode": pa.decode_launches, "forwards": len(forwards32)}
+    engine.model().forward = inner32
     with torch.no_grad():
         ref32, shares32 = plain_forward_gemma2_fp32(model, cfg, prompt)
         rounded32, _ = plain_forward_gemma2_fp32(model, cfg, prompt, round_input=True)
     fp32 = {"weights": "norm deltas N(0, 0.1), the rest as init_llama draws it",
-            "cosine_tolerance": GEMMA2_FP32_COSINE,
+            "k4_launches": k4_fp32, "cosine_tolerance": GEMMA2_FP32_COSINE,
             "prefill_cosine_vs_plain_fp32": cosine(full32, ref32),
             "decode_cosine_vs_plain_fp32": cosine(step32, ref32),
             "prefill_decode_max_abs_diff": (full32 - step32).abs().max().item(),
@@ -2572,6 +2813,9 @@ def phase_serving_gemma2(kernels: list) -> dict:
     checks["fp32_engine_prefill_and_decode_vs_plain_fp32"] = min(
         fp32["prefill_cosine_vs_plain_fp32"],
         fp32["decode_cosine_vs_plain_fp32"]) >= GEMMA2_FP32_COSINE
+    checks["fp32_engine_cuda_core_launches_L_per_forward"] = \
+        k4_fp32["forwards"] > 0 and k4_fp32["cuda_cores"] == L * k4_fp32["forwards"] and \
+        k4_fp32["wgmma"] == k4_fp32["decode"] == 0
 
     rec = {"phase": "serving_gemma2",
            "config": "GEMMA2_9B via policy_for('gemma2').config_from_hf (42 layers, hidden "
@@ -2590,7 +2834,10 @@ def phase_serving_gemma2(kernels: list) -> dict:
         if k["name"] in ("paged_attention_softcap", "rms_norm_fp32_scale"):
             k["launches"] = launches[k["name"]]
             k["launches_by_phase"] = {"serving_gemma2": launches[k["name"]]}
-    count_wgmma(kernels, "serving_gemma2", rec)
+        if k["name"] == "paged_attention_cuda_cores":
+            k["launches"] = k4_fp32["cuda_cores"]
+            k["launches_by_phase"] = {"serving_gemma2/fp32_engine": k4_fp32["cuda_cores"]}
+    count_k4_kernels(kernels, "serving_gemma2", rec)
     return rec
 
 
@@ -2917,18 +3164,24 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
 
     model = engine.model()
     inner_forward, inner_put = model.forward, engine.put
-    steps = []  # (real tokens, decode?, seconds, K4 wgmma launches)
+    # (real tokens, decode?, seconds, K4 launches by kernel: wgmma tiles,
+    # decode kernel, CUDA-core kernel)
+    steps = []
     bad_logits = []
     prefill_logits = {}
 
+    def k4_counts():
+        pa = paged_attention
+        return (pa.wgmma_launches, pa.decode_launches, pa.cuda_core_launches)
+
     def counted_forward(batch):
         torch.cuda.synchronize()
-        wgmma = paged_attention.wgmma_launches
+        before = k4_counts()
         t = time.monotonic()
         logits = inner_forward(batch)
         torch.cuda.synchronize()
-        steps.append((batch.n_tokens, batch.q_tok_idx.shape[1] == 1,
-                      time.monotonic() - t, paged_attention.wgmma_launches - wgmma))
+        steps.append((batch.n_tokens, batch.q_tok_idx.shape[1] == 1, time.monotonic() - t,
+                      tuple(a - b for a, b in zip(k4_counts(), before))))
         if logits.shape != (batch.seq_start.shape[0], cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             bad_logits.append(len(steps))
@@ -2966,9 +3219,13 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
 
     pre = [(n, s) for n, dec, s, _ in steps if not dec]
     dec = [(n, s) for n, dec, s, _ in steps if dec]
-    # K4's wgmma tiles: L launches in every prefill forward, none in decode
-    wgmma = {"prefill": [w for _, dec, _, w in steps if not dec],
-             "decode": [w for _, dec, _, w in steps if dec]}
+    # K4's wgmma tiles: L launches in every prefill forward, none in decode;
+    # its decode kernel L in every decode forward; the CUDA-core kernel none
+    # in either
+    per_fwd = {kind: {"prefill": [k[i] for _, dec, _, k in steps if not dec],
+                      "decode": [k[i] for _, dec, _, k in steps if dec]}
+               for i, kind in enumerate(("wgmma", "decode", "cuda_cores"))}
+    wgmma = per_fwd["wgmma"]
     L = cfg.num_hidden_layers
     rec = {"gpu": gpu_identity(), "engine_build_s": build_s,
            "prompt_lens": list(prompt_lens), "new_tokens": new_tokens,
@@ -2978,8 +3235,11 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
            "build_peak_memory_gib": build_peak,
            "generate_s": gen_s, "forwards": len(steps), "prefill_forwards": len(pre),
            "decode_forwards": len(dec), "launches_at_build": at_build,
-           "launches": {**launches, "paged_attention_wgmma": sum(map(sum, wgmma.values()))},
-           "paged_attention_wgmma_per_forward": {k: sorted(set(v)) for k, v in wgmma.items()},
+           "launches": {**launches,
+                        **{"paged_attention_" + kind: sum(map(sum, v.values()))
+                           for kind, v in per_fwd.items()}},
+           **{f"paged_attention_{kind}_per_forward": {k: sorted(set(n)) for k, n in v.items()}
+              for kind, v in per_fwd.items()},
            "prefill_tokens_per_s": sum(n for n, _ in pre) / sum(s for _, s in pre),
            "decode_tokens_per_s": sum(n for n, _ in dec) / sum(s for _, s in dec),
            "decode_step_ms_mean": 1e3 * sum(s for _, s in dec) / len(dec),
@@ -2996,6 +3256,10 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
         "free_blocks_back_to_total": free_after == num_blocks,
         "paged_attention_wgmma_L_per_prefill_forward": all(w == L for w in wgmma["prefill"]),
         "paged_attention_wgmma_none_in_decode": not any(wgmma["decode"]),
+        "paged_attention_decode_L_per_decode_forward":
+            all(d == L for d in per_fwd["decode"]["decode"]),
+        "paged_attention_no_cuda_core_launch": not any(
+            per_fwd["cuda_cores"]["prefill"] + per_fwd["cuda_cores"]["decode"]),
     }
     if not capped:
         checks["prefill_decode_consistent"] = diff <= consistency_tol
@@ -3010,12 +3274,12 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
             "check_logits": (full.cpu(), step.cpu())}
 
 
-def count_wgmma(kernels: list, phase: str, rec: dict) -> None:
-    """Adds a serving phase's K4 wgmma launches to that kernel's entry."""
+def count_k4_kernels(kernels: list, phase: str, rec: dict) -> None:
+    """Adds a serving phase's launches of K4's wgmma tiles and decode
+    kernel to their entries."""
     for k in kernels:
-        if k["name"] == "paged_attention_wgmma":
-            k.setdefault("launches_by_phase", {})[phase] = \
-                rec["launches"]["paged_attention_wgmma"]
+        if k["name"] in ("paged_attention_wgmma", "paged_attention_decode"):
+            k.setdefault("launches_by_phase", {})[phase] = rec["launches"][k["name"]]
             k["launches"] = sum(k["launches_by_phase"].values())
 
 
@@ -3035,9 +3299,10 @@ def phase_serving(kernels: list) -> dict:
     if not rec["ok"]:
         raise SystemExit(f"serving checks failed: {checks}")
     for k in kernels:
-        if k["name"] in launches and k["name"] != "paged_attention_wgmma":
+        if k["name"] in launches and k["name"] not in ("paged_attention_wgmma",
+                                                       "paged_attention_decode"):
             k["launches"] = launches[k["name"]]
-    count_wgmma(kernels, "serving", rec)
+    count_k4_kernels(kernels, "serving", rec)
     return {"rec": rec, "prefill_logits": run["prefill_logits"]}
 
 
@@ -3086,9 +3351,10 @@ def phase_serving_int8(kernels: list, bf16: dict) -> dict:
         raise SystemExit(f"int8 serving checks failed: {checks}")
     for k in kernels:
         if k["name"] in launches and k["name"] not in ("paged_attention", "rms_norm",
-                                                       "paged_attention_wgmma"):
+                                                       "paged_attention_wgmma",
+                                                       "paged_attention_decode"):
             k["launches"] = launches[k["name"]]
-    count_wgmma(kernels, "serving_int8", rec)
+    count_k4_kernels(kernels, "serving_int8", rec)
     return rec
 
 
@@ -3272,7 +3538,7 @@ def phase_serving_starcoder2(kernels: list) -> dict:
             k["launches_by_phase"] = {"serving_starcoder2": launches["layer_norm"]}
         elif k["name"] == "paged_attention_window":
             k["launches"] = launches["paged_attention"]
-    count_wgmma(kernels, "serving_starcoder2", rec)
+    count_k4_kernels(kernels, "serving_starcoder2", rec)
     return rec
 
 
@@ -3377,7 +3643,7 @@ def phase_serving_bloom(kernels: list) -> dict:
         elif k["name"] == "layer_norm":
             k["launches_by_phase"]["serving_bloom"] = launches["layer_norm"]
             k["launches"] = sum(k["launches_by_phase"].values())
-    count_wgmma(kernels, "serving_bloom", rec)
+    count_k4_kernels(kernels, "serving_bloom", rec)
     return rec
 
 
@@ -3457,6 +3723,8 @@ def main() -> int:
             family, args = wgmma_rows[k["name"]]
             k["registers_and_spills"] = [e for e in build["wgmma_kernels"]
                                          if family in e["kernel"] and args in e["kernel"]]
+        if k["name"] == "paged_attention_decode":
+            k["registers_and_spills"] = build["decode_kernels"]
         if "_d256" in k["name"]:
             wrapper_name, suffix = k["name"].split("_d256")
             dtype = {"": "bfloat16", "_fp16": "float16"}.get(suffix, suffix[1:])

@@ -1,11 +1,12 @@
 // K4 paged attention: the entry points (the grid plan, its workspace, the
-// dispatch on dtypes and on the two kernels). What the kernels replace,
-// compute and are bound by is in paged_attention.cuh, which holds them;
-// each (query, cache) type pair's CUDA-core instances are compiled in their
-// own source (paged_attention_{f32,bf16,int8_f32,int8_bf16}.cu), and the
-// wgmma instances by cache type and head width
-// (paged_attention_wgmma_{bf16,int8}{,_d256}.cu).
-#include "paged_attention.cuh"
+// dispatch on dtypes and on the three kernels). What the kernels replace,
+// compute and are bound by is in paged_attention.cuh and paged_decode.cuh,
+// which hold them; each (query, cache) type pair's CUDA-core instances are
+// compiled in their own source (paged_attention_{f32,bf16,int8_f32,
+// int8_bf16}.cu), the wgmma instances by cache type and head width
+// (paged_attention_wgmma_{bf16,int8}{,_d256}.cu), and the decode kernel's
+// likewise (paged_decode_{bf16,int8}{,_d256}.cu).
+#include "paged_decode.cuh"
 
 namespace dstt {
 
@@ -23,43 +24,73 @@ inline int sm_count() {
 }
 
 // The grid. A bf16 query over a bf16 or int8 cache at head widths 65..256
-// (D % 8 == 0; an int8 cache D % 16 == 0) with at least kWgmmaMinRows
-// folded rows per (sequence, KV head) takes the wgmma kernel, 128 rows a
-// block; every other launch (decode, fp32 queries, narrow heads) the
-// CUDA-core kernel, whose few rows (decode: G rows per sequence and head)
-// take one row per warp and whose prefill tiles take four rows per warp,
-// sharing each staged page. The span of pages a sequence can read (all B
-// without a window; with window W, at most ceil((W + N - 1) / page_size)
-// + 1 from its first live page) is split over enough blocks that the
-// CUDA-core grid holds about 16 blocks per SM, the wgmma grid two waves
-// (splits past a sequence's last page exit at once); 1 split when the
-// query rows alone fill the card.
+// (D % 8 == 0; an int8 cache D % 16 == 0) with at least wgmma_min_rows(D)
+// folded rows per (sequence, KV head) takes the wgmma tiles, 128 rows a
+// block; below that, a bf16 query over either cache at D % 16 == 0 takes
+// the decode kernel, 16 rows a block; the rest (fp32 queries, other
+// widths) the CUDA-core kernel, whose few rows take one row per warp and
+// whose prefill tiles four rows per warp. The span of pages a sequence can
+// read (all B without a window; with window W, at most ceil((W + N - 1) /
+// page_size) + 1 from its first live page) is split over blocks: the
+// CUDA-core grid to about 16 blocks per SM, the wgmma grid to two waves
+// (1 split when the query rows alone fill the card), the decode grid to
+// about two blocks per SM with at least four key tiles a split (enough
+// for its copy ring to run ahead). Splits past a sequence's last page exit
+// at once.
+enum Kernel : int { kCudaCores = 0, kTiles = 1, kDecode = 2 };
+
 struct Plan {
-  bool wgmma;
-  int rpw, splits, pages_per_split;
+  int kernel, rpw, splits, pages_per_split;
 };
 
-inline bool takes_wgmma(int N, int H, int KV, int D, int dtype, int cache_dtype) {
+inline bool tiles_take(int D, int dtype, int cache_dtype) {
   return dtype == kBFloat16 && D > 64 && D <= 256 && D % 8 == 0 &&
-         (cache_dtype == kBFloat16 || (cache_dtype == kInt8 && D % 16 == 0)) &&
-         (long long)N * (H / KV) >= kWgmmaMinRows;
+         (cache_dtype == kBFloat16 || (cache_dtype == kInt8 && D % 16 == 0));
+}
+
+inline bool decode_takes(int D, int dtype, int cache_dtype) {
+  return dtype == kBFloat16 && D % 16 == 0 && D <= 256 &&
+         (cache_dtype == kBFloat16 || cache_dtype == kInt8);
+}
+
+inline bool cuda_cores_take(int dtype, int cache_dtype) {
+  return (dtype == kFloat32 || dtype == kBFloat16) &&
+         (cache_dtype == dtype || cache_dtype == kInt8);
+}
+
+// the plan's kernel; `kernel` >= 0 asks for that one (-1 if it does not
+// take these dtypes and widths)
+inline int choose(int rows, int D, int dtype, int cache_dtype, int kernel) {
+  if (kernel == kTiles) return tiles_take(D, dtype, cache_dtype) ? kTiles : -1;
+  if (kernel == kDecode) return decode_takes(D, dtype, cache_dtype) ? kDecode : -1;
+  if (kernel == kCudaCores) return cuda_cores_take(dtype, cache_dtype) ? kCudaCores : -1;
+  if (kernel >= 0) return -1;
+  if (tiles_take(D, dtype, cache_dtype) && rows >= wgmma_min_rows(D)) return kTiles;
+  if (decode_takes(D, dtype, cache_dtype)) return kDecode;
+  return cuda_cores_take(dtype, cache_dtype) ? kCudaCores : -1;
 }
 
 inline Plan plan(int S, int N, int H, int D, int KV, int B, int page_size, int window,
-                 int dtype, int cache_dtype, int sms) {
+                 int dtype, int cache_dtype, int kernel, int sms) {
   const int rows = N * (H / KV);
   Plan p;
-  p.wgmma = takes_wgmma(N, H, KV, D, dtype, cache_dtype);
+  p.kernel = choose(rows, D, dtype, cache_dtype, kernel);
   p.rpw = rows <= kAttnWarps ? 1 : 4;
-  const int row_tile = p.wgmma ? flash::kWgRows : kAttnWarps * p.rpw;
+  const int row_tile = p.kernel == kTiles    ? flash::kWgRows
+                       : p.kernel == kDecode ? decode::kRows
+                                             : kAttnWarps * p.rpw;
   const long long blocks = (long long)(rows + row_tile - 1) / row_tile * KV * S;
-  const long long target = p.wgmma ? 2LL * sms : 16LL * sms;
-  const long long want = p.wgmma && blocks >= sms ? 1 : (target + blocks - 1) / blocks;
+  const long long target = p.kernel == kCudaCores ? 16LL * sms : 2LL * sms;
+  const long long want =
+      p.kernel == kTiles && blocks >= sms ? 1 : (target + blocks - 1) / blocks;
   const int span = window > 0
       ? (int)std::min<long long>(B, ((long long)window + N - 1 + page_size - 1) / page_size + 1)
       : B;
   const int splits = (int)std::min<long long>(span, std::max<long long>(1, want));
   p.pages_per_split = (span + splits - 1) / splits;
+  if (p.kernel == kDecode)  // at least four key tiles a split
+    p.pages_per_split = std::max(p.pages_per_split,
+                                 (4 * decode::keys(D) + page_size - 1) / page_size);
   p.splits = (span + p.pages_per_split - 1) / p.pages_per_split;
   return p;
 }
@@ -77,22 +108,32 @@ inline bool valid_shape(int S, int N, int H, int D, int KV, int B) {
 }  // namespace dstt
 
 // The plan of dstt_paged_attention for this shape and these dtypes on the
-// current device: the fp32 words of workspace it needs (0 when the pages
-// are not split) and whether it launches the wgmma kernel (1) or the
-// CUDA-core one (0).
+// current device (`kernel` -1: the plan's choice; else that kernel, which
+// must take the dtypes and widths): the fp32 words of workspace it needs
+// (0 when the pages are not split), the kernel it launches (0 the
+// CUDA-core kernel, 1 the wgmma tiles, 2 the decode kernel) and the pages
+// of each split, counted from each sequence's first live page (the whole
+// span when there is one split).
 extern "C" int dstt_paged_attention_plan(int S, int N, int H, int D, int KV, int B,
                                          int page_size, int window, int dtype,
-                                         int cache_dtype, long long* floats, int* wgmma) {
+                                         int cache_dtype, int kernel, long long* floats,
+                                         int* chosen, int* pages_per_split) {
   using namespace dstt;
   if (!valid_shape(S, N, H, D, KV, B) || page_size <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  const Plan p = plan(S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, sms);
+  const Plan p = plan(S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, kernel, sms);
+  if (p.kernel < 0) return (int)cudaErrorInvalidValue;
   *floats = (long long)workspace_floats(p, S, N, H, D);
-  *wgmma = p.wgmma ? 1 : 0;
+  *chosen = p.kernel;
+  *pages_per_split = p.pages_per_split;
   return (int)cudaSuccess;
 }
+
+// the folded rows N * G per (sequence, KV head) from which the plan takes
+// the wgmma tiles at head width D (wgmma_min_rows)
+extern "C" int dstt_paged_wgmma_min_rows(int D) { return dstt::wgmma_min_rows(D); }
 
 // bytes of dynamic shared memory of a wgmma instance (head width 128 or
 // 256; a bf16 cache 0, an int8 cache 1), for the build report; -1 for no
@@ -107,18 +148,33 @@ extern "C" int dstt_paged_wgmma_smem(int dmax, int int8_cache) {
   return bytes ? (int)bytes : -1;
 }
 
+// bytes of dynamic shared memory of a decode instance (head width 64, 128
+// or 256; a bf16 cache 0, an int8 cache 1), for the build report; -1 for no
+// such instance
+extern "C" int dstt_paged_decode_smem(int dmax, int int8_cache) {
+  using namespace dstt;
+  size_t bytes = 0;
+  if (dmax == 64) bytes = int8_cache ? paged_decode_smem<int8_t, 64>()
+                                     : paged_decode_smem<__nv_bfloat16, 64>();
+  if (dmax == 128) bytes = int8_cache ? paged_decode_smem<int8_t, 128>()
+                                      : paged_decode_smem<__nv_bfloat16, 128>();
+  if (dmax == 256) bytes = int8_cache ? paged_decode_smem<int8_t, 256>()
+                                      : paged_decode_smem<__nv_bfloat16, 256>();
+  return bytes ? (int)bytes : -1;
+}
+
 // dtype: the query's and output's; cache_dtype: the same, or kInt8 with
 // cache_scales; slopes: the [KV, G] fp32 ALiBi slopes, or null for none;
 // window: the sliding window in keys, 0 for none; softcap: the score cap,
-// 0 for none
+// 0 for none; kernel: -1 for the plan's choice, else the one to launch (as
+// dstt_paged_attention_plan)
 extern "C" int dstt_paged_attention(const void* q, const void* cache,
                                     const void* cache_scales, const void* slopes, void* out,
                                     const void* block_table, const void* seen,
                                     const void* lens, int S, int N, int H, int D,
                                     int KV, int B, long long slots, int layer,
                                     int page_size, int window, float scale, float softcap,
-                                    int dtype,
-                                    int cache_dtype, void* workspace,
+                                    int dtype, int cache_dtype, int kernel, void* workspace,
                                     long long workspace_len, void* stream) {
   using namespace dstt;
   const int cache_bytes = cache_dtype == kFloat32 ? 4 : cache_dtype == kBFloat16 ? 2 : 1;
@@ -129,7 +185,12 @@ extern "C" int dstt_paged_attention(const void* q, const void* cache,
     return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  const Plan p = plan(S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, sms);
+  const Plan p = plan(S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, kernel, sms);
+  if (p.kernel < 0) return (int)cudaErrorInvalidValue;
+  // the tiles and the decode kernel copy 16 bytes at a time
+  if (p.kernel != kCudaCores &&
+      (((uintptr_t)q | (uintptr_t)cache | (uintptr_t)out) % 16) != 0)
+    return (int)cudaErrorMisalignedAddress;
   const size_t need = workspace_floats(p, S, N, H, D);
   if (need > 0 && (workspace == nullptr || (size_t)workspace_len < need))
     return (int)cudaErrorInvalidValue;
@@ -141,23 +202,28 @@ extern "C" int dstt_paged_attention(const void* q, const void* cache,
               (const int*)lens, S, N, H, D, KV, B, slots, layer, page_size, window, scale,
               softcap, p.splits, p.pages_per_split, ws, ws ? ws + parts * D : nullptr};
   cudaStream_t s = (cudaStream_t)stream;
+  const bool int8 = cache_dtype == kInt8;
   cudaError_t e;
-  if (p.wgmma)
-    e = cache_dtype == kInt8
-            ? (D <= 128 ? launch_paged_wgmma<int8_t, 128>(a, s)
-                        : launch_paged_wgmma<int8_t, 256>(a, s))
-            : (D <= 128 ? launch_paged_wgmma<__nv_bfloat16, 128>(a, s)
-                        : launch_paged_wgmma<__nv_bfloat16, 256>(a, s));
+  if (p.kernel == kTiles)
+    e = int8 ? (D <= 128 ? launch_paged_wgmma<int8_t, 128>(a, s)
+                         : launch_paged_wgmma<int8_t, 256>(a, s))
+             : (D <= 128 ? launch_paged_wgmma<__nv_bfloat16, 128>(a, s)
+                         : launch_paged_wgmma<__nv_bfloat16, 256>(a, s));
+  else if (p.kernel == kDecode)
+    e = int8 ? (D <= 64    ? launch_paged_decode<int8_t, 64>(a, s)
+                : D <= 128 ? launch_paged_decode<int8_t, 128>(a, s)
+                           : launch_paged_decode<int8_t, 256>(a, s))
+             : (D <= 64    ? launch_paged_decode<__nv_bfloat16, 64>(a, s)
+                : D <= 128 ? launch_paged_decode<__nv_bfloat16, 128>(a, s)
+                           : launch_paged_decode<__nv_bfloat16, 256>(a, s));
   else if (dtype == kFloat32 && cache_dtype == kFloat32)
     e = launch_cache<float, float>(a, p.rpw, s);
   else if (dtype == kBFloat16 && cache_dtype == kBFloat16)
     e = launch_cache<__nv_bfloat16, __nv_bfloat16>(a, p.rpw, s);
   else if (dtype == kFloat32 && cache_dtype == kInt8)
     e = launch_cache<float, int8_t>(a, p.rpw, s);
-  else if (dtype == kBFloat16 && cache_dtype == kInt8)
-    e = launch_cache<__nv_bfloat16, int8_t>(a, p.rpw, s);
   else
-    return (int)cudaErrorInvalidValue;
+    e = launch_cache<__nv_bfloat16, int8_t>(a, p.rpw, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

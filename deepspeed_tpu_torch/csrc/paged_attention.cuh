@@ -27,10 +27,11 @@
 //
 // Bound on the H100: bytes for decode (each query row meets every history
 // key once, about 4 flops per 2 bytes of K/V read); operations for prefill
-// chunks (a 768-token chunk meets thousands of keys per row). Two kernels:
+// chunks (a 768-token chunk meets thousands of keys per row). Three
+// kernels, chosen by paged_attention.cu's plan():
 // - Multi-row tiles on wgmma (paged_attention_wgmma_kernel): a bf16 query
 //   over a bf16 or int8 cache at head widths 65..256 with at least
-//   kWgmmaMinRows folded rows N * G per (sequence, KV head): prefill
+//   wgmma_min_rows(D) folded rows N * G per (sequence, KV head): prefill
 //   chunks, admission waves, mixed batches. It is K1's forward sweep
 //   (flash_attention.cuh fwd_sweep) with a source of its own (PagedSrc):
 //   one block per (128 folded rows, KV head, sequence, split), a
@@ -39,20 +40,29 @@
 //   page_size + j % page_size, 16-byte cp.async rows into the swizzled
 //   tile, any page size), positions seen + f / G, ALiBi's head h * G + f % G
 //   (FastDiv for both), S = Q K^T and o += P V on the tensor cores with P
-//   rounded to bf16 as the JAX kernel rounds it (:147); the CUDA-core
-//   kernel keeps P in fp32. An int8 tile's codes and scales are copied two
-//   tiles ahead and each thread dequantizes the codes it copied, with the
-//   numerics below, into the bf16 tile. The block's keys are [kmin, kmax]:
-//   from its first row's window (the entries the engine freed below it are
-//   never read) or its split's first page, to the last key its last row
-//   sees; keys outside are never copied and always masked. Where the grid
-//   is under a wave of SMs, the pages are split as below. What held the
-//   CUDA-core kernel back on these shapes: one lane per key with D fp32
-//   FMAs from shared memory for QK, one lane per output dim for PV, so a
-//   768-row Gemma-2 chunk ran 13.2 ms against a 0.05 ms bound on the
-//   H100; the tiles take it to ~0.31 ms (PERF.md, section 6).
-// - The CUDA-core kernel (paged_attention_kernel): decode (N = 1), fp32
-//   queries, narrow heads, and rows fewer than a warpgroup's.
+//   rounded to bf16 as the JAX kernel rounds it (:147). An int8 tile's
+//   codes and scales are copied two tiles ahead and each thread dequantizes
+//   the codes it copied, with the numerics below, into the bf16 tile. The
+//   block's keys are [kmin, kmax]: from its first row's window (the entries
+//   the engine freed below it are never read) or its split's first page,
+//   to the last key its last row sees; keys outside are never copied and
+//   always masked. Where the grid is under a wave of SMs, the pages are
+//   split as below. What held the CUDA-core kernel back on these shapes:
+//   one lane per key with D fp32 FMAs from shared memory for QK, one lane
+//   per output dim for PV, so a 768-row Gemma-2 chunk ran 13.2 ms against
+//   a 0.05 ms bound on the H100; the tiles take it to ~0.31 ms (PERF.md,
+//   section 6).
+// - The decode kernel (paged_decode_kernel, paged_decode.cuh): bf16
+//   queries over a bf16 or int8 cache at head widths D % 16 == 0 with fewer
+//   rows than the tiles take (decode steps, small chunks), on mma.sync with
+//   warps splitting the keys and a cp.async ring; its note says what it
+//   does about the CUDA-core kernel's limits.
+// - The CUDA-core kernel (paged_attention_kernel): what the other two do
+//   not take: fp32 queries, and head widths that are not a multiple of 16.
+//   Over bf16-staged K/V (a bf16 cache, or an int8 cache under fp32
+//   queries) it rounds P to bf16 before P V as the JAX kernel does, and
+//   sums it unrounded into the row's sum; fp32 over an fp32 cache keeps P
+//   in fp32, as the JAX kernel's p.astype(v.dtype) does.
 // What the CUDA-core kernel's design does:
 // - One thread block per (tile of query rows, KV head, sequence). The G
 //   query heads that share a KV head sit in one block, so each K/V page is
@@ -72,12 +82,12 @@
 //   of its own first query too. Pages before the first live one are never
 //   staged: the engine has freed them (their table entries hold block 0,
 //   which another sequence owns) once the sequence decoded past them.
-// - Decode has few query rows (S * KV blocks of G rows: 64 blocks for 8
-//   sequences, half the SMs, each walking its pages alone). When the grid
-//   is small, plan() splits each sequence's pages over `splits` blocks
-//   (flash-decoding): each writes its rows' partial max, sum and fp32
-//   accumulator to a workspace, and combine_kernel rescales them to the
-//   common max and divides. The result is the same online softmax, summed
+// - Few query rows (an fp32 decode step: S * KV blocks of G rows, 64
+//   blocks for 8 sequences, half the SMs, each walking its pages alone).
+//   When the grid is small, plan() splits each sequence's pages over
+//   `splits` blocks (flash-decoding): each writes its rows' partial max,
+//   sum and fp32 accumulator to a workspace, and combine_kernel rescales
+//   them to the common max and divides. The result is the same online softmax, summed
 //   in another order. With a window the splits cover the live span, at
 //   most ceil((W + N - 1) / page_size) + 1 pages from the sequence's first
 //   live page, not the whole table width: a split past the span, or whose
@@ -95,8 +105,6 @@
 //   staged K/V are the bf16 values the TPU kernel feeds its dot. The rest of
 //   the kernel reads them as it reads a bf16 page. It moves about half the
 //   bytes of a bf16 page: D + 4 bytes per (slot, head) instead of 2*D.
-// Later versions: decode on wgmma too (its rows fill a warpgroup only
-// across sequences), TMA-fed page rings.
 #pragma once
 
 #include <algorithm>
@@ -332,7 +340,10 @@ paged_attention_kernel(PagedArgs a) {
         const int j = lane + 32 * t;
         if (j < ps) {
           const float p = sc[t] > kNegInf ? expf(sc[t] - m_new) : 0.f;
-          Pw[j] = p;
+          // P V takes P in the staged type where that is bf16 (the JAX
+          // kernel's p.astype(v.dtype)); the row's sum takes it unrounded
+          Pw[j] = std::is_same<S, __nv_bfloat16>::value
+                      ? __bfloat162float(__float2bfloat16(p)) : p;
           psum += p;
         }
       }
@@ -387,51 +398,57 @@ paged_attention_kernel(PagedArgs a) {
   }
 }
 
-// Merge the splits of one query row: rescale each split's sum and
-// accumulator to the common max, add, divide. One warp per row. Each
-// split's weight exp(m_k - max) is computed once, by one lane of a chunk of
-// 32 splits, and broadcast; lane i keeps output dims i, i+32, ... (DPL of
-// them, as the launched attention kernel) in registers across the splits.
-template <typename T, int DPL>
+// Merge the splits of one query row (every K4 kernel's): rescale each
+// split's sum and accumulator to the common max, add, divide. One block per
+// row; every thread reads the splits' (max, sum) and keeps output dims
+// threadIdx.x and + 128 over all of them, each split's loads independent of
+// the last's. An empty split (sum 0) wrote no accumulator and is never read.
+template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 combine_kernel(PagedArgs a) {
   const int G = a.H / a.KV, rows = a.N * G, D = a.D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kAttnWarps + warp, h = blockIdx.y, s = blockIdx.z;
-  if (r >= rows) return;
+  const int r = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const size_t part0 = (((size_t)s * a.KV + h) * rows + r) * a.splits;
   const float* ml = a.ws_ml + 2 * part0;
+  const float* acc = a.ws_acc + part0 * D;
   float mx = kNegInf;
-  for (int k = lane; k < a.splits; k += 32) mx = fmaxf(mx, ml[2 * k]);
-  mx = warp_max(mx);
-  float lsum = 0.f, v[DPL];
+  for (int k = 0; k < a.splits; ++k)
+    if (ml[2 * k + 1] > 0.f) mx = fmaxf(mx, ml[2 * k]);
+  constexpr int kPer = kMaxHeadDim / kAttnThreads;
+  float lsum = 0.f, v[kPer];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) v[i] = 0.f;
-  for (int k0 = 0; k0 < a.splits; k0 += 32) {
-    const int k = k0 + lane;
-    // an empty split (l = 0) wrote no accumulator: weight 0, never read
-    const float w = k < a.splits && ml[2 * k + 1] > 0.f ? expf(ml[2 * k] - mx) : 0.f;
-    if (k < a.splits) lsum += ml[2 * k + 1] * w;
-    const int nk = min(32, a.splits - k0);
-    for (int j = 0; j < nk; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-      if (wj == 0.f) continue;  // warp-uniform
-      const float* acc = a.ws_acc + (part0 + k0 + j) * D;
+  for (int i = 0; i < kPer; ++i) v[i] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < a.splits; ++k) {
+    const float lk = ml[2 * k + 1];
+    const float w = lk > 0.f ? expf(ml[2 * k] - mx) : 0.f;
+    lsum += lk * w;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) v[i] += acc[d] * wj;
-      }
+    for (int i = 0; i < kPer; ++i) {
+      const int d = threadIdx.x + kAttnThreads * i;
+      if (d < D) v[i] += (w > 0.f ? acc[(size_t)k * D + d] : 0.f) * w;
     }
   }
-  lsum = warp_sum(lsum);
   const int n = r / G, head = h * G + r % G;
   T* orow = reinterpret_cast<T*>(a.out) + ((long long)(s * a.N + n) * a.H + head) * D;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
+  for (int i = 0; i < kPer; ++i) {
+    const int d = threadIdx.x + kAttnThreads * i;
     if (d < D) orow[d] = from_float<T>(lsum > 0.f ? v[i] / lsum : 0.f);
   }
+}
+
+// Raise kernel `kern`'s dynamic shared memory limit to `smem` bytes on the
+// current device, once per device (`ready`: the caller's flags for that
+// kernel): the call costs the host microseconds on every decode launch.
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem, bool (&ready)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && ready[dev])) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && dev < 64) ready[dev] = true;
+  return e;
 }
 
 template <typename T, typename C, int DPL, int RPW, bool kAlibi, bool kCap>
@@ -447,10 +464,7 @@ cudaError_t launch_paged(const PagedArgs& a, cudaStream_t stream) {
   }
   const dim3 grid((rows + RPB - 1) / RPB * a.splits, a.KV, a.S);
   kern<<<grid, kAttnThreads, smem, stream>>>(a);
-  if (a.splits > 1) {
-    const dim3 cgrid((rows + kAttnWarps - 1) / kAttnWarps, a.KV, a.S);
-    combine_kernel<T, DPL><<<cgrid, kAttnThreads, 0, stream>>>(a);
-  }
+  if (a.splits > 1) combine_kernel<T><<<dim3(rows, a.KV, a.S), kAttnThreads, 0, stream>>>(a);
   return cudaSuccess;
 }
 
@@ -486,8 +500,20 @@ cudaError_t launch_cache(const PagedArgs& a, int rpw, cudaStream_t stream) {
 // ---- multi-row tiles on wgmma: bf16 queries over a bf16 or int8 cache ----
 
 // folded rows (n * G + g) per (sequence, KV head) from which a launch takes
-// the wgmma kernel (plan()): one warpgroup's 64
-constexpr int kWgmmaMinRows = 64;
+// the wgmma kernel (plan()), below which the decode kernel, which reads
+// every K/V tile once per 16 rows. Measured on the H100 (PERF.md, section
+// 6; chip_smoke.py's crossover sweep at the serving families' widths). Up
+// to head width 128, one more than the decode kernel's 16-row block: the
+// decode kernel wins at 8 and 16 rows at G 4 and 9 at G 9, the tiles from
+// 20 (G 4) and 18 (G 9); at G 1 the decode kernel stays ~7% ahead up to 24
+// rows and they tie at 32. Past 128 (Gemma-2's 256, G 2), one more than two
+// decode blocks: the tiles (one 128-row block an SM) take ~0.17 ms whatever
+// the rows, the decode kernel 0.13 at 18-32 rows and 0.19 at 48. The
+// wrapper reads it through dstt_paged_wgmma_min_rows.
+constexpr int kWgmmaMinRows = 17;
+constexpr int kWgmmaMinRowsWide = 33;
+
+inline int wgmma_min_rows(int D) { return D > 128 ? kWgmmaMinRowsWide : kWgmmaMinRows; }
 
 // K4's keys and rows for flash::fwd_sweep (flash_attention.cuh): folded row
 // f = n * G + g of sequence s and KV head h is query (n, h * G + g) at
@@ -672,16 +698,14 @@ template <typename C, int DMAX, bool kAlibi, bool kCap>
 cudaError_t launch_paged_wgmma_inst(const PagedArgs& a, cudaStream_t stream) {
   auto kern = paged_attention_wgmma_kernel<C, DMAX, kAlibi, kCap>;
   const size_t smem = paged_wgmma_smem<C, DMAX>();
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool ready[64] = {};
+  cudaError_t e = allow_smem(kern, smem, ready);
   if (e != cudaSuccess) return e;
   const int rows = a.N * (a.H / a.KV);
   const dim3 grid((rows + flash::kWgRows - 1) / flash::kWgRows * a.splits, a.KV, a.S);
   kern<<<grid, flash::kWgThreads, smem, stream>>>(a);
-  if (a.splits > 1) {
-    const dim3 cgrid((rows + kAttnWarps - 1) / kAttnWarps, a.KV, a.S);
-    combine_kernel<__nv_bfloat16, DMAX / 32><<<cgrid, kAttnThreads, 0, stream>>>(a);
-  }
+  if (a.splits > 1)
+    combine_kernel<__nv_bfloat16><<<dim3(rows, a.KV, a.S), kAttnThreads, 0, stream>>>(a);
   return cudaSuccess;
 }
 

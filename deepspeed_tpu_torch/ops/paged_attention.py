@@ -15,12 +15,17 @@ launches over a float cache, ``paged_attention.int8_launches`` over an
 int8 cache, ``paged_attention.alibi_launches`` those with ALiBi and
 ``paged_attention.softcap_launches`` those with the softcap (over either
 cache; each launch counts once, in the first of softcap, ALiBi, int8 and
-float that applies). ``paged_attention.wgmma_launches`` counts, beside
-them, the launches that ran the multi-row tiles on wgmma (a bf16 query
-over a bf16 or int8 cache with at least 64 folded rows ``N * G`` per
-sequence and KV head, at head widths 65..256); the others, decode among
-them, run the CUDA-core kernel. The kernel's plan decides
-(``dstt_paged_attention_plan``). All take the JAX kernel's sliding
+float that applies). Beside them, ``paged_attention.wgmma_launches``
+counts the launches that ran the multi-row tiles on wgmma (a bf16 query
+over a bf16 or int8 cache with at least ``wgmma_min_rows(D)`` folded rows
+``N * G`` per sequence and KV head, at head widths 65..256),
+``paged_attention.decode_launches`` those that ran the decode kernel (a
+bf16 query over either cache at head widths ``D % 16 == 0`` that the tiles
+do not take: decode steps, small chunks, heads up to 64 wide) and
+``paged_attention.cuda_core_launches`` those that ran the CUDA-core kernel
+(fp32 queries, other widths). The kernel's plan decides
+(``dstt_paged_attention_plan``; ``kernel_plan`` reads it); ``run_kernel``
+launches a named one, for measurements. All take the JAX kernel's sliding
 ``window``: a query at absolute position ``q`` sees keys ``q - window <
 key <= q``, and the kernel never reads a page wholly older than the
 window of the chunk's first query. The softcap (Gemma-2, ``softcap=c``)
@@ -40,6 +45,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
+# the kernels of csrc/paged_attention.cu, by the code its plan returns
+KERNELS = ("cuda cores", "wgmma", "decode")
 
 
 def _check_options(softcap):
@@ -94,11 +101,57 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
                               attn_scale: Optional[float] = None,
                               use_alibi: bool = False, slopes=None,
                               cache_scales=None,
-                              softcap: Optional[float] = None):
+                              softcap: Optional[float] = None,
+                              round_p: bool = False,
+                              split_pages: Optional[int] = None):
     """Dense-gather reference: gathers each sequence's ``B*page_size``
     history window (an int8 window dequantized in fp32; freed table entries
     gather block 0 and are masked), caps the scaled scores, adds the ALiBi
-    bias, masks, softmaxes in fp32."""
+    bias, masks, softmaxes in fp32.
+
+    ``round_p`` follows the JAX kernel's own order instead of one softmax
+    over the row: page by page, a running max, each page's ``P = exp(s -
+    m)`` rounded to bf16 before its P V over a bf16 or int8 cache (the
+    kernel's ``p.astype(v.dtype)``; an fp32 cache keeps fp32), the unrounded
+    P summed into the row's sum, one division at the end. Where P is
+    rounded the max it is taken against decides the rounding, so the pages
+    are walked in order. With ``split_pages`` the walk follows a kernel's
+    page split (``kernel_plan``): from each sequence's first live page,
+    every ``split_pages`` pages start a running max of their own, and the
+    splits merge as the kernels' combine does (each rescaled to the common
+    max, summed, one division)."""
+    return _reference(q, cache, layer, block_table, seq_seen, seq_lens, page_size, window,
+                      attn_scale, use_alibi, slopes, cache_scales, softcap, round_p,
+                      split_pages)[0]
+
+
+# fp32 ulps from a bf16 rounding tie within which round_p_flip_bound takes
+# a P to round either way (a relative move of P of up to 2^-14)
+FLIP_BAND_ULPS = 512
+
+
+def round_p_flip_bound(q, cache, layer: int, block_table, seq_seen, seq_lens, *,
+                       page_size: int, window: Optional[int] = None,
+                       attn_scale: Optional[float] = None, use_alibi: bool = False,
+                       slopes=None, cache_scales=None, softcap: Optional[float] = None,
+                       split_pages: Optional[int] = None):
+    """How far ``paged_attention_reference(..., round_p=True,
+    split_pages=...)`` may move, element by element (``[S, N, H, D]``
+    fp32), when its scores move by summation order alone: a P within
+    FLIP_BAND_ULPS fp32 ulps of a bf16 rounding tie may round the other
+    way, which moves it by one bf16 ulp (at most 2^-7 P) and the output by
+    that times |v| over the row's sum. Zero over an fp32 cache, whose P is
+    not rounded."""
+    return _reference(q, cache, layer, block_table, seq_seen, seq_lens, page_size, window,
+                      attn_scale, use_alibi, slopes, cache_scales, softcap, True,
+                      split_pages, FLIP_BAND_ULPS)[1]
+
+
+def _reference(q, cache, layer, block_table, seq_seen, seq_lens, page_size, window,
+               attn_scale, use_alibi, slopes, cache_scales, softcap, round_p, split_pages,
+               band=None):
+    """paged_attention_reference's output and, with ``band``, the round_p
+    walk's flip bound (round_p_flip_bound)."""
     _check_options(softcap)
     S, N, H, D = q.shape
     _check_cache_scales(cache, cache_scales, D)
@@ -132,27 +185,125 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
         dist = (key_pos[:, :, None, None, :]
                 - q_abs[:, :, None, None, None]).float()       # [S, N, 1, 1, L]
         scores = scores + slope_table[None, None, :, :, None] * dist
-    scores = torch.where(mask[:, :, None, None, :], scores,
-                         torch.full((), NEG_INF, device=dev))
-    probs = torch.softmax(scores, dim=-1)
-    any_visible = mask.any(-1)[:, :, None, None, None]
-    out = torch.einsum("snkgl,skld->snkgd", probs, v_h)
-    out = torch.where(any_visible, out, torch.zeros((), device=dev))
-    return out.reshape(S, N, H, D).to(q.dtype)
+    mask = mask[:, :, None, None, :]
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=dev))
+    if round_p:
+        starts = None
+        if split_pages is not None:
+            first = (torch.clamp(seq_seen - window + 1, min=0) // page_size
+                     if window is not None else torch.zeros_like(seq_seen))
+            rel = torch.arange(B, device=dev)[None, :] - first[:, None].long()
+            starts = (rel > 0) & (rel % split_pages == 0)          # [S, B]
+        out, bound = _pagewise(
+            scores, mask, v_h, page_size,
+            torch.float32 if cache.dtype == torch.float32 else torch.bfloat16, starts, band)
+        if bound is not None:
+            bound = bound.reshape(S, N, H, D)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("snkgl,skld->snkgd", probs, v_h)
+        out = torch.where(mask.any(-1, keepdim=True), out, torch.zeros((), device=dev))
+        bound = None
+    return out.reshape(S, N, H, D).to(q.dtype), bound
+
+
+def _merge(a, b):
+    """Two partial (max, sum, accumulator) triples of the same rows as the
+    kernels' combine merges splits: each with a nonzero sum rescaled to the
+    larger max, then added."""
+    (m1, l1, a1), (m2, l2, a2) = a, b
+    mx = torch.maximum(torch.where(l1 > 0, m1, NEG_INF), torch.where(l2 > 0, m2, NEG_INF))
+    w1 = torch.where(l1 > 0, torch.exp(m1 - mx), 0.0)
+    w2 = torch.where(l2 > 0, torch.exp(m2 - mx), 0.0)
+    return mx, l1 * w1 + l2 * w2, a1 * w1[..., None] + a2 * w2[..., None]
+
+
+def _pagewise(scores, mask, v_h, page_size: int, p_dtype, starts=None, band=None):
+    """The JAX kernel's online softmax over ``scores`` ``[S, N, KV, G, L]``
+    (masked entries NEG_INF) and ``v_h`` ``[S, KV, L, D]``, one page after
+    another, P rounded to ``p_dtype`` for its product with V. Where
+    ``starts`` ``[S, pages]`` is set, a sequence's page starts a split: the
+    partial so far is merged into the finished ones and the running max,
+    sum and accumulator start afresh. With ``band`` (fp32 ulps) a second
+    accumulator beside the first takes 2^-7 P |V| of each bf16-rounded P
+    within ``band`` of a rounding tie: (output, that over the row's sum),
+    else (output, None)."""
+    dev = scores.device
+    zero = torch.zeros((), device=dev)
+    D = v_h.shape[-1]
+    flips = band is not None and p_dtype == torch.bfloat16
+
+    def fresh():
+        m = torch.full(scores.shape[:-1], NEG_INF, device=dev)
+        return m, torch.zeros_like(m), torch.zeros(*m.shape, 2 * D if flips else D, device=dev)
+
+    done = fresh()
+    m, total, acc = fresh()
+    for b, k0 in enumerate(range(0, scores.shape[-1], page_size)):
+        if starts is not None and bool(starts[:, b].any()):
+            new = starts[:, b]
+
+            def pick(old, young):  # young where this page starts a split
+                return tuple(torch.where(new.view(-1, *[1] * (x.dim() - 1)), y, x)
+                             for x, y in zip(old, young))
+            done = pick(done, _merge(done, (m, total, acc)))
+            m, total, acc = pick((m, total, acc), fresh())
+        sc, mk = scores[..., k0:k0 + page_size], mask[..., k0:k0 + page_size]
+        m_new = torch.maximum(m, sc.amax(-1)).clamp_min(NEG_INF)
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mk, torch.exp(sc - m_new[..., None]), zero)
+        total = alpha * total + p.sum(-1)
+        v = v_h[:, :, k0:k0 + page_size]
+        pv = torch.einsum("snkgl,skld->snkgd", p.to(p_dtype).float(), v)
+        if flips:  # the low 16 bits of P's fp32 word against the tie 0x8000
+            near = ((p.view(torch.int32) & 0xFFFF) - 0x8000).abs() <= band
+            pv = torch.cat([pv, torch.einsum("snkgl,skld->snkgd",
+                                             torch.where(near, p * 2.0 ** -7, zero),
+                                             v.abs())], -1)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    if starts is not None:
+        _, total, acc = _merge(done, (m, total, acc))
+    out = torch.where(total[..., None] > 0,
+                      acc / torch.where(total == 0, 1.0, total)[..., None], zero)
+    if band is None:
+        return out, None
+    return (out[..., :D], out[..., D:]) if flips else (out, torch.zeros_like(out))
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(device_index: int, S: int, N: int, H: int, D: int, KV: int, B: int,
-          page_size: int, window: int, dtype: int, cache_dtype: int):
+          page_size: int, window: int, dtype: int, cache_dtype: int, kernel: int):
     """The kernel's grid plan (made in csrc/paged_attention.cu) for this
     shape on this device: the fp32 words of workspace its page splits need,
-    and whether it runs the wgmma kernel."""
-    n, wgmma = ctypes.c_longlong(0), ctypes.c_int(0)
+    the code of the kernel it runs (an index into KERNELS; ``kernel`` -1
+    for the plan's choice, else that kernel's code) and the pages of each
+    split."""
+    n, chosen, pages = ctypes.c_longlong(0), ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         _build.check(_build.lib().dstt_paged_attention_plan(
-            S, N, H, D, KV, B, page_size, window, dtype, cache_dtype,
-            ctypes.byref(n), ctypes.byref(wgmma)), "paged_attention")
-    return n.value, bool(wgmma.value)
+            S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, kernel,
+            ctypes.byref(n), ctypes.byref(chosen), ctypes.byref(pages)), "paged_attention")
+    return n.value, chosen.value, pages.value
+
+
+def kernel_plan(q, cache, block_table, *, page_size: int, window: Optional[int] = None):
+    """What ``paged_attention`` launches for these CUDA tensors: the name of
+    the kernel (one of KERNELS) and the pages of each of its splits, counted
+    from each sequence's first live page (``split_pages`` of
+    ``paged_attention_reference``)."""
+    S, N, H, D = q.shape
+    _, chosen, pages = _plan(q.device.index, S, N, H, D, cache.shape[-1] // D,
+                             block_table.shape[1], page_size, int(window or 0),
+                             _build.dtype_code(q.dtype), _build.dtype_code(cache.dtype), -1)
+    return KERNELS[chosen], pages
+
+
+def wgmma_min_rows(D: int) -> int:
+    """The folded rows ``N * G`` per (sequence, KV head) from which the plan
+    takes the wgmma tiles at head width ``D`` (csrc/paged_attention.cuh
+    wgmma_min_rows)."""
+    return _build.lib().dstt_paged_wgmma_min_rows(D)
 
 
 def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
@@ -185,6 +336,28 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             page_size=page_size, window=window, attn_scale=attn_scale,
             use_alibi=use_alibi, slopes=slopes, cache_scales=cache_scales,
             softcap=softcap)
+    return _launch(-1, q, cache, layer, block_table, seq_seen, seq_lens,
+                   page_size=page_size, window=window, attn_scale=attn_scale,
+                   use_alibi=use_alibi, slopes=slopes, cache_scales=cache_scales,
+                   softcap=softcap)
+
+
+def run_kernel(kernel: str, q, cache, layer: int, block_table, seq_seen, seq_lens,
+               **kw):
+    """``paged_attention`` on CUDA tensors through the kernel named
+    ``kernel`` (one of KERNELS) whatever the plan would choose, for
+    measurements such as the tiles' crossover; raises where that kernel
+    does not take the dtypes or head width. Counted as the wrapper counts."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: run_kernel launches kernels; got {q.device}")
+    return _launch(KERNELS.index(kernel), q, cache, layer, block_table, seq_seen,
+                   seq_lens, **kw)
+
+
+def _launch(kernel: int, q, cache, layer: int, block_table, seq_seen, seq_lens,
+            *, page_size: int, window: Optional[int] = None,
+            attn_scale: Optional[float] = None, use_alibi: bool = False, slopes=None,
+            cache_scales=None, softcap: Optional[float] = None):
     _check_options(softcap)
     if window is not None and window < 1:
         raise ValueError(f"paged_attention: the kernel takes window >= 1, got {window}")
@@ -230,7 +403,8 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
     KV = KVD // D
     window = int(window or 0)  # 0: global attention
     codes = (_build.dtype_code(q.dtype), _build.dtype_code(cache.dtype))
-    ws_len, wgmma = _plan(q.device.index, S, N, H, D, KV, B, page_size, window, *codes)
+    ws_len, chosen, _ = _plan(q.device.index, S, N, H, D, KV, B, page_size, window, *codes,
+                           kernel)
     workspace = (torch.empty(ws_len, dtype=torch.float32, device=q.device)
                  if ws_len else None)
     lib = _build.lib()
@@ -241,7 +415,7 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
             None if slope_table is None else slope_table.data_ptr(),
             out.data_ptr(), block_table.data_ptr(), seq_seen.data_ptr(),
             seq_lens.data_ptr(), S, N, H, D, KV, B, slots, int(layer),
-            page_size, window, float(scale), float(softcap or 0.0), *codes,
+            page_size, window, float(scale), float(softcap or 0.0), *codes, chosen,
             None if workspace is None else workspace.data_ptr(), ws_len,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
@@ -253,13 +427,19 @@ def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
         paged_attention.int8_launches += 1
     else:
         paged_attention.launches += 1
-    if wgmma:
+    if KERNELS[chosen] == "wgmma":
         paged_attention.wgmma_launches += 1
+    elif KERNELS[chosen] == "decode":
+        paged_attention.decode_launches += 1
+    else:
+        paged_attention.cuda_core_launches += 1
     return out
 
 
 paged_attention.launches = 0
 paged_attention.wgmma_launches = 0
+paged_attention.decode_launches = 0
+paged_attention.cuda_core_launches = 0
 paged_attention.int8_launches = 0
 paged_attention.alibi_launches = 0
 paged_attention.softcap_launches = 0

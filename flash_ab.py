@@ -5,7 +5,10 @@ Gemma-2's D 256 under the 4096 window with its cap) and K4 on the
 multi-row shapes of the serving paths (Gemma-2's and StarCoder2's 768-row
 chunks straddling the window, BLOOM's ALiBi chunk, Llama's prefill wave,
 Llama's 768-row chunk over an int8 cache deep in the cache, the mixed
-batch), each time beside the row error against the plain version.
+batch) and on the decode steps of the four families (Llama, StarCoder2's
+window, BLOOM's ALiBi, Gemma-2's softcap without and with its window) over
+a bf16 and an int8 cache, graph-timed, each time beside the row error
+against the plain version and the kernel that ran.
 
     python3 flash_ab.py TREE TAG [--flex]
 
@@ -67,9 +70,29 @@ PAGED = (
 )
 
 
+# K4 decode steps of the four serving families, 8 sequences at the
+# chip_smoke.py phase-2 histories, each over a bf16 and an int8 cache:
+# (name, seen, B, widths by name)
+DECODE_SEEN = {"llama": [128 * (i + 1) + 22 for i in range(8)],
+               "starcoder2": [4200, 4608, 5000, 5184, 6000, 4095, 8000, 300],
+               "bloom": [2048 + 5, 1536 + 9, 1024 + 13, 1024 + 17, 512 + 21, 256 + 25,
+                         128 + 29, 128 + 31],
+               "gemma2": [5120 + 5, 4864 + 9, 4352 + 13, 3072 + 17, 2048 + 21, 1024 + 25,
+                          512 + 29, 128 + 31]}
+DECODE = (
+    ("llama_decode", "llama", 17, "llama"),
+    ("starcoder2_decode_window", "starcoder2", 126, "starcoder2"),
+    ("bloom_alibi_decode", "bloom", 33, "bloom"),
+    ("gemma2_decode_global", "gemma2", 82, "gemma2_global"),
+    ("gemma2_decode_window", "gemma2", 82, "gemma2"),
+)
+
+
 def paged_kw(cs, kind):
     return {"gemma2": dict(widths=cs.GEMMA2_PAGED, window=cs.GEMMA2_WINDOW,
                            softcap=cs.GEMMA2_ATTN_CAP, q_scale=cs.CAP_Q_SCALE),
+            "gemma2_global": dict(widths=cs.GEMMA2_PAGED, softcap=cs.GEMMA2_ATTN_CAP,
+                                  q_scale=cs.CAP_Q_SCALE),
             "starcoder2": dict(widths=cs.SC2_PAGED, window=cs.SC2_WINDOW),
             "bloom": dict(widths=cs.BLOOM_PAGED, alibi=True),
             "llama": {}, "llama_int8": dict(int8=True)}[kind]
@@ -132,6 +155,13 @@ def main() -> int:
                                                     "bound_ms", "bound_by", "row_rel_err",
                                                     "rounding_row_rel_err",
                                                     "staged_row_rel_err")})
+    for name, seen, B, kind in DECODE:
+        for int8 in (False, True):
+            r = cs._paged_case(gen, name + ("_int8" if int8 else ""), DECODE_SEEN[seen],
+                               [1] * 8, N=1, B=B, graph=True, int8=int8, **paged_kw(cs, kind))
+            out["paged"].append({k: r.get(k) for k in (
+                "case", "path", "ms", "plain_ms", "bound_ms", "bound_by", "row_rel_err",
+                "rounding_row_rel_err", "staged_row_rel_err", "timing")})
     if "--flex" in sys.argv:
         for name, seen, n_new, N, B, kind in PAGED[:2]:
             kw = paged_kw(cs, kind)

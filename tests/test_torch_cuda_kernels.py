@@ -22,7 +22,8 @@ from deepspeed_tpu_torch.ops.attention import (
 from deepspeed_tpu_torch.ops.normalization import (
     layer_norm, layer_norm_reference, rms_norm, rms_norm_reference)
 from deepspeed_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_reference)
+    KERNELS, kernel_plan, paged_attention, paged_attention_reference, round_p_flip_bound,
+    wgmma_min_rows)
 from deepspeed_tpu_torch.ops.quantizer import (
     dequantize_int8_blockwise, dequantize_int8_blockwise_reference,
     quantize_int8_blockwise, quantize_int8_blockwise_reference)
@@ -109,13 +110,25 @@ def staged_cache(codes, scales, D):
     return x.bfloat16().reshape(L2, slots, KVD)
 
 
-def rows_err(x, ref):
-    """The largest ||x - ref|| / ||ref|| over rows, a row's norm floored at
-    2^-10 of the RMS row norm (padding rows are 0 on both sides)."""
+def rows_share(x, ref):
+    """The largest ||x|| / ||ref|| over rows, a row's norm of ref floored at
+    2^-10 of its RMS row norm (padding rows are 0 on both sides)."""
     x, ref = x.float().flatten(0, -2), ref.float().flatten(0, -2)
     den = ref.norm(dim=-1)
     den = den.clamp_min(2.0 ** -10 * den.square().mean().sqrt())
-    return ((x - ref).norm(dim=-1) / den).max().item()
+    return (x.norm(dim=-1) / den).max().item()
+
+
+def rows_err(x, ref):
+    """The largest ||x - ref|| / ||ref|| over rows (floored as rows_share)."""
+    return rows_share(x.float() - ref.float(), ref)
+
+
+def assert_within(x, ref, atol):
+    """|x - ref| <= atol element by element (``atol`` a number or a tensor
+    of x's shape)."""
+    excess = ((x.float() - ref.float()).abs() - atol).max().item()
+    assert excess <= 0, f"|x - ref| exceeds its tolerance by {excess} at most"
 
 
 # int8 cache. The kernel stages each K/V element as the TPU kernel does,
@@ -126,6 +139,28 @@ def rows_err(x, ref):
 # allowed: the control's own row error on the same inputs (up to 1.6e-2 on
 # these cases, emulated on the CPU), plus one rounding of the output.
 OUT_ROUNDING = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -8}
+
+
+def int8_control(q, codes, scales, layer, bt, seen, lens, **kw):
+    """The plain version on the staged bf16 K/V (the control) and what
+    summation order may add to it through the kernel's rounding of P:
+    (control, element-wise slack). bf16 queries: the plain version, no
+    slack (their tolerances hold output roundings). fp32 queries: the
+    CUDA-core kernel rounds P to bf16 before P V as the JAX kernel does
+    (over bf16-staged K/V), against the running max of its split's pages,
+    so the control is the ``round_p=True`` version that follows the
+    kernel's page split (``kernel_plan``). The two then differ by summation
+    order, which reaches the output where it moves a P across a bf16
+    rounding tie: the slack is ``round_p_flip_bound`` (one bf16 ulp of each
+    P that lies that near a tie, times |v|, over the row's sum)."""
+    staged = staged_cache(codes, scales, q.shape[-1])
+    if q.dtype != torch.float32:
+        control = paged_attention_reference(q, staged, layer, bt, seen, lens, **kw)
+        return control, torch.zeros(control.shape, device=control.device)
+    _, pages = kernel_plan(q, codes, bt, page_size=kw["page_size"], window=kw.get("window"))
+    args = (q, staged, layer, bt, seen, lens)
+    return (paged_attention_reference(*args, round_p=True, split_pages=pages, **kw),
+            round_p_flip_bound(*args, split_pages=pages, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -141,13 +176,12 @@ def test_paged_attention_int8_kernel_matches_plain(case, dtype, cuda_device):
         (before[0], before[1] + 1)
     out_r = paged_attention_reference(q, codes, layer, bt, seen, lens,
                                       page_size=ps, cache_scales=scales)
-    control = paged_attention_reference(q, staged_cache(codes, scales, D), layer,
-                                        bt, seen, lens, page_size=ps)
+    control, slack = int8_control(q, codes, scales, layer, bt, seen, lens, page_size=ps)
     torch.cuda.synchronize()
     assert out_k.dtype == dtype and out_k.shape == q.shape
-    torch.testing.assert_close(out_k.float(), control.float(),
-                               atol=PAGED_TOL[dtype], rtol=0)
-    assert rows_err(out_k, out_r) <= rows_err(control, out_r) + OUT_ROUNDING[dtype]
+    assert_within(out_k, control, PAGED_TOL[dtype] + slack)
+    assert rows_err(out_k, out_r) <= \
+        rows_err(control, out_r) + OUT_ROUNDING[dtype] + rows_share(slack, out_r)
 
 
 def test_paged_attention_refuses_what_the_kernel_does_not_take(cuda_device):
@@ -246,12 +280,11 @@ def test_paged_attention_window_kernel_matches_plain(case, dtype, int8, cuda_dev
     assert torch.equal(out_far, out_k)
     assert (out_r.float() - global_r.float()).abs().max().item() > 0.05  # the mask bites
     if int8:
-        control = paged_attention_reference(
-            q, staged_cache(cache, kw["cache_scales"], q.shape[-1]), layer, bt, seen,
-            lens, page_size=ps, window=window)
-        torch.testing.assert_close(out_k.float(), control.float(),
-                                   atol=PAGED_TOL[dtype], rtol=0)
-        assert rows_err(out_k, out_r) <= rows_err(control, out_r) + OUT_ROUNDING[dtype]
+        control, slack = int8_control(q, cache, kw["cache_scales"], layer, bt, seen, lens,
+                                      page_size=ps, window=window)
+        assert_within(out_k, control, PAGED_TOL[dtype] + slack)
+        assert rows_err(out_k, out_r) <= \
+            rows_err(control, out_r) + OUT_ROUNDING[dtype] + rows_share(slack, out_r)
     else:
         torch.testing.assert_close(out_k.float(), out_r.float(),
                                    atol=PAGED_TOL[dtype], rtol=0)
@@ -1151,13 +1184,11 @@ def test_paged_attention_alibi_kernel_matches_plain(case, dtype, int8, cuda_devi
     assert (out_r.float() - no_bias.float()).abs().max().item() > 0.05
     rounding = alibi_rounding(q, cache, seen, kw.get("cache_scales"))
     if int8:
-        control = paged_attention_reference(
-            q, staged_cache(cache, kw["cache_scales"], q.shape[-1]), layer, bt, seen,
-            lens, page_size=ps, window=window, use_alibi=True)
-        torch.testing.assert_close(out_k.float(), control.float(),
-                                   atol=PAGED_TOL[dtype] + rounding, rtol=0)
+        control, slack = int8_control(q, cache, kw["cache_scales"], layer, bt, seen, lens,
+                                      page_size=ps, window=window, use_alibi=True)
+        assert_within(out_k, control, PAGED_TOL[dtype] + rounding + slack)
         assert rows_err(out_k, out_r) <= \
-            rows_err(control, out_r) + OUT_ROUNDING[dtype] + rounding
+            rows_err(control, out_r) + OUT_ROUNDING[dtype] + rounding + rows_share(slack, out_r)
     else:
         torch.testing.assert_close(out_k.float(), out_r.float(),
                                    atol=PAGED_TOL[dtype] + rounding, rtol=0)
@@ -1474,11 +1505,12 @@ def test_paged_attention_softcap_kernel_matches_plain(case, dtype, int8, cuda_de
     assert (out_r.float() - uncapped.float()).abs().max().item() > 0.05  # the cap bites
     tol = SOFTCAP_ROW_TOL[dtype]
     if int8:
-        control = paged_attention_reference(
-            q, staged_cache(cache, kw["cache_scales"], q.shape[-1]), layer, bt, seen, lens,
+        control, slack = int8_control(
+            q, cache, kw["cache_scales"], layer, bt, seen, lens,
             **{k: v for k, v in kw.items() if k != "cache_scales"})
-        assert rows_err(out_k, control) <= tol
-        assert rows_err(out_k, out_r) <= rows_err(control, out_r) + OUT_ROUNDING[dtype] + tol
+        assert rows_err(out_k, control) <= tol + rows_share(slack, control)
+        assert rows_err(out_k, out_r) <= \
+            rows_err(control, out_r) + OUT_ROUNDING[dtype] + tol + rows_share(slack, out_r)
     else:
         assert rows_err(out_k, out_r) <= tol
 
@@ -1580,11 +1612,11 @@ PAGED_WGMMA = {
 }
 
 
-def _paged_wgmma_inputs(case, device):
+def _paged_wgmma_inputs(case, device, table=PAGED_WGMMA):
     """Random bf16 cache and queries (an int8 cache quantized from it),
     distinct pages, a window's freed entries and a padding sequence's
     table zeroed as the engine leaves them."""
-    seed, S, N, KV, G, D, ps, B, seen, n_new, layer, opts = PAGED_WGMMA[case]
+    seed, S, N, KV, G, D, ps, B, seen, n_new, layer, opts = table[case]
     opts = dict(opts)
     int8 = opts.pop("int8", False)
     rng = np.random.default_rng(seed)
@@ -1617,14 +1649,19 @@ def test_paged_attention_wgmma_matches_plain(case, cuda_device):
     PAGED_TOL. One launch, counted in wgmma_launches and in its option's
     counter. Freed entries pointed far past the cache are never read: the
     same output bit for bit. A padding sequence gives zeros."""
-    (q, cache, layer, bt, seen, lens), kw, freed = _paged_wgmma_inputs(case, cuda_device)
-    before = (paged_attention.wgmma_launches, paged_attention.softcap_launches,
-              paged_attention.alibi_launches, paged_attention.int8_launches,
-              paged_attention.launches)
+    _held_row_by_row(*_paged_wgmma_inputs(case, cuda_device), "wgmma_launches")
+
+
+def _held_row_by_row(args, kw, freed, counter):
+    """One launch of ``args`` with ``kw``, counted in ``counter`` and in its
+    option's counter, held as test_paged_attention_wgmma_matches_plain
+    says."""
+    q, cache, layer, bt, seen, lens = args
+    others = ("softcap_launches", "alibi_launches", "int8_launches", "launches")
+    counts = lambda: [getattr(paged_attention, c) for c in (counter, ) + others]  # noqa: E731
+    before = counts()
     out_k = paged_attention(q, cache, layer, bt, seen, lens, **kw)
-    after = (paged_attention.wgmma_launches, paged_attention.softcap_launches,
-             paged_attention.alibi_launches, paged_attention.int8_launches,
-             paged_attention.launches)
+    after = counts()
     assert after[0] == before[0] + 1 and sum(after[1:]) == sum(before[1:]) + 1
     out_r = paged_attention_reference(q, cache, layer, bt, seen, lens, **kw)
     D = q.shape[-1]
@@ -1654,34 +1691,125 @@ def test_paged_attention_wgmma_matches_plain(case, cuda_device):
         out_far = paged_attention(q, cache, layer, far, seen, lens, **kw)
         torch.cuda.synchronize()
         assert torch.equal(out_far, out_k)
+    return out_k
 
 
-# (N, G, D, q dtype, cache, wgmma?): the plan's rule. At least 64 folded
-# rows N * G of a bf16 query over a bf16 or int8 cache at head widths
-# 65..256 take the wgmma tiles; decode (N 1), 63 rows, fp32 queries, head
-# width 64 and an int8 cache at a width that is not a multiple of 16 take
-# the CUDA-core kernel
+# ---- K4's decode kernel ----
+
+# (seed, S, N, KV, G, D, page_size, B, seen, n_new, layer, options) in
+# bf16, held as the wgmma tiles are: histories 1, 2, 63, 64, 65 and 3000
+# keys beside a padding sequence (G 1, D 128, pages of 64: one split for
+# the short ones, many for the long one); G 2 at D 256 with the softcap
+# over pages of 16; G 4 over an int8 cache with a window and its freed
+# entries; G 8 at D 64 with ALiBi over pages of 128; G 9 with the window,
+# the softcap and the int8 cache at D 256; G 16 at D 16; chunks of 3 rows
+# at G 9, D 64 (27 rows: two row tiles) under a window, and 16 rows at G 4,
+# D 64 (64 rows; the tiles take neither at that width); one sequence of 64
+# keys (one split)
+PAGED_DECODE = {
+    "g1_d128_histories_padding": (50, 7, 1, 2, 1, 128, 64, 48,
+                                  [0, 1, 62, 63, 64, 2999, 0], [1, 1, 1, 1, 1, 1, 0], 1, {}),
+    "g2_d256_softcap_ps16": (51, 4, 1, 2, 2, 256, 16, 80, [1000, 77, 1279, 15], [1] * 4, 0,
+                             {"softcap": 5.0}),
+    "g4_d128_int8_window_freed": (52, 4, 1, 2, 4, 128, 64, 40, [2500, 300, 1700, 2000],
+                                  [1] * 4, 1, {"window": 700, "int8": True}),
+    "g8_d64_alibi_ps128": (53, 3, 1, 2, 8, 64, 128, 12, [1400, 129, 700], [1] * 3, 1,
+                           {"use_alibi": True}),
+    "g9_d256_window_int8_softcap": (54, 3, 1, 1, 9, 256, 64, 30, [1800, 64, 1000], [1] * 3,
+                                    0, {"window": 512, "int8": True, "softcap": 5.0}),
+    "g16_d16_ps16": (55, 3, 1, 2, 16, 16, 16, 40, [600, 5, 63], [1] * 3, 1, {}),
+    "g9_d64_chunk3_window": (56, 2, 3, 2, 9, 64, 64, 20, [1200, 40], [3, 2], 1,
+                             {"window": 300}),
+    "g4_d64_rows64": (57, 2, 16, 2, 4, 64, 16, 20, [200, 0], [16, 0], 0, {}),
+    "one_split": (58, 1, 1, 1, 4, 128, 16, 4, [63], [1], 1, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_DECODE))
+def test_paged_decode_matches_plain(case, cuda_device):
+    """K4's decode kernel against the plain version row by row with the
+    tiles' rule (test_paged_attention_wgmma_matches_plain): one launch,
+    counted in decode_launches and its option's counter, freed entries
+    never read, padding sequences zero; and a second launch gives the same
+    bits."""
+    args, kw, freed = _paged_wgmma_inputs(case, cuda_device, PAGED_DECODE)
+    out_k = _held_row_by_row(args, kw, freed, "decode_launches")
+    again = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out_k)
+
+
+def test_cuda_core_kernel_rounds_p_as_the_jax_kernel(cuda_device):
+    """fp32 queries over an int8 cache run the CUDA-core kernel, which
+    rounds P to bf16 before P V over the staged bf16 K/V (the JAX kernel's
+    p.astype(v.dtype)) and gives fp32 outputs, so summation order is the
+    only other difference. With a block table of one page there is one
+    split, and the kernel's running max is the plain version's: within
+    2e-5 of paged_attention_reference(..., round_p=True) on the staged
+    values, and more than ten times that from round_p=False."""
+    rng = np.random.default_rng(60)
+    S, KV, G, D, ps = 8, 2, 4, 128, 64
+    cache = torch.from_numpy(rng.normal(size=(4, (S + 1) * ps, KV * D)).astype(np.float32))
+    codes, scales = int8_cache(cache.to(cuda_device), D)
+    q = torch.from_numpy(rng.normal(size=(S, 1, KV * G, D)).astype(np.float32)).to(cuda_device)
+    bt = torch.arange(1, S + 1, dtype=torch.int32, device=cuda_device)[:, None]
+    seen = torch.tensor([63, 40, 20, 63, 5, 33, 62, 50], dtype=torch.int32, device=cuda_device)
+    lens = seen + 1
+    counts = lambda: (paged_attention.wgmma_launches, paged_attention.decode_launches)  # noqa: E731
+    before = counts()
+    out_k = paged_attention(q, codes, 1, bt, seen, lens, page_size=ps, cache_scales=scales)
+    assert counts() == before  # the CUDA-core kernel
+    staged = staged_cache(codes, scales, D)
+    rounded = paged_attention_reference(q, staged, 1, bt, seen, lens, page_size=ps,
+                                        round_p=True)
+    unrounded = paged_attention_reference(q, staged, 1, bt, seen, lens, page_size=ps)
+    torch.cuda.synchronize()
+    assert out_k.dtype == torch.float32
+    torch.testing.assert_close(out_k, rounded, atol=2e-5, rtol=0)
+    assert (out_k - unrounded).abs().max().item() > 10 * 2e-5
+
+
+# (N, G, D, q dtype, cache, kernel): the plan's rule. At least
+# wgmma_min_rows(D) (17; 33 past head width 128) folded rows N * G of a
+# bf16 query over a bf16 or int8 cache at head widths 65..256 take the
+# wgmma tiles; under that, and at any row count at head widths up to 64, a
+# bf16 query at D % 16 == 0 takes the decode kernel (decode, 16 rows, 32
+# rows at 256, head width 64, D 16); fp32 queries
+# and widths that are not a multiple of 16 (an int8 cache at 72, a bf16
+# decode at 72) take the CUDA-core kernel
 PAGED_PATHS = [
-    (1, 4, 128, torch.bfloat16, "bf16", False),
-    (1, 9, 256, torch.bfloat16, "int8", False),
-    (7, 9, 128, torch.bfloat16, "bf16", False),
-    (16, 4, 128, torch.bfloat16, "bf16", True),
-    (8, 9, 256, torch.bfloat16, "int8", True),
-    (64, 1, 72, torch.bfloat16, "bf16", True),
-    (64, 1, 72, torch.bfloat16, "int8", False),
-    (64, 4, 128, torch.float32, "float", False),
-    (64, 4, 64, torch.bfloat16, "bf16", False),
+    (1, 4, 128, torch.bfloat16, "bf16", "decode"),
+    (1, 9, 256, torch.bfloat16, "int8", "decode"),
+    (4, 4, 128, torch.bfloat16, "bf16", "decode"),
+    (5, 4, 128, torch.bfloat16, "int8", "wgmma"),
+    (2, 9, 128, torch.bfloat16, "bf16", "wgmma"),
+    (7, 9, 128, torch.bfloat16, "bf16", "wgmma"),
+    (16, 4, 128, torch.bfloat16, "bf16", "wgmma"),
+    (8, 9, 256, torch.bfloat16, "int8", "wgmma"),
+    (64, 1, 72, torch.bfloat16, "bf16", "wgmma"),
+    (64, 1, 72, torch.bfloat16, "int8", "cuda cores"),
+    (64, 4, 128, torch.float32, "float", "cuda cores"),
+    (64, 4, 64, torch.bfloat16, "bf16", "decode"),
+    (1, 4, 72, torch.bfloat16, "bf16", "cuda cores"),
+    (1, 16, 16, torch.bfloat16, "int8", "decode"),
+    (1, 4, 128, torch.float32, "int8", "cuda cores"),
+    (16, 2, 256, torch.bfloat16, "bf16", "decode"),
+    (17, 2, 256, torch.bfloat16, "int8", "wgmma"),
 ]
 
 
-@pytest.mark.parametrize("N,G,D,dtype,cache_kind,wgmma", PAGED_PATHS)
-def test_paged_attention_path_and_counter(N, G, D, dtype, cache_kind, wgmma, cuda_device):
-    """Which kernel a launch runs, by ``wgmma_launches``, and that either
-    path agrees with the plain version (PAGED_TOL)."""
+@pytest.mark.parametrize("N,G,D,dtype,cache_kind,kernel", PAGED_PATHS)
+def test_paged_attention_path_and_counter(N, G, D, dtype, cache_kind, kernel, cuda_device):
+    """Which kernel a launch runs, by ``wgmma_launches`` and
+    ``decode_launches``, and that each path agrees with the plain version
+    (PAGED_TOL; fp32 queries over an int8 cache against the round_p control
+    that follows the kernel's split, with its flip bound, as int8_control)."""
     rng = np.random.default_rng(N * 1000 + G * 10 + D)
     S, KV, ps, B = 3, 2, 16, 12
     cache = torch.from_numpy(rng.normal(size=(4, (S * B + 1) * ps, KV * D))
-                             .astype(np.float32)).to(cuda_device, dtype)
+                             .astype(np.float32)).to(cuda_device,
+                                                     torch.float32 if cache_kind == "float"
+                                                     else dtype)
     q = torch.from_numpy(rng.normal(size=(S, N, KV * G, D)).astype(np.float32)).to(
         cuda_device, dtype)
     bt = torch.from_numpy((1 + rng.permutation(S * B)).reshape(S, B).astype(np.int32)).to(
@@ -1690,12 +1818,36 @@ def test_paged_attention_path_and_counter(N, G, D, dtype, cache_kind, wgmma, cud
     lens = seen + torch.tensor([N, max(1, N // 2), 0], dtype=torch.int32, device=cuda_device)
     kw = dict(page_size=ps)
     if cache_kind == "int8":
-        cache, kw["cache_scales"] = int8_cache(cache, D)
-    before = paged_attention.wgmma_launches
+        cache, kw["cache_scales"] = int8_cache(cache.bfloat16(), D)
+    counts = lambda: (paged_attention.cuda_core_launches,  # noqa: E731
+                      paged_attention.wgmma_launches, paged_attention.decode_launches)
+    before = counts()
     out_k = paged_attention(q, cache, 1, bt, seen, lens, **kw)
-    assert paged_attention.wgmma_launches == before + int(wgmma)
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [int(k == kernel) for k in KERNELS]
+    assert kernel_plan(q, cache, bt, page_size=ps)[0] == kernel
+    slack = 0.0
     if cache_kind == "int8":
-        cache = staged_cache(cache, kw.pop("cache_scales"), D)
-    out_r = paged_attention_reference(q, cache, 1, bt, seen, lens, **kw)
+        out_r, slack = int8_control(q, cache, kw.pop("cache_scales"), 1, bt, seen, lens, **kw)
+    else:
+        out_r = paged_attention_reference(q, cache, 1, bt, seen, lens, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out_k.float(), out_r.float(), atol=PAGED_TOL[dtype], rtol=0)
+    assert_within(out_k, out_r, PAGED_TOL[dtype] + slack)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 9])
+def test_wgmma_min_rows_is_the_plan_boundary(G, D, cuda_device):
+    """At each serving family's G and head width, the plan takes the decode
+    kernel for the last N whose N * G folded rows are under
+    wgmma_min_rows(D) and the wgmma tiles from the first N at or past it
+    (17 rows up to head width 128, 33 past it)."""
+    rows = wgmma_min_rows(D)
+    assert rows == (17 if D <= 128 else 33)
+    cache = torch.zeros(4, 64, 2 * D, dtype=torch.bfloat16, device=cuda_device)
+    bt = torch.zeros(2, 4, dtype=torch.int32, device=cuda_device)
+    first = -(-rows // G)
+    for N, kernel in ((first - 1, "decode"), (first, "wgmma")):
+        if N:
+            q = torch.zeros(2, N, 2 * G, D, dtype=torch.bfloat16, device=cuda_device)
+            assert kernel_plan(q, cache, bt, page_size=16)[0] == kernel

@@ -6,7 +6,10 @@ through the port's ``paged_attention``, which on CPU tensors takes the
 plain PyTorch version. The cases are those of
 ``tests/unit/ops/test_paged_attention.py``, then the int8 cache of
 ``tests/unit/inference/v2/test_kv_cache_int8.py``, then the sliding window
-over both caches."""
+over both caches, then decode steps at the serving families' head layouts
+and the plain version's ``round_p`` order against the JAX kernel's, with
+the page splits a kernel walks and the bound on what summation order can
+move through its rounding of P."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,7 +18,9 @@ import torch
 
 from deepspeed_tpu.ops.paged_attention import paged_attention as jax_paged
 from deepspeed_tpu.ops.paged_attention import paged_attention_reference as jax_paged_ref
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
+                                                     paged_attention_reference,
+                                                     round_p_flip_bound)
 
 
 def _setup(rng, S, N, KV, G, D, ps, n_pages, B, seen, n_new):
@@ -390,3 +395,153 @@ def test_multi_row_tiles_match_jax(case, dtype):
         np.testing.assert_allclose(out, out_kernel, atol=3e-2, rtol=0)
     for i in np.flatnonzero(lens == 0):
         assert not out[i].any()
+
+
+# ---- decode steps at the serving families' head layouts ----
+
+# (seed, S, KV, G, D, ps, B, seen, layer, options): one new token per
+# sequence (N 1) over a few pages, at the head layouts of Llama-3 (G 4),
+# StarCoder2 (G 9, a window with freed entries), BLOOM (G 1, ALiBi) and
+# Gemma-2 (G 2 at D 256, the softcap, without and with a window); the
+# shapes of K4's decode kernel on the card
+DECODE_CASES = {
+    "llama_g4_d128": (70, 3, 2, 4, 128, 16, 4, [40, 17, 63], 1, {}),
+    "starcoder2_g9_d128_window": (71, 3, 1, 9, 128, 16, 5, [70, 33, 9], 0, {"window": 24}),
+    "bloom_g1_d128_alibi": (72, 3, 2, 1, 128, 16, 4, [50, 3, 63], 1, {"use_alibi": True}),
+    "gemma2_g2_d256_softcap": (73, 2, 2, 2, 256, 16, 4, [60, 21], 1, {"softcap": 5.0}),
+    "gemma2_g2_d256_softcap_window": (74, 2, 2, 2, 256, 16, 5, [75, 30], 0,
+                                      {"softcap": 5.0, "window": 32}),
+}
+
+
+def _decode_setup(case, int8):
+    seed, S, KV, G, D, ps, B, seen, layer, opts = DECODE_CASES[case]
+    n_pages = S * B + 1
+    if int8:
+        q, cache, sc, bt, seen, lens = _int8_setup(seed, S, 1, KV, G, D, ps, n_pages, B, seen,
+                                                   [1] * S)
+    else:
+        q, cache, bt, seen, lens = _setup(np.random.default_rng(seed), S, 1, KV, G, D, ps,
+                                          n_pages, B, seen, [1] * S)
+        sc = None
+    if "window" in opts:
+        bt = _freed(bt, seen, opts["window"], ps)
+    return q, cache, sc, bt, seen, lens, layer, dict(page_size=ps, **opts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_type", ["float", "int8"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_matches_jax(case, cache_type, dtype):
+    """The port's plain version on decode steps against the JAX kernel
+    (interpret mode) and reference, with the tolerances above: fp32 within
+    2e-5 of both; bf16 queries over a bf16 cache 3e-2 from the kernel (it
+    rounds p to bf16 before P.V; outputs round to bf16); an int8 cache
+    INT8_REF_ATOL from the reference and INT8_ROW_TOL from the kernel, row
+    by row."""
+    int8 = cache_type == "int8"
+    q, cache, sc, bt, seen, lens, layer, kw = _decode_setup(case, int8)
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    cd = (jnp.int8, torch.int8) if int8 else (jd, td)
+    jargs = (jnp.asarray(q, jd), jnp.asarray(cache, cd[0]), layer, jnp.asarray(bt),
+             jnp.asarray(seen), jnp.asarray(lens))
+    jkw = dict(kw, cache_scales=None if sc is None else jnp.asarray(sc))
+    out_kernel = np.asarray(jax_paged(*jargs, interpret=True, **jkw), np.float32)
+    out_ref = np.asarray(jax_paged_ref(*jargs, **jkw), np.float32)
+    out = paged_attention(torch.from_numpy(q).to(td), torch.from_numpy(cache).to(cd[1]),
+                          layer, torch.from_numpy(bt), torch.from_numpy(seen),
+                          torch.from_numpy(lens),
+                          cache_scales=None if sc is None else torch.from_numpy(sc), **kw)
+    assert out.dtype == td and tuple(out.shape) == q.shape
+    out = out.float().numpy()
+    if int8:
+        np.testing.assert_allclose(out, out_ref, atol=INT8_REF_ATOL[dtype], rtol=0)
+        assert row_rel_err(out, out_kernel) <= INT8_ROW_TOL
+    elif dtype == "float32":
+        np.testing.assert_allclose(out, out_ref, atol=2e-5, rtol=0)
+        np.testing.assert_allclose(out, out_kernel, atol=2e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(out, out_kernel, atol=3e-2, rtol=0)
+
+
+def _staged(codes, sc):
+    """An int8 cache's K/V as the JAX kernel feeds its dots: bf16(code) *
+    bf16(scale), rounded to bf16 (exact in fp32, then one rounding)."""
+    L2, slots, KVD = codes.shape
+    KV = sc.shape[-1]
+    x = torch.from_numpy(codes).float().reshape(L2, slots, KV, KVD // KV) * \
+        torch.from_numpy(sc).bfloat16().float()[..., None]
+    return x.bfloat16().reshape(L2, slots, KVD)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_round_p_follows_the_jax_kernel(case):
+    """``round_p=True`` takes P against the same running max as the JAX
+    kernel, page by page, and rounds it to bf16 before P.V as the kernel
+    does, so for fp32 queries over an int8 cache's staged bf16 values
+    nothing but summation order separates the two: 2e-5. The one softmax
+    over the row (``round_p=False``) is farther off."""
+    q, codes, sc, bt, seen, lens, layer, kw = _decode_setup(case, True)
+    staged = _staged(codes, sc)
+    out_kernel = np.asarray(jax_paged(
+        jnp.asarray(q), jnp.asarray(staged.float().numpy()).astype(jnp.bfloat16), layer,
+        jnp.asarray(bt), jnp.asarray(seen), jnp.asarray(lens), interpret=True, **kw))
+    targs = (torch.from_numpy(q), staged, layer, torch.from_numpy(bt),
+             torch.from_numpy(seen), torch.from_numpy(lens))
+    rounded = paged_attention_reference(*targs, round_p=True, **kw).numpy()
+    plain = paged_attention_reference(*targs, **kw).numpy()
+    np.testing.assert_allclose(rounded, out_kernel, atol=2e-5, rtol=0)
+    assert np.abs(plain - out_kernel).max() > np.abs(rounded - out_kernel).max()
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_round_p_splits_merge_as_the_combine(case, split_pages):
+    """``split_pages`` starts a running max at every ``split_pages`` pages
+    from each sequence's first live page and merges the splits as the
+    kernels' combine does. Over an fp32 cache P is not rounded, so any
+    split gives the one softmax over the row (2e-5) and the flip bound is
+    zero; over an int8 cache's staged bf16 values, a split as wide as the
+    table is the unsplit walk bit for bit, and one page a split rounds P
+    against other maxima."""
+    q, cache, _, bt, seen, lens, layer, kw = _decode_setup(case, False)
+    args = [torch.from_numpy(a) for a in (q, cache)] + [layer] + \
+        [torch.from_numpy(a) for a in (bt, seen, lens)]
+    split = paged_attention_reference(*args, round_p=True, split_pages=split_pages, **kw)
+    np.testing.assert_allclose(split.numpy(), paged_attention_reference(*args, **kw).numpy(),
+                               atol=2e-5, rtol=0)
+    assert not round_p_flip_bound(*args, split_pages=split_pages, **kw).any()
+    q, codes, sc, bt, seen, lens, layer, kw = _decode_setup(case, True)
+    targs = (torch.from_numpy(q), _staged(codes, sc), layer, torch.from_numpy(bt),
+             torch.from_numpy(seen), torch.from_numpy(lens))
+    whole = paged_attention_reference(*targs, round_p=True, **kw)
+    assert torch.equal(
+        paged_attention_reference(*targs, round_p=True, split_pages=bt.shape[1], **kw), whole)
+    if split_pages == 1:
+        split = paged_attention_reference(*targs, round_p=True, split_pages=1, **kw)
+        assert (split - whole).abs().max().item() > 2e-5
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_round_p_flip_bound_covers_summation_order(case):
+    """Queries moved by a few fp32 ulps (2^-22 relative, about what another
+    summation order moves a score by) move the ``round_p`` version over an
+    int8 cache's staged values, one page a split, by no more than 2e-5 plus
+    ``round_p_flip_bound`` element by element. The bound is zero where no P
+    of the row lies near a bf16 rounding tie, so at most outputs the check
+    still tells a rounded P from an fp32 one: ``round_p=False`` lies
+    outside it at more than half of them."""
+    q, codes, sc, bt, seen, lens, layer, kw = _decode_setup(case, True)
+    rest = (_staged(codes, sc), layer, torch.from_numpy(bt), torch.from_numpy(seen),
+            torch.from_numpy(lens))
+    qt = torch.from_numpy(q)
+    control = paged_attention_reference(qt, *rest, round_p=True, split_pages=1, **kw)
+    bound = round_p_flip_bound(qt, *rest, split_pages=1, **kw)
+    for seed in range(3):
+        noise = np.random.default_rng(seed).uniform(-1, 1, size=q.shape).astype(np.float32)
+        moved = paged_attention_reference(qt * (1 + 2.0 ** -22 * torch.from_numpy(noise)),
+                                          *rest, round_p=True, split_pages=1, **kw)
+        assert ((moved - control).abs() <= 2e-5 + bound).all()
+    unrounded = paged_attention_reference(qt, *rest, **kw)
+    assert ((unrounded - control).abs() > 2e-5 + bound).float().mean().item() > 0.5

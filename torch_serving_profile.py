@@ -15,19 +15,21 @@ the even layers, K5's fp32-scale norms 4L+1 per step). Each builds
 ``build_llama_engine`` with seeded random bf16 weights and 8 GiB of
 64-token KV blocks; feeds one sequence ``PREFILL_DEPTH`` tokens in chunks
 of ``CHUNK``, traces its next chunk of ``CHUNK`` tokens (device time by
-group as below, K4's multi-row wgmma tiles apart from its CUDA-core
-kernel, the busy share and the chunk's tokens/s) and frees it; then
+group as below, K4's multi-row wgmma tiles and its decode kernel apart
+from its CUDA-core kernel and the split's merge, the busy share and the
+chunk's tokens/s) and frees it; then
 prefills ``SEQS`` sequences (Llama: 128, 256, ...
 tokens; StarCoder2: 5120, 4608, 2048, ... 128 tokens, most of them past
 the window; BLOOM: 2048, 1536, ... 128 tokens; Gemma-2: 5120, 4864, 4352,
 ... 128 tokens), then runs ``STEPS`` decode steps (one token per sequence
 per ``put``):
   - step time on the host clock, each step ending in a device sync;
-  - a ``torch.profiler`` trace of a few steps: device time per kernel name,
-    summed into groups (K4 paged attention, K5 RMSNorm, K5b LayerNorm, the
-    int8 weights' dequantize, matmuls, other), and the device's busy share
-    of the traced wall time;
-  - the paged-attention kernel alone at this decode batch (CUDA events).
+  - a ``torch.profiler`` trace of a few steps: each step's device ms, the
+    device time per kernel name, summed into groups (K4 paged attention by
+    kernel, K5 RMSNorm, K5b LayerNorm, the int8 weights' dequantize,
+    matmuls, other), and the device's busy share of the traced wall time;
+  - the paged-attention kernel alone at this decode batch (CUDA events),
+    with the kernel that ran it.
 Prints one JSON line per part, each naming its variant, and exits non-zero
 without a CUDA device.
 """
@@ -72,6 +74,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "paged_attention_wgmma" in n:  # K4's multi-row tiles
         return "K4 paged_attention (wgmma tiles)"
+    if "paged_decode" in n:  # K4's decode kernel
+        return "K4 paged_attention (decode kernel)"
     if "paged_attention" in n or "dstt::combine" in n:  # K4 and its split merge
         return "K4 paged_attention"
     if "rms_norm" in n:
@@ -229,7 +233,14 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
                         cache_scales=scales, use_alibi=alibi,
                         softcap=cfg.attn_logit_softcapping)
 
-    for _ in range(3):
+    # the kernel that runs it, by the wrapper's counters (a tree without a
+    # decode kernel reads 0 for it)
+    counts = [getattr(paged_attention, c, 0) for c in ("wgmma_launches", "decode_launches")]
+    k4()
+    ran = [getattr(paged_attention, c, 0) - n
+           for c, n in zip(("wgmma_launches", "decode_launches"), counts)]
+    kernel = "wgmma" if ran[0] else "decode" if ran[1] else "cuda cores"
+    for _ in range(2):
         k4()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -247,7 +258,7 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
     print(json.dumps({"part": "k4_decode", "variant": variant, "gpu": gpu,
                       "seqs": len(uids), "history": [int(x) for x in lens.tolist()],
                       "window": window, "alibi": alibi,
-                      "softcap": cfg.attn_logit_softcapping,
+                      "softcap": cfg.attn_logit_softcapping, "kernel": kernel,
                       "ms": start.elapsed_time(end) / 50,
                       "bound_ms": kv_bytes / 3.35e12 * 1e3}), flush=True)
 
