@@ -296,9 +296,29 @@ def phase_build() -> dict:
            # ptxas's registers and spill bytes of the flash kernels'
            # head-width-256 instances
            "d256_resource_usage": _build.resource_usage("Li256E"),
-           "wgmma_kernels": wgmma_usage(), "decode_kernels": decode_usage()}
+           "wgmma_kernels": wgmma_usage(), "decode_kernels": decode_usage(),
+           "f32_kernels": f32_usage()}
     emit(rec)
     return rec
+
+
+def f32_usage() -> list:
+    """K4's fp32-query instances (the chunk and decode kernels over an fp32
+    and an int8 cache, head widths 128 and 256, with and without ALiBi and
+    the softcap): ptxas's registers and spill bytes and the dynamic shared
+    memory each launch asks for."""
+    import re
+    from deepspeed_tpu_torch.ops import _build
+    out = []
+    for e in _build.resource_usage("paged_f32"):
+        name = e["kernel"]  # demangled, or mangled where cu++filt is missing
+        ints = [int(x) for x in (re.findall(r"\(int\)(\d+)", name)
+                                 or re.findall(r"Li(\d+)E", name))]
+        int8 = "signed char" in name or "IaL" in name
+        chunk = "chunk" in name
+        out.append({**e, "dynamic_smem_bytes": _build.lib().dstt_paged_f32_smem(
+            ints[0], int(int8), int(chunk), 0 if chunk else ints[1])})
+    return out
 
 
 def decode_usage() -> list:
@@ -479,13 +499,14 @@ def _paged_inputs(gen, seen: list, n_new: list, N: int, B: int, int8: bool = Fal
 
 def k4_path(fn):
     """Runs ``fn`` (one K4 launch) and names the kernel that ran, by the
-    wrapper's counters: the wgmma tiles, the decode kernel or the CUDA-core
-    kernel (one of them and no other must have counted it)."""
-    from deepspeed_tpu_torch.ops.paged_attention import KERNELS
+    wrapper's counters: the wgmma tiles, the bf16 decode kernel, the fp32
+    chunk or decode kernel, or the CUDA-core kernel (one of them and no
+    other must have counted it)."""
+    from deepspeed_tpu_torch.ops.paged_attention import KERNEL_COUNTERS, KERNELS
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention as pa
 
     def counts():
-        return (pa.cuda_core_launches, pa.wgmma_launches, pa.decode_launches)
+        return [getattr(pa, c) for c in KERNEL_COUNTERS]
     before = counts()
     out = fn()
     ran = [k for k, a, b in zip(KERNELS, counts(), before) if a != b]
@@ -496,11 +517,15 @@ def k4_expected_path(shape: dict) -> str:
     """The kernel the plan's rule gives (csrc/paged_attention.cu plan()):
     for a bf16 query the wgmma tiles from the plan's wgmma_min_rows(D)
     folded rows at head widths 65..256, else the decode kernel at widths D
-    % 16 == 0; the CUDA-core kernel for the rest and for fp32 queries."""
-    from deepspeed_tpu_torch.ops.paged_attention import wgmma_min_rows
+    % 16 == 0; for an fp32 query at D % 4 == 0 the fp32 chunk kernel from
+    f32_chunk_min_rows() folded rows, else the fp32 decode kernel; the
+    CUDA-core kernel for the rest."""
+    from deepspeed_tpu_torch.ops.paged_attention import f32_chunk_min_rows, wgmma_min_rows
     rows, D = shape["N"] * shape["H"] // shape["KV"], shape["D"]
-    if shape["dtype"] != "bfloat16":
-        return "cuda cores"
+    if shape["dtype"] == "float32":
+        if D % 4:
+            return "cuda cores"
+        return "fp32 chunk" if rows >= f32_chunk_min_rows() else "fp32 decode"
     if 64 < D <= 256 and rows >= wgmma_min_rows(D):
         return "wgmma"
     return "decode" if D % 16 == 0 else "cuda cores"
@@ -509,7 +534,7 @@ def k4_expected_path(shape: dict) -> str:
 def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                 graph: bool = False, int8: bool = False, widths=LLAMA_PAGED,
                 window=None, alibi: bool = False, softcap=None,
-                q_scale: float = 1.0, dtype=None) -> dict:
+                q_scale: float = 1.0, dtype=None, kernel=None) -> dict:
     """One paged-attention batch over a cache of ``widths``, bf16 or
     (``int8``) int8 with its scales, with BLOOM's ALiBi bias where
     ``alibi`` and Gemma-2's ``softcap`` (queries drawn ``q_scale`` times
@@ -520,18 +545,26 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     (zero block table, no tokens). With a ``window``, the table entries of
     blocks wholly below the window of each sequence's first query hold 0,
     as the engine leaves them once it has freed them. fp32 queries
-    (``dtype``, over an fp32 or an int8 cache) run the CUDA-core kernel and
-    are held to fp32's tolerances as well (FP32_PAGED_TOL)."""
+    (``dtype``, over an fp32 or an int8 cache) run the fp32 chunk or decode
+    kernel and are held to fp32's tolerances as well (FP32_PAGED_TOL,
+    FP32_PAGED_ROW_TOL). ``kernel`` names a kernel to run whatever the plan
+    would choose (``run_kernel``), recorded as ``forced``."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import (
-        kernel_plan, paged_attention, paged_attention_reference, round_p_flip_bound)
+        kernel_plan, paged_attention, paged_attention_reference, round_p_flip_bound,
+        run_kernel)
     KV, G, D, ps, L = (widths[k] for k in ("KV", "G", "D", "ps", "L"))
     H, S = KV * G, len(seen)
     args, kw = _paged_inputs(gen, seen, n_new, N, B, int8, widths, window, alibi, softcap,
                              q_scale, dtype)
     q, cache, layer, bt, seen_t, lens_t = args
     kw.pop("page_size")
-    y, path = k4_path(lambda: paged_attention(*args, page_size=ps, **kw))
+
+    def launch():
+        if kernel is None:
+            return paged_attention(*args, page_size=ps, **kw)
+        return run_kernel(kernel, *args, page_size=ps, **kw)
+    y, path = k4_path(launch)
     ref = paged_attention_reference(*args, page_size=ps, **kw)
     # the exact value: the plain version in fp32 on the K/V values the
     # kernel reads (an int8 cache's staged bf16 values)
@@ -551,17 +584,18 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                      "control_row_rel_err": row_rel_err(control, ref),
                      "control_max_abs_err": (y.float() - control.float()).abs().max().item()})
     if q.dtype == torch.float32 and int8:
-        # the kernel rounds P to bf16 against each split's running max: the
-        # plain version that follows its split, and what summation order
-        # can move through that rounding
-        _, pages = kernel_plan(q, cache, bt, page_size=ps, window=window)
+        # the kernel rounds P to bf16 against each split's running max,
+        # which steps once per key tile (the CUDA-core kernel's: per page):
+        # the plain version that follows its split and steps, and what
+        # summation order can move through that rounding
+        _, pages, keys = kernel_plan(q, cache, bt, page_size=ps, window=window, kernel=kernel)
         rkw = dict(page_size=ps, window=window, use_alibi=alibi, softcap=softcap,
-                   split_pages=pages)
+                   split_pages=pages, tile_keys=keys)
         rounded = paged_attention_reference(q, staged, layer, bt, seen_t, lens_t,
                                             round_p=True, **rkw)
         flips = round_p_flip_bound(q, staged, layer, bt, seen_t, lens_t, **rkw)
         gap = (y - rounded).abs()
-        errs.update({"split_pages": pages,
+        errs.update({"split_pages": pages, "tile_keys": keys,
                      "round_p_max_abs_err": gap.max().item(),
                      "round_p_excess": (gap - FP32_PAGED_TOL - flips).max().item(),
                      "flip_bound_max": flips.max().item(),
@@ -592,8 +626,8 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                                    "alibi": alibi, "softcap": softcap, "q_scale": q_scale,
                                    "dtype": str(q.dtype)[6:],
                                    "cache": "int8" if int8 else str(cache.dtype)[6:]},
-           "path": path, **errs, "timing": "cuda graph" if graph else "events",
-           "ms": timer(lambda: paged_attention(*args, page_size=ps, **kw)),
+           "path": path, "forced": kernel, **errs,
+           "timing": "cuda graph" if graph else "events", "ms": timer(launch),
            "plain_ms": timer(lambda: paged_attention_reference(*args, page_size=ps, **kw)),
            "library_ms": None,
            "bound_ms": max(bound_bytes, bound_flops),
@@ -922,14 +956,16 @@ PAGED_TOL = 1.6e-2     # |out| < 1 (softmax-weighted mean of N(0,1) values)
 # thousands of keys (StarCoder2's window) an output is ~0.03 and max abs
 # says little; a dropped 64-key page moves a row by ~10% of its norm.
 PAGED_ROW_SLACK = 2.0 ** -8
-# K4 with fp32 queries (the CUDA-core kernel). Over an fp32 cache both keep
-# fp32 throughout and differ by summation order and tanhf's last ulp under
-# the softcap (scores up to 50): the largest row error 2^-14. Over an int8
-# cache the kernel rounds P to bf16 before P V against each split's running
-# max: element by element within 2e-5 of the plain version that follows its
-# split (round_p, split_pages), plus round_p_flip_bound, what summation
-# order can move through that rounding (one bf16 ulp of each P that lies
-# within 512 fp32 ulps of a rounding tie)
+# K4 with fp32 queries (the fp32 chunk and decode kernels; the CUDA-core
+# kernel where named). Over an fp32 cache both keep fp32 throughout and
+# differ by summation order and the last ulps of the cap's tanh (scores up
+# to 50): the largest row error 2^-14. Over an int8 cache the kernel rounds
+# P to bf16 before P V against each split's running max, which steps once
+# per key tile (the CUDA-core kernel's: per page): element by element
+# within 2e-5 of the plain version that follows its split and steps
+# (round_p, split_pages, tile_keys), plus round_p_flip_bound, what
+# summation order can move through that rounding (one bf16 ulp of each P
+# that lies within 512 fp32 ulps of a rounding tie)
 FP32_PAGED_TOL = 2e-5
 FP32_PAGED_ROW_TOL = 2.0 ** -14
 # flash, held row by row (a head's D values at one position): the largest
@@ -976,6 +1012,16 @@ FLASH_D256_ROW_TOL = 2.0 ** -6
 # control's own row error on the same inputs, plus PAGED_ROW_SLACK.
 PAGED_TOLERANCE = (f"max abs <= {PAGED_TOL}; the largest row error ||kernel - plain|| / "
                    "||plain|| <= one bf16 rounding's of the exact fp32 output + 2^-8")
+F32_TOLERANCE = (f"fp32 cache: the largest row error <= {FP32_PAGED_ROW_TOL}; int8 cache: "
+                 f"within {FP32_PAGED_TOL} + round_p_flip_bound "
+                 "of the plain version that follows the kernel's split and running-max steps "
+                 "with P rounded (round_p, split_pages, tile_keys); and each as paged_attention")
+F32_SOURCES = ["deepspeed_tpu_torch/csrc/paged_f32_f32.cu",
+               "deepspeed_tpu_torch/csrc/paged_f32_f32_d256.cu",
+               "deepspeed_tpu_torch/csrc/paged_f32_int8.cu",
+               "deepspeed_tpu_torch/csrc/paged_f32_int8_d256.cu",
+               "deepspeed_tpu_torch/csrc/paged_f32.cuh",
+               "deepspeed_tpu_torch/csrc/paged_decode.cuh"]
 FLASH_KERNELS = (("fwd", "flash_attention_fwd", "deepspeed_tpu/ops/attention.py:88"),
                  ("dq", "flash_attention_bwd_dq", "deepspeed_tpu/ops/attention.py:273"),
                  ("dkdv", "flash_attention_bwd_dkdv", "deepspeed_tpu/ops/attention.py:350"))
@@ -1358,6 +1404,58 @@ def crossover_sweep(gen) -> dict:
             "wgmma_min_rows": {f"D{D}": wgmma_min_rows(D) for D in (128, 256)}}
 
 
+# the fp32-query kernels' crossover: tokens N per sequence (folded rows N *
+# G) at the widths of the fp32 engines' families over an fp32 cache, 8
+# sequences at their phase-2 decode histories: Gemma-2-9B (G 2, D 256, the
+# cap, global layers) and Llama-3-8B (G 4, D 128); 2 to 64 rows, and the
+# first count past the plan's 33 at each
+F32_CROSSOVER_N = {2: (1, 4, 8, 12, 16, 17, 20, 24, 32), 4: (1, 2, 4, 6, 8, 9, 12, 16)}
+
+
+def f32_crossover_sweep(gen) -> dict:
+    """K4's fp32 chunk kernel against its fp32 decode kernel (``run_kernel``
+    names each) at F32_CROSSOVER_N tokens a sequence, each launch
+    graph-timed and held as the phase's fp32 cases are (the largest row
+    error 2^-14); ``chunk_wins_from`` is, at each G, the
+    fewest swept rows from which the chunk kernel is as fast at every
+    larger count, beside the plan's f32_chunk_min_rows()."""
+    import torch
+    from deepspeed_tpu_torch.ops.paged_attention import (f32_chunk_min_rows,
+                                                         paged_attention_reference, run_kernel)
+    points, ok = [], True
+    for widths, seen, B, opts in (
+            (GEMMA2_PAGED, [5120 + 5, 4864 + 9, 4352 + 13, 3072 + 17, 2048 + 21, 1024 + 25,
+                            512 + 29, 128 + 31], 82,
+             {"softcap": GEMMA2_ATTN_CAP, "q_scale": CAP_Q_SCALE}),
+            (LLAMA_PAGED, [128 * (i + 1) + 22 for i in range(8)], 17, {})):
+        G = widths["G"]
+        for N in F32_CROSSOVER_N[G]:
+            args, kw = _paged_inputs(gen, seen, [N] * 8, N, B, widths=widths,
+                                     dtype=torch.float32, **opts)
+            ref = paged_attention_reference(*args, **kw)
+            point = {"G": G, "D": widths["D"], "N": N, "rows": N * G,
+                     "options": sorted(k for k in opts if k != "q_scale")}
+            for kernel in ("fp32 chunk", "fp32 decode"):
+                y = run_kernel(kernel, *args, **kw)
+                err, abs_err = row_rel_err(y, ref), (y - ref).abs().max().item()
+                ok &= err <= FP32_PAGED_ROW_TOL
+                key = kernel.replace(" ", "_")
+                point[key + "_row_rel_err"] = err
+                point[key + "_max_abs_err"] = abs_err
+                point[key + "_ms"] = graph_time_ms(lambda: run_kernel(kernel, *args, **kw))
+            points.append(point)
+            del args, ref, y
+            torch.cuda.empty_cache()
+    wins = {}
+    for G in sorted({p["G"] for p in points}):
+        mine = [p for p in points if p["G"] == G]
+        wins[f"G{G}"] = next((p["rows"] for i, p in enumerate(mine)
+                              if all(q["fp32_chunk_ms"] <= q["fp32_decode_ms"]
+                                     for q in mine[i:])), None)
+    return {"timing": "cuda graph", "points": points, "ok": ok, "chunk_wins_from": wins,
+            "f32_chunk_min_rows": f32_chunk_min_rows()}
+
+
 def phase_kernels() -> list:
     import torch
     gen = torch.Generator(device="cuda")
@@ -1475,19 +1573,32 @@ def phase_kernels() -> list:
         _paged_case(gen, "softcap_chunk_window", [3700], [768], N=768, B=70,
                     window=GEMMA2_WINDOW, **cap_kw),
     ]
-    # the CUDA-core kernel at its main path's shape: fp32 queries over an
-    # fp32 cache, as serving_gemma2's fp32 engine runs it (Gemma-2's decode
-    # step with the cap); and fp32 queries over an int8 cache at Llama's
-    # decode step, whose pages the plan splits one a block (drawn from a
-    # generator of their own, which leaves the later cases' inputs as they
-    # were)
+    # K4's fp32-query kernels at their main path's shapes: fp32 queries over
+    # an fp32 cache, as serving_gemma2's fp32 engine runs them (Gemma-2's
+    # decode step with the cap; its 768-row chunk at 3700 deep on a global
+    # layer and on a window layer), and fp32 queries over an int8 cache at
+    # Llama's decode step, whose pages the plan splits, and at its 768-row
+    # chunk 2200 deep; the CUDA-core kernel, which no main path runs, on
+    # Gemma-2's fp32 decode step (drawn from a generator of their own,
+    # which leaves the later cases' inputs as they were)
     gen32 = torch.Generator(device="cuda")
     gen32.manual_seed(1)
+    llama_seen = [128 * (i + 1) + 22 for i in range(8)]
     paged_fp32_cases = [
         _paged_case(gen32, "softcap_decode_fp32", gemma_seen, [1] * 8, N=1, B=82, graph=True,
                     dtype=torch.float32, **cap_kw),
-        _paged_case(gen32, "decode_fp32_int8", [128 * (i + 1) + 22 for i in range(8)],
-                    [1] * 8, N=1, B=17, graph=True, int8=True, dtype=torch.float32),
+        _paged_case(gen32, "decode_fp32_int8", llama_seen, [1] * 8, N=1, B=17, graph=True,
+                    int8=True, dtype=torch.float32),
+        _paged_case(gen32, "softcap_chunk_fp32", [3700], [768], N=768, B=70,
+                    dtype=torch.float32, **cap_kw),
+        _paged_case(gen32, "softcap_chunk_window_fp32", [3700], [768], N=768, B=70,
+                    window=GEMMA2_WINDOW, dtype=torch.float32, **cap_kw),
+        _paged_case(gen32, "chunk_deep_fp32_int8", [2200], [768], N=768, B=47, int8=True,
+                    dtype=torch.float32),
+    ]
+    paged_cuda_core_cases = [
+        _paged_case(gen32, "softcap_decode_fp32", gemma_seen, [1] * 8, N=1, B=82, graph=True,
+                    dtype=torch.float32, kernel="cuda cores", **cap_kw),
     ]
     # K1/K2 at head width 256 (Gemma-2-9B: H 16, KV 8, D 256, cap 50, q
     # scaled so that it bites) over the training phase's S 8192: causal with
@@ -1517,7 +1628,7 @@ def phase_kernels() -> list:
                 for n in (LAYER_PARAMS, K7_TAIL)]
     k7_cases += [_k7_case(gen, "lamb_step", LAYER_PARAMS)]
     all_paged = (paged_cases + paged_int8_cases + paged_window_cases + paged_alibi_cases
-                 + paged_softcap_cases + paged_fp32_cases)
+                 + paged_softcap_cases + paged_fp32_cases + paged_cuda_core_cases)
     paged_ok = [c.get("staged_row_rel_err", c["row_rel_err"])
                 <= c["rounding_row_rel_err"] + PAGED_ROW_SLACK
                 and c.get("control_max_abs_err", c["max_abs_err"]) <= PAGED_TOL
@@ -1528,18 +1639,23 @@ def phase_kernels() -> list:
                 for c in all_paged]
     # the K4 cases that ran the multi-row tiles on wgmma (every prefill
     # chunk and wave, and the mixed batch: 16 rows of G 4), those that ran
-    # the decode kernel (every bf16 decode step) and those that ran the
-    # CUDA-core kernel (the fp32 queries)
+    # the bf16 decode kernel (every bf16 decode step) and those that ran
+    # the fp32 chunk and decode kernels (the fp32 queries)
     wgmma_paged = [c for c in all_paged if c["path"] == "wgmma"]
     decode_paged = [c for c in all_paged if c["path"] == "decode"]
-    # the plan's rule (head widths 128 and 256 here); the int8 fp32 case
-    # must split its pages
-    paths_ok = all(c["path"] == k4_expected_path(c["shape"]) for c in all_paged) and \
+    f32_chunk_paged = [c for c in all_paged if c["path"] == "fp32 chunk"]
+    f32_decode_paged = [c for c in all_paged if c["path"] == "fp32 decode"]
+    # the plan's rule (head widths 128 and 256 here), or the named kernel;
+    # the int8 fp32 decode case must split its pages
+    paths_ok = all(c["path"] == (c["forced"] or k4_expected_path(c["shape"]))
+                   for c in all_paged) and \
         all(c["path"] == "decode" for c in all_paged
             if c["shape"]["N"] == 1 and c["shape"]["dtype"] == "bfloat16") and \
-        all(c["path"] == "cuda cores" for c in paged_fp32_cases) and \
+        [c["path"] for c in paged_fp32_cases] == ["fp32 decode"] * 2 + ["fp32 chunk"] * 3 and \
+        paged_cuda_core_cases[0]["path"] == "cuda cores" and \
         paged_fp32_cases[1]["split_pages"] < paged_fp32_cases[1]["shape"]["B"]
     crossover = crossover_sweep(gen)
+    f32_crossover = f32_crossover_sweep(gen32)
     d256_cases = (flash_d256 + flash_d256_fp16 + flash_d256_fp32 + folded_d256
                   + folded_d256_fp16 + folded_d256_fp32)
     all_flash = flash_cases + flash_fp16 + folded_cases + d256_cases
@@ -1547,6 +1663,7 @@ def phase_kernels() -> list:
         all(c["cap_bite_share"] >= CAP_BITES for c in paged_softcap_cases + d256_cases) and \
         all(c["max_abs_err"] <= c["tolerance"] for c in ln) and all(paged_ok) and paths_ok and \
         crossover["ok"] and \
+        f32_crossover["ok"] and \
         all(c["equal"] for c in quant_cases) and dequant["equal"] and \
         quant_cases[-1]["zero_block_scales"] == [1.0, 1.0] and \
         all(c[key]["row_rel_err"] <= c["row_tolerance"]
@@ -1637,6 +1754,33 @@ def phase_kernels() -> list:
          **{k: paged_cases[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
          "cases": decode_paged, "crossover": crossover},
+        {"name": "paged_attention_f32_chunk", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_f32.cuh",
+         "sources": F32_SOURCES,
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
+         "note": "K4's fp32-query chunk kernel (fp32 queries over an fp32 or int8 cache, "
+                 ">= f32_chunk_min_rows() folded rows): register-blocked FFMA products, a "
+                 "cp.async ring; its launches are the prefill chunks of serving_gemma2's "
+                 "fp32 engine; the main case is Gemma-2's 768-row chunk on a global layer",
+         "launches": None, "tolerance": F32_TOLERANCE,
+         "max_abs_err": max(c["max_abs_err"] for c in f32_chunk_paged),
+         "row_rel_err": max(c["row_rel_err"] for c in f32_chunk_paged),
+         **{k: paged_fp32_cases[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+         "cases": f32_chunk_paged, "crossover": f32_crossover},
+        {"name": "paged_attention_f32_decode", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/paged_f32.cuh",
+         "sources": F32_SOURCES,
+         "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
+         "note": "K4's fp32-query decode kernel (under f32_chunk_min_rows() folded rows): "
+                 "the warps split every key tile, a cp.async ring, lean splits; its "
+                 "launches are the decode steps of serving_gemma2's fp32 engine",
+         "launches": None, "tolerance": F32_TOLERANCE,
+         "max_abs_err": max(c["max_abs_err"] for c in f32_decode_paged),
+         "row_rel_err": max(c["row_rel_err"] for c in f32_decode_paged),
+         **{k: paged_fp32_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+         "cases": f32_decode_paged},
         {"name": "paged_attention_cuda_cores", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
          "sources": ["deepspeed_tpu_torch/csrc/paged_attention_f32.cu",
@@ -1645,19 +1789,17 @@ def phase_kernels() -> list:
                      "deepspeed_tpu_torch/csrc/paged_attention_int8_bf16.cu",
                      "deepspeed_tpu_torch/csrc/paged_attention.cuh"],
          "replaces": "deepspeed_tpu/ops/paged_attention.py:60",
-         "note": "K4's CUDA-core kernel (fp32 queries; bf16 ones at widths not a multiple "
-                 "of 16), P rounded to bf16 over bf16-staged K/V; its launches are those of "
-                 "serving_gemma2's fp32 engine",
-         "launches": None,
-         "tolerance": f"fp32 cache: the largest row error <= {FP32_PAGED_ROW_TOL}; int8 "
-                      f"cache: within {FP32_PAGED_TOL} + round_p_flip_bound of the plain "
-                      "version that follows the kernel's split with P rounded (round_p); "
-                      "and each as paged_attention",
-         "max_abs_err": max(c["max_abs_err"] for c in paged_fp32_cases),
-         "row_rel_err": max(c["row_rel_err"] for c in paged_fp32_cases),
-         **{k: paged_fp32_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")},
-         "cases": paged_fp32_cases},
+         "note": "K4's CUDA-core kernel: what the other kernels do not take (bf16 queries at "
+                 "widths the tiles and the decode kernel refuse, fp32 queries at D % 4 != 0; "
+                 "no model of the repo has such a width), P rounded to bf16 over bf16-staged "
+                 "K/V; no main path launches it (serving_gemma2's fp32 engine counts 0); held "
+                 "here on Gemma-2's fp32 decode step through run_kernel",
+         "launches": None, "tolerance": F32_TOLERANCE,
+         "max_abs_err": max(c["max_abs_err"] for c in paged_cuda_core_cases),
+         "row_rel_err": max(c["row_rel_err"] for c in paged_cuda_core_cases),
+         **{k: paged_cuda_core_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")},
+         "cases": paged_cuda_core_cases},
         {"name": "quantize_int8_blockwise", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/quantizer.cu",
          "replaces": "deepspeed_tpu/ops/quantizer.py:29",
@@ -2688,7 +2830,7 @@ def phase_serving_gemma2(kernels: list) -> dict:
     from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
     from deepspeed_tpu_torch.module_inject import GEMMA2_9B, policy_for
     from deepspeed_tpu_torch.ops.normalization import layer_norm, rms_norm
-    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.ops.paged_attention import KERNEL_COUNTERS, paged_attention
 
     cfg = policy_for("gemma2").config_from_hf(GEMMA2_9B)
     blocks = {"freed": [], "max_live": {}}
@@ -2781,24 +2923,35 @@ def phase_serving_gemma2(kernels: list) -> dict:
     })
 
     # the fp32 engine at the weights as first drawn, on the same prompt: K4's
-    # CUDA-core kernel once per layer in every forward, no other K4 kernel
+    # fp32 chunk kernel once per layer in every prefill chunk (768 tokens,
+    # the budget, and the prompt's last 512 or 511: 14 forwards), its fp32
+    # decode kernel once per layer in the decode step, no other K4 kernel
     prompt = run["prompts"][0]
     model = gemma2_random_model(cfg, torch.float32)
     engine = build_llama_engine(
         cfg, params=model, dtype=torch.float32, kv_block_size=64,
         engine_config=RaggedInferenceEngineConfig(num_kv_blocks=GEMMA2_FP32_BLOCKS))
     inner32, forwards32 = engine.model().forward, []
+    pa = paged_attention
+
+    def counts32():
+        return [getattr(pa, c) for c in KERNEL_COUNTERS]
 
     def counted32(batch):
-        forwards32.append(batch.n_tokens)
-        return inner32(batch)
+        before = counts32()
+        out = inner32(batch)
+        forwards32.append((batch.n_tokens, batch.q_tok_idx.shape[1] == 1,
+                           [a - b for a, b in zip(counts32(), before)]))
+        return out
     engine.model().forward = counted32
-    pa = paged_attention
-    pa.cuda_core_launches = pa.wgmma_launches = pa.decode_launches = 0
     full32, step32 = prefill_and_decode(engine, 2000, prompt)
-    k4_fp32 = {"cuda_cores": pa.cuda_core_launches, "wgmma": pa.wgmma_launches,
-               "decode": pa.decode_launches, "forwards": len(forwards32)}
     engine.model().forward = inner32
+    by_kind = {kind: sum(k[i] for _, _, k in forwards32) for i, kind in enumerate(K4_KINDS)}
+    chunk_fwds = [k for _, dec, k in forwards32 if not dec]
+    decode_fwds = [k for _, dec, k in forwards32 if dec]
+    k4_fp32 = {**by_kind, "forwards": len(forwards32), "chunk_forwards": len(chunk_fwds),
+               "decode_forwards": len(decode_fwds),
+               "tokens_per_forward": [n for n, _, _ in forwards32]}
     with torch.no_grad():
         ref32, shares32 = plain_forward_gemma2_fp32(model, cfg, prompt)
         rounded32, _ = plain_forward_gemma2_fp32(model, cfg, prompt, round_input=True)
@@ -2813,9 +2966,11 @@ def phase_serving_gemma2(kernels: list) -> dict:
     checks["fp32_engine_prefill_and_decode_vs_plain_fp32"] = min(
         fp32["prefill_cosine_vs_plain_fp32"],
         fp32["decode_cosine_vs_plain_fp32"]) >= GEMMA2_FP32_COSINE
-    checks["fp32_engine_cuda_core_launches_L_per_forward"] = \
-        k4_fp32["forwards"] > 0 and k4_fp32["cuda_cores"] == L * k4_fp32["forwards"] and \
-        k4_fp32["wgmma"] == k4_fp32["decode"] == 0
+    chunk_i, decode_i = K4_KINDS.index("f32_chunk"), K4_KINDS.index("f32_decode")
+    checks["fp32_engine_f32_chunk_L_per_chunk_and_f32_decode_L_per_decode_forward"] = \
+        len(chunk_fwds) > 0 and len(decode_fwds) > 0 and \
+        all(k[chunk_i] == L and sum(k) == L for k in chunk_fwds) and \
+        all(k[decode_i] == L and sum(k) == L for k in decode_fwds)
 
     rec = {"phase": "serving_gemma2",
            "config": "GEMMA2_9B via policy_for('gemma2').config_from_hf (42 layers, hidden "
@@ -2834,9 +2989,10 @@ def phase_serving_gemma2(kernels: list) -> dict:
         if k["name"] in ("paged_attention_softcap", "rms_norm_fp32_scale"):
             k["launches"] = launches[k["name"]]
             k["launches_by_phase"] = {"serving_gemma2": launches[k["name"]]}
-        if k["name"] == "paged_attention_cuda_cores":
-            k["launches"] = k4_fp32["cuda_cores"]
-            k["launches_by_phase"] = {"serving_gemma2/fp32_engine": k4_fp32["cuda_cores"]}
+        for kind in ("cuda_cores", "f32_chunk", "f32_decode"):
+            if k["name"] == "paged_attention_" + kind:
+                k["launches"] = k4_fp32[kind]
+                k["launches_by_phase"] = {"serving_gemma2/fp32_engine": k4_fp32[kind]}
     count_k4_kernels(kernels, "serving_gemma2", rec)
     return rec
 
@@ -3137,7 +3293,7 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
     from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import per_token_kv_bytes
     from deepspeed_tpu_torch.models.llama import LlamaConfig
-    from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.ops.paged_attention import KERNEL_COUNTERS, paged_attention
 
     cfg = cfg or LlamaConfig.llama3_8b()
     per_block = 64 * per_token_kv_bytes(KVCacheConfig(
@@ -3164,15 +3320,14 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
 
     model = engine.model()
     inner_forward, inner_put = model.forward, engine.put
-    # (real tokens, decode?, seconds, K4 launches by kernel: wgmma tiles,
-    # decode kernel, CUDA-core kernel)
+    # (real tokens, decode?, seconds, K4 launches by kernel, in K4_KINDS'
+    # order)
     steps = []
     bad_logits = []
     prefill_logits = {}
 
     def k4_counts():
-        pa = paged_attention
-        return (pa.wgmma_launches, pa.decode_launches, pa.cuda_core_launches)
+        return tuple(getattr(paged_attention, c) for c in KERNEL_COUNTERS)
 
     def counted_forward(batch):
         torch.cuda.synchronize()
@@ -3220,11 +3375,11 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     pre = [(n, s) for n, dec, s, _ in steps if not dec]
     dec = [(n, s) for n, dec, s, _ in steps if dec]
     # K4's wgmma tiles: L launches in every prefill forward, none in decode;
-    # its decode kernel L in every decode forward; the CUDA-core kernel none
-    # in either
+    # its decode kernel L in every decode forward; the CUDA-core kernel and
+    # the fp32-query kernels none in either
     per_fwd = {kind: {"prefill": [k[i] for _, dec, _, k in steps if not dec],
                       "decode": [k[i] for _, dec, _, k in steps if dec]}
-               for i, kind in enumerate(("wgmma", "decode", "cuda_cores"))}
+               for i, kind in enumerate(K4_KINDS)}
     wgmma = per_fwd["wgmma"]
     L = cfg.num_hidden_layers
     rec = {"gpu": gpu_identity(), "engine_build_s": build_s,
@@ -3260,6 +3415,9 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
             all(d == L for d in per_fwd["decode"]["decode"]),
         "paged_attention_no_cuda_core_launch": not any(
             per_fwd["cuda_cores"]["prefill"] + per_fwd["cuda_cores"]["decode"]),
+        "paged_attention_no_fp32_kernel_launch": not any(
+            sum(per_fwd[k]["prefill"] + per_fwd[k]["decode"]) for k in ("f32_chunk",
+                                                                        "f32_decode")),
     }
     if not capped:
         checks["prefill_decode_consistent"] = diff <= consistency_tol
@@ -3272,6 +3430,11 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     return {"rec": rec, "checks": checks, "prefill_logits": prefill_logits,
             "layers": cfg.num_hidden_layers, "prompts": prompts,
             "check_logits": (full.cpu(), step.cpu())}
+
+
+# K4's kernels as the serving records name them ("paged_attention_" +
+# kind), in the order of paged_attention's KERNELS and KERNEL_COUNTERS
+K4_KINDS = ("cuda_cores", "wgmma", "decode", "f32_chunk", "f32_decode")
 
 
 def count_k4_kernels(kernels: list, phase: str, rec: dict) -> None:
@@ -3299,8 +3462,8 @@ def phase_serving(kernels: list) -> dict:
     if not rec["ok"]:
         raise SystemExit(f"serving checks failed: {checks}")
     for k in kernels:
-        if k["name"] in launches and k["name"] not in ("paged_attention_wgmma",
-                                                       "paged_attention_decode"):
+        if k["name"] in launches and k["name"] not in {"paged_attention_" + kind
+                                                       for kind in K4_KINDS}:
             k["launches"] = launches[k["name"]]
     count_k4_kernels(kernels, "serving", rec)
     return {"rec": rec, "prefill_logits": run["prefill_logits"]}
@@ -3725,6 +3888,10 @@ def main() -> int:
                                          if family in e["kernel"] and args in e["kernel"]]
         if k["name"] == "paged_attention_decode":
             k["registers_and_spills"] = build["decode_kernels"]
+        for kind in ("chunk", "decode"):
+            if k["name"] == "paged_attention_f32_" + kind:
+                k["registers_and_spills"] = [e for e in build["f32_kernels"]
+                                             if f"paged_f32_{kind}" in e["kernel"]]
         if "_d256" in k["name"]:
             wrapper_name, suffix = k["name"].split("_d256")
             dtype = {"": "bfloat16", "_fp16": "float16"}.get(suffix, suffix[1:])

@@ -26,12 +26,13 @@
 // dims of each query row it owns.
 //
 // Bound on the H100: bytes for decode (each query row meets every history
-// key once, about 4 flops per 2 bytes of K/V read); operations for prefill
-// chunks (a 768-token chunk meets thousands of keys per row). Three
-// kernels, chosen by paged_attention.cu's plan():
-// - Multi-row tiles on wgmma (paged_attention_wgmma_kernel): a bf16 query
-//   over a bf16 or int8 cache at head widths 65..256 with at least
-//   wgmma_min_rows(D) folded rows N * G per (sequence, KV head): prefill
+// key once, about 4 flops per 2 bytes of bf16 K/V read); operations for
+// prefill chunks (a 768-token chunk meets thousands of keys per row). Five
+// kernels; paged_attention.cu's plan() picks one per launch by the query's
+// dtype, the head width and the folded rows N * G per (sequence, KV head):
+// - bf16 queries, at least wgmma_min_rows(D) rows (17; 33 past head width
+//   128), head widths 65..256 (D % 8 == 0; an int8 cache D % 16 == 0): the
+//   multi-row tiles on wgmma (paged_attention_wgmma_kernel, below): prefill
 //   chunks, admission waves, mixed batches. It is K1's forward sweep
 //   (flash_attention.cuh fwd_sweep) with a source of its own (PagedSrc):
 //   one block per (128 folded rows, KV head, sequence, split), a
@@ -47,22 +48,28 @@
 //   the engine freed below it are never read) or its split's first page,
 //   to the last key its last row sees; keys outside are never copied and
 //   always masked. Where the grid is under a wave of SMs, the pages are
-//   split as below. What held the CUDA-core kernel back on these shapes:
-//   one lane per key with D fp32 FMAs from shared memory for QK, one lane
-//   per output dim for PV, so a 768-row Gemma-2 chunk ran 13.2 ms against
-//   a 0.05 ms bound on the H100; the tiles take it to ~0.31 ms (PERF.md,
-//   section 6).
-// - The decode kernel (paged_decode_kernel, paged_decode.cuh): bf16
-//   queries over a bf16 or int8 cache at head widths D % 16 == 0 with fewer
-//   rows than the tiles take (decode steps, small chunks), on mma.sync with
-//   warps splitting the keys and a cp.async ring; its note says what it
-//   does about the CUDA-core kernel's limits.
-// - The CUDA-core kernel (paged_attention_kernel): what the other two do
-//   not take: fp32 queries, and head widths that are not a multiple of 16.
-//   Over bf16-staged K/V (a bf16 cache, or an int8 cache under fp32
-//   queries) it rounds P to bf16 before P V as the JAX kernel does, and
-//   sums it unrounded into the row's sum; fp32 over an fp32 cache keeps P
-//   in fp32, as the JAX kernel's p.astype(v.dtype) does.
+//   split as below. On a 768-row Gemma-2 chunk the CUDA-core kernel took
+//   13.2 ms against a 0.05 ms bound on the H100; the tiles ~0.31 ms
+//   (PERF.md, section 6).
+// - bf16 queries under that row count at D % 16 == 0: the bf16 decode
+//   kernel (paged_decode_kernel, paged_decode.cuh): decode steps, small
+//   chunks; mma.sync with warps splitting the keys and a cp.async ring.
+// - fp32 queries at D % 4 == 0 over an fp32 or int8 cache: from
+//   f32::kChunkMinRows rows (33) the fp32 chunk kernel, below them the fp32
+//   decode kernel (paged_f32_chunk_kernel, paged_f32_decode_kernel,
+//   paged_f32.cuh): register-blocked FFMA products on the CUDA cores (true
+//   fp32, no TF32), cp.async rings, lean splits.
+// - The rest: the CUDA-core kernel (paged_attention_kernel, below): bf16
+//   queries that neither the tiles nor the bf16 decode kernel take (a width
+//   that is not a multiple of 16, where the tiles do not take the shape)
+//   and fp32 queries at D % 4 != 0. No model of the repo has such a width; the
+//   kernel is also held for measurements (run_kernel("cuda cores")). Over
+//   bf16-staged K/V (a bf16 cache, or an int8 cache under fp32 queries) it
+//   rounds P to bf16 before P V as the JAX kernel does, and sums it
+//   unrounded into the row's sum; fp32 over an fp32 cache keeps P in fp32,
+//   as the JAX kernel's p.astype(v.dtype) does. Its note and what held it
+//   back are below; each of the other kernels' notes says what its design
+//   does about that.
 // What the CUDA-core kernel's design does:
 // - One thread block per (tile of query rows, KV head, sequence). The G
 //   query heads that share a KV head sit in one block, so each K/V page is

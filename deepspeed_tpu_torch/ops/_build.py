@@ -37,8 +37,9 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # C signatures (see csrc/*.cu); all return int (a cudaError_t, but for
-# dstt_flash_wgmma_smem, dstt_paged_wgmma_smem, dstt_paged_decode_smem and
-# dstt_paged_wgmma_min_rows)
+# dstt_flash_wgmma_smem, dstt_paged_wgmma_smem, dstt_paged_decode_smem,
+# dstt_paged_f32_smem, dstt_paged_wgmma_min_rows and
+# dstt_paged_f32_chunk_min_rows)
 _SIGNATURES = {
     # x, w, out, rows, d, eps, dtype, weight dtype, stream
     "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _I, _P),
@@ -46,18 +47,26 @@ _SIGNATURES = {
     "dstt_layer_norm": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     # S, N, H, D, KV, B, page_size, window, q dtype, cache dtype, kernel
     # (-1: the plan's), out: workspace length in fp32 words, out: the
-    # kernel it runs (0 CUDA cores, 1 wgmma tiles, 2 decode), out: the
-    # pages of each split
+    # kernel it runs (0 CUDA cores, 1 wgmma tiles, 2 decode, 3 fp32 chunk,
+    # 4 fp32 decode), out: the pages of each split, out: the keys of each
+    # step of a row's running max
     "dstt_paged_attention_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   ctypes.POINTER(_L), ctypes.POINTER(_I),
-                                  ctypes.POINTER(_I)),
+                                  ctypes.POINTER(_I), ctypes.POINTER(_I)),
     # head width: returns the folded rows from which K4's plan takes the
     # wgmma tiles
     "dstt_paged_wgmma_min_rows": (_I, ),
+    # returns the folded rows from which K4's plan takes the fp32 chunk
+    # kernel
+    "dstt_paged_f32_chunk_min_rows": (),
     # head width, int8 cache: returns the bytes of dynamic shared memory of
     # that K4 wgmma / decode instance
     "dstt_paged_wgmma_smem": (_I, _I),
     "dstt_paged_decode_smem": (_I, _I),
+    # head width, int8 cache, chunk kernel (else the decode kernel), the
+    # decode kernel's rows a block: the bytes of dynamic shared memory of
+    # that fp32-query instance
+    "dstt_paged_f32_smem": (_I, _I, _I, _I),
     # q, cache, cache_scales, slopes, out, block_table, seen, lens, S, N, H,
     # D, KV, B, slots, layer, page_size, window, scale, softcap, q dtype,
     # cache dtype, kernel, workspace, workspace length, stream

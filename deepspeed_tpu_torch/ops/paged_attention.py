@@ -15,15 +15,19 @@ launches over a float cache, ``paged_attention.int8_launches`` over an
 int8 cache, ``paged_attention.alibi_launches`` those with ALiBi and
 ``paged_attention.softcap_launches`` those with the softcap (over either
 cache; each launch counts once, in the first of softcap, ALiBi, int8 and
-float that applies). Beside them, ``paged_attention.wgmma_launches``
-counts the launches that ran the multi-row tiles on wgmma (a bf16 query
-over a bf16 or int8 cache with at least ``wgmma_min_rows(D)`` folded rows
-``N * G`` per sequence and KV head, at head widths 65..256),
-``paged_attention.decode_launches`` those that ran the decode kernel (a
-bf16 query over either cache at head widths ``D % 16 == 0`` that the tiles
-do not take: decode steps, small chunks, heads up to 64 wide) and
-``paged_attention.cuda_core_launches`` those that ran the CUDA-core kernel
-(fp32 queries, other widths). The kernel's plan decides
+float that applies). Beside them, one counter per kernel (KERNELS):
+``paged_attention.wgmma_launches`` counts the launches that ran the
+multi-row tiles on wgmma (a bf16 query over a bf16 or int8 cache with at
+least ``wgmma_min_rows(D)`` folded rows ``N * G`` per sequence and KV
+head, at head widths 65..256), ``paged_attention.decode_launches`` those
+that ran the bf16 decode kernel (a bf16 query over either cache at head
+widths ``D % 16 == 0`` that the tiles do not take: decode steps, small
+chunks, heads up to 64 wide), ``paged_attention.f32_chunk_launches`` and
+``paged_attention.f32_decode_launches`` those that ran the fp32-query
+chunk kernel (from ``f32_chunk_min_rows()`` folded rows) and decode
+kernel (below it), over an fp32 or int8 cache at head widths ``D % 4 ==
+0``, and ``paged_attention.cuda_core_launches`` those that ran the
+CUDA-core kernel (the other widths). The kernel's plan decides
 (``dstt_paged_attention_plan``; ``kernel_plan`` reads it); ``run_kernel``
 launches a named one, for measurements. All take the JAX kernel's sliding
 ``window``: a query at absolute position ``q`` sees keys ``q - window <
@@ -38,6 +42,7 @@ the masks (``:125-131``); ``slopes`` ``[KV, G]`` fp32 defaults to
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -46,7 +51,10 @@ from . import _build
 
 NEG_INF = -1e30
 # the kernels of csrc/paged_attention.cu, by the code its plan returns
-KERNELS = ("cuda cores", "wgmma", "decode")
+KERNELS = ("cuda cores", "wgmma", "decode", "fp32 chunk", "fp32 decode")
+# each kernel's launch counter on paged_attention
+KERNEL_COUNTERS = ("cuda_core_launches", "wgmma_launches", "decode_launches",
+                   "f32_chunk_launches", "f32_decode_launches")
 
 
 def _check_options(softcap):
@@ -103,7 +111,8 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
                               cache_scales=None,
                               softcap: Optional[float] = None,
                               round_p: bool = False,
-                              split_pages: Optional[int] = None):
+                              split_pages: Optional[int] = None,
+                              tile_keys: Optional[int] = None):
     """Dense-gather reference: gathers each sequence's ``B*page_size``
     history window (an int8 window dequantized in fp32; freed table entries
     gather block 0 and are masked), caps the scaled scores, adds the ALiBi
@@ -119,10 +128,13 @@ def paged_attention_reference(q, cache, layer: int, block_table, seq_seen,
     page split (``kernel_plan``): from each sequence's first live page,
     every ``split_pages`` pages start a running max of their own, and the
     splits merge as the kernels' combine does (each rescaled to the common
-    max, summed, one division)."""
+    max, summed, one division). With ``tile_keys`` the running max steps
+    once per ``tile_keys`` keys from multiples of it (a kernel's key tile,
+    ``kernel_plan``) and at each split's start, not once per page: each P
+    is rounded against the running max of its step."""
     return _reference(q, cache, layer, block_table, seq_seen, seq_lens, page_size, window,
                       attn_scale, use_alibi, slopes, cache_scales, softcap, round_p,
-                      split_pages)[0]
+                      split_pages, tile_keys)[0]
 
 
 # fp32 ulps from a bf16 rounding tie within which round_p_flip_bound takes
@@ -134,9 +146,9 @@ def round_p_flip_bound(q, cache, layer: int, block_table, seq_seen, seq_lens, *,
                        page_size: int, window: Optional[int] = None,
                        attn_scale: Optional[float] = None, use_alibi: bool = False,
                        slopes=None, cache_scales=None, softcap: Optional[float] = None,
-                       split_pages: Optional[int] = None):
+                       split_pages: Optional[int] = None, tile_keys: Optional[int] = None):
     """How far ``paged_attention_reference(..., round_p=True,
-    split_pages=...)`` may move, element by element (``[S, N, H, D]``
+    split_pages=..., tile_keys=...)`` may move, element by element (``[S, N, H, D]``
     fp32), when its scores move by summation order alone: a P within
     FLIP_BAND_ULPS fp32 ulps of a bf16 rounding tie may round the other
     way, which moves it by one bf16 ulp (at most 2^-7 P) and the output by
@@ -144,12 +156,12 @@ def round_p_flip_bound(q, cache, layer: int, block_table, seq_seen, seq_lens, *,
     not rounded."""
     return _reference(q, cache, layer, block_table, seq_seen, seq_lens, page_size, window,
                       attn_scale, use_alibi, slopes, cache_scales, softcap, True,
-                      split_pages, FLIP_BAND_ULPS)[1]
+                      split_pages, tile_keys, FLIP_BAND_ULPS)[1]
 
 
 def _reference(q, cache, layer, block_table, seq_seen, seq_lens, page_size, window,
                attn_scale, use_alibi, slopes, cache_scales, softcap, round_p, split_pages,
-               band=None):
+               tile_keys=None, band=None):
     """paged_attention_reference's output and, with ``band``, the round_p
     walk's flip bound (round_p_flip_bound)."""
     _check_options(softcap)
@@ -196,7 +208,8 @@ def _reference(q, cache, layer, block_table, seq_seen, seq_lens, page_size, wind
             starts = (rel > 0) & (rel % split_pages == 0)          # [S, B]
         out, bound = _pagewise(
             scores, mask, v_h, page_size,
-            torch.float32 if cache.dtype == torch.float32 else torch.bfloat16, starts, band)
+            torch.float32 if cache.dtype == torch.float32 else torch.bfloat16, starts, band,
+            tile_keys)
         if bound is not None:
             bound = bound.reshape(S, N, H, D)
     else:
@@ -218,13 +231,17 @@ def _merge(a, b):
     return mx, l1 * w1 + l2 * w2, a1 * w1[..., None] + a2 * w2[..., None]
 
 
-def _pagewise(scores, mask, v_h, page_size: int, p_dtype, starts=None, band=None):
+def _pagewise(scores, mask, v_h, page_size: int, p_dtype, starts=None, band=None,
+              tile_keys=None):
     """The JAX kernel's online softmax over ``scores`` ``[S, N, KV, G, L]``
     (masked entries NEG_INF) and ``v_h`` ``[S, KV, L, D]``, one page after
     another, P rounded to ``p_dtype`` for its product with V. Where
     ``starts`` ``[S, pages]`` is set, a sequence's page starts a split: the
     partial so far is merged into the finished ones and the running max,
-    sum and accumulator start afresh. With ``band`` (fp32 ulps) a second
+    sum and accumulator start afresh. The running max steps once per page,
+    or with ``tile_keys`` once per ``tile_keys`` keys from multiples of it
+    and at each split's start: a step's P are taken against the running
+    max that includes the whole step. With ``band`` (fp32 ulps) a second
     accumulator beside the first takes 2^-7 P |V| of each bf16-rounded P
     within ``band`` of a rounding tie: (output, that over the row's sum),
     else (output, None)."""
@@ -232,6 +249,21 @@ def _pagewise(scores, mask, v_h, page_size: int, p_dtype, starts=None, band=None
     zero = torch.zeros((), device=dev)
     D = v_h.shape[-1]
     flips = band is not None and p_dtype == torch.bfloat16
+    step = page_size if tile_keys is None else tile_keys
+    unit = math.gcd(page_size, step)  # keys walked at a time
+    n_units = scores.shape[-1] // unit
+    first = torch.arange(n_units, device=dev) * unit  # each unit's first key
+    split0 = torch.zeros(scores.shape[0], n_units, dtype=torch.bool, device=dev)
+    if starts is not None:
+        on_page = first % page_size == 0
+        split0[:, on_page] = starts[:, first[on_page] // page_size]
+    # each unit's step: a new one at multiples of ``step`` and at split
+    # starts; the max of the step a unit lies in
+    step_id = ((first % step == 0)[None, :] | split0).long().cumsum(-1) - 1
+    unit_max = scores.unflatten(-1, (n_units, unit)).amax(-1)
+    idx = step_id[:, None, None, None, :].expand_as(unit_max)
+    step_max = torch.full_like(unit_max, NEG_INF).scatter_reduce(
+        -1, idx, unit_max, "amax").gather(-1, idx)
 
     def fresh():
         m = torch.full(scores.shape[:-1], NEG_INF, device=dev)
@@ -239,21 +271,22 @@ def _pagewise(scores, mask, v_h, page_size: int, p_dtype, starts=None, band=None
 
     done = fresh()
     m, total, acc = fresh()
-    for b, k0 in enumerate(range(0, scores.shape[-1], page_size)):
-        if starts is not None and bool(starts[:, b].any()):
-            new = starts[:, b]
+    for u in range(n_units):
+        k0 = u * unit
+        if starts is not None and bool(split0[:, u].any()):
+            new = split0[:, u]
 
-            def pick(old, young):  # young where this page starts a split
+            def pick(old, young):  # young where this unit starts a split
                 return tuple(torch.where(new.view(-1, *[1] * (x.dim() - 1)), y, x)
                              for x, y in zip(old, young))
             done = pick(done, _merge(done, (m, total, acc)))
             m, total, acc = pick((m, total, acc), fresh())
-        sc, mk = scores[..., k0:k0 + page_size], mask[..., k0:k0 + page_size]
-        m_new = torch.maximum(m, sc.amax(-1)).clamp_min(NEG_INF)
+        sc, mk = scores[..., k0:k0 + unit], mask[..., k0:k0 + unit]
+        m_new = torch.maximum(m, step_max[..., u]).clamp_min(NEG_INF)
         alpha = torch.exp(m - m_new)
         p = torch.where(mk, torch.exp(sc - m_new[..., None]), zero)
         total = alpha * total + p.sum(-1)
-        v = v_h[:, :, k0:k0 + page_size]
+        v = v_h[:, :, k0:k0 + unit]
         pv = torch.einsum("snkgl,skld->snkgd", p.to(p_dtype).float(), v)
         if flips:  # the low 16 bits of P's fp32 word against the tie 0x8000
             near = ((p.view(torch.int32) & 0xFFFF) - 0x8000).abs() <= band
@@ -277,26 +310,31 @@ def _plan(device_index: int, S: int, N: int, H: int, D: int, KV: int, B: int,
     """The kernel's grid plan (made in csrc/paged_attention.cu) for this
     shape on this device: the fp32 words of workspace its page splits need,
     the code of the kernel it runs (an index into KERNELS; ``kernel`` -1
-    for the plan's choice, else that kernel's code) and the pages of each
-    split."""
-    n, chosen, pages = ctypes.c_longlong(0), ctypes.c_int(0), ctypes.c_int(0)
+    for the plan's choice, else that kernel's code), the pages of each
+    split and the keys of each step of a row's running max."""
+    n = ctypes.c_longlong(0)
+    chosen, pages, keys = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         _build.check(_build.lib().dstt_paged_attention_plan(
             S, N, H, D, KV, B, page_size, window, dtype, cache_dtype, kernel,
-            ctypes.byref(n), ctypes.byref(chosen), ctypes.byref(pages)), "paged_attention")
-    return n.value, chosen.value, pages.value
+            ctypes.byref(n), ctypes.byref(chosen), ctypes.byref(pages), ctypes.byref(keys)),
+            "paged_attention")
+    return n.value, chosen.value, pages.value, keys.value
 
 
-def kernel_plan(q, cache, block_table, *, page_size: int, window: Optional[int] = None):
-    """What ``paged_attention`` launches for these CUDA tensors: the name of
-    the kernel (one of KERNELS) and the pages of each of its splits, counted
-    from each sequence's first live page (``split_pages`` of
-    ``paged_attention_reference``)."""
+def kernel_plan(q, cache, block_table, *, page_size: int, window: Optional[int] = None,
+                kernel: Optional[str] = None):
+    """What ``paged_attention`` (or ``run_kernel(kernel, ...)``) launches
+    for these CUDA tensors: the name of the kernel (one of KERNELS), the
+    pages of each of its splits, counted from each sequence's first live
+    page, and the keys of each step of a row's running max (``split_pages``
+    and ``tile_keys`` of ``paged_attention_reference``)."""
     S, N, H, D = q.shape
-    _, chosen, pages = _plan(q.device.index, S, N, H, D, cache.shape[-1] // D,
-                             block_table.shape[1], page_size, int(window or 0),
-                             _build.dtype_code(q.dtype), _build.dtype_code(cache.dtype), -1)
-    return KERNELS[chosen], pages
+    _, chosen, pages, keys = _plan(
+        q.device.index, S, N, H, D, cache.shape[-1] // D, block_table.shape[1], page_size,
+        int(window or 0), _build.dtype_code(q.dtype), _build.dtype_code(cache.dtype),
+        -1 if kernel is None else KERNELS.index(kernel))
+    return KERNELS[chosen], pages, keys
 
 
 def wgmma_min_rows(D: int) -> int:
@@ -304,6 +342,13 @@ def wgmma_min_rows(D: int) -> int:
     takes the wgmma tiles at head width ``D`` (csrc/paged_attention.cuh
     wgmma_min_rows)."""
     return _build.lib().dstt_paged_wgmma_min_rows(D)
+
+
+def f32_chunk_min_rows() -> int:
+    """The folded rows ``N * G`` per (sequence, KV head) from which the plan
+    takes the fp32-query chunk kernel, below which the fp32 decode kernel
+    (csrc/paged_f32.cuh kChunkMinRows)."""
+    return _build.lib().dstt_paged_f32_chunk_min_rows()
 
 
 def paged_attention(q, cache, layer: int, block_table, seq_seen, seq_lens,
@@ -403,8 +448,8 @@ def _launch(kernel: int, q, cache, layer: int, block_table, seq_seen, seq_lens,
     KV = KVD // D
     window = int(window or 0)  # 0: global attention
     codes = (_build.dtype_code(q.dtype), _build.dtype_code(cache.dtype))
-    ws_len, chosen, _ = _plan(q.device.index, S, N, H, D, KV, B, page_size, window, *codes,
-                           kernel)
+    ws_len, chosen, _, _ = _plan(q.device.index, S, N, H, D, KV, B, page_size, window,
+                                 *codes, kernel)
     workspace = (torch.empty(ws_len, dtype=torch.float32, device=q.device)
                  if ws_len else None)
     lib = _build.lib()
@@ -427,19 +472,14 @@ def _launch(kernel: int, q, cache, layer: int, block_table, seq_seen, seq_lens,
         paged_attention.int8_launches += 1
     else:
         paged_attention.launches += 1
-    if KERNELS[chosen] == "wgmma":
-        paged_attention.wgmma_launches += 1
-    elif KERNELS[chosen] == "decode":
-        paged_attention.decode_launches += 1
-    else:
-        paged_attention.cuda_core_launches += 1
+    counter = KERNEL_COUNTERS[chosen]
+    setattr(paged_attention, counter, getattr(paged_attention, counter) + 1)
     return out
 
 
 paged_attention.launches = 0
-paged_attention.wgmma_launches = 0
-paged_attention.decode_launches = 0
-paged_attention.cuda_core_launches = 0
+for _counter in KERNEL_COUNTERS:
+    setattr(paged_attention, _counter, 0)
 paged_attention.int8_launches = 0
 paged_attention.alibi_launches = 0
 paged_attention.softcap_launches = 0

@@ -8,9 +8,12 @@ Llama's 768-row chunk over an int8 cache deep in the cache, the mixed
 batch) and on the decode steps of the four families (Llama, StarCoder2's
 window, BLOOM's ALiBi, Gemma-2's softcap without and with its window) over
 a bf16 and an int8 cache, graph-timed, each time beside the row error
-against the plain version and the kernel that ran.
+against the plain version and the kernel that ran; then K4 with fp32
+queries (FP32): Gemma-2's 768-row chunk at 3700 deep on a global and on a
+window layer and its decode step over an fp32 cache, Llama's 768-row
+chunk 2200 deep and its decode step over an int8 cache.
 
-    python3 flash_ab.py TREE TAG [--flex]
+    python3 flash_ab.py TREE TAG [--flex] [--fp32] [--fp32-engine]
 
 TREE is the root of a checkout (this one: ``.``; another commit: unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists,
@@ -19,6 +22,10 @@ cases run, its library built under it. ``--flex`` adds, for reference
 only, flex_attention over Gemma-2's and StarCoder2's K4 chunks with their
 keys gathered into contiguous K/V (the cap and the window as its
 ``score_mod`` and mask): not K4's function, which reads the paged cache.
+``--fp32`` runs the FP32 cases alone; ``--fp32-engine`` adds Gemma-2-9B's
+fp32 engine as chip_smoke.py's ``serving_gemma2`` builds it (full depth,
+the weights as first drawn), timing each forward of its 5120-token
+prompt's prefill, fed twice in 768-token chunks, and of one decode step.
 Prints one JSON line tagged TAG. To compare two commits on one card, run them in turns in one
 command: parent, change, change, parent.
 """
@@ -88,6 +95,18 @@ DECODE = (
 )
 
 
+# K4 with fp32 queries: (name, seen, n_new, N, B, widths by name, int8,
+# graph-timed), the chip_smoke.py phase-2 fp32 shapes
+FP32 = (
+    ("gemma2_chunk_fp32_global", [3700], [768], 768, 70, "gemma2_global", False, False),
+    ("gemma2_chunk_fp32_window", [3700], [768], 768, 70, "gemma2", False, False),
+    ("llama_chunk_fp32_int8_deep", [2200], [768], 768, 47, "llama", True, False),
+    ("gemma2_decode_fp32_global", DECODE_SEEN["gemma2"], [1] * 8, 1, 82, "gemma2_global", False,
+     True),
+    ("llama_decode_fp32_int8", DECODE_SEEN["llama"], [1] * 8, 1, 17, "llama", True, True),
+)
+
+
 def paged_kw(cs, kind):
     return {"gemma2": dict(widths=cs.GEMMA2_PAGED, window=cs.GEMMA2_WINDOW,
                            softcap=cs.GEMMA2_ATTN_CAP, q_scale=cs.CAP_Q_SCALE),
@@ -126,6 +145,48 @@ def flex_chunk(cs, gen, seen, n_new, widths, window=None, softcap=None, q_scale=
     return cs.time_ms(lambda: fn(q, k, v, **kw))
 
 
+def fp32_engine(cs) -> dict:
+    """Gemma-2-9B's fp32 engine (chip_smoke.py serving_gemma2's): each
+    forward's seconds (host clock around a synchronized forward) over
+    prefill_and_decode on a 5120-token prompt, and K4's launches."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
+    from deepspeed_tpu_torch.module_inject import GEMMA2_9B, policy_for
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention as pa
+    cfg = policy_for("gemma2").config_from_hf(GEMMA2_9B)
+    engine = build_llama_engine(
+        cfg, params=cs.gemma2_random_model(cfg, torch.float32), dtype=torch.float32,
+        kv_block_size=64,
+        engine_config=RaggedInferenceEngineConfig(num_kv_blocks=cs.GEMMA2_FP32_BLOCKS))
+    inner, steps = engine.model().forward, []
+    counters = sorted(k for k in vars(pa) if k.endswith("launches"))
+
+    def timed(batch):
+        before = [getattr(pa, c) for c in counters]
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = inner(batch)
+        torch.cuda.synchronize()
+        steps.append((batch.n_tokens, time.monotonic() - t,
+                      {c: getattr(pa, c) - b for c, b in zip(counters, before)
+                       if getattr(pa, c) != b}))
+        return out
+    engine.model().forward = timed
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 5120).tolist()
+    cs.prefill_and_decode(engine, 2000, prompt)
+    chunks = [(n, sec) for n, sec, _ in steps if n > 1]
+    second = chunks[len(chunks) // 2:]  # the prompt fed again, warm
+    rec = {"forwards": [{"tokens": n, "s": sec, "k4": k} for n, sec, k in steps],
+           "prefill_s": sum(sec for _, sec in chunks),
+           "prefill_tokens_per_s_second_pass": sum(n for n, _ in second) / sum(s for _, s in second),
+           "decode_step_ms": 1e3 * next(sec for n, sec, _ in steps if n == 1)}
+    del engine
+    cs.free_memory()
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -139,9 +200,21 @@ def main() -> int:
     t = time.monotonic()
     _build.lib()
     out = {"tree": tag, "gpu": cs.gpu_identity(), "build_s": time.monotonic() - t,
-           "fwd": [], "paged": []}
-    gen = torch.Generator(device="cuda")
+           "fwd": [], "paged": [], "fp32": []}
+    gen, gen32 = torch.Generator(device="cuda"), torch.Generator(device="cuda")
     gen.manual_seed(7)
+    gen32.manual_seed(8)  # the fp32 cases' own: the others' inputs stay as they were
+    for name, seen, n_new, N, B, kind, int8, graph in FP32:
+        r = cs._paged_case(gen32, name, seen, n_new, N=N, B=B, graph=graph, int8=int8,
+                           dtype=torch.float32, **paged_kw(cs, kind))
+        out["fp32"].append({k: r.get(k) for k in (
+            "case", "path", "ms", "plain_ms", "bound_ms", "bound_by", "row_rel_err",
+            "max_abs_err", "round_p_excess", "timing")})
+    if "--fp32-engine" in sys.argv:
+        out["fp32_engine"] = fp32_engine(cs)
+    if "--fp32" in sys.argv:
+        print(json.dumps(out), flush=True)
+        return 0
     out["fwd"] = [
         fwd_case(cs, gen, "main", 2, 2048, True),
         fwd_case(cs, gen, "main_softcap", 2, 2048, True, softcap=50.0),

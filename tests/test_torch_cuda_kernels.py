@@ -22,8 +22,8 @@ from deepspeed_tpu_torch.ops.attention import (
 from deepspeed_tpu_torch.ops.normalization import (
     layer_norm, layer_norm_reference, rms_norm, rms_norm_reference)
 from deepspeed_tpu_torch.ops.paged_attention import (
-    KERNELS, kernel_plan, paged_attention, paged_attention_reference, round_p_flip_bound,
-    wgmma_min_rows)
+    KERNEL_COUNTERS, KERNELS, f32_chunk_min_rows, kernel_plan, paged_attention,
+    paged_attention_reference, round_p_flip_bound, run_kernel, wgmma_min_rows)
 from deepspeed_tpu_torch.ops.quantizer import (
     dequantize_int8_blockwise, dequantize_int8_blockwise_reference,
     quantize_int8_blockwise, quantize_int8_blockwise_reference)
@@ -145,22 +145,27 @@ def int8_control(q, codes, scales, layer, bt, seen, lens, **kw):
     """The plain version on the staged bf16 K/V (the control) and what
     summation order may add to it through the kernel's rounding of P:
     (control, element-wise slack). bf16 queries: the plain version, no
-    slack (their tolerances hold output roundings). fp32 queries: the
-    CUDA-core kernel rounds P to bf16 before P V as the JAX kernel does
-    (over bf16-staged K/V), against the running max of its split's pages,
-    so the control is the ``round_p=True`` version that follows the
-    kernel's page split (``kernel_plan``). The two then differ by summation
-    order, which reaches the output where it moves a P across a bf16
-    rounding tie: the slack is ``round_p_flip_bound`` (one bf16 ulp of each
-    P that lies that near a tie, times |v|, over the row's sum)."""
+    slack (their tolerances hold output roundings). fp32 queries: K4's
+    fp32-query kernels round P to bf16 before P V as the JAX kernel does
+    (over bf16-staged K/V), against the running max of their split, which
+    steps once per key tile (the CUDA-core kernel's: per page), so the
+    control is the ``round_p=True`` version that follows the kernel's page
+    split and steps (``kernel_plan``; ``kernel`` names one, else the
+    plan's). The two then differ by summation order, which reaches the
+    output where it moves a P across a bf16 rounding tie: the slack is
+    ``round_p_flip_bound`` (one bf16 ulp of each P that lies that near a
+    tie, times |v|, over the row's sum)."""
+    kernel = kw.pop("kernel", None)
     staged = staged_cache(codes, scales, q.shape[-1])
     if q.dtype != torch.float32:
         control = paged_attention_reference(q, staged, layer, bt, seen, lens, **kw)
         return control, torch.zeros(control.shape, device=control.device)
-    _, pages = kernel_plan(q, codes, bt, page_size=kw["page_size"], window=kw.get("window"))
+    _, pages, keys = kernel_plan(q, codes, bt, page_size=kw["page_size"],
+                                 window=kw.get("window"), kernel=kernel)
     args = (q, staged, layer, bt, seen, lens)
-    return (paged_attention_reference(*args, round_p=True, split_pages=pages, **kw),
-            round_p_flip_bound(*args, split_pages=pages, **kw))
+    return (paged_attention_reference(*args, round_p=True, split_pages=pages, tile_keys=keys,
+                                      **kw),
+            round_p_flip_bound(*args, split_pages=pages, tile_keys=keys, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1612,9 +1617,9 @@ PAGED_WGMMA = {
 }
 
 
-def _paged_wgmma_inputs(case, device, table=PAGED_WGMMA):
-    """Random bf16 cache and queries (an int8 cache quantized from it),
-    distinct pages, a window's freed entries and a padding sequence's
+def _paged_wgmma_inputs(case, device, table=PAGED_WGMMA, dtype=torch.bfloat16):
+    """Random ``dtype`` cache and queries (an int8 cache quantized from
+    it), distinct pages, a window's freed entries and a padding sequence's
     table zeroed as the engine leaves them."""
     seed, S, N, KV, G, D, ps, B, seen, n_new, layer, opts = table[case]
     opts = dict(opts)
@@ -1622,9 +1627,9 @@ def _paged_wgmma_inputs(case, device, table=PAGED_WGMMA):
     rng = np.random.default_rng(seed)
     n_pages = S * B + 1
     cache = torch.from_numpy(rng.normal(size=(2 * 2, n_pages * ps, KV * D))
-                             .astype(np.float32)).to(device, torch.bfloat16)
+                             .astype(np.float32)).to(device, dtype)
     q = torch.from_numpy(rng.normal(size=(S, N, KV * G, D))
-                         .astype(np.float32)).to(device, torch.bfloat16)
+                         .astype(np.float32)).to(device, dtype)
     bt = (1 + rng.permutation(S * B)).reshape(S, B).astype(np.int32)
     freed = [max(0, s - opts["window"] + 1) // ps if "window" in opts else 0 for s in seen]
     for i, (f, n) in enumerate(zip(freed, n_new)):
@@ -1740,13 +1745,15 @@ def test_paged_decode_matches_plain(case, cuda_device):
 
 
 def test_cuda_core_kernel_rounds_p_as_the_jax_kernel(cuda_device):
-    """fp32 queries over an int8 cache run the CUDA-core kernel, which
-    rounds P to bf16 before P V over the staged bf16 K/V (the JAX kernel's
-    p.astype(v.dtype)) and gives fp32 outputs, so summation order is the
-    only other difference. With a block table of one page there is one
-    split, and the kernel's running max is the plain version's: within
-    2e-5 of paged_attention_reference(..., round_p=True) on the staged
-    values, and more than ten times that from round_p=False."""
+    """fp32 queries over an int8 cache: the CUDA-core kernel (run_kernel)
+    and the fp32 decode kernel the plan takes round P to bf16 before P V
+    over the staged bf16 K/V (the JAX kernel's p.astype(v.dtype)) and give
+    fp32 outputs, so summation order is the only other difference. With a
+    block table of one page there is one split; the CUDA-core kernel's
+    running max steps per page, the plain version's, the decode kernel's
+    per key tile (tile_keys): each within 2e-5 of
+    paged_attention_reference(..., round_p=True) on the staged values that
+    steps as it does, and more than ten times that from round_p=False."""
     rng = np.random.default_rng(60)
     S, KV, G, D, ps = 8, 2, 4, 128, 64
     cache = torch.from_numpy(rng.normal(size=(4, (S + 1) * ps, KV * D)).astype(np.float32))
@@ -1755,18 +1762,129 @@ def test_cuda_core_kernel_rounds_p_as_the_jax_kernel(cuda_device):
     bt = torch.arange(1, S + 1, dtype=torch.int32, device=cuda_device)[:, None]
     seen = torch.tensor([63, 40, 20, 63, 5, 33, 62, 50], dtype=torch.int32, device=cuda_device)
     lens = seen + 1
-    counts = lambda: (paged_attention.wgmma_launches, paged_attention.decode_launches)  # noqa: E731
-    before = counts()
-    out_k = paged_attention(q, codes, 1, bt, seen, lens, page_size=ps, cache_scales=scales)
-    assert counts() == before  # the CUDA-core kernel
     staged = staged_cache(codes, scales, D)
-    rounded = paged_attention_reference(q, staged, 1, bt, seen, lens, page_size=ps,
-                                        round_p=True)
     unrounded = paged_attention_reference(q, staged, 1, bt, seen, lens, page_size=ps)
-    torch.cuda.synchronize()
-    assert out_k.dtype == torch.float32
-    torch.testing.assert_close(out_k, rounded, atol=2e-5, rtol=0)
-    assert (out_k - unrounded).abs().max().item() > 10 * 2e-5
+    for kernel in ("cuda cores", "fp32 decode"):
+        counts = lambda: [getattr(paged_attention, c) for c in KERNEL_COUNTERS]  # noqa: E731
+        before = counts()
+        out_k = (run_kernel(kernel, q, codes, 1, bt, seen, lens, page_size=ps,
+                            cache_scales=scales) if kernel == "cuda cores" else
+                 paged_attention(q, codes, 1, bt, seen, lens, page_size=ps,
+                                 cache_scales=scales))
+        assert [a - b for a, b in zip(counts(), before)] == [int(k == kernel) for k in KERNELS]
+        _, pages, keys = kernel_plan(q, codes, bt, page_size=ps, kernel=kernel)
+        assert pages >= 1 and keys == (ps if kernel == "cuda cores" else 32)
+        rounded = paged_attention_reference(q, staged, 1, bt, seen, lens, page_size=ps,
+                                            round_p=True, tile_keys=keys)
+        torch.cuda.synchronize()
+        assert out_k.dtype == torch.float32
+        torch.testing.assert_close(out_k, rounded, atol=2e-5, rtol=0)
+        assert (out_k - unrounded).abs().max().item() > 10 * 2e-5
+
+
+# ---- K4's fp32-query kernels ----
+
+# (seed, S, N, KV, G, D, page_size, B, seen, n_new, layer, options) in
+# fp32, each run through both fp32-query kernels (run_kernel) and through
+# the plan: decode shapes (N 1; G 2 at D 256 with the softcap over pages
+# of 16, split; G 4 at D 128 over an int8 cache with a window and its
+# freed entries over pages of 64; G 8 at D 64 with ALiBi over pages of 128;
+# one sequence of 63 keys, one split) and chunk shapes (G 2 at D 256 with
+# the window, the cap and a padding sequence; G 4 at D 128 over an int8
+# cache over pages of 16, split; G 1 at D 64 with ALiBi over pages of 128;
+# G 2 at D 68 over an int8 cache, whose codes go by 4-byte copies; G 2 at D
+# 256 with 1088 rows over 8 KV heads, which fill the card unsplit)
+PAGED_F32 = {
+    "decode_g2_d256_softcap_ps16": (80, 4, 1, 2, 2, 256, 16, 80, [1000, 77, 1279, 15],
+                                    [1] * 4, 0, {"softcap": 5.0}),
+    "decode_g4_d128_int8_window_ps64": (81, 4, 1, 2, 4, 128, 64, 40,
+                                        [2500, 300, 1700, 2000], [1] * 4, 1,
+                                        {"window": 700, "int8": True}),
+    "decode_g8_d64_alibi_ps128": (82, 3, 1, 2, 8, 64, 128, 12, [1400, 129, 700], [1] * 3, 1,
+                                  {"use_alibi": True}),
+    "decode_one_split": (83, 1, 1, 1, 4, 128, 16, 4, [63], [1], 1, {}),
+    "chunk_g2_d256_window_softcap_padding": (84, 2, 40, 2, 2, 256, 64, 12, [600, 0],
+                                             [40, 0], 1, {"window": 300, "softcap": 5.0}),
+    "chunk_g4_d128_int8_ps16": (85, 2, 24, 2, 4, 128, 16, 40, [500, 90], [24, 11], 0,
+                                {"int8": True}),
+    "chunk_g1_d64_alibi_ps128": (86, 2, 70, 2, 1, 64, 128, 8, [800, 33], [70, 70], 1,
+                                 {"use_alibi": True}),
+    "chunk_g2_d68_int8": (87, 2, 20, 2, 2, 68, 16, 12, [150, 7], [20, 20], 0, {"int8": True}),
+    "chunk_g2_d256_unsplit": (88, 1, 544, 8, 2, 256, 64, 25, [1000], [544], 1, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_F32))
+def test_paged_f32_kernels_match_plain(case, cuda_device):
+    """Both fp32-query kernels (and the plan's pick, the chunk kernel from
+    f32_chunk_min_rows() folded rows) against the plain version. Over an
+    fp32 cache: the largest row error ||kernel - plain|| / ||plain|| <=
+    2^-14 and max abs <= 2e-5 (fp32 throughout; summation order and the
+    branch-free tanh's last ulps). Over an int8 cache: within 2e-5 +
+    round_p_flip_bound of the plain version that follows the kernel's split
+    and running-max steps with P rounded (int8_control), and row by row
+    against the plain version within the control's own error + 2^-14. One
+    launch each, counted in its kernel's counter; a padding sequence gives
+    zeros; freed entries pointed far past the cache are never read (the
+    same bits); a second launch gives the same bits."""
+    args, kw, freed = _paged_wgmma_inputs(case, cuda_device, PAGED_F32, torch.float32)
+    q, cache, layer, bt, seen, lens = args
+    rows = q.shape[1] * q.shape[2] // (cache.shape[-1] // q.shape[-1])
+    planned = "fp32 chunk" if rows >= f32_chunk_min_rows() else "fp32 decode"
+    assert kernel_plan(q, cache, bt, page_size=kw["page_size"], window=kw.get("window"))[0] \
+        == planned
+    scales = kw.get("cache_scales")
+    plain_kw = {k: v for k, v in kw.items() if k != "cache_scales"}
+    out_r = paged_attention_reference(*args, **kw)
+    counts = lambda: [getattr(paged_attention, c) for c in KERNEL_COUNTERS]  # noqa: E731
+    for kernel in ("fp32 chunk", "fp32 decode", None):
+        before = counts()
+        out_k = (paged_attention(*args, **kw) if kernel is None else
+                 run_kernel(kernel, *args, **kw))
+        ran = kernel or planned
+        assert [a - b for a, b in zip(counts(), before)] == [int(k == ran) for k in KERNELS]
+        if scales is None:
+            torch.cuda.synchronize()
+            assert rows_err(out_k, out_r) <= 2.0 ** -14
+            torch.testing.assert_close(out_k, out_r, atol=2e-5, rtol=0)
+        else:
+            control, slack = int8_control(q, cache, scales, layer, bt, seen, lens, kernel=ran,
+                                          **plain_kw)
+            torch.cuda.synchronize()
+            assert_within(out_k, control, 2e-5 + slack)
+            assert rows_err(out_k, out_r) <= \
+                rows_err(control, out_r) + 2.0 ** -14 + rows_share(slack, out_r)
+        for i in (lens == 0).nonzero().flatten().tolist():
+            assert not out_k[i].any()
+        again = run_kernel(ran, *args, **kw)
+        if any(freed):
+            far = bt.clone()
+            for i, f in enumerate(freed):
+                far[i, :f] = 1 << 30
+            again = run_kernel(ran, q, cache, layer, far, seen, lens, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(again, out_k)
+
+
+@pytest.mark.parametrize("cache_kind", ["float", "int8"])
+@pytest.mark.parametrize("D", [4, 64, 68, 128, 132, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 9])
+def test_plan_routes_every_fp32_query_to_the_fp32_kernels(G, D, cache_kind, cuda_device):
+    """Every fp32-query shape at D % 4 == 0 goes to the fp32 decode kernel
+    under f32_chunk_min_rows() (33) folded rows N * G and to the fp32 chunk
+    kernel from there, at every page size and with a window; never to the
+    CUDA-core kernel."""
+    rows = f32_chunk_min_rows()
+    assert rows == 33
+    cache = torch.zeros(4, 128, 2 * D, dtype=torch.float32 if cache_kind == "float"
+                        else torch.int8, device=cuda_device)
+    bt = torch.zeros(3, 8, dtype=torch.int32, device=cuda_device)
+    first = -(-rows // G)
+    for N in sorted({1, 2, first - 1, first, first + 1, 64, 512, 1024} - {0}):
+        q = torch.zeros(3, N, 2 * G, D, dtype=torch.float32, device=cuda_device)
+        want = "fp32 chunk" if N * G >= rows else "fp32 decode"
+        for ps, window in ((16, None), (64, 100), (128, None)):
+            assert kernel_plan(q, cache, bt, page_size=ps, window=window)[0] == want
 
 
 # (N, G, D, q dtype, cache, kernel): the plan's rule. At least
@@ -1774,9 +1892,11 @@ def test_cuda_core_kernel_rounds_p_as_the_jax_kernel(cuda_device):
 # bf16 query over a bf16 or int8 cache at head widths 65..256 take the
 # wgmma tiles; under that, and at any row count at head widths up to 64, a
 # bf16 query at D % 16 == 0 takes the decode kernel (decode, 16 rows, 32
-# rows at 256, head width 64, D 16); fp32 queries
-# and widths that are not a multiple of 16 (an int8 cache at 72, a bf16
-# decode at 72) take the CUDA-core kernel
+# rows at 256, head width 64, D 16); fp32 queries at D % 4 == 0 take the
+# fp32 chunk kernel from f32_chunk_min_rows() (33) folded rows, the fp32
+# decode kernel below; bf16 widths that are not a multiple of 16 (an int8
+# cache at 72, a bf16 decode at 72) and fp32 widths that are not a multiple
+# of 4 take the CUDA-core kernel
 PAGED_PATHS = [
     (1, 4, 128, torch.bfloat16, "bf16", "decode"),
     (1, 9, 256, torch.bfloat16, "int8", "decode"),
@@ -1788,11 +1908,18 @@ PAGED_PATHS = [
     (8, 9, 256, torch.bfloat16, "int8", "wgmma"),
     (64, 1, 72, torch.bfloat16, "bf16", "wgmma"),
     (64, 1, 72, torch.bfloat16, "int8", "cuda cores"),
-    (64, 4, 128, torch.float32, "float", "cuda cores"),
+    (64, 4, 128, torch.float32, "float", "fp32 chunk"),
+    (9, 4, 72, torch.float32, "int8", "fp32 chunk"),
+    (8, 4, 72, torch.float32, "int8", "fp32 decode"),
+    (7, 4, 72, torch.float32, "float", "fp32 decode"),
+    (1, 4, 70, torch.float32, "float", "cuda cores"),
     (64, 4, 64, torch.bfloat16, "bf16", "decode"),
     (1, 4, 72, torch.bfloat16, "bf16", "cuda cores"),
     (1, 16, 16, torch.bfloat16, "int8", "decode"),
-    (1, 4, 128, torch.float32, "int8", "cuda cores"),
+    (1, 4, 128, torch.float32, "int8", "fp32 decode"),
+    (17, 2, 256, torch.float32, "float", "fp32 chunk"),
+    (16, 2, 256, torch.float32, "float", "fp32 decode"),
+    (1, 2, 256, torch.float32, "int8", "fp32 decode"),
     (16, 2, 256, torch.bfloat16, "bf16", "decode"),
     (17, 2, 256, torch.bfloat16, "int8", "wgmma"),
 ]
@@ -1800,8 +1927,8 @@ PAGED_PATHS = [
 
 @pytest.mark.parametrize("N,G,D,dtype,cache_kind,kernel", PAGED_PATHS)
 def test_paged_attention_path_and_counter(N, G, D, dtype, cache_kind, kernel, cuda_device):
-    """Which kernel a launch runs, by ``wgmma_launches`` and
-    ``decode_launches``, and that each path agrees with the plain version
+    """Which kernel a launch runs, by the kernels' counters
+    (KERNEL_COUNTERS), and that each path agrees with the plain version
     (PAGED_TOL; fp32 queries over an int8 cache against the round_p control
     that follows the kernel's split, with its flip bound, as int8_control)."""
     rng = np.random.default_rng(N * 1000 + G * 10 + D)
@@ -1819,8 +1946,7 @@ def test_paged_attention_path_and_counter(N, G, D, dtype, cache_kind, kernel, cu
     kw = dict(page_size=ps)
     if cache_kind == "int8":
         cache, kw["cache_scales"] = int8_cache(cache.bfloat16(), D)
-    counts = lambda: (paged_attention.cuda_core_launches,  # noqa: E731
-                      paged_attention.wgmma_launches, paged_attention.decode_launches)
+    counts = lambda: [getattr(paged_attention, c) for c in KERNEL_COUNTERS]  # noqa: E731
     before = counts()
     out_k = paged_attention(q, cache, 1, bt, seen, lens, **kw)
     after = counts()

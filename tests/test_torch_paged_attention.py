@@ -321,7 +321,8 @@ def test_softcap_d256_matches_jax(case, cache):
 
 # (seed, S, N, KV, G, D, ps, B, seen, n_new, layer, options): at least 64
 # folded rows N * G per (sequence, KV head), the rows that take the CUDA
-# kernel's wgmma tiles of 128: one full tile, a tile and a partial one,
+# kernel's wgmma tiles of 128 (and, for fp32 queries, its fp32 chunk
+# kernel's tiles of 64): one full tile, a tile and a partial one,
 # two tiles and a partial one; G 1 and 9, D 128 and 256, pages of 16 and
 # 64; a window straddling the chunk with freed entries, ALiBi, the softcap
 # and the int8 cache; a padding sequence beside a chunk
@@ -336,6 +337,16 @@ MULTI_ROW_CASES = {
     "g9_d128_int8_ps64": (44, 2, 30, 1, 9, 128, 64, 3, [60, 0], [30, 0], 0, {"int8": True}),
     "g9_d256_window_int8_softcap": (45, 1, 8, 1, 9, 256, 16, 8, [90], [8], 1,
                                     {"window": 24, "int8": True, "softcap": 5.0}),
+    # the fp32-query chunk kernel's shapes: G 2 (Gemma-2's grouping), N >=
+    # 32 tokens a sequence; the window with freed entries beside a padding
+    # sequence, the softcap, ALiBi, an int8 cache, and all of them at once
+    "g2_chunk_window_freed_padding": (60, 3, 40, 1, 2, 32, 8, 16, [60, 0, 20], [40, 0, 33],
+                                      1, {"window": 24}),
+    "g2_chunk_softcap": (61, 2, 36, 2, 2, 64, 16, 8, [50, 9], [36, 20], 0, {"softcap": 5.0}),
+    "g2_chunk_alibi": (62, 2, 32, 2, 2, 32, 8, 12, [30, 61], [32, 32], 1, {"use_alibi": True}),
+    "g2_chunk_int8": (63, 2, 48, 1, 2, 64, 16, 8, [70, 5], [48, 10], 0, {"int8": True}),
+    "g2_chunk_int8_window_softcap_padding": (64, 2, 33, 2, 2, 32, 8, 16, [80, 0], [33, 0], 1,
+                                             {"int8": True, "window": 40, "softcap": 5.0}),
 }
 
 
@@ -545,3 +556,53 @@ def test_round_p_flip_bound_covers_summation_order(case):
         assert ((moved - control).abs() <= 2e-5 + bound).all()
     unrounded = paged_attention_reference(qt, *rest, **kw)
     assert ((unrounded - control).abs() > 2e-5 + bound).float().mean().item() > 0.5
+
+
+# (case, split_pages): splits only without a window, whose first live page
+# (where the splits start) differs between the two page sizes
+TILE_KEYS_CASES = [(case, split) for case in sorted(DECODE_CASES)
+                   for split in ((None, ) if "window" in DECODE_CASES[case][-1]
+                                 else (None, 1, 2))]
+
+
+@pytest.mark.parametrize("case,split_pages", TILE_KEYS_CASES)
+def test_round_p_tile_keys_steps_as_pages_of_that_size(case, split_pages):
+    """``tile_keys`` (a kernel's key tile) steps the ``round_p`` walk's
+    running max once per that many keys instead of once per page: over an
+    int8 cache's staged values, with pages laid out in contiguous pairs, a
+    walk with tile_keys = 2 x page_size rounds every P as the page walk
+    over pages twice as large does (the table and the splits halved
+    alike), so the two differ by fp32 summation order alone (1e-6; a P
+    rounded against another max moves an output by ~1e-3), and so do their
+    flip bounds; tile_keys = page_size is the page walk itself."""
+    q, codes, sc, bt, seen, lens, layer, kw = _decode_setup(case, True)
+    ps = kw.pop("page_size")
+    staged = _staged(codes, sc)
+    S, B = bt.shape
+    Bw = (B + 1) // 2
+    wide = np.arange(S * Bw, dtype=np.int32).reshape(S, Bw)  # pages of 2 ps
+    narrow = np.stack([2 * wide, 2 * wide + 1], -1).reshape(S, 2 * Bw).astype(np.int32)
+    L2, slots, KVD = staged.shape
+    cache = torch.zeros(L2, 2 * ps * S * Bw, KVD, dtype=staged.dtype)
+    for s in range(S):  # sequence s's keys at the same positions under both tables
+        keys = torch.arange(min(B * ps, 2 * ps * Bw))
+        cache[:, torch.from_numpy(narrow[s]).long()[keys // ps] * ps + keys % ps] = \
+            staged[:, torch.from_numpy(bt[s]).long()[(keys // ps).clamp(max=B - 1)] * ps
+                   + keys % ps]
+    t = [torch.from_numpy(a) for a in (q, seen, lens)]
+    args_n = (t[0], cache, layer, torch.from_numpy(narrow), t[1], t[2])
+    args_w = (t[0], cache, layer, torch.from_numpy(wide), t[1], t[2])
+    split_w = None if split_pages is None else split_pages
+    split_n = None if split_pages is None else 2 * split_pages
+    tiled = paged_attention_reference(*args_n, page_size=ps, round_p=True, tile_keys=2 * ps,
+                                      split_pages=split_n, **kw)
+    paged = paged_attention_reference(*args_w, page_size=2 * ps, round_p=True,
+                                      split_pages=split_w, **kw)
+    torch.testing.assert_close(tiled, paged, atol=1e-6, rtol=0)
+    torch.testing.assert_close(
+        round_p_flip_bound(*args_n, page_size=ps, tile_keys=2 * ps, split_pages=split_n, **kw),
+        round_p_flip_bound(*args_w, page_size=2 * ps, split_pages=split_w, **kw),
+        atol=1e-6, rtol=0)
+    assert torch.equal(
+        paged_attention_reference(*args_n, page_size=ps, round_p=True, tile_keys=ps, **kw),
+        paged_attention_reference(*args_n, page_size=ps, round_p=True, **kw))
