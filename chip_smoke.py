@@ -1186,9 +1186,20 @@ SPLASH_KERNELS = (
     ("dq", "splash_attention_bwd_dq", "deepspeed_tpu/ops/sparse_attention/splash.py:165"),
     ("dkdv", "splash_attention_bwd_dkdv",
      "deepspeed_tpu/ops/sparse_attention/splash.py:201"))
-SPLASH_SOURCES = {"fwd": "deepspeed_tpu_torch/csrc/splash_attention.cu",
-                  "dq": "deepspeed_tpu_torch/csrc/splash_attention_bwd_dq.cu",
-                  "dkdv": "deepspeed_tpu_torch/csrc/splash_attention_bwd_dkdv.cu"}
+# the second passes of the forward and dk/dv over split groups: (key, wrapper,
+# the pass whose plan they follow, what they replace)
+SPLASH_SECOND = (
+    ("fwd_merge", "splash_fwd_merge", "fwd",
+     "deepspeed_tpu/ops/sparse_attention/splash.py:63"),
+    ("dkdv_sum", "splash_dkdv_sum", "dkdv", "deepspeed_tpu/ops/sparse_attention/splash.py:201"))
+SPLASH_SOURCES = {"fwd": "deepspeed_tpu_torch/csrc/splash_grouped.cuh",
+                  "dq": "deepspeed_tpu_torch/csrc/splash_attention.cuh",
+                  "dkdv": "deepspeed_tpu_torch/csrc/splash_grouped.cuh",
+                  "fwd_merge": "deepspeed_tpu_torch/csrc/splash_grouped.cuh",
+                  "dkdv_sum": "deepspeed_tpu_torch/csrc/splash_grouped.cuh"}
+# which kernel runs each K8 pass: the grouped sweeps over a host plan, and
+# dq's one block per q-block
+SPLASH_PATHS = {"fwd": "grouped", "dq": "per_row", "dkdv": "grouped"}
 
 
 def splash_layout(config: str, block: int):
@@ -1229,6 +1240,83 @@ def layout_mask_mod(layout, block: int):
         return lay[h % Lh, q_idx // block, kv_idx // block]
 
     return mask_mod
+
+
+def splash_plan_bytes(plan) -> int:
+    """The bytes of a K8 plan a sweep reads: its items, entries and merge
+    rows (int32)."""
+    return 4 * (plan.items.numel() + plan.entries.numel() + plan.n_merges * plan.items.shape[1])
+
+
+def splash_plan_record(plan) -> dict:
+    """A K8 plan's shape: its work items, groups, split groups and their
+    segments, the widest segment, the union/sum share of its groups, and
+    the second-pass launches a call makes."""
+    return {**plan.stats, "heads": plan.heads,
+            "second_pass_launches": int(plan.n_merges > 0)}
+
+
+def _splash_second_passes(q, k, v, bwd_args, tables) -> dict:
+    """K8's merge (forward) and sum (dk/dv) alone on the partials of this
+    layout's split groups, each against its plain version on the same
+    partials (the split rows, under the flash row rule), with its time and
+    its bound: the partials read once and the split rows written once
+    (bytes). None where the plan splits nothing."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as sp
+    B, H, S, D = q.shape
+    floor = 2.0 ** -16 / FLASH_ROW_TOL["bfloat16"]
+    out = {"fwd_merge": None, "dkdv_sum": None}
+
+    def split_rows(plan):  # the split groups' rows of [B * H * S]
+        return torch.cat([rows[rows >= 0] for _, rows, _ in
+                          sp.split_groups(plan, q.shape, q.device)])
+
+    plan = tables.plan
+    if plan.n_merges:
+        o, lse, acc, ml = sp.splash_fwd_sweep(q, k, v, tables)
+        (ok, lk), (op, lp) = (o.clone(), lse.clone()), (o.clone(), lse.clone())
+        sp.splash_fwd_merge(ok, lk, plan, acc, ml)
+        sp.splash_fwd_merge_reference(op, lp, plan, acc, ml)
+        torch.cuda.synchronize()
+        idx = split_rows(plan)
+        kx, px = ok.view(-1, D)[idx], op.view(-1, D)[idx]
+        moved = acc.numel() * 4 + ml.numel() * 4 + len(idx) * (D * 2 + 4)
+        out["fwd_merge"] = {
+            "max_abs_err": (kx.float() - px.float()).abs().max().item(),
+            "row_rel_err": row_rel_err(kx, px, floor),
+            "lse_max_abs_err": (lk.view(-1)[idx] - lp.view(-1)[idx]).abs().max().item(),
+            "split_rows": len(idx), "merges": plan.n_merges, "segments": plan.n_parts,
+            "ms": graph_time_ms(lambda: sp.splash_fwd_merge(ok, lk, plan, acc, ml)),
+            "events_ms": time_ms(lambda: sp.splash_fwd_merge(ok, lk, plan, acc, ml)),
+            "plain_ms": time_ms(lambda: sp.splash_fwd_merge_reference(op, lp, plan, acc, ml),
+                                iters=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+        del o, lse, acc, ml, ok, lk, op, lp
+    plan = tables.plan_t
+    if plan.n_merges:
+        dk, dv, pk, pv = sp.splash_dkdv_sweep(*bwd_args, tables)
+        kern = (dk.clone(), dv.clone())
+        plain = (dk.clone(), dv.clone())
+        sp.splash_dkdv_sum(*kern, plan, pk, pv)
+        sp.splash_dkdv_sum_reference(*plain, plan, pk, pv)
+        torch.cuda.synchronize()
+        idx = split_rows(plan)
+        pairs = [(x.view(-1, D)[idx], r.view(-1, D)[idx]) for x, r in zip(kern, plain)]
+        moved = 2 * pk.numel() * 4 + 2 * len(idx) * D * 2
+        out["dkdv_sum"] = {
+            "max_abs_err": max((x.float() - r.float()).abs().max().item() for x, r in pairs),
+            "row_rel_err": max(row_rel_err(x, r, floor) for x, r in pairs),
+            "equal": all(torch.equal(x, r) for x, r in pairs),
+            "split_rows": len(idx), "merges": plan.n_merges, "segments": plan.n_parts,
+            "ms": graph_time_ms(lambda: sp.splash_dkdv_sum(*kern, plan, pk, pv)),
+            "events_ms": time_ms(lambda: sp.splash_dkdv_sum(*kern, plan, pk, pv)),
+            "plain_ms": time_ms(lambda: sp.splash_dkdv_sum_reference(*plain, plan, pk, pv),
+                                iters=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+        del dk, dv, pk, pv, kern, plain
+    free_memory()
+    return out
 
 
 def _splash_case(gen, name: str, config: str, block: int) -> dict:
@@ -1284,9 +1372,13 @@ def _splash_case(gen, name: str, config: str, block: int) -> dict:
     seen = lse_ref < sp.LSE_EMPTY  # lse compared only on rows that see a key
     lse_err = (lse[seen] - lse_ref[seen]).abs().max().item()
     lse_empty_ok = bool((lse[~seen] == sp.LSE_EMPTY).all())
-    del o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref, exact, ex, got
+    # determinism: a second launch of each grouped pass gives the same bits
+    again = [*sp.splash_attention_fwd(q, k, v, tables),
+             *sp.splash_attention_bwd_dkdv(*bwd_args, tables)]
+    deterministic = all(torch.equal(a, b) for a, b in zip((o, lse, dk, dv), again))
+    del o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref, exact, ex, got, again
     free_memory()
-
+    second = _splash_second_passes(q, k, v, bwd_args, tables)
     flex = _flex_times(q, k, v, do, layout_mask_mod(layout, block))
     free_memory()
     mask = torch.from_numpy(layout_to_mask(layout, block)).cuda()[None]
@@ -1310,9 +1402,9 @@ def _splash_case(gen, name: str, config: str, block: int) -> dict:
     pairs = active * block * block
     qb, rb = B * H * S * D * 2, B * H * S * 4
     tb = 4 * (int(tables.counts.sum()) + tables.counts.numel())
-    tbt = 4 * (int(tables.counts_t.sum()) + tables.counts_t.numel())
-    work = {"fwd": (4, 4 * qb + rb + tb), "dq": (6, 5 * qb + 2 * rb + tb),
-            "dkdv": (8, 6 * qb + 2 * rb + tbt)}
+    work = {"fwd": (4, 4 * qb + rb + splash_plan_bytes(tables.plan)),
+            "dq": (6, 5 * qb + 2 * rb + tb),
+            "dkdv": (8, 6 * qb + 2 * rb + splash_plan_bytes(tables.plan_t))}
     timed = {
         "fwd": (lambda: sp.splash_attention_fwd(q, k, v, tables),
                 lambda: sp.splash_attention_fwd_reference(q, k, v, layout, block),
@@ -1328,16 +1420,23 @@ def _splash_case(gen, name: str, config: str, block: int) -> dict:
     rec = {"case": name, "shape": {**SPLASH_SHAPE, "block": block, "layout": config,
                                    "layout_heads": int(layout.shape[0])},
            "active_blocks": active, "dtype": "bfloat16", "lse_max_abs_err": lse_err,
-           "lse_empty_rows_marked": lse_empty_ok,
+           "lse_empty_rows_marked": lse_empty_ok, "deterministic": deterministic,
+           "k8_path": SPLASH_PATHS,
+           "plan": {"fwd": splash_plan_record(tables.plan),
+                    "dkdv": splash_plan_record(tables.plan_t)},
            "widest_row": int(counts.max()), "widest_transposed_row":
-               int(tables.counts_t.max().item()), "mean_row": float(np.mean(counts)),
-           "splash_flops": splash_flops(layout, block, D, batch=B)}
+               int(np.asarray(layout).astype(bool).sum(1).max()),
+           "mean_row": float(np.mean(counts)),
+           "splash_flops": splash_flops(layout, block, D, batch=B), **second}
     for key, (kernel, plain, flex_ms, sdpa_ms) in timed.items():
         flops = work[key][0] * D * pairs
         bound_flops = flops / BF16_FLOPS * 1e3
         bound_bytes = work[key][1] / HBM_BYTES_PER_S * 1e3
         rec[key] = {**errs[key], "tolerance": FLASH_ROW_TOL["bfloat16"],
-                    "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=3),
+                    # the card's time from a graph; events around calls
+                    # through the wrapper show its host cost beside it
+                    "ms": graph_time_ms(kernel), "events_ms": time_ms(kernel),
+                    "plain_ms": time_ms(plain, iters=3),
                     # flex's and SDPA's backward compute dq, dk and dv in one
                     # call: the same time stands beside both backward passes
                     "library_ms": flex_ms, "library": "flex_attention (compiled, BlockMask)",
@@ -1674,6 +1773,11 @@ def phase_kernels() -> list:
             and c["lse_max_abs_err"] <= LSE_TOL and c["lse_empty_rows_marked"]
             and c[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * c[key]["vs_exact"]["plain"]
             for c in splash_cases for key, _, _ in SPLASH_KERNELS) and \
+        all(c["deterministic"] for c in splash_cases) and \
+        all(any(c[key] for c in splash_cases) for key, *_ in SPLASH_SECOND) and \
+        all(c[key]["row_rel_err"] <= FLASH_ROW_TOL["bfloat16"]
+            and c[key].get("lse_max_abs_err", 0.0) <= LSE_TOL
+            for c in splash_cases for key, *_ in SPLASH_SECOND if c[key]) and \
         all(c["max_ulps"] <= K7_ULPS for c in k7_cases)
     main = rms[1]
     kernels = [
@@ -1917,9 +2021,21 @@ def phase_kernels() -> list:
                                                  "library_ms")},
          "cases": [{"case": c["case"], "shape": c["shape"], "active_blocks": c["active_blocks"],
                     "widest_row": c["widest_row"],
-                    "widest_transposed_row": c["widest_transposed_row"], **c[key]}
+                    "widest_transposed_row": c["widest_transposed_row"],
+                    "k8_path": c["k8_path"][key], "plan": c["plan"].get(key),
+                    "deterministic": c["deterministic"], **c[key]}
                    for c in splash_cases]}
         for key, name, replaces in SPLASH_KERNELS] + [
+        {"name": name, "route": "cuda", "source": SPLASH_SOURCES[key], "replaces": replaces,
+         "launches": None,
+         "tolerance": "the split rows within the flash row rule (2^-6) of the plain "
+                      "version on the same partials; lse within 1e-3",
+         **{k: next(c[key] for c in splash_cases if c[key])[k]
+            for k in ("max_abs_err", "row_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms")},
+         "cases": [{"case": c["case"], "plan": c["plan"][follows], **c[key]}
+                   for c in splash_cases if c[key]]}
+        for key, name, follows, replaces in SPLASH_SECOND] + [
         {"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/fused_optimizer.cu",
          "replaces": replaces, "launches": None,
          "tolerance": f"each output within {K7_ULPS} fp32 ulps of the plain version",
@@ -3149,8 +3265,10 @@ def phase_sparse_attention() -> dict:
     """SparseSelfAttention(cfg) at ``SPLASH_SHAPE`` in bf16 under the three
     default layouts at block 16, through the user's entry point: the
     forward, then ``backward()`` through autograd. With no padding mask on
-    the card the call takes K8; each of its three kernels must launch once
-    per call (counts set to 0 just before, read just after). The same
+    the card the call takes K8; each of its three passes must launch once
+    per call (counts set to 0 just before, read just after), the forward's
+    merge and dk/dv's sum once where the layout's plan splits a group and
+    not otherwise, and each of those in some layout. The same
     inputs through the dense path (``use_kernel=False``): o, dq, dk and dv
     of both stand beside the exact value (K8's plain versions in fp64), and
     the kernel path may be at most FLASH_EXACT_RATIO times as far off as
@@ -3172,6 +3290,7 @@ def phase_sparse_attention() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     kernels = {name: getattr(sp, name) for _, name, _ in SPLASH_KERNELS}
+    kernels.update({name: getattr(sp, name) for _, name, _, _ in SPLASH_SECOND})
     vs = dict(floor=FLASH_EXACT_FLOOR["bfloat16"])
     runs, checks = {}, {}
 
@@ -3199,6 +3318,11 @@ def phase_sparse_attention() -> dict:
         out, fwd_ms = events(lambda: attn(*leaves))
         _, bwd_ms = events(lambda: out.backward(do))
         launches = {n: fn.launches for n, fn in kernels.items()}
+        # each pass once a call; the merge and the sum where its plan splits
+        plans = sp.splash_function(layout, block, 1.0 / float(D) ** 0.5, q.device).tables
+        expected = {name: 1 for _, name, _ in SPLASH_KERNELS}
+        expected.update(splash_fwd_merge=int(plans.plan.n_merges > 0),
+                        splash_dkdv_sum=int(plans.plan_t.n_merges > 0))
         dense = [x.clone().requires_grad_() for x in (q, k, v)]
         ref, dense_fwd_ms = events(lambda: sparse_attention(*dense, layout, block,
                                                             use_kernel=False))
@@ -3233,13 +3357,18 @@ def phase_sparse_attention() -> dict:
         del exact, from_rounded_o, out, ref, leaves, dense
         free_memory()
         runs[name] = {"block": block, "layout": config, "launches": launches,
+                      "expected_launches": expected,
+                      "plan": {"fwd": splash_plan_record(plans.plan),
+                               "dkdv": splash_plan_record(plans.plan_t)},
                       "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "dense_fwd_ms": dense_fwd_ms,
                       "dense_bwd_ms": dense_bwd_ms,
                       "splash_flops": splash_flops(layout, block, D, batch=B), "errors": errs}
-        checks[f"{name}_each_kernel_launched_once"] = all(n == 1 for n in launches.values())
+        checks[f"{name}_each_kernel_launched_as_planned"] = launches == expected
         checks[f"{name}_kernel_path_matches_dense_path"] = all(
             e["finite"] and e["kernel_vs_exact"] <= FLASH_EXACT_RATIO * e["dense_vs_exact"]
             + e["delta_of_rounded_o_vs_exact"] for e in errs.values())
+    for _, name, _, _ in SPLASH_SECOND:
+        checks[f"{name}_launched"] = any(r["launches"][name] for r in runs.values())
     rec = {"phase": "sparse_attention", "gpu": gpu_identity(),
            "config": f"SparseSelfAttention(cfg), B {B}, H {H}, S {S}, D {D}, bf16; "
                      "forward, then backward() through autograd",

@@ -8,7 +8,7 @@ extern "C" int dstt_splash_bwd_dq(const void* q, const void* k, const void* v, c
                                   const void* counts, int BH, int S, int D, int Lh, int A,
                                   int block, float scale, int dtype, void* stream) {
   using namespace dstt::splash;
-  Args a{q, k, v, dout, (const float*)lse, (const float*)delta, dq, nullptr, nullptr,
-         (const int*)table, (const int*)counts, BH, S, D, Lh, A, 0, scale};
-  return run<kDq>(a, block, dtype, stream);
+  Args a{q, k, v, dout, (const float*)lse, (const float*)delta, dq, (const int*)table,
+         (const int*)counts, BH, S, D, Lh, A, 0, scale};
+  return run_dq(a, block, dtype, stream);
 }

@@ -95,18 +95,28 @@ _SIGNATURES = {
                             _I, _F, _I, _I, _F, _I, _P),
     "dstt_flash_folded_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _F, _I, _P),
-    # q, k, v, o, lse, table, counts, BH, S, D, layout heads, table width,
-    # block, scale, dtype, stream
-    "dstt_splash_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _I, _P),
+    # q, k, v, o, lse, plan items, plan entries, items, the most entries of
+    # an item, BH, S, D, plan heads, block, scale, dtype, partials
+    # (accumulators), partials (max, sum), partial slots, stream
+    "dstt_splash_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _P, _P, _I, _P),
+    # o, lse, merges, merge rows, BH, S, D, plan heads, dtype, the two
+    # partials, partial slots, stream
+    "dstt_splash_fwd_merge": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                              _P),
     # q, k, v, dO, lse, delta, dq, table, counts, BH, S, D, layout heads,
     # table width, block, scale, dtype, stream
     "dstt_splash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _F, _I, _P),
-    # q, k, v, dO, lse, delta, dk, dv, transposed table, its counts, BH, S,
-    # D, layout heads, table width, block, scale, dtype, stream
+    # q, k, v, dO, lse, delta, dk, dv, the transposed plan's items and
+    # entries, items, the most entries of an item, BH, S, D, plan heads,
+    # block, scale, dtype, partials of dk and of dv, partial slots, stream
     "dstt_splash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _F, _I, _P),
+                             _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P),
+    # dk, dv, merges, merge rows, BH, S, D, plan heads, dtype, the two
+    # partials, partial slots, stream
+    "dstt_splash_dkdv_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                             _P),
     # pass (0 forward, 1 dq, 2 dk/dv), head width, softcap: returns the
     # bytes of dynamic shared memory of that flash wgmma instance
     "dstt_flash_wgmma_smem": (_I, _I, _I),

@@ -9,22 +9,38 @@ q, k and v are ``[B, H, S, D]`` (head-major); the static layout is
 ``[H or 1, nb, nb]`` with ``nb = S // block``, and row ``bh = b * H + h``
 reads layout head ``bh % layout_heads`` (the JAX kernel's
 ``jax.lax.rem(bh, nheads_layout)``). ``build_block_table`` compacts the
-layout into the indices of each row's active k-blocks and their count; the
-dk/dv pass uses the table of the transposed layout (for each k-block, the
-q-blocks that see it).
+layout into the indices of each row's active k-blocks and their count (the
+dq pass's table).
 
-Three kernels (bodies in ``csrc/splash_attention.cuh``; the forward, dq
-and dk/dv passes build from ``splash_attention.cu``,
-``splash_attention_bwd_dq.cu`` and ``splash_attention_bwd_dkdv.cu`` in
-parallel), each with its plain version here and a launch count:
+The forward and the dk/dv pass sweep a host plan instead (``plan_splash``,
+built once per layout with the tables): the block rows of the forward's
+layout (q-blocks) or of its transpose (k-blocks, for dk/dv) are cut into
+groups of 64 rows (4 blocks of 16, 2 of 32, 1 of 64; a 128 block is two
+groups that read one row), rows that share blocks together: the block rows
+in order or sorted widest first, whichever needs fewer stages. A group
+sweeps the sorted union of its members' blocks, 64 keys (forward) or query
+rows (dk/dv) a stage, each staged once for the group; a mask per entry says
+which members hold it, and a warp skips the 16-row chunks its member lacks.
+A union longer than the plan's limit is cut into segments, each a thread
+block of its own that writes fp32 partials; a second pass merges the
+forward's partials (max, sum, accumulator) or sums dk/dv's in segment
+order, so the outputs are deterministic. Work items run longest first.
+
+Kernels (bodies in ``csrc/splash_attention.cuh``, dq, and
+``csrc/splash_grouped.cuh``, the forward, dk/dv and their second passes;
+built from ``splash_attention{,_f16,_f32}.cu``, ``splash_attention_bwd_dq.cu``
+and ``splash_attention_bwd_dkdv{,_f16,_f32}.cu`` in parallel), each with its
+plain version here and a launch count:
 
 - ``splash_attention_fwd`` (K8 forward): ``o`` in q's dtype and ``lse``
   ``[B, H, S]`` fp32; a row with no active block gets o = 0 and lse =
   ``LSE_EMPTY`` (+1e30), so the backward's ``exp(s - lse)`` is exactly 0;
+  ``splash_fwd_merge`` merges the rows of split groups;
 - ``splash_attention_bwd_dq``: dq over the forward table, P rebuilt from
   lse, dS rounded to k's dtype before ``dS k``;
-- ``splash_attention_bwd_dkdv``: dk and dv over the transposed table, P
-  rounded to dO's dtype and dS to q's dtype.
+- ``splash_attention_bwd_dkdv``: dk and dv over the transposed layout's
+  plan, P rounded to dO's dtype and dS to q's dtype; ``splash_dkdv_sum``
+  sums the partials of split groups and rounds them once.
 
 Each wrapper runs its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor or raises. ``delta = rowsum(dO * O)`` stays
@@ -34,7 +50,7 @@ layout's mask, in fp32 (fp64 for fp64 inputs: the exact value), in chunks
 of ``(batch, head)`` rows.
 
 ``splash_sparse_attention`` is one ``torch.autograd.Function`` over the
-three; its block tables live on the device in a cache keyed like
+three; its block tables and plans live on the device in a cache keyed like
 ``_cached_splash_fn`` (layout bytes, shape, block, scale, device), so a
 call never rebuilds them in a host loop.
 """
@@ -81,30 +97,206 @@ def build_block_table(layout: np.ndarray):
     return table, counts
 
 
+# The sweep of the forward and dk/dv kernels (csrc/splash_grouped.cuh): a
+# work item is 64 rows (queries, or keys for dk/dv), a warp's 16 each, and
+# a stage of its sweep is 64 keys (or query rows) of its union's blocks
+WARP_ROWS = 16
+GROUP_ROWS = 64
+STAGE_ROWS = 64
+# an item or merge row: head, first entry or slot, end or count, slot, and
+# each warp's first row
+ITEM_INTS = 4 + GROUP_ROWS // WARP_ROWS
+MASK_SHIFT = 23  # an entry: block index | members' mask << MASK_SHIFT
+# the default segment limit: a segment takes at most 1 / SEGMENT_SHARE of
+# the plan's stages, and at least MIN_SEGMENT_STAGES stages are never cut
+SEGMENT_SHARE = 8
+MIN_SEGMENT_STAGES = 8
+# the most entries a segment holds whatever the limit: the kernels stage an
+# item's entries in shared memory (splash_grouped.cuh kMaxItemEntries)
+MAX_SEGMENT_ENTRIES = 4096
+
+
+def entries_per_stage(block: int) -> int:
+    return max(1, STAGE_ROWS // block)
+
+
+def stages_per_entry(block: int) -> int:
+    return max(1, block // STAGE_ROWS)
+
+
+def sweep_stages(n_entries, block: int):
+    """Stages of a sweep over ``n_entries`` blocks (an int or an array)."""
+    eps = entries_per_stage(block)
+    return -(-np.asarray(n_entries) // eps) * stages_per_entry(block)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplashPlan:
+    """The work items of one sweep (the forward's layout, or its transpose
+    for dk/dv), as numpy arrays from ``plan_splash`` or as int32 tensors on
+    a device (``to``):
+
+    - ``items`` ``[n_items, ITEM_INTS]``: layout head, first and end entry,
+      partial slot (-1: the item writes the outputs), and each warp's first
+      row (-1: no rows), longest first;
+    - ``entries``: each group's union, ``block | mask << MASK_SHIFT``, bit m
+      of the mask set where member m holds the block;
+    - ``merges`` ``[n_merges, ITEM_INTS]``: a split group's layout head,
+      first slot, segment count, 0, and its warps' rows;
+    - ``heads``: the layout heads planned (1 where every head's layout is
+      the same); ``n_parts`` partial slots; ``limit`` the most entries a
+      segment holds; ``stats`` for the records."""
+    items: object
+    entries: object
+    merges: object
+    heads: int
+    n_parts: int
+    limit: int
+    stats: dict
+
+    def to(self, device) -> "SplashPlan":
+        def put(a):
+            a = a if len(a) else np.zeros((1, ) + a.shape[1:], np.int32)
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+        return dataclasses.replace(self, items=put(self.items), entries=put(self.entries),
+                                   merges=put(self.merges))
+
+    @property
+    def n_items(self) -> int:
+        return int(self.stats["items"])
+
+    @property
+    def n_merges(self) -> int:
+        return int(self.stats["split_groups"])
+
+    @property
+    def cap(self) -> int:
+        """The most entries one item sweeps (the kernels stage them in
+        shared memory)."""
+        return int(self.stats["widest_segment"])
+
+
+def _group_order(lay: np.ndarray, members: int, block: int) -> np.ndarray:
+    """The order in which one head's block rows are cut into groups of
+    ``members``: as they lie (neighbours share windows: fixed's local
+    windows, the sliding windows) or widest first, then by first entry
+    (nested rows: fixed's transposed global columns), whichever sweeps
+    fewer stages."""
+    nb = lay.shape[0]
+    counts = lay.sum(1)
+    first = np.where(counts > 0, lay.argmax(1), nb)
+    best = None
+    for order in (np.arange(nb), np.lexsort((np.arange(nb), first, -counts))):
+        pad = np.concatenate([lay[order], np.zeros((-nb % members, nb), bool)])
+        unions = pad.reshape(-1, members, nb).any(1).sum(1)
+        cost = int(sweep_stages(unions, block).sum())
+        if best is None or cost < best[0]:
+            best = (cost, order)
+    return best[1]
+
+
+def plan_splash(layout: np.ndarray, block: int, limit: Optional[int] = None) -> SplashPlan:
+    """Plan the sweep over ``layout`` ``[Lh, nb, nb]`` (the forward's; pass
+    its transpose for dk/dv): groups of ``GROUP_ROWS // block`` block rows
+    (one for block 64, and two 64-row halves of one row for block 128), the
+    sorted union of each group's blocks with each entry's members, each
+    union longer than ``limit`` entries cut into near-equal segments
+    (aligned to whole stages where that stays within the limit), and the
+    items ordered longest first. ``limit=None`` takes the default: a
+    segment holds at most 1 / SEGMENT_SHARE of the plan's stages and no
+    fewer than MIN_SEGMENT_STAGES."""
+    lay = np.asarray(layout).astype(bool)
+    if all((lay[h] == lay[0]).all() for h in range(1, lay.shape[0])):
+        lay = lay[:1]  # one plan serves every head
+    Lh, nb, _ = lay.shape
+    members = max(1, GROUP_ROWS // block)
+    halves = max(1, block // GROUP_ROWS)
+    eps, spe = entries_per_stage(block), stages_per_entry(block)
+    warps = GROUP_ROWS // WARP_ROWS
+    per_member = warps // members  # warps a member's rows take
+
+    groups, unions, entries = [], [], []  # (head, warp rows, first entry, n)
+    held = off = 0
+    for h in range(Lh):
+        order = _group_order(lay[h], members, block)
+        for g0 in range(0, nb, members):
+            rows = order[g0:g0 + members]
+            sub = lay[h, rows]
+            union = np.flatnonzero(sub.any(0))
+            masks = (sub[:, union].astype(np.int64) << np.arange(len(rows))[:, None]).sum(0)
+            entries.append(union.astype(np.int64) | (masks << MASK_SHIFT))
+            unions.append(len(union))
+            held += int(sub.sum())
+            for half in range(halves):
+                wrows = [int(rows[w // per_member]) * block + half * GROUP_ROWS
+                         + (w % per_member) * WARP_ROWS if w // per_member < len(rows) else -1
+                         for w in range(warps)]
+                groups.append((h, wrows, off, len(union)))
+            off += len(union)
+    stages = sweep_stages([n for *_, n in groups], block)
+    if limit is None:
+        seg_stages = max(MIN_SEGMENT_STAGES, -(-int(stages.sum()) // SEGMENT_SHARE))
+        limit = max(1, seg_stages * eps // spe)
+    if limit < 1:
+        raise ValueError(f"plan_splash: limit must be at least 1, got {limit}")
+    limit = min(limit, MAX_SEGMENT_ENTRIES)
+
+    items, merges, parts = [], [], 0
+    for h, wrows, e0, n in groups:
+        if n <= limit:
+            items.append([h, e0, e0 + n, -1, *wrows])
+            continue
+        seg = -(-n // -(-n // limit))
+        if -(-seg // eps) * eps <= limit:
+            seg = -(-seg // eps) * eps
+        nseg = -(-n // seg)
+        for k in range(nseg):
+            items.append([h, e0 + k * seg, e0 + min(n, (k + 1) * seg), parts + k, *wrows])
+        merges.append([h, parts, nseg, 0, *wrows])
+        parts += nseg
+    items = np.asarray(items, np.int32).reshape(-1, ITEM_INTS)
+    cost = sweep_stages(items[:, 2] - items[:, 1], block)
+    items = items[np.argsort(-cost, kind="stable")]
+    split = items[:, 3] >= 0
+    stats = {"items": len(items), "groups": len(groups), "split_groups": len(merges),
+             "segments": int(split.sum()),
+             "widest_segment": int((items[:, 2] - items[:, 1]).max()),
+             "stages": int(cost.sum()), "longest_item_stages": int(cost.max()),
+             "union_share": float(sum(unions)) / max(1, held), "limit": int(limit)}
+    return SplashPlan(items, np.concatenate(entries).astype(np.int32) if entries else
+                      np.zeros(0, np.int32),
+                      np.asarray(merges, np.int32).reshape(-1, ITEM_INTS), Lh, parts,
+                      int(limit), stats)
+
+
 @dataclasses.dataclass(frozen=True)
 class SplashTables:
     """One layout on one device: the layout itself (bool ``[Lh, nb, nb]``,
-    for the plain versions), the block size, and the kernels' int32 block
-    tables of the layout and of its transpose."""
+    for the plain versions), the block size, the dq kernel's int32 block
+    table of the layout, and the device plans of the forward (``plan``)
+    and of the dk/dv pass (``plan_t``, over the transposed layout; both
+    None for a block the kernels do not take)."""
     layout: torch.Tensor
     block: int
     table: torch.Tensor
     counts: torch.Tensor
-    table_t: torch.Tensor
-    counts_t: torch.Tensor
+    plan: Optional[SplashPlan]
+    plan_t: Optional[SplashPlan]
 
     @staticmethod
-    def build(layout: np.ndarray, block: int, device) -> "SplashTables":
+    def build(layout: np.ndarray, block: int, device,
+              limit: Optional[int] = None) -> "SplashTables":
         lay = np.ascontiguousarray(np.asarray(layout).astype(bool))
         table, counts = build_block_table(lay)
-        table_t, counts_t = build_block_table(lay.transpose(0, 2, 1))
         dev = torch.device(device)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        return SplashTables(put(lay), int(block), put(table), put(counts),
-                            put(table_t), put(counts_t))
+        plans = [plan_splash(x, block, limit).to(dev) if block in KERNEL_BLOCKS else None
+                 for x in (lay, lay.transpose(0, 2, 1))]
+        return SplashTables(put(lay), int(block), put(table), put(counts), *plans)
 
 
 def _scale(q, scale):
@@ -251,31 +443,105 @@ def _check_cuda(name, q, tables, tensors):
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _launch(name, fn, q, tables, transposed, *ptrs, scale):
-    B, H, S, D = q.shape
-    table, counts = ((tables.table_t, tables.counts_t) if transposed
-                     else (tables.table, tables.counts))
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _partials(q, plan, per_row):
+    """fp32 partials of a plan's split groups, ``[replicas, slots, 64,
+    per_row]`` (``B * H / heads`` replicas of the plan's heads); None
+    without a split."""
+    if not plan.n_parts:
+        return None
+    B, H = q.shape[:2]
+    return torch.empty(B * H // plan.heads, plan.n_parts, GROUP_ROWS, per_row,
+                       dtype=torch.float32, device=q.device)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def splash_fwd_sweep(q, k, v, tables: SplashTables, scale: Optional[float] = None):
+    """K8 forward's grouped sweep alone (kernel ``dstt_splash_fwd`` over
+    ``tables.plan``): ``(o, lse, acc, ml)``, where the rows of split groups
+    are left to ``splash_fwd_merge`` and their segments' partials are in
+    ``acc`` ``[replicas, slots, 64, D]`` and ``ml`` (max, sum) ``[...,
+    2]`` (both None without a split). Counts in
+    ``splash_attention_fwd.launches``."""
+    _check_cuda("splash_attention_fwd", q, tables, (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    plan, (B, H, S, D) = tables.plan, q.shape
+    acc, ml = _partials(q, plan, D), _partials(q, plan, 2)
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, table.data_ptr(), counts.data_ptr(), B * H, S, D,
-                 table.shape[0], table.shape[2], tables.block, float(scale),
-                 _build.dtype_code(q.dtype),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, name)
+        err = _build.lib().dstt_splash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            plan.items.data_ptr(), plan.entries.data_ptr(), plan.n_items, plan.cap, B * H, S,
+            D, plan.heads, tables.block, _scale(q, scale), _build.dtype_code(q.dtype), _ptr(acc),
+            _ptr(ml), plan.n_parts, _stream(q))
+    _build.check(err, "splash_attention_fwd")
+    splash_attention_fwd.launches += 1
+    return o, lse, acc, ml
 
 
 def splash_attention_fwd(q, k, v, tables: SplashTables,
                          scale: Optional[float] = None):
-    """K8 forward (kernel ``dstt_splash_fwd``): ``(o, lse)``."""
+    """K8 forward (``splash_fwd_sweep``, then ``splash_fwd_merge`` where
+    the plan splits a group): ``(o, lse)``."""
     if q.device.type == "cpu":
         return splash_attention_fwd_reference(q, k, v, tables, tables.block, scale)
-    _check_cuda("splash_attention_fwd", q, tables, (q, k, v))
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("splash_attention_fwd", _build.lib().dstt_splash_fwd, q, tables, False,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            scale=_scale(q, scale))
-    splash_attention_fwd.launches += 1
+    o, lse, acc, ml = splash_fwd_sweep(q, k, v, tables, scale)
+    if tables.plan.n_merges:
+        splash_fwd_merge(o, lse, tables.plan, acc, ml)
     return o, lse
+
+
+def split_groups(plan, shape, device):
+    """Each split group of ``plan`` in each replica, over outputs of
+    ``shape`` ``[B, H, S, ...]``: (replica, the group's 64 rows in the
+    flattened ``[B * H * S]`` rows, -1 where a warp has none, its partial
+    slots in segment order)."""
+    B, H, S = shape[:3]
+    for h, p0, nseg, _, *wrows in plan.merges[:plan.n_merges].tolist():
+        for rep in range(B * H // plan.heads):
+            base = (rep * plan.heads + h) * S
+            rows = [base + w + i if w >= 0 else -1 for w in wrows for i in range(WARP_ROWS)]
+            yield rep, torch.tensor(rows, device=device), list(range(p0, p0 + nseg))
+
+
+def splash_fwd_merge_reference(o, lse, plan: SplashPlan, acc, ml):
+    """Plain merge of the split rows, in place: the segments' (max, sum,
+    accumulator) rescaled to their largest max in fp32; o = 0 and
+    ``LSE_EMPTY`` where no segment saw a key."""
+    of, lf = o.view(-1, o.shape[-1]), lse.view(-1)
+    for rep, rows, slots in split_groups(plan, o.shape, o.device):
+        l = ml[rep, slots, :, 1]
+        m = torch.where(l > 0, ml[rep, slots, :, 0], -float("inf"))
+        top = m.amax(0)
+        f = torch.where(l > 0, torch.exp(m - top), 0.0)
+        L = (l * f).sum(0)
+        total = (acc[rep, slots] * f[..., None]).sum(0)
+        keep = rows >= 0
+        of[rows[keep]] = torch.where(L[:, None] > 0, total / L[:, None], 0.0)[keep].to(o.dtype)
+        lf[rows[keep]] = torch.where(L > 0, top + torch.log(L), LSE_EMPTY)[keep]
+
+
+def splash_fwd_merge(o, lse, plan: SplashPlan, acc, ml):
+    """The forward's second pass (kernel ``dstt_splash_fwd_merge``): each
+    split group's rows from their segments' partials, in segment order, as
+    K4's decode merges its page splits; o rounded once, lse = max +
+    log(sum), and ``LSE_EMPTY`` with o = 0 where no segment saw a key."""
+    if o.device.type == "cpu":
+        return splash_fwd_merge_reference(o, lse, plan, acc, ml)
+    B, H, S, D = o.shape
+    with torch.cuda.device(o.device):
+        err = _build.lib().dstt_splash_fwd_merge(
+            o.data_ptr(), lse.data_ptr(), plan.merges.data_ptr(), plan.n_merges, B * H, S, D,
+            plan.heads, _build.dtype_code(o.dtype), acc.data_ptr(), ml.data_ptr(),
+            plan.n_parts, _stream(o))
+    _build.check(err, "splash_fwd_merge")
+    splash_fwd_merge.launches += 1
 
 
 def splash_attention_bwd_dq(q, k, v, do, lse, delta, tables: SplashTables,
@@ -286,31 +552,90 @@ def splash_attention_bwd_dq(q, k, v, do, lse, delta, tables: SplashTables,
                                                  tables.block, scale)
     _check_cuda("splash_attention_bwd_dq", q, tables, (q, k, v, do, lse, delta))
     dq = torch.empty_like(q)
-    _launch("splash_attention_bwd_dq", _build.lib().dstt_splash_bwd_dq, q, tables,
-            False, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), scale=_scale(q, scale))
+    B, H, S, D = q.shape
+    with torch.cuda.device(q.device):
+        err = _build.lib().dstt_splash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), tables.table.data_ptr(),
+            tables.counts.data_ptr(), B * H, S, D, tables.table.shape[0],
+            tables.table.shape[2], tables.block, _scale(q, scale), _build.dtype_code(q.dtype),
+            _stream(q))
+    _build.check(err, "splash_attention_bwd_dq")
     splash_attention_bwd_dq.launches += 1
     return dq
 
 
+def splash_dkdv_sweep(q, k, v, do, lse, delta, tables: SplashTables,
+                      scale: Optional[float] = None):
+    """K8 dk/dv's grouped sweep alone (kernel ``dstt_splash_bwd_dkdv`` over
+    ``tables.plan_t``): ``(dk, dv, pk, pv)``, where the keys of split groups
+    are left to ``splash_dkdv_sum`` and their segments' fp32 partials are
+    in ``pk`` and ``pv`` ``[replicas, slots, 64, D]`` (None without a
+    split). Counts in ``splash_attention_bwd_dkdv.launches``."""
+    _check_cuda("splash_attention_bwd_dkdv", q, tables, (q, k, v, do, lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    plan, (B, H, S, D) = tables.plan_t, q.shape
+    pk, pv = _partials(q, plan, D), _partials(q, plan, D)
+    with torch.cuda.device(q.device):
+        err = _build.lib().dstt_splash_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), plan.items.data_ptr(),
+            plan.entries.data_ptr(), plan.n_items, plan.cap, B * H, S, D, plan.heads,
+            tables.block,
+            _scale(q, scale), _build.dtype_code(q.dtype), _ptr(pk), _ptr(pv), plan.n_parts,
+            _stream(q))
+    _build.check(err, "splash_attention_bwd_dkdv")
+    splash_attention_bwd_dkdv.launches += 1
+    return dk, dv, pk, pv
+
+
 def splash_attention_bwd_dkdv(q, k, v, do, lse, delta, tables: SplashTables,
                               scale: Optional[float] = None):
-    """K8 dk/dv pass over the transposed table (kernel
-    ``dstt_splash_bwd_dkdv``): ``(dk, dv)``."""
+    """K8 dk/dv pass over the transposed layout's plan
+    (``splash_dkdv_sweep``, then ``splash_dkdv_sum`` where the plan splits
+    a group): ``(dk, dv)``."""
     if q.device.type == "cpu":
         return splash_attention_bwd_dkdv_reference(q, k, v, do, lse, delta, tables,
                                                    tables.block, scale)
-    _check_cuda("splash_attention_bwd_dkdv", q, tables, (q, k, v, do, lse, delta))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("splash_attention_bwd_dkdv", _build.lib().dstt_splash_bwd_dkdv, q, tables,
-            True, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scale=_scale(q, scale))
-    splash_attention_bwd_dkdv.launches += 1
+    dk, dv, pk, pv = splash_dkdv_sweep(q, k, v, do, lse, delta, tables, scale)
+    if tables.plan_t.n_merges:
+        splash_dkdv_sum(dk, dv, tables.plan_t, pk, pv)
     return dk, dv
 
 
-for _fn in (splash_attention_fwd, splash_attention_bwd_dq, splash_attention_bwd_dkdv):
+def splash_dkdv_sum_reference(dk, dv, plan: SplashPlan, pk, pv):
+    """Plain sum of the split keys, in place: each one's fp32 partials
+    added in segment order, rounded once."""
+    for out, part in ((dk, pk), (dv, pv)):
+        flat = out.view(-1, out.shape[-1])
+        for rep, rows, slots in split_groups(plan, out.shape, out.device):
+            total = torch.zeros_like(part[rep, 0])
+            for slot in slots:
+                total += part[rep, slot]
+            keep = rows >= 0
+            flat[rows[keep]] = total[keep].to(out.dtype)
+
+
+def splash_dkdv_sum(dk, dv, plan: SplashPlan, pk, pv):
+    """The dk/dv pass's second pass (kernel ``dstt_splash_dkdv_sum``):
+    each split group's fp32 partials summed in segment order and rounded
+    once to k's dtype."""
+    if dk.device.type == "cpu":
+        return splash_dkdv_sum_reference(dk, dv, plan, pk, pv)
+    B, H, S, D = dk.shape
+    with torch.cuda.device(dk.device):
+        err = _build.lib().dstt_splash_dkdv_sum(
+            dk.data_ptr(), dv.data_ptr(), plan.merges.data_ptr(), plan.n_merges, B * H, S, D,
+            plan.heads, _build.dtype_code(dk.dtype), pk.data_ptr(), pv.data_ptr(),
+            plan.n_parts, _stream(dk))
+    _build.check(err, "splash_dkdv_sum")
+    splash_dkdv_sum.launches += 1
+
+
+# every K8 kernel's launch counter, by wrapper
+KERNEL_COUNTERS = (splash_attention_fwd, splash_fwd_merge, splash_attention_bwd_dq,
+                   splash_attention_bwd_dkdv, splash_dkdv_sum)
+for _fn in KERNEL_COUNTERS:
     _fn.launches = 0
 
 
@@ -338,8 +663,8 @@ class _Splash(torch.autograd.Function):
 @functools.lru_cache(maxsize=64)
 def _cached_splash_fn(layout_bytes: bytes, layout_shape, block: int,
                       scale: float, device: str):
-    """The block tables (host Python loop, then one copy to ``device``) and
-    the differentiable function over them, cached per (layout, block,
+    """The block table and plans (host loops, then one copy to ``device``)
+    and the differentiable function over them, cached per (layout, block,
     scale, device): eager loops must not rebuild them every call."""
     layout = np.frombuffer(layout_bytes, dtype=np.bool_).reshape(layout_shape)
     tables = SplashTables.build(layout, block, device)

@@ -13,7 +13,8 @@ queries (FP32): Gemma-2's 768-row chunk at 3700 deep on a global and on a
 window layer and its decode step over an fp32 cache, Llama's 768-row
 chunk 2200 deep and its decode step over an int8 cache.
 
-    python3 flash_ab.py TREE TAG [--flex] [--fp32] [--fp32-engine]
+    python3 flash_ab.py TREE TAG [--flex] [--fp32] [--fp32-engine] [--k8]
+                             [--k8-limits=N,N,...]
 
 TREE is the root of a checkout (this one: ``.``; another commit: unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists,
@@ -26,6 +27,12 @@ keys gathered into contiguous K/V (the cap and the window as its
 fp32 engine as chip_smoke.py's ``serving_gemma2`` builds it (full depth,
 the weights as first drawn), timing each forward of its 5120-token
 prompt's prefill, fed twice in 768-token chunks, and of one decode step.
+``--k8`` runs K8 alone instead: its forward, dk/dv and, as a control, dq
+at chip_smoke.py's ``SPLASH_SHAPE`` under its four layouts (fixed,
+BigBird, Longformer at block 16, fixed at block 64), each pass's time,
+bound and row error against its plain version, with the plans' shape where
+the tree has them; ``--k8-limits`` repeats the cases at those segment
+limits (a tree whose ``SplashTables.build`` takes ``limit``).
 Prints one JSON line tagged TAG. To compare two commits on one card, run them in turns in one
 command: parent, change, change, parent.
 """
@@ -105,6 +112,51 @@ FP32 = (
      True),
     ("llama_decode_fp32_int8", DECODE_SEEN["llama"], [1] * 8, 1, 17, "llama", True, True),
 )
+
+
+def k8_case(cs, gen, name, config, block, limit=None):
+    """K8's forward, dq and dk/dv in bf16 at ``SPLASH_SHAPE`` under one
+    layout: each pass's ms (a CUDA graph of 20 calls; ``events_ms``: CUDA
+    events around 20 calls through the wrapper), its bound (the larger of
+    each input read once and each output written once at 3.35 TB/s and its
+    operations, 4·D / 6·D / 8·D per active pair, at 989 TFLOP/s; the block
+    tables' few KB left out) and its largest row error against the plain
+    version (the backward passes take the plain forward's lse)."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import attention_delta
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as sp
+    B, H, S, D = (cs.SPLASH_SHAPE[k] for k in ("B", "H", "S", "D"))
+    _, layout = cs.splash_layout(config, block)
+    tables = sp.SplashTables.build(layout, block, "cuda",
+                                   **({} if limit is None else {"limit": limit}))
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o_ref, lse_ref = sp.splash_attention_fwd_reference(q, k, v, layout, block)
+    args = (q, k, v, do, lse_ref, attention_delta(o_ref, do))
+    passes = {
+        "fwd": (lambda: sp.splash_attention_fwd(q, k, v, tables), 4, [o_ref]),
+        "dq": (lambda: sp.splash_attention_bwd_dq(*args, tables), 6,
+               [sp.splash_attention_bwd_dq_reference(*args, layout, block)]),
+        "dkdv": (lambda: sp.splash_attention_bwd_dkdv(*args, tables), 8,
+                 list(sp.splash_attention_bwd_dkdv_reference(*args, layout, block)))}
+    pairs = int(layout.sum()) * (B * H // layout.shape[0]) * block * block
+    qb, rb = B * H * S * D * 2, B * H * S * 4
+    moved = {"fwd": 4 * qb + rb, "dq": 5 * qb + 2 * rb, "dkdv": 6 * qb + 2 * rb}
+    floor = 2.0 ** -16 / cs.FLASH_ROW_TOL["bfloat16"]
+    rec = {"case": name, "layout": config, "block": block, "limit": limit}
+    if hasattr(tables, "plan"):
+        rec["plan"] = {"fwd": tables.plan.stats, "dkdv": tables.plan_t.stats}
+    for key, (fn, ops, want) in passes.items():
+        out = fn()
+        got = [out] if torch.is_tensor(out) else list(out)[:len(want)]
+        torch.cuda.synchronize()
+        bound = max(ops * D * pairs / cs.BF16_FLOPS, moved[key] / cs.HBM_BYTES_PER_S) * 1e3
+        rec[key] = {"ms": cs.graph_time_ms(fn), "events_ms": cs.time_ms(fn), "bound_ms": bound,
+                    "row_rel_err": max(cs.row_rel_err(x, r, floor) for x, r in zip(got, want))}
+        del out, got
+    del q, k, v, do, o_ref, lse_ref, args, passes, tables
+    cs.free_memory()
+    return rec
 
 
 def paged_kw(cs, kind):
@@ -204,6 +256,16 @@ def main() -> int:
     gen, gen32 = torch.Generator(device="cuda"), torch.Generator(device="cuda")
     gen.manual_seed(7)
     gen32.manual_seed(8)  # the fp32 cases' own: the others' inputs stay as they were
+    if "--k8" in sys.argv:
+        limits = [None] + [int(x) for a in sys.argv if a.startswith("--k8-limits=")
+                           for x in a.split("=", 1)[1].split(",")]
+        out["k8"] = []
+        for limit in limits:
+            gen.manual_seed(13)  # every tree and limit on the same inputs
+            out["k8"] += [k8_case(cs, gen, name, config, block, limit)
+                          for name, config, block in cs.SPLASH_LAYOUTS]
+        print(json.dumps(out), flush=True)
+        return 0
     for name, seen, n_new, N, B, kind, int8, graph in FP32:
         r = cs._paged_case(gen32, name, seen, n_new, N=N, B=B, graph=graph, int8=int8,
                            dtype=torch.float32, **paged_kw(cs, kind))

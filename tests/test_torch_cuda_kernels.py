@@ -1298,7 +1298,20 @@ SPLASH = {
     "f16_b32_d64": (1, 4, 4, 512, 64, 32, "variable", torch.float16),
     "f16_b64_d16": (2, 2, 1, 512, 16, 64, "fixed", torch.float16),
     "f16_b128_d32": (1, 2, 2, 512, 32, 128, "longformer", torch.float16),
+    # block 16 with long rows under each family's defaults: BigBird's and
+    # Longformer's global block, fixed's 4 local blocks (bidirectional), so
+    # that groups share blocks and the plans split rows into segments
+    "bf16_b16_bigbird_global": (1, 4, 4, 2048, 64, 16, "bigbird_global", torch.bfloat16),
+    "bf16_b16_longformer_global": (2, 2, 1, 2048, 64, 16, "longformer_global",
+                                   torch.bfloat16),
+    "bf16_b16_fixed_local4": (1, 4, 4, 2048, 64, 16, "fixed_local4", torch.bfloat16),
+    "f16_b16_longformer_global_d128": (1, 2, 2, 2048, 128, 16, "longformer_global",
+                                       torch.float16),
+    "f32_b16_bigbird_global_d32": (1, 2, 2, 2048, 32, 16, "bigbird_global", torch.float32),
 }
+# the cases whose plans split a row (forward) or a key block (dk/dv)
+SPLASH_SPLIT = ("bf16_b16_bigbird_global", "bf16_b16_longformer_global", "bf16_b16_fixed_local4",
+                "f16_b16_longformer_global_d128", "f32_b16_bigbird_global_d32")
 
 
 def _splash_layout(family, heads, block, S):
@@ -1310,7 +1323,10 @@ def _splash_layout(family, heads, block, S):
            "longformer": lambda: sc.BSLongformerSparsityConfig(
                global_block_indices=[0, 2], **kw),
            "variable": lambda: sc.VariableSparsityConfig(
-               num_random_blocks=1, local_window_blocks=[1, 2], **kw)}[family]()
+               num_random_blocks=1, local_window_blocks=[1, 2], **kw),
+           "bigbird_global": lambda: sc.BigBirdSparsityConfig(**kw),
+           "longformer_global": lambda: sc.BSLongformerSparsityConfig(**kw),
+           "fixed_local4": lambda: sc.FixedSparsityConfig(**kw)}[family]()
     return cfg.make_layout(S)
 
 
@@ -1320,11 +1336,16 @@ def _splash_inputs(B, H, S, D, dtype, device, seed):
             .to(device, dtype) for _ in range(4)]
 
 
-def _check_splash(q, k, v, do, layout, block):
-    tables = sp.SplashTables.build(layout, block, q.device)
+def _check_splash(q, k, v, do, layout, block, limit=None):
+    """Each K8 pass against its plain version on identical inputs; each
+    kernel launches once, the merge and the sum once where the plans split
+    a group."""
+    tables = sp.SplashTables.build(layout, block, q.device, limit)
     kernels = (sp.splash_attention_fwd, sp.splash_attention_bwd_dq,
-               sp.splash_attention_bwd_dkdv)
+               sp.splash_attention_bwd_dkdv, sp.splash_fwd_merge, sp.splash_dkdv_sum)
     before = [f.launches for f in kernels]
+    after = [b + n for b, n in zip(before, (1, 1, 1, int(tables.plan.n_merges > 0),
+                                           int(tables.plan_t.n_merges > 0)))]
     o, lse = sp.splash_attention_fwd(q, k, v, tables)
     o_ref, lse_ref = sp.splash_attention_fwd_reference(q, k, v, layout, block)
     delta = attention_delta(o_ref, do)
@@ -1335,7 +1356,7 @@ def _check_splash(q, k, v, do, layout, block):
     dk_ref, dv_ref = sp.splash_attention_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
                                                             layout, block)
     torch.cuda.synchronize()
-    assert [f.launches for f in kernels] == [b + 1 for b in before]
+    assert [f.launches for f in kernels] == after
     assert_rows_close(o, o_ref, "o")
     seen = lse_ref < sp.LSE_EMPTY
     torch.testing.assert_close(lse[seen], lse_ref[seen], atol=1e-4, rtol=1e-5)
@@ -1350,11 +1371,48 @@ def _check_splash(q, k, v, do, layout, block):
 def test_splash_kernels_match_plain(case, cuda_device):
     """K8's forward, dq and dk/dv against their plain versions on identical
     inputs (the backward passes take the plain forward's lse), row by row
-    with the flash tolerances; each launches once."""
+    with the flash tolerances; each launches once (the merge and the sum
+    where a plan splits)."""
     B, H, Lh, S, D, block, family, dtype = SPLASH[case]
     layout = _splash_layout(family, Lh, block, S)
     q, k, v, do = _splash_inputs(B, H, S, D, dtype, cuda_device, sorted(SPLASH).index(case))
+    if case in SPLASH_SPLIT:
+        tables = sp.SplashTables.build(layout, block, cuda_device)
+        assert tables.plan.n_merges + tables.plan_t.n_merges > 0
     _check_splash(q, k, v, do, layout, block)
+
+
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_splash_every_union_split(block, dtype, cuda_device):
+    """A plan limited to one block a segment (every union of two or more
+    blocks split, the merge and the sum over many segments) against the
+    plain versions."""
+    nb, H, D = 6, 2, 64
+    layout = _splash_layout("bigbird", H, block, nb * block)
+    q, k, v, do = _splash_inputs(2, H, nb * block, D, dtype, cuda_device, 40 + block)
+    tables = sp.SplashTables.build(layout, block, cuda_device, 1)
+    assert tables.plan.n_merges and tables.plan_t.n_merges
+    _check_splash(q, k, v, do, layout, block, limit=1)
+
+
+@pytest.mark.parametrize("case", SPLASH_SPLIT[:2])
+def test_splash_is_deterministic(case, cuda_device):
+    """Two launches of the forward and of dk/dv on the same inputs give the
+    same bits: split groups are merged and summed in segment order, with
+    no float atomics."""
+    B, H, Lh, S, D, block, family, dtype = SPLASH[case]
+    layout = _splash_layout(family, Lh, block, S)
+    q, k, v, do = _splash_inputs(B, H, S, D, dtype, cuda_device, 7)
+    tables = sp.SplashTables.build(layout, block, cuda_device)
+    assert tables.plan.n_merges and tables.plan_t.n_merges
+    o, lse = sp.splash_attention_fwd(q, k, v, tables)
+    delta = attention_delta(o, do)
+    first = [o, lse, *sp.splash_attention_bwd_dkdv(q, k, v, do, lse, delta, tables)]
+    again = [*sp.splash_attention_fwd(q, k, v, tables),
+             *sp.splash_attention_bwd_dkdv(q, k, v, do, lse, delta, tables)]
+    for name, a, b in zip(("o", "lse", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("block", [16, 64, 128])

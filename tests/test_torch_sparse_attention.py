@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import (SparseSelfAttention,
                                                       sparse_attention, splash_flops,
                                                       splash_sparse_attention)
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
+from deepspeed_tpu_torch.ops.sparse_attention import splash as sp
 from deepspeed_tpu_torch.ops.sparse_attention.splash import (
     LSE_EMPTY, SplashTables, splash_attention_fwd)
 
@@ -278,3 +279,262 @@ def test_splash_flops_matches_jax(fam):
     case = dict(fam=fam, heads=4, block=16, blocks=16, seed=0)
     layout = _config(tsc, case).make_layout(256)
     assert splash_flops(layout, 16, 64, batch=4) == jax_flops(layout, 16, 64, batch=4)
+
+
+# ---- the plan of K8's grouped forward and dk/dv sweeps ----
+
+def _smoke_layouts():
+    """chip_smoke.py's geometry (S 4096, block 16, H 16) under each family's
+    default config, layouts only."""
+    configs = {"fixed": tsc.FixedSparsityConfig, "bigbird": tsc.BigBirdSparsityConfig,
+               "longformer": tsc.BSLongformerSparsityConfig,
+               "variable": tsc.VariableSparsityConfig}
+    return {fam: cfg(num_heads=16, block=16).make_layout(4096) for fam, cfg in configs.items()}
+
+
+def _coverage(plan, block, nb):
+    """How often the plan sweeps each (layout head, 16-row slice of a block
+    row, block) of its layout: [heads, nb * block / 16, nb]."""
+    warp_rows, members = sp.WARP_ROWS, max(1, sp.GROUP_ROWS // block)
+    warps = sp.GROUP_ROWS // warp_rows
+    seen = np.zeros((plan.heads, nb * block // warp_rows, nb), np.int64)
+    for h, e0, e1, _, *wrows in plan.items:
+        ent = plan.entries[e0:e1]
+        blocks, masks = ent & ((1 << sp.MASK_SHIFT) - 1), ent >> sp.MASK_SHIFT
+        for w, row in enumerate(wrows):
+            if row < 0:
+                continue
+            held = blocks[(masks >> (w * members // warps)) & 1 == 1]
+            np.add.at(seen[h, row // warp_rows], held, 1)
+    return seen
+
+
+def _check_plan(layout, block, limit=None):
+    """The forward's and dk/dv's plans of ``layout``, each checked."""
+    lay = np.asarray(layout).astype(bool)
+    nb = lay.shape[1]
+    plans = []
+    for sweep in (lay, lay.transpose(0, 2, 1)):
+        plan = sp.plan_splash(sweep, block, limit)
+        want = sweep[:plan.heads].repeat(block // sp.WARP_ROWS, axis=1)
+        if plan.heads == 1:
+            assert all((sweep[h] == sweep[0]).all() for h in range(len(sweep)))
+        # every active (row, block) pair exactly once, nothing else
+        np.testing.assert_array_equal(_coverage(plan, block, nb), want)
+        lengths = plan.items[:, 2] - plan.items[:, 1]
+        assert lengths.max() <= plan.limit
+        cost = sp.sweep_stages(lengths, block)
+        assert (np.diff(cost) <= 0).all(), "the longest items come first"
+        # the segments of each split group: consecutive slots that tile its union
+        for h, p0, nseg, _, *wrows in plan.merges:
+            segs = plan.items[(plan.items[:, 3] >= p0) & (plan.items[:, 3] < p0 + nseg)]
+            segs = segs[np.argsort(segs[:, 3])]
+            assert len(segs) == nseg >= 2 and (segs[:, 0] == h).all()
+            assert (segs[:, 4:] == wrows).all()
+            assert (segs[1:, 1] == segs[:-1, 2]).all()
+        assert plan.n_parts == int(plan.merges[:, 2].sum())
+        assert plan.stats["segments"] == plan.n_parts
+        plans.append(plan)
+    return plans
+
+
+@pytest.mark.parametrize("fam", ["fixed", "bigbird", "longformer", "variable"])
+def test_plan_covers_the_smoke_layouts(fam):
+    """At chip_smoke.py's geometry each active (row, block) pair of each
+    pass is swept exactly once, no segment passes the limit, and the
+    longest work items come first."""
+    _check_plan(_smoke_layouts()[fam], 16)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_plan_covers_the_fuzz_layouts(case):
+    layout = _config(tsc, case).make_layout(case["block"] * case["blocks"])
+    _check_plan(layout, case["block"])
+    _check_plan(layout, case["block"], limit=1)  # every union cut to single blocks
+
+
+def test_plan_groups_share_blocks():
+    """Fixed's forward groups are its local windows (four identical rows:
+    union/sum 0.25); its transposed global columns nest, and grouping them
+    widest first sweeps fewer stages than grouping neighbours; BigBird's and
+    Longformer's global rows are split over several thread blocks."""
+    lay = _smoke_layouts()
+    fwd = sp.plan_splash(lay["fixed"], 16)
+    assert fwd.stats["union_share"] == 0.25 and fwd.heads == 1
+    t = sp.plan_splash(lay["fixed"].transpose(0, 2, 1), 16)
+    neighbours = np.asarray(lay["fixed"][0].T, bool).reshape(-1, 4, 256).any(1).sum(1)
+    assert t.stats["stages"] < sp.sweep_stages(neighbours, 16).sum()
+    assert t.stats["union_share"] < 0.3
+    for fam in ("bigbird", "longformer"):
+        plan = sp.plan_splash(lay[fam], 16)
+        assert plan.stats["split_groups"] == 1 and plan.stats["segments"] >= 2
+        assert plan.stats["widest_segment"] < 256
+
+
+def _emulate_fwd(q, k, v, layout, block, plan, scale):
+    """The planned forward sweep as the kernel runs it: each item's warps
+    step through its stages of 64 keys, a running max, sum and accumulator
+    updated once a stage over the 16-key chunks its member holds; a split
+    group's segments merged in segment order. q, k, v: [BH, S, D] fp32."""
+    BH, S, D = q.shape
+    reps, (eps, spe) = BH // plan.heads, (sp.entries_per_stage(block),
+                                          sp.stages_per_entry(block))
+    members, mask = max(1, sp.GROUP_ROWS // block), (1 << sp.MASK_SHIFT) - 1
+    rows_, warps = sp.GROUP_ROWS, sp.GROUP_ROWS // sp.WARP_ROWS
+    o, lse = torch.full_like(q, float("nan")), torch.full((BH, S), float("nan"))
+    parts = {}
+    for h, e0, e1, part, *wrows in plan.items:
+        for rep in range(reps):
+            bh = rep * plan.heads + h
+            m = torch.full((rows_, ), -float("inf"))
+            l, acc = torch.zeros(rows_), torch.zeros(rows_, D)
+            for t in range(int(sp.sweep_stages(e1 - e0, block))):
+                for w, row in enumerate(wrows):
+                    keys = []
+                    for c in range(4):
+                        e = e0 + t * eps + c * 16 // block if block <= 64 else e0 + t // spe
+                        off = c * 16 % block if block <= 64 else t % spe * 64 + c * 16
+                        if row >= 0 and e < e1 and (plan.entries[e] >> sp.MASK_SHIFT
+                                                    >> (w * members // warps)) & 1:
+                            keys.append((plan.entries[e] & mask) * block + off
+                                        + torch.arange(16))
+                    if not keys:
+                        continue
+                    r = slice(16 * w, 16 * w + 16)
+                    s = q[bh, row:row + 16] @ k[bh, torch.cat(keys)].T * scale
+                    m_new = torch.maximum(m[r], s.amax(1))
+                    p, corr = torch.exp(s - m_new[:, None]), torch.exp(m[r] - m_new)
+                    l[r] = l[r] * corr + p.sum(1)
+                    acc[r] = acc[r] * corr[:, None] + p @ v[bh, torch.cat(keys)]
+                    m[r] = m_new
+            if part >= 0:
+                parts[rep, part] = (m, l, acc)
+                continue
+            for w, row in enumerate(wrows):
+                if row >= 0:
+                    r = slice(16 * w, 16 * w + 16)
+                    o[bh, row:row + 16] = torch.where(l[r, None] > 0, acc[r] / l[r, None], 0.0)
+                    lse[bh, row:row + 16] = torch.where(l[r] > 0, m[r] + torch.log(l[r]),
+                                                        sp.LSE_EMPTY)
+    for h, p0, nseg, _, *wrows in plan.merges:
+        for rep in range(reps):
+            bh = rep * plan.heads + h
+            ms, ls, accs = (torch.stack(x) for x in zip(*(parts[rep, p0 + i]
+                                                          for i in range(nseg))))
+            top = torch.where(ls > 0, ms, -float("inf")).amax(0)
+            f = torch.where(ls > 0, torch.exp(ms - top), 0.0)
+            L, acc = (ls * f).sum(0), (accs * f[..., None]).sum(0)
+            for w, row in enumerate(wrows):
+                if row >= 0:
+                    r = slice(16 * w, 16 * w + 16)
+                    o[bh, row:row + 16] = torch.where(L[r, None] > 0, acc[r] / L[r, None], 0.0)
+                    lse[bh, row:row + 16] = torch.where(L[r] > 0, top[r] + torch.log(L[r]),
+                                                        sp.LSE_EMPTY)
+    return o, lse, _stack(parts, reps, plan.n_parts)
+
+
+def _stack(parts, reps, n_parts):
+    """The emulation's partials as the kernels' workspace tensors
+    ``[replicas, slots, 64, ...]``, one for each partial of a slot."""
+    return [torch.stack([torch.stack([parts[rep, p][i].reshape(sp.GROUP_ROWS, -1)
+                                      for p in range(n_parts)])
+                         for rep in range(reps)]) for i in range(len(parts[0, 0]))]
+
+
+def _emulate_dkdv(q, k, v, do, lse, delta, block, plan, scale):
+    """The planned dk/dv sweep over the transposed layout: each warp's 16
+    keys accumulate dv += P^T dO and dk += dS^T q over the 16-row chunks of
+    query rows its member holds; a split group's fp32 partials summed in
+    segment order."""
+    BH, S, D = q.shape
+    reps, (eps, spe) = BH // plan.heads, (sp.entries_per_stage(block),
+                                          sp.stages_per_entry(block))
+    members, mask = max(1, sp.GROUP_ROWS // block), (1 << sp.MASK_SHIFT) - 1
+    rows_, warps = sp.GROUP_ROWS, sp.GROUP_ROWS // sp.WARP_ROWS
+    dk, dv = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
+    parts = {}
+    for h, e0, e1, part, *wrows in plan.items:
+        for rep in range(reps):
+            bh = rep * plan.heads + h
+            gk, gv = torch.zeros(rows_, D), torch.zeros(rows_, D)
+            for t in range(int(sp.sweep_stages(e1 - e0, block))):
+                for w, row in enumerate(wrows):
+                    for c in range(4):
+                        e = e0 + t * eps + c * 16 // block if block <= 64 else e0 + t // spe
+                        off = c * 16 % block if block <= 64 else t % spe * 64 + c * 16
+                        if row < 0 or e >= e1 or not (plan.entries[e] >> sp.MASK_SHIFT
+                                                      >> (w * members // warps)) & 1:
+                            continue
+                        rows = (plan.entries[e] & mask) * block + off + torch.arange(16)
+                        kr, r = slice(row, row + 16), slice(16 * w, 16 * w + 16)
+                        pt = torch.exp(k[bh, kr] @ q[bh, rows].T * scale - lse[bh, rows])
+                        gv[r] += pt @ do[bh, rows]
+                        dst = pt * (v[bh, kr] @ do[bh, rows].T - delta[bh, rows]) * scale
+                        gk[r] += dst @ q[bh, rows]
+            if part >= 0:
+                parts[rep, part] = (gk, gv)
+                continue
+            for w, row in enumerate(wrows):
+                if row >= 0:
+                    dk[bh, row:row + 16] = gk[16 * w:16 * w + 16]
+                    dv[bh, row:row + 16] = gv[16 * w:16 * w + 16]
+    for h, p0, nseg, _, *wrows in plan.merges:
+        for rep in range(reps):
+            bh = rep * plan.heads + h
+            gk, gv = torch.zeros(rows_, D), torch.zeros(rows_, D)
+            for i in range(nseg):  # in segment order
+                gk, gv = gk + parts[rep, p0 + i][0], gv + parts[rep, p0 + i][1]
+            for w, row in enumerate(wrows):
+                if row >= 0:
+                    dk[bh, row:row + 16] = gk[16 * w:16 * w + 16]
+                    dv[bh, row:row + 16] = gv[16 * w:16 * w + 16]
+    return dk, dv, _stack(parts, reps, plan.n_parts)
+
+
+@pytest.mark.parametrize("block,per_head", [(16, False), (16, True), (32, True), (64, False),
+                                            (128, False)])
+def test_planned_sweep_matches_plain(block, per_head):
+    """The CPU emulation of the planned forward and dk/dv sweeps, with a
+    limit that splits rows over several segments, a q-block that sees
+    nothing and a k-block that no q-block sees, equals K8's dense plain
+    versions within 2e-5 (fp32: only the order of the sums differs)."""
+    B, H, D = 2, 2, 16
+    nb = 10 if block <= 32 else 4
+    S = nb * block
+    rng = np.random.default_rng(block)
+    layout = rng.random((H if per_head else 1, nb, nb)) < 0.45
+    layout[:, 0, :] = True  # a global row: split by the limit
+    layout[:, :, 1] = True  # a global column: split in dk/dv
+    layout[:, 2, :] = False  # sees nothing
+    layout[:, :, 3] = False  # seen by nobody
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(block, B, H, S, D, n=4))
+    scale = 0.3
+    o_ref, lse_ref = sp.splash_attention_fwd_reference(q, k, v, layout, block, scale)
+    delta = (do * o_ref).sum(-1)
+    dk_ref, dv_ref = sp.splash_attention_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
+                                                            layout, block, scale)
+    plan, plan_t = _check_plan(layout, block, limit=2 if block <= 32 else 1)
+    assert plan.n_parts and plan_t.n_parts
+    flat = [x.reshape(B * H, S, D) for x in (q, k, v, do)]
+    o, lse, (m, l, acc) = _emulate_fwd(*flat[:3], layout, block, plan, scale)
+    dk, dv, (pk, pv) = _emulate_dkdv(*flat, lse_ref.reshape(B * H, S),
+                                     delta.reshape(B * H, S), block, plan_t, scale)
+    for got, want in ((o, o_ref), (lse, lse_ref), (dk, dk_ref), (dv, dv_ref)):
+        torch.testing.assert_close(got.reshape(want.shape), want, atol=2e-5, rtol=2e-5)
+    # the second passes' plain versions over the same partials write the
+    # split rows as the emulation merged or summed them
+    o2, lse2 = torch.full((B, H, S, D), float("nan")), torch.full((B, H, S), float("nan"))
+    sp.splash_fwd_merge(o2, lse2, plan, acc, torch.stack([m, l], -1)[..., 0, :])
+    split = ~torch.isnan(lse2)
+    assert split.any()
+    torch.testing.assert_close(o2[split], o.reshape(B, H, S, D)[split], atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse2[split], lse.reshape(B, H, S)[split], atol=1e-6, rtol=1e-6)
+    dk2, dv2 = torch.full((B, H, S, D), float("nan")), torch.full((B, H, S, D), float("nan"))
+    sp.splash_dkdv_sum(dk2, dv2, plan_t, pk, pv)
+    split = ~torch.isnan(dk2)
+    assert split.any()
+    torch.testing.assert_close(dk2[split], dk.reshape(B, H, S, D)[split], atol=0, rtol=0)
+    torch.testing.assert_close(dv2[split], dv.reshape(B, H, S, D)[split], atol=0, rtol=0)
+    assert not o.reshape(B, H, S, D)[:, :, 2 * block:3 * block].any()
+    assert (lse.reshape(B, H, S)[:, :, 2 * block:3 * block] == sp.LSE_EMPTY).all()
+    assert not dk.reshape(B, H, S, D)[:, :, 3 * block:4 * block].any()
