@@ -297,9 +297,36 @@ def phase_build() -> dict:
            # head-width-256 instances
            "d256_resource_usage": _build.resource_usage("Li256E"),
            "wgmma_kernels": wgmma_usage(), "decode_kernels": decode_usage(),
-           "f32_kernels": f32_usage()}
+           "f32_kernels": f32_usage(), "splash_kernels": splash_usage()}
     emit(rec)
     return rec
+
+
+def splash_usage() -> list:
+    """K8's grouped sweeps (the forward, dq and dk/dv in bf16, fp16 and
+    fp32 at blocks 16-128 and head widths 64 and 128): ptxas's registers
+    and spill bytes and the dynamic shared memory each launch asks for
+    before its item's entries."""
+    import re
+    from deepspeed_tpu_torch.ops import _build
+    passes = ("fwd", "dq", "dkdv")
+    codes = {"float": 0, "f": 0, "__nv_bfloat16": 1, "13__nv_bfloat16": 1, "__half": 3,
+             "6__half": 3}
+    out = []
+    for e in _build.resource_usage("grouped_kernel"):
+        # demangled, or mangled where cu++filt is missing
+        m = (re.search(r"(fwd|dq|dkdv)_grouped_kernel<(float|__nv_bfloat16|__half), "
+                       r"\(int\)(\d+), \(int\)(\d+)>", e["kernel"])
+             or re.search(r"(fwd|dq|dkdv)_grouped_kernelI(f|13__nv_bfloat16|6__half)"
+                          r"Li(\d+)ELi(\d+)E", e["kernel"]))
+        if m is None:
+            out.append(e)
+            continue
+        kind, dtype, block, dmax = m.group(1), m.group(2), int(m.group(3)), int(m.group(4))
+        out.append({**e, "pass": kind, "dtype": dtype.lstrip("0123456789"), "block": block,
+                    "dmax": dmax, "dynamic_smem_bytes": _build.lib().dstt_splash_smem(
+                        passes.index(kind), codes[dtype], dmax)})
+    return out
 
 
 def f32_usage() -> list:
@@ -1186,20 +1213,18 @@ SPLASH_KERNELS = (
     ("dq", "splash_attention_bwd_dq", "deepspeed_tpu/ops/sparse_attention/splash.py:165"),
     ("dkdv", "splash_attention_bwd_dkdv",
      "deepspeed_tpu/ops/sparse_attention/splash.py:201"))
-# the second passes of the forward and dk/dv over split groups: (key, wrapper,
+# the second passes of the three passes over split groups: (key, wrapper,
 # the pass whose plan they follow, what they replace)
 SPLASH_SECOND = (
     ("fwd_merge", "splash_fwd_merge", "fwd",
      "deepspeed_tpu/ops/sparse_attention/splash.py:63"),
+    ("dq_sum", "splash_dq_sum", "fwd", "deepspeed_tpu/ops/sparse_attention/splash.py:165"),
     ("dkdv_sum", "splash_dkdv_sum", "dkdv", "deepspeed_tpu/ops/sparse_attention/splash.py:201"))
-SPLASH_SOURCES = {"fwd": "deepspeed_tpu_torch/csrc/splash_grouped.cuh",
-                  "dq": "deepspeed_tpu_torch/csrc/splash_attention.cuh",
-                  "dkdv": "deepspeed_tpu_torch/csrc/splash_grouped.cuh",
-                  "fwd_merge": "deepspeed_tpu_torch/csrc/splash_grouped.cuh",
-                  "dkdv_sum": "deepspeed_tpu_torch/csrc/splash_grouped.cuh"}
-# which kernel runs each K8 pass: the grouped sweeps over a host plan, and
-# dq's one block per q-block
-SPLASH_PATHS = {"fwd": "grouped", "dq": "per_row", "dkdv": "grouped"}
+SPLASH_SOURCES = {key: "deepspeed_tpu_torch/csrc/splash_grouped.cuh"
+                  for key in ("fwd", "dq", "dkdv", "fwd_merge", "dq_sum", "dkdv_sum")}
+# which kernel runs each K8 pass: the grouped sweeps over a host plan (dq
+# over the forward's)
+SPLASH_PATHS = {"fwd": "grouped", "dq": "grouped", "dkdv": "grouped"}
 
 
 def splash_layout(config: str, block: int):
@@ -1257,8 +1282,8 @@ def splash_plan_record(plan) -> dict:
 
 
 def _splash_second_passes(q, k, v, bwd_args, tables) -> dict:
-    """K8's merge (forward) and sum (dk/dv) alone on the partials of this
-    layout's split groups, each against its plain version on the same
+    """K8's merge (forward) and sums (dq, dk/dv) alone on the partials of
+    this layout's split groups, each against its plain version on the same
     partials (the split rows, under the flash row rule), with its time and
     its bound: the partials read once and the split rows written once
     (bytes). None where the plan splits nothing."""
@@ -1266,7 +1291,7 @@ def _splash_second_passes(q, k, v, bwd_args, tables) -> dict:
     from deepspeed_tpu_torch.ops.sparse_attention import splash as sp
     B, H, S, D = q.shape
     floor = 2.0 ** -16 / FLASH_ROW_TOL["bfloat16"]
-    out = {"fwd_merge": None, "dkdv_sum": None}
+    out = {"fwd_merge": None, "dq_sum": None, "dkdv_sum": None}
 
     def split_rows(plan):  # the split groups' rows of [B * H * S]
         return torch.cat([rows[rows >= 0] for _, rows, _ in
@@ -1293,6 +1318,22 @@ def _splash_second_passes(q, k, v, bwd_args, tables) -> dict:
                                 iters=3),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
         del o, lse, acc, ml, ok, lk, op, lp
+        dq, pq = sp.splash_dq_sweep(*bwd_args, tables)
+        kern, plain = dq.clone(), dq.clone()
+        sp.splash_dq_sum(kern, plan, pq)
+        sp.splash_dq_sum_reference(plain, plan, pq)
+        torch.cuda.synchronize()
+        kx, px = kern.view(-1, D)[idx], plain.view(-1, D)[idx]
+        moved = pq.numel() * 4 + len(idx) * D * 2
+        out["dq_sum"] = {
+            "max_abs_err": (kx.float() - px.float()).abs().max().item(),
+            "row_rel_err": row_rel_err(kx, px, floor), "equal": torch.equal(kx, px),
+            "split_rows": len(idx), "merges": plan.n_merges, "segments": plan.n_parts,
+            "ms": graph_time_ms(lambda: sp.splash_dq_sum(kern, plan, pq)),
+            "events_ms": time_ms(lambda: sp.splash_dq_sum(kern, plan, pq)),
+            "plain_ms": time_ms(lambda: sp.splash_dq_sum_reference(plain, plan, pq), iters=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+        del dq, pq, kern, plain
     plan = tables.plan_t
     if plan.n_merges:
         dk, dv, pk, pv = sp.splash_dkdv_sweep(*bwd_args, tables)
@@ -1374,8 +1415,9 @@ def _splash_case(gen, name: str, config: str, block: int) -> dict:
     lse_empty_ok = bool((lse[~seen] == sp.LSE_EMPTY).all())
     # determinism: a second launch of each grouped pass gives the same bits
     again = [*sp.splash_attention_fwd(q, k, v, tables),
+             sp.splash_attention_bwd_dq(*bwd_args, tables),
              *sp.splash_attention_bwd_dkdv(*bwd_args, tables)]
-    deterministic = all(torch.equal(a, b) for a, b in zip((o, lse, dk, dv), again))
+    deterministic = all(torch.equal(a, b) for a, b in zip((o, lse, dq, dk, dv), again))
     del o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref, exact, ex, got, again
     free_memory()
     second = _splash_second_passes(q, k, v, bwd_args, tables)
@@ -1395,15 +1437,13 @@ def _splash_case(gen, name: str, config: str, block: int) -> dict:
 
     # operations per active (q-block, k-block) pair of a (batch, head) row:
     # 4·D (fwd), 6·D (dq), 8·D (dk/dv) per (query, key) pair in it; bytes:
-    # each input read once, each output written once, and of each pass's
-    # block table the counts and the live entries (the loop stops at the
-    # count, so a row's padding is never read)
+    # each input read once, each output written once, and each pass's plan
+    # (the forward's for dq)
     active = int(layout.sum()) * (B * H // layout.shape[0])
     pairs = active * block * block
     qb, rb = B * H * S * D * 2, B * H * S * 4
-    tb = 4 * (int(tables.counts.sum()) + tables.counts.numel())
     work = {"fwd": (4, 4 * qb + rb + splash_plan_bytes(tables.plan)),
-            "dq": (6, 5 * qb + 2 * rb + tb),
+            "dq": (6, 5 * qb + 2 * rb + splash_plan_bytes(tables.plan)),
             "dkdv": (8, 6 * qb + 2 * rb + splash_plan_bytes(tables.plan_t))}
     timed = {
         "fwd": (lambda: sp.splash_attention_fwd(q, k, v, tables),
@@ -1416,7 +1456,7 @@ def _splash_case(gen, name: str, config: str, block: int) -> dict:
                  lambda: sp.splash_attention_bwd_dkdv_reference(*bwd_args, layout, block),
                  flex["bwd"], sdpa_bwd),
     }
-    counts = tables.counts.cpu().numpy()
+    counts = np.asarray(layout).astype(bool).sum(2)  # each row's active blocks
     rec = {"case": name, "shape": {**SPLASH_SHAPE, "block": block, "layout": config,
                                    "layout_heads": int(layout.shape[0])},
            "active_blocks": active, "dtype": "bfloat16", "lse_max_abs_err": lse_err,
@@ -3267,8 +3307,8 @@ def phase_sparse_attention() -> dict:
     forward, then ``backward()`` through autograd. With no padding mask on
     the card the call takes K8; each of its three passes must launch once
     per call (counts set to 0 just before, read just after), the forward's
-    merge and dk/dv's sum once where the layout's plan splits a group and
-    not otherwise, and each of those in some layout. The same
+    merge and dq's and dk/dv's sums once where the layout's plans split a
+    group and not otherwise, and each of those in some layout. The same
     inputs through the dense path (``use_kernel=False``): o, dq, dk and dv
     of both stand beside the exact value (K8's plain versions in fp64), and
     the kernel path may be at most FLASH_EXACT_RATIO times as far off as
@@ -3318,10 +3358,11 @@ def phase_sparse_attention() -> dict:
         out, fwd_ms = events(lambda: attn(*leaves))
         _, bwd_ms = events(lambda: out.backward(do))
         launches = {n: fn.launches for n, fn in kernels.items()}
-        # each pass once a call; the merge and the sum where its plan splits
+        # each pass once a call; the merge and the sums where their plans split
         plans = sp.splash_function(layout, block, 1.0 / float(D) ** 0.5, q.device).tables
         expected = {name: 1 for _, name, _ in SPLASH_KERNELS}
         expected.update(splash_fwd_merge=int(plans.plan.n_merges > 0),
+                        splash_dq_sum=int(plans.plan.n_merges > 0),
                         splash_dkdv_sum=int(plans.plan_t.n_merges > 0))
         dense = [x.clone().requires_grad_() for x in (q, k, v)]
         ref, dense_fwd_ms = events(lambda: sparse_attention(*dense, layout, block,
@@ -4010,6 +4051,7 @@ def main() -> int:
                   "folded_attention_fwd": ("fwd_wgmma", "__nv_bfloat16, (int)128"),
                   "flash_attention_fwd_fp16": ("fwd_wgmma", "__half, (int)128"),
                   "paged_attention_wgmma": ("paged_attention_wgmma", "")}
+    splash_passes = {name: key for key, name, _ in SPLASH_KERNELS}
     for k in kernels:
         if k["name"] in wgmma_rows:
             family, args = wgmma_rows[k["name"]]
@@ -4017,6 +4059,10 @@ def main() -> int:
                                          if family in e["kernel"] and args in e["kernel"]]
         if k["name"] == "paged_attention_decode":
             k["registers_and_spills"] = build["decode_kernels"]
+        if k["name"] in splash_passes:  # the bf16 instances the cases launch
+            k["registers_and_spills"] = [e for e in build["splash_kernels"]
+                                         if e.get("pass") == splash_passes[k["name"]]
+                                         and e.get("dtype") == "__nv_bfloat16"]
         for kind in ("chunk", "decode"):
             if k["name"] == "paged_attention_f32_" + kind:
                 k["registers_and_spills"] = [e for e in build["f32_kernels"]

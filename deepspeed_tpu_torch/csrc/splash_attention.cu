@@ -17,7 +17,7 @@ extern "C" int dstt_splash_fwd(const void* q, const void* k, const void* v, void
   GArgs a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, (float*)lse,
           (const int*)items, (const int*)entries, (float*)ws, (float*)ws2,
           n_items, n_parts, 0, BH, S, D, Lh, cap, scale};
-  return run_grouped<true>(a, block, dtype, stream);
+  return run_grouped<kPassFwd>(a, block, dtype, stream);
 }
 
 // the split rows of o and lse from their segments' partials, in order
@@ -28,5 +28,32 @@ extern "C" int dstt_splash_fwd_merge(void* o, void* lse, const void* merges, int
   GArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, o, nullptr, (float*)lse,
           (const int*)merges, nullptr, (float*)ws, (float*)ws2,
           n_merges, n_parts, 0, BH, S, D, Lh, 0, 0.f};
-  return run_second_pass<true>(a, dtype, stream);
+  return run_second_pass<kPassFwd>(a, dtype, stream);
+}
+
+// the dynamic shared memory of a grouped sweep's instance (pass 0 forward,
+// 1 dq, 2 dk/dv; head width 64 or 128) before its item's entries, or -1
+template <int P>
+static int splash_smem(int dtype, int dmax) {
+  using namespace dstt::splash;
+  const bool narrow = dmax == 64;
+  if (!narrow && dmax != 128) return -1;
+  switch (dtype) {
+    case dstt::kFloat32:
+      return (int)(narrow ? group_smem<float, 64, P>() : group_smem<float, 128, P>());
+    case dstt::kBFloat16:
+    case dstt::kFloat16:
+      return (int)(narrow ? group_smem<__half, 64, P>() : group_smem<__half, 128, P>());
+    default: return -1;
+  }
+}
+
+extern "C" int dstt_splash_smem(int pass, int dtype, int dmax) {
+  using namespace dstt::splash;
+  switch (pass) {
+    case kPassFwd: return splash_smem<kPassFwd>(dtype, dmax);
+    case kPassDq: return splash_smem<kPassDq>(dtype, dmax);
+    case kPassDkdv: return splash_smem<kPassDkdv>(dtype, dmax);
+    default: return -1;
+  }
 }

@@ -17,7 +17,7 @@ extern "C" int dstt_splash_bwd_dkdv(const void* q, const void* k, const void* v,
   GArgs a{q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, nullptr,
           (const int*)items, (const int*)entries, (float*)ws, (float*)ws2,
           n_items, n_parts, 0, BH, S, D, Lh, cap, scale};
-  return run_grouped<false>(a, block, dtype, stream);
+  return run_grouped<kPassDkdv>(a, block, dtype, stream);
 }
 
 // the split keys' dk and dv: their segments' partials summed in order
@@ -28,5 +28,5 @@ extern "C" int dstt_splash_dkdv_sum(void* dk, void* dv, const void* merges, int 
   GArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dk, dv, nullptr,
           (const int*)merges, nullptr, (float*)ws, (float*)ws2,
           n_merges, n_parts, 0, BH, S, D, Lh, 0, 0.f};
-  return run_second_pass<false>(a, dtype, stream);
+  return run_second_pass<kPassDkdv>(a, dtype, stream);
 }

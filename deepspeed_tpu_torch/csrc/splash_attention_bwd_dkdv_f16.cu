@@ -7,7 +7,7 @@ namespace dstt {
 namespace splash {
 
 cudaError_t launch_dkdv_f16(const GArgs& a, int block, cudaStream_t s) {
-  return launch_grouped_type<false, __half>(a, block, s);
+  return launch_grouped_type<kPassDkdv, __half>(a, block, s);
 }
 
 }  // namespace splash

@@ -7,7 +7,7 @@ namespace dstt {
 namespace splash {
 
 cudaError_t launch_dkdv_f32(const GArgs& a, int block, cudaStream_t s) {
-  return launch_grouped_type<false, float>(a, block, s);
+  return launch_grouped_type<kPassDkdv, float>(a, block, s);
 }
 
 }  // namespace splash

@@ -6,7 +6,7 @@ namespace dstt {
 namespace splash {
 
 cudaError_t launch_fwd_f16(const GArgs& a, int block, cudaStream_t s) {
-  return launch_grouped_type<true, __half>(a, block, s);
+  return launch_grouped_type<kPassFwd, __half>(a, block, s);
 }
 
 }  // namespace splash

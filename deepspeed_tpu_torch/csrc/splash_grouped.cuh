@@ -1,15 +1,17 @@
-// K8's forward and dk/dv pass over a host plan of row groups, and their
-// second passes: the forward's merge of split rows, dk/dv's sum of split
-// keys. splash_attention.cu, _f16.cu and _f32.cu instantiate the forward in
-// bf16, fp16 and fp32, splash_attention_bwd_dkdv.cu, _f16.cu and _f32.cu
-// the dk/dv pass, so the six build in parallel. The
-// function, its numerics and the TPU kernels it replaces are in
-// splash_attention.cuh's note; the plan is splash.py plan_splash.
+// K8's three passes over a host plan of row groups, and their second
+// passes: the forward's merge of split rows, the sums of split rows of dq
+// and of split keys of dk/dv. splash_attention.cu, _f16.cu and _f32.cu
+// instantiate the forward in bf16, fp16 and fp32,
+// splash_attention_bwd_dq{,_f16,_f32}.cu dq and
+// splash_attention_bwd_dkdv{,_f16,_f32}.cu dk/dv, so the nine build in
+// parallel. The function, its numerics and the TPU kernels it replaces are
+// in splash_attention.cuh's note; the plan is splash.py plan_splash (the
+// forward and dq sweep the layout's, dk/dv its transpose's).
 //
 // The plan (int32, on the device with the tables):
 // - an item is one thread block of 4 warps over 64 rows (kGroupRows):
-//   queries in the forward, keys in dk/dv. Its row of kItemInts: layout
-//   head h, its entries [e0, e1), a partial slot (-1: it writes the
+//   queries in the forward and dq, keys in dk/dv. Its row of kItemInts:
+//   layout head h, its entries [e0, e1), a partial slot (-1: it writes the
 //   outputs), and each warp's first row (-1: the warp has no rows). A group
 //   is 4 block rows at block 16 (a warp each), 2 at 32 (two warps each), 1
 //   at 64, and half of one at 128;
@@ -21,31 +23,38 @@
 // Grid: item x replica, replica fastest, so the plan's order (longest
 // first) is the launch order; row bh = replica * heads + h.
 //
-// A stage is 64 keys (forward) or query rows (dk/dv): 64 / block entries
-// (half an entry at block 128), staged once for the group's 4 warps in a
-// cp.async ring of ring_stages() (2 where 3 would pass the shared memory:
-// fp32 at head width 128), one __syncthreads a stage; the item's entries sit
-// in shared memory, so no copy waits on a global load to find its row, and
-// one row lookup serves both tensors of a stage. Products are
+// A stage is 64 keys (forward, dq) or query rows (dk/dv): 64 / block
+// entries (half an entry at block 128), staged once for the group's 4 warps
+// in a cp.async ring of ring_stages() (2 where 3 would pass the shared
+// memory: fp32 at head width 128), one __syncthreads a stage; the item's
+// entries sit in shared memory, so no copy waits on a global load to find
+// its row, and one row lookup serves both tensors of a stage. Products are
 // mma.sync.m16n8k16 with fp32 accumulation on 16-row chunks (fp32: the same
 // fragments summed on the CUDA cores): a score chunk's accumulator is the
 // next product's A operand as it lies in registers, rounded to the input
-// type (P, P^T, dS^T). A warp's own rows (Q in the forward; K and V in
-// dk/dv) are A fragments held in registers at head width <= 64 (the
-// forward's Q then staged in the ring's last buffer, so that four blocks
-// fit an SM) and read from shared memory at 128. Exponentials are one FFMA
-// and one ex2 in the base-2 domain (the scale times log2 e). Where a warp's
-// member holds every chunk of a stage (fwd_stage / dkdv_stage with kAll, in
-// bf16 and fp16) no branch separates the chunks' products.
+// type (P, dS, P^T, dS^T). A warp's own rows (Q in the forward; Q and dO in
+// dq; K and V in dk/dv) are A fragments held in registers at head width <=
+// 64 (the forward's Q and dq's Q and dO then staged in the ring's last
+// buffer, so that four blocks fit an SM) and read from shared memory at
+// 128. Exponentials are one FFMA and one ex2 in the base-2 domain (the
+// scale times log2 e). Where a warp's member holds every chunk of a stage
+// (the stage functions with kAll, in bf16 and fp16) no branch separates the
+// chunks' products.
 // - Forward: each warp keeps its rows' running max, sum and fp32
 //   accumulator over the chunks its member holds. A split row writes its
 //   segment's (max, sum, accumulator) to the workspace; fwd_merge_kernel
 //   merges the segments in order, as K4's decode merges its page splits.
+// - dq: each warp owns its 16 query rows' dq and their lse and delta in
+//   registers; a chunk of 16 keys is S = Q K^T, dP = dO V^T, P = exp2(S
+//   scale log2 e - lse log2 e), dS = P (dP - delta) scale, dq += dS K (K read
+//   transposed by ldmatrix, as the forward reads V); no running max, so one
+//   chunk's scores are live at a time.
 // - dk/dv: each warp owns its 16 keys' dk and dv: S^T = K Q^T, P^T =
 //   exp(S^T scale - lse), dv += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T -
-//   delta) scale, dk += dS^T Q. A split group's segments write fp32
-//   partials; dkdv_sum_kernel sums them in segment order and rounds once.
-// No float atomics: two launches give the same bits.
+//   delta) scale, dk += dS^T Q.
+// A split group's dq or dk/dv segments write fp32 partials; sum_kernel sums
+// them in segment order and rounds once. No float atomics: two launches
+// give the same bits.
 #pragma once
 
 #include "splash_attention.cuh"
@@ -64,20 +73,24 @@ constexpr int kBlockMask = (1 << kMaskShift) - 1;
 constexpr int kMaxItemEntries = 4096;  // an item's entries in shared memory: 16 KB at most
 constexpr int kSecondThreads = 128;    // a thread block of the merge or the sum
 constexpr float kLog2e = 1.4426950408889634f;
+// the passes, a template argument of what they share
+constexpr int kPassFwd = 0;
+constexpr int kPassDq = 1;
+constexpr int kPassDkdv = 2;
 
 struct GArgs {
   const void* q;
   const void* k;
   const void* v;
-  const void* dout;    // dk/dv: dO
-  const float* lse;    // dk/dv: [BH, S]
-  const float* delta;  // dk/dv: [BH, S]
-  void* out;           // forward: o; dk/dv: dk
+  const void* dout;    // dq, dk/dv: dO
+  const float* lse;    // dq, dk/dv: [BH, S]
+  const float* delta;  // dq, dk/dv: [BH, S]
+  void* out;           // forward: o; dq: dq; dk/dv: dk
   void* out2;          // dk/dv: dv
   float* lse_out;      // forward: [BH, S]
   const int* items;    // [n_items, kItemInts], or the merges of a second pass
   const int* entries;
-  float* ws;           // partials: forward accumulators; dk/dv dk
+  float* ws;           // partials: forward accumulators; dq; dk/dv dk
   float* ws2;          // forward (max, sum); dk/dv dv
   int n_items, n_parts, reps, BH, S, D, Lh;
   int cap;             // the most entries an item sweeps (the plan's widest segment)
@@ -97,25 +110,33 @@ __host__ __device__ constexpr bool rows_held() {
 }
 
 // blocks an SM holds of an instance, the bound its registers are fitted to:
-// at head width 64 the forward's (4 at 64-row groups) and dk/dv's (3); one
-// at 128
-template <bool kFwd, int DMAX>
+// at head width 64 the forward's and dq's (4 at 64-row groups) and dk/dv's
+// (3); one at 128
+template <int P, int DMAX>
 __host__ __device__ constexpr int group_blocks() {
-  return DMAX > 64 ? 1 : kFwd ? 4 * 64 / kGroupRows : 3 * 64 / kGroupRows;
+  return DMAX > 64 ? 1 : P == kPassDkdv ? 3 * 64 / kGroupRows : 4 * 64 / kGroupRows;
+}
+
+// the warps' own rows (the forward's Q, dq's Q and dO) staged in the ring's
+// last buffer, which the first stages leave free: where their fragments are
+// held in registers and they fit one stage
+template <typename T, int DMAX, int P>
+__host__ __device__ constexpr bool own_rows_in_ring() {
+  return rows_held<T, DMAX>() && (P == kPassDq ? 2 : 1) * kGroupRows <= 2 * kStageRows;
 }
 
 // the shared memory of an instance: the ring of stages ([K, V] in the
-// forward, [Q, dO] and [lse, delta] in dk/dv), the forward's Q where it is
-// read from shared memory at every stage (in the ring's last buffer
-// otherwise, which the first stages leave free), dk/dv's K and V; then the
+// forward and dq, [Q, dO] and [lse, delta] in dk/dv), the forward's Q and
+// dq's Q and dO where they are not in the ring, dk/dv's K and V; then the
 // item's entries
-template <typename T, int DMAX, bool kFwd>
+template <typename T, int DMAX, int P>
 __host__ __device__ constexpr size_t group_smem() {
   constexpr size_t LD = DMAX + kPad, NS = ring_stages<T, DMAX>();
   constexpr size_t stage = 2 * kStageRows * LD * sizeof(T);
-  return kFwd ? NS * stage + (rows_held<T, DMAX>() ? 0 : kGroupRows * LD * sizeof(T))
-              : NS * (stage + 2 * kStageRows * sizeof(float)) +
-                    2 * kGroupRows * LD * sizeof(T);
+  constexpr size_t own = (P == kPassDq ? 2 : 1) * kGroupRows * LD * sizeof(T);
+  return P == kPassDkdv ? NS * (stage + 2 * kStageRows * sizeof(float)) +
+                              2 * kGroupRows * LD * sizeof(T)
+                        : NS * stage + (own_rows_in_ring<T, DMAX, P>() ? 0 : own);
 }
 static_assert(kGroupRows <= 2 * kStageRows, "the forward's Q fits a stage buffer");
 
@@ -359,7 +380,7 @@ __device__ __forceinline__ void fwd_stage(float (&acc)[DMAX / 8][4], float (&m)[
 }
 
 template <typename T, int BLK, int DMAX>
-__global__ void __launch_bounds__(kGroupThreads, group_blocks<true, DMAX>())
+__global__ void __launch_bounds__(kGroupThreads, group_blocks<kPassFwd, DMAX>())
     fwd_grouped_kernel(GArgs a) {
   using W = Sweep<BLK>;
   using QA = RowsA<T, DMAX, DMAX + kPad>;
@@ -511,6 +532,140 @@ __global__ void __launch_bounds__(kSecondThreads) fwd_merge_kernel(GArgs a) {
   }
 }
 
+// One stage of dq for a warp's 16 query rows over the chunks of keys of
+// act (every chunk with kAll, as fwd_stage): lse2 the rows' lse times log2
+// e, dl their delta
+template <bool kAll, typename T, int DMAX, int LD>
+__device__ __forceinline__ void dq_stage(float (&dq)[DMAX / 8][4], const RowsA<T, DMAX, LD>& qa,
+                                         const RowsA<T, DMAX, LD>& oa, const T* Ks, const T* Vs,
+                                         unsigned act, const float (&lse2)[2],
+                                         const float (&dl)[2], float scale, int lane) {
+  constexpr int NC = kStageRows / kWarpRows;
+  const float scale2 = scale * kLog2e;  // P = exp2(S scale log2 e - lse log2 e)
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (!kAll && !((act >> c) & 1)) continue;
+    const T* Kc = Ks + c * kWarpRows * LD;
+    float s[2][4], dp[2][4];
+    nt16<T, DMAX, LD>(s, qa, Kc, lane);                         // S = Q K^T
+    nt16<T, DMAX, LD>(dp, oa, Vs + c * kWarpRows * LD, lane);   // dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        s[j][e] = exp2_ftz(fmaf(s[j][e], scale2, -lse2[i])) * (dp[j][e] - dl[i]) * scale;
+      }
+    pn16<T, DMAX, LD>(dq, s, Kc, lane);  // dq += dS K
+  }
+}
+
+template <typename T, int BLK, int DMAX>
+__global__ void __launch_bounds__(kGroupThreads, group_blocks<kPassDq, DMAX>())
+    dq_grouped_kernel(GArgs a) {
+  using W = Sweep<BLK>;
+  using RA = RowsA<T, DMAX, DMAX + kPad>;
+  constexpr int LD = DMAX + kPad, N8 = DMAX / 8, NS = ring_stages<T, DMAX>();
+  constexpr int NC = kStageRows / kWarpRows, STAGE = 2 * kStageRows * LD;
+  constexpr bool kInRing = own_rows_in_ring<T, DMAX, kPassDq>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // NS x [K 64 rows, V 64 rows]
+  // Q and dO: in the ring's last buffer where their fragments are held
+  T* Qs = kInRing ? ring + (NS - 1) * STAGE : ring + NS * STAGE;
+  T* Os = Qs + kGroupRows * LD;
+  unsigned char* after = reinterpret_cast<unsigned char*>(
+      ring + NS * STAGE + (kInRing ? 0 : 2 * kGroupRows * LD));
+
+  const int* it = a.items + (long long)(blockIdx.x / a.reps) * kItemInts;
+  const int rep = blockIdx.x % a.reps;
+  const int h = it[0], e0 = it[1], e1 = it[2], part = it[3];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow = it[4 + warp];
+  const int D = a.D, ne = e1 - e0, nst = W::stages(ne);
+  const long long base = (long long)(rep * a.Lh + h) * a.S;
+  const T* k = reinterpret_cast<const T*>(a.k);
+  const T* v = reinterpret_cast<const T*>(a.v);
+  const int* Es = stage_entries(after, a, e0, e1);
+  // this lane's rows lane/4 and lane/4 + 8: lse in the base-2 domain (an
+  // empty row's 1e30 makes every P exactly 0), delta
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (wrow >= 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long r = base + wrow + (lane >> 2) + 8 * i;
+      lse2[i] = a.lse[r] * kLog2e;
+      dl[i] = a.delta[r];
+    }
+  }
+  __syncthreads();
+
+  auto load_stage = [&](int t) {
+    if (t >= nst) return;
+    T* Kb = ring + (t % NS) * STAGE;
+    load_pair<T, DMAX, kGroupThreads>(Kb, Kb + kStageRows * LD, kStageRows, k, v, D,
+                                      [&](int rr) -> long long {
+      const int e = W::entry(t, rr);
+      return e < ne ? base + (long long)(Es[e] & kBlockMask) * BLK + W::offset(t, rr) : -1LL;
+    });
+  };
+
+  load_pair<T, DMAX, kGroupThreads>(Qs, Os, kGroupRows, reinterpret_cast<const T*>(a.q),
+                                    reinterpret_cast<const T*>(a.dout), D,
+                                    [&](int rr) -> long long {
+    const int w = it[4 + rr / kWarpRows];
+    return w < 0 ? -1LL : base + w + rr % kWarpRows;
+  });
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {  // Q and dO ride in the first group
+    load_stage(t);
+    flash::cp_async_commit();
+  }
+
+  float dq[N8][4];
+  flash::zero(dq);
+  RA qa, oa;
+
+  for (int t = 0; t < nst; ++t) {
+    flash::cp_async_wait<NS - 2>();  // stage t (and Q, dO) landed for this thread
+    __syncthreads();  // ... for every thread; stage t - 1's buffer is free
+    if (t == 0) {
+      qa.init(Qs + warp * kWarpRows * LD, lane);
+      oa.init(Os + warp * kWarpRows * LD, lane);
+      if (kInRing) __syncthreads();  // every warp holds Q and dO: their buffer is the ring's
+    }
+    load_stage(t + NS - 1);
+    flash::cp_async_commit();
+    const unsigned act = W::active(Es, ne, t, warp);
+    if (act == 0 || wrow < 0) continue;
+    const T* Ks = ring + (t % NS) * STAGE;
+    const T* Vs = Ks + kStageRows * LD;
+    if constexpr (full_stage_path<T>()) {
+      if (act == (1u << NC) - 1) {
+        dq_stage<true>(dq, qa, oa, Ks, Vs, act, lse2, dl, a.scale, lane);
+        continue;
+      }
+    }
+    dq_stage<false>(dq, qa, oa, Ks, Vs, act, lse2, dl, a.scale, lane);
+  }
+  flash::cp_async_wait<0>();
+  if (wrow < 0) return;
+
+  // every query row is in one group of the plan: a row no key reached
+  // writes dq = 0
+  long long rows[2];
+  const float one[2] = {1.f, 1.f};
+  if (part < 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) rows[i] = base + wrow + (lane >> 2) + 8 * i;
+    flash::store_rows<T>(reinterpret_cast<T*>(a.out), dq, rows, one, D, lane);
+  } else {
+    const long long slot0 = ((long long)rep * a.n_parts + part) * kGroupRows + warp * kWarpRows;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) rows[i] = slot0 + (lane >> 2) + 8 * i;
+    flash::store_rows<float>(a.ws, dq, rows, one, D, lane);
+  }
+}
+
 // One stage of dk/dv for a warp's 16 keys over the chunks of query rows of
 // act (every chunk with kAll, as fwd_stage): Qs, Os the stage's Q and dO,
 // Ls, Dl its lse and delta
@@ -548,7 +703,7 @@ __device__ __forceinline__ void dkdv_stage(float (&dk)[DMAX / 8][4], float (&dv)
 }
 
 template <typename T, int BLK, int DMAX>
-__global__ void __launch_bounds__(kGroupThreads, group_blocks<false, DMAX>())
+__global__ void __launch_bounds__(kGroupThreads, group_blocks<kPassDkdv, DMAX>())
     dkdv_grouped_kernel(GArgs a) {
   using W = Sweep<BLK>;
   constexpr int LD = DMAX + kPad, N8 = DMAX / 8, NS = ring_stages<T, DMAX>();
@@ -650,10 +805,11 @@ __global__ void __launch_bounds__(kGroupThreads, group_blocks<false, DMAX>())
   }
 }
 
-// each split key row's dk and dv: its segments' fp32 partials summed in
-// segment order, rounded once (the grid of fwd_merge_kernel)
-template <typename T>
-__global__ void __launch_bounds__(kSecondThreads) dkdv_sum_kernel(GArgs a) {
+// each split row of dq (kTensors 1) or key row of dk and dv (2): its
+// segments' fp32 partials (ws, ws2) summed in segment order, rounded once
+// (the grid of fwd_merge_kernel)
+template <typename T, int kTensors>
+__global__ void __launch_bounds__(kSecondThreads) sum_kernel(GArgs a) {
   constexpr int kSlices = kGroupWarps;
   const int slice = blockIdx.x % kSlices, mr = blockIdx.x / kSlices;
   const int* mg = a.items + (long long)(mr / a.reps) * kItemInts;
@@ -662,40 +818,43 @@ __global__ void __launch_bounds__(kSecondThreads) dkdv_sum_kernel(GArgs a) {
   const int h = mg[0], p0 = mg[1], ns = mg[2], D = a.D, C4 = D / 4;
   const long long base = (long long)(rep * a.Lh + h) * a.S + w;
   const long long slot0 = ((long long)rep * a.n_parts + p0) * kGroupRows + slice * kWarpRows;
+  const float* ws[2] = {a.ws, a.ws2};
+  T* out[2] = {reinterpret_cast<T*>(a.out), reinterpret_cast<T*>(a.out2)};
   for (int i = threadIdx.x; i < kWarpRows * C4; i += kSecondThreads) {
     const int rr = i / C4, c = (i % C4) * 4;
-    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    float4 sum[kTensors];
+#pragma unroll
+    for (int j = 0; j < kTensors; ++j) sum[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s = 0; s < ns; ++s) {
       const long long at = (slot0 + (long long)s * kGroupRows + rr) * D + c;
-      const float4 xk = *reinterpret_cast<const float4*>(a.ws + at);
-      const float4 xv = *reinterpret_cast<const float4*>(a.ws2 + at);
-      sk.x += xk.x;
-      sk.y += xk.y;
-      sk.z += xk.z;
-      sk.w += xk.w;
-      sv.x += xv.x;
-      sv.y += xv.y;
-      sv.z += xv.z;
-      sv.w += xv.w;
+#pragma unroll
+      for (int j = 0; j < kTensors; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(ws[j] + at);
+        sum[j].x += x.x;
+        sum[j].y += x.y;
+        sum[j].z += x.z;
+        sum[j].w += x.w;
+      }
     }
     const long long at = (base + rr) * D + c;
-    T* dk = reinterpret_cast<T*>(a.out) + at;
-    T* dv = reinterpret_cast<T*>(a.out2) + at;
-    flash::store2(dk, sk.x, sk.y);
-    flash::store2(dk + 2, sk.z, sk.w);
-    flash::store2(dv, sv.x, sv.y);
-    flash::store2(dv + 2, sv.z, sv.w);
+#pragma unroll
+    for (int j = 0; j < kTensors; ++j) {
+      flash::store2(out[j] + at, sum[j].x, sum[j].y);
+      flash::store2(out[j] + at + 2, sum[j].z, sum[j].w);
+    }
   }
 }
 
-template <bool kFwd, typename T, int BLK, int DMAX>
+template <int P, typename T, int BLK, int DMAX>
 cudaError_t launch_grouped(const GArgs& a, cudaStream_t stream) {
   void (*kern)(GArgs);
-  if constexpr (kFwd)
+  if constexpr (P == kPassFwd)
     kern = &fwd_grouped_kernel<T, BLK, DMAX>;
+  else if constexpr (P == kPassDq)
+    kern = &dq_grouped_kernel<T, BLK, DMAX>;
   else
     kern = &dkdv_grouped_kernel<T, BLK, DMAX>;
-  const size_t smem = group_smem<T, DMAX, kFwd>() + ((size_t)a.cap * sizeof(int) + 15) / 16 * 16;
+  const size_t smem = group_smem<T, DMAX, P>() + ((size_t)a.cap * sizeof(int) + 15) / 16 * 16;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -706,76 +865,82 @@ cudaError_t launch_grouped(const GArgs& a, cudaStream_t stream) {
 }
 
 // the grouped sweep of one type, by block size and head width
-template <bool kFwd, typename T>
+template <int P, typename T>
 cudaError_t launch_grouped_type(const GArgs& a, int block, cudaStream_t s) {
   const bool narrow = a.D <= 64;
   switch (block) {
-    case 16: return narrow ? launch_grouped<kFwd, T, 16, 64>(a, s)
-                           : launch_grouped<kFwd, T, 16, 128>(a, s);
-    case 32: return narrow ? launch_grouped<kFwd, T, 32, 64>(a, s)
-                           : launch_grouped<kFwd, T, 32, 128>(a, s);
-    case 64: return narrow ? launch_grouped<kFwd, T, 64, 64>(a, s)
-                           : launch_grouped<kFwd, T, 64, 128>(a, s);
-    case 128: return narrow ? launch_grouped<kFwd, T, 128, 64>(a, s)
-                            : launch_grouped<kFwd, T, 128, 128>(a, s);
+    case 16: return narrow ? launch_grouped<P, T, 16, 64>(a, s)
+                           : launch_grouped<P, T, 16, 128>(a, s);
+    case 32: return narrow ? launch_grouped<P, T, 32, 64>(a, s)
+                           : launch_grouped<P, T, 32, 128>(a, s);
+    case 64: return narrow ? launch_grouped<P, T, 64, 64>(a, s)
+                           : launch_grouped<P, T, 64, 128>(a, s);
+    case 128: return narrow ? launch_grouped<P, T, 128, 64>(a, s)
+                            : launch_grouped<P, T, 128, 128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // the fp16 and fp32 instances, each built in a source of its own
-// (splash_attention_{f16,f32}.cu, splash_attention_bwd_dkdv_{f16,f32}.cu)
-// so that the build's parallel nvcc runs them side by side
+// (splash_attention{,_bwd_dq,_bwd_dkdv}_{f16,f32}.cu) so that the build's
+// parallel nvcc runs them side by side
 cudaError_t launch_fwd_f16(const GArgs& a, int block, cudaStream_t s);
 cudaError_t launch_fwd_f32(const GArgs& a, int block, cudaStream_t s);
+cudaError_t launch_dq_f16(const GArgs& a, int block, cudaStream_t s);
+cudaError_t launch_dq_f32(const GArgs& a, int block, cudaStream_t s);
 cudaError_t launch_dkdv_f16(const GArgs& a, int block, cudaStream_t s);
 cudaError_t launch_dkdv_f32(const GArgs& a, int block, cudaStream_t s);
 
-// the checks every grouped entry point makes, and the replicas BH / heads
-inline bool grouped_ok(GArgs& a) {
+// the checks every grouped entry point of pass P makes, and the replicas
+// BH / heads
+inline bool grouped_ok(GArgs& a, int P) {
   const bool ok = a.BH > 0 && a.Lh > 0 && a.BH % a.Lh == 0 && a.n_items > 0 && a.S > 0 &&
                   a.cap >= 0 && a.cap <= kMaxItemEntries &&
                   a.D > 0 && a.D <= 128 && a.D % 8 == 0 && a.n_parts >= 0 &&
-                  (a.n_parts == 0 || (a.ws && a.ws2));
+                  (a.n_parts == 0 || (a.ws && (P == kPassDq || a.ws2)));
   a.reps = ok ? a.BH / a.Lh : 0;
   // grids of n_items * replicas blocks (4 times that for a second pass)
   return ok && (long long)a.n_items * a.reps < (1LL << 29);
 }
 
-// launch the grouped forward or dk/dv for the dtype
-template <bool kFwd>
+// launch the grouped sweep of pass P for the dtype
+template <int P>
 int run_grouped(GArgs a, int block, int dtype, void* stream) {
-  if (!grouped_ok(a) || block <= 0 || a.S % block) return (int)cudaErrorInvalidValue;
+  if (!grouped_ok(a, P) || block <= 0 || a.S % block) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case kFloat32:
-      if constexpr (kFwd) return (int)launch_fwd_f32(a, block, s);
+      if constexpr (P == kPassFwd) return (int)launch_fwd_f32(a, block, s);
+      else if constexpr (P == kPassDq) return (int)launch_dq_f32(a, block, s);
       else return (int)launch_dkdv_f32(a, block, s);
-    case kBFloat16: return (int)launch_grouped_type<kFwd, __nv_bfloat16>(a, block, s);
+    case kBFloat16: return (int)launch_grouped_type<P, __nv_bfloat16>(a, block, s);
     case kFloat16:
-      if constexpr (kFwd) return (int)launch_fwd_f16(a, block, s);
+      if constexpr (P == kPassFwd) return (int)launch_fwd_f16(a, block, s);
+      else if constexpr (P == kPassDq) return (int)launch_dq_f16(a, block, s);
       else return (int)launch_dkdv_f16(a, block, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool kFwd, typename T>
+template <int P, typename T>
 void launch_second_pass(const GArgs& a, cudaStream_t s) {
   const unsigned grid = (unsigned)((long long)a.n_items * a.reps * kGroupWarps);
-  if constexpr (kFwd)
+  if constexpr (P == kPassFwd)
     fwd_merge_kernel<T><<<grid, kSecondThreads, 0, s>>>(a);
   else
-    dkdv_sum_kernel<T><<<grid, kSecondThreads, 0, s>>>(a);
+    sum_kernel<T, P == kPassDq ? 1 : 2><<<grid, kSecondThreads, 0, s>>>(a);
 }
 
-// launch the forward's merge or dk/dv's sum over the merge rows (a.items)
-template <bool kFwd>
+// launch the forward's merge, or dq's or dk/dv's sum, over the merge rows
+// (a.items)
+template <int P>
 int run_second_pass(GArgs a, int dtype, void* stream) {
-  if (!grouped_ok(a) || a.n_parts == 0) return (int)cudaErrorInvalidValue;
+  if (!grouped_ok(a, P) || a.n_parts == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case kFloat32: launch_second_pass<kFwd, float>(a, s); break;
-    case kBFloat16: launch_second_pass<kFwd, __nv_bfloat16>(a, s); break;
-    case kFloat16: launch_second_pass<kFwd, __half>(a, s); break;
+    case kFloat32: launch_second_pass<P, float>(a, s); break;
+    case kBFloat16: launch_second_pass<P, __nv_bfloat16>(a, s); break;
+    case kFloat16: launch_second_pass<P, __half>(a, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

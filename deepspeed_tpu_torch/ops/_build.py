@@ -104,10 +104,18 @@ _SIGNATURES = {
     # partials, partial slots, stream
     "dstt_splash_fwd_merge": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                               _P),
-    # q, k, v, dO, lse, delta, dq, table, counts, BH, S, D, layout heads,
-    # table width, block, scale, dtype, stream
+    # q, k, v, dO, lse, delta, dq, the forward plan's items and entries,
+    # items, the most entries of an item, BH, S, D, plan heads, block, scale,
+    # dtype, partials of dq, partial slots, stream
     "dstt_splash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _P),
+                           _I, _I, _I, _F, _I, _P, _I, _P),
+    # dq, merges, merge rows, BH, S, D, plan heads, dtype, the partials,
+    # partial slots, stream
+    "dstt_splash_dq_sum": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    # pass (0 forward, 1 dq, 2 dk/dv), dtype, head width (64 or 128): the
+    # bytes of dynamic shared memory of that grouped instance before its
+    # item's entries
+    "dstt_splash_smem": (_I, _I, _I),
     # q, k, v, dO, lse, delta, dk, dv, the transposed plan's items and
     # entries, items, the most entries of an item, BH, S, D, plan heads,
     # block, scale, dtype, partials of dk and of dv, partial slots, stream

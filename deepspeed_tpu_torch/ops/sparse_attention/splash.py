@@ -10,25 +10,26 @@ q, k and v are ``[B, H, S, D]`` (head-major); the static layout is
 reads layout head ``bh % layout_heads`` (the JAX kernel's
 ``jax.lax.rem(bh, nheads_layout)``). ``build_block_table`` compacts the
 layout into the indices of each row's active k-blocks and their count (the
-dq pass's table).
+JAX package's dq table, kept as its port).
 
-The forward and the dk/dv pass sweep a host plan instead (``plan_splash``,
-built once per layout with the tables): the block rows of the forward's
-layout (q-blocks) or of its transpose (k-blocks, for dk/dv) are cut into
-groups of 64 rows (4 blocks of 16, 2 of 32, 1 of 64; a 128 block is two
-groups that read one row), rows that share blocks together: the block rows
-in order or sorted widest first, whichever needs fewer stages. A group
-sweeps the sorted union of its members' blocks, 64 keys (forward) or query
-rows (dk/dv) a stage, each staged once for the group; a mask per entry says
-which members hold it, and a warp skips the 16-row chunks its member lacks.
-A union longer than the plan's limit is cut into segments, each a thread
-block of its own that writes fp32 partials; a second pass merges the
-forward's partials (max, sum, accumulator) or sums dk/dv's in segment
-order, so the outputs are deterministic. Work items run longest first.
+The kernels sweep a host plan instead (``plan_splash``, built once per
+layout with the tables): the block rows of the forward's layout (q-blocks,
+for the forward and dq) or of its transpose (k-blocks, for dk/dv) are cut
+into groups of 64 rows (4 blocks of 16, 2 of 32, 1 of 64; a 128 block is
+two groups that read one row), rows that share blocks together: the block
+rows in order or sorted widest first, whichever needs fewer stages. A
+group sweeps the sorted union of its members' blocks, 64 keys (forward,
+dq) or query rows (dk/dv) a stage, each staged once for the group; a mask
+per entry says which members hold it, and a warp skips the 16-row chunks
+its member lacks. A union longer than the plan's limit is cut into
+segments, each a thread block of its own that writes fp32 partials; a
+second pass merges the forward's partials (max, sum, accumulator) or sums
+dq's or dk/dv's in segment order, so the outputs are deterministic. Work
+items run longest first.
 
-Kernels (bodies in ``csrc/splash_attention.cuh``, dq, and
-``csrc/splash_grouped.cuh``, the forward, dk/dv and their second passes;
-built from ``splash_attention{,_f16,_f32}.cu``, ``splash_attention_bwd_dq.cu``
+Kernels (bodies in ``csrc/splash_grouped.cuh``, the note on the function
+in ``csrc/splash_attention.cuh``; built from
+``splash_attention{,_f16,_f32}.cu``, ``splash_attention_bwd_dq{,_f16,_f32}.cu``
 and ``splash_attention_bwd_dkdv{,_f16,_f32}.cu`` in parallel), each with its
 plain version here and a launch count:
 
@@ -36,8 +37,9 @@ plain version here and a launch count:
   ``[B, H, S]`` fp32; a row with no active block gets o = 0 and lse =
   ``LSE_EMPTY`` (+1e30), so the backward's ``exp(s - lse)`` is exactly 0;
   ``splash_fwd_merge`` merges the rows of split groups;
-- ``splash_attention_bwd_dq``: dq over the forward table, P rebuilt from
-  lse, dS rounded to k's dtype before ``dS k``;
+- ``splash_attention_bwd_dq``: dq over the forward's plan, P rebuilt from
+  lse, dS rounded to k's dtype before ``dS k``; ``splash_dq_sum`` sums the
+  partials of split groups and rounds them once;
 - ``splash_attention_bwd_dkdv``: dk and dv over the transposed layout's
   plan, P rounded to dO's dtype and dS to q's dtype; ``splash_dkdv_sum``
   sums the partials of split groups and rounds them once.
@@ -50,7 +52,7 @@ layout's mask, in fp32 (fp64 for fp64 inputs: the exact value), in chunks
 of ``(batch, head)`` rows.
 
 ``splash_sparse_attention`` is one ``torch.autograd.Function`` over the
-three; its block tables and plans live on the device in a cache keyed like
+three; its plans live on the device in a cache keyed like
 ``_cached_splash_fn`` (layout bytes, shape, block, scale, device), so a
 call never rebuilds them in a host loop.
 """
@@ -82,7 +84,8 @@ def build_block_table(layout: np.ndarray):
     int32).
 
     A = widest active row; padding entries point at block 0 and are skipped
-    via the counts.
+    via the counts. The JAX package's dq table (``splash.py:44``); the
+    port's kernels sweep ``plan_splash``'s plans instead.
     """
     layout = np.asarray(layout).astype(bool)
     H, nb, nb2 = layout.shape
@@ -97,9 +100,9 @@ def build_block_table(layout: np.ndarray):
     return table, counts
 
 
-# The sweep of the forward and dk/dv kernels (csrc/splash_grouped.cuh): a
-# work item is 64 rows (queries, or keys for dk/dv), a warp's 16 each, and
-# a stage of its sweep is 64 keys (or query rows) of its union's blocks
+# The sweep of the kernels (csrc/splash_grouped.cuh): a work item is 64 rows
+# (queries, or keys for dk/dv), a warp's 16 each, and a stage of its sweep
+# is 64 keys (or query rows) of its union's blocks
 WARP_ROWS = 16
 GROUP_ROWS = 64
 STAGE_ROWS = 64
@@ -132,9 +135,9 @@ def sweep_stages(n_entries, block: int):
 
 @dataclasses.dataclass(frozen=True)
 class SplashPlan:
-    """The work items of one sweep (the forward's layout, or its transpose
-    for dk/dv), as numpy arrays from ``plan_splash`` or as int32 tensors on
-    a device (``to``):
+    """The work items of one sweep (the forward's layout for the forward and
+    dq, or its transpose for dk/dv), as numpy arrays from ``plan_splash``
+    or as int32 tensors on a device (``to``):
 
     - ``items`` ``[n_items, ITEM_INTS]``: layout head, first and end entry,
       partial slot (-1: the item writes the outputs), and each warp's first
@@ -197,13 +200,13 @@ def _group_order(lay: np.ndarray, members: int, block: int) -> np.ndarray:
 
 
 def plan_splash(layout: np.ndarray, block: int, limit: Optional[int] = None) -> SplashPlan:
-    """Plan the sweep over ``layout`` ``[Lh, nb, nb]`` (the forward's; pass
-    its transpose for dk/dv): groups of ``GROUP_ROWS // block`` block rows
-    (one for block 64, and two 64-row halves of one row for block 128), the
-    sorted union of each group's blocks with each entry's members, each
-    union longer than ``limit`` entries cut into near-equal segments
-    (aligned to whole stages where that stays within the limit), and the
-    items ordered longest first. ``limit=None`` takes the default: a
+    """Plan the sweep over ``layout`` ``[Lh, nb, nb]`` (the forward's, which
+    dq sweeps too; pass its transpose for dk/dv): groups of ``GROUP_ROWS //
+    block`` block rows (one for block 64, and two 64-row halves of one row
+    for block 128), the sorted union of each group's blocks with each
+    entry's members, each union longer than ``limit`` entries cut into
+    near-equal segments (aligned to whole stages where that stays within
+    the limit), and the items ordered longest first. ``limit=None`` takes the default: a
     segment holds at most 1 / SEGMENT_SHARE of the plan's stages and no
     fewer than MIN_SEGMENT_STAGES."""
     lay = np.asarray(layout).astype(bool)
@@ -273,14 +276,11 @@ def plan_splash(layout: np.ndarray, block: int, limit: Optional[int] = None) -> 
 @dataclasses.dataclass(frozen=True)
 class SplashTables:
     """One layout on one device: the layout itself (bool ``[Lh, nb, nb]``,
-    for the plain versions), the block size, the dq kernel's int32 block
-    table of the layout, and the device plans of the forward (``plan``)
-    and of the dk/dv pass (``plan_t``, over the transposed layout; both
-    None for a block the kernels do not take)."""
+    for the plain versions), the block size, and the device plans of the
+    forward and dq (``plan``) and of the dk/dv pass (``plan_t``, over the
+    transposed layout; both None for a block the kernels do not take)."""
     layout: torch.Tensor
     block: int
-    table: torch.Tensor
-    counts: torch.Tensor
     plan: Optional[SplashPlan]
     plan_t: Optional[SplashPlan]
 
@@ -288,15 +288,10 @@ class SplashTables:
     def build(layout: np.ndarray, block: int, device,
               limit: Optional[int] = None) -> "SplashTables":
         lay = np.ascontiguousarray(np.asarray(layout).astype(bool))
-        table, counts = build_block_table(lay)
         dev = torch.device(device)
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
         plans = [plan_splash(x, block, limit).to(dev) if block in KERNEL_BLOCKS else None
                  for x in (lay, lay.transpose(0, 2, 1))]
-        return SplashTables(put(lay), int(block), put(table), put(counts), *plans)
+        return SplashTables(torch.from_numpy(lay).to(dev), int(block), *plans)
 
 
 def _scale(q, scale):
@@ -420,14 +415,11 @@ def _check_cuda(name, q, tables, tensors):
     if D > 128 or D % 8:
         raise ValueError(f"{name}: the kernel takes head_dim <= 128 and a "
                          f"multiple of 8, got {D}")
-    if B * H > 65535:
-        raise ValueError(f"{name}: the kernel takes batch * heads <= 65535, "
-                         f"got {B * H}")
     if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"{name}: the kernel takes float32, bfloat16 or float16, "
                         f"got {q.dtype}")
     for t in tensors:
-        if t.device != q.device or tables.table.device != q.device:
+        if t.device != q.device or tables.layout.device != q.device:
             raise ValueError(f"{name}: all inputs and the tables must be on one device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
@@ -544,25 +536,66 @@ def splash_fwd_merge(o, lse, plan: SplashPlan, acc, ml):
     splash_fwd_merge.launches += 1
 
 
-def splash_attention_bwd_dq(q, k, v, do, lse, delta, tables: SplashTables,
-                            scale: Optional[float] = None):
-    """K8 dq pass over the forward table (kernel ``dstt_splash_bwd_dq``)."""
-    if q.device.type == "cpu":
-        return splash_attention_bwd_dq_reference(q, k, v, do, lse, delta, tables,
-                                                 tables.block, scale)
+def splash_dq_sweep(q, k, v, do, lse, delta, tables: SplashTables,
+                    scale: Optional[float] = None):
+    """K8 dq's grouped sweep alone (kernel ``dstt_splash_bwd_dq`` over
+    ``tables.plan``, the forward's): ``(dq, pq)``, where the rows of split
+    groups are left to ``splash_dq_sum`` and their segments' fp32 partials
+    are in ``pq`` ``[replicas, slots, 64, D]`` (None without a split).
+    Counts in ``splash_attention_bwd_dq.launches``."""
     _check_cuda("splash_attention_bwd_dq", q, tables, (q, k, v, do, lse, delta))
     dq = torch.empty_like(q)
-    B, H, S, D = q.shape
+    plan, (B, H, S, D) = tables.plan, q.shape
+    pq = _partials(q, plan, D)
     with torch.cuda.device(q.device):
         err = _build.lib().dstt_splash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), tables.table.data_ptr(),
-            tables.counts.data_ptr(), B * H, S, D, tables.table.shape[0],
-            tables.table.shape[2], tables.block, _scale(q, scale), _build.dtype_code(q.dtype),
-            _stream(q))
+            delta.data_ptr(), dq.data_ptr(), plan.items.data_ptr(), plan.entries.data_ptr(),
+            plan.n_items, plan.cap, B * H, S, D, plan.heads, tables.block, _scale(q, scale),
+            _build.dtype_code(q.dtype), _ptr(pq), plan.n_parts, _stream(q))
     _build.check(err, "splash_attention_bwd_dq")
     splash_attention_bwd_dq.launches += 1
+    return dq, pq
+
+
+def splash_attention_bwd_dq(q, k, v, do, lse, delta, tables: SplashTables,
+                            scale: Optional[float] = None):
+    """K8 dq pass over the forward's plan (``splash_dq_sweep``, then
+    ``splash_dq_sum`` where the plan splits a group)."""
+    if q.device.type == "cpu":
+        return splash_attention_bwd_dq_reference(q, k, v, do, lse, delta, tables,
+                                                 tables.block, scale)
+    dq, pq = splash_dq_sweep(q, k, v, do, lse, delta, tables, scale)
+    if tables.plan.n_merges:
+        splash_dq_sum(dq, tables.plan, pq)
     return dq
+
+
+def splash_dq_sum_reference(dq, plan: SplashPlan, pq):
+    """Plain sum of the split rows of dq (or of dk or dv over the transposed
+    plan), in place: each one's fp32 partials added in segment order,
+    rounded once."""
+    flat = dq.view(-1, dq.shape[-1])
+    for rep, rows, slots in split_groups(plan, dq.shape, dq.device):
+        total = torch.zeros_like(pq[rep, 0])
+        for slot in slots:
+            total += pq[rep, slot]
+        keep = rows >= 0
+        flat[rows[keep]] = total[keep].to(dq.dtype)
+
+
+def splash_dq_sum(dq, plan: SplashPlan, pq):
+    """dq's second pass (kernel ``dstt_splash_dq_sum``): each split group's
+    fp32 partials summed in segment order and rounded once to q's dtype."""
+    if dq.device.type == "cpu":
+        return splash_dq_sum_reference(dq, plan, pq)
+    B, H, S, D = dq.shape
+    with torch.cuda.device(dq.device):
+        err = _build.lib().dstt_splash_dq_sum(
+            dq.data_ptr(), plan.merges.data_ptr(), plan.n_merges, B * H, S, D, plan.heads,
+            _build.dtype_code(dq.dtype), pq.data_ptr(), plan.n_parts, _stream(dq))
+    _build.check(err, "splash_dq_sum")
+    splash_dq_sum.launches += 1
 
 
 def splash_dkdv_sweep(q, k, v, do, lse, delta, tables: SplashTables,
@@ -604,16 +637,10 @@ def splash_attention_bwd_dkdv(q, k, v, do, lse, delta, tables: SplashTables,
 
 
 def splash_dkdv_sum_reference(dk, dv, plan: SplashPlan, pk, pv):
-    """Plain sum of the split keys, in place: each one's fp32 partials
-    added in segment order, rounded once."""
-    for out, part in ((dk, pk), (dv, pv)):
-        flat = out.view(-1, out.shape[-1])
-        for rep, rows, slots in split_groups(plan, out.shape, out.device):
-            total = torch.zeros_like(part[rep, 0])
-            for slot in slots:
-                total += part[rep, slot]
-            keep = rows >= 0
-            flat[rows[keep]] = total[keep].to(out.dtype)
+    """Plain sum of the split keys of dk and dv, in place
+    (``splash_dq_sum_reference`` on each)."""
+    splash_dq_sum_reference(dk, plan, pk)
+    splash_dq_sum_reference(dv, plan, pv)
 
 
 def splash_dkdv_sum(dk, dv, plan: SplashPlan, pk, pv):
@@ -634,7 +661,7 @@ def splash_dkdv_sum(dk, dv, plan: SplashPlan, pk, pv):
 
 # every K8 kernel's launch counter, by wrapper
 KERNEL_COUNTERS = (splash_attention_fwd, splash_fwd_merge, splash_attention_bwd_dq,
-                   splash_attention_bwd_dkdv, splash_dkdv_sum)
+                   splash_dq_sum, splash_attention_bwd_dkdv, splash_dkdv_sum)
 for _fn in KERNEL_COUNTERS:
     _fn.launches = 0
 
@@ -663,7 +690,7 @@ class _Splash(torch.autograd.Function):
 @functools.lru_cache(maxsize=64)
 def _cached_splash_fn(layout_bytes: bytes, layout_shape, block: int,
                       scale: float, device: str):
-    """The block table and plans (host loops, then one copy to ``device``)
+    """The plans (host loops, then one copy to ``device``)
     and the differentiable function over them, cached per (layout, block,
     scale, device): eager loops must not rebuild them every call."""
     layout = np.frombuffer(layout_bytes, dtype=np.bool_).reshape(layout_shape)
@@ -688,8 +715,8 @@ def splash_function(layout: np.ndarray, block: int, scale: float, device):
 def splash_sparse_attention(q, k, v, layout: np.ndarray, block: int,
                             scale: Optional[float] = None):
     """Block-sparse attention through K8, differentiable through the
-    sparse backward kernels (dq over the forward block table, dk/dv over
-    the transposed table).
+    sparse backward kernels (dq over the forward's plan, dk/dv over the
+    transposed layout's).
 
     q,k,v: [batch, heads, seq, head_dim]; layout: [heads or 1, nb, nb]
     static (a 1-head layout broadcasts over heads, dense-path parity).

@@ -27,12 +27,13 @@ keys gathered into contiguous K/V (the cap and the window as its
 fp32 engine as chip_smoke.py's ``serving_gemma2`` builds it (full depth,
 the weights as first drawn), timing each forward of its 5120-token
 prompt's prefill, fed twice in 768-token chunks, and of one decode step.
-``--k8`` runs K8 alone instead: its forward, dk/dv and, as a control, dq
-at chip_smoke.py's ``SPLASH_SHAPE`` under its four layouts (fixed,
-BigBird, Longformer at block 16, fixed at block 64), each pass's time,
-bound and row error against its plain version, with the plans' shape where
-the tree has them; ``--k8-limits`` repeats the cases at those segment
-limits (a tree whose ``SplashTables.build`` takes ``limit``).
+``--k8`` runs K8 alone instead: dq (with its sum of split rows, where the
+tree has one) and, as controls, the forward and dk/dv at chip_smoke.py's
+``SPLASH_SHAPE`` under its four layouts (fixed, BigBird, Longformer at
+block 16, fixed at block 64), each pass's time, bound and row error
+against its plain version, with the plans' shape where the tree has them;
+``--k8-limits`` repeats the cases at those segment limits (a tree whose
+``SplashTables.build`` takes ``limit``).
 Prints one JSON line tagged TAG. To compare two commits on one card, run them in turns in one
 command: parent, change, change, parent.
 """
@@ -115,8 +116,9 @@ FP32 = (
 
 
 def k8_case(cs, gen, name, config, block, limit=None):
-    """K8's forward, dq and dk/dv in bf16 at ``SPLASH_SHAPE`` under one
-    layout: each pass's ms (a CUDA graph of 20 calls; ``events_ms``: CUDA
+    """K8's dq, forward and dk/dv in bf16 at ``SPLASH_SHAPE`` under one
+    layout, each pass through its wrapper (second passes included): each
+    pass's ms (a CUDA graph of 20 calls; ``events_ms``: CUDA
     events around 20 calls through the wrapper), its bound (the larger of
     each input read once and each output written once at 3.35 TB/s and its
     operations, 4·D / 6·D / 8·D per active pair, at 989 TFLOP/s; the block

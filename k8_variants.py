@@ -32,7 +32,7 @@ OUT = "build/k8_variants"
 
 _GROUP = "constexpr int kGroupRows = 64;"
 _RING = "  return sizeof(T) * DMAX > 256 ? 2 : 3;"
-_BLOCKS = "  return DMAX > 64 ? 1 : kFwd ? 4 * 64 / kGroupRows : 3 * 64 / kGroupRows;"
+_BLOCKS = "  return DMAX > 64 ? 1 : P == kPassDkdv ? 3 * 64 / kGroupRows : 4 * 64 / kGroupRows;"
 _SKIP = "    if (act == 0 || wrow < 0) continue;"
 _LOAD = "    if (t >= nst) return;"
 _EXP = "        s[c][j][e] = exp2_ftz(fmaf(s[c][j][e], scale2, -mu[e >> 1]));"
@@ -67,12 +67,12 @@ cudaError_t launch_fwd_f32(const GArgs&, int, cudaStream_t) { return cudaErrorIn
 cudaError_t launch_dkdv_f32(const GArgs&, int, cudaStream_t) { return cudaErrorInvalidValue; }
 }}
 using namespace dstt::splash;
-template <bool F>
+template <int P>
 static int go(GArgs a, int block, int dtype, void* stream) {
-  if (!grouped_ok(a) || dtype != dstt::kBFloat16 || a.D > 64) return (int)cudaErrorInvalidValue;
+  if (!grouped_ok(a, P) || dtype != dstt::kBFloat16 || a.D > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (block == 16) return (int)launch_grouped<F, __nv_bfloat16, 16, 64>(a, s);
-  if (block == 64) return (int)launch_grouped<F, __nv_bfloat16, 64, 64>(a, s);
+  if (block == 16) return (int)launch_grouped<P, __nv_bfloat16, 16, 64>(a, s);
+  if (block == 64) return (int)launch_grouped<P, __nv_bfloat16, 64, 64>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 extern "C" int dstt_splash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -82,7 +82,7 @@ extern "C" int dstt_splash_fwd(const void* q, const void* k, const void* v, void
   GArgs a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, (float*)lse, (const int*)items,
           (const int*)entries, (float*)ws, (float*)ws2, n_items, n_parts, 0, BH, S, D, Lh, cap,
           scale};
-  return go<true>(a, block, dtype, stream);
+  return go<kPassFwd>(a, block, dtype, stream);
 }
 extern "C" int dstt_splash_fwd_merge(void* o, void* lse, const void* merges, int n_merges,
                                      int BH, int S, int D, int Lh, int dtype, void* ws,
@@ -90,7 +90,7 @@ extern "C" int dstt_splash_fwd_merge(void* o, void* lse, const void* merges, int
   GArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, o, nullptr, (float*)lse,
           (const int*)merges, nullptr, (float*)ws, (float*)ws2, n_merges, n_parts, 0, BH, S, D,
           Lh, 0, 0.f};
-  return run_second_pass<true>(a, dtype, stream);
+  return run_second_pass<kPassFwd>(a, dtype, stream);
 }
 extern "C" int dstt_splash_bwd_dkdv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
@@ -101,7 +101,7 @@ extern "C" int dstt_splash_bwd_dkdv(const void* q, const void* k, const void* v,
   GArgs a{q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, nullptr,
           (const int*)items, (const int*)entries, (float*)ws, (float*)ws2, n_items, n_parts, 0,
           BH, S, D, Lh, cap, scale};
-  return go<false>(a, block, dtype, stream);
+  return go<kPassDkdv>(a, block, dtype, stream);
 }
 extern "C" int dstt_splash_dkdv_sum(void* dk, void* dv, const void* merges, int n_merges,
                                     int BH, int S, int D, int Lh, int dtype, void* ws,
@@ -109,7 +109,7 @@ extern "C" int dstt_splash_dkdv_sum(void* dk, void* dv, const void* merges, int 
   GArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dk, dv, nullptr,
           (const int*)merges, nullptr, (float*)ws, (float*)ws2, n_merges, n_parts, 0, BH, S, D,
           Lh, 0, 0.f};
-  return run_second_pass<false>(a, dtype, stream);
+  return run_second_pass<kPassDkdv>(a, dtype, stream);
 }
 '''
 ENTRY_POINTS = ("dstt_splash_fwd", "dstt_splash_fwd_merge", "dstt_splash_bwd_dkdv",

@@ -1338,14 +1338,15 @@ def _splash_inputs(B, H, S, D, dtype, device, seed):
 
 def _check_splash(q, k, v, do, layout, block, limit=None):
     """Each K8 pass against its plain version on identical inputs; each
-    kernel launches once, the merge and the sum once where the plans split
+    kernel launches once, the merge and the sums once where the plans split
     a group."""
     tables = sp.SplashTables.build(layout, block, q.device, limit)
     kernels = (sp.splash_attention_fwd, sp.splash_attention_bwd_dq,
-               sp.splash_attention_bwd_dkdv, sp.splash_fwd_merge, sp.splash_dkdv_sum)
+               sp.splash_attention_bwd_dkdv, sp.splash_fwd_merge, sp.splash_dq_sum,
+               sp.splash_dkdv_sum)
+    split, split_t = int(tables.plan.n_merges > 0), int(tables.plan_t.n_merges > 0)
     before = [f.launches for f in kernels]
-    after = [b + n for b, n in zip(before, (1, 1, 1, int(tables.plan.n_merges > 0),
-                                           int(tables.plan_t.n_merges > 0)))]
+    after = [b + n for b, n in zip(before, (1, 1, 1, split, split, split_t))]
     o, lse = sp.splash_attention_fwd(q, k, v, tables)
     o_ref, lse_ref = sp.splash_attention_fwd_reference(q, k, v, layout, block)
     delta = attention_delta(o_ref, do)
@@ -1383,22 +1384,24 @@ def test_splash_kernels_match_plain(case, cuda_device):
 
 
 @pytest.mark.parametrize("block", [16, 32, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
 def test_splash_every_union_split(block, dtype, cuda_device):
     """A plan limited to one block a segment (every union of two or more
-    blocks split, the merge and the sum over many segments) against the
-    plain versions."""
+    blocks split, the merge and the sums over many segments) against the
+    plain versions; each head's layout differs, so the plans are per head
+    and the partials of every head are summed."""
     nb, H, D = 6, 2, 64
     layout = _splash_layout("bigbird", H, block, nb * block)
     q, k, v, do = _splash_inputs(2, H, nb * block, D, dtype, cuda_device, 40 + block)
     tables = sp.SplashTables.build(layout, block, cuda_device, 1)
     assert tables.plan.n_merges and tables.plan_t.n_merges
+    assert tables.plan.heads == tables.plan_t.heads == H
     _check_splash(q, k, v, do, layout, block, limit=1)
 
 
 @pytest.mark.parametrize("case", SPLASH_SPLIT[:2])
 def test_splash_is_deterministic(case, cuda_device):
-    """Two launches of the forward and of dk/dv on the same inputs give the
+    """Two launches of the forward, dq and dk/dv on the same inputs give the
     same bits: split groups are merged and summed in segment order, with
     no float atomics."""
     B, H, Lh, S, D, block, family, dtype = SPLASH[case]
@@ -1408,10 +1411,12 @@ def test_splash_is_deterministic(case, cuda_device):
     assert tables.plan.n_merges and tables.plan_t.n_merges
     o, lse = sp.splash_attention_fwd(q, k, v, tables)
     delta = attention_delta(o, do)
-    first = [o, lse, *sp.splash_attention_bwd_dkdv(q, k, v, do, lse, delta, tables)]
-    again = [*sp.splash_attention_fwd(q, k, v, tables),
+    first = [o, lse, sp.splash_attention_bwd_dq(q, k, v, do, lse, delta, tables),
              *sp.splash_attention_bwd_dkdv(q, k, v, do, lse, delta, tables)]
-    for name, a, b in zip(("o", "lse", "dk", "dv"), first, again):
+    again = [*sp.splash_attention_fwd(q, k, v, tables),
+             sp.splash_attention_bwd_dq(q, k, v, do, lse, delta, tables),
+             *sp.splash_attention_bwd_dkdv(q, k, v, do, lse, delta, tables)]
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), first, again):
         assert torch.equal(a, b), name
 
 

@@ -491,11 +491,58 @@ def _emulate_dkdv(q, k, v, do, lse, delta, block, plan, scale):
     return dk, dv, _stack(parts, reps, plan.n_parts)
 
 
+def _emulate_dq(q, k, v, do, lse, delta, block, plan, scale):
+    """The planned dq sweep over the forward's plan: each warp's 16 query
+    rows accumulate dq += dS k over the 16-key chunks its member holds, P
+    rebuilt from lse; a split group's fp32 partials summed in segment
+    order."""
+    BH, S, D = q.shape
+    reps, (eps, spe) = BH // plan.heads, (sp.entries_per_stage(block),
+                                          sp.stages_per_entry(block))
+    members, mask = max(1, sp.GROUP_ROWS // block), (1 << sp.MASK_SHIFT) - 1
+    rows_, warps = sp.GROUP_ROWS, sp.GROUP_ROWS // sp.WARP_ROWS
+    dq = torch.full_like(q, float("nan"))
+    parts = {}
+    for h, e0, e1, part, *wrows in plan.items:
+        for rep in range(reps):
+            bh = rep * plan.heads + h
+            gq = torch.zeros(rows_, D)
+            for t in range(int(sp.sweep_stages(e1 - e0, block))):
+                for w, row in enumerate(wrows):
+                    for c in range(4):
+                        e = e0 + t * eps + c * 16 // block if block <= 64 else e0 + t // spe
+                        off = c * 16 % block if block <= 64 else t % spe * 64 + c * 16
+                        if row < 0 or e >= e1 or not (plan.entries[e] >> sp.MASK_SHIFT
+                                                      >> (w * members // warps)) & 1:
+                            continue
+                        keys = (plan.entries[e] & mask) * block + off + torch.arange(16)
+                        qr, r = slice(row, row + 16), slice(16 * w, 16 * w + 16)
+                        p = torch.exp(q[bh, qr] @ k[bh, keys].T * scale - lse[bh, qr, None])
+                        ds = p * (do[bh, qr] @ v[bh, keys].T - delta[bh, qr, None]) * scale
+                        gq[r] += ds @ k[bh, keys]
+            if part >= 0:
+                parts[rep, part] = (gq, )
+                continue
+            for w, row in enumerate(wrows):
+                if row >= 0:
+                    dq[bh, row:row + 16] = gq[16 * w:16 * w + 16]
+    for h, p0, nseg, _, *wrows in plan.merges:
+        for rep in range(reps):
+            bh = rep * plan.heads + h
+            gq = torch.zeros(rows_, D)
+            for i in range(nseg):  # in segment order
+                gq = gq + parts[rep, p0 + i][0]
+            for w, row in enumerate(wrows):
+                if row >= 0:
+                    dq[bh, row:row + 16] = gq[16 * w:16 * w + 16]
+    return dq, _stack(parts, reps, plan.n_parts)
+
+
 @pytest.mark.parametrize("block,per_head", [(16, False), (16, True), (32, True), (64, False),
                                             (128, False)])
 def test_planned_sweep_matches_plain(block, per_head):
-    """The CPU emulation of the planned forward and dk/dv sweeps, with a
-    limit that splits rows over several segments, a q-block that sees
+    """The CPU emulation of the planned forward, dq and dk/dv sweeps, with
+    a limit that splits rows over several segments, a q-block that sees
     nothing and a k-block that no q-block sees, equals K8's dense plain
     versions within 2e-5 (fp32: only the order of the sums differs)."""
     B, H, D = 2, 2, 16
@@ -511,15 +558,18 @@ def test_planned_sweep_matches_plain(block, per_head):
     scale = 0.3
     o_ref, lse_ref = sp.splash_attention_fwd_reference(q, k, v, layout, block, scale)
     delta = (do * o_ref).sum(-1)
+    dq_ref = sp.splash_attention_bwd_dq_reference(q, k, v, do, lse_ref, delta, layout, block,
+                                                  scale)
     dk_ref, dv_ref = sp.splash_attention_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
                                                             layout, block, scale)
     plan, plan_t = _check_plan(layout, block, limit=2 if block <= 32 else 1)
     assert plan.n_parts and plan_t.n_parts
     flat = [x.reshape(B * H, S, D) for x in (q, k, v, do)]
+    stats = (lse_ref.reshape(B * H, S), delta.reshape(B * H, S))
     o, lse, (m, l, acc) = _emulate_fwd(*flat[:3], layout, block, plan, scale)
-    dk, dv, (pk, pv) = _emulate_dkdv(*flat, lse_ref.reshape(B * H, S),
-                                     delta.reshape(B * H, S), block, plan_t, scale)
-    for got, want in ((o, o_ref), (lse, lse_ref), (dk, dk_ref), (dv, dv_ref)):
+    dq, (pq, ) = _emulate_dq(*flat, *stats, block, plan, scale)
+    dk, dv, (pk, pv) = _emulate_dkdv(*flat, *stats, block, plan_t, scale)
+    for got, want in ((o, o_ref), (lse, lse_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         torch.testing.assert_close(got.reshape(want.shape), want, atol=2e-5, rtol=2e-5)
     # the second passes' plain versions over the same partials write the
     # split rows as the emulation merged or summed them
@@ -529,6 +579,11 @@ def test_planned_sweep_matches_plain(block, per_head):
     assert split.any()
     torch.testing.assert_close(o2[split], o.reshape(B, H, S, D)[split], atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(lse2[split], lse.reshape(B, H, S)[split], atol=1e-6, rtol=1e-6)
+    dq2 = torch.full((B, H, S, D), float("nan"))
+    sp.splash_dq_sum(dq2, plan, pq)
+    split = ~torch.isnan(dq2)
+    assert split.any()
+    torch.testing.assert_close(dq2[split], dq.reshape(B, H, S, D)[split], atol=0, rtol=0)
     dk2, dv2 = torch.full((B, H, S, D), float("nan")), torch.full((B, H, S, D), float("nan"))
     sp.splash_dkdv_sum(dk2, dv2, plan_t, pk, pv)
     split = ~torch.isnan(dk2)
@@ -537,4 +592,5 @@ def test_planned_sweep_matches_plain(block, per_head):
     torch.testing.assert_close(dv2[split], dv.reshape(B, H, S, D)[split], atol=0, rtol=0)
     assert not o.reshape(B, H, S, D)[:, :, 2 * block:3 * block].any()
     assert (lse.reshape(B, H, S)[:, :, 2 * block:3 * block] == sp.LSE_EMPTY).all()
+    assert not dq.reshape(B, H, S, D)[:, :, 2 * block:3 * block].any()
     assert not dk.reshape(B, H, S, D)[:, :, 3 * block:4 * block].any()
