@@ -18,16 +18,19 @@ Phases, each printing one JSON line:
                       registers, spills, dynamic shared memory and any
                       ptxas warning that its products are serialized; the
                       same (but the warnings) for each instance of K4's
-                      decode kernel.
+                      decode kernel; registers and spills of K5/K5b's
+                      row-norm instances and of K6's kernels.
   2. kernels        — every kernel of both paths against its plain PyTorch
                       version at main-path shapes in bf16: the error
                       beside the stated tolerance (flash: row by row, with
                       the exact fp64 value as a control), kernel / plain / library
                       time and the least time the card could take (bound).
                       Large cases are timed with CUDA events around 20
-                      calls; the small ones (K5, K4 decode) by replaying 20
-                      calls captured in a CUDA graph, so the time is the
-                      device's and not the wrapper's host cost. K6 and the
+                      calls; the small ones (K5, K5b, K6, K4 decode) by
+                      replaying 20 calls captured in a CUDA graph, so the
+                      time is the device's and not the wrapper's host
+                      cost; an empty kernel's graph time (the card's floor
+                      for one launch) beside the norms. K6 and the
                       dequantize helper must equal their plain versions bit
                       for bit; K4 is held row by row against one bf16
                       rounding of the exact fp32 output on the same inputs,
@@ -148,7 +151,9 @@ Phases, each printing one JSON line:
                       build_llama_engine(quantize="int8",
                       kv_cache_dtype="int8") (K6 at build, the dequantize
                       helper at each use, K4 over the int8 cache): the same
-                      checks, K6 launched 7 per layer, the layer weights and
+                      checks, K6 launched 7 per layer (its device time over
+                      the build: each shape it took graph-timed, times its
+                      launches, beside the bound), the layer weights and
                       the memory after build at least 6 GiB below phase 6's,
                       and each prompt's prefill logits within cosine 0.99 of
                       phase 6's.
@@ -297,7 +302,10 @@ def phase_build() -> dict:
            # head-width-256 instances
            "d256_resource_usage": _build.resource_usage("Li256E"),
            "wgmma_kernels": wgmma_usage(), "decode_kernels": decode_usage(),
-           "f32_kernels": f32_usage(), "splash_kernels": splash_usage()}
+           "f32_kernels": f32_usage(), "splash_kernels": splash_usage(),
+           # K5/K5b's row-norm instances and K6's quantize kernels
+           "row_norm_kernels": _build.resource_usage("row_norm"),
+           "quantize_kernels": _build.resource_usage("quantize")}
     emit(rec)
     return rec
 
@@ -454,6 +462,15 @@ def _ln_case(rows: int, d: int, gen, dtype) -> dict:
             "plain_ms": graph_time_ms(lambda: layer_norm_reference(x, w, b, eps)),
             "library_ms": graph_time_ms(lambda: F.layer_norm(x, (d, ), w, b, eps)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def launch_floor_ms() -> float:
+    """Graph time of an empty kernel (csrc/rms_norm.cu dstt_empty_launch):
+    the card's floor for one launch, a note beside the decode-row norms."""
+    import torch
+    from deepspeed_tpu_torch.ops import _build
+    lib = _build.lib()
+    return graph_time_ms(lambda: lib.dstt_empty_launch(torch.cuda.current_stream().cuda_stream))
 
 
 def int8_kv(cache, D: int):
@@ -714,7 +731,8 @@ def flash_cap_bite_share(q, k, causal: bool, window, cap: float, rows: int = 256
 
 def _quant_case(gen, name: str, shape: tuple, zero_block: bool = False) -> dict:
     """K6 on a bf16 weight of ``shape`` at block 512 (the engine's group
-    size): equal to the plain version bit for bit."""
+    size): equal to the plain version bit for bit; the kernel graph-timed
+    (the plain version, many launches, by events)."""
     import torch
     from deepspeed_tpu_torch.ops.quantizer import (
         quantize_int8_blockwise, quantize_int8_blockwise_reference)
@@ -731,8 +749,8 @@ def _quant_case(gen, name: str, shape: tuple, zero_block: bool = False) -> dict:
     rec = {"case": name, "shape": list(shape), "block": 512, "equal": equal,
            "max_abs_err": max((v.int() - v_ref.int()).abs().max().item(),
                               (s - s_ref).abs().max().item()),
-           "timing": "events",
-           "ms": time_ms(lambda: quantize_int8_blockwise(x, 512)),
+           "timing": "cuda graph",
+           "ms": graph_time_ms(lambda: quantize_int8_blockwise(x, 512)),
            "plain_ms": time_ms(lambda: quantize_int8_blockwise_reference(x, 512), iters=5),
            "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes"}
@@ -1622,6 +1640,8 @@ def phase_kernels() -> list:
     paged = paged_cases[0]
     ln = [_ln_case(768, 4608, gen, torch.bfloat16), _ln_case(8, 4608, gen, torch.bfloat16),
           _ln_case(37, 100, gen, torch.float32)]
+    # the card's floor for one launch, beside the decode-row norms
+    floor_ms = launch_floor_ms()
     # StarCoder2-7B widths, window 4096: a decode step of 8 sequences, 7
     # past the window (freed entries in their tables), and a 768-row
     # prefill chunk straddling the window's edge, each over both caches
@@ -1961,18 +1981,21 @@ def phase_kernels() -> list:
                                     "bound_by", "library_ms")},
          "cases": [dequant]},
         {"name": "rms_norm", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/rms_norm.cu",
+         "source": "deepspeed_tpu_torch/csrc/row_norm.cuh",
          "replaces": "deepspeed_tpu/ops/normalization.py:26",
-         "launches": None, "tolerance": RMS_TOL,
+         "note": "built in csrc/rms_norm.cu; launch_floor_ms: an empty kernel's graph time, "
+                 "the card's floor for one launch (the bound stays the bytes')",
+         "launches": None, "tolerance": RMS_TOL, "launch_floor_ms": floor_ms,
          "max_abs_err": max(c["max_abs_err"] for c in rms),
          **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
          "cases": rms},
         {"name": "rms_norm_fp32_scale", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/rms_norm.cu",
+         "source": "deepspeed_tpu_torch/csrc/row_norm.cuh",
          "replaces": "deepspeed_tpu/ops/normalization.py:26",
-         "note": "bf16 rows, fp32 scale (Gemma's 1 + w); the JAX kernel casts any scale",
-         "launches": None, "tolerance": RMS_TOL,
+         "note": "bf16 rows, fp32 scale (Gemma's 1 + w); the JAX kernel casts any scale; "
+                 "built in csrc/rms_norm.cu",
+         "launches": None, "tolerance": RMS_TOL, "launch_floor_ms": floor_ms,
          "max_abs_err": max(c["max_abs_err"] for c in rms_fp32),
          **{k: rms_fp32[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
@@ -1989,9 +2012,10 @@ def phase_kernels() -> list:
                                                    "library_ms")},
          "cases": paged_softcap_cases},
         {"name": "layer_norm", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/layer_norm.cu",
+         "source": "deepspeed_tpu_torch/csrc/row_norm.cuh",
          "replaces": "deepspeed_tpu/ops/normalization.py:32",
-         "launches": None, "tolerance": LN_TOL,
+         "note": "built in csrc/layer_norm.cu",
+         "launches": None, "tolerance": LN_TOL, "launch_floor_ms": floor_ms,
          "max_abs_err": max(c["max_abs_err"] for c in ln),
          **{k: ln[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "cases": ln},
@@ -3639,6 +3663,29 @@ def phase_serving(kernels: list) -> dict:
     return {"rec": rec, "prefill_logits": run["prefill_logits"]}
 
 
+def k6_build_total(built: list) -> dict:
+    """K6's device time over an engine build: each distinct (shape, dtype,
+    block) of ``built`` graph-timed once on fresh N(0, 0.02) values, times
+    its launches; beside it the bound of the same launches."""
+    import collections
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer import quantize_int8_blockwise
+    shapes, total, bound = [], 0.0, 0.0
+    for (shape, dtype, block), count in collections.Counter(built).items():
+        x = (0.02 * torch.randn(*shape, device="cuda")).to(dtype)
+        ms = graph_time_ms(lambda: quantize_int8_blockwise(x, block))
+        n = x.numel()
+        rows = -(-n // block)
+        b = (n * x.element_size() + rows * block + rows * 4) / HBM_BYTES_PER_S * 1e3
+        shapes.append({"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                       "block": block, "launches": count, "ms": ms, "bound_ms": b})
+        total, bound = total + count * ms, bound + count * b
+        del x
+    free_memory()
+    return {"timing": "cuda graph, each shape once", "launches": len(built),
+            "total_ms": total, "bound_ms": bound, "shapes": shapes}
+
+
 def phase_serving_int8(kernels: list, bf16: dict) -> dict:
     """The same weights, prompts and KV bytes with int8 weights (K6 7 times
     per layer at build, the dequantize helper at each of the 7L uses per
@@ -3653,8 +3700,19 @@ def phase_serving_int8(kernels: list, bf16: dict) -> dict:
                 "rms_norm": (rms_norm, "launches"),
                 "quantize_int8_blockwise": (quantize_int8_blockwise, "launches"),
                 "dequantize_int8_blockwise": (dequantize_int8_blockwise, "launches")}
-    run = _drive_serving(counters, quantize="int8", kv_cache_dtype="int8")
+    from deepspeed_tpu_torch.linear import quantization as lq
+    built = []  # K6's inputs at build: (shape, dtype, block)
+
+    def recording_quantize(w, block_size=2048):
+        built.append((tuple(w.shape), w.dtype, block_size))
+        return quantize_int8_blockwise(w, block_size)
+    lq.quantize_int8_blockwise = recording_quantize
+    try:
+        run = _drive_serving(counters, quantize="int8", kv_cache_dtype="int8")
+    finally:
+        lq.quantize_int8_blockwise = quantize_int8_blockwise
     rec, checks, L = run["rec"], run["checks"], run["layers"]
+    rec["k6_at_build"] = k6_build_total(built)
     n_fwd, launches, at_build = rec["forwards"], rec["launches"], rec["launches_at_build"]
     # each prompt's prefill logits against the bf16 engine's: the int8
     # weights and KV move each logit by the quantization noise only
@@ -3665,6 +3723,8 @@ def phase_serving_int8(kernels: list, bf16: dict) -> dict:
     checks.update({
         "quantize_launches_7L_at_build": at_build["quantize_int8_blockwise"] == 7 * L
         and launches["quantize_int8_blockwise"] == 7 * L,
+        # k6_at_build saw every launch the counter saw
+        "k6_at_build_every_launch": len(built) == at_build["quantize_int8_blockwise"],
         "dequantize_launches_7L_per_forward":
             launches["dequantize_int8_blockwise"] == 7 * L * n_fwd,
         "paged_attention_int8_launches_per_forward":

@@ -11,10 +11,17 @@
 // plain version bit for bit; the max is order-independent.
 //
 // Bound on the H100: bytes (2 B read and 1 B written per bf16 element, 4 B
-// per block). This first version gives each block to one warp: pass 1
-// reads the block for its absmax (a warp reduction), pass 2 reads it again
-// (from L1/L2) and writes the codes. Coalesced, no shared memory; the
-// lanes load one element each, not 16 bytes. It runs only at engine build.
+// per block). quantize_vec_kernel gives each block to one warp and keeps
+// it in registers: a lane owns 16 consecutive elements of every 512-wide
+// stretch of the block (two 16-byte loads of bf16, four of fp32, so eight
+// and sixteen at the JAX default block of 2048), the absmax is a warp
+// reduction by shuffles alone, and the lane's 16 codes of a stretch leave
+// in one 16-byte store. The block is read from device memory once. It
+// takes blocks of 512 and 2048 elements over a 16-byte aligned x; in the
+// last block the vector across n loads element by element, zeros past n
+// (the padding). Other block sizes and unaligned inputs take
+// quantize_kernel: a lane an element, the block read twice (the second
+// time from L1/L2), 1-byte stores. It runs only at engine build.
 //
 // dequantize_kernel is the inverse, out[i] = T(float(values[i]) * scale),
 // the same order as the JAX package's astype(f32) * s then astype(dtype).
@@ -45,13 +52,91 @@ quantize_kernel(const T* __restrict__ x, long long n, int block, long long rows,
   for (long long i = base + lane; i < end; i += 32)
     amax = fmaxf(amax, fabsf(to_float(x[i])));
   amax = warp_max(amax);
-  const float scale = amax == 0.f ? 1.f : amax / 127.f;
+  const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
   for (long long i = base + lane; i < base + block; i += 32) {
     float q = 0.f;
-    if (i < end) q = fminf(fmaxf(rintf(to_float(x[i]) / scale), -127.f), 127.f);
+    if (i < end) q = fminf(fmaxf(rintf(__fdiv_rn(to_float(x[i]), scale)), -127.f), 127.f);
     values[i] = (int8_t)q;
   }
   if (lane == 0) scales[r] = scale;
+}
+
+// the 16 elements a lane owns in one 512-wide stretch of a block; their
+// codes are one 16-byte store
+constexpr int kQuantLaneElems = 16;
+constexpr int kQuantStretch = 32 * kQuantLaneElems;
+
+// One warp a block of kC * 512 elements, held in registers (see above)
+template <typename T, int kC>
+__global__ void __launch_bounds__(kQuantWarps * 32)
+quantize_vec_kernel(const T* __restrict__ x, long long n, long long rows,
+                    int8_t* __restrict__ values, float* __restrict__ scales) {
+  constexpr int E = 16 / sizeof(T);                  // elements per 16-byte vector
+  constexpr int VL = kQuantLaneElems / E;            // vectors a lane loads a stretch
+  constexpr long long kBlock = (long long)kC * kQuantStretch;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * kQuantWarps + warp;
+  if (r >= rows) return;  // warp-uniform
+  const long long base = r * kBlock;
+  uint4 raw[kC][VL];
+  const bool whole = base + kBlock <= n;  // warp-uniform: all but the last block
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int v = 0; v < VL; ++v) {
+      const long long i0 = base + c * kQuantStretch + lane * kQuantLaneElems + v * E;
+      if (whole || i0 + E <= n) {
+        raw[c][v] = __ldg(reinterpret_cast<const uint4*>(x + i0));
+      } else {  // the vector across n: zeros past it
+        T* e = reinterpret_cast<T*>(&raw[c][v]);
+#pragma unroll
+        for (int j = 0; j < E; ++j) e[j] = i0 + j < n ? x[i0 + j] : from_float<T>(0.f);
+      }
+    }
+  float amax = 0.f;
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int v = 0; v < VL; ++v) {
+      const T* e = reinterpret_cast<const T*>(&raw[c][v]);
+#pragma unroll
+      for (int j = 0; j < E; ++j) amax = fmaxf(amax, fabsf(to_float(e[j])));
+    }
+  amax = warp_max(amax);
+  const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    uint4 codes;
+    int8_t* q = reinterpret_cast<int8_t*>(&codes);
+#pragma unroll
+    for (int v = 0; v < VL; ++v) {
+      const T* e = reinterpret_cast<const T*>(&raw[c][v]);
+#pragma unroll
+      for (int j = 0; j < E; ++j)
+        q[v * E + j] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(to_float(e[j]), scale)), -127.f),
+                                     127.f);
+    }
+    *reinterpret_cast<uint4*>(values + base + c * kQuantStretch + lane * kQuantLaneElems) =
+        codes;
+  }
+  if (lane == 0) scales[r] = scale;
+}
+
+template <typename T>
+void launch_quantize(const T* x, long long n, int block, long long rows, int8_t* values,
+                     float* scales, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((rows + kQuantWarps - 1) / kQuantWarps);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(values) % 16 == 0;
+  if (aligned && block == kQuantStretch)
+    quantize_vec_kernel<T, 1><<<grid, kQuantWarps * 32, 0, stream>>>(x, n, rows, values,
+                                                                      scales);
+  else if (aligned && block == 4 * kQuantStretch)
+    quantize_vec_kernel<T, 4><<<grid, kQuantWarps * 32, 0, stream>>>(x, n, rows, values,
+                                                                      scales);
+  else
+    quantize_kernel<T><<<grid, kQuantWarps * 32, 0, stream>>>(x, n, block, rows, values,
+                                                              scales);
 }
 
 template <typename T>
@@ -140,13 +225,9 @@ extern "C" int dstt_quantize_int8(const void* x, long long n, int block, int dty
   int8_t* v = (int8_t*)values;
   float* sc = (float*)scales;
   switch (dtype) {
-    case kFloat32:
-      quantize_kernel<float><<<(unsigned)grid, kQuantWarps * 32, 0, s>>>(
-          (const float*)x, n, block, rows, v, sc);
-      break;
+    case kFloat32: launch_quantize<float>((const float*)x, n, block, rows, v, sc, s); break;
     case kBFloat16:
-      quantize_kernel<__nv_bfloat16><<<(unsigned)grid, kQuantWarps * 32, 0, s>>>(
-          (const __nv_bfloat16*)x, n, block, rows, v, sc);
+      launch_quantize<__nv_bfloat16>((const __nv_bfloat16*)x, n, block, rows, v, sc, s);
       break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -41,10 +41,13 @@ _F = ctypes.c_float
 # dstt_paged_f32_smem, dstt_paged_wgmma_min_rows and
 # dstt_paged_f32_chunk_min_rows)
 _SIGNATURES = {
-    # x, w, out, rows, d, eps, dtype, weight dtype, stream
-    "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _I, _P),
-    # x, w, b, out, rows, d, eps, dtype, stream
-    "dstt_layer_norm": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
+    # x, w, out, rows, d, eps, dtype, weight dtype, weight loads (-1 the
+    # plan's, 0 before the statistic, 1 after it), stream
+    "dstt_rms_norm": (_P, _P, _P, _L, _I, _F, _I, _I, _I, _P),
+    # x, w, b, out, rows, d, eps, dtype, weight loads, stream
+    "dstt_layer_norm": (_P, _P, _P, _P, _L, _I, _F, _I, _I, _P),
+    # stream: an empty kernel, the card's floor for one launch
+    "dstt_empty_launch": (_P, ),
     # S, N, H, D, KV, B, page_size, window, q dtype, cache dtype, kernel
     # (-1: the plan's), out: workspace length in fp32 words, out: the
     # kernel it runs (0 CUDA cores, 1 wgmma tiles, 2 decode, 3 fp32 chunk,

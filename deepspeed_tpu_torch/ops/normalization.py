@@ -3,16 +3,24 @@
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version (``rms_norm_reference``, ``layer_norm_reference``),
-a CUDA tensor launches the hand-written kernel in ``csrc/rms_norm.cu`` or
-``csrc/layer_norm.cu``, or raises. ``rms_norm.launches`` and
-``layer_norm.launches`` count kernel launches; ``rms_norm`` with a bf16 x
-and an fp32 weight (Gemma's ``1 + w``, as the JAX kernel casts any weight
-to fp32) counts in ``rms_norm.fp32_scale_launches`` instead.
+a CUDA tensor launches the hand-written kernel (``csrc/row_norm.cuh``, built
+in ``csrc/rms_norm.cu`` and ``csrc/layer_norm.cu``), or raises.
+``rms_norm.launches`` and ``layer_norm.launches`` count kernel launches;
+``rms_norm`` with a bf16 x and an fp32 weight (Gemma's ``1 + w``, as the JAX
+kernel casts any weight to fp32) counts in ``rms_norm.fp32_scale_launches``
+instead.
+
+The kernel plans each launch itself (``csrc/row_norm.cuh``
+``launch_row_norm``): the row in registers on one block's warps where its
+width and pointers allow, else a scalar kernel.
 """
 
 import torch
 
 from . import _build
+
+# the kernel's own plan of the weight loads (before or after the statistic)
+_PLAN = -1
 
 
 def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -75,7 +83,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
         err = lib.dstt_rms_norm(
             x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, x.shape[-1],
             float(eps), _build.dtype_code(x.dtype), _build.dtype_code(weight.dtype),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _PLAN, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rms_norm")
     if weight.dtype != x.dtype:
         rms_norm.fp32_scale_launches += 1
@@ -99,7 +107,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         err = lib.dstt_layer_norm(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
             rows, x.shape[-1], float(eps), _build.dtype_code(x.dtype),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _PLAN, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "layer_norm")
     layer_norm.launches += 1
     return out

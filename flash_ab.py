@@ -14,7 +14,7 @@ window layer and its decode step over an fp32 cache, Llama's 768-row
 chunk 2200 deep and its decode step over an int8 cache.
 
     python3 flash_ab.py TREE TAG [--flex] [--fp32] [--fp32-engine] [--k8]
-                             [--k8-limits=N,N,...]
+                             [--k8-limits=N,N,...] [--rows] [--norm-loads]
 
 TREE is the root of a checkout (this one: ``.``; another commit: unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists,
@@ -33,7 +33,20 @@ tree has one) and, as controls, the forward and dk/dv at chip_smoke.py's
 block 16, fixed at block 64), each pass's time, bound and row error
 against its plain version, with the plans' shape where the tree has them;
 ``--k8-limits`` repeats the cases at those segment limits (a tree whose
-``SplashTables.build`` takes ``limit``).
+``SplashTables.build`` takes ``limit``). ``--rows`` runs the row kernels
+alone instead: K5 (bf16 ``[8, 4096]``, ``[768, 4096]``; the fp32 scale at
+``[8, 3584]``, ``[768, 3584]``), K5b (``[8, 4608]``, ``[768, 4608]``) and K6
+at the int8 engine's five shapes (block 512), each graph-timed through the
+tree's wrapper (K6 also by CUDA events, host cost included) beside its
+bound and its error against the plain version, an empty kernel's graph
+time where the tree has one, and the norm wrappers' host cost a call at
+decode rows (``wrapper_us``). ``--norm-loads`` measures the row norms'
+weight loads instead (a tree whose norm entry points take them): at 1 to
+768 rows of each serving width (``NORM_WIDTHS``), the weights loaded
+before the statistic and after it, each forced through the C entry point,
+graph-timed and held against the plain version, and the fewest rows from
+which the late loads are as fast at every larger count (the plan's
+``kLateWeightsMinRows`` in ``csrc/row_norm.cuh``).
 Prints one JSON line tagged TAG. To compare two commits on one card, run them in turns in one
 command: parent, change, change, parent.
 """
@@ -161,6 +174,133 @@ def k8_case(cs, gen, name, config, block, limit=None):
     return rec
 
 
+# K6's cases: Llama-3-8B's layer kernels at the engine's block of 512 and
+# a ragged tail, chip_smoke.py's phase-2 shapes
+QUANT_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096 * 3 + 100, ))
+
+
+def rows_cases(cs, gen) -> dict:
+    """K5, K5b and K6 at the main path's shapes through the tree's wrappers
+    (chip_smoke.py's ``_rms_case`` and ``_ln_case`` for the norms)."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer import (quantize_int8_blockwise,
+                                                   quantize_int8_blockwise_reference)
+    norms = [{"kernel": "rms_norm", **cs._rms_case(rows, 4096, gen)} for rows in (8, 768)]
+    norms += [{"kernel": "rms_norm_fp32_scale", **cs._rms_case(rows, 3584, gen, fp32_scale=True)}
+              for rows in (8, 768)]
+    norms += [{"kernel": "layer_norm", **cs._ln_case(rows, 4608, gen, torch.bfloat16)}
+              for rows in (8, 768)]
+    quant = []
+    for shape in QUANT_SHAPES:
+        x = (0.02 * torch.randn(*shape, generator=gen, device="cuda")).to(torch.bfloat16)
+        v, s = quantize_int8_blockwise(x, 512)
+        v_ref, s_ref = quantize_int8_blockwise_reference(x, 512)
+        torch.cuda.synchronize()
+        quant.append({
+            "kernel": "quantize_int8_blockwise", "shape": list(shape), "block": 512,
+            "equal": torch.equal(v, v_ref) and torch.equal(s.view(torch.int32),
+                                                           s_ref.view(torch.int32)),
+            "ms": cs.graph_time_ms(lambda: quantize_int8_blockwise(x, 512)),
+            "events_ms": cs.time_ms(lambda: quantize_int8_blockwise(x, 512)),
+            "bound_ms": (x.numel() * 2 + v.numel() + s.numel() * 4) / cs.HBM_BYTES_PER_S * 1e3})
+        del x, v, s, v_ref, s_ref
+    cs.free_memory()
+    out = {"norms": [{k: c.get(k) for k in ("kernel", "shape", "ms", "bound_ms", "max_abs_err",
+                                            "library_ms")} for c in norms],
+           "quantize": quant}
+    if hasattr(cs, "launch_floor_ms"):
+        out["launch_floor_ms"] = cs.launch_floor_ms()
+    out["wrapper_us"] = wrapper_us()
+    return out
+
+
+def wrapper_us(calls: int = 2000) -> dict:
+    """The norm wrappers' host cost a call at decode rows: ``calls`` calls
+    in a row on the host clock, the device synchronized before and after,
+    over ``calls`` (the kernels take ~2 us, so the host sets the pace)."""
+    import torch
+    from deepspeed_tpu_torch.ops.normalization import layer_norm, rms_norm
+    x16 = torch.randn(8, 4096, device="cuda").to(torch.bfloat16)
+    x36 = torch.randn(8, 3584, device="cuda").to(torch.bfloat16)
+    x46 = torch.randn(8, 4608, device="cuda").to(torch.bfloat16)
+    w16, w36 = torch.ones(4096, device="cuda", dtype=torch.bfloat16), torch.ones(3584, device="cuda")
+    w46 = torch.ones(4608, device="cuda", dtype=torch.bfloat16)
+    cases = {"rms_norm [8, 4096]": lambda: rms_norm(x16, w16),
+             "rms_norm fp32 scale [8, 3584]": lambda: rms_norm(x36, w36),
+             "layer_norm [8, 4608]": lambda: layer_norm(x46, w46, w46)}
+    out = {}
+    for name, fn in cases.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) / calls * 1e6
+    return out
+
+
+# the row norms' serving widths: Llama-3-8B's RMSNorm (bf16), Gemma-2's with
+# the fp32 scale and its fp32 engine's (fp32 rows), StarCoder2's LayerNorm
+NORM_WIDTHS = (("rms_norm", 4096, "bfloat16", "bfloat16"),
+               ("rms_norm", 3584, "bfloat16", "float32"),
+               ("rms_norm", 3584, "float32", "float32"),
+               ("layer_norm", 4608, "bfloat16", "bfloat16"))
+NORM_ROWS = (1, 8, 37, 128, 256, 512, 768)
+NORM_TOL = {"bfloat16": 6.25e-2, "float32": 1e-4}
+
+
+def norm_loads(cs, gen) -> dict:
+    """Each NORM_WIDTHS row norm at NORM_ROWS rows with its weights loaded
+    early (0) and late (1), forced through the entry point, graph-timed;
+    the error of each against the plain version (NORM_TOL by x's dtype)."""
+    import torch
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import normalization as nm
+    lib, points, ok = _build.lib(), [], True
+    for kind, d, dt, wdt in NORM_WIDTHS:
+        dtype, w_dtype = getattr(torch, dt), getattr(torch, wdt)
+        ln = kind == "layer_norm"
+        for rows in NORM_ROWS:
+            x = (torch.randn(rows, d, generator=gen, device="cuda")
+                 + (3 * torch.rand(rows, 1, generator=gen, device="cuda") if ln else 0)).to(dtype)
+            w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(w_dtype)
+            b = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(w_dtype)
+            out = torch.empty_like(x)
+            ref = nm.layer_norm_reference(x, w, b) if ln else nm.rms_norm_reference(x, w)
+            codes = (_build.dtype_code(dtype), _build.dtype_code(w_dtype))
+
+            def run(late):
+                stream = torch.cuda.current_stream().cuda_stream
+                if ln:
+                    return lib.dstt_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                               out.data_ptr(), rows, d, 1e-5, codes[0], late,
+                                               stream)
+                return lib.dstt_rms_norm(x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
+                                         1e-6, *codes, late, stream)
+            point = {"kernel": kind, "d": d, "dtype": dt, "w_dtype": wdt, "rows": rows,
+                     "bound_ms": (2 * rows * d * x.element_size()
+                                  + (2 if ln else 1) * d * w.element_size())
+                     / cs.HBM_BYTES_PER_S * 1e3}
+            for name, late in (("early", 0), ("late", 1)):
+                _build.check(run(late), kind)
+                err = (out.float() - ref.float()).abs().max().item()
+                ok &= err <= NORM_TOL[dt]
+                point[name + "_max_abs_err"] = err
+                point[name + "_ms"] = cs.graph_time_ms(lambda: run(late))
+            points.append(point)
+            del x, w, b, out, ref
+    late_from = {}
+    for kind, d, dt, wdt in NORM_WIDTHS:
+        mine = [p for p in points if (p["kernel"], p["d"], p["dtype"], p["w_dtype"])
+                == (kind, d, dt, wdt)]
+        late_from[f"{kind} {d} {dt}/{wdt}"] = next(
+            (p["rows"] for i, p in enumerate(mine)
+             if all(q["late_ms"] <= q["early_ms"] for q in mine[i:])), None)
+    return {"timing": "cuda graph", "points": points, "ok": ok, "late_wins_from": late_from}
+
+
 def paged_kw(cs, kind):
     return {"gemma2": dict(widths=cs.GEMMA2_PAGED, window=cs.GEMMA2_WINDOW,
                            softcap=cs.GEMMA2_ATTN_CAP, q_scale=cs.CAP_Q_SCALE),
@@ -258,6 +398,16 @@ def main() -> int:
     gen, gen32 = torch.Generator(device="cuda"), torch.Generator(device="cuda")
     gen.manual_seed(7)
     gen32.manual_seed(8)  # the fp32 cases' own: the others' inputs stay as they were
+    if "--rows" in sys.argv:
+        gen.manual_seed(15)  # every tree on the same inputs
+        out["rows"] = rows_cases(cs, gen)
+        print(json.dumps(out), flush=True)
+        return 0
+    if "--norm-loads" in sys.argv:
+        gen.manual_seed(15)
+        out["norm_loads"] = norm_loads(cs, gen)
+        print(json.dumps(out), flush=True)
+        return 0 if out["norm_loads"]["ok"] else 1
     if "--k8" in sys.argv:
         limits = [None] + [int(x) for a in sys.argv if a.startswith("--k8-limits=")
                            for x in a.split("=", 1)[1].split(",")]

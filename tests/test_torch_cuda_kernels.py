@@ -6,6 +6,8 @@ a machine that has only PyTorch: ``python -m pytest --noconftest -q
 tests/test_torch_cuda_kernels.py`` (``--noconftest`` because the suite's
 conftest imports ``jax``)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from deepspeed_tpu_torch.ops.attention import (
     flash_attention_bwd_dkdv_reference, flash_attention_bwd_dq,
     flash_attention_bwd_dq_reference, flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference)
+from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.normalization import (
     layer_norm, layer_norm_reference, rms_norm, rms_norm_reference)
 from deepspeed_tpu_torch.ops.paged_attention import (
@@ -356,6 +359,42 @@ def test_quantizer_refuses_what_the_kernel_does_not_take(cuda_device):
         dequantize_int8_blockwise(v, s, (64, 64), 512, dtype=torch.half)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [512, 2048, 1000, 64])
+@pytest.mark.parametrize("shape", [(4096, 1024), (4103, ), (37, 100), (3, 5)])
+def test_quantize_kernel_blocks_equal_plain(shape, block, dtype, cuda_device):
+    """The register kernel at blocks 512 and 2048 (its last block ragged
+    where numel is not a multiple: zeros past n), the element kernel at
+    1000 and 64; fp32 and bf16; an all-zero block where the shape holds
+    one: bit for bit."""
+    x = _quant_input(shape, dtype, cuda_device) if math.prod(shape) > 1024 else \
+        torch.randn(shape, device=cuda_device).to(dtype)
+    before = quantize_int8_blockwise.launches
+    v, s = quantize_int8_blockwise(x, block)
+    assert quantize_int8_blockwise.launches == before + 1
+    v_ref, s_ref = quantize_int8_blockwise_reference(x, block)
+    torch.cuda.synchronize()
+    assert v.shape == v_ref.shape and s.shape == s_ref.shape
+    assert torch.equal(v, v_ref)
+    assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [512, 2048])
+def test_quantize_unaligned_view_equals_plain(block, dtype, cuda_device):
+    """A contiguous view one element past a 16-byte boundary takes the
+    element kernel: bit for bit; the zero blocks' scales are 1."""
+    flat = torch.randn(4 * 4096 + 1, device=cuda_device).to(dtype)
+    x = flat[1:].view(4, 4096)
+    x.view(-1)[:2048] = 0
+    v, s = quantize_int8_blockwise(x, block)
+    v_ref, s_ref = quantize_int8_blockwise_reference(x, block)
+    torch.cuda.synchronize()
+    assert torch.equal(v, v_ref)
+    assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+    assert s[0].item() == 1.0
+
+
 # ---- K5b LayerNorm ----
 
 # fp32: summation order only, and for the row of mean 300 a few ulps of
@@ -451,6 +490,138 @@ def test_rms_norm_unaligned_view_takes_scalar_path(cuda_device):
     w = torch.ones(4096, device=cuda_device, dtype=torch.bfloat16)
     torch.testing.assert_close(rms_norm(x, w).float(),
                                rms_norm_reference(x, w).float(),
+                               **RMS_TOL[torch.bfloat16])
+
+
+# ---- K5/K5b: the row-norm kernel's plan and both weight placements ----
+
+# (x dtype, weight dtype): bf16 and fp32 rows, and bf16 rows with the fp32
+# scale (Gemma's 1 + w)
+ROW_NORM_TYPES = {"bfloat16": (torch.bfloat16, torch.bfloat16),
+                  "float32": (torch.float32, torch.float32),
+                  "fp32_scale": (torch.bfloat16, torch.float32)}
+# the entry points' weight loads: the kernel's plan, or forced before or
+# after the statistic
+ROW_NORM_LOADS = {"plan": -1, "early": 0, "late": 1}
+
+
+def _row_norm_inputs(rows, d, dtypes, device, ln, seed=0):
+    """Rows of N(0, 1) (for LayerNorm plus a per-row mean up to 3), the
+    weight 1 + N(0, 0.1) (the fp32 scale 1 + N(0, 1e-3)), the bias N(0,
+    0.1)."""
+    rng = np.random.default_rng(seed)
+    dtype, w_dtype = dtypes
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    if ln:
+        x += 3 * rng.random(size=(rows, 1)).astype(np.float32)
+    spread = 1e-3 if w_dtype != dtype else 0.1
+    w = (1 + spread * rng.normal(size=d)).astype(np.float32)
+    b = (0.1 * rng.normal(size=d)).astype(np.float32)
+    return (torch.from_numpy(x).to(device, dtype), torch.from_numpy(w).to(device, w_dtype),
+            torch.from_numpy(b).to(device, w_dtype))
+
+
+def _row_norm(x, w, b, eps, loads):
+    """One row norm (LayerNorm where ``b`` is given): the plan's through the
+    wrapper, which counts it; forced weight loads through the C entry
+    point."""
+    if loads == "plan":
+        return layer_norm(x, w, b, eps) if b is not None else rms_norm(x, w, eps)
+    lib, out = _build.lib(), torch.empty_like(x)
+    args = (x.shape[0], x.shape[1], eps, _build.dtype_code(x.dtype))
+    stream = torch.cuda.current_stream().cuda_stream
+    if b is not None:
+        err = lib.dstt_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  *args, ROW_NORM_LOADS[loads], stream)
+    else:
+        err = lib.dstt_rms_norm(x.data_ptr(), w.data_ptr(), out.data_ptr(), *args,
+                                _build.dtype_code(w.dtype), ROW_NORM_LOADS[loads], stream)
+    _build.check(err, "row norm")
+    return out
+
+
+@pytest.mark.parametrize("loads", sorted(ROW_NORM_LOADS))
+@pytest.mark.parametrize("types", sorted(ROW_NORM_TYPES))
+@pytest.mark.parametrize("d", [100, 3584, 4096, 4608, 8192, 16384])
+@pytest.mark.parametrize("rows", [1, 8, 37, 768, 769])
+def test_rms_norm_matches_plain(rows, d, types, loads, cuda_device):
+    """The plan's kernel (early weights below 256 rows, late from 256 for
+    bf16 rows) and both weight placements forced, at decode, odd and
+    prefill row counts and the models' widths (100: one vector a lane in
+    fp32, the scalar kernel in bf16; 16384 bf16 and 8192, 16384 fp32: past 4
+    vectors a lane, the scalar kernel), against the plain version at
+    RMS_TOL; the plan's launch counted once in the weight's counter."""
+    x, w, _ = _row_norm_inputs(rows, d, ROW_NORM_TYPES[types], cuda_device, False)
+    counter = "fp32_scale_launches" if types == "fp32_scale" else "launches"
+    before = getattr(rms_norm, counter)
+    out = _row_norm(x, w, None, 1e-6, loads)
+    assert getattr(rms_norm, counter) == before + (loads == "plan")
+    assert out.dtype == x.dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(), rms_norm_reference(x, w, 1e-6).float(),
+                               **RMS_TOL[x.dtype])
+
+
+@pytest.mark.parametrize("loads", sorted(ROW_NORM_LOADS))
+@pytest.mark.parametrize("types", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [100, 3584, 4096, 4608, 8192, 16384])
+@pytest.mark.parametrize("rows", [1, 8, 37, 768, 769])
+def test_layer_norm_matches_plain(rows, d, types, loads, cuda_device):
+    """As the RMSNorm cases, for LayerNorm at LN_TOL; rows with means up
+    to 3 (centred from registers)."""
+    x, w, b = _row_norm_inputs(rows, d, ROW_NORM_TYPES[types], cuda_device, True)
+    before = layer_norm.launches
+    out = _row_norm(x, w, b, 1e-5, loads)
+    assert layer_norm.launches == before + (loads == "plan")
+    torch.testing.assert_close(out.float(), layer_norm_reference(x, w, b, 1e-5).float(),
+                               **LN_TOL[x.dtype])
+
+
+@pytest.mark.parametrize("types", sorted(ROW_NORM_TYPES))
+@pytest.mark.parametrize("ln", [False, True], ids=["rms", "ln"])
+def test_row_norm_unaligned_view_takes_scalar_kernel(ln, types, cuda_device):
+    """A contiguous view one element past a 16-byte boundary: the scalar
+    kernel, against the plain version."""
+    if ln and types == "fp32_scale":
+        pytest.skip("LayerNorm takes w and b in x's dtype")
+    dtype, w_dtype = ROW_NORM_TYPES[types]
+    d = 4608 if ln else 3584
+    x0, w, b = _row_norm_inputs(8, d, (dtype, w_dtype), cuda_device, ln)
+    flat = torch.empty(8 * d + 1, device=cuda_device, dtype=dtype)
+    x = flat[1:].view(8, d)
+    x.copy_(x0)
+    if ln:
+        torch.testing.assert_close(layer_norm(x, w, b).float(),
+                                   layer_norm_reference(x, w, b).float(), **LN_TOL[dtype])
+    else:
+        torch.testing.assert_close(rms_norm(x, w).float(), rms_norm_reference(x, w).float(),
+                                   **RMS_TOL[dtype])
+
+
+def test_row_norm_entry_refuses_bad_arguments(cuda_device):
+    """The C entry points launch nothing on arguments they cannot run:
+    weight loads other than -1, 0 or 1, no rows, no width, an fp32 x with
+    a bf16 weight, an fp16 x."""
+    lib = _build.lib()
+    x = torch.randn(8, 4096, device=cuda_device, dtype=torch.bfloat16)
+    w16 = torch.ones(4096, device=cuda_device, dtype=torch.bfloat16)
+    out = torch.zeros_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf16, fp32 = _build.dtype_code(torch.bfloat16), _build.dtype_code(torch.float32)
+    fp16 = _build.dtype_code(torch.float16)
+
+    def rms(rows=8, d=4096, dtype=bf16, w_dtype=bf16, loads=-1):
+        return lib.dstt_rms_norm(x.data_ptr(), w16.data_ptr(), out.data_ptr(), rows, d, 1e-6,
+                                 dtype, w_dtype, loads, stream)
+    assert rms(loads=2) != 0 and rms(loads=-2) != 0
+    assert rms(rows=0) != 0 and rms(d=0) != 0
+    assert rms(dtype=fp32, w_dtype=bf16) != 0 and rms(dtype=fp16, w_dtype=fp16) != 0
+    assert lib.dstt_layer_norm(x.data_ptr(), w16.data_ptr(), w16.data_ptr(), out.data_ptr(),
+                               8, 4096, 1e-5, bf16, 3, stream) != 0
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert rms() == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), rms_norm_reference(x, w16, 1e-6).float(),
                                **RMS_TOL[torch.bfloat16])
 
 

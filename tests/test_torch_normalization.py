@@ -34,7 +34,7 @@ def _inputs(seed, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", [(8, 64), (37, 100), (2, 5, 256), (1, 4096)])
+@pytest.mark.parametrize("shape", [(8, 64), (37, 100), (2, 5, 256), (1, 4096), (8, 4096)])
 def test_matches_jax_kernel(dtype, shape):
     (xj, wj), (xt, wt) = _inputs(0, shape, dtype)
     out_j = jax_rms_norm(xj, wj, 1e-5, interpret=True)
@@ -57,7 +57,7 @@ def test_fp32_weight_on_bf16_rows():
                                np.asarray(out_j, np.float32), **TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("shape", [(8, 3584), (3, 7)])
+@pytest.mark.parametrize("shape", [(8, 3584), (3, 7), (768, 3584)])
 def test_plus_one_scale_on_bf16_rows(shape):
     """Gemma's serving norm: a bf16 x and the fp32 scale 1 + w, w ~1e-3
     (deltas a bf16 scale would round away), against the JAX kernel."""
@@ -88,7 +88,8 @@ def _ln_inputs(seed, shape, dtype, shift):
 @pytest.mark.parametrize("branch", ["kernel", "jnp"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape, shift", [((8, 96), 0.0), ((37, 100), 300.0),
-                                          ((2, 5, 256), 0.0), ((3, 4608), 1000.0)])
+                                          ((2, 5, 256), 0.0), ((3, 4608), 1000.0),
+                                          ((8, 4608), 0.0)])
 def test_layer_norm_matches_jax(shape, shift, dtype, branch):
     """Against the Pallas kernel (interpret mode) and the jnp branch. The
     tolerances of RMSNorm: fp32 summation order; bf16 one ulp of the
@@ -110,3 +111,4 @@ def test_layer_norm_matches_jax(shape, shift, dtype, branch):
     if dtype == "float32":
         row = out_t.reshape(-1, shape[-1])[0]
         assert abs(row.std(unbiased=False).item() - 1.0) < 0.15
+

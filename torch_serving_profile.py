@@ -36,6 +36,7 @@ without a CUDA device.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -78,10 +79,9 @@ def _group(name: str) -> str:
         return "K4 paged_attention (decode kernel)"
     if "paged_attention" in n or "dstt::combine" in n:  # K4 and its split merge
         return "K4 paged_attention"
-    if "rms_norm" in n:
-        return "K5 rms_norm"
-    if "layer_norm" in n:
-        return "K5b layer_norm"
+    norm = re.search(r"row_norm(?:_scalar)?_kernel<(false|true|\(bool\)0|\(bool\)1)", n)
+    if norm:  # csrc/row_norm.cuh, its first template argument LayerNorm's flag
+        return "K5b layer_norm" if norm.group(1) in ("true", "(bool)1") else "K5 rms_norm"
     if "dequantize" in n:
         return "int8 weight dequantize"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul")):
