@@ -146,7 +146,15 @@ Phases, each printing one JSON line:
                       decode, its decode kernel L times in every decode
                       forward, its CUDA-core kernel never, in this and
                       every serving phase below), and prefill-vs-decode
-                      consistency.
+                      consistency. generate runs the fused decode window
+                      at its default, 16 (captured CUDA-graph steps):
+                      each window K·L launches of K4's decode kernel and K
+                      times the norms of a forward, nothing else of K4;
+                      then, in every serving phase, the prompts again at
+                      window 1, and cut to one admission wave at windows
+                      16 and 1 (equal greedy streams; here also a sampled
+                      run, equal tokens and logprobs within 1e-5); each
+                      run's decode tokens/s and the graphs' pool bytes.
   7. serving_int8   — the same weights, prompts and KV byte budget through
                       build_llama_engine(quantize="int8",
                       kv_cache_dtype="int8") (K6 at build, the dequantize
@@ -3078,7 +3086,8 @@ def phase_serving_gemma2(kernels: list) -> dict:
         counters, cfg=cfg, prompt_lens=GEMMA2_PROMPTS, new_tokens=GEMMA2_NEW_TOKENS,
         make_params=lambda: gemma2_random_model(cfg, torch.bfloat16, GEMMA2_QK_SCALE,
                                                 GEMMA2_EMBED_SCALE),
-        check_prompt=0, on_put=on_put, inspect=inspect)
+        check_prompt=0, on_put=on_put, inspect=inspect,
+        norms_per_forward={"rms_norm_fp32_scale": 4 * cfg.num_hidden_layers + 1})
     rec, checks, L = run["rec"], run["checks"], run["layers"]
     n_fwd, launches = rec["forwards"], rec["launches"]
     max_live = blocks["max_live"]
@@ -3458,28 +3467,46 @@ SC2_NEW_TOKENS = 64
 # the window control, ~8x from each; every run reads both controls again
 # and fails if either is within the limit.
 SC2_COSINE = 0.999
+# the window's stream comparison: each prompt cut to WAVE_PROMPT tokens, 8 x
+# 96 = 768 (the batch budget), so one put admits all eight and every decode
+# step batches the same sequences at windows 16 and 1; a sampled run on the
+# bf16 engine with SAMPLED_KW, its logprobs within SAMPLED_LP_TOL
+WAVE_PROMPT = 96
+SAMPLED_KW = dict(temperature=0.8, top_k=50, top_p=0.9, return_logprobs=True)
+SAMPLED_LP_TOL = 1e-5
 
 
 def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
                    new_tokens: int = SERVING_NEW_TOKENS, make_params=None,
                    check_prompt: int = 2, on_put=None, inspect=None,
+                   norms_per_forward: dict = None, sampled: bool = False,
                    **build_kw) -> dict:
     """build_llama_engine at the full width of ``cfg`` (default
     Llama-3-8B; 32 layers, seeded random bf16 weights, or the model
     ``make_params()`` returns, 64-token KV blocks filling
     ``SERVING_KV_BYTES``), then greedy ``generate`` on prompts of
-    ``prompt_lens`` tokens. Each count of ``counters`` (name -> (wrapper,
-    attribute)) is set to 0 just before the build and read after it and
-    after ``generate``; K4's wgmma launches are read around each forward
-    (L in every prefill forward, none in decode; ``launches`` holds their
-    sum as ``paged_attention_wgmma``). Records each forward's time and each prompt's
-    prefill logits (the last ``put`` that fed it more than one token),
-    calls ``on_put(engine, uids)`` after every ``put``, then checks
-    prefill against decode on prompt ``check_prompt`` (fed in chunks of
-    the batch budget; a model with a final softcap leaves that check to
-    the caller, which gets both logits as ``check_logits``) and hands the
-    engine to ``inspect(engine, prompts, prefill_logits)``, whose (record,
-    checks) join the phase's."""
+    ``prompt_lens`` tokens with the fused decode window at its default
+    (16). Each count of ``counters`` (name -> (wrapper, attribute)) is set
+    to 0 just before the build and read after it and after ``generate``;
+    K4's launches by kernel are read around each per-step forward (L of
+    the wgmma tiles in every prefill forward, L of the decode kernel in
+    every per-step decode forward) and around each window
+    (``fused_decode_steps``: K·L of the decode kernel and, for each name
+    of ``norms_per_forward``, K times its count, nothing else of K4).
+    ``forwards`` counts every ragged forward, a window's steps included.
+    Records each forward's and window's time and each prompt's prefill
+    logits (the last ``put`` that fed it more than one token), calls
+    ``on_put(engine, uids)`` after every ``put``, then checks prefill
+    against decode on prompt ``check_prompt`` (fed in chunks of the batch
+    budget; a model with a final softcap leaves that check to the caller,
+    which gets both logits as ``check_logits``) and hands the engine to
+    ``inspect(engine, prompts, prefill_logits)``, whose (record, checks)
+    join the phase's. Then ``window_runs``: the same prompts at window 1,
+    and the prompts cut to one admission wave (WAVE_PROMPT tokens each, so
+    that every step batches the same sequences at either window) at
+    windows 16 and 1, whose greedy streams must be equal (with ``sampled``
+    also a sampled run, SAMPLED_KW, equal tokens and logprobs within
+    SAMPLED_LP_TOL); each run's decode tokens/s on generate's wall time."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference.v2.config_v2 import (KVCacheConfig,
@@ -3490,6 +3517,7 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     from deepspeed_tpu_torch.ops.paged_attention import KERNEL_COUNTERS, paged_attention
 
     cfg = cfg or LlamaConfig.llama3_8b()
+    norms_per_forward = norms_per_forward or {}
     per_block = 64 * per_token_kv_bytes(KVCacheConfig(
         block_size=64, cache_shape=(cfg.num_hidden_layers, cfg.num_key_value_heads,
                                     cfg.head_dim_),
@@ -3514,14 +3542,19 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
 
     model = engine.model()
     inner_forward, inner_put = model.forward, engine.put
-    # (real tokens, decode?, seconds, K4 launches by kernel, in K4_KINDS'
-    # order)
-    steps = []
+    inner_fused = engine.fused_decode_steps
+    # per-step forwards: (real tokens, decode?, seconds, K4 launches by
+    # kernel in K4_KINDS' order); windows: (K, sequences, seconds, K4
+    # launches by kernel, {norm name: launches})
+    steps, windows = [], []
     bad_logits = []
     prefill_logits = {}
 
     def k4_counts():
         return tuple(getattr(paged_attention, c) for c in KERNEL_COUNTERS)
+
+    def norm_counts():
+        return {n: getattr(*counters[n]) for n in norms_per_forward}
 
     def counted_forward(batch):
         torch.cuda.synchronize()
@@ -3536,6 +3569,20 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
             bad_logits.append(len(steps))
         return logits
 
+    def counted_fused(uids, last_tokens, n_steps, specs=None):
+        torch.cuda.synchronize()
+        before, norms = k4_counts(), norm_counts()
+        t = time.monotonic()
+        out = inner_fused(uids, last_tokens, n_steps, specs=specs)
+        torch.cuda.synchronize()  # the harvest fetched already
+        windows.append((n_steps, len(uids), time.monotonic() - t,
+                        tuple(a - b for a, b in zip(k4_counts(), before)),
+                        {n: c - norms[n] for n, c in norm_counts().items()}))
+        toks = out if specs is None else out[0]
+        if toks.shape != (len(uids), n_steps) or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+            bad_logits.append(("window", len(windows)))
+        return out
+
     def recording_put(uids, tokens, do_checks=True):
         logits = inner_put(uids, tokens, do_checks=do_checks)
         for i, (u, t) in enumerate(zip(uids, tokens)):
@@ -3546,14 +3593,77 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
         return logits
 
     model.forward, engine.put = counted_forward, recording_put
+    engine.fused_decode_steps = counted_fused
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompt_lens]
     t0 = time.monotonic()
     outs = engine.generate(prompts, max_new_tokens=new_tokens)
     gen_s = time.monotonic() - t0
     launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-    model.forward, engine.put = inner_forward, inner_put
+    main_windows, main_steps = list(windows), list(steps)
+    main_prefill = dict(prefill_logits)  # the later runs' prefills are others
     peak = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.num_hidden_layers
+
+    def summary(outs_, seconds, steps_, windows_):
+        """A generate's decode tokens/s on its wall time less its prefill
+        forwards', and the per-step and window steps' ms."""
+        prefill_s = sum(s for _, dec, s, _ in steps_ if not dec)
+        dec = [s for _, d, s, _ in steps_ if d]
+        n_decode = sum(len(o) for o in outs_) - len(outs_)  # the first come from prefill
+        w_steps = sum(k for k, *_ in windows_)
+        return {"generate_s": seconds, "prefill_forward_s": prefill_s,
+                "decode_tokens": n_decode,
+                "decode_tokens_per_s": n_decode / (seconds - prefill_s),
+                "per_step_decode_forwards": len(dec),
+                "per_step_decode_ms_mean": 1e3 * sum(dec) / len(dec) if dec else None,
+                "windows": [[k, n] for k, n, *_ in windows_], "window_steps": w_steps,
+                "window_ms_per_step": (1e3 * sum(s for _, _, s, *_ in windows_) / w_steps
+                                       if w_steps else None)}
+
+    def run_generate(prompts_, window, **kw):
+        steps.clear()
+        windows.clear()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = engine.generate(prompts_, max_new_tokens=new_tokens, fused_decode_window=window,
+                              **kw)
+        torch.cuda.synchronize()
+        toks = out[0] if kw.get("return_logprobs") else out
+        return out, summary(toks, time.monotonic() - t, steps, windows), list(windows)
+
+    # the window's launch rule in every window of every run
+    window_checks = []
+
+    def window_rule(windows_):
+        dec_i = K4_KINDS.index("decode")
+        return all(k4[dec_i] == k * L and sum(k4) == k * L
+                   and all(norms[n] == k * c for n, c in norms_per_forward.items())
+                   for k, _, _, k4, norms in windows_)
+
+    window_checks.append(window_rule(main_windows))
+    runs = {"staggered_k16": summary(outs, gen_s, main_steps, main_windows)}
+    _, runs["staggered_k1"], w = run_generate(prompts, 1)
+    window_checks.append(not w)
+    wave = [p[:WAVE_PROMPT] for p in prompts]
+    g16, runs["one_wave_k16"], w = run_generate(wave, 16)
+    window_checks.append(window_rule(w) and len(w) > 0)
+    g1, runs["one_wave_k1"], _ = run_generate(wave, 1)
+    stream_checks = {"one_wave_greedy_streams_k16_equal_k1": g16 == g1}
+    if sampled:
+        s16, runs["one_wave_sampled_k16"], w = run_generate(wave, 16, **SAMPLED_KW)
+        window_checks.append(window_rule(w) and len(w) > 0)
+        s1, runs["one_wave_sampled_k1"], _ = run_generate(wave, 1, **SAMPLED_KW)
+        lp_diff = max(abs(a - b) for x, y in zip(s16[1], s1[1]) for a, b in zip(x, y))
+        runs["one_wave_sampled_logprob_max_abs_diff"] = lp_diff
+        stream_checks["one_wave_sampled_tokens_k16_equal_k1"] = s16[0] == s1[0]
+        stream_checks["one_wave_sampled_logprobs_k16_within_tol_of_k1"] = \
+            len(s16[0]) == len(s1[0]) and lp_diff <= SAMPLED_LP_TOL
+    model.forward, engine.put = inner_forward, inner_put
+    del engine.fused_decode_steps
+    runs["graphs"] = len(model._graphs)
+    runs["graph_pool_bytes"] = model.graph_pool_bytes
+    runs["graph_capture_s"] = model.graph_capture_s  # host time of the captures
     free_after = engine.free_blocks
 
     # prefill vs decode: the same last-token logits either way
@@ -3566,32 +3676,38 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     capped = bool(cfg.final_logit_softcapping)
     consistency_tol = None if capped else 0.05 * full.abs().max().item()
 
-    pre = [(n, s) for n, dec, s, _ in steps if not dec]
-    dec = [(n, s) for n, dec, s, _ in steps if dec]
+    pre = [(n, s) for n, dec, s, _ in main_steps if not dec]
+    dec = [(n, s) for n, dec, s, _ in main_steps if dec]
     # K4's wgmma tiles: L launches in every prefill forward, none in decode;
     # its decode kernel L in every decode forward; the CUDA-core kernel and
     # the fp32-query kernels none in either
-    per_fwd = {kind: {"prefill": [k[i] for _, dec, _, k in steps if not dec],
-                      "decode": [k[i] for _, dec, _, k in steps if dec]}
+    per_fwd = {kind: {"prefill": [k[i] for _, dec, _, k in main_steps if not dec],
+                      "decode": [k[i] for _, dec, _, k in main_steps if dec]}
                for i, kind in enumerate(K4_KINDS)}
     wgmma = per_fwd["wgmma"]
-    L = cfg.num_hidden_layers
+    window_steps = sum(k for k, *_ in main_windows)
+    # the launches of each K4 kernel: per-step forwards and windows
+    k4_total = {kind: sum(map(sum, v.values())) + sum(w[3][i] for w in main_windows)
+                for i, (kind, v) in enumerate(per_fwd.items())}
     rec = {"gpu": gpu_identity(), "engine_build_s": build_s,
            "prompt_lens": list(prompt_lens), "new_tokens": new_tokens,
            "kv_blocks": num_blocks, "kv_bytes_per_block": per_block,
            "layer_weight_bytes": model.layer_weight_bytes(),
            "memory_after_build_gib": built_bytes / 2**30,
            "build_peak_memory_gib": build_peak,
-           "generate_s": gen_s, "forwards": len(steps), "prefill_forwards": len(pre),
-           "decode_forwards": len(dec), "launches_at_build": at_build,
+           "generate_s": gen_s, "forwards": len(main_steps) + window_steps,
+           "prefill_forwards": len(pre), "decode_forwards": len(dec) + window_steps,
+           "per_step_decode_forwards": len(dec), "window_steps": window_steps,
+           "launches_at_build": at_build,
            "launches": {**launches,
-                        **{"paged_attention_" + kind: sum(map(sum, v.values()))
-                           for kind, v in per_fwd.items()}},
+                        **{"paged_attention_" + kind: n for kind, n in k4_total.items()}},
            **{f"paged_attention_{kind}_per_forward": {k: sorted(set(n)) for k, n in v.items()}
               for kind, v in per_fwd.items()},
            "prefill_tokens_per_s": sum(n for n, _ in pre) / sum(s for _, s in pre),
-           "decode_tokens_per_s": sum(n for n, _ in dec) / sum(s for _, s in dec),
-           "decode_step_ms_mean": 1e3 * sum(s for _, s in dec) / len(dec),
+           "per_step_decode_tokens_per_s": (sum(n for n, _ in dec) / sum(s for _, s in dec)
+                                            if dec else None),
+           "per_step_decode_ms_mean": 1e3 * sum(s for _, s in dec) / len(dec) if dec else None,
+           "window_runs": runs,
            "peak_memory_gib": peak,
            "prefill_decode_max_abs_diff": diff,
            "prefill_decode_tolerance": consistency_tol}
@@ -3601,7 +3717,7 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
             for o in outs),
         "logits_finite": not bad_logits,
         "prefill_logits_of_every_prompt":
-            sorted(prefill_logits) == list(range(len(prompts))),
+            sorted(main_prefill) == list(range(len(prompts))),
         "free_blocks_back_to_total": free_after == num_blocks,
         "paged_attention_wgmma_L_per_prefill_forward": all(w == L for w in wgmma["prefill"]),
         "paged_attention_wgmma_none_in_decode": not any(wgmma["decode"]),
@@ -3612,16 +3728,19 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
         "paged_attention_no_fp32_kernel_launch": not any(
             sum(per_fwd[k]["prefill"] + per_fwd[k]["decode"]) for k in ("f32_chunk",
                                                                         "f32_decode")),
+        "windows_ran_at_default_16": max((k for k, *_ in main_windows), default=0) == 16,
+        "window_k4_decode_KL_norms_K_per_forward_nothing_else": all(window_checks),
+        **stream_checks,
     }
     if not capped:
         checks["prefill_decode_consistent"] = diff <= consistency_tol
     if inspect:
-        more_rec, more_checks = inspect(engine, prompts, prefill_logits)
+        more_rec, more_checks = inspect(engine, prompts, main_prefill)
         rec.update(more_rec)
         checks.update(more_checks)
     del engine, model
     free_memory()
-    return {"rec": rec, "checks": checks, "prefill_logits": prefill_logits,
+    return {"rec": rec, "checks": checks, "prefill_logits": main_prefill,
             "layers": cfg.num_hidden_layers, "prompts": prompts,
             "check_logits": (full.cpu(), step.cpu())}
 
@@ -3644,8 +3763,11 @@ def phase_serving(kernels: list) -> dict:
     """The bf16 engine: K4 once and K5 2L+1 times per forward."""
     from deepspeed_tpu_torch.ops.normalization import rms_norm
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    L = LlamaConfig.llama3_8b().num_hidden_layers
     run = _drive_serving({"paged_attention": (paged_attention, "launches"),
-                          "rms_norm": (rms_norm, "launches")})
+                          "rms_norm": (rms_norm, "launches")},
+                         norms_per_forward={"rms_norm": 2 * L + 1}, sampled=True)
     rec, checks, L = run["rec"], run["checks"], run["layers"]
     n_fwd, launches = rec["forwards"], rec["launches"]
     checks["paged_attention_launches_per_forward"] = launches["paged_attention"] == L * n_fwd
@@ -3691,6 +3813,7 @@ def phase_serving_int8(kernels: list, bf16: dict) -> dict:
     per layer at build, the dequantize helper at each of the 7L uses per
     forward) and an int8 KV cache (K4's int8 instance once per layer)."""
     import torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
     from deepspeed_tpu_torch.ops.normalization import rms_norm
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
     from deepspeed_tpu_torch.ops.quantizer import (dequantize_int8_blockwise,
@@ -3708,7 +3831,10 @@ def phase_serving_int8(kernels: list, bf16: dict) -> dict:
         return quantize_int8_blockwise(w, block_size)
     lq.quantize_int8_blockwise = recording_quantize
     try:
-        run = _drive_serving(counters, quantize="int8", kv_cache_dtype="int8")
+        L = LlamaConfig.llama3_8b().num_hidden_layers
+        run = _drive_serving(counters, quantize="int8", kv_cache_dtype="int8",
+                             norms_per_forward={"rms_norm": 2 * L + 1,
+                                                "dequantize_int8_blockwise": 7 * L})
     finally:
         lq.quantize_int8_blockwise = quantize_int8_blockwise
     rec, checks, L = run["rec"], run["checks"], run["layers"]
@@ -3902,7 +4028,8 @@ def phase_serving_starcoder2(kernels: list) -> dict:
                 "rms_norm": (rms_norm, "launches")}
     run = _drive_serving(counters, cfg=cfg, prompt_lens=SC2_PROMPTS,
                          new_tokens=SC2_NEW_TOKENS, make_params=make_params,
-                         check_prompt=1, on_put=on_put, inspect=inspect)
+                         check_prompt=1, on_put=on_put, inspect=inspect,
+                         norms_per_forward={"layer_norm": 2 * cfg.num_hidden_layers + 1})
     rec, checks, L = run["rec"], run["checks"], run["layers"]
     n_fwd, launches = rec["forwards"], rec["launches"]
     max_live = blocks["max_live"]
@@ -4011,6 +4138,7 @@ def phase_serving_bloom(kernels: list) -> dict:
                 "rms_norm": (rms_norm, "launches")}
     run = _drive_serving(counters, cfg=cfg, prompt_lens=BLOOM_PROMPTS,
                          new_tokens=BLOOM_NEW_TOKENS, make_params=make_params,
+                         norms_per_forward={"layer_norm": 2 * cfg.num_hidden_layers + 2},
                          check_prompt=1, inspect=inspect)
     rec, checks, L = run["rec"], run["checks"], run["layers"]
     n_fwd, launches = rec["forwards"], rec["launches"]

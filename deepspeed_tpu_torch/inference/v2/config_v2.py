@@ -1,9 +1,9 @@
 """Inference-v2 configuration (port of ``deepspeed_tpu/inference/v2/
 config_v2.py``): the same field names, defaults and validation errors, as
 plain dataclasses. Only the knobs of the ported serving path are here;
-tensor parallelism, sampling, resilience, durability,
-continuous fusion, disaggregation, observability, prefix caching, tenants
-and adapters are not ported yet."""
+tensor parallelism, the speculative sampling knobs, resilience,
+durability, continuous fusion, disaggregation, observability, prefix
+caching, tenants and adapters are not ported yet."""
 
 import dataclasses
 from typing import Optional, Tuple
@@ -73,11 +73,28 @@ class QuantizationConfig:
 
 
 @dataclasses.dataclass
+class SamplingConfig:
+    """On-device sampling and the fused decode window (the JAX
+    config_v2.py:SamplingConfig without its speculative knobs)."""
+
+    device_sampling: bool = True
+    """Run temperature/top-k/top-p sampling and the logit controls on the
+    device (ops/sampling) for requests without a host
+    ``logits_processor``. False keeps the per-step numpy sampler
+    everywhere."""
+
+    fused_sampled_decode: bool = True
+    """Let device-sampled requests ride the fused decode window (sampling
+    inside the captured step). Requires ``device_sampling``. False keeps
+    the window greedy-only."""
+
+
+@dataclasses.dataclass
 class RaggedInferenceEngineConfig:
     """Reference config_v2.py:RaggedInferenceEngineConfig, reduced to the
-    state manager, the KV block count and weight quantization.
-    ``state_manager`` and ``quantization`` also take a dict of their
-    fields."""
+    state manager, the KV block count, weight quantization and sampling.
+    ``state_manager``, ``quantization`` and ``sampling`` also take a dict
+    of their fields."""
     state_manager: DSStateManagerConfig = dataclasses.field(
         default_factory=DSStateManagerConfig)
 
@@ -88,8 +105,12 @@ class RaggedInferenceEngineConfig:
     quantization: QuantizationConfig = dataclasses.field(
         default_factory=QuantizationConfig)
 
+    sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+
     def __post_init__(self):
         if isinstance(self.state_manager, dict):
             self.state_manager = DSStateManagerConfig(**self.state_manager)
         if isinstance(self.quantization, dict):
             self.quantization = QuantizationConfig(**self.quantization)
+        if isinstance(self.sampling, dict):
+            self.sampling = SamplingConfig(**self.sampling)

@@ -45,16 +45,30 @@ dequantizes in-graph, where XLA fuses it into the matmul).
 ``kv_cache_dtype="int8"``: K/V are stored as int8 with one fp32 scale per
 (token, head) vector, quantized at the KV write, and K4 dequantizes pages
 as it reads them.
+
+The fused decode window (``fused_decode``, the JAX ``:706`` and its
+``_fused_decode_loop`` ``:1258``): K decode steps with one host fetch. The
+step builds its batch on the device from static buffers (``ragged_wrapper.
+decode_batch``), runs the ragged forward, picks the next token (argmax, or
+the logit controls and ``ops/sampling.sample_core``) and advances tokens,
+lengths and output counts in place. On a CUDA engine each (live count,
+block-table width, sampled statics) key is captured once into a
+``torch.cuda.CUDAGraph`` (all graphs share one memory pool) and replayed;
+the key's first step runs eagerly, as its warm-up, and is a real step of
+the window. On the CPU the same step runs eagerly each time: that is the
+plain version. A capture or replay error raises; nothing falls back.
 """
 
 import math
+import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .config_v2 import KVCacheConfig
-from .ragged.ragged_wrapper import RaggedBatch
+from .ragged.ragged_wrapper import RaggedBatch, _bucket, decode_batch
 from .ragged.sequence_descriptor import BaseSequenceDescriptor
 from ...linear.config import QuantizationConfig
 from ...linear.quantization import QuantizedParameter
@@ -63,7 +77,8 @@ from ...models.llama import (SERVING_FAMILY, LlamaConfig, LlamaModel, RMSNormWei
                              gate_act, precompute_rope)
 from ...ops.normalization import layer_norm, rms_norm
 from ...ops.paged_attention import paged_attention
-from ...ops.quantizer import true_div_127
+from ...ops.quantizer import dequantize_int8_blockwise, true_div_127
+from ...ops.sampling import apply_logit_controls, gumbel_noise, sample_core
 from ...utils.dtypes import resolve_dtype
 
 
@@ -182,6 +197,13 @@ class RaggedLlamaModel:
         self._scratch = None
         if quantize is not None:
             self._quantize_layers()
+        # the fused window: static buffers per live count, step graphs per
+        # key, their shared pool and what the captures reserved in it
+        self._decode_states = {}
+        self._graphs = {}
+        self._graph_pool = self._capture_stream = None
+        self.graph_pool_bytes = 0
+        self.graph_capture_s = 0.0
 
     @torch.no_grad()
     def _quantize_layers(self) -> None:
@@ -226,6 +248,7 @@ class RaggedLlamaModel:
 
     def set_state_manager(self, state_manager) -> None:
         self._state_manager = state_manager
+        self._graphs.clear()  # they hold the old cache's addresses
 
     def kv_cache_config(self) -> KVCacheConfig:
         cfg = self.config
@@ -278,6 +301,9 @@ class RaggedLlamaModel:
     def forward(self, batch: RaggedBatch) -> torch.Tensor:
         """One ragged forward; returns fp32 logits ``[S, vocab]`` for each
         sequence's final token and updates the KV cache in place."""
+        return self._forward(batch)
+
+    def _forward(self, batch: RaggedBatch) -> torch.Tensor:
         cache = self._state_manager.kv_cache.cache
         cache, scales = cache if isinstance(cache, tuple) else (cache, None)
         return _ragged_forward(self.model, cache, batch, config=self.config,
@@ -286,6 +312,216 @@ class RaggedLlamaModel:
                                kernel=self._kernel, windows=self._layer_windows,
                                tied_unembed=self._tied_unembed,
                                cache_scales=scales, norm_scales=self._norm_scales)
+
+    # ---- the fused decode window ----
+
+    @torch.inference_mode()
+    def fused_decode(self, tokens, seq_lens, block_table, n_steps: int, *, widths,
+                     sampling: Optional[dict] = None):
+        """``n_steps`` decode steps of ``n = len(tokens)`` live sequences
+        with no host fetch; returns the device tensors ``(tokens [n_steps,
+        n] int32, logprobs [n_steps, n] fp32 or None)``.
+
+        ``tokens``/``seq_lens``: each sequence's input token and history
+        length; ``block_table`` ``[n, B]`` int32 covering ``seq_lens +
+        n_steps`` tokens (the engine reserves the blocks first). Step ``j``
+        runs at block-table width ``widths[j]``, the first columns of the
+        table: the engine passes the width a per-step ``put`` would have,
+        so each step's K4 plan is the per-step path's.
+
+        ``sampling=None`` picks the argmax of each row. Otherwise a dict of
+        per-sequence host arrays, ``temps``/``top_ps``/``penalties`` f32,
+        ``top_ks``/``eos_ids``/``n_out``/``min_new`` int, ``seeds`` (32-bit
+        values), optional ``seen_mask`` ``[n, vocab]`` bool, and the static
+        flags ``want_logprobs``/``use_penalty``/``use_eos_mask``: each step
+        runs the logit controls (eos masked while ``n_out < min_new``) and
+        ``sample_core`` with the noise of token ``n_out`` of each
+        sequence's seed, and ``n_out`` counts up."""
+        n = len(tokens)
+        S = _bucket(n, floor=1)
+        B = block_table.shape[1]
+        widths = [int(w) for w in widths]
+        if len(widths) != n_steps or not all(1 <= w <= B for w in widths):
+            raise ValueError(f"fused_decode: {n_steps} widths within 1..{B} "
+                             f"expected, got {widths}")
+        st = self._decode_states.get(n)
+        if st is None:
+            st = self._decode_states[n] = _DecodeState(n, S, self.device)
+        statics = None
+        if sampling is not None:
+            statics = (bool(sampling["want_logprobs"]), bool(sampling["use_penalty"]),
+                       bool(sampling["use_eos_mask"]))
+        st.load(tokens, seq_lens, block_table, sorted(set(widths)), sampling,
+                self.config.vocab_size)
+        out = torch.empty(n_steps, S, dtype=torch.int32, device=self.device)
+        lps = (torch.empty(n_steps, S, dtype=torch.float32, device=self.device)
+               if statics is not None else None)
+        for j, width in enumerate(widths):
+            self._run_step(st, width, statics)
+            out[j].copy_(st.tokens)
+            if lps is not None:
+                lps[j].copy_(st.lps)
+        return out[:, :n], (lps[:, :n] if lps is not None else None)
+
+    def _run_step(self, st, width: int, statics) -> None:
+        """One step of the window: eagerly on the CPU; on CUDA by replaying
+        the key's graph, captured after the key's first (eager) step."""
+        if self.device.type != "cuda":
+            self._decode_step(st, width, statics)
+            return
+        key = (st.n, width, statics)
+        graph = self._graphs.get(key)
+        if graph is None:
+            self._decode_step(st, width, statics)
+            self._graphs[key] = self._capture(st, width, statics)
+            return
+        graph.replay()
+
+    def _capture(self, st, width: int, statics) -> "_StepGraph":
+        """Capture one decode step into the shared pool, on a side stream
+        (``torch.cuda.graph`` would empty the allocator's cache before every
+        capture). The wrappers count their launches while the step is
+        recorded; the counts go back to what they were and the step's graph
+        adds the change at each replay."""
+        t = time.monotonic()
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        reserved = torch.cuda.memory_reserved(self.device)
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=self._graph_pool)
+            try:
+                self._decode_step(st, width, statics)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.graph_pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        after = _launch_counts()
+        for (fn, name), count in before.items():
+            setattr(fn, name, count)
+        self.graph_capture_s += time.monotonic() - t
+        return _StepGraph(graph, {k: after[k] - before[k] for k in before
+                                  if after[k] != before[k]})
+
+    def _decode_step(self, st, width: int, statics) -> None:
+        """The step the window captures: the batch from the static buffers,
+        the forward, the next token, then tokens, lengths and output counts
+        advance in place (padding rows keep theirs)."""
+        kv = self._state_manager.kv_cache
+        batch = decode_batch(st.tokens, st.lens, st.live, st.tables[width], n_tokens=st.n,
+                             block_size=self.kv_block_size,
+                             total_slots=kv.num_blocks * kv.block_size)
+        logits = self._forward(batch)
+        if statics is None:
+            nxt = torch.argmax(logits, dim=-1).int()
+        else:
+            want_lp, use_pen, use_eos = statics
+            ctrl = apply_logit_controls(
+                logits, seen_mask=st.seen_mask if use_pen else None,
+                penalties=st.penalties if use_pen else None,
+                eos_ids=st.eos_ids if use_eos else None,
+                block_eos=(st.n_out < st.min_new) if use_eos else None)
+            nxt, lps = sample_core(ctrl, gumbel_noise(st.seeds, st.n_out, logits.shape[-1]),
+                                   st.temps, st.top_ks, st.top_ps, want_logprobs=want_lp)
+            st.lps.copy_(lps)
+        on = st.live > 0
+        nxt = torch.where(on, nxt, st.tokens)
+        if statics is not None and statics[1]:
+            # the sampled token joins its row's history before the next step
+            idx = (torch.arange(st.S, device=nxt.device), nxt.long())
+            st.seen_mask.index_put_(idx, st.seen_mask[idx] | on)
+        st.tokens.copy_(nxt)
+        st.lens.add_(st.live)
+        st.n_out.add_(st.live)
+
+
+# every wrapper whose launches a captured step counts
+_COUNTED = (paged_attention, rms_norm, layer_norm, dequantize_int8_blockwise)
+
+
+def _launch_counts() -> dict:
+    return {(fn, name): count for fn in _COUNTED for name, count in vars(fn).items()
+            if name.endswith("launches")}
+
+
+class _StepGraph:
+    """A captured decode step and the launch counts one run of it adds."""
+
+    def __init__(self, graph, counts: dict):
+        self.graph = graph
+        self.counts = counts
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for (fn, name), n in self.counts.items():
+            setattr(fn, name, getattr(fn, name) + n)
+
+
+class _DecodeState:
+    """The fused window's static buffers at one live count ``n`` (``S =
+    _bucket(n, floor=1)`` rows; rows past ``n`` are padding): the step
+    graphs read and advance these, so their addresses never change. One
+    block table per width. The penalty's history mask ``[S, vocab]`` is
+    made at the first window that uses it."""
+
+    @torch.inference_mode()
+    def __init__(self, n: int, S: int, device):
+        i32 = dict(dtype=torch.int32, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.n, self.S, self.device = n, S, device
+        self.tokens, self.lens, self.n_out = (torch.zeros(S, **i32) for _ in range(3))
+        self.live = torch.zeros(S, **i32)
+        self.live[:n] = 1
+        self.tables = {}
+        self.temps, self.lps = torch.zeros(S, **f32), torch.zeros(S, **f32)
+        self.top_ps, self.penalties = torch.ones(S, **f32), torch.ones(S, **f32)
+        self.top_ks, self.min_new, self.seeds = (torch.zeros(S, **i32) for _ in range(3))
+        self.eos_ids = torch.full((S, ), -1, **i32)
+        self.seen_mask = None
+
+    def load(self, tokens, seq_lens, block_table, widths, sampling, vocab: int) -> None:
+        """A window's inputs into the buffers: one host-to-device copy of
+        the int32 fields (the fp32 ones by their bits), then device copies;
+        the history mask in a copy of its own."""
+        n, S = self.n, self.S
+        block_table = np.asarray(block_table, np.int32)
+
+        def col(x, fill=0, dtype=np.int32):  # [n] -> [S] int32 words
+            a = np.full(S, fill, dtype)
+            a[:n] = x
+            return a.view(np.int32)
+
+        fields = [(self.tokens, col(tokens)), (self.lens, col(seq_lens)),
+                  (self.n_out, col(0 if sampling is None else sampling["n_out"]))]
+        for w in widths:
+            if w not in self.tables:
+                self.tables[w] = torch.zeros(S, w, dtype=torch.int32, device=self.device)
+            t = np.zeros((S, w), np.int32)
+            t[:n] = block_table[:, :w]
+            fields.append((self.tables[w], t.reshape(-1)))
+        if sampling is not None:
+            fields += [(self.temps, col(sampling["temps"], 0.0, np.float32)),
+                       (self.top_ps, col(sampling["top_ps"], 1.0, np.float32)),
+                       (self.penalties, col(sampling["penalties"], 1.0, np.float32)),
+                       (self.top_ks, col(sampling["top_ks"])),
+                       (self.eos_ids, col(sampling["eos_ids"], -1)),
+                       (self.min_new, col(sampling["min_new"])),
+                       (self.seeds, col(sampling["seeds"], 0, np.uint32))]
+        packed = torch.from_numpy(np.concatenate([a for _, a in fields])).to(self.device)
+        ofs = 0
+        for buf, a in fields:
+            buf.view(-1).copy_(packed[ofs:ofs + a.size].view(buf.dtype).view(-1))
+            ofs += a.size
+        if sampling is not None and sampling.get("use_penalty"):
+            if self.seen_mask is None:
+                self.seen_mask = torch.zeros(S, vocab, dtype=torch.bool, device=self.device)
+            mask = np.zeros((S, vocab), bool)
+            mask[:n] = sampling["seen_mask"]
+            self.seen_mask.copy_(torch.from_numpy(mask))
 
 
 @torch.inference_mode()

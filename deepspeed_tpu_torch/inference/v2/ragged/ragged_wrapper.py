@@ -11,6 +11,12 @@ All ten travel in ONE host-to-device copy of a packed int32 buffer. The
 batch also carries ``n_tokens``, the count of real tokens on the host: the
 KV write indexes only those, since an out-of-range slot is a device fault
 in PyTorch, where XLA dropped it.
+
+:func:`decode_batch` builds a pure-decode batch (one new token per
+sequence) from device tensors instead, as the JAX package's fused decode
+loop builds it in its trace (``model.py:1294-1300``); the fused window's
+captured step runs it on its static buffers. It gives the same arrays as
+``finalize``'s pure-decode fast path, at the same buckets.
 """
 
 from typing import List, NamedTuple
@@ -48,6 +54,37 @@ class RaggedBatch(NamedTuple):
     def bucket_key(self):
         return (self.tokens.shape[0], self.seq_start.shape[0],
                 self.block_table.shape[1], self.q_tok_idx.shape[1])
+
+
+def decode_batch(tokens: torch.Tensor, seq_lens: torch.Tensor, live: torch.Tensor,
+                 block_table: torch.Tensor, *, n_tokens: int, block_size: int,
+                 total_slots: int) -> RaggedBatch:
+    """The pure-decode :class:`RaggedBatch` of ``n_tokens`` live sequences
+    from ``[S]`` int32 device tensors (each row's input token, history
+    length and live flag, 0 on padding rows) and the ``[S, B]`` block
+    table; ``T = _bucket(n_tokens)`` as in ``finalize``. Each live row's
+    token writes its KV at ``block_table[s, lens // bs] * bs + lens % bs``;
+    padding rows and tokens carry zeros and the one-past-the-end slot."""
+    S = tokens.shape[0]
+    T = _bucket(max(1, n_tokens))
+    on = live > 0
+    zero = torch.zeros_like(tokens)
+    ar = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    slot = block_table.gather(1, (seq_lens // block_size).long()[:, None])[:, 0] \
+        * block_size + seq_lens % block_size
+
+    def per_token(x, fill=0):  # [S] -> [T]: padding tokens after the rows
+        return torch.cat([x, x.new_full((T - S, ), fill)])
+
+    seen = torch.where(on, seq_lens, zero)
+    rows = torch.where(on, ar, zero)
+    return RaggedBatch(
+        tokens=per_token(torch.where(on, tokens, zero)), token_seq=per_token(rows),
+        token_pos=per_token(seen),
+        token_slot=per_token(torch.where(on, slot, total_slots), total_slots),
+        seq_start=rows, seq_n_new=on.to(torch.int32), seq_seen=seen,
+        block_table=torch.where(on[:, None], block_table, 0), last_token_idx=rows,
+        q_tok_idx=rows[:, None], n_tokens=n_tokens)
 
 
 class RaggedBatchWrapper:

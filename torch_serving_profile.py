@@ -28,8 +28,21 @@ per ``put``):
     device time per kernel name, summed into groups (K4 paged attention by
     kernel, K5 RMSNorm, K5b LayerNorm, the int8 weights' dequantize,
     matmuls, other), and the device's busy share of the traced wall time;
+  - one fused decode window of ``WINDOW`` steps (``fused_decode_steps``:
+    the captured step replayed), after a window that captured it, traced:
+    its device ms per step and the device's busy share;
+  - the host's ms per step of the per-step tick ``generate`` runs at window
+    1 (``put``, the logits' copy, the host argmax), split into batch
+    assembly (``RaggedBatchWrapper.finalize``), the kernel wrappers' own
+    host time, the rest of the forward's launches, the wait for the
+    device, the logits copy and sampling;
   - the paged-attention kernel alone at this decode batch (CUDA events),
-    with the kernel that ran it.
+    with the kernel that ran it;
+  - ``generate_decode``: ``generate`` on the same prompts, all admitted in
+    one prefill (the engine's batch budget holds them), ``NEW_TOKENS`` new
+    tokens each, at windows 1 and 16 in turns (``ROUNDS`` rounds after one
+    warm run of each): decode tokens/s on generate's wall time less its
+    prefill forward's, and ms per token-step.
 Prints one JSON line per part, each naming its variant, and exits non-zero
 without a CUDA device.
 """
@@ -46,6 +59,10 @@ STEPS = 16  # timed decode steps
 SEQS = 8    # live sequences, prompts of 128, 256, ..., 128 * SEQS tokens
 CHUNK = 768  # tokens of a traced prefill chunk (the engine's batch budget)
 PREFILL_DEPTH = 3072  # tokens in the cache before it
+WINDOW = 16  # steps of a traced fused decode window
+HOST_STEPS = 8  # per-step ticks whose host time is split
+NEW_TOKENS = 33  # generate_decode: the prefill's token, then 32 decode steps
+ROUNDS = 2  # generate_decode: timed rounds at each window
 # variant -> (model, build options, prompt lengths, KV blocks of 8 GiB)
 VARIANTS = {
     "bf16": ("llama3_8b", {}, [128 * (i + 1) for i in range(SEQS)], 1024),
@@ -153,8 +170,11 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
     from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 
     cfg = model_config(model)
+    # a batch budget that admits every prompt in one prefill in generate_decode
+    budget = max(768, sum(prompt_lens))
     engine = build_llama_engine(
-        cfg, engine_config=RaggedInferenceEngineConfig(num_kv_blocks=kv_blocks),
+        cfg, engine_config=RaggedInferenceEngineConfig(
+            num_kv_blocks=kv_blocks, state_manager={"max_ragged_batch_size": budget}),
         seed=0, dtype=torch.bfloat16, kv_block_size=64, **build_kw)
     # a prefill chunk at depth: PREFILL_DEPTH tokens fed, the next CHUNK
     # traced (the earlier chunks ran the same kernels at the same bucket).
@@ -210,6 +230,25 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
         "group_ms_per_step": decode["group_ms_per_call"],
         "top_kernels_ms_per_step": decode["top_kernels_ms_per_call"]}), flush=True)
 
+    # one window of WINDOW steps, its step graph captured by the window before
+    toks = [1] * len(uids)
+    engine.fused_decode_steps(uids, toks, WINDOW)
+    window = trace(lambda: engine.fused_decode_steps(uids, toks, WINDOW), 1)
+    print(json.dumps({
+        "part": "window_profile", "variant": variant, "gpu": gpu, "seqs": len(uids),
+        "window_steps": WINDOW, "graphs": len(engine.model()._graphs),
+        "graph_pool_bytes": engine.model().graph_pool_bytes,
+        "wall_ms_per_step": window["wall_ms_per_call"] / WINDOW,
+        "device_ms_per_step": window["device_ms_per_call"] / WINDOW,
+        "device_busy_share": window["device_busy_share"],
+        "group_ms_per_step": {k: v / WINDOW for k, v in window["group_ms_per_call"].items()},
+        "top_kernels_ms_per_step": [[k, v / WINDOW]
+                                    for k, v in window["top_kernels_ms_per_call"]]}),
+          flush=True)
+    print(json.dumps({"part": "host_split_k1", "variant": variant, "gpu": gpu,
+                      "seqs": len(uids), "steps": HOST_STEPS,
+                      **host_split(engine, uids)}), flush=True)
+
     # K4 alone at this decode batch, on the engine's own cache and tables
     # (layer 5: global on Gemma-2, which windows the even layers)
     sm = engine._state_manager
@@ -261,6 +300,119 @@ def profile_variant(variant: str, model: str, build_kw: dict, prompt_lens: list,
                       "softcap": cfg.attn_logit_softcapping, "kernel": kernel,
                       "ms": start.elapsed_time(end) / 50,
                       "bound_ms": kv_bytes / 3.35e12 * 1e3}), flush=True)
+
+    for u in uids:
+        engine.flush(u)
+    print(json.dumps({"part": "generate_decode", "variant": variant, "gpu": gpu,
+                      **generate_decode(engine, cfg, prompt_lens)}), flush=True)
+
+
+def host_split(engine, uids) -> dict:
+    """The host's ms per step of ``HOST_STEPS`` per-step greedy ticks as
+    ``generate`` runs them at window 1: ``put`` (batch assembly, then the
+    forward's launches, the kernel wrappers' share of them timed inside
+    the wrappers), the wait for the device, the copy of the logits rows to
+    the host and the float64 argmax of each row."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import model as ragged_model
+    spent = {"finalize": 0.0, "wrappers": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return wrapper
+
+    wrapped = ("paged_attention", "rms_norm", "layer_norm")
+    saved = {name: getattr(ragged_model, name) for name in wrapped}
+    finalize = engine._batch.finalize
+    for name in wrapped:
+        setattr(ragged_model, name, timed(saved[name], "wrappers"))
+    engine._batch.finalize = timed(finalize, "finalize")
+    dq = ragged_model.QuantizedParameter.dequantized
+    ragged_model.QuantizedParameter.dequantized = timed(dq, "wrappers")
+    parts = {"put": 0.0, "device_wait": 0.0, "logits_copy": 0.0, "sampling": 0.0}
+    toks = [1] * len(uids)
+    try:
+        for _ in range(HOST_STEPS):
+            t0 = time.perf_counter()
+            logits = engine.put(uids, [[t] for t in toks])
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rows = logits[:len(uids)].detach().float().cpu().numpy()
+            t3 = time.perf_counter()
+            toks = [int(np.argmax(r.astype(np.float64))) for r in rows]
+            t4 = time.perf_counter()
+            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[key] += dt
+    finally:
+        for name in wrapped:
+            setattr(ragged_model, name, saved[name])
+        engine._batch.finalize = finalize
+        ragged_model.QuantizedParameter.dequantized = dq
+    ms = {k: 1e3 * v / HOST_STEPS for k, v in {**parts, **spent}.items()}
+    return {"ms_per_step": {
+        "batch_assembly": ms["finalize"], "kernel_wrappers": ms["wrappers"],
+        "other_forward_launches": ms["put"] - ms["finalize"] - ms["wrappers"],
+        "device_wait": ms["device_wait"], "logits_copy": ms["logits_copy"],
+        "sampling": ms["sampling"]},
+        "total_ms_per_step": sum(ms[k] for k in parts)}
+
+
+def generate_decode(engine, cfg, prompt_lens) -> dict:
+    """``generate`` at windows 1 and 16 in turns on one wave of prompts:
+    decode tokens/s on the wall time less the prefill forward's (timed
+    with a device sync around it), ms per token-step, and the windows."""
+    import numpy as np
+    import torch
+    model = engine.model()
+    inner = model.forward
+    prefill = []
+
+    def forward(batch):
+        if batch.q_tok_idx.shape[1] == 1:
+            return inner(batch)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = inner(batch)
+        torch.cuda.synchronize()
+        prefill.append(time.monotonic() - t)
+        return out
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompt_lens]
+    model.forward = forward
+    runs = {1: [], 16: []}
+    try:
+        for i, K in enumerate([1, 16] + [1, 16] * ROUNDS):
+            prefill.clear()
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = engine.generate(prompts, max_new_tokens=NEW_TOKENS, fused_decode_window=K)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t
+            if i < 2:  # the warm runs: first launches, graph captures
+                continue
+            steps = NEW_TOKENS - 1
+            decode_s = wall - sum(prefill)
+            runs[K].append({"generate_s": wall, "prefill_forward_s": sum(prefill),
+                            "decode_tokens_per_s": len(prompts) * steps / decode_s,
+                            "ms_per_token_step": 1e3 * decode_s / steps,
+                            "outputs_equal_k1": None})
+            if K == 1:
+                ref = out
+            else:
+                runs[K][-1]["outputs_equal_k1"] = out == ref
+    finally:
+        model.forward = inner
+    return {"seqs": len(prompts), "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS,
+            "k1": runs[1], "k16": runs[16], "graphs": len(model._graphs),
+            "graph_pool_bytes": model.graph_pool_bytes}
 
 
 if __name__ == "__main__":
