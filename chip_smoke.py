@@ -113,8 +113,9 @@ Phases, each printing one JSON line:
                       steps), LAMB (bf16, weight decay 0.01, 3 steps) and
                       AdamW in fp16 with dynamic loss scaling (6 steps, an
                       inf injected into steps 3 and 5's gradients): losses, step
-                      and optimizer-step ms, K7 launches equal to the
-                      applied steps, the last step's K7 launch held
+                      and optimizer-step ms, one K7 launch per step (K7
+                      reads the overflow flag on the card and writes
+                      nothing on a skipped step), the last step's K7 launch held
                       against the plain version over the whole flat buffer
                       as in phase 5; for fp16 the skipped steps keep the
                       flat state's fingerprints, the scale follows
@@ -137,6 +138,26 @@ Phases, each printing one JSON line:
                       256 with the softcap 4 times per step each, finite
                       falling losses, step ms, tokens/s, model-FLOP share,
                       peak memory and a profiled step.
+  5e. training_fused — the rest of the training engine at the Llama-3-8B
+                      width cut to 2 layers (bf16, AdamW + WarmupLR + clip
+                      1.0, chunked CE): two windows of fused_train_steps
+                      (K 4, 1 x 4096 tokens), the first under
+                      set_sync_debug_mode("error") with its one fetch
+                      outside, bit-equal to 8 forward/backward/step from
+                      the same weights; ms per step of a window and of
+                      the sequential path and each one's device busy share
+                      over 4 steps (torch.profiler, device activity only;
+                      the sequential steps read each loss); the same in
+                      fp16 from a scale of
+                      2^24 (skipped steps, scale, LR, masters equal);
+                      gas-2 train_batch bit-equal to its micro loop; a
+                      bf16 accumulation buffer (half the bytes, losses
+                      within 5e-3); remat off / nothing_saveable /
+                      dots_saveable at 1 x 8192 (step ms, peak memory, K1
+                      2L a step under remat, losses and flat gradient
+                      bit-equal); K7 in its device-scalar form over the
+                      whole flat buffer within K7_ULPS of the plain
+                      version, and a set skip flag leaving the state.
   6. serving        — build_llama_engine at the full Llama-3-8B width (32
                       layers, seeded random bf16 weights, 1024 KV blocks of
                       64 tokens), greedy generate on 8 prompts of 128..1024
@@ -200,7 +221,7 @@ Phases, each printing one JSON line:
                       sweep_shape once at the Mistral shape: each leg's
                       K1/K2 and K3 times and the winners, committed to
                       this run's cache; nothing after it reads them.
-Each main path (phases 5, 5b, 5c, 5d, 6, 7, 8 and the BLOOM and Gemma-2
+Each main path (phases 5, 5b, 5c, 5d, 5e, 6, 7, 8 and the BLOOM and Gemma-2
 serving phases) runs with the launch counts of
 its kernels set to 0 just before and read just after. Every phase resolves
 the attention route against an empty cache directory made under build/
@@ -1155,7 +1176,9 @@ def _k7_case(gen, body: str, n: int) -> dict:
     p, g, m, v = rnd(0.02), rnd(1e-3), rnd(1e-4), rnd(1e-8, uniform=True)
     for t in (g, m, v):
         t[:5] = 0
-    lr, step, wd = 1e-4, 3, 0.1 if body in ("adamw", "lion") else 0.01
+    wd = 0.1 if body in ("adamw", "lion") else 0.01
+    # K7 reads its learning rate and update count from device memory
+    lr, step = (fo.device_scalar(x, "cuda") for x in (1e-4, 3))
     bounds = (0, ) + tuple(itertools.accumulate(LAYER_SEGMENTS))
     segments = bounds if n == LAYER_PARAMS else None
     st = [t.clone() for t in (p, m, v)]  # the kernel's in-place state
@@ -2339,15 +2362,20 @@ def capture_k7_inputs(engine) -> dict:
     """Arms the engine's optimizer for its next update: just before it
     launches K7, the returned dict receives copies on the card of the flat
     masters, gradients (unscaled and clipped) and moments it takes, with
-    its learning rate and update count. The launch itself is the engine's."""
+    its learning rate, update count and skip flag as the device scalars
+    K7 reads. The launch itself is the engine's."""
+    from deepspeed_tpu_torch.ops.fused_optimizer import device_scalar
     opt, taken = engine.optimizer, {}
     step = opt.step
 
-    def capturing_step(grads):
-        taken.update(lr=opt.current_lr(), count=opt.count + 1, p=opt.params.clone(),
-                     g=grads.clone(), **{k: t.clone() for k, t in opt.state.items()})
+    def capturing_step(grads, skip=None):
+        taken.update(lr=device_scalar(opt.current_lr(), "cuda"),
+                     count=device_scalar(opt.count + 1, "cuda"),
+                     skip=None if skip is None else skip.reshape(1).clone(),
+                     p=opt.params.clone(), g=grads.clone(),
+                     **{k: t.clone() for k, t in opt.state.items()})
         del opt.step  # the class's step again
-        return step(grads)
+        return step(grads, skip)
 
     opt.step = capturing_step
     return taken
@@ -2363,7 +2391,7 @@ def k7_vs_plain_at_path_size(engine, taken: dict, chunk: int = 1 << 26) -> dict:
     from deepspeed_tpu_torch.ops import fused_optimizer as fo
     from deepspeed_tpu_torch.runtime import optimizers as opts
     opt = engine.optimizer
-    n, lr, t = opt.params.numel(), taken["lr"], taken["count"]
+    n, lr, t, skip = opt.params.numel(), taken["lr"], taken["count"], taken["skip"]
     got = {"p": opt.params, **opt.state}
     ulps = {k: 0 for k in got}
 
@@ -2375,25 +2403,26 @@ def k7_vs_plain_at_path_size(engine, taken: dict, chunk: int = 1 << 26) -> dict:
         p, g, m = taken["p"][sl], taken["g"][sl], taken["m"][sl]
         if isinstance(opt, opts.Adam):
             ref = fo.adam_update_reference(p, g, m, taken["v"][sl], lr, t, *opt.betas,
-                                           opt.eps, opt.weight_decay, l2=opt.l2)
+                                           opt.eps, opt.weight_decay, l2=opt.l2, skip=skip)
             refs = zip("pmv", ref)
         elif isinstance(opt, opts.Lion):
             refs = zip("pm", fo.lion_update_reference(p, g, m, lr, *opt.betas,
-                                                      opt.weight_decay))
+                                                      opt.weight_decay, skip))
         else:
             u, m_n, v_n = fo.lamb_update_reference(g, m, taken["v"][sl], t, *opt.betas,
-                                                   opt.eps)
+                                                   opt.eps, skip, g)
             g.copy_(u)
             refs = (("m", m_n), ("v", v_n))
         for name, ref in refs:
             hold(name, sl, ref)
     if isinstance(opt, opts.Lamb):
-        fo.lamb_apply_trust_(taken["p"], taken["g"], lr, opt.weight_decay, opt.bounds)
+        fo.lamb_apply_trust_(taken["p"], taken["g"], lr, opt.weight_decay, opt.bounds, skip)
         for a in range(0, n, chunk):
             sl = slice(a, min(a + chunk, n))
             hold("p", sl, taken["p"][sl])
     torch.cuda.synchronize()
-    return {"n": n, "update": t, "ulps": ulps, "max_ulps": max(ulps.values())}
+    return {"n": n, "update": int(t.item()), "skipped": bool(skip is not None and skip.item()),
+            "ulps": ulps, "max_ulps": max(ulps.values())}
 
 
 def attention_route(cfg, B: int, S: int, dtype) -> dict:
@@ -2423,7 +2452,7 @@ def phase_training() -> dict:
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
     from deepspeed_tpu_torch.ops import attention as fa
-    from deepspeed_tpu_torch.ops.fused_optimizer import adam_step_
+    from deepspeed_tpu_torch.ops.fused_optimizer import adam_step_, device_scalar
 
     L, B, S, n_steps = 4, 2, 2048, 6
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=L, ce_chunk_size=8192)
@@ -2488,8 +2517,9 @@ def phase_training() -> dict:
     # so it comes last
     opt = engine.optimizer
     state = (opt.params, engine._flat_grad, opt.state["m"], opt.state["v"])
+    scalars = [device_scalar(x, "cuda") for x in (opt.current_lr(), opt.count + 1)]
     same_state = {"k7_ms": time_ms(lambda: adam_step_(
-        *state, opt.current_lr(), opt.count + 1, *opt.betas, opt.eps, opt.weight_decay))}
+        *state, *scalars, *opt.betas, opt.eps, opt.weight_decay))}
     lib_p = torch.nn.Parameter(opt.params)
     lib_p.grad = engine._flat_grad
     lib = torch.optim.AdamW([lib_p], lr=opt.current_lr(), betas=opt.betas, eps=opt.eps,
@@ -2577,7 +2607,7 @@ def phase_training_optimizers() -> dict:
     """initialize() at phase 5's width (Llama-3-8B cut to 4 layers, batch
     2 x 2048) with Lion (bf16), LAMB (bf16, weight decay 0.01) and AdamW
     under fp16 with dynamic loss scaling (defaults: 2^16, hysteresis 2):
-    losses, step and optimizer-step ms, K7 launches per applied step. In
+    losses, step and optimizer-step ms, one K7 launch per step. In
     the fp16 run, steps 3 and 5 get an inf in one gradient element; around
     every skipped step the flat masters, moments and compute copy keep
     their fingerprints, and the scale trajectory is ``update_scale``
@@ -2648,8 +2678,8 @@ def phase_training_optimizers() -> dict:
             if fp16 and overflows[-1]:
                 kept.append(all(fingerprint(v) == before[k] for k, v in state.items()))
         # the last step's K7 launch over the whole buffer, against the plain
-        # version (none if that step overflowed)
-        k7_path = k7_vs_plain_at_path_size(engine, taken) if taken else None
+        # version (with its skip flag)
+        k7_path = k7_vs_plain_at_path_size(engine, taken)
         del taken
         applied = n_steps - engine.skipped_steps
         run = {"config": {"optimizer": optimizer, **precision}, "steps": n_steps,
@@ -2658,7 +2688,9 @@ def phase_training_optimizers() -> dict:
                "k7": k7.__name__, "k7_launches": k7.launches, "applied_steps": applied,
                "peak_memory_gib": peak, "k7_path_check": k7_path}
         checks[f"{name}_losses_finite"] = bool(np.isfinite(losses).all())
-        checks[f"{name}_k7_one_launch_per_applied_step"] = k7.launches == applied > 0
+        # every step launches K7, which reads the overflow flag on the card
+        # and writes nothing on a skipped step
+        checks[f"{name}_k7_one_launch_per_step"] = k7.launches == n_steps and applied > 0
         checks[f"{name}_k7_at_path_size_within_ulps"] = (
             k7_path is not None and k7_path["max_ulps"] <= K7_ULPS)
         if fp16:
@@ -3307,6 +3339,338 @@ def phase_training_gemma2() -> dict:
     if not rec["ok"]:
         raise SystemExit(f"training_gemma2 checks failed: {checks}")
     return rec
+
+
+# the training_fused phase: Llama-3-8B's width cut to 2 layers (two engines
+# of ~27 GB each never live at once), bf16, AdamW + WarmupLR + clip 1.0,
+# the chunked CE; windows of FUSED_K steps of 1 x FUSED_SEQ tokens; the
+# remat runs at 1 x REMAT_SEQ
+FUSED_LAYERS, FUSED_K, FUSED_SEQ, REMAT_SEQ = 2, 4, 4096, 8192
+FUSED_CONFIG = {
+    "train_batch_size": 1, "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {
+        "warmup_min_lr": 0.0, "warmup_max_lr": 1e-4, "warmup_num_steps": 4,
+        "warmup_type": "linear"}},
+    "gradient_clipping": 1.0}
+# fp16 from a scale of 2^24, halved at each overflow (hysteresis 1): the
+# first steps overflow, the later ones apply
+FUSED_FP16 = {"bf16": {"enabled": False},
+              "fp16": {"enabled": True, "initial_scale_power": 24, "hysteresis": 1}}
+REMAT_RUNS = (("off", {}), ("nothing_saveable", {"remat": True,
+                                                  "remat_policy": "nothing_saveable"}),
+              ("dots_saveable", {"remat": True, "remat_policy": "dots_saveable"}))
+
+
+def busy_share(fn) -> dict:
+    """One call of ``fn`` traced by ``torch.profiler`` (device activity
+    only): its wall ms on the host's clock, the device kernels' summed ms
+    and their share of the wall (the device's busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t)
+    device_ms = sum(e.device_time for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms}
+
+
+def phase_training_fused() -> dict:
+    """The rest of the training engine on one device at the Llama-3-8B
+    width (``FUSED_LAYERS`` layers, seeded random bf16 weights):
+    (a) ``fused_train_steps`` over two windows of K stacked batches, the
+    first under ``torch.cuda.set_sync_debug_mode("error")`` with the one
+    fetch outside it, against 2K forward/backward/step from the same
+    weights: losses, masters and LR bit for bit; ms per step of a window
+    and of the sequential path, and each one's device busy share;
+    (b) the same in fp16 with a loss scale that overflows the first steps:
+    skipped steps, the scale, the LR and the masters equal; (c) gas-2
+    ``train_batch`` against its micro loop, bit for bit; (d) with
+    ``grad_accum_dtype`` bf16 the buffer's bytes (half) and the losses
+    within 5e-3 relative of fp32 accumulation; (e) remat off,
+    ``nothing_saveable`` and ``dots_saveable`` at 1 x ``REMAT_SEQ``: step ms,
+    peak memory, K1/K2 launches per step (remat launches K1 again in the
+    recompute: the flash output is no product), losses and the flat
+    gradient bit-equal across the three; (f) K7 in its device-scalar form
+    over the whole flat buffer against the plain version (``K7_ULPS``), and
+    a set skip flag leaving masters and moments bit-unchanged. The K1/K2 and
+    K7 counts are set to 0 before each run and read after it."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    from deepspeed_tpu_torch.ops import attention as fa
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    from deepspeed_tpu_torch.runtime import loss_scaler as ls
+
+    L, K = FUSED_LAYERS, FUSED_K
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkdv, fo.adam_step_)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    base = LlamaConfig.llama3_8b(num_hidden_layers=L, ce_chunk_size=8192)
+    data = torch.randint(0, base.vocab_size, (2 * K, 1, FUSED_SEQ), generator=gen,
+                         device="cuda")
+    runs, checks = {}, {}
+
+    def engine_of(config_extra=None, **model_over):
+        cfg = LlamaConfig.llama3_8b(num_hidden_layers=L, ce_chunk_size=8192, **model_over)
+        model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        config = {**FUSED_CONFIG, **(config_extra or {})}
+        return deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+
+    def reset():
+        for f in counted:
+            f.launches = 0
+
+    def launches():
+        return {f.__name__: f.launches for f in counted}
+
+    def window(engine, batch, check_sync):
+        """One ``fused_train_steps`` call: its losses, the sizes the engine
+        fetched and the wall seconds (the fetch waits for the device)."""
+        fetches, fetch = [], engine._fetch
+
+        def outside(t):
+            torch.cuda.set_sync_debug_mode(0)
+            fetches.append(int(t.numel()))
+            return fetch(t)
+
+        engine._fetch = outside
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        if check_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = engine.fused_train_steps(batch, labels=batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del engine._fetch
+        return losses.tolist(), fetches, time.monotonic() - t
+
+    def sequential(engine, batches):
+        losses, walls = [], []
+        for x in batches:
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            loss = engine.forward(x, labels=x)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            walls.append(time.monotonic() - t)
+        return losses, walls
+
+    # (a) two bf16 windows against 2K sequential steps
+    engine = engine_of()
+    reset()
+    l1, f1, _ = window(engine, data[:K], check_sync=True)
+    l2, f2, wall = window(engine, data[K:], check_sync=False)
+    win = {"losses": l1 + l2, "fetches": f1 + f2, "launches": launches(),
+           "ms_per_step": 1e3 * wall / K, "lr": engine.get_lr(),
+           "masters": engine.optimizer.params.clone()}
+    win["profiled_window"] = busy_share(lambda: engine.fused_train_steps(data[:K],
+                                                                         labels=data[:K]))
+    del engine
+    free_memory()
+    engine = engine_of()
+    reset()
+    seq_losses, walls = sequential(engine, data)
+    seq = {"losses": seq_losses, "launches": launches(), "lr": engine.get_lr(),
+           "ms_per_step": 1e3 * sum(walls[K:]) / K}
+    masters_equal = torch.equal(engine.optimizer.params, win.pop("masters"))
+    free_memory()
+
+    def one_step(x):
+        loss = engine.forward(x, labels=x)
+        engine.backward(loss)
+        engine.step()
+        return loss
+
+    # the same K steps as the profiled window, each loss read as the
+    # sequential run reads it
+    seq["profiled_steps"] = busy_share(lambda: [one_step(x).item() for x in data[:K]])
+    # (f) K7 over the whole flat buffer, then a set skip flag
+    taken = capture_k7_inputs(engine)
+    one_step(data[0])
+    k7_path = k7_vs_plain_at_path_size(engine, taken)
+    del taken
+    free_memory()
+    opt = engine.optimizer
+    bufs = {"masters": opt.params, **opt.state}
+    before = {k: fingerprint(v) for k, v in bufs.items()}
+    grads = torch.full_like(opt.params, float("inf"))
+    scalars = [fo.device_scalar(x, "cuda") for x in (opt.current_lr(), opt.count + 1)]
+    skip_launches = fo.adam_step_.launches
+    fo.adam_step_(opt.params, grads, opt.state["m"], opt.state["v"], *scalars, *opt.betas,
+                  opt.eps, opt.weight_decay, skip=torch.ones(1, dtype=torch.bool,
+                                                             device="cuda"))
+    skip_kept = all(fingerprint(v) == before[k] for k, v in bufs.items())
+    skip_launched = fo.adam_step_.launches == skip_launches + 1
+    del grads, bufs
+    runs["bf16_window"], runs["bf16_sequential"] = win, seq
+    checks.update({
+        "a_losses_bit_equal": win["losses"] == seq["losses"],
+        "a_masters_bit_equal": masters_equal,
+        "a_lr_equal": win["lr"] == seq["lr"],
+        "a_one_fetch_per_window": win["fetches"] == [2 * K, 2 * K],
+        "a_losses_finite": bool(np.isfinite(win["losses"]).all()),
+        "a_launches_equal": win["launches"] == seq["launches"],
+        "a_flash_L_and_k7_one_per_step": seq["launches"] == {
+            "flash_attention_fwd": 2 * K * L, "flash_attention_bwd_dq": 2 * K * L,
+            "flash_attention_bwd_dkdv": 2 * K * L, "adam_step_": 2 * K},
+        "f_k7_at_path_size_within_ulps": k7_path["max_ulps"] <= K7_ULPS,
+        "f_skip_flag_keeps_state": skip_kept and skip_launched,
+    })
+    del engine, opt
+    free_memory()
+
+    # (b) fp16: a window of all 2K batches against as many steps
+    n16, fp16_data = 2 * K, data
+    engine = engine_of(FUSED_FP16)
+    reset()
+    l16, f16, _ = window(engine, fp16_data, check_sync=True)
+    w16 = {"losses": l16, "fetches": f16, "launches": launches(),
+           "skipped_steps": engine.skipped_steps, "scale": ls.to_host(engine.scale_state),
+           "lr": engine.get_lr(), "masters": engine.optimizer.params.clone()}
+    del engine
+    free_memory()
+    engine = engine_of(FUSED_FP16)
+    reset()
+    s16_losses, _ = sequential(engine, fp16_data)
+    s16 = {"losses": s16_losses, "launches": launches(), "skipped_steps": engine.skipped_steps,
+           "scale": ls.to_host(engine.scale_state), "lr": engine.get_lr()}
+    masters16 = torch.equal(engine.optimizer.params, w16.pop("masters"))
+    w16["scale"], s16["scale"] = w16["scale"]._asdict(), s16["scale"]._asdict()
+    runs["fp16_window"], runs["fp16_sequential"] = w16, s16
+    checks.update({
+        "b_some_steps_skipped_some_applied": 0 < w16["skipped_steps"] < n16,
+        "b_skipped_steps_equal": w16["skipped_steps"] == s16["skipped_steps"],
+        "b_scale_equal": w16["scale"] == s16["scale"],
+        "b_lr_equal": w16["lr"] == s16["lr"],
+        "b_masters_bit_equal": masters16,
+        "b_losses_bit_equal": w16["losses"] == s16["losses"],
+        "b_one_fetch": w16["fetches"] == [2 * n16],
+        "b_k7_one_launch_per_step": w16["launches"]["adam_step_"] == n16,
+    })
+    del engine
+    free_memory()
+
+    # (c) gas 2: train_batch against its micro loop; (d) bf16 accumulation
+    gas2 = {"train_batch_size": 2, "train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 2}
+    # three steps: the warmup's first learning rate is 0, so the third
+    # loss is the first that an update moved
+    micro = [(x, x) for x in data[:6]]
+
+    def batches(engine):
+        reset()
+        out = [engine.train_batch(iter(micro[2 * i:2 * i + 2])) for i in range(3)]
+        return out, launches(), engine._flat_grad
+
+    engine = engine_of(gas2)
+    tb_losses, tb_launches, acc = batches(engine)
+    tb = {"losses": tb_losses, "launches": tb_launches, "buffer_bytes": acc.nbytes,
+          "buffer_dtype": str(acc.dtype)}
+    tb_masters = engine.optimizer.params.clone()
+    del engine, acc
+    free_memory()
+    engine = engine_of(gas2)
+    reset()
+    loop = []
+    for i in range(3):
+        ls_ = []
+        for x, y in micro[2 * i:2 * i + 2]:
+            loss = engine.forward(x, y)
+            engine.backward(loss)
+            engine.step()
+            ls_.append(loss.detach().float())
+        loop.append(float((torch.zeros((), device="cuda") + ls_[0] + ls_[1]) / 2))
+    loop_masters = torch.equal(engine.optimizer.params, tb_masters)
+    del engine, tb_masters
+    free_memory()
+    engine = engine_of({**gas2, "data_types": {"grad_accum_dtype": "bf16"}})
+    b16_losses, b16_launches, acc = batches(engine)
+    b16 = {"losses": b16_losses, "launches": b16_launches, "buffer_bytes": acc.nbytes,
+           "buffer_dtype": str(acc.dtype)}
+    del engine, acc
+    free_memory()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(b16["losses"], tb["losses"]))
+    runs["gas2_train_batch"], runs["gas2_bf16_accum"] = tb, b16
+    runs["gas2_micro_loop"] = {"losses": loop}
+    b16["max_rel_loss_diff_vs_fp32"] = rel
+    checks.update({
+        "c_losses_bit_equal": tb["losses"] == loop,
+        "c_masters_bit_equal": loop_masters,
+        "c_k7_one_launch_per_step": tb["launches"]["adam_step_"] == 3,
+        "d_buffer_half": 2 * b16["buffer_bytes"] == tb["buffer_bytes"]
+        and b16["buffer_dtype"] == "torch.bfloat16",
+        "d_losses_within_5e-3": rel <= 5e-3,
+    })
+
+    # (e) remat at 1 x REMAT_SEQ: three runs of 3 steps from the same weights
+    rdata = torch.randint(0, base.vocab_size, (1, REMAT_SEQ), generator=gen, device="cuda")
+    ref = None
+    for name, over in REMAT_RUNS:
+        engine = engine_of(**over)
+        free_memory()
+        state_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        losses, walls, prints, first_grad = [], [], [], None
+        for i in range(3):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            loss = engine.forward(rdata, labels=rdata)
+            engine.backward(loss)
+            torch.cuda.synchronize()
+            mid = time.monotonic()
+            prints.append(fingerprint(engine._flat_grad))
+            if i == 0:
+                first_grad = engine._flat_grad.clone() if ref is None else torch.equal(
+                    engine._flat_grad, ref["first_grad"])
+            torch.cuda.synchronize()
+            t2 = time.monotonic()
+            engine.step()
+            torch.cuda.synchronize()
+            walls.append(mid - t + time.monotonic() - t2)
+            losses.append(loss.item())
+        run = {"losses": losses, "grad_fingerprints": prints, "launches": launches(),
+               "step_ms": 1e3 * sum(walls[1:]) / 2,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "state_gib": state_gib}
+        run["activation_peak_gib"] = run["peak_memory_gib"] - state_gib
+        k1 = 2 * L if over else L
+        checks[f"e_{name}_launches_per_step"] = run["launches"] == {
+            "flash_attention_fwd": 3 * k1, "flash_attention_bwd_dq": 3 * L,
+            "flash_attention_bwd_dkdv": 3 * L, "adam_step_": 3}
+        if ref is None:
+            ref = {"losses": losses, "prints": prints, "first_grad": first_grad}
+        else:
+            checks[f"e_{name}_losses_bit_equal"] = losses == ref["losses"]
+            checks[f"e_{name}_grads_bit_equal"] = first_grad and prints == ref["prints"]
+        runs[f"remat_{name}"] = run
+        del engine, loss
+        free_memory()
+    del ref
+    free_memory()
+    # every kernel of the path ran in every run that drives it
+    for name, run in runs.items():
+        if "launches" in run:
+            checks[f"{name}_every_kernel_launched"] = all(run["launches"].values())
+    rec = {"phase": "training_fused", "config": f"llama3_8b(num_hidden_layers={L}, "
+           "ce_chunk_size=8192), random bf16 weights, AdamW lr 1e-4 wd 0.01 + "
+           f"WarmupLR(linear, 4) + clip 1.0; windows of {K} x 1 x {FUSED_SEQ} tokens; "
+           f"remat at 1 x {REMAT_SEQ}", "gpu": gpu_identity(), "runs": runs,
+           "k7_path_check": k7_path, "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit(f"training_fused checks failed: {checks}")
+    return rec
+
 
 
 def phase_attn_sweep() -> dict:
@@ -4196,6 +4560,7 @@ def main() -> int:
     optimizers = timed("training_optimizers", phase_training_optimizers)
     mistral = timed("training_mistral", phase_training_mistral)
     gemma_training = timed("training_gemma2", phase_training_gemma2)
+    fused = timed("training_fused", phase_training_fused)
     bf16 = timed("serving", phase_serving, kernels)
     timed("serving_int8", phase_serving_int8, kernels, bf16)
     del bf16
@@ -4214,6 +4579,10 @@ def main() -> int:
         for name, n in rec["launches"].items():
             if n:
                 by_phase.setdefault(name, {})[f"training_mistral/{run}"] = n
+    for run, rec in fused["runs"].items():
+        for name, n in rec.get("launches", {}).items():
+            by_phase.setdefault(name, {})[f"training_fused/{run}"] = n
+    by_phase["adam_step_"]["training_optimizers/adamw_fp16"] = runs["adamw_fp16"]["k7_launches"]
     by_phase["lion_step_"] = {"training_optimizers/lion_bf16": runs["lion_bf16"]["k7_launches"]}
     by_phase["lamb_update_"] = {
         "training_optimizers/lamb_bf16": runs["lamb_bf16"]["k7_launches"]}
@@ -4231,7 +4600,8 @@ def main() -> int:
     # each K7 body's launches over the whole flat buffer on the training
     # paths, against the plain version (phases 5 and 5b)
     path_checks = {"adam_step_": {"training": training["k7_path_check"],
-                                  "adamw_fp16": runs["adamw_fp16"]["k7_path_check"]},
+                                  "adamw_fp16": runs["adamw_fp16"]["k7_path_check"],
+                                  "training_fused": fused["k7_path_check"]},
                    "lion_step_": {"lion_bf16": runs["lion_bf16"]["k7_path_check"]},
                    "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
     # ptxas's report beside the wgmma kernels of the narrower widths and K4's

@@ -10,33 +10,38 @@ hand-written CUDA kernels, paged attention and RMSNorm, and its int8
 options (weight-only int8 through the blockwise quantizer and an int8 KV
 cache, ``linear/``); and Llama
 training (``initialize`` -> ``engine.forward/backward/step``,
-``train_batch``, ``eval_batch``) with ZeRO stage 0 on one device, in bf16,
-fp16 (dynamic loss scaling) or fp32, carried by the flash-attention forward
-and backward kernels and the fused optimizer kernel over flat fp32 state
-(``ops/``, ``csrc/``).
+``fused_train_step(s)``, ``train_batch``, ``eval_batch``) with ZeRO stage 0
+on one device, in bf16, fp16 (dynamic loss scaling) or fp32, with remat
+and its policies, a key-padding mask and a data loader, carried by the
+flash-attention forward and backward kernels and the fused optimizer
+kernel over flat fp32 state, which reads its per-step scalars from device
+memory (``ops/``, ``csrc/``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config=None,
-               config_params=None, device=None):
+               config_params=None, collate_fn=None, device=None):
     """Build a training engine (port of ``deepspeed_tpu/__init__.py:23
     initialize``). ``model`` is a ``torch.nn.Module`` whose forward returns
     the loss (``models.llama.LlamaForCausalLM``); ``model_parameters`` the
     parameters to train (default: every parameter that takes a gradient);
-    ``config`` a dict or the path of a JSON file (``config/config.py``).
-    Returns ``(engine, optimizer, None, lr_scheduler)``. A client
-    optimizer and ``training_data`` are not ported yet and raise."""
+    ``training_data`` a map-style dataset, batched by
+    ``runtime.dataloader.DeepSpeedDataLoader`` at the micro batch size with
+    ``collate_fn``; ``config`` a dict or the path of a JSON file
+    (``config/config.py``). Returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)``. A client optimizer is not ported
+    yet and raises."""
     from .runtime.engine import DeepSpeedTorchEngine
-    if optimizer is not None or training_data is not None:
-        raise NotImplementedError("initialize: a client optimizer and "
-                                  "training_data are not ported yet")
+    if optimizer is not None:
+        raise NotImplementedError("initialize: a client optimizer is not ported yet")
     if config is None:
         config = config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
     engine = DeepSpeedTorchEngine(model, model_parameters=model_parameters,
                                   config=config, lr_scheduler=lr_scheduler,
-                                  device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                                  device=device, training_data=training_data,
+                                  collate_fn=collate_fn)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

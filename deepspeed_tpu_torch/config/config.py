@@ -7,11 +7,16 @@ Keys, as in the JAX package's JSON config: the batch triangle
 _configure_train_batch_size`` does for a world of one device),
 ``optimizer`` (``type``, ``params``), ``scheduler`` (``type``,
 ``params``), ``bf16`` (``enabled``), ``fp16`` (``feature_configs.py:137
-FP16Config``: dynamic or static loss scaling), ``gradient_clipping`` and
-``zero_optimization`` with ``stage`` 0. Any other key (``mesh``, ...), or
-one of these set to what the port does not run yet (ZeRO stage > 0, fp16
-``auto_cast`` or ``fp16_master_weights_and_grads``), raises: nothing is
-ignored silently.
+FP16Config``: dynamic or static loss scaling), ``gradient_clipping``,
+``zero_optimization`` with ``stage`` 0, ``data_types``
+(``grad_accum_dtype``, ``feature_configs.py:154``) and
+``activation_checkpointing`` (``:161``; ``remat_policy`` wraps the
+model's whole forward, ``runtime/activation_checkpointing/``). Any other
+key (``mesh``, ``async_pipeline``, ...), or one of these set to what the
+port does not run yet (ZeRO stage > 0, ``partition_activations``,
+``cpu_checkpointing``), raises: nothing is ignored silently. fp16's
+``auto_cast`` and ``fp16_master_weights_and_grads`` are accepted and
+change nothing, as in the JAX engine, which reads neither.
 """
 
 import json
@@ -24,7 +29,8 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 
 _KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
          GRADIENT_ACCUMULATION_STEPS, "optimizer", "scheduler", "bf16", "fp16",
-         "gradient_clipping", "zero_optimization"}
+         "gradient_clipping", "zero_optimization", "data_types",
+         "activation_checkpointing"}
 
 
 class DeepSpeedConfigError(Exception):
@@ -44,7 +50,10 @@ def _section(pd: Dict[str, Any], key: str, allowed) -> Dict[str, Any]:
 class FP16Config:
     """The ``fp16`` section with the JAX package's defaults and bounds
     (``feature_configs.py:137``). ``loss_scale`` 0 means dynamic scaling
-    from ``2**initial_scale_power``."""
+    from ``2**initial_scale_power``. ``auto_cast`` and
+    ``fp16_master_weights_and_grads`` are kept and read by nothing (the
+    masters stay fp32, the compute dtype comes from ``enabled``), as in the
+    JAX engine."""
 
     _DEFAULTS = {"enabled": False, "auto_cast": False, "loss_scale": 0.0,
                  "initial_scale_power": 16, "loss_scale_window": 1000,
@@ -58,9 +67,26 @@ class FP16Config:
                     "hysteresis", "min_loss_scale"):
             if getattr(self, key) < 0:
                 raise DeepSpeedConfigError(f"fp16.{key} must be >= 0")
-        for key in ("auto_cast", "fp16_master_weights_and_grads"):
-            if getattr(self, key):
-                raise NotImplementedError(f"config fp16.{key} is not ported yet")
+
+
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` section (``feature_configs.py:161``)
+    with its defaults."""
+
+    _DEFAULTS = {"partition_activations": False, "cpu_checkpointing": False,
+                 "contiguous_memory_optimization": False, "number_checkpoints": None,
+                 "synchronize_checkpoint_boundary": False, "profile": False,
+                 "remat_policy": None}
+
+    def __init__(self, section: Dict[str, Any]):
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, section.get(key, default))
+        if self.partition_activations:
+            raise NotImplementedError("config activation_checkpointing.partition_activations "
+                                      "is not ported yet: it needs the model axis")
+        if self.cpu_checkpointing:
+            raise NotImplementedError("config activation_checkpointing.cpu_checkpointing "
+                                      "is not ported yet: it needs host offload")
 
 
 class DeepSpeedTorchConfig:
@@ -98,6 +124,10 @@ class DeepSpeedTorchConfig:
         self.fp16_enabled = self.fp16_config.enabled
         if self.fp16_enabled and self.bf16_enabled:
             raise DeepSpeedConfigError("fp16 and bf16 modes cannot both be enabled")
+        self.data_types_config = _section(pd, "data_types", ("grad_accum_dtype", ))
+        self.activation_checkpointing_config = ActivationCheckpointingConfig(
+            _section(pd, "activation_checkpointing",
+                     ActivationCheckpointingConfig._DEFAULTS))
         zero = _section(pd, "zero_optimization", ("stage", ))
         if int(zero.get("stage", 0)) != 0:
             raise NotImplementedError(

@@ -23,6 +23,17 @@
 // version writes them, so the kernel equals its plain version on the card
 // up to the last bit of expf. log b and 1 - b come from the host, computed
 // in double and rounded to fp32, as the Python constants of the Pallas body.
+//
+// The per-step scalars live in device memory, as the Pallas body reads
+// lr_ref[0] and step_ref[0]: a one-element fp32 learning rate, a
+// one-element fp32 update count (1 for the first update) and a one-byte
+// skip flag (null: never skip). Each thread loads them once, at its start
+// (one broadcast load a warp). A set flag means "this step overflowed":
+// every thread returns before it reads or writes a buffer, so p, m, v and
+// LAMB's u stay bit for bit as they were (a zero learning rate would not:
+// 0 * inf is NaN, and the moments would still move). So K steps can be
+// enqueued with no host read between them: the engine computes the flag,
+// the learning rate and the count on the device.
 // sign(NaN) is 0, as torch.sign (jnp.sign gives NaN; only an overflowed
 // step, which the engine skips, carries one).
 //
@@ -50,10 +61,21 @@ constexpr long long kMaxBlocks = 65535;
 enum AdamMode : int { kNoDecay = 0, kDecoupled = 1, kL2 = 2 };
 
 struct Hyper {
-  float lr, b1, omb1, log_b1, b2, omb2, log_b2, eps, wd;
-  float bc1, bc2;  // filled on the device from step
+  float b1, omb1, log_b1, b2, omb2, log_b2, eps, wd;
+  float lr, bc1, bc2;  // filled on the device from the scalars
   int mode;
 };
+
+// the scalars one launch reads from device memory
+struct Scalars {
+  const float* lr;
+  const float* step;
+  const unsigned char* skip;
+};
+
+__device__ __forceinline__ bool skipped(const Scalars& s) {
+  return s.skip != nullptr && *s.skip != 0;
+}
 
 __device__ __forceinline__ float bias_correction(float step, float log_b) {
   return __fsub_rn(1.f, expf(__fmul_rn(step, log_b)));
@@ -146,7 +168,11 @@ __device__ __forceinline__ float lamb_elem(const Hyper& h, float g, float& m, fl
 
 template <typename TP, typename TG>
 __global__ void __launch_bounds__(kThreads)
-adam_kernel(TP* p, const TG* g, float* m, float* v, long long n, Hyper h, float step, bool vec) {
+adam_kernel(TP* p, const TG* g, float* m, float* v, long long n, Hyper h, Scalars sc,
+            bool vec) {
+  if (skipped(sc)) return;
+  h.lr = *sc.lr;
+  const float step = *sc.step;
   h.bc1 = bias_correction(step, h.log_b1);
   h.bc2 = bias_correction(step, h.log_b2);
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -170,7 +196,9 @@ adam_kernel(TP* p, const TG* g, float* m, float* v, long long n, Hyper h, float 
 
 template <typename TP, typename TG>
 __global__ void __launch_bounds__(kThreads)
-lion_kernel(TP* p, const TG* g, float* m, long long n, Hyper h, bool vec) {
+lion_kernel(TP* p, const TG* g, float* m, long long n, Hyper h, Scalars sc, bool vec) {
+  if (skipped(sc)) return;
+  h.lr = *sc.lr;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n4 = vec ? n / 4 : 0;
@@ -192,8 +220,10 @@ lion_kernel(TP* p, const TG* g, float* m, long long n, Hyper h, bool vec) {
 // u may be g (in place): each element is read before it is written
 template <typename TG>
 __global__ void __launch_bounds__(kThreads)
-lamb_kernel(const TG* g, float* m, float* v, float* u, long long n, Hyper h, float step,
+lamb_kernel(const TG* g, float* m, float* v, float* u, long long n, Hyper h, Scalars sc,
             bool vec) {
+  if (skipped(sc)) return;
+  const float step = *sc.step;
   h.bc1 = bias_correction(step, h.log_b1);
   h.bc2 = bias_correction(step, h.log_b2);
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -227,30 +257,30 @@ inline unsigned grid_for(long long n, bool vec) {
 
 template <typename TP, typename TG>
 cudaError_t launch_adam(void* p, const void* g, void* m, void* v, long long n, const Hyper& h,
-                        float step, cudaStream_t s) {
+                        const Scalars& sc, cudaStream_t s) {
   const bool vec = vec_aligned<TP>(p) && vec_aligned<TG>(g) && vec_aligned<float>(m) &&
                    vec_aligned<float>(v);
   adam_kernel<TP, TG><<<grid_for(n, vec), kThreads, 0, s>>>(
-      (TP*)p, (const TG*)g, (float*)m, (float*)v, n, h, step, vec);
+      (TP*)p, (const TG*)g, (float*)m, (float*)v, n, h, sc, vec);
   return cudaGetLastError();
 }
 
 template <typename TP, typename TG>
 cudaError_t launch_lion(void* p, const void* g, void* m, long long n, const Hyper& h,
-                        cudaStream_t s) {
+                        const Scalars& sc, cudaStream_t s) {
   const bool vec = vec_aligned<TP>(p) && vec_aligned<TG>(g) && vec_aligned<float>(m);
   lion_kernel<TP, TG><<<grid_for(n, vec), kThreads, 0, s>>>((TP*)p, (const TG*)g, (float*)m,
-                                                            n, h, vec);
+                                                            n, h, sc, vec);
   return cudaGetLastError();
 }
 
 template <typename TG>
 cudaError_t launch_lamb(const void* g, void* m, void* v, void* u, long long n, const Hyper& h,
-                        float step, cudaStream_t s) {
+                        const Scalars& sc, cudaStream_t s) {
   const bool vec = vec_aligned<TG>(g) && vec_aligned<float>(m) && vec_aligned<float>(v) &&
                    vec_aligned<float>(u);
   lamb_kernel<TG><<<grid_for(n, vec), kThreads, 0, s>>>((const TG*)g, (float*)m, (float*)v,
-                                                        (float*)u, n, h, step, vec);
+                                                        (float*)u, n, h, sc, vec);
   return cudaGetLastError();
 }
 
@@ -268,45 +298,52 @@ cudaError_t launch_lamb(const void* g, void* m, void* v, void* u, long long n, c
 }  // namespace dstt
 
 // In place over n elements: p (p_dtype), g (g_dtype) read only, m and v fp32.
+// lr, step: one fp32 each in device memory; skip: one byte (or null).
 // mode: 0 no weight decay, 1 decoupled (AdamW), 2 L2 into the gradient.
-extern "C" int dstt_adam_step(void* p, const void* g, void* m, void* v, long long n, float lr,
-                              float step, float b1, float omb1, float log_b1, float b2,
-                              float omb2, float log_b2, float eps, float wd, int mode,
-                              int p_dtype, int g_dtype, void* stream) {
+extern "C" int dstt_adam_step(void* p, const void* g, void* m, void* v, long long n,
+                              const void* lr, const void* step, const void* skip, float b1,
+                              float omb1, float log_b1, float b2, float omb2, float log_b2,
+                              float eps, float wd, int mode, int p_dtype, int g_dtype,
+                              void* stream) {
   using namespace dstt;
   using namespace dstt::optim;
-  if (n <= 0 || mode < kNoDecay || mode > kL2) return (int)cudaErrorInvalidValue;
-  const Hyper h{lr, b1, omb1, log_b1, b2, omb2, log_b2, eps, wd, 0.f, 0.f, mode};
+  if (n <= 0 || mode < kNoDecay || mode > kL2 || !lr || !step) return (int)cudaErrorInvalidValue;
+  const Hyper h{b1, omb1, log_b1, b2, omb2, log_b2, eps, wd, 0.f, 0.f, 0.f, mode};
+  const Scalars sc{(const float*)lr, (const float*)step, (const unsigned char*)skip};
   cudaStream_t s = (cudaStream_t)stream;
   DSTT_DISPATCH_FLOAT(p_dtype, TP, DSTT_DISPATCH_FLOAT(g_dtype, TG,
-      return (int)launch_adam<TP, TG>(p, g, m, v, n, h, step, s)))
+      return (int)launch_adam<TP, TG>(p, g, m, v, n, h, sc, s)))
   return (int)cudaErrorInvalidValue;
 }
 
-// In place: p, m updated; mode 0 or 1 (decoupled weight decay).
-extern "C" int dstt_lion_step(void* p, const void* g, void* m, long long n, float lr, float b1,
-                              float omb1, float b2, float omb2, float wd, int mode,
-                              int p_dtype, int g_dtype, void* stream) {
+// In place: p, m updated; lr and skip as dstt_adam_step's; mode 0 or 1
+// (decoupled weight decay).
+extern "C" int dstt_lion_step(void* p, const void* g, void* m, long long n, const void* lr,
+                              const void* skip, float b1, float omb1, float b2, float omb2,
+                              float wd, int mode, int p_dtype, int g_dtype, void* stream) {
   using namespace dstt;
   using namespace dstt::optim;
-  if (n <= 0 || (mode != kNoDecay && mode != kDecoupled)) return (int)cudaErrorInvalidValue;
-  const Hyper h{lr, b1, omb1, 0.f, b2, omb2, 0.f, 0.f, wd, 0.f, 0.f, mode};
+  if (n <= 0 || (mode != kNoDecay && mode != kDecoupled) || !lr) return (int)cudaErrorInvalidValue;
+  const Hyper h{b1, omb1, 0.f, b2, omb2, 0.f, 0.f, wd, 0.f, 0.f, 0.f, mode};
+  const Scalars sc{(const float*)lr, nullptr, (const unsigned char*)skip};
   cudaStream_t s = (cudaStream_t)stream;
   DSTT_DISPATCH_FLOAT(p_dtype, TP, DSTT_DISPATCH_FLOAT(g_dtype, TG,
-      return (int)launch_lion<TP, TG>(p, g, m, n, h, s)))
+      return (int)launch_lion<TP, TG>(p, g, m, n, h, sc, s)))
   return (int)cudaErrorInvalidValue;
 }
 
-// m, v in place; u (fp32, may be g when g is fp32) written.
+// m, v in place; u (fp32, may be g when g is fp32) written; step and skip as
+// dstt_adam_step's.
 extern "C" int dstt_lamb_update(const void* g, void* m, void* v, void* u, long long n,
-                                float step, float b1, float omb1, float log_b1, float b2,
-                                float omb2, float log_b2, float eps, int g_dtype,
-                                void* stream) {
+                                const void* step, const void* skip, float b1, float omb1,
+                                float log_b1, float b2, float omb2, float log_b2, float eps,
+                                int g_dtype, void* stream) {
   using namespace dstt;
   using namespace dstt::optim;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const Hyper h{0.f, b1, omb1, log_b1, b2, omb2, log_b2, eps, 0.f, 0.f, 0.f, kNoDecay};
+  if (n <= 0 || !step) return (int)cudaErrorInvalidValue;
+  const Hyper h{b1, omb1, log_b1, b2, omb2, log_b2, eps, 0.f, 0.f, 0.f, 0.f, kNoDecay};
+  const Scalars sc{nullptr, (const float*)step, (const unsigned char*)skip};
   cudaStream_t s = (cudaStream_t)stream;
-  DSTT_DISPATCH_FLOAT(g_dtype, TG, return (int)launch_lamb<TG>(g, m, v, u, n, h, step, s))
+  DSTT_DISPATCH_FLOAT(g_dtype, TG, return (int)launch_lamb<TG>(g, m, v, u, n, h, sc, s))
   return (int)cudaErrorInvalidValue;
 }

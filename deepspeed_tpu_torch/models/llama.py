@@ -6,9 +6,11 @@
 Gemma's tanh-gelu gate and the fc form), ``LlamaDecoderLayer`` :522 (the
 pre-norm branch and Gemma-2's sandwich norms), ``LMHead`` :566,
 ``LlamaModel`` :625 (with Gemma's embedding scale and Gemma-2's final
-logit softcap),
-``cross_entropy_loss`` :713, ``LlamaForCausalLM`` :725 and the
-``init_llama`` initializers).
+logit softcap, and ``remat``/``remat_policy`` as ``_remat_layer_cls``
+:597), ``cross_entropy_loss`` :713, ``LlamaForCausalLM`` :725 and the
+``init_llama`` initializers). With an ``attn_mask`` (``[b, s]`` key
+padding) attention takes the JAX layer's dense branch (``:371-415``),
+plain PyTorch as there it is XLA: ``masked_attention``.
 
 The modules hold the weights in the JAX package's layout and names — a
 projection's ``kernel`` is ``[in, out]`` and applies as ``x @ kernel`` —
@@ -32,6 +34,8 @@ from torch import nn
 from ..ops.attention import flash_attention
 from ..ops.chunked_ce import chunked_cross_entropy_loss, matmul_fp32
 from ..ops.normalization import layer_norm_reference
+from ..runtime.activation_checkpointing.checkpointing import (checkpoint_with,
+                                                              resolve_policy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +143,8 @@ GEMMA_KNOBS = ("norm_plus_one", "embed_scale", "sandwich_norm", "attn_logit_soft
 TRAINING_FAMILY = {**{k: v for k, v in LLAMA_FAMILY.items()
                       if k not in ("sliding_window", ) + GEMMA_KNOBS},
                    "mlp_type": ("swiglu", "geglu_tanh")}
-TRAINING_DEFAULTS = dict(remat=False, scan_layers=False)
+# scan_layers exists for the ZeRO-3 live-parameter governor (scan_chunk_size)
+TRAINING_DEFAULTS = dict(scan_layers=False)
 # what the serving forward runs: the Llama family, StarCoder2's knobs
 # (LayerNorm with bias, q/k/v/o biases, the biased gelu-tanh fc MLP, sliding
 # windows on all or some layers), BLOOM's (ALiBi in place of rope, the
@@ -289,10 +294,11 @@ class LlamaAttention(nn.Module):
         self.v_proj = Dense(h, nkv * hd, dtype, device, bias)
         self.o_proj = Dense(nq * hd, h, dtype, device, cfg.attention_out_bias)
 
-    def forward(self, x, cos, sin, positions):
+    def forward(self, x, cos, sin, positions, attn_mask=None):
         """The flash branch of the JAX layer (``:365-368``): the attention
         route (``ops/attention.flash_attention``) with this layer's window
-        and the attention-logit softcap."""
+        and the attention-logit softcap; with ``attn_mask`` the dense
+        branch (``masked_attention``), which never reaches the kernels."""
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -301,10 +307,50 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(b, s, cfg.num_key_value_heads, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-        attn = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale,
-                               window=_layer_window(cfg, self.layer_idx),
-                               softcap=cfg.attn_logit_softcapping)
+        window = _layer_window(cfg, self.layer_idx)
+        if attn_mask is not None:
+            attn = masked_attention(q, k, v, attn_mask, positions, scale=cfg.attn_scale,
+                                    window=window, softcap=cfg.attn_logit_softcapping)
+        else:
+            attn = flash_attention(q, k, v, causal=True, scale=cfg.attn_scale,
+                                   window=window, softcap=cfg.attn_logit_softcapping)
         return self.o_proj(attn.reshape(b, s, -1))
+
+
+def masked_attention(q, k, v, attn_mask, positions, scale=None, window=None,
+                     softcap=None):
+    """Causal attention under a ``[b, s]`` key-padding mask, the JAX
+    layer's dense branch: q ``[b, s, H, D]``, k/v ``[b, s, KV, D]``. fp32
+    scores of the compute-dtype operands. Without a softcap it is
+    ``jax.nn.dot_product_attention(mask=..., is_causal=True)``'s XLA form:
+    the scaled scores where the mask, the causal triangle and the window
+    keep them, else ``-0.7 * max(fp32)``, an fp32 softmax, probabilities cast
+    to v's dtype. With one (Gemma-2, ``:371-395``): ``cap * tanh(s / cap)``,
+    masked to ``-1e30`` by position. A query row that sees no key spreads
+    evenly over all keys in both, as in JAX."""
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    g = nq // nkv
+    scl = scale if scale is not None else 1.0 / math.sqrt(hd)
+    keep = attn_mask[:, None, None, :].bool()  # [b, 1, 1, s]
+    if window is not None:
+        keep = keep & ((positions[:, None, :, None] - positions[:, None, None, :]) < window)
+    qg = q.reshape(b, s, nkv, g, hd).float()
+    scores = torch.einsum("bqkgd,blkd->bkgql", qg, k.float()) * scl
+    if softcap is None:
+        causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        keep_all = keep[:, :, None] & causal  # [b, 1 or KV, 1, s, s] over (k, g)
+        scores = torch.where(keep_all, scores,
+                             -0.7 * torch.finfo(torch.float32).max)
+        probs = torch.softmax(scores, -1).to(v.dtype)
+        out = torch.einsum("bkgql,blkd->bqkgd", probs.float(), v.float()).to(q.dtype)
+    else:
+        scores = softcap * torch.tanh(scores / softcap)
+        causal = (positions[:, :, None] >= positions[:, None, :])[:, None, None]
+        scores = torch.where(causal & keep[:, :, None], scores, -1e30)
+        probs = torch.softmax(scores, -1)
+        out = torch.einsum("bkgql,blkd->bqkgd", probs, v.float()).to(q.dtype)
+    return out.reshape(b, s, nq, hd)
 
 
 def gate_act(gate, mlp_type: str):
@@ -350,11 +396,11 @@ class LlamaDecoderLayer(nn.Module):
             self.pre_feedforward_layernorm = _make_norm(cfg, dtype, device)
             self.post_feedforward_layernorm = _make_norm(cfg, dtype, device)
 
-    def forward(self, x, cos, sin, positions):
+    def forward(self, x, cos, sin, positions, attn_mask=None):
         """The pre-norm branch (``:548-563``), or Gemma-2's sandwich norms
         (``:529-536``): the attention's and the MLP's outputs are normed
         too, before each residual add."""
-        attn = self.self_attn(self.input_layernorm(x), cos, sin, positions)
+        attn = self.self_attn(self.input_layernorm(x), cos, sin, positions, attn_mask)
         if self.sandwich:
             h = x + self.post_attention_layernorm(attn)
             return h + self.post_feedforward_layernorm(
@@ -397,8 +443,11 @@ class LlamaModel(nn.Module):
         super().__init__()
         dtype = dtype or cfg.dtype
         self.config = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         dtype=dtype, device=device)
+        # no draw at construction (the initializers or a checkpoint fill the
+        # table): the default CUDA generator may be unusable after a failed
+        # graph capture elsewhere in the process
+        table = torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=dtype, device=device)
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, _weight=table)
         self.embed_layernorm = (LayerNormWeight(cfg.hidden_size, dtype, device,
                                                 cfg.rms_norm_eps)
                                 if cfg.embed_layernorm else None)
@@ -411,10 +460,12 @@ class LlamaModel(nn.Module):
         for p in self.parameters():
             p.requires_grad_(trainable)
 
-    def forward(self, input_ids, positions=None, return_unembed=False):
+    def forward(self, input_ids, positions=None, attn_mask=None, return_unembed=False):
         """Logits ``[b, s, vocab]`` fp32, or with ``return_unembed`` the
         final hidden states and the unembed weight ``[hidden, vocab]`` for
-        the chunked CE."""
+        the chunked CE. With ``remat`` each layer's activations are
+        recomputed in the backward, under ``remat_policy`` (``nn.remat``
+        of ``LlamaDecoderLayer``, ``_remat_layer_cls :597``)."""
         cfg = self.config
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)
@@ -425,7 +476,11 @@ class LlamaModel(nn.Module):
         cos, sin = precompute_rope(cfg.head_dim_, cfg.max_position_embeddings,
                                    cfg.rope_theta, device=x.device)
         for layer in self.layers:
-            x = layer(x, cos, sin, positions)
+            if cfg.remat:
+                x = checkpoint_with(cfg.remat_policy, layer, x, cos, sin, positions,
+                                    attn_mask)
+            else:
+                x = layer(x, cos, sin, positions, attn_mask)
         x = self.norm(x)
         w = (self.embed_tokens.weight.t() if cfg.tie_word_embeddings
              else self.lm_head.kernel)
@@ -470,21 +525,19 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         check_supported(config, "LlamaForCausalLM",
                         {**TRAINING_FAMILY, **TRAINING_DEFAULTS})
+        if config.remat:
+            resolve_policy(config.remat_policy)
         self.config = config
         self.model = LlamaModel(config, dtype, device, trainable=True)
 
     def forward(self, input_ids, labels=None, positions=None, attn_mask=None):
-        if attn_mask is not None:
-            raise NotImplementedError(
-                "LlamaForCausalLM: attn_mask (the JAX model's non-flash "
-                "branch) is not ported yet")
         cfg = self.config
         if labels is not None and cfg.ce_chunk_size:
-            x, w = self.model(input_ids, positions, return_unembed=True)
+            x, w = self.model(input_ids, positions, attn_mask, return_unembed=True)
             return chunked_cross_entropy_loss(x, w, labels, cfg.ce_chunk_size,
                                               compute_dtype=x.dtype,
                                               softcap=cfg.final_logit_softcapping)
-        logits = self.model(input_ids, positions)
+        logits = self.model(input_ids, positions, attn_mask)
         if labels is None:
             return logits
         return cross_entropy_loss(logits, labels)

@@ -131,16 +131,17 @@ _SIGNATURES = {
     # pass (0 forward, 1 dq, 2 dk/dv), head width, softcap: returns the
     # bytes of dynamic shared memory of that flash wgmma instance
     "dstt_flash_wgmma_smem": (_I, _I, _I),
-    # p, g, m, v, n, lr, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
-    # weight decay, mode, p dtype, g dtype, stream
-    "dstt_adam_step": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+    # p, g, m, v, n, lr (fp32 pointer), step (fp32 pointer), skip (byte
+    # pointer or null), b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps, weight
+    # decay, mode, p dtype, g dtype, stream
+    "dstt_adam_step": (_P, _P, _P, _P, _L, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F,
                        _F, _I, _I, _I, _P),
-    # p, g, m, n, lr, b1, 1 - b1, b2, 1 - b2, weight decay, mode, p dtype,
-    # g dtype, stream
-    "dstt_lion_step": (_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P),
-    # g, m, v, u, n, step, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps,
-    # g dtype, stream
-    "dstt_lamb_update": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F,
+    # p, g, m, n, lr (pointer), skip (pointer or null), b1, 1 - b1, b2,
+    # 1 - b2, weight decay, mode, p dtype, g dtype, stream
+    "dstt_lion_step": (_P, _P, _P, _L, _P, _P, _F, _F, _F, _F, _F, _I, _I, _I, _P),
+    # g, m, v, u, n, step (pointer), skip (pointer or null), b1, 1 - b1,
+    # log b1, b2, 1 - b2, log b2, eps, g dtype, stream
+    "dstt_lamb_update": (_P, _P, _P, _P, _L, _P, _P, _F, _F, _F, _F, _F, _F, _F,
                          _I, _P),
 }
 

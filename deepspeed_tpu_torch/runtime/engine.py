@@ -4,33 +4,56 @@
 What it keeps from the JAX engine:
 - the precision policy (``:268-296``): compute in bf16 when ``bf16`` is
   enabled, in fp16 with loss scaling when ``fp16`` is, else fp32; the
-  masters are fp32 (``_init_state :511``);
+  masters are fp32 (``_init_state :511``); ``data_types.grad_accum_dtype``
+  (fp32, bf16, or fp16 under fp16 training) is the accumulation buffer's
+  dtype, with JAX's errors;
 - ``param_cast="engine"`` (``value_and_grads :705``): the model computes
   with the compute-dtype cast of the masters and the gradients are taken
   with respect to that cast, with the loss scaled by ``1/gas`` and then by
-  the loss scale (``loss_from_cparams :677``), then added into an fp32
-  accumulation buffer;
-- ``apply_step :750``, in its order: ``grads = acc / cur_scale``; overflow
-  if any value is non-finite; the global norm and the clip factor ``min(1,
-  clip / (gnorm + 1e-6))``; the update (``runtime/optimizers.py``); on
-  overflow nothing moves (masters, optimizer state and its update count,
-  the compute copy); the scale update; the accumulation buffer zeroed. The
-  schedule advances only on an applied step and ``skipped_steps`` counts
-  the others (``step :1405-1416``);
+  the loss scale (``loss_from_cparams :677``), then added into the
+  accumulation buffer (``fwd_bwd``: ``a + g.astype(a.dtype)``);
+- ``apply_step :750``, in its order: ``grads = acc.astype(fp32) /
+  cur_scale``; overflow if any value is non-finite (fp16 only); the global
+  norm and the clip factor ``min(1, clip / (gnorm + 1e-6))``; the update
+  (``runtime/optimizers.py``); on overflow nothing moves (masters,
+  optimizer state and its update count, the compute copy); the scale
+  update; the accumulation buffer zeroed. The schedule advances only on an
+  applied step and ``skipped_steps`` counts the others (``step
+  :1405-1416``);
+- the fused programs: ``fused_train_step :1788`` (gas 1), ``fused_train_steps
+  :1843`` (K steps of stacked batches, one fetch of the losses and flags)
+  and the gas > 1 ``train_batch`` (``_run_fused_train_batch :1702``: gas
+  micro-batches and the apply step, one fetch);
+- the engine-level ``activation_checkpointing.remat_policy`` (``:298-303``:
+  the whole forward under recompute);
+- ``training_data`` (``:470``): a ``DeepSpeedDataLoader`` of micro batches;
 - the API: ``forward :1285``, ``backward :1325``, ``step :1383``,
   ``train_batch :1669``, ``eval_batch :1833``, ``get_lr :1959``,
   ``get_mom :1980``, ``get_global_grad_norm :2003``, ``cur_scale`` and
   ``loss_scale()`` (``:2007-2011``).
 
+The step reads nothing on the host. The overflow flag, the loss scale
+(``loss_scaler.DeviceLossScaleState``), the optimizer's update count and
+its learning rate live on the device, and K7 reads them there
+(``ops/fused_optimizer.py``). So ``fused_train_steps`` enqueues its K steps
+with no synchronisation between them, as the JAX ``lax.scan`` carries
+them, and fetches the ``[K]`` losses and flags once at the end; then the
+host counters, the schedule (one ``step()`` per applied update) and the
+optimizer's host count are brought up to date. ``step()`` keeps JAX's
+per-step host read of the flag. The window is not captured in a CUDA
+graph.
+
 The state is flat: the fp32 masters, the gradient accumulation buffer and
-each optimizer moment are ONE fp32 buffer each, and the per-parameter
-tensors are views into them, each starting at a multiple of 64 elements
-(256 bytes) so every view a product or a kernel reads stays aligned; the
+each optimizer moment are ONE buffer each, and the per-parameter tensors
+are views into them, each starting at a multiple of 64 elements (256
+bytes) so every view a product or a kernel reads stays aligned; the
 compute copy (bf16 or fp16) is one more flat buffer whose views are the
 model's parameters. So each optimizer step is one K7 launch over the whole
 buffer and the refresh of the compute copy one ``copy_``. The padding
 between views holds zeros in every buffer and stays zero under every
-update.
+update. Under a bf16 or fp16 accumulation buffer the step first makes an
+fp32 copy of it, as JAX casts ``acc`` before the unscale, and the norm,
+clip and K7 read that copy.
 
 What differs, by the nature of PyTorch: JAX's ``forward`` computes the
 loss and the gradients in one compiled program and ``backward`` only
@@ -42,9 +65,9 @@ gradient born in fp16 (at most 65504 per micro-batch, unscaled by a scale
 returns new arrays.
 
 Not ported yet (``ROADMAP.md``): offload, ZeRO 1-3 and the comm layer,
-the fused K-step programs, ``data_types.grad_accum_dtype``,
-checkpointing, resilience and observability. The engine runs on ``cuda``
-unless the caller passes ``device="cpu"``; without CUDA it raises.
+the async step window (``_AsyncStepWindow``, ``get_loss``), checkpointing,
+resilience and observability. The engine runs on ``cuda`` unless the
+caller passes ``device="cpu"``; without CUDA it raises.
 """
 
 from typing import Optional
@@ -54,7 +77,10 @@ from torch.profiler import record_function
 
 from ..config.config import DeepSpeedTorchConfig
 from ..utils.device import resolve_device
+from ..utils.dtypes import resolve_dtype
 from . import loss_scaler
+from .activation_checkpointing import checkpointing
+from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_lr_schedule
 from .optimizers import ADAM_DEFAULT_BETAS, build_optimizer
 
@@ -71,6 +97,28 @@ def flat_bounds(numels, align: int = FLAT_ALIGN):
     return bounds, total
 
 
+def grad_accum_dtype(config, use_loss_scaling: bool) -> torch.dtype:
+    """``data_types.grad_accum_dtype`` with the JAX engine's rules and
+    messages (``:277-296``): fp32 by default, bf16, or fp16 only under fp16
+    training (its overflow check turns saturation into a skipped step)."""
+    try:
+        dtype = resolve_dtype(config.data_types_config.get("grad_accum_dtype"),
+                              torch.float32)
+    except ValueError as e:
+        raise ValueError(f"data_types.grad_accum_dtype: {e}") from None
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError("data_types.grad_accum_dtype must be fp32/bf16/fp16")
+    if dtype == torch.float16 and not use_loss_scaling:
+        raise ValueError("grad_accum_dtype=fp16 requires fp16 training "
+                         "(loss scaling + overflow skip); use bf16 or "
+                         "fp32 accumulation otherwise")
+    return dtype
+
+
+def _batch(item):
+    return item if isinstance(item, tuple) else (item, )
+
+
 def _extract_loss(out):
     """Contract: the model returns loss, (loss, aux) or a dict with 'loss'."""
     if isinstance(out, tuple):
@@ -83,7 +131,7 @@ def _extract_loss(out):
 class DeepSpeedTorchEngine:
 
     def __init__(self, model, model_parameters=None, config=None,
-                 lr_scheduler=None, device=None):
+                 lr_scheduler=None, device=None, training_data=None, collate_fn=None):
         self._config = DeepSpeedTorchConfig(config if config is not None else {})
         self.device = resolve_device(device)
         self.module = model.to(self.device)
@@ -91,7 +139,12 @@ class DeepSpeedTorchEngine:
                               else torch.float16 if self._config.fp16_enabled
                               else torch.float32)
         self._use_loss_scaling = self._config.fp16_enabled
-        self.scale_state = loss_scaler.initial_state(self._config.fp16_config)
+        self.grad_accum_dtype = grad_accum_dtype(self._config, self._use_loss_scaling)
+        self.scale_state = loss_scaler.to_device(
+            loss_scaler.initial_state(self._config.fp16_config), self.device)
+        self._no_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._remat_policy = self._config.activation_checkpointing_config.remat_policy
+        checkpointing.resolve_policy(self._remat_policy)
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -113,12 +166,17 @@ class DeepSpeedTorchEngine:
         self.optimizer = build_optimizer(self._config.optimizer_name, self._flat_master,
                                          self._config.optimizer_params, lr_fn,
                                          bounds=self._bounds)
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = DeepSpeedDataLoader(
+                training_data, batch_size=self.train_micro_batch_size_per_gpu(),
+                collate_fn=collate_fn)
 
     @torch.no_grad()
     def _init_state(self, model_parameters):
         """The flat fp32 masters on the device, the model's parameters set
         to views of the flat compute-dtype copy (of the masters themselves
-        in fp32), and the flat fp32 gradient accumulation buffer."""
+        in fp32), and the flat gradient accumulation buffer."""
         names = {id(p): n for n, p in self.module.named_parameters()}
         params = (list(model_parameters) if model_parameters is not None
                   else [p for p in self.module.parameters() if p.requires_grad])
@@ -127,12 +185,10 @@ class DeepSpeedTorchEngine:
         self._params = params
         self.param_names = [names[id(p)] for p in params]
         self._bounds, total = flat_bounds([p.numel() for p in params])
-
-        def views(flat):
-            return [flat[a:b].view(p.shape) for (a, b), p in zip(self._bounds, params)]
+        self._shapes = [p.shape for p in params]
 
         self._flat_master = torch.zeros(total, dtype=torch.float32, device=self.device)
-        self._masters = views(self._flat_master)
+        self._masters = self._views(self._flat_master)
         for p, master in zip(params, self._masters):
             master.copy_(p.detach())
         self._flat_compute = None
@@ -140,12 +196,16 @@ class DeepSpeedTorchEngine:
             compute = self._masters
         else:
             self._flat_compute = self._flat_master.to(self.compute_dtype)
-            compute = views(self._flat_compute)
+            compute = self._views(self._flat_compute)
         for p, c in zip(params, compute):
             p.data = c
             p.requires_grad_(True)
-        self._flat_grad = torch.zeros(total, dtype=torch.float32, device=self.device)
-        self._grad_acc = views(self._flat_grad)
+        self._flat_grad = torch.zeros(total, dtype=self.grad_accum_dtype, device=self.device)
+        self._grad_acc = self._views(self._flat_grad)
+
+    def _views(self, flat):
+        """Each parameter's shaped view into the flat buffer ``flat``."""
+        return [flat[a:b].view(shape) for (a, b), shape in zip(self._bounds, self._shapes)]
 
     def master_params(self):
         """``{name: fp32 master}`` (the engine's own tensors)."""
@@ -176,24 +236,27 @@ class DeepSpeedTorchEngine:
                 "use engine.eval() (then forward() is grad-free) or eval_batch()")
         args = tuple(self._to_device(a) for a in args)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
-        loss = _extract_loss(self.module(*args, **kwargs))
+        out = (checkpointing.checkpoint_with(self._remat_policy, self.module, *args, **kwargs)
+               if self._remat_policy else self.module(*args, **kwargs))
+        loss = _extract_loss(out)
         self._pending = loss
         return loss
 
     def backward(self, loss):
         """Gradients of ``loss / gas`` (times the loss scale under fp16)
-        with respect to the compute copy, added into the fp32 accumulation
-        buffer."""
+        with respect to the compute copy, added into the accumulation
+        buffer (each gradient cast to the buffer's dtype first)."""
         if self._pending is None:
             raise RuntimeError("backward() called without a preceding forward()")
         scaled = loss.float() / self.gradient_accumulation_steps()
         if self._use_loss_scaling:
             scaled = scaled * self.scale_state.cur_scale
         scaled.backward()
+        narrow = self.grad_accum_dtype != torch.float32
         with torch.no_grad():
             for p, acc in zip(self._params, self._grad_acc):
                 if p.grad is not None:
-                    acc.add_(p.grad)
+                    acc.add_(p.grad.to(acc.dtype) if narrow else p.grad)
                     p.grad = None
         self._pending = None
         self.losses = loss.detach()
@@ -208,56 +271,133 @@ class DeepSpeedTorchEngine:
         """At a gradient-accumulation boundary: unscale, overflow check,
         global norm, clip, optimizer update of the masters and refresh of
         the compute copy (skipped on overflow), loss-scale update, and the
-        schedule step of an applied update."""
+        schedule step of an applied update. Under fp16 the host reads the
+        step's overflow flag, as the JAX engine's ``step`` does."""
         if not (self.is_gradient_accumulation_boundary() and self.micro_steps > 0):
             return
-        with record_function("optimizer_step"):  # names the step in a profile
-            overflow = self._apply_step()
-        self.global_steps += 1
-        self.global_samples += self.train_batch_size()
-        if overflow:
-            self.skipped_steps += 1
-        elif self.lr_scheduler is not None:
-            self.lr_scheduler.step()
+        overflow = self._apply_step()
+        self._settle([bool(overflow)] if self._use_loss_scaling else [False])
 
-    def _apply_step(self) -> bool:
-        grads = self._flat_grad
-        if self._use_loss_scaling:
-            grads.div_(torch.full((), self.scale_state.cur_scale, device=grads.device))
-        # per parameter, then over the parameters (optax.global_norm's
-        # shape): one fp32 sum over the whole buffer loses ~1e-5 on the CPU
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._grad_acc)))
-        # any non-finite gradient makes the norm non-finite (module docstring)
-        overflow = self._use_loss_scaling and not bool(torch.isfinite(gnorm))
-        if not overflow:
+    @torch.no_grad()
+    def _apply_step(self) -> torch.Tensor:
+        """The update from the accumulated gradients, with no host read;
+        returns the overflow flag (a 0-d bool tensor, False but under
+        fp16)."""
+        with record_function("optimizer_step"):  # names the step in a profile
+            acc = self._flat_grad
+            grads = acc if acc.dtype == torch.float32 else acc.float()
+            if self._use_loss_scaling:
+                grads.div_(self.scale_state.cur_scale)
+            # per parameter, then over the parameters (optax.global_norm's
+            # shape): one fp32 sum over the whole buffer loses ~1e-5 on the CPU
+            gnorm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(self._views(grads))))
+            overflow = None
+            if self._use_loss_scaling:  # any non-finite gradient: a non-finite norm
+                overflow = torch.logical_not(torch.isfinite(gnorm))
             clip = self._config.gradient_clipping
             if clip > 0:
                 grads.mul_(torch.clamp(clip / (gnorm + 1e-6), max=1.0))
-            self.optimizer.step(grads)
-            if self._flat_compute is not None:
+            self.optimizer.step(grads, skip=overflow)
+            if self._flat_compute is not None:  # the masters' cast, moved or not
                 self._flat_compute.copy_(self._flat_master)
-        self.scale_state = loss_scaler.next_state(self._config.fp16_config,
-                                                  self.scale_state, overflow)
-        grads.zero_()
-        self._last_grad_norm = gnorm
+            overflow = self._no_overflow if overflow is None else overflow
+            self.scale_state = loss_scaler.next_device_state(self._config.fp16_config,
+                                                             self.scale_state, overflow)
+            acc.zero_()
+            self._last_grad_norm = gnorm
         return overflow
 
-    def train_batch(self, data_iter):
-        """``gradient_accumulation_steps`` micro-batches of forward,
-        backward and step; each item of ``data_iter`` is a tuple of the
-        model's positional arguments (or one tensor). Returns the mean loss
-        as a float."""
+    def _settle(self, overflows):
+        """The host's bookkeeping of applied steps whose overflow flags it
+        has read: the step and sample counts, ``skipped_steps``, the
+        optimizer's host count and one schedule step per applied update."""
+        applied = overflows.count(False)
+        self.global_steps += len(overflows)
+        self.global_samples += len(overflows) * self.train_batch_size()
+        self.skipped_steps += len(overflows) - applied
+        if self._use_loss_scaling:
+            self.optimizer.settle(applied)
+        if self.lr_scheduler is not None:
+            for _ in range(applied):
+                self.lr_scheduler.step()
+
+    def _fetch(self, t: torch.Tensor) -> torch.Tensor:
+        """The host's one read of a window: ``t`` copied to the CPU."""
+        return t.cpu()
+
+    def _require_gas_one(self, what: str):
+        if self.gradient_accumulation_steps() != 1:
+            raise AssertionError(f"{what} requires gradient_accumulation_steps == 1")
+
+    def _train_window(self, batches):
+        """Forward, backward and the apply step of each ``(args, kwargs)``
+        in ``batches``, enqueued with no host read; returns the ``[K]``
+        losses and overflow flags on the device."""
         self._training = True
-        losses = []
-        for _ in range(self.gradient_accumulation_steps()):
-            batch = next(data_iter)
-            if not isinstance(batch, tuple):
-                batch = (batch, )
-            loss = self.forward(*batch)
+        self.optimizer.begin_window(len(batches))
+        losses, overflows = [], []
+        for args, kwargs in batches:
+            loss = self.forward(*args, **kwargs)
             self.backward(loss)
-            self.step()
-            losses.append(loss.detach())
-        return float(torch.stack(losses).float().mean())
+            overflows.append(self._apply_step())
+            losses.append(loss.detach().float())
+        return torch.stack(losses), torch.stack(overflows)
+
+    def fused_train_step(self, *args, **kwargs):
+        """``forward``, ``backward`` and ``step`` of one batch (gas 1 only),
+        with the host reading only the overflow flag; returns the loss as a
+        device scalar."""
+        self._require_gas_one("fused_train_step")
+        losses, overflows = self._train_window([(args, kwargs)])
+        self._settle(self._fetch(overflows).tolist())
+        return losses[0]
+
+    def fused_train_steps(self, *args, **kwargs):
+        """K optimizer steps of stacked batches with one host read: every
+        tensor argument carries a leading ``[K, ...]`` axis and step ``i``
+        takes slice ``i``. The same steps as K ``fused_train_step`` calls
+        (gas 1 only), enqueued with no synchronisation between them; then
+        one fetch of the losses and overflow flags, and the host's
+        bookkeeping. Returns the ``[K]`` losses (fp32, on the host)."""
+        self._require_gas_one("fused_train_steps")
+        args = tuple(self._to_device(a) for a in args)
+        kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
+        lead = {t.shape[0] for t in (*args, *kwargs.values()) if isinstance(t, torch.Tensor)}
+        if len(lead) != 1 or 0 in lead:
+            raise ValueError("fused_train_steps: every tensor argument needs one "
+                             f"leading step axis [K, ...] of K >= 1, got {sorted(lead)}")
+        K = lead.pop()
+
+        def at(x, i):
+            return x[i] if isinstance(x, torch.Tensor) else x
+
+        losses, overflows = self._train_window(
+            [(tuple(at(a, i) for a in args), {k: at(v, i) for k, v in kwargs.items()})
+             for i in range(K)])
+        host = self._fetch(torch.cat([losses, overflows.float()]))
+        self._settle([bool(f) for f in host[K:]])
+        return host[:K]
+
+    def train_batch(self, data_iter=None):
+        """One optimizer step over ``gradient_accumulation_steps``
+        micro-batches (each item of ``data_iter``: a tuple of the model's
+        positional arguments, or one tensor): at gas 1 ``fused_train_step``,
+        above it the micro-batches and the apply step with one fetch.
+        Returns the mean loss as a float."""
+        self._training = True
+        gas = self.gradient_accumulation_steps()
+        if gas == 1:
+            return float(self.fused_train_step(*_batch(next(data_iter))))
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for _ in range(gas):
+            loss = self.forward(*_batch(next(data_iter)))
+            self.backward(loss)
+            total = total + loss.detach().float()  # the JAX scan's fp32 sum
+        overflow = self._apply_step()
+        host = self._fetch(torch.stack([total / gas, overflow.float()]))
+        self._settle([bool(host[1])])
+        return float(host[0])
 
     @torch.no_grad()
     def eval_batch(self, *args, **kwargs):
@@ -270,6 +410,9 @@ class DeepSpeedTorchEngine:
 
     def train_batch_size(self):
         return self._config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self._config.train_micro_batch_size_per_gpu
 
     def gradient_accumulation_steps(self):
         return self._config.gradient_accumulation_steps
@@ -292,8 +435,8 @@ class DeepSpeedTorchEngine:
 
     @property
     def cur_scale(self) -> float:
-        """The loss scale the next backward multiplies by."""
-        return self.scale_state.cur_scale
+        """The loss scale the next backward multiplies by (a host read)."""
+        return float(self.scale_state.cur_scale)
 
     def loss_scale(self) -> float:
         return self.cur_scale

@@ -27,14 +27,27 @@ writes its update into the gradient buffer, which is dead by then, and
 applies the trust ratio in PyTorch. sgd and adagrad are a few PyTorch
 ops. muP and the 1-bit optimizers raise ``NotImplementedError`` (they need
 the comm layer); so does any other name.
+
+The update count lives on the device, as in the optax state the JAX
+program carries, so the engine can enqueue K steps with no host read
+between them (``engine.fused_train_steps``). A step may take a skip flag
+(a one-element bool tensor, the engine's fp16 overflow): where it is set
+nothing moves, the count included (K7 reads the flag; sgd and adagrad
+keep their state through ``torch.where``). The learning rate comes from
+the device count: ``begin_window(k)`` writes ``lr_fn(c)`` for ``c`` in
+``[count, count + k)`` into a small device table, and each step reads
+the entry of its own count. That is exact under skips, because the count
+moves only on applied steps. The host mirror of the count is brought up
+to date by ``settle`` once the host has read the flags (the window's one
+fetch); a step without a flag settles itself.
 """
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.fused_optimizer import (adam_step_, lamb_apply_trust_, lamb_update_,
-                                   lion_step_)
+from ..ops.fused_optimizer import (adam_step_, device_scalar, lamb_apply_trust_,
+                                   lamb_update_, lion_step_)
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -53,8 +66,9 @@ _COMMON_KEYS = {"lr", "betas", "eps", "weight_decay"}
 class FlatOptimizer:
     """An optimizer over the flat fp32 buffer ``params``; ``bounds`` are
     the ``(start, end)`` of each parameter in it (LAMB's trust ratio is
-    per parameter). Subclasses define ``_update(grads, lr, count)`` and
-    keep their state as flat fp32 buffers in ``self.state``."""
+    per parameter). Subclasses define ``_update(grads, lr, step, skip)``
+    (``lr`` and ``step`` one-element fp32 device tensors, ``skip`` a flag
+    or None) and keep their state as flat fp32 buffers in ``self.state``."""
 
     def __init__(self, params: torch.Tensor, bounds: Sequence[Tuple[int, int]],
                  lr: float, lr_fn: Optional[Callable[[int], float]]):
@@ -64,25 +78,70 @@ class FlatOptimizer:
         self.bounds = list(bounds)
         self.lr = float(lr)
         self.lr_fn = lr_fn
-        self.count = 0
         self.state: Dict[str, torch.Tensor] = {}
+        self._count = torch.zeros((), dtype=torch.int64, device=params.device)
+        self._count_host = 0  # exact while no step is unsettled
+        self._unsettled = 0  # flagged steps whose flags the host has not read
+        self._lr_const = device_scalar(self.lr, params.device)
+        self._lr_table = None
+        self._table_base = 0
+        self._table_left = 0  # steps the table still covers
 
     def _zeros(self):
         return torch.zeros_like(self.params)
+
+    @property
+    def count(self) -> int:
+        """The number of applied updates (a host read of the device count
+        while a flagged step is unsettled)."""
+        return int(self._count) if self._unsettled else self._count_host
 
     def current_lr(self) -> float:
         """The learning rate the next update uses."""
         return float(self.lr_fn(self.count)) if self.lr_fn is not None else self.lr
 
-    @torch.no_grad()
-    def step(self, grads: torch.Tensor) -> None:
-        """One update of the masters from the flat fp32 ``grads`` (which
-        the update may overwrite)."""
-        lr = self.current_lr()
-        self.count += 1
-        self._update(grads, lr, self.count)
+    def begin_window(self, k: int) -> None:
+        """Make the learning rates of the next ``k`` steps readable on the
+        device: one small host-to-device copy, from pinned memory on a
+        card, with no synchronisation."""
+        self._table_left = int(k)
+        if self.lr_fn is None:
+            return
+        base = self.count
+        table = torch.tensor([float(self.lr_fn(base + i)) for i in range(k)],
+                             dtype=torch.float32)
+        if self.params.is_cuda:
+            table = table.pin_memory().to(self.params.device, non_blocking=True)
+        self._lr_table, self._table_base = table, base
 
-    def _update(self, grads, lr, count):
+    def settle(self, applied: int) -> None:
+        """The host has read the flags of the unsettled steps: ``applied``
+        of them updated."""
+        self._count_host += int(applied)
+        self._unsettled = 0
+
+    @torch.no_grad()
+    def step(self, grads: torch.Tensor, skip: Optional[torch.Tensor] = None) -> None:
+        """One update of the masters from the flat fp32 ``grads`` (which
+        the update may overwrite); nothing moves where ``skip`` is set."""
+        if self._table_left == 0:
+            self.begin_window(1)
+        self._table_left -= 1
+        lr = self._lr_const
+        if self.lr_fn is not None:
+            lr = torch.index_select(self._lr_table, 0, (self._count - self._table_base).view(1))
+        step = (self._count + 1).to(torch.float32).view(1)
+        if skip is not None:
+            skip = skip.reshape(1)
+        self._update(grads, lr, step, skip)
+        if skip is None:
+            self._count += 1
+            self._count_host += 1
+        else:
+            self._count += skip.logical_not().reshape(())
+            self._unsettled += 1
+
+    def _update(self, grads, lr, step, skip):
         raise NotImplementedError
 
 
@@ -94,9 +153,9 @@ class Adam(FlatOptimizer):
         self.betas, self.eps, self.weight_decay, self.l2 = tuple(betas), eps, weight_decay, l2
         self.state = {"m": self._zeros(), "v": self._zeros()}
 
-    def _update(self, grads, lr, count):
-        adam_step_(self.params, grads, self.state["m"], self.state["v"], lr, count,
-                   *self.betas, self.eps, self.weight_decay, l2=self.l2)
+    def _update(self, grads, lr, step, skip):
+        adam_step_(self.params, grads, self.state["m"], self.state["v"], lr, step,
+                   *self.betas, self.eps, self.weight_decay, l2=self.l2, skip=skip)
 
 
 class Lion(FlatOptimizer):
@@ -107,8 +166,9 @@ class Lion(FlatOptimizer):
         self.betas, self.weight_decay = tuple(betas), weight_decay
         self.state = {"m": self._zeros()}
 
-    def _update(self, grads, lr, count):
-        lion_step_(self.params, grads, self.state["m"], lr, *self.betas, self.weight_decay)
+    def _update(self, grads, lr, step, skip):
+        lion_step_(self.params, grads, self.state["m"], lr, *self.betas, self.weight_decay,
+                   skip=skip)
 
 
 class Lamb(FlatOptimizer):
@@ -120,10 +180,15 @@ class Lamb(FlatOptimizer):
         self.betas, self.eps, self.weight_decay = tuple(betas), eps, weight_decay
         self.state = {"m": self._zeros(), "v": self._zeros()}
 
-    def _update(self, grads, lr, count):
-        u = lamb_update_(grads, self.state["m"], self.state["v"], count, *self.betas,
-                         self.eps, out=grads)
-        lamb_apply_trust_(self.params, u, lr, self.weight_decay, self.bounds)
+    def _update(self, grads, lr, step, skip):
+        u = lamb_update_(grads, self.state["m"], self.state["v"], step, *self.betas,
+                         self.eps, out=grads, skip=skip)
+        lamb_apply_trust_(self.params, u, lr, self.weight_decay, self.bounds, skip)
+
+
+def _keep_unless(skip, buf, new):
+    """``buf = new``, except where the flag ``skip`` is set."""
+    buf.copy_(new if skip is None else torch.where(skip, buf, new))
 
 
 class SGD(FlatOptimizer):
@@ -135,12 +200,13 @@ class SGD(FlatOptimizer):
         if momentum:
             self.state = {"trace": self._zeros()}
 
-    def _update(self, grads, lr, count):
+    def _update(self, grads, lr, step, skip):
         u = grads + self.weight_decay * self.params if self.weight_decay else grads
         if self.momentum:
-            trace = self.state["trace"].mul_(self.momentum).add_(u)
+            trace = self.state["trace"] * self.momentum + u
             u = u + self.momentum * trace if self.nesterov else trace
-        self.params.sub_(lr * u)
+            _keep_unless(skip, self.state["trace"], trace)
+        _keep_unless(skip, self.params, self.params - lr * u)
 
 
 class Adagrad(FlatOptimizer):
@@ -151,10 +217,11 @@ class Adagrad(FlatOptimizer):
         self.eps = eps
         self.state = {"sum_of_squares": torch.full_like(params, ADAGRAD_INITIAL_ACCUMULATOR)}
 
-    def _update(self, grads, lr, count):
-        s = self.state["sum_of_squares"].add_(grads * grads)
+    def _update(self, grads, lr, step, skip):
+        s = self.state["sum_of_squares"] + grads * grads
         inv = torch.where(s > 0, torch.rsqrt(s + self.eps), torch.zeros_like(s))
-        self.params.sub_(lr * (inv * grads))
+        _keep_unless(skip, self.state["sum_of_squares"], s)
+        _keep_unless(skip, self.params, self.params - lr * (inv * grads))
 
 
 def build_optimizer(name: Optional[str], params: torch.Tensor,

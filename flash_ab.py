@@ -14,7 +14,7 @@ window layer and its decode step over an fp32 cache, Llama's 768-row
 chunk 2200 deep and its decode step over an int8 cache.
 
     python3 flash_ab.py TREE TAG [--flex] [--fp32] [--fp32-engine] [--k8]
-                             [--k8-limits=N,N,...] [--rows] [--norm-loads]
+                             [--k8-limits=N,N,...] [--rows] [--norm-loads] [--k7]
 
 TREE is the root of a checkout (this one: ``.``; another commit: unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists,
@@ -46,7 +46,14 @@ weight loads instead (a tree whose norm entry points take them): at 1 to
 before the statistic and after it, each forced through the C entry point,
 graph-timed and held against the plain version, and the fewest rows from
 which the late loads are as fast at every larger count (the plan's
-``kLateWeightsMinRows`` in ``csrc/row_norm.cuh``).
+``kLateWeightsMinRows`` in ``csrc/row_norm.cuh``). ``--k7`` runs K7 alone
+instead: each body (AdamW, Adam with L2, Lion, LAMB's first pass) through
+the tree's ``chip_smoke.py`` ``_k7_case`` at one Llama-3-8B layer's
+parameters (``LAYER_PARAMS``), graph-timed beside its bound, its ulps
+against the plain version and torch.optim's fused step, and the
+fingerprints of one AdamW step's outputs from a seeded state (equal
+fingerprints across trees: the same bits), through whichever scalars the
+tree's ``adam_step_`` takes (numbers, or device tensors).
 Prints one JSON line tagged TAG. To compare two commits on one card, run them in turns in one
 command: parent, change, change, parent.
 """
@@ -212,6 +219,30 @@ def rows_cases(cs, gen) -> dict:
         out["launch_floor_ms"] = cs.launch_floor_ms()
     out["wrapper_us"] = wrapper_us()
     return out
+
+
+def k7_cases(cs, gen) -> dict:
+    """K7's bodies at one 8B layer (``_k7_case``), then one AdamW step's
+    output fingerprints from a seeded state."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    cases = []
+    for body in ("adamw", "adam_l2", "lion", "lamb_pass"):
+        gen.manual_seed(21)  # every tree on the same inputs
+        rec = cs._k7_case(gen, body, cs.LAYER_PARAMS)
+        cases.append({k: rec.get(k) for k in ("case", "n", "ms", "bound_ms", "max_ulps",
+                                              "plain_ms", "library_ms")})
+    n = cs.LAYER_PARAMS
+    gen.manual_seed(22)
+    p, g, m = (s * torch.randn(n, generator=gen, device="cuda") for s in (0.02, 1e-3, 1e-4))
+    v = 1e-8 * torch.rand(n, generator=gen, device="cuda")
+    scalars = ((fo.device_scalar(1e-4, "cuda"), fo.device_scalar(3, "cuda"))
+               if hasattr(fo, "device_scalar") else (1e-4, 3))
+    fo.adam_step_(p, g, m, v, *scalars, weight_decay=0.1)
+    prints = {k: cs.fingerprint(t) for k, t in zip("pmv", (p, m, v))}
+    del p, g, m, v
+    cs.free_memory()
+    return {"cases": cases, "adamw_step_fingerprints": prints}
 
 
 def wrapper_us(calls: int = 2000) -> dict:
@@ -408,6 +439,10 @@ def main() -> int:
         out["norm_loads"] = norm_loads(cs, gen)
         print(json.dumps(out), flush=True)
         return 0 if out["norm_loads"]["ok"] else 1
+    if "--k7" in sys.argv:
+        out["k7"] = k7_cases(cs, gen)
+        print(json.dumps(out), flush=True)
+        return 0
     if "--k8" in sys.argv:
         limits = [None] + [int(x) for a in sys.argv if a.startswith("--k8-limits=")
                            for x in a.split("=", 1)[1].split(",")]

@@ -1116,11 +1116,12 @@ def test_fused_adam_kernel_matches_plain(case, mode, cuda_device):
     p, g, m, v = _k7_inputs(case, cuda_device)
     wd = 0.0 if mode == "adam" else 0.01
     for step in (1, 7):
-        ref = fo.adam_update_reference(p, g, m, v, 1e-3, step, weight_decay=wd,
+        lr, st = (fo.device_scalar(x, cuda_device) for x in (1e-3, step))
+        ref = fo.adam_update_reference(p, g, m, v, lr, st, weight_decay=wd,
                                        l2=mode == "adam_l2")
         got = [t.clone() for t in (p, m, v)]
         before = fo.adam_step_.launches
-        fo.adam_step_(got[0], g, got[1], got[2], 1e-3, step, weight_decay=wd,
+        fo.adam_step_(got[0], g, got[1], got[2], lr, st, weight_decay=wd,
                       l2=mode == "adam_l2")
         torch.cuda.synchronize()
         assert fo.adam_step_.launches == before + 1
@@ -1144,7 +1145,8 @@ def test_fused_lion_kernel_matches_plain(case, wd, cuda_device):
 def test_fused_lamb_kernel_matches_plain(case, cuda_device):
     p, g, m, v = _k7_inputs(case, cuda_device)
     before = fo.lamb_update_.launches
-    u, m_k, v_k = fo._lamb_pass(g, m, v, 3, 0.9, 0.999, 1e-6)
+    u, m_k, v_k = fo._lamb_pass(g, m, v, fo.device_scalar(3, cuda_device), 0.9, 0.999,
+                                1e-6)
     assert fo.lamb_update_.launches == before + 1
     ref = fo.lamb_update_reference(g, m, v, 3)
     torch.cuda.synchronize()
@@ -1163,7 +1165,7 @@ def test_fused_lamb_kernel_matches_plain(case, cuda_device):
 def test_lamb_update_in_place_over_the_gradient(cuda_device):
     p, g, m, v = _k7_inputs("fp32_ragged", cuda_device)
     ref = fo.lamb_update_reference(g, m, v, 2)
-    u = fo.lamb_update_(g, m, v, 2, out=g)
+    u = fo.lamb_update_(g, m, v, fo.device_scalar(2, cuda_device), out=g)
     assert u is g
     for x, r in zip((g, m, v), ref):
         assert ulp_distance(x, r) <= K7_ULPS
@@ -1171,14 +1173,17 @@ def test_lamb_update_in_place_over_the_gradient(cuda_device):
 
 def test_fused_optimizer_refuses_what_the_kernel_does_not_take(cuda_device):
     p, g, m, v = _k7_inputs("fp32_ragged", cuda_device)
+    lr, one = (fo.device_scalar(x, cuda_device) for x in (1e-3, 1))
     with pytest.raises(TypeError):  # moments must be fp32
-        fo.adam_step_(p, g, m.bfloat16(), v, 1e-3, 1)
+        fo.adam_step_(p, g, m.bfloat16(), v, lr, one)
     with pytest.raises(ValueError):  # one length
-        fo.lion_step_(p, g[:-1], m, 1e-3)
+        fo.lion_step_(p, g[:-1], m, lr)
     with pytest.raises(ValueError):  # flat buffers
-        fo.adam_step_(p.view(-1, 1), g.view(-1, 1), m.view(-1, 1), v.view(-1, 1), 1e-3, 1)
+        fo.adam_step_(p.view(-1, 1), g.view(-1, 1), m.view(-1, 1), v.view(-1, 1), lr, one)
     with pytest.raises(ValueError):  # one device
-        fo.lamb_update_(g, m.cpu(), v, 1)
+        fo.lamb_update_(g, m.cpu(), v, one)
+    with pytest.raises(TypeError):  # the per-step scalars are device tensors
+        fo.adam_step_(p, g, m, v, 1e-3, one)
 
 
 # ---- the whole engine, tiny config: GPU kernels vs CPU plain path ----

@@ -53,6 +53,11 @@ def _pair(a, dtype):
         {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]), t
 
 
+def _s(x):
+    """The in-place forms take the per-step scalars as one-element tensors."""
+    return fo.device_scalar(x, "cpu")
+
+
 def _check(got, ref, dtype=torch.float32, tol=P_TOL, name=""):
     assert got.dtype == dtype, name
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref).astype(np.float32),
@@ -93,7 +98,8 @@ def test_adam_l2_mode_is_weight_decay_into_the_gradient():
                                  jnp.asarray(m), jnp.asarray(v), LR, 2, interpret=True,
                                  force_pallas=True)
     tp, tm, tv = (torch.from_numpy(a.copy()) for a in (p, m, v))
-    fo.adam_step_(tp, torch.from_numpy(g), tm, tv, LR, 2, weight_decay=wd, l2=True)
+    fo.adam_step_(tp, torch.from_numpy(g), tm, tv, _s(LR), _s(2), weight_decay=wd,
+                  l2=True)
     for name, got, r in zip("pmv", (tp, tm, tv), ref):
         _check(got, r, tol=P_TOL if name == "p" else M_TOL, name=name)
 
@@ -172,14 +178,14 @@ def test_in_place_forms_equal_the_functional_ones():
     p, g, m, v = _inputs(31, 1500)
     t = {k: torch.from_numpy(a.copy()) for k, a in zip("pgmv", (p, g, m, v))}
     ref = fo.fused_adam_step(t["p"], t["g"], t["m"], t["v"], LR, 4, weight_decay=0.01)
-    fo.adam_step_(t["p"], t["g"], t["m"], t["v"], LR, 4, weight_decay=0.01)
+    fo.adam_step_(t["p"], t["g"], t["m"], t["v"], _s(LR), _s(4), weight_decay=0.01)
     assert all(torch.equal(a, b) for a, b in zip((t["p"], t["m"], t["v"]), ref))
     t = {k: torch.from_numpy(a.copy()) for k, a in zip("pgmv", (p, g, m, v))}
     ref = fo.fused_lamb_step(t["p"], t["g"], t["m"], t["v"], LR, 2, eps=1e-8,
                              weight_decay=0.01, segments=(0, 700, 1500))
-    u = fo.lamb_update_(t["g"], t["m"], t["v"], 2, eps=1e-8, out=t["g"])
+    u = fo.lamb_update_(t["g"], t["m"], t["v"], _s(2), eps=1e-8, out=t["g"])
     assert u is t["g"]
-    fo.lamb_apply_trust_(t["p"], u, LR, 0.01, [(0, 700), (700, 1500)])
+    fo.lamb_apply_trust_(t["p"], u, _s(LR), 0.01, [(0, 700), (700, 1500)])
     assert all(torch.equal(a, b) for a, b in zip((t["p"], t["m"], t["v"]), ref))
 
 
