@@ -158,6 +158,22 @@ Phases, each printing one JSON line:
                       bit-equal); K7 in its device-scalar form over the
                       whole flat buffer within K7_ULPS of the plain
                       version, and a set skip flag leaving the state.
+  5f. training_zero — ZeRO 1-3 over the named mesh at the Llama-3-8B width
+                      cut to 2 layers (bf16, AdamW, no clipping, chunked
+                      CE, dots_saveable remat; 3 steps then a 2-step
+                      window, dryrun_multichip's order): (a) world 1 over
+                      NCCL in this process, stages 1-3 bit-equal to stage
+                      0 after every step, each window under
+                      set_sync_debug_mode("error"); (b) two ranks spawned
+                      on the one card over gloo (NCCL on two cards where
+                      there are two): stage 0 over {data: 2}, stage 3
+                      over {fsdp: 2}, stage 2 over {data: 2}, against
+                      (a)'s stage 0 within tests/test_torch_zero.py's
+                      bf16 tolerance, each rank's flat state half of stage
+                      0's plus padding, K7 once per step per rank and
+                      rank 1's stage-3 launch held against the plain
+                      version at its shard's length; peak memory and step
+                      times (gloo on one card, not a speed of NCCL).
   6. serving        — build_llama_engine at the full Llama-3-8B width (32
                       layers, seeded random bf16 weights, 1024 KV blocks of
                       64 tokens), greedy generate on 8 prompts of 128..1024
@@ -221,8 +237,8 @@ Phases, each printing one JSON line:
                       sweep_shape once at the Mistral shape: each leg's
                       K1/K2 and K3 times and the winners, committed to
                       this run's cache; nothing after it reads them.
-Each main path (phases 5, 5b, 5c, 5d, 5e, 6, 7, 8 and the BLOOM and Gemma-2
-serving phases) runs with the launch counts of
+Each main path (phases 5, 5b, 5c, 5d, 5e, 5f, 6, 7, 8 and the BLOOM and
+Gemma-2 serving phases) runs with the launch counts of
 its kernels set to 0 just before and read just after. Every phase resolves
 the attention route against an empty cache directory made under build/
 (DS_TPU_ATTN_CACHE_DIR), and each training phase prints its decisions
@@ -3673,6 +3689,269 @@ def phase_training_fused() -> dict:
 
 
 
+# the training_zero phase: Llama-3-8B's width cut to ZERO_LAYERS layers, bf16,
+# AdamW with no clipping, the chunked CE and dots_saveable remat; 3 steps,
+# then a 2-step fused_train_steps window (dryrun_multichip's order), on one
+# global batch of ZERO_ROWS x ZERO_SEQ tokens a step
+ZERO_LAYERS, ZERO_ROWS, ZERO_SEQ, ZERO_LR = 2, 2, 1024, 1e-4
+ZERO_CONFIG = {"train_batch_size": ZERO_ROWS, "bf16": {"enabled": True},
+               "optimizer": {"type": "AdamW", "params": {"lr": ZERO_LR, "weight_decay": 0.01}}}
+# tests/test_torch_zero.py's bf16 tolerance against the single-process
+# stage 0: the RMS of the master differences within 2^-4 of the learning
+# rate's path and none beyond twice it; losses within 2^-7
+ZERO_RMS, ZERO_MAX, ZERO_LOSS_RTOL = 2.0 ** -4, 2.0, 2.0 ** -7
+# part (b): name, stage, mesh, steps (the pure data-parallel stage 0 runs
+# one step, for each rank's peak memory beside stage 3's: gloo moves every
+# collective through host memory, ~5 s a step at this size)
+ZERO_RANK_RUNS = (("stage0", 0, {"data": 2}, 1), ("stage3", 3, {"fsdp": 2}, 5),
+                  ("stage2", 2, {"data": 2}, 5))
+
+
+def zero_batches():
+    """The phase's 5 global batches ``[5, ZERO_ROWS, ZERO_SEQ]``, drawn on
+    the card from a seed (every process draws the same)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    return torch.randint(0, 128256, (5, ZERO_ROWS, ZERO_SEQ), generator=gen, device="cuda")
+
+
+def zero_run(stage: int, mesh, after_step=None, check_sync: bool = False, steps: int = 5):
+    """One run of the phase at ``stage`` over ``mesh`` (None: the config
+    names none): a fresh model from seed 0 through ``initialize``, 3
+    forward/backward/step (``after_step(engine, i)`` after each) and a
+    2-step ``fused_train_steps`` window, under
+    ``set_sync_debug_mode("error")`` with ``check_sync`` (its one fetch
+    outside); ``steps`` < 5 runs that many forward/backward/step only.
+    K7's count is set to 0 just before the steps and read just after.
+    Returns the engine and the run's record."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import reset_mesh_context
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    reset_mesh_context()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=ZERO_LAYERS, ce_chunk_size=8192, remat=True,
+                                remat_policy="dots_saveable")
+    model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    config = dict(ZERO_CONFIG, zero_optimization={"stage": stage})
+    if mesh is not None:
+        config["mesh"] = mesh
+    t = time.monotonic()
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+    torch.cuda.synchronize()
+    rec = {"stage": stage, "mesh": mesh, "engine_build_s": time.monotonic() - t,
+           "losses": [], "step_ms": []}
+    data = zero_batches()
+    torch.cuda.reset_peak_memory_stats()
+    fo.adam_step_.launches = 0
+    for i in range(min(steps, 3)):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        loss = engine.forward(data[i], labels=data[i])
+        engine.backward(loss)
+        engine.step()
+        rec["losses"].append(loss.item())
+        rec["step_ms"].append(1e3 * (time.monotonic() - t))
+        if after_step is not None:
+            after_step(engine, i)
+    fetches, fetch = [], engine._fetch
+
+    def outside(x):
+        torch.cuda.set_sync_debug_mode(0)
+        fetches.append(int(x.numel()))
+        return fetch(x)
+
+    if steps == 5:
+        engine._fetch = outside
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        if check_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec["losses"] += engine.fused_train_steps(data[3:], labels=data[3:]).tolist()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del engine._fetch
+        rec["window_ms_per_step"] = 1e3 * (time.monotonic() - t) / 2
+    rec["window_fetches"] = fetches
+    rec["k7_launches"] = fo.adam_step_.launches
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["state_bytes"] = engine.state_bytes()
+    return engine, rec
+
+
+def master_fingerprints(engine) -> dict:
+    """``fingerprint`` of each parameter's fp32 master (whole at world 1),
+    by name (the ZeRO layout orders them by unit)."""
+    return {name: fingerprint(m) for name, m in engine.master_params().items()}
+
+
+def _zero_rank(rank: int, world: int, store: str, out_dir: str, ref, ref_bounds) -> None:
+    """Part (b)'s rank: ``ZERO_RANK_RUNS`` over gloo with both ranks on
+    the one card (NCCL over two cards where there are two), each run held
+    against the single-process stage 0's final masters ``ref`` (shared
+    from the parent through CUDA IPC; ``ref_bounds`` each parameter's
+    range in it). Rank 1 holds its engine's K7 launch at its shard's
+    length against the plain version. Writes its record to ``out_dir``."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from deepspeed_tpu_torch import comm
+    two_cards = torch.cuda.device_count() >= 2
+    os.environ["LOCAL_RANK"] = str(rank if two_cards else 0)  # init_distributed's device
+    comm.init_distributed(dist_backend="nccl" if two_cards else "gloo",
+                          init_method=f"file://{store}", rank=rank, world_size=world)
+    out = {"rank": rank, "backend": "nccl on two cards" if two_cards else "gloo on one card",
+           "runs": {}}
+    for name, stage, mesh, steps in ZERO_RANK_RUNS:
+        taken = {}
+
+        def arm(engine, i, stage=stage):
+            """Rank 1 at stage 3: step 3's K7 launch on this rank's shard,
+            against the plain version right after it."""
+            if stage != 3 or rank != 1:
+                return
+            if i == 1:
+                taken["inputs"] = capture_k7_inputs(engine)
+            elif i == 2:
+                taken["check"] = dict(k7_vs_plain_at_path_size(engine, taken.pop("inputs")),
+                                      shard_numel=engine.layout.shard_numel)
+
+        engine, rec = zero_run(stage, mesh, after_step=arm, steps=steps)
+        if "check" in taken:
+            rec["k7_shard_check"] = taken.pop("check")
+        sq, worst, n = 0.0, 0.0, 0
+        for i, s, e, off in (engine.layout.pieces if steps == 5 else []):
+            a = ref_bounds[i][0] + off
+            d = engine._flat_master[s:e] - ref[a:a + e - s]
+            sq += float(d.double().square().sum())
+            worst = max(worst, float(d.abs().max()))
+            n += e - s
+        rec["master_rms_diff"], rec["master_max_diff"] = (sq / max(n, 1)) ** 0.5, worst
+        rec["shard_numel"], rec["full_numel"] = engine.layout.shard_numel, engine.layout.full_numel
+        rec["zero_size"] = engine.layout.zero_size
+        out["runs"][name] = rec
+        del engine
+        free_memory()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_training_zero() -> dict:
+    """ZeRO stages 1-3 over the named mesh at the Llama-3-8B width
+    (``ZERO_LAYERS`` layers, bf16, AdamW, chunked CE, dots_saveable remat;
+    3 steps and a 2-step window each run):
+    (a) world 1 over NCCL in this process (a ``file://`` store): stages 0,
+    1, 2 and 3 from the same weights, the losses and each parameter's fp32
+    master bit-equal to stage 0's after every step (with one rank every
+    collective is a copy), each window under
+    ``set_sync_debug_mode("error")``; (b) two ranks spawned on the one card
+    over gloo (NCCL on two cards where there are two): stage 0 over
+    ``{data: 2}``, stage 3 over ``{fsdp: 2}`` and stage 2 over ``{data:
+    2}``, losses and masters against (a)'s stage 0 within the bf16
+    tolerance of tests/test_torch_zero.py, each rank's flat state at stages
+    2-3 half of stage 0's plus padding, K7 once per step on each rank and,
+    on rank 1, its stage-3 launch held against the plain version at its
+    shard's length; each rank's peak memory at stages 0 and 3 and the step
+    times (gloo on one card: not a speed of NCCL). The process group is
+    destroyed at the end; a failed check or a dead rank fails the phase."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.comm import reset_mesh_context
+    tmp = tempfile.mkdtemp(prefix="zero_", dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store1')}",
+                            rank=0, world_size=1)
+    runs, checks, prints = {}, {}, {}
+    ref = ref_bounds = None
+    try:
+        for stage in (0, 1, 2, 3):
+            step_prints = []
+
+            def record(engine, i):
+                step_prints.append(master_fingerprints(engine))
+
+            engine, rec = zero_run(stage, None, after_step=record, check_sync=True)
+            record(engine, 3)
+            prints[stage] = step_prints
+            if stage == 0:
+                ref = engine._flat_master.clone()
+                ref_bounds = [list(b) for b in engine.layout.full_bounds]
+            runs[f"a_world1_stage{stage}"] = rec
+            del engine
+            free_memory()
+        for stage in (1, 2, 3):
+            rec, base = runs[f"a_world1_stage{stage}"], runs["a_world1_stage0"]
+            checks[f"a_stage{stage}_losses_bit_equal"] = rec["losses"] == base["losses"]
+            checks[f"a_stage{stage}_masters_bit_equal_every_step"] = prints[stage] == prints[0]
+        for stage in (0, 1, 2, 3):
+            rec = runs[f"a_world1_stage{stage}"]
+            checks[f"a_stage{stage}_window_one_fetch_no_sync"] = rec["window_fetches"] == [4]
+            checks[f"a_stage{stage}_k7_one_launch_per_step"] = rec["k7_launches"] == 5
+    finally:
+        dist.destroy_process_group()
+        reset_mesh_context()
+    free_memory()
+    out_dir = tempfile.mkdtemp(prefix="ranks_", dir=tmp)
+    t = time.monotonic()
+    mp.start_processes(_zero_rank, args=(2, os.path.join(tmp, "store2"), out_dir, ref, ref_bounds),
+                       nprocs=2, start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    spawn_s = time.monotonic() - t
+    del ref
+    free_memory()
+    base = runs["a_world1_stage0"]
+    path = 5 * ZERO_LR
+    for rk in ranks:
+        r = rk["rank"]
+        full_state = rk["runs"]["stage0"]["state_bytes"]
+        for name, rec in rk["runs"].items():
+            tag = f"b_rank{r}_{name}"
+            rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], base["losses"]))
+            rec["max_rel_loss_diff_vs_stage0"] = rel
+            checks[f"{tag}_losses_within_tolerance"] = rel <= ZERO_LOSS_RTOL
+            n_steps = len(rec["losses"])
+            checks[f"{tag}_k7_one_launch_per_step"] = rec["k7_launches"] == n_steps
+            if n_steps == 5:  # against (a)'s stage 0 after its 5 steps
+                checks[f"{tag}_masters_within_tolerance"] = (
+                    rec["master_rms_diff"] <= ZERO_RMS * path
+                    and rec["master_max_diff"] <= ZERO_MAX * path)
+            if rec["stage"] >= 2:
+                b = rec["state_bytes"]
+                # padding beyond stage 0's: each unit to 2 x 64 elements
+                half = full_state["masters"] / 2
+                extra = 4 * rec["full_numel"] - full_state["masters"]
+                checks[f"{tag}_state_half_plus_padding"] = (
+                    rec["zero_size"] == 2 and 0 <= extra <= 4 * 128 * 8
+                    and b["masters"] == b["m"] == b["v"] == b["grad_acc"] == half + extra / 2)
+            if rec["stage"] == 3:
+                checks[f"{tag}_compute_copy_sharded"] = (
+                    rec["state_bytes"]["compute"] < full_state["masters"] / 4 + 2**20)
+        if r == 1:
+            shard = rk["runs"]["stage3"]["k7_shard_check"]
+            checks["b_rank1_k7_at_shard_within_ulps"] = shard["max_ulps"] <= K7_ULPS
+    checks["b_backend_named"] = all(rk["backend"] for rk in ranks)
+    rec = {"phase": "training_zero", "config": f"llama3_8b(num_hidden_layers={ZERO_LAYERS}, "
+           "ce_chunk_size=8192, remat dots_saveable), random bf16 weights, AdamW lr "
+           f"{ZERO_LR} wd 0.01, no clipping; 3 steps + a 2-step window of {ZERO_ROWS} x "
+           f"{ZERO_SEQ} tokens", "gpu": gpu_identity(), "runs": runs,
+           "ranks": ranks, "b_spawn_s": spawn_s, "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    for rk in ranks:  # the numbers the phase reports, each on a line of its own
+        for name, run in rk["runs"].items():
+            emit({"training_zero_rank": rk["rank"], "run": name, "backend": rk["backend"],
+                  "step_ms_" + rk["backend"].replace(" ", "_"): run["step_ms"],
+                  "peak_memory_gib": run["peak_memory_gib"], "state_bytes": run["state_bytes"],
+                  "stage0_state_bytes": rk["runs"]["stage0"]["state_bytes"]})
+    if not rec["ok"]:
+        raise SystemExit(f"training_zero checks failed: {checks}")
+    return rec
+
+
 def phase_attn_sweep() -> dict:
     """The attention sweep (``ops/attn_sweep.py``) once at the Mistral
     phase's shape, into the run's fresh cache directory: each leg's K1/K2
@@ -4561,6 +4840,7 @@ def main() -> int:
     mistral = timed("training_mistral", phase_training_mistral)
     gemma_training = timed("training_gemma2", phase_training_gemma2)
     fused = timed("training_fused", phase_training_fused)
+    zero = timed("training_zero", phase_training_zero)
     bf16 = timed("serving", phase_serving, kernels)
     timed("serving_int8", phase_serving_int8, kernels, bf16)
     del bf16
@@ -4583,6 +4863,11 @@ def main() -> int:
         for name, n in rec.get("launches", {}).items():
             by_phase.setdefault(name, {})[f"training_fused/{run}"] = n
     by_phase["adam_step_"]["training_optimizers/adamw_fp16"] = runs["adamw_fp16"]["k7_launches"]
+    for name, rec in zero["runs"].items():
+        by_phase["adam_step_"][f"training_zero/{name}"] = rec["k7_launches"]
+    for rk in zero["ranks"]:
+        for name, rec in rk["runs"].items():
+            by_phase["adam_step_"][f"training_zero/rank{rk['rank']}_{name}"] = rec["k7_launches"]
     by_phase["lion_step_"] = {"training_optimizers/lion_bf16": runs["lion_bf16"]["k7_launches"]}
     by_phase["lamb_update_"] = {
         "training_optimizers/lamb_bf16": runs["lamb_bf16"]["k7_launches"]}
@@ -4601,7 +4886,9 @@ def main() -> int:
     # paths, against the plain version (phases 5 and 5b)
     path_checks = {"adam_step_": {"training": training["k7_path_check"],
                                   "adamw_fp16": runs["adamw_fp16"]["k7_path_check"],
-                                  "training_fused": fused["k7_path_check"]},
+                                  "training_fused": fused["k7_path_check"],
+                                  "training_zero_rank1_stage3_shard":
+                                  zero["ranks"][1]["runs"]["stage3"]["k7_shard_check"]},
                    "lion_step_": {"lion_bf16": runs["lion_bf16"]["k7_path_check"]},
                    "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
     # ptxas's report beside the wgmma kernels of the narrower widths and K4's

@@ -1,22 +1,28 @@
 """The training config (port of the subset of
-``deepspeed_tpu/config/config.py`` that the stage-0 engine runs).
+``deepspeed_tpu/config/config.py`` that the engine runs).
 
 Keys, as in the JAX package's JSON config: the batch triangle
 (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``gradient_accumulation_steps``, resolved as ``config.py:236
-_configure_train_batch_size`` does for a world of one device),
-``optimizer`` (``type``, ``params``), ``scheduler`` (``type``,
-``params``), ``bf16`` (``enabled``), ``fp16`` (``feature_configs.py:137
-FP16Config``: dynamic or static loss scaling), ``gradient_clipping``,
-``zero_optimization`` with ``stage`` 0, ``data_types``
+_configure_train_batch_size`` does: ``train = micro * gas * dp`` over the
+data-parallel world ``dp``, re-resolved by ``reresolve`` once the engine
+knows the mesh), ``optimizer`` (``type``, ``params``), ``scheduler``
+(``type``, ``params``), ``bf16`` (``enabled``), ``fp16``
+(``feature_configs.py:137 FP16Config``: dynamic or static loss scaling),
+``gradient_clipping``, ``zero_optimization`` (``feature_configs.py:52
+ZeroConfig``: every key with its defaults and ``stage3_*`` aliases, stages
+0-3), ``mesh`` (``:483 MeshConfig``), ``comms_logger``, ``data_types``
 (``grad_accum_dtype``, ``feature_configs.py:154``) and
 ``activation_checkpointing`` (``:161``; ``remat_policy`` wraps the
 model's whole forward, ``runtime/activation_checkpointing/``). Any other
-key (``mesh``, ``async_pipeline``, ...), or one of these set to what the
-port does not run yet (ZeRO stage > 0, ``partition_activations``,
+key (``gradient_comm``, ``async_pipeline``, ...), or one of these set to
+what the port does not run yet (ZeRO offload, ZeRO++'s quantized weights
+and gradients and hpZ, MiCS, ``partition_activations``,
 ``cpu_checkpointing``), raises: nothing is ignored silently. fp16's
 ``auto_cast`` and ``fp16_master_weights_and_grads`` are accepted and
-change nothing, as in the JAX engine, which reads neither.
+change nothing, as in the JAX engine, which reads neither; so are the
+ZeRO keys the JAX docstring marks inert (bucket sizes, ``overlap_comm``,
+prefetch and reuse thresholds, ...).
 """
 
 import json
@@ -30,7 +36,7 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 _KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
          GRADIENT_ACCUMULATION_STEPS, "optimizer", "scheduler", "bf16", "fp16",
          "gradient_clipping", "zero_optimization", "data_types",
-         "activation_checkpointing"}
+         "activation_checkpointing", "mesh", "comms_logger"}
 
 
 class DeepSpeedConfigError(Exception):
@@ -89,10 +95,118 @@ class ActivationCheckpointingConfig:
                                       "is not ported yet: it needs host offload")
 
 
-class DeepSpeedTorchConfig:
-    """The validated config the engine reads."""
+class ZeroConfig:
+    """The ``zero_optimization`` section (``feature_configs.py:52``): every
+    key of the JAX ``ZeroConfig`` with its default, read under its name or
+    its ``stage3_*`` alias. ``stage`` 0-3 runs (``runtime/zero_sharding.py``);
+    ``param_persistence_threshold`` keeps parameters of at most that many
+    elements replicated at stage 3, and ``max_live_parameters`` feeds the
+    governor's advisory (``runtime/zero_governor.py``). The keys that tune
+    the reference's hook machinery are accepted and inert, as in JAX.
+    Offload, ZeRO++ (quantized weights and gradients, hpZ) and MiCS raise
+    ``NotImplementedError`` naming the key; so do the resilience keys
+    (anomaly rollback, save retries, fault injection) set to other than
+    their defaults."""
 
-    def __init__(self, config: Any):
+    _DEFAULTS = {
+        "stage": 0, "contiguous_gradients": True, "reduce_scatter": True,
+        "reduce_bucket_size": int(5e8), "use_multi_rank_bucket_allreduce": True,
+        "allgather_partitions": True, "allgather_bucket_size": int(5e8), "overlap_comm": None,
+        "load_from_fp32_weights": True, "elastic_checkpoint": False, "offload_param": None,
+        "offload_optimizer": None, "sub_group_size": int(1e9), "cpu_offload_param": None,
+        "cpu_offload_use_pin_memory": None, "cpu_offload": None,
+        "prefetch_bucket_size": int(5e7), "param_persistence_threshold": int(1e5),
+        "model_persistence_threshold": int(1e9), "max_live_parameters": int(1e9),
+        "max_reuse_distance": int(1e9), "gather_16bit_weights_on_model_save": False,
+        "module_granularity_threshold": 0, "use_all_reduce_for_fetch_params": False,
+        "ignore_unused_parameters": True, "legacy_stage1": False,
+        "round_robin_gradients": False, "zero_hpz_partition_size": 1,
+        "zero_quantized_weights": False, "zero_quantized_nontrainable_weights": False,
+        "zero_quantized_gradients": False, "mics_shard_size": -1,
+        "mics_hierarchical_params_gather": False, "memory_efficient_linear": True,
+        "pipeline_loading_checkpoint": False, "max_consecutive_anomalies": 3,
+        "loss_spike_window": 20, "loss_spike_factor": 3.0, "loss_spike_min_history": 5,
+        "rollback": True, "save_retries": 3, "retry_backoff_secs": 0.05,
+        "fault_injection": {}}
+    ALIASES = {
+        "stage3_prefetch_bucket_size": "prefetch_bucket_size",
+        "stage3_param_persistence_threshold": "param_persistence_threshold",
+        "stage3_model_persistence_threshold": "model_persistence_threshold",
+        "stage3_max_live_parameters": "max_live_parameters",
+        "stage3_max_reuse_distance": "max_reuse_distance",
+        "stage3_gather_16bit_weights_on_model_save": "gather_16bit_weights_on_model_save",
+        "stage3_module_granularity_threshold": "module_granularity_threshold",
+        "stage3_use_all_reduce_for_fetch_params": "use_all_reduce_for_fetch_params"}
+    _NON_NEGATIVE = ("reduce_bucket_size", "allgather_bucket_size", "sub_group_size",
+                     "prefetch_bucket_size", "param_persistence_threshold",
+                     "model_persistence_threshold", "max_live_parameters",
+                     "max_reuse_distance", "zero_hpz_partition_size", "retry_backoff_secs")
+    _RESILIENCE = ("max_consecutive_anomalies", "loss_spike_window", "loss_spike_factor",
+                   "loss_spike_min_history", "rollback", "save_retries", "retry_backoff_secs",
+                   "fault_injection")
+
+    def __init__(self, section: Dict[str, Any]):
+        given = {self.ALIASES.get(k, k): v for k, v in section.items() if v != "auto"}
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, given.get(key, default))
+        self.stage = int(self.stage)
+        if not 0 <= self.stage <= 3:
+            raise DeepSpeedConfigError(f"zero_optimization.stage must be 0-3, got {self.stage}")
+        for key in self._NON_NEGATIVE:
+            if getattr(self, key) < 0:
+                raise DeepSpeedConfigError(f"zero_optimization.{key} must be >= 0")
+        for key in ("offload_param", "offload_optimizer"):
+            sec = getattr(self, key) or {}
+            if str(sec.get("device", "none")) != "none":
+                raise NotImplementedError(f"zero_optimization.{key} is not ported yet: it "
+                                          "needs host offload")
+        for key in ("cpu_offload", "cpu_offload_param"):
+            if getattr(self, key):
+                raise NotImplementedError(f"zero_optimization.{key} is not ported yet: it "
+                                          "needs host offload")
+        for key in ("zero_quantized_weights", "zero_quantized_nontrainable_weights",
+                    "zero_quantized_gradients"):
+            if getattr(self, key):
+                raise NotImplementedError(f"zero_optimization.{key} (ZeRO++) is not ported "
+                                          "yet")
+        if self.zero_hpz_partition_size > 1:
+            raise NotImplementedError("zero_optimization.zero_hpz_partition_size > 1 (ZeRO++ "
+                                      "hpZ) is not ported yet")
+        if self.mics_shard_size > 1:
+            raise NotImplementedError("zero_optimization.mics_shard_size (MiCS) is not "
+                                      "ported yet")
+        for key in self._RESILIENCE:
+            if getattr(self, key) != self._DEFAULTS[key]:
+                raise NotImplementedError(f"zero_optimization.{key} is not ported yet: it "
+                                          "belongs to the resilience layer")
+
+
+class MeshConfig:
+    """The ``mesh`` section (``feature_configs.py:483``): each axis's size,
+    -1 filling it with the remaining devices, and ``axis_order``."""
+
+    AXES = ("pipe", "data", "fsdp", "seq", "expert", "model")
+    _DEFAULTS = {"pipe": 1, "data": -1, "fsdp": 1, "seq": 1, "expert": 1, "model": 1,
+                 "axis_order": list(AXES)}
+
+    def __init__(self, section: Dict[str, Any]):
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, section.get(key, default))
+        for axis in self.AXES:
+            size = getattr(self, axis)
+            if not isinstance(size, int) or (size < 1 and size != -1):
+                raise DeepSpeedConfigError(f"mesh.{axis} must be a positive int or -1")
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return {a: getattr(self, a) for a in self.axis_order}
+
+
+class DeepSpeedTorchConfig:
+    """The validated config the engine reads. ``world_size`` is the
+    data-parallel world the batch triangle divides by (1 until the engine
+    knows the mesh, ``reresolve``)."""
+
+    def __init__(self, config: Any, world_size: int = 1):
         if isinstance(config, str):
             if not os.path.exists(config):
                 raise DeepSpeedConfigError(f"config file not found: {config}")
@@ -128,37 +242,58 @@ class DeepSpeedTorchConfig:
         self.activation_checkpointing_config = ActivationCheckpointingConfig(
             _section(pd, "activation_checkpointing",
                      ActivationCheckpointingConfig._DEFAULTS))
-        zero = _section(pd, "zero_optimization", ("stage", ))
-        if int(zero.get("stage", 0)) != 0:
-            raise NotImplementedError(
-                f"zero_optimization.stage {zero['stage']} is not ported yet; "
-                "the port runs stage 0 on one device")
+        self.zero_config = ZeroConfig(_section(pd, "zero_optimization",
+                                               set(ZeroConfig._DEFAULTS) | set(ZeroConfig.ALIASES)))
+        self.mesh_config = MeshConfig(_section(pd, "mesh", MeshConfig._DEFAULTS))
+        from ..comm.comms_logging import CommsLoggerConfig
+        self.comms_config = CommsLoggerConfig(_section(pd, "comms_logger",
+                                                       CommsLoggerConfig._DEFAULTS))
+        self.world_size = max(int(world_size), 1)
+        self._configure_train_batch_size()
+
+    @property
+    def zero_optimization_stage(self) -> int:
+        return self.zero_config.stage
+
+    def reresolve(self, world_size: int):
+        """Resolve the batch triangle again over the data-parallel world
+        ``world_size`` (``config.py:111``)."""
+        if world_size == self.world_size:
+            return
+        self.world_size = max(int(world_size), 1)
+        pd = self._param_dict
+        self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)
+        self.train_micro_batch_size_per_gpu = pd.get(TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        self.gradient_accumulation_steps = pd.get(GRADIENT_ACCUMULATION_STEPS)
         self._configure_train_batch_size()
 
     def _configure_train_batch_size(self):
-        """Resolve the batch triangle ``train = micro * gas`` (one device)."""
+        """Resolve the batch triangle ``train = micro * gas * dp``."""
         train, micro, gas = (self.train_batch_size,
                              self.train_micro_batch_size_per_gpu,
                              self.gradient_accumulation_steps)
+        dp = self.world_size
         if train is not None and micro is not None and gas is not None:
             pass
         elif train is not None and micro is not None:
-            gas = train // micro
+            gas = train // micro // dp
         elif train is not None and gas is not None:
-            micro = train // gas
+            micro = train // dp // gas
         elif micro is not None and gas is not None:
-            train = micro * gas
+            train = micro * gas * dp
         elif train is not None:
-            gas, micro = 1, train
+            gas, micro = 1, train // dp
         elif micro is not None:
-            train, gas = micro, 1
+            train, gas = micro * dp, 1
         else:
             raise DeepSpeedConfigError("Either train_batch_size or "
                                        "train_micro_batch_size_per_gpu needs to be provided")
-        if not (train > 0 and micro > 0 and gas > 0 and train == micro * gas):
+        if not (train > 0 and micro > 0 and gas > 0 and train == micro * gas * dp):
+            world = f" * {dp}" if dp > 1 else ""
             raise DeepSpeedConfigError(
                 "Check batch related parameters: train_batch_size is not equal to "
-                f"micro_batch_per_gpu * gradient_acc_step: {train} != {micro} * {gas}")
+                f"micro_batch_per_gpu * gradient_acc_step{' * world_size' if dp > 1 else ''}: "
+                f"{train} != {micro} * {gas}{world}")
         self.train_batch_size = train
         self.train_micro_batch_size_per_gpu = micro
         self.gradient_accumulation_steps = gas

@@ -9,7 +9,12 @@ RMSNorm scales under ``['weight']``, LayerNorm ones under ``['scale']`` and
 ['embed_layernorm']``), projection biases (q/k/v/o, ``mlp/fc1``,
 ``mlp/fc2``) under ``['bias']``. Shapes carry over unchanged, because the
 port keeps the flax layout; :func:`jax_key_path` maps a port parameter
-name onto its path in the tree. :func:`quantized_from_jax` carries a JAX
+name onto its path in the tree. The tree of a scanned model
+(``scan_layers``) holds each layer's leaves stacked: ``['model']['layers']
+['layer']`` with a leading ``[L]`` axis, or with ``scan_chunk_size`` c
+``['layer_0']`` .. ``['layer_{c-1}']`` with ``[L / c]``, layer ``j`` at
+index ``j // c`` of ``layer_{j % c}``; :func:`lookup` reads both.
+:func:`quantized_from_jax` carries a JAX
 ``QuantizedParameter``'s stored int8 values and scales over as they are.
 """
 
@@ -45,11 +50,18 @@ def jax_key_path(name: str) -> List[str]:
 
 
 def lookup(tree, name: str):
-    """The leaf of ``tree`` that port parameter ``name`` mirrors."""
-    node = tree
+    """The leaf of ``tree`` that port parameter ``name`` mirrors (a slice
+    of a stacked leaf for a layer of a scanned model)."""
+    node, index = tree, None
     for key in jax_key_path(name):
-        node = node[key]
-    return node
+        if key.startswith("layers_") and key not in node and "layers" in node:
+            j = int(key[len("layers_"):])
+            scanned = node["layers"]
+            c = 1 if "layer" in scanned else len(scanned)
+            node, index = scanned["layer" if c == 1 else f"layer_{j % c}"], j // c
+        else:
+            node = node[key]
+    return node if index is None else node[index]
 
 
 @torch.no_grad()

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
-from ..ops.chunked_ce import chunked_cross_entropy_loss, matmul_fp32
+from ..ops.chunked_ce import causal_targets, chunked_cross_entropy_loss, matmul_fp32
 from ..ops.normalization import layer_norm_reference
 from ..runtime.activation_checkpointing.checkpointing import (checkpoint_with,
                                                               resolve_policy)
@@ -143,8 +143,6 @@ GEMMA_KNOBS = ("norm_plus_one", "embed_scale", "sandwich_norm", "attn_logit_soft
 TRAINING_FAMILY = {**{k: v for k, v in LLAMA_FAMILY.items()
                       if k not in ("sliding_window", ) + GEMMA_KNOBS},
                    "mlp_type": ("swiglu", "geglu_tanh")}
-# scan_layers exists for the ZeRO-3 live-parameter governor (scan_chunk_size)
-TRAINING_DEFAULTS = dict(scan_layers=False)
 # what the serving forward runs: the Llama family, StarCoder2's knobs
 # (LayerNorm with bias, q/k/v/o biases, the biased gelu-tanh fc MLP, sliding
 # windows on all or some layers), BLOOM's (ALiBi in place of rope, the
@@ -451,6 +449,15 @@ class LlamaModel(nn.Module):
         self.embed_layernorm = (LayerNormWeight(cfg.hidden_size, dtype, device,
                                                 cfg.rms_norm_eps)
                                 if cfg.embed_layernorm else None)
+        if cfg.scan_layers:  # the JAX model's errors (``:657-667``)
+            if cfg.sliding_window_layers is not None:
+                raise ValueError(
+                    "scan_layers requires homogeneous layers; per-layer "
+                    "sliding_window_layers patterns need scan_layers=False")
+            if cfg.num_hidden_layers % cfg.scan_chunk_size != 0:
+                raise ValueError(
+                    f"num_hidden_layers={cfg.num_hidden_layers} not divisible "
+                    f"by scan_chunk_size={cfg.scan_chunk_size}")
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, dtype, device, i)
                                     for i in range(cfg.num_hidden_layers))
         self.norm = _make_norm(cfg, dtype, device)
@@ -459,6 +466,14 @@ class LlamaModel(nn.Module):
                                    dtype if trainable else torch.float32, device))
         for p in self.parameters():
             p.requires_grad_(trainable)
+
+    def gather_units(self):
+        """The layers chunk by chunk: one layer each, or with
+        ``scan_layers`` chunks of ``scan_chunk_size`` (the JAX scan's step,
+        ZeRO-3's gather unit, ``runtime/zero3.py``)."""
+        cfg = self.config
+        c = cfg.scan_chunk_size if cfg.scan_layers else 1
+        return [list(self.layers[i:i + c]) for i in range(0, len(self.layers), c)]
 
     def forward(self, input_ids, positions=None, attn_mask=None, return_unembed=False):
         """Logits ``[b, s, vocab]`` fp32, or with ``return_unembed`` the
@@ -507,10 +522,7 @@ def final_softcap(logits, cap):
 def cross_entropy_loss(logits, labels, ignore_index: int = -100):
     """Token-mean CE with shift-by-one (causal LM), in fp32."""
     logits = logits[:, :-1].float()
-    targets = labels[:, 1:]
-    mask = (targets != ignore_index).float()
-    targets = torch.where(targets == ignore_index, torch.zeros_like(targets),
-                          targets)
+    targets, mask = causal_targets(labels, ignore_index)
     logz = torch.logsumexp(logits, -1)
     gold = logits.gather(-1, targets[..., None].long())[..., 0]
     return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
@@ -523,8 +535,7 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, dtype=None, device=None):
         super().__init__()
-        check_supported(config, "LlamaForCausalLM",
-                        {**TRAINING_FAMILY, **TRAINING_DEFAULTS})
+        check_supported(config, "LlamaForCausalLM", TRAINING_FAMILY)
         if config.remat:
             resolve_policy(config.remat_policy)
         self.config = config
@@ -541,6 +552,18 @@ class LlamaForCausalLM(nn.Module):
         if labels is None:
             return logits
         return cross_entropy_loss(logits, labels)
+
+    def gather_units(self):
+        return self.model.gather_units()
+
+    def loss_token_count(self, input_ids, labels=None, positions=None, attn_mask=None,
+                         ignore_index: int = -100):
+        """The number of targets the loss averages over (the CE's
+        ``causal_targets`` weights summed), or None without labels: the
+        engine's weight of this batch in a global token mean."""
+        if labels is None:
+            return None
+        return causal_targets(labels, ignore_index)[1].sum()
 
 
 def _lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:

@@ -128,14 +128,22 @@ def chunked_unembed_ce(x, w, targets, chunk: int, compute_dtype=torch.bfloat16,
                                    None if softcap is None else float(softcap))
 
 
+def causal_targets(labels, ignore_index: int = -100):
+    """``(targets, weights)`` of the causal-LM CE: ``labels`` shifted by
+    one, each ``ignore_index`` target set to 0 with weight 0, the rest
+    weight 1. The one rule of which labels a token-mean loss averages over:
+    the count it divides by is ``weights.sum()``."""
+    tg = labels[:, 1:]
+    ignored = tg == ignore_index
+    return torch.where(ignored, torch.zeros_like(tg), tg), (~ignored).float()
+
+
 def chunked_cross_entropy_loss(x, w, labels, chunk: int, ignore_index: int = -100,
                                compute_dtype=torch.bfloat16, softcap=None):
     """Token-mean causal-LM CE (shift-by-one, ``ignore_index``) over a
     streamed unembed. ``x`` [B, S, H], ``labels`` [B, S]."""
     B, S, H = x.shape
     xs = x[:, :-1].reshape(B * (S - 1), H)
-    tg = labels[:, 1:].reshape(B * (S - 1))
-    mask = (tg != ignore_index).float()
-    tg = torch.where(tg == ignore_index, torch.zeros_like(tg), tg)
+    tg, mask = (t.reshape(B * (S - 1)) for t in causal_targets(labels, ignore_index))
     nll = chunked_unembed_ce(xs, w, tg, chunk, compute_dtype, softcap)
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)

@@ -245,19 +245,23 @@ def segment_bounds(segments: Optional[Sequence[int]], n: int):
     return list(zip(segments[:-1], segments[1:]))
 
 
-def lamb_apply_trust_(p, u, lr, weight_decay, bounds, skip=None):
+def lamb_apply_trust_(p, u, lr, weight_decay, bounds, skip=None, norms=None):
     """The rest of the LAMB step (``:199-219``) in place, fp32 flat ``p``
     and ``u``: ``u += wd * p``; per segment the trust ratio ``||p|| /
     ||u||`` (1 where either norm is 0); ``p -= (lr * trust) * u``, with
     ``lr`` a one-element fp32 tensor. ``u`` ends scaled. Where ``skip`` is
     set, ``u`` ends zero and ``p`` keeps its bits. No temporary of the
-    buffer's size."""
+    buffer's size. ``norms`` maps the segments' views to the norms the
+    ratio takes (default: each segment's own; under ZeRO a segment is a
+    piece of a parameter and ``norms`` gives the whole parameter's)."""
     ps = [p[a:b] for a, b in bounds]
     us = [u[a:b] for a, b in bounds]
     if weight_decay:
         torch._foreach_add_(us, ps, alpha=float(weight_decay))
-    pn = torch.stack(torch._foreach_norm(ps))
-    un = torch.stack(torch._foreach_norm(us))
+    if norms is None:
+        norms = lambda xs: torch.stack(torch._foreach_norm(xs))  # noqa: E731
+    pn = norms(ps)
+    un = norms(us)
     trust = torch.where((pn > 0) & (un > 0), pn / un.clamp_min(1e-30),
                         torch.ones_like(pn))
     torch._foreach_mul_(us, list((lr * trust).unbind()))

@@ -1,4 +1,4 @@
-"""The training engine, ZeRO stage 0 on one device (port of
+"""The training engine, ZeRO stages 0-3 over the named mesh (port of
 ``deepspeed_tpu/runtime/engine.py``).
 
 What it keeps from the JAX engine:
@@ -64,17 +64,52 @@ gradient born in fp16 (at most 65504 per micro-batch, unscaled by a scale
 >= 1) cannot overflow it. Buffers update in place where the JAX engine
 returns new arrays.
 
-Not ported yet (``ROADMAP.md``): offload, ZeRO 1-3 and the comm layer,
-the async step window (``_AsyncStepWindow``, ``get_loss``), checkpointing,
-resilience and observability. The engine runs on ``cuda`` unless the
-caller passes ``device="cpu"``; without CUDA it raises.
+ZeRO and the mesh (the JAX engine's ``:160-265``, ``:328-360``,
+``:514-590``). With ``zero_optimization.stage`` above 0, a ``mesh``
+section, or ``torch.distributed`` initialized, the engine joins the named
+mesh (``comm.init_distributed``; one process needs no process group) and
+the batch triangle is resolved over the data-parallel world ``data x
+fsdp``. The engine takes the global batch, as the JAX engine does, and
+each rank computes on its rows (``zero_sharding.ZeroShardingPlan.
+batch_rows``). The loss is the token mean over the global batch: each
+rank's loss is weighted by its share of the global count of labels that
+count (``module.loss_token_count``, which a module trained across ranks
+must give), so that the
+gradients summed over the ranks are those of the global mean, however
+unevenly ``ignore_index`` labels fall; the loss returned is the global
+one. The state is laid out in units (``zero_sharding.FlatLayout``); each
+rank keeps its shards of the masters and the optimizer state (stage 1), of
+the accumulation buffer (stage 2) and of the compute copy (stage 3,
+gathered on use, ``runtime/zero3.py``). Stage 1 accumulates whole
+gradients and reduce-scatters them at the boundary; stages 2-3
+reduce-scatter each micro-step's gradients into the shard; the replicas of
+the ZeRO group then all-reduce the shard. The global norm is per
+parameter, then over the parameters: per-parameter partial sums of
+squares all-reduced over the ZeRO group, then the square roots, so the
+overflow flag, the clip factor and K7's skip flag agree on every rank with
+no host read. K7 runs once per step on the rank's shard. Stages 1-2 then
+all-gather the updated shard's cast into the whole compute copy. Stage 0
+across ranks all-reduces the whole accumulation buffer at the boundary.
+The ``pipe``, ``seq``, ``expert`` and ``model`` axes are not ported yet
+and raise.
+
+Not ported yet (``ROADMAP.md``): offload, the bucketed gradient wire
+(``gradient_comm``), the async step window (``_AsyncStepWindow``,
+``get_loss``), checkpointing, resilience and observability. The engine
+runs on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA
+it raises.
 """
 
+import contextlib
+import logging
 from typing import Optional
 
 import torch
 from torch.profiler import record_function
 
+from .. import zero
+from ..comm import comm
+from ..comm.mesh import get_mesh_context, mesh_is_initialized
 from ..config.config import DeepSpeedTorchConfig
 from ..utils.device import resolve_device
 from ..utils.dtypes import resolve_dtype
@@ -83,18 +118,13 @@ from .activation_checkpointing import checkpointing
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_lr_schedule
 from .optimizers import ADAM_DEFAULT_BETAS, build_optimizer
+from .zero3 import GatherUnits, GradReducer
+from .zero_governor import max_live_advisory
+from .zero_sharding import (FlatLayout, Unit, ZeroShardingPlan, flat_bounds,  # noqa: F401
+                            model_units)
 
-FLAT_ALIGN = 64  # elements: each view of a flat fp32 buffer starts 256-byte aligned
-
-
-def flat_bounds(numels, align: int = FLAT_ALIGN):
-    """``(start, end)`` of each of ``numels`` in one flat buffer, every
-    start a multiple of ``align``, and the buffer's length."""
-    bounds, total = [], 0
-    for n in numels:
-        bounds.append((total, total + n))
-        total += -(-n // align) * align
-    return bounds, total
+logger = logging.getLogger(__name__)
+UNPORTED_AXES = ("pipe", "seq", "expert", "model")
 
 
 def grad_accum_dtype(config, use_loss_scaling: bool) -> torch.dtype:
@@ -131,10 +161,20 @@ def _extract_loss(out):
 class DeepSpeedTorchEngine:
 
     def __init__(self, model, model_parameters=None, config=None,
-                 lr_scheduler=None, device=None, training_data=None, collate_fn=None):
-        self._config = DeepSpeedTorchConfig(config if config is not None else {})
+                 lr_scheduler=None, device=None, training_data=None, collate_fn=None,
+                 mesh_param=None, distributed_port=29500, dist_init_required=None):
+        raw = config if config is not None else {}
+        self._config = DeepSpeedTorchConfig(raw, world_size=self._dp_world_from(raw))
         self.device = resolve_device(device)
-        self.module = model.to(self.device)
+        zc = self._config.zero_config
+        self.mesh_ctx = self._join_mesh(mesh_param, distributed_port, dist_init_required)
+        self.dp_world_size = self.mesh_ctx.dp_size if self.mesh_ctx is not None else 1
+        self._config.reresolve(self.dp_world_size)
+        self.zero_plan = ZeroShardingPlan(self.mesh_ctx, zc.stage,
+                                          zc.param_persistence_threshold)
+        if "comms_logger" in self._config._param_dict:
+            comm.configure(self._config)
+        self.module = model if zc.stage >= 3 else model.to(self.device)
         self.compute_dtype = (torch.bfloat16 if self._config.bf16_enabled
                               else torch.float16 if self._config.fp16_enabled
                               else torch.float32)
@@ -153,7 +193,15 @@ class DeepSpeedTorchEngine:
         self._pending = None
         self._training = True
         self._last_grad_norm = None
+        self._local = None  # this step's local loss, weighted for the global mean
         self._init_state(model_parameters)
+        if zc.stage >= 3:
+            advice = max_live_advisory(sum(p.numel() for p in self._params),
+                                       zc.max_live_parameters,
+                                       bool(getattr(getattr(model, "config", None),
+                                                    "scan_layers", False)))
+            if advice:
+                logger.warning(advice)
 
         base_lr = float(self._config.optimizer_params.get("lr", 1e-3))
         self._base_lr = base_lr
@@ -165,52 +213,250 @@ class DeepSpeedTorchEngine:
         lr_fn = self.lr_scheduler.lr_at if self.lr_scheduler is not None else None
         self.optimizer = build_optimizer(self._config.optimizer_name, self._flat_master,
                                          self._config.optimizer_params, lr_fn,
-                                         bounds=self._bounds)
+                                         bounds=self._bounds,
+                                         norms=self._piece_norms if self._sharded else None)
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = DeepSpeedDataLoader(
                 training_data, batch_size=self.train_micro_batch_size_per_gpu(),
                 collate_fn=collate_fn)
 
+    @staticmethod
+    def _dp_world_from(raw) -> int:
+        """The data-parallel world before the mesh exists (``data x fsdp``
+        of the config's mesh over the process group's ranks), so the batch
+        triangle validates as the JAX engine's ``_dp_world_from`` does."""
+        import json
+        import torch.distributed as dist
+        from ..comm.mesh import MESH_AXES, resolve_axis_sizes
+        if isinstance(raw, str):
+            with open(raw) as f:
+                raw = json.load(f)
+        if mesh_is_initialized():
+            return get_mesh_context().dp_size
+        n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        mesh = dict(raw.get("mesh") or {}) if isinstance(raw, dict) else {}
+        mesh.pop("axis_order", None)
+        if mesh and all(v != -1 for v in mesh.values()) and "data" not in mesh:
+            mesh["data"] = -1
+        try:
+            sizes = resolve_axis_sizes(n, mesh or {"data": -1}, MESH_AXES)
+        except ValueError:
+            return n
+        return sizes["data"] * sizes["fsdp"]
+
+    def _join_mesh(self, mesh_param, distributed_port, dist_init_required):
+        """The mesh context when ZeRO, a ``mesh`` section, ``mesh_param`` or
+        an initialized process group asks for one (joining it through
+        ``comm.init_distributed`` when none exists), else None."""
+        import torch.distributed as dist
+        zc, pd = self._config.zero_config, self._config._param_dict
+        wanted = (zc.stage > 0 or "mesh" in pd or mesh_param is not None
+                  or dist_init_required or (dist.is_available() and dist.is_initialized()))
+        if mesh_is_initialized():
+            ctx = get_mesh_context()
+        elif wanted:
+            axes = self._config.mesh_config.axis_sizes()
+            if mesh_param is not None:  # reference mesh_param=(dp, sp)
+                axes = {"data": mesh_param[0], "seq": mesh_param[1]}
+            ctx = comm.init_distributed(distributed_port=distributed_port,
+                                        dist_init_required=dist_init_required, mesh_axes=axes)
+        else:
+            return None
+        split = {a: ctx.axis_size(a) for a in UNPORTED_AXES if ctx.axis_size(a) > 1}
+        if split:
+            raise NotImplementedError(f"mesh axes {split} are not ported yet: the port's "
+                                      "engine runs the data and fsdp axes")
+        return ctx
+
     @torch.no_grad()
     def _init_state(self, model_parameters):
-        """The flat fp32 masters on the device, the model's parameters set
-        to views of the flat compute-dtype copy (of the masters themselves
-        in fp32), and the flat gradient accumulation buffer."""
+        """The flat fp32 masters (this rank's shards of them at stage >= 1),
+        the model's parameters set to views of the flat compute-dtype copy
+        (of the masters themselves in fp32 at stage 0; gathered on use at
+        stage 3), and the flat gradient accumulation buffer (this rank's
+        shard at stage >= 2)."""
         names = {id(p): n for n, p in self.module.named_parameters()}
         params = (list(model_parameters) if model_parameters is not None
                   else [p for p in self.module.parameters() if p.requires_grad])
         if not params or any(id(p) not in names for p in params):
             raise ValueError("model_parameters must be parameters of model")
         self._params = params
+        self._index = {id(p): i for i, p in enumerate(params)}
         self.param_names = [names[id(p)] for p in params]
-        self._bounds, total = flat_bounds([p.numel() for p in params])
         self._shapes = [p.shape for p in params]
-
-        self._flat_master = torch.zeros(total, dtype=torch.float32, device=self.device)
-        self._masters = self._views(self._flat_master)
-        for p, master in zip(params, self._masters):
-            master.copy_(p.detach())
-        self._flat_compute = None
-        if self.compute_dtype == torch.float32:
-            compute = self._masters
+        numels = [p.numel() for p in params]
+        plan = self.zero_plan
+        self._sharded = plan.stage >= 1
+        if self._sharded:
+            units, unit_modules = model_units(self.module, params, numels, plan.zero_size,
+                                              plan.param_persistence_threshold)
         else:
-            self._flat_compute = self._flat_master.to(self.compute_dtype)
-            compute = self._views(self._flat_compute)
-        for p, c in zip(params, compute):
-            p.data = c
+            units, unit_modules = [Unit("all", range(len(params)), numels, 1)], [[]]
+        self.layout = FlatLayout(units, len(params), plan.zero_size, plan.zero_index())
+        self._bounds = ([(s, e) for _, s, e, _ in self.layout.pieces] if self._sharded
+                        else self.layout.full_bounds)
+        self._gather = self._reducer = None
+        # each piece's parameter, on the device once (no copy inside a step)
+        self._owners = torch.tensor([i for i, _, _, _ in self.layout.pieces], dtype=torch.long,
+                                    device=self.device)
+
+        if plan.shard_params:  # only this rank's shards reach the device
+            trained = set(self._index)
+            for m in self.module.modules():
+                for key, p in m.named_parameters(recurse=False):
+                    if id(p) not in trained:
+                        p.data = p.data.to(self.device)
+                for key, b in m.named_buffers(recurse=False):
+                    setattr(m, key, b.to(self.device))
+        self._flat_master = torch.zeros(self.layout.shard_numel, dtype=torch.float32,
+                                        device=self.device)
+        for i, s, e, off in self.layout.pieces:
+            self._flat_master[s:e].copy_(params[i].detach().reshape(-1)[off:off + e - s])
+        self._masters = (self.layout.piece_views(self._flat_master) if self._sharded
+                         else self._views(self._flat_master))
+        for p in params:
             p.requires_grad_(True)
-        self._flat_grad = torch.zeros(total, dtype=self.grad_accum_dtype, device=self.device)
-        self._grad_acc = self._views(self._flat_grad)
+        self._flat_compute = None
+        if plan.shard_params:
+            self._flat_compute = (self._flat_master if self.compute_dtype == torch.float32
+                                  else self._flat_master.to(self.compute_dtype))
+            self._gather = GatherUnits(self.layout, params, self._shapes, self._flat_compute,
+                                       unit_modules, plan.zero_axes, self.compute_dtype,
+                                       self.device)
+        elif self._sharded:
+            self._flat_compute = torch.empty(self.layout.full_numel, dtype=self.compute_dtype,
+                                             device=self.device)
+            for p, c in zip(params, self.layout.full_views(self._flat_compute, self._shapes)):
+                p.data = c
+            self._refresh_compute()
+        else:
+            if self.compute_dtype == torch.float32:
+                compute = self._masters
+            else:
+                self._flat_compute = self._flat_master.to(self.compute_dtype)
+                compute = self._views(self._flat_compute)
+            for p, c in zip(params, compute):
+                p.data = c
+        self._grad_acc = None
+        if plan.shard_grads:
+            self._flat_grad = torch.zeros(self.layout.shard_numel, dtype=self.grad_accum_dtype,
+                                          device=self.device)
+            self._reducer = GradReducer(
+                self.layout, params, self._flat_grad, plan.zero_axes,
+                on_reduced=self._gather.release if self._gather is not None else None)
+        else:
+            self._flat_grad = torch.zeros(self.layout.full_numel, dtype=self.grad_accum_dtype,
+                                          device=self.device)
+            self._grad_acc = self.layout.full_views(self._flat_grad, self._shapes)
+        zero.register(self, params)
 
     def _views(self, flat):
         """Each parameter's shaped view into the flat buffer ``flat``."""
         return [flat[a:b].view(shape) for (a, b), shape in zip(self._bounds, self._shapes)]
 
-    def master_params(self):
-        """``{name: fp32 master}`` (the engine's own tensors)."""
-        return dict(zip(self.param_names, self._masters))
+    @torch.no_grad()
+    def _refresh_compute(self):
+        """The compute copy from the masters: a cast (stage 0), the cast
+        shard all-gathered into the whole copy per unit (stages 1-2), the
+        cast shard and the persistent unit gathered (stage 3)."""
+        plan = self.zero_plan
+        if not self._sharded or plan.shard_params:
+            if self._flat_compute is not None and self._flat_compute is not self._flat_master:
+                self._flat_compute.copy_(self._flat_master)
+            if self._gather is not None:
+                self._gather.refresh_persistent()
+            return
+        shard = (self._flat_master if self.compute_dtype == torch.float32
+                 else self._flat_master.to(self.compute_dtype))
+        for u in self.layout.units:
+            comm.all_gather_into_tensor(self.layout.unit_full(self._flat_compute, u),
+                                        self.layout.unit_shard(shard, u), group=plan.zero_axes)
 
+    def _param_norms(self, views):
+        """Each parameter's norm from ``views``, the pieces of this rank's
+        flat state (``layout.pieces``): the pieces' sums of squares added
+        per parameter, all-reduced over the ZeRO group, then the square
+        roots."""
+        sums = torch.zeros(self.layout.n_params, dtype=torch.float32, device=self.device)
+        if views:
+            sums.index_add_(0, self._owners, torch.stack(torch._foreach_norm(views)).square())
+        comm.all_reduce(sums, group=self.zero_plan.zero_axes)
+        return sums.sqrt()
+
+    def _piece_norms(self, views):
+        """The norm of each piece's whole parameter (LAMB's trust ratio)."""
+        return self._param_norms(views)[self._owners]
+
+    def master_params(self):
+        """``{name: fp32 master}`` (the engine's own tensors): whole shaped
+        views at stage 0, this rank's 1-D pieces of each parameter that
+        its shards hold at stage >= 1."""
+        if not self._sharded:
+            return dict(zip(self.param_names, self._masters))
+        return {self.param_names[i]: m for (i, _, _, _), m in zip(self.layout.pieces,
+                                                                   self._masters)}
+
+    @torch.no_grad()
+    def full_master_params(self):
+        """``{name: whole fp32 master}``, all-gathered over the ZeRO group
+        (a collective: every rank calls it)."""
+        if not self._sharded:
+            return dict(zip(self.param_names, self._masters))
+        full = torch.empty(self.layout.full_numel, dtype=torch.float32, device=self.device)
+        for u in self.layout.units:
+            comm.all_gather_into_tensor(self.layout.unit_full(full, u),
+                                        self.layout.unit_shard(self._flat_master, u),
+                                        group=self.zero_plan.zero_axes)
+        return dict(zip(self.param_names, self.layout.full_views(full, self._shapes)))
+
+    def state_bytes(self):
+        """The bytes of this rank's flat state: the masters, each optimizer
+        moment, the accumulation buffer and the compute copy (at stage 3
+        its shards and the persistent unit's whole buffer)."""
+        out = {"masters": self._flat_master.nbytes}
+        out.update({k: v.nbytes for k, v in self.optimizer.state.items()})
+        out["grad_acc"] = self._flat_grad.nbytes
+        compute = self._flat_compute
+        out["compute"] = 0 if compute is None or compute is self._flat_master else compute.nbytes
+        if self._gather is not None:
+            out["compute"] += sum(f.nbytes for u, f in zip(self.layout.units, self._gather.full)
+                                  if u.persistent and f is not None)
+        return out
+
+    # ---- zero.GatheredParameters ----
+
+    def _user_gather(self, params):
+        """Gather and pin the stage-3 units of ``params``; returns them."""
+        if self._gather is None:
+            return []
+        ks = sorted({self.layout.unit_of[self._index[id(p)]] for p in params})
+        for k in ks:
+            self._gather.materialize(k)
+            self._gather.pins[k] += 1
+        return ks
+
+    @torch.no_grad()
+    def _user_release(self, params, ks, modifier_rank=None):
+        """Unpin the units ``ks``; with ``modifier_rank`` (an index along the
+        data-parallel axes) first broadcast that rank's values of
+        ``params`` and write them into every rank's masters and compute
+        shards."""
+        if modifier_rank is not None:
+            by_param = {}
+            for (i, s, e, off) in self.layout.pieces:
+                by_param.setdefault(i, []).append((s, e, off))
+            for p in params:
+                i = self._index[id(p)]
+                comm.broadcast(p.data, src=modifier_rank, group=self.zero_plan.dp_axes)
+                flat = p.data.reshape(-1)
+                for s, e, off in by_param.get(i, []):
+                    self._flat_master[s:e].copy_(flat[off:off + e - s])
+                    if self._gather is not None and self._flat_compute is not self._flat_master:
+                        self._flat_compute[s:e].copy_(flat[off:off + e - s])
+        for k in ks:
+            self._gather.pins[k] -= 1
+            self._gather.release(k)
     # ---- the training API ----
 
     def train(self, mode: bool = True):
@@ -234,13 +480,40 @@ class DeepSpeedTorchEngine:
             raise RuntimeError(
                 "forward() called twice without backward(); for evaluation "
                 "use engine.eval() (then forward() is grad-free) or eval_batch()")
-        args = tuple(self._to_device(a) for a in args)
-        kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
-        out = (checkpointing.checkpoint_with(self._remat_policy, self.module, *args, **kwargs)
-               if self._remat_policy else self.module(*args, **kwargs))
+        args, kwargs = self._local_batch(args, kwargs)
+        with self._gather.saved_tensors() if self._gather is not None else contextlib.nullcontext():
+            out = (checkpointing.checkpoint_with(self._remat_policy, self.module, *args,
+                                                 **kwargs)
+                   if self._remat_policy else self.module(*args, **kwargs))
         loss = _extract_loss(out)
         self._pending = loss
+        if self.dp_world_size > 1:
+            self._local, loss = self._global_loss(loss, args, kwargs)
         return loss
+
+    def _local_batch(self, args, kwargs):
+        """The arguments on the device, each batch tensor cut to this
+        rank's rows."""
+        rows = self.zero_plan.batch_rows
+        return (tuple(rows(self._to_device(a)) for a in args),
+                {k: rows(self._to_device(v)) for k, v in kwargs.items()})
+
+    def _global_loss(self, loss, args, kwargs):
+        """``(local, global)``: this rank's loss weighted by its share of
+        the global count of counted labels, and the token mean over the
+        global batch (one all-reduce of the counts and the weighted
+        sums)."""
+        count = getattr(self.module, "loss_token_count", None)
+        n = count(*args, **kwargs) if count is not None else None
+        if n is None:
+            raise ValueError(
+                f"{type(self.module).__name__} gives no loss_token_count for this batch: across "
+                f"{self.dp_world_size} data-parallel ranks the engine weights each rank's loss "
+                "by its share of the tokens the global mean averages over")
+        lf, n = loss.float(), n.float()
+        both = comm.all_reduce(torch.stack([n, lf.detach() * n]), group=self.zero_plan.dp_axes)
+        denom = both[0].clamp(min=1.0)
+        return lf * (n / denom), both[1] / denom
 
     def backward(self, loss):
         """Gradients of ``loss / gas`` (times the loss scale under fp16)
@@ -248,16 +521,23 @@ class DeepSpeedTorchEngine:
         buffer (each gradient cast to the buffer's dtype first)."""
         if self._pending is None:
             raise RuntimeError("backward() called without a preceding forward()")
+        if self._local is not None:  # across ranks: the weighted local loss
+            loss, self._local = self._local, None
         scaled = loss.float() / self.gradient_accumulation_steps()
         if self._use_loss_scaling:
             scaled = scaled * self.scale_state.cur_scale
         scaled.backward()
-        narrow = self.grad_accum_dtype != torch.float32
-        with torch.no_grad():
-            for p, acc in zip(self._params, self._grad_acc):
-                if p.grad is not None:
-                    acc.add_(p.grad.to(acc.dtype) if narrow else p.grad)
-                    p.grad = None
+        if self._reducer is not None:  # stages 2-3: reduce-scattered into the shard
+            self._reducer.flush()
+            if self._gather is not None:
+                self._gather.release_all()
+        else:
+            narrow = self.grad_accum_dtype != torch.float32
+            with torch.no_grad():
+                for p, acc in zip(self._params, self._grad_acc):
+                    if p.grad is not None:
+                        acc.add_(p.grad.to(acc.dtype) if narrow else p.grad)
+                        p.grad = None
         self._pending = None
         self.losses = loss.detach()
         self.micro_steps += 1
@@ -285,13 +565,17 @@ class DeepSpeedTorchEngine:
         fp16)."""
         with record_function("optimizer_step"):  # names the step in a profile
             acc = self._flat_grad
-            grads = acc if acc.dtype == torch.float32 else acc.float()
+            grads = self._reduced_grads()
             if self._use_loss_scaling:
                 grads.div_(self.scale_state.cur_scale)
             # per parameter, then over the parameters (optax.global_norm's
             # shape): one fp32 sum over the whole buffer loses ~1e-5 on the CPU
-            gnorm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(self._views(grads))))
+            if self._sharded:
+                gnorm = torch.linalg.vector_norm(
+                    self._param_norms(self.layout.piece_views(grads)))
+            else:
+                gnorm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(self._views(grads))))
             overflow = None
             if self._use_loss_scaling:  # any non-finite gradient: a non-finite norm
                 overflow = torch.logical_not(torch.isfinite(gnorm))
@@ -299,14 +583,35 @@ class DeepSpeedTorchEngine:
             if clip > 0:
                 grads.mul_(torch.clamp(clip / (gnorm + 1e-6), max=1.0))
             self.optimizer.step(grads, skip=overflow)
-            if self._flat_compute is not None:  # the masters' cast, moved or not
-                self._flat_compute.copy_(self._flat_master)
+            self._refresh_compute()  # the masters' cast, moved or not
             overflow = self._no_overflow if overflow is None else overflow
             self.scale_state = loss_scaler.next_device_state(self._config.fp16_config,
                                                              self.scale_state, overflow)
             acc.zero_()
             self._last_grad_norm = gnorm
         return overflow
+
+    def _reduced_grads(self) -> torch.Tensor:
+        """This rank's fp32 gradients of its shard (the whole buffer at
+        stage 0), summed over the data-parallel world: stage 0 all-reduces
+        the buffer across ranks, stage 1 reduce-scatters it per unit over
+        the ZeRO group, stages 2-3 hold the group's sum already; then the
+        replicas of the group all-reduce the shard."""
+        plan, acc = self.zero_plan, self._flat_grad
+        if not self._sharded:
+            if self.dp_world_size > 1:
+                comm.all_reduce(acc, group=plan.dp_axes)
+            return acc if acc.dtype == torch.float32 else acc.float()
+        if plan.shard_grads:
+            grads = acc
+        else:
+            grads = torch.empty(self.layout.shard_numel, dtype=acc.dtype, device=acc.device)
+            for u in self.layout.units:
+                self.layout.unit_shard(grads, u).copy_(
+                    comm.reduce_scatter(self.layout.unit_full(acc, u), group=plan.zero_axes))
+        if plan.replica_axes:
+            comm.all_reduce(grads, group=plan.replica_axes)
+        return grads if grads.dtype == torch.float32 else grads.float()
 
     def _settle(self, overflows):
         """The host's bookkeeping of applied steps whose overflow flags it
@@ -401,10 +706,18 @@ class DeepSpeedTorchEngine:
 
     @torch.no_grad()
     def eval_batch(self, *args, **kwargs):
-        """The model's output with no gradient."""
-        args = tuple(self._to_device(a) for a in args)
-        kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
-        return self.module(*args, **kwargs)
+        """The model's output with no gradient; across ranks the global
+        batch's: a scalar loss as the token mean over it, a batch of
+        outputs gathered in row order."""
+        local_args, local_kwargs = self._local_batch(args, kwargs)
+        out = self.module(*local_args, **local_kwargs)
+        if self.dp_world_size == 1 or not isinstance(out, torch.Tensor):
+            return out
+        if out.dim() == 0:
+            return self._global_loss(out, local_args, local_kwargs)[1]
+        split = any(self.zero_plan.splits(self._to_device(a))
+                    for a in (*args, *kwargs.values()))
+        return comm.all_gather(out, group=self.zero_plan.dp_axes) if split else out
 
     # ---- info ----
 

@@ -66,7 +66,10 @@ _COMMON_KEYS = {"lr", "betas", "eps", "weight_decay"}
 class FlatOptimizer:
     """An optimizer over the flat fp32 buffer ``params``; ``bounds`` are
     the ``(start, end)`` of each parameter in it (LAMB's trust ratio is
-    per parameter). Subclasses define ``_update(grads, lr, step, skip)``
+    per parameter). Under ZeRO ``params`` is a rank's shard of the
+    masters, ``bounds`` the pieces of parameters it holds, and ``norms``
+    maps the pieces' views to the norms of their whole parameters (partial
+    sums all-reduced over the ZeRO group). Subclasses define ``_update(grads, lr, step, skip)``
     (``lr`` and ``step`` one-element fp32 device tensors, ``skip`` a flag
     or None) and keep their state as flat fp32 buffers in ``self.state``."""
 
@@ -76,6 +79,7 @@ class FlatOptimizer:
             raise ValueError("the optimizer takes one flat fp32 master buffer")
         self.params = params
         self.bounds = list(bounds)
+        self.norms = None
         self.lr = float(lr)
         self.lr_fn = lr_fn
         self.state: Dict[str, torch.Tensor] = {}
@@ -183,7 +187,8 @@ class Lamb(FlatOptimizer):
     def _update(self, grads, lr, step, skip):
         u = lamb_update_(grads, self.state["m"], self.state["v"], step, *self.betas,
                          self.eps, out=grads, skip=skip)
-        lamb_apply_trust_(self.params, u, lr, self.weight_decay, self.bounds, skip)
+        lamb_apply_trust_(self.params, u, lr, self.weight_decay, self.bounds, skip,
+                          norms=self.norms)
 
 
 def _keep_unless(skip, buf, new):
@@ -227,12 +232,14 @@ class Adagrad(FlatOptimizer):
 def build_optimizer(name: Optional[str], params: torch.Tensor,
                     opt_params: Optional[Dict] = None,
                     lr_fn: Optional[Callable[[int], float]] = None,
-                    bounds: Optional[Sequence[Tuple[int, int]]] = None) -> FlatOptimizer:
+                    bounds: Optional[Sequence[Tuple[int, int]]] = None,
+                    norms=None) -> FlatOptimizer:
     """The optimizer for config ``optimizer.type`` (default ``adamw``)
     over the flat fp32 master buffer ``params``; ``bounds``: each
     parameter's ``(start, end)`` in it (default: one parameter).
     ``opt_params`` takes ``lr``, ``betas``, ``eps`` and ``weight_decay``,
-    and for sgd ``momentum`` and ``nesterov``."""
+    and for sgd ``momentum`` and ``nesterov``. ``norms``: see
+    ``FlatOptimizer``."""
     opt_params = dict(opt_params or {})
     name = (name or ADAMW_OPTIMIZER).lower()
     if name in MU_OPTIMIZERS or name in ONEBIT_OPTIMIZERS:
@@ -250,17 +257,20 @@ def build_optimizer(name: Optional[str], params: torch.Tensor,
     wd = float(opt_params.get("weight_decay", 0.0))
     common = (params, bounds, lr, lr_fn)
     if name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
-        return Adam(*common, betas, eps, wd, l2=name == ADAM_OPTIMIZER)
-    if name == LAMB_OPTIMIZER:
-        return Lamb(*common, betas, eps, wd)
-    if name == LION_OPTIMIZER:
-        return Lion(*common, tuple(user_betas) if user_betas is not None
-                    else LION_DEFAULT_BETAS, wd)
-    if name == SGD_OPTIMIZER:
-        return SGD(*common, float(opt_params.get("momentum", 0.0)),
-                   bool(opt_params.get("nesterov", False)), wd)
-    if name == ADAGRAD_OPTIMIZER:
-        return Adagrad(*common, eps)
-    raise NotImplementedError(
-        f"optimizer {name!r} is not ported; the port has adam, adamw, lamb, lion, "
-        "sgd and adagrad")
+        opt = Adam(*common, betas, eps, wd, l2=name == ADAM_OPTIMIZER)
+    elif name == LAMB_OPTIMIZER:
+        opt = Lamb(*common, betas, eps, wd)
+    elif name == LION_OPTIMIZER:
+        opt = Lion(*common, tuple(user_betas) if user_betas is not None
+                   else LION_DEFAULT_BETAS, wd)
+    elif name == SGD_OPTIMIZER:
+        opt = SGD(*common, float(opt_params.get("momentum", 0.0)),
+                  bool(opt_params.get("nesterov", False)), wd)
+    elif name == ADAGRAD_OPTIMIZER:
+        opt = Adagrad(*common, eps)
+    else:
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported; the port has adam, adamw, lamb, lion, "
+            "sgd and adagrad")
+    opt.norms = norms
+    return opt

@@ -14,7 +14,7 @@ window layer and its decode step over an fp32 cache, Llama's 768-row
 chunk 2200 deep and its decode step over an int8 cache.
 
     python3 flash_ab.py TREE TAG [--flex] [--fp32] [--fp32-engine] [--k8]
-                             [--k8-limits=N,N,...] [--rows] [--norm-loads] [--k7]
+                             [--k8-limits=N,N,...] [--rows] [--norm-loads] [--k7] [--zero]
 
 TREE is the root of a checkout (this one: ``.``; another commit: unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists,
@@ -53,7 +53,11 @@ parameters (``LAYER_PARAMS``), graph-timed beside its bound, its ulps
 against the plain version and torch.optim's fused step, and the
 fingerprints of one AdamW step's outputs from a seeded state (equal
 fingerprints across trees: the same bits), through whichever scalars the
-tree's ``adam_step_`` takes (numbers, or device tensors).
+tree's ``adam_step_`` takes (numbers, or device tensors). ``--zero`` runs
+the tree's ``chip_smoke.py`` ``training_zero`` part (a) alone instead:
+world 1 over NCCL, ZeRO stages 0-3 at the Llama-3-8B width
+(``zero_run``), each stage's step and window times, losses, peak memory
+and K7 launches.
 Prints one JSON line tagged TAG. To compare two commits on one card, run them in turns in one
 command: parent, change, change, parent.
 """
@@ -412,6 +416,28 @@ def fp32_engine(cs) -> dict:
     return rec
 
 
+def zero_cases(cs) -> dict:
+    """``training_zero`` (a) from the tree: stages 0-3 at world 1 over NCCL
+    (a ``file://`` store), each 3 steps and a 2-step window."""
+    import tempfile
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="zero_ab_", dir=os.path.join(cs.ROOT, "build"))
+    os.environ["DS_TPU_ATTN_CACHE_DIR"] = tempfile.mkdtemp(prefix="attn_cache_", dir=tmp)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        for stage in (0, 1, 2, 3):
+            engine, rec = cs.zero_run(stage, None, check_sync=True)
+            out[f"stage{stage}"] = {k: rec[k] for k in (
+                "window_ms_per_step", "step_ms", "losses", "peak_memory_gib", "k7_launches")}
+            del engine
+            cs.free_memory()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -439,6 +465,10 @@ def main() -> int:
         out["norm_loads"] = norm_loads(cs, gen)
         print(json.dumps(out), flush=True)
         return 0 if out["norm_loads"]["ok"] else 1
+    if "--zero" in sys.argv:
+        out["zero"] = zero_cases(cs)
+        print(json.dumps(out), flush=True)
+        return 0
     if "--k7" in sys.argv:
         out["k7"] = k7_cases(cs, gen)
         print(json.dumps(out), flush=True)

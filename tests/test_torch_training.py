@@ -351,9 +351,9 @@ def test_bf16_engine_keeps_fp32_masters_and_bf16_compute():
 
 # sliding_window and attn_logit_softcapping train now (test_torch_mistral.py),
 # and so do Gemma-2's final_logit_softcapping and sandwich_norm
-# (test_torch_gemma2.py), and remat (test_torch_remat.py); their places hold
-# knobs that still raise
-@pytest.mark.parametrize("option", [dict(clip_qkv=8.0), dict(scan_layers=True),
+# (test_torch_gemma2.py), remat (test_torch_remat.py) and scan_layers
+# (test_torch_zero.py); their places hold knobs that still raise
+@pytest.mark.parametrize("option", [dict(clip_qkv=8.0), dict(parallel_residual=True),
                                     dict(qk_norm=True),
                                     dict(post_norm=True),
                                     dict(num_local_experts=4),
@@ -364,12 +364,16 @@ def test_training_model_refuses_unported_options(option):
         LlamaForCausalLM(LlamaConfig.tiny(**option), device="cpu")
 
 
+# ZeRO stages 1-3 and the mesh run now (test_torch_zero.py); their places
+# hold ZeRO offload and the bucketed gradient wire, which still raise
 @pytest.mark.parametrize("config,match", [
-    ({"train_batch_size": 2, "zero_optimization": {"stage": 2}}, "stage"),
+    ({"train_batch_size": 2, "zero_optimization": {"stage": 3,
+                                                   "offload_param": {"device": "cpu"}}},
+     "offload_param"),
     # fp16_master_weights_and_grads is accepted now (read by nothing, as in JAX)
     ({"train_batch_size": 2, "activation_checkpointing": {"partition_activations": True}},
      "partition_activations"),
-    ({"train_batch_size": 2, "mesh": {"fsdp": 2}}, "mesh"),
+    ({"train_batch_size": 2, "gradient_comm": {"enabled": True}}, "gradient_comm"),
     ({"train_batch_size": 2, "optimizer": {"type": "OneBitLamb"}}, "lamb"),
     ({"train_batch_size": 2, "optimizer": {"type": "MuAdamW"}}, "muadamw"),
 ])
