@@ -3952,6 +3952,304 @@ def phase_training_zero() -> dict:
     return rec
 
 
+# the training_grad_comm phase: the training_zero phase's model (Llama-3-8B
+# width, ZERO_LAYERS layers, bf16, the chunked CE, dots_saveable remat) at
+# gas 2 through the bucketed gradient wire (gradient_comm), on the same
+# global batch of ZERO_ROWS x ZERO_SEQ tokens a micro-step
+GC_GAS, GC_STEPS = 2, 2
+GC_ADAMW = ZERO_CONFIG["optimizer"]
+
+
+def wire_section(tier: str, overlap: bool) -> dict:
+    return {"enabled": True, "comm_quantization": tier, "overlap_comm": overlap}
+
+
+# part (b): name, stage, gradient_comm (None: the default reduce), gas,
+# steps, optimizer
+GC_RANK_RUNS = (
+    ("fp32_s2_overlap", 2, wire_section("fp32", True), GC_GAS, GC_STEPS, GC_ADAMW),
+    ("int8_s1_overlap", 1, wire_section("int8", True), GC_GAS, 1, GC_ADAMW),
+    ("onebit_s0_boundary", 0, wire_section("onebit", False), GC_GAS, 1, GC_ADAMW),
+    ("onebitadam_wire", 0, None, 1, 4,
+     {"type": "OneBitAdam", "params": {"lr": ZERO_LR, "weight_decay": 0.01, "freeze_step": 2,
+                                       "comm_backend_name": "nccl"}}),
+    ("muadamw_s1", 1, None, 1, 2, {"type": "MuAdamW", "params": {"lr": ZERO_LR,
+                                                                 "weight_decay": 0.01}}),
+)
+
+
+def gc_batches(n: int):
+    """``n`` micro-batches ``[n, ZERO_ROWS, ZERO_SEQ]`` drawn on the card
+    from a seed (every process draws the same)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    return torch.randint(0, 128256, (n, ZERO_ROWS, ZERO_SEQ), generator=gen, device="cuda")
+
+
+def half_width_shapes(model) -> dict:
+    """muP's base shapes: each of ``model``'s shapes at half its width
+    (every dimension but the vocabulary's halved)."""
+    from deepspeed_tpu_torch.runtime.mup import make_base_shapes
+    return {k: [d if d == 128256 else d // 2 for d in shape]
+            for k, shape in make_base_shapes(model).items()}
+
+
+def gc_run(stage: int, wire_cfg, gas: int, steps: int, optimizer, mesh=None, check_sync=False,
+           after_step=None):
+    """One run: a fresh model from seed 0 through ``initialize`` at
+    ``stage`` with ``gradient_comm`` section ``wire_cfg`` (None: none) and the
+    comms logger banking the wire's bytes (its collectives untimed), then
+    ``steps`` ``train_batch`` calls of ``gas`` micro-batches, each under
+    ``set_sync_debug_mode("error")`` with ``check_sync`` (its one fetch
+    outside). K7's counts are set to 0 just before the steps and read
+    just after. Returns the engine and the run's record."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import bucketing, reset_mesh_context
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    reset_mesh_context()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=ZERO_LAYERS, ce_chunk_size=8192, remat=True,
+                                remat_policy="dots_saveable")
+    model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    if optimizer["type"] == "MuAdamW":
+        optimizer = {"type": "MuAdamW", "params": dict(optimizer["params"],
+                                                       base_shapes=half_width_shapes(model))}
+    config = {"train_batch_size": ZERO_ROWS * gas, "gradient_accumulation_steps": gas,
+              "bf16": {"enabled": True}, "optimizer": optimizer,
+              "zero_optimization": {"stage": stage},
+              "comms_logger": {"enabled": True, "prof_all": False}}
+    if wire_cfg is not None:
+        config["gradient_comm"] = wire_cfg
+    if mesh is not None:
+        config["mesh"] = mesh
+    t = time.monotonic()
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+    torch.cuda.synchronize()
+    logger = get_comms_logger()
+    logger.comms_dict = {}
+    rec = {"stage": stage, "mesh": mesh, "gradient_comm": wire_cfg, "gas": gas,
+           "optimizer": optimizer["type"], "engine_build_s": time.monotonic() - t,
+           "wired": engine._wire is not None, "onebit_wire": engine._onebit_wire,
+           "losses": [], "step_ms": [], "fetches": []}
+    data = gc_batches(steps * gas)
+    fetch = engine._fetch
+
+    def outside(x):
+        torch.cuda.set_sync_debug_mode(0)
+        rec["fetches"].append(int(x.numel()))
+        return fetch(x)
+
+    engine._fetch = outside
+    torch.cuda.reset_peak_memory_stats()
+    fo.adam_step_.launches = fo.lamb_update_.launches = 0
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        if check_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec["losses"].append(engine.train_batch(iter(
+                [(data[i * gas + j], data[i * gas + j]) for j in range(gas)])))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rec["step_ms"].append(1e3 * (time.monotonic() - t))
+        if after_step is not None:
+            after_step(engine, i)
+    del engine._fetch
+    rec["k7_launches"] = fo.adam_step_.launches
+    rec["lamb_update_launches"] = fo.lamb_update_.launches
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["state_bytes"] = engine.state_bytes()
+    if engine._wire is not None:
+        w = engine.dp_world_size
+        tier = wire_cfg["comm_quantization"]
+        per_step = bucketing.bucket_wire_bytes(engine._bucket_layout, w, tier)
+        banked = logger.comms_dict.get(f"bucketed_grad_comm[{tier}]", {})
+        rec["wire"] = {"stats": dict(engine._wire.stats), "bucket_wire_bytes": per_step,
+                       "banked": {str(size): v[0] for size, v in banked.items()},
+                       "n_buckets": len(engine._bucket_layout.buckets)}
+    if engine._onebit_wire:  # the compressed momentum: each parameter's signs and scale
+        from deepspeed_tpu_torch.comm.compressed import wire_bytes
+        rec["onebit_wire_bytes_a_step"] = sum(
+            wire_bytes(p.numel(), engine.dp_world_size)["compressed_bytes"]
+            for p in engine._params)
+        rec["error_feedback_moved"] = bool(  # a reduction: no temporary of the state's size
+            torch.linalg.vector_norm(engine.optimizer.state["error"], float("inf")) > 0)
+    if optimizer["type"] == "MuAdamW":
+        rec["multipliers"] = sorted(set(engine.optimizer._mults()))
+    return engine, rec
+
+
+def _gc_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """Part (b)'s rank: ``GC_RANK_RUNS`` over gloo with both ranks on the
+    one card (NCCL over two cards where there are two). Rank 1 holds the
+    fp32 tier's second K7 launch, on its shard of the bucket-laid state,
+    against the plain version. Writes its record to ``out_dir`` after each
+    run. Two ranks' engines share the card: the allocator grows its
+    segments, so freed blocks are reused across sizes."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    sys.path.insert(0, ROOT)
+    from deepspeed_tpu_torch import comm
+    two_cards = torch.cuda.device_count() >= 2
+    os.environ["LOCAL_RANK"] = str(rank if two_cards else 0)
+    comm.init_distributed(dist_backend="nccl" if two_cards else "gloo",
+                          init_method=f"file://{store}", rank=rank, world_size=world)
+    out = {"rank": rank, "backend": "nccl on two cards" if two_cards else "gloo on one card",
+           "runs": {}}
+    for name, stage, wire_cfg, gas, steps, optimizer in GC_RANK_RUNS:
+        taken = {}
+
+        def arm(engine, i, name=name):
+            if name != "fp32_s2_overlap" or rank != 1:
+                return
+            if i == 0:
+                taken["inputs"] = capture_k7_inputs(engine)
+            else:
+                taken["check"] = dict(k7_vs_plain_at_path_size(engine, taken.pop("inputs")),
+                                      shard_numel=engine.layout.shard_numel)
+
+        engine, rec = gc_run(stage, wire_cfg, gas, steps, optimizer, mesh={"data": world},
+                             after_step=arm)
+        if "check" in taken:
+            rec["k7_shard_check"] = taken.pop("check")
+        rec["shard_numel"], rec["full_numel"] = engine.layout.shard_numel, engine.layout.full_numel
+        out["runs"][name] = rec
+        del engine
+        free_memory()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_training_grad_comm() -> dict:
+    """The bucketed gradient wire, the 1-bit optimizers' wire and muP at
+    the Llama-3-8B width (``ZERO_LAYERS`` layers, bf16, AdamW on K7, the
+    chunked CE, gas 2): (a) world 1 over NCCL in this process: the default
+    reduce at stage 0, then the fp32 tier at stages 0, 1 and 2 with and
+    without overlap, each step under ``set_sync_debug_mode("error")``, its
+    losses and every master bit-equal to the default reduce's after each
+    step (one rank: the same additions in the same order), K7 once a step;
+    stage 3 with the wire raises. (b) Two ranks spawned on the one card
+    over gloo (not a speed of NCCL): the fp32 tier with overlap at stage
+    2, int8 with overlap at stage 1, onebit at the boundary at stage 0,
+    1-bit Adam with ``comm_backend_name`` (freeze_step 2, 4 steps) and
+    muadamw with the base shapes of half the width (2 steps, stage 1).
+    Checks: the fp32 tier's losses within the bf16 tolerance of (a); a
+    quantized tier's within the JAX tests' 0.05 of it; each step's wire
+    bytes banked as ``bucket_wire_bytes``; K7 once a step a rank (1-bit
+    Adam: its 2 warmup steps; muadamw: K7's Adam pass); rank 1's K7 on its
+    bucket-laid shard within ``K7_ULPS`` of the plain version. Prints per
+    run the step ms, the wire bytes and the peak GiB."""
+    import math
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.comm import reset_mesh_context
+    tmp = tempfile.mkdtemp(prefix="grad_comm_", dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store1')}",
+                            rank=0, world_size=1)
+    runs, checks, prints = {}, {}, {}
+    try:
+        for stage, overlap in ((0, None), (0, True), (0, False), (1, True), (1, False),
+                               (2, True), (2, False)):
+            wire_cfg = None if overlap is None else wire_section("fp32", overlap)
+            name = ("default_s0" if wire_cfg is None
+                    else f"fp32_s{stage}_{'overlap' if overlap else 'boundary'}")
+            step_prints = []
+            engine, rec = gc_run(stage, wire_cfg, GC_GAS, GC_STEPS, GC_ADAMW, check_sync=True,
+                                 after_step=lambda e, i: step_prints.append(
+                                     master_fingerprints(e)))
+            prints[name] = step_prints
+            runs[f"a_world1_{name}"] = rec
+            del engine
+            free_memory()
+        base = runs["a_world1_default_s0"]
+        for name in prints:
+            rec = runs[f"a_world1_{name}"]
+            checks[f"a_{name}_one_fetch_a_step_no_sync"] = rec["fetches"] == [2] * GC_STEPS
+            checks[f"a_{name}_k7_once_a_step"] = rec["k7_launches"] == GC_STEPS
+            if name == "default_s0":
+                checks["a_default_s0_not_wired"] = not rec["wired"]
+                continue
+            checks[f"a_{name}_wired"] = rec["wired"]
+            checks[f"a_{name}_losses_bit_equal"] = rec["losses"] == base["losses"]
+            checks[f"a_{name}_masters_bit_equal_every_step"] = (
+                prints[name] == prints["default_s0"])
+        try:
+            gc_run(3, wire_section("fp32", True), GC_GAS, 1, GC_ADAMW)
+            checks["a_stage3_with_the_wire_raises"] = False
+        except NotImplementedError as e:
+            checks["a_stage3_with_the_wire_raises"] = "zero3_schedule" in str(e)
+    finally:
+        dist.destroy_process_group()
+        reset_mesh_context()
+    emit({"training_grad_comm_a": checks})
+    free_memory()
+    out_dir = tempfile.mkdtemp(prefix="ranks_", dir=tmp)
+    t = time.monotonic()
+    mp.start_processes(_gc_rank, args=(2, os.path.join(tmp, "store2"), out_dir), nprocs=2,
+                       start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    spawn_s = time.monotonic() - t
+    base = runs["a_world1_default_s0"]["losses"]
+    for rk in ranks:
+        for name, rec in rk["runs"].items():
+            tag = f"b_rank{rk['rank']}_{name}"
+            n = len(rec["losses"])
+            rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], base))
+            rec["max_rel_loss_diff_vs_a"] = rel
+            finite = all(math.isfinite(x) for x in rec["losses"])
+            if name.startswith("fp32"):
+                checks[f"{tag}_losses_within_bf16_tolerance"] = finite and rel <= ZERO_LOSS_RTOL
+            elif rec["gradient_comm"] is not None:
+                checks[f"{tag}_losses_within_0.05"] = finite and rel <= 0.05
+            else:
+                checks[f"{tag}_losses_finite"] = finite
+            if rec["gradient_comm"] is not None:
+                wire = rec["wire"]
+                per_step = wire["bucket_wire_bytes"]["wire_bytes"]
+                checks[f"{tag}_wired"] = rec["wired"]
+                checks[f"{tag}_wire_bytes_each_step"] = (
+                    wire["stats"] == {"steps": n, "wire_bytes": n * per_step}
+                    and wire["banked"] == {str(per_step): n})
+                checks[f"{tag}_k7_once_a_step"] = rec["k7_launches"] == n
+            elif rec["optimizer"] == "OneBitAdam":
+                checks[f"{tag}_wire_engaged"] = rec["onebit_wire"]
+                checks[f"{tag}_k7_at_the_warmup_steps"] = rec["k7_launches"] == 2
+                checks[f"{tag}_error_feedback_moved"] = rec["error_feedback_moved"]
+            else:
+                checks[f"{tag}_k7_adam_pass_once_a_step"] = rec["lamb_update_launches"] == n
+                checks[f"{tag}_half_width_multipliers"] = 0.5 in rec["multipliers"]
+        ratio = {t: rk["runs"][f"{t}"]["wire"]["bucket_wire_bytes"] for t in
+                 ("int8_s1_overlap", "onebit_s0_boundary")}
+        rk["wire_ratio_vs_fp32"] = {t: v["wire_bytes"] / v["fp32_bytes"] for t, v in ratio.items()}
+    shard = ranks[1]["runs"]["fp32_s2_overlap"]["k7_shard_check"]
+    checks["b_rank1_k7_at_bucket_shard_within_ulps"] = shard["max_ulps"] <= K7_ULPS
+    checks["b_backend_named"] = all(rk["backend"] for rk in ranks)
+    rec = {"phase": "training_grad_comm", "config": f"llama3_8b(num_hidden_layers={ZERO_LAYERS}, "
+           "ce_chunk_size=8192, remat dots_saveable), random bf16 weights, AdamW lr "
+           f"{ZERO_LR} wd 0.01, no clipping; {ZERO_ROWS} x {ZERO_SEQ} tokens a micro-step",
+           "gpu": gpu_identity(), "runs": runs, "ranks": ranks, "b_spawn_s": spawn_s,
+           "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    for rk in ranks:  # per run: step ms, wire bytes, peak GiB, each on a line of its own
+        for name, run in rk["runs"].items():
+            emit({"training_grad_comm_rank": rk["rank"], "run": name, "backend": rk["backend"],
+                  "step_ms_" + rk["backend"].replace(" ", "_"): run["step_ms"],
+                  "wire_bytes_a_step": (run["wire"]["bucket_wire_bytes"]["wire_bytes"]
+                                        if "wire" in run else run.get("onebit_wire_bytes_a_step")),
+                  "peak_memory_gib": run["peak_memory_gib"], "state_bytes": run["state_bytes"]})
+    if not rec["ok"]:
+        raise SystemExit(f"training_grad_comm checks failed: {checks}")
+    return rec
+
+
 def phase_attn_sweep() -> dict:
     """The attention sweep (``ops/attn_sweep.py``) once at the Mistral
     phase's shape, into the run's fresh cache directory: each leg's K1/K2
@@ -4841,6 +5139,7 @@ def main() -> int:
     gemma_training = timed("training_gemma2", phase_training_gemma2)
     fused = timed("training_fused", phase_training_fused)
     zero = timed("training_zero", phase_training_zero)
+    grad_comm = timed("training_grad_comm", phase_training_grad_comm)
     bf16 = timed("serving", phase_serving, kernels)
     timed("serving_int8", phase_serving_int8, kernels, bf16)
     del bf16
@@ -4868,9 +5167,19 @@ def main() -> int:
     for rk in zero["ranks"]:
         for name, rec in rk["runs"].items():
             by_phase["adam_step_"][f"training_zero/rank{rk['rank']}_{name}"] = rec["k7_launches"]
+    for name, rec in grad_comm["runs"].items():
+        by_phase["adam_step_"][f"training_grad_comm/{name}"] = rec["k7_launches"]
     by_phase["lion_step_"] = {"training_optimizers/lion_bf16": runs["lion_bf16"]["k7_launches"]}
     by_phase["lamb_update_"] = {
         "training_optimizers/lamb_bf16": runs["lamb_bf16"]["k7_launches"]}
+    for rk in grad_comm["ranks"]:
+        for name, rec in rk["runs"].items():
+            if rec["k7_launches"]:
+                by_phase["adam_step_"][f"training_grad_comm/rank{rk['rank']}_{name}"] = \
+                    rec["k7_launches"]
+            if rec["lamb_update_launches"]:
+                by_phase["lamb_update_"][f"training_grad_comm/rank{rk['rank']}_{name}"] = \
+                    rec["lamb_update_launches"]
     for name, n in runs["adamw_fp16"]["flash_fp16_launches"].items():
         by_phase[name + "_fp16"] = {"training_optimizers/adamw_fp16": n}
     for run, rec in sparse["runs"].items():
@@ -4888,7 +5197,10 @@ def main() -> int:
                                   "adamw_fp16": runs["adamw_fp16"]["k7_path_check"],
                                   "training_fused": fused["k7_path_check"],
                                   "training_zero_rank1_stage3_shard":
-                                  zero["ranks"][1]["runs"]["stage3"]["k7_shard_check"]},
+                                  zero["ranks"][1]["runs"]["stage3"]["k7_shard_check"],
+                                  "training_grad_comm_rank1_fp32_s2_bucket_shard":
+                                  grad_comm["ranks"][1]["runs"]["fp32_s2_overlap"]
+                                  ["k7_shard_check"]},
                    "lion_step_": {"lion_bf16": runs["lion_bf16"]["k7_path_check"]},
                    "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
     # ptxas's report beside the wgmma kernels of the narrower widths and K4's

@@ -1,8 +1,9 @@
 """Collectives over the named mesh (port of ``deepspeed_tpu/comm``):
 ``comm.py`` (the functional API over ``torch.distributed``), ``mesh.py``
 (the named mesh and its axis groups), ``reduce_op.py`` and
-``comms_logging.py``. The bucketed gradient wire (``bucketing.py``,
-``compressed.py``) and ``exchange_host_state`` are not ported yet."""
+``comms_logging.py``, and the gradient wire's buckets and tiers
+(``bucketing.py``) and 1-bit compression (``compressed.py``).
+``exchange_host_state`` is not ported yet."""
 
 from .comm import *  # noqa: F401,F403
 from .comm import (all_reduce, all_gather, all_gather_into_tensor, reduce_scatter,

@@ -14,8 +14,10 @@ ZeroConfig``: every key with its defaults and ``stage3_*`` aliases, stages
 0-3), ``mesh`` (``:483 MeshConfig``), ``comms_logger``, ``data_types``
 (``grad_accum_dtype``, ``feature_configs.py:154``) and
 ``activation_checkpointing`` (``:161``; ``remat_policy`` wraps the
-model's whole forward, ``runtime/activation_checkpointing/``). Any other
-key (``gradient_comm``, ``async_pipeline``, ...), or one of these set to
+model's whole forward, ``runtime/activation_checkpointing/``) and
+``gradient_comm`` (``:188 GradientCommConfig``, the bucketed gradient
+wire, ``runtime/grad_comm.py``). Any other key (``async_pipeline``,
+...), or one of these set to
 what the port does not run yet (ZeRO offload, ZeRO++'s quantized weights
 and gradients and hpZ, MiCS, ``partition_activations``,
 ``cpu_checkpointing``), raises: nothing is ignored silently. fp16's
@@ -36,7 +38,8 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 _KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
          GRADIENT_ACCUMULATION_STEPS, "optimizer", "scheduler", "bf16", "fp16",
          "gradient_clipping", "zero_optimization", "data_types",
-         "activation_checkpointing", "mesh", "comms_logger"}
+         "activation_checkpointing", "mesh", "comms_logger", "gradient_comm"}
+WIRE_TIERS = ("fp32", "int8", "onebit")
 
 
 class DeepSpeedConfigError(Exception):
@@ -181,6 +184,58 @@ class ZeroConfig:
                                           "belongs to the resilience layer")
 
 
+class GradientCommConfig:
+    """The ``gradient_comm`` section (``feature_configs.py:188``): the
+    bucketed gradient wire. ``bucket_size_mb`` (> 0) is each flat bucket's
+    budget, ``comm_quantization`` the wire tier (``fp32``, ``int8`` or
+    ``onebit``), ``quantization_block_size`` (> 0) the int8 tier's block,
+    ``error_feedback`` carries a quantized tier's residual into the next
+    micro-step, ``overlap_comm`` reduce-scatters each micro-step's buckets
+    as soon as its backward ends, and ``comm_quantization_per_dtype`` maps
+    a dtype's name (``"float32"``, ``"bfloat16"``) to its bucket's tier.
+    ``active``: the wire is asked for (``enabled``, overlap, a quantized
+    tier or an override)."""
+
+    _DEFAULTS = {"enabled": False, "bucket_size_mb": 25.0, "comm_quantization": "fp32",
+                 "quantization_block_size": 256, "error_feedback": True,
+                 "overlap_comm": False, "comm_quantization_per_dtype": {}}
+
+    def __init__(self, section: Dict[str, Any]):
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, section.get(key, default))
+        self.enabled, self.error_feedback, self.overlap_comm = (
+            bool(self.enabled), bool(self.error_feedback), bool(self.overlap_comm))
+        self.bucket_size_mb = float(self.bucket_size_mb)
+        self.quantization_block_size = int(self.quantization_block_size)
+        for key in ("bucket_size_mb", "quantization_block_size"):
+            if not getattr(self, key) > 0:
+                raise DeepSpeedConfigError(f"gradient_comm.{key} must be > 0")
+        self.comm_quantization = self._tier(self.comm_quantization, "comm_quantization")
+        if not isinstance(self.comm_quantization_per_dtype, dict):
+            raise DeepSpeedConfigError("gradient_comm.comm_quantization_per_dtype must be a dict")
+        self.comm_quantization_per_dtype = {
+            str(k): self._tier(v, f"comm_quantization_per_dtype[{k!r}]")
+            for k, v in self.comm_quantization_per_dtype.items()}
+
+    @staticmethod
+    def _tier(value, key) -> str:
+        value = str(getattr(value, "value", value))
+        if value not in WIRE_TIERS:
+            raise DeepSpeedConfigError(f"gradient_comm.{key} must be one of {WIRE_TIERS}, "
+                                       f"got {value!r}")
+        return value
+
+    @property
+    def active(self) -> bool:
+        return (self.enabled or self.overlap_comm or self.comm_quantization != "fp32"
+                or bool(self.comm_quantization_per_dtype))
+
+    def tier_for_dtype(self, dtype) -> str:
+        """The tier of a bucket of ``dtype`` (a torch dtype or its name)."""
+        key = str(dtype).replace("torch.", "")
+        return self.comm_quantization_per_dtype.get(key, self.comm_quantization)
+
+
 class MeshConfig:
     """The ``mesh`` section (``feature_configs.py:483``): each axis's size,
     -1 filling it with the remaining devices, and ``axis_order``."""
@@ -245,6 +300,8 @@ class DeepSpeedTorchConfig:
         self.zero_config = ZeroConfig(_section(pd, "zero_optimization",
                                                set(ZeroConfig._DEFAULTS) | set(ZeroConfig.ALIASES)))
         self.mesh_config = MeshConfig(_section(pd, "mesh", MeshConfig._DEFAULTS))
+        self.gradient_comm_config = GradientCommConfig(
+            _section(pd, "gradient_comm", GradientCommConfig._DEFAULTS))
         from ..comm.comms_logging import CommsLoggerConfig
         self.comms_config = CommsLoggerConfig(_section(pd, "comms_logger",
                                                        CommsLoggerConfig._DEFAULTS))

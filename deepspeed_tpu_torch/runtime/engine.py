@@ -93,8 +93,22 @@ across ranks all-reduces the whole accumulation buffer at the boundary.
 The ``pipe``, ``seq``, ``expert`` and ``model`` axes are not ported yet
 and raise.
 
-Not ported yet (``ROADMAP.md``): offload, the bucketed gradient wire
-(``gradient_comm``), the async step window (``_AsyncStepWindow``,
+The wires (``:888-970``). With ``gradient_comm`` active and supported,
+``train_batch`` runs the bucketed gradient wire (``runtime/grad_comm.py``)
+at any ``gradient_accumulation_steps``, the flat state is laid out by its
+bucket plan, and ``fused_train_step(s)`` raise; stage 3 with the wire
+raises ``NotImplementedError``. With ``onebitadam`` or ``onebitlamb`` and
+``comm_backend_name`` at gas 1, ``fused_train_step`` (and so
+``train_batch``) runs the compressed momentum exchange
+(``runtime/onebit_wire.py``) from step ``freeze_step`` on, decided on the
+host by the step number, and ``fused_train_steps`` raises. It takes
+precedence over ``gradient_comm``. A config either wire cannot run (fp16,
+axes beyond data and fsdp, ...) logs a warning and keeps the default
+reduce, as the JAX engine does. ``forward``/``backward``/``step`` always
+keep the default reduce.
+
+Not ported yet (``ROADMAP.md``): offload, the scheduled ZeRO-3 store
+(``zero3_schedule.py``), the async step window (``_AsyncStepWindow``,
 ``get_loss``), checkpointing, resilience and observability. The engine
 runs on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA
 it raises.
@@ -116,9 +130,12 @@ from ..utils.dtypes import resolve_dtype
 from . import loss_scaler
 from .activation_checkpointing import checkpointing
 from .dataloader import DeepSpeedDataLoader
+from .grad_comm import GradCommWire, grad_comm_supported, plan_wire
 from .lr_schedules import get_lr_schedule
 from .optimizers import ADAM_DEFAULT_BETAS, build_optimizer
 from .zero3 import GatherUnits, GradReducer
+from .onebit import ONEBIT_DEFAULT_FREEZE_STEP
+from .onebit_wire import wire_step, wire_supported
 from .zero_governor import max_live_advisory
 from .zero_sharding import (FlatLayout, Unit, ZeroShardingPlan, flat_bounds,  # noqa: F401
                             model_units)
@@ -194,7 +211,10 @@ class DeepSpeedTorchEngine:
         self._training = True
         self._last_grad_norm = None
         self._local = None  # this step's local loss, weighted for the global mean
-        self._init_state(model_parameters)
+        self._onebit_wire, self._wire_freeze_step = False, 0
+        bucketed = self._choose_wire()
+        self._init_state(model_parameters, bucketed)
+        self._wire = GradCommWire(self, self._bucket_layout) if bucketed else None
         if zc.stage >= 3:
             advice = max_live_advisory(sum(p.numel() for p in self._params),
                                        zc.max_live_parameters,
@@ -211,10 +231,13 @@ class DeepSpeedTorchEngine:
                                                 self._config.scheduler_params,
                                                 base_lr=base_lr)
         lr_fn = self.lr_scheduler.lr_at if self.lr_scheduler is not None else None
-        self.optimizer = build_optimizer(self._config.optimizer_name, self._flat_master,
-                                         self._config.optimizer_params, lr_fn,
-                                         bounds=self._bounds,
-                                         norms=self._piece_norms if self._sharded else None)
+        self.optimizer = build_optimizer(
+            self._config.optimizer_name, self._flat_master, self._config.optimizer_params,
+            lr_fn, bounds=self._bounds, norms=self._piece_norms if self._sharded else None,
+            sums=self._piece_sums if self._sharded else None,
+            owners=[i for i, _, _, _ in self.layout.pieces] if self._sharded else None,
+            names=self.param_names, shapes=self._shapes,
+            whole_numels=[p.numel() for p in self._params])
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = DeepSpeedDataLoader(
@@ -246,12 +269,14 @@ class DeepSpeedTorchEngine:
         return sizes["data"] * sizes["fsdp"]
 
     def _join_mesh(self, mesh_param, distributed_port, dist_init_required):
-        """The mesh context when ZeRO, a ``mesh`` section, ``mesh_param`` or
-        an initialized process group asks for one (joining it through
-        ``comm.init_distributed`` when none exists), else None."""
+        """The mesh context when ZeRO, a ``mesh`` section, the gradient
+        wire, ``mesh_param`` or an initialized process group asks for one
+        (joining it through ``comm.init_distributed`` when none exists),
+        else None."""
         import torch.distributed as dist
         zc, pd = self._config.zero_config, self._config._param_dict
         wanted = (zc.stage > 0 or "mesh" in pd or mesh_param is not None
+                  or self._config.gradient_comm_config.active
                   or dist_init_required or (dist.is_available() and dist.is_initialized()))
         if mesh_is_initialized():
             ctx = get_mesh_context()
@@ -269,13 +294,40 @@ class DeepSpeedTorchEngine:
                                       "engine runs the data and fsdp axes")
         return ctx
 
+    def _choose_wire(self) -> bool:
+        """Which wire runs (the JAX engine's ``:888-970``): sets the 1-bit
+        wire's flag and freeze step; returns whether the bucketed gradient
+        wire runs."""
+        cfg = self._config
+        op = cfg.optimizer_params
+        if ((cfg.optimizer_name or "") in ("onebitadam", "onebitlamb")
+                and op.get("comm_backend_name") and cfg.gradient_accumulation_steps == 1):
+            if wire_supported(self):
+                self._onebit_wire = True
+                self._wire_freeze_step = int(op.get("freeze_step", ONEBIT_DEFAULT_FREEZE_STEP))
+            else:
+                logger.warning("1-bit wire program unavailable (it needs gas=1, ZeRO stage 0, "
+                               "bf16/fp32, a pure data-parallel mesh and no gradient "
+                               "clipping); gradients exchange uncompressed fp32; consider "
+                               "gradient_comm's onebit tier, which composes with ZeRO 1-2")
+        if not cfg.gradient_comm_config.active or self._onebit_wire:
+            return False
+        if grad_comm_supported(self):
+            return True
+        logger.warning("gradient_comm requested but unsupported here (it needs a pure "
+                       "data-parallel mesh whose ZeRO group is the whole data-parallel world, "
+                       "bf16/fp32, and for a quantized tier more than one rank); gradients "
+                       "exchange through the default reduce")
+        return False
+
     @torch.no_grad()
-    def _init_state(self, model_parameters):
+    def _init_state(self, model_parameters, bucketed=False):
         """The flat fp32 masters (this rank's shards of them at stage >= 1),
         the model's parameters set to views of the flat compute-dtype copy
         (of the masters themselves in fp32 at stage 0; gathered on use at
         stage 3), and the flat gradient accumulation buffer (this rank's
-        shard at stage >= 2)."""
+        shard at stage >= 2). ``bucketed``: laid out by the gradient wire's
+        bucket plan."""
         names = {id(p): n for n, p in self.module.named_parameters()}
         params = (list(model_parameters) if model_parameters is not None
                   else [p for p in self.module.parameters() if p.requires_grad])
@@ -288,7 +340,13 @@ class DeepSpeedTorchEngine:
         numels = [p.numel() for p in params]
         plan = self.zero_plan
         self._sharded = plan.stage >= 1
-        if self._sharded:
+        self._bucket_layout = None
+        if bucketed:
+            self._bucket_layout, units = plan_wire(self.param_names, self._shapes,
+                                                   self.dp_world_size, plan.zero_size,
+                                                   self._config.gradient_comm_config)
+            unit_modules = [[] for _ in units]
+        elif self._sharded:
             units, unit_modules = model_units(self.module, params, numels, plan.zero_size,
                                               plan.param_persistence_threshold)
         else:
@@ -373,20 +431,31 @@ class DeepSpeedTorchEngine:
             comm.all_gather_into_tensor(self.layout.unit_full(self._flat_compute, u),
                                         self.layout.unit_shard(shard, u), group=plan.zero_axes)
 
+    def _param_sums(self, partials):
+        """Each parameter's sum from ``partials``, one per piece of this
+        rank's flat state (``layout.pieces``): added per parameter and
+        all-reduced over the ZeRO group."""
+        sums = torch.zeros(self.layout.n_params, dtype=torch.float32, device=self.device)
+        if partials.numel():
+            sums.index_add_(0, self._owners, partials)
+        return comm.all_reduce(sums, group=self.zero_plan.zero_axes)
+
     def _param_norms(self, views):
         """Each parameter's norm from ``views``, the pieces of this rank's
-        flat state (``layout.pieces``): the pieces' sums of squares added
-        per parameter, all-reduced over the ZeRO group, then the square
-        roots."""
-        sums = torch.zeros(self.layout.n_params, dtype=torch.float32, device=self.device)
-        if views:
-            sums.index_add_(0, self._owners, torch.stack(torch._foreach_norm(views)).square())
-        comm.all_reduce(sums, group=self.zero_plan.zero_axes)
-        return sums.sqrt()
+        flat state: the pieces' sums of squares summed per parameter
+        (``_param_sums``), then the square roots."""
+        squares = (torch.stack(torch._foreach_norm(views)).square() if views
+                   else torch.zeros(0, dtype=torch.float32, device=self.device))
+        return self._param_sums(squares).sqrt()
 
     def _piece_norms(self, views):
         """The norm of each piece's whole parameter (LAMB's trust ratio)."""
         return self._param_norms(views)[self._owners]
+
+    def _piece_sums(self, partials):
+        """The sum of each piece's whole parameter from the pieces'
+        ``partials`` (the 1-bit optimizers' scale)."""
+        return self._param_sums(partials)[self._owners]
 
     def master_params(self):
         """``{name: fp32 master}`` (the engine's own tensors): whole shaped
@@ -481,15 +550,25 @@ class DeepSpeedTorchEngine:
                 "forward() called twice without backward(); for evaluation "
                 "use engine.eval() (then forward() is grad-free) or eval_batch()")
         args, kwargs = self._local_batch(args, kwargs)
-        with self._gather.saved_tensors() if self._gather is not None else contextlib.nullcontext():
-            out = (checkpointing.checkpoint_with(self._remat_policy, self.module, *args,
-                                                 **kwargs)
-                   if self._remat_policy else self.module(*args, **kwargs))
-        loss = _extract_loss(out)
+        loss = self._module_loss(args, kwargs)
         self._pending = loss
         if self.dp_world_size > 1:
             self._local, loss = self._global_loss(loss, args, kwargs)
         return loss
+
+    def _module_loss(self, args, kwargs):
+        """The model's loss on this rank's ``args``/``kwargs``, with its
+        autograd graph (under the remat policy; stage 3 gathers on use)."""
+        with self._gather.saved_tensors() if self._gather is not None else contextlib.nullcontext():
+            out = (checkpointing.checkpoint_with(self._remat_policy, self.module, *args,
+                                                 **kwargs)
+                   if self._remat_policy else self.module(*args, **kwargs))
+        return _extract_loss(out)
+
+    def _local_loss(self, *args, **kwargs):
+        """The loss of this rank's rows of the global batch alone (the
+        wires' micro-step loss: no token weighting)."""
+        return self._module_loss(*self._local_batch(args, kwargs))
 
     def _local_batch(self, args, kwargs):
         """The arguments on the device, each batch tensor cut to this
@@ -532,16 +611,21 @@ class DeepSpeedTorchEngine:
             if self._gather is not None:
                 self._gather.release_all()
         else:
-            narrow = self.grad_accum_dtype != torch.float32
-            with torch.no_grad():
-                for p, acc in zip(self._params, self._grad_acc):
-                    if p.grad is not None:
-                        acc.add_(p.grad.to(acc.dtype) if narrow else p.grad)
-                        p.grad = None
+            self._accumulate_grads()
         self._pending = None
         self.losses = loss.detach()
         self.micro_steps += 1
         return loss
+
+    @torch.no_grad()
+    def _accumulate_grads(self):
+        """Each parameter's ``.grad`` added into the whole accumulation
+        buffer (cast to its dtype first), and dropped."""
+        narrow = self.grad_accum_dtype != torch.float32
+        for p, acc in zip(self._params, self._grad_acc):
+            if p.grad is not None:
+                acc.add_(p.grad.to(acc.dtype) if narrow else p.grad)
+                p.grad = None
 
     def is_gradient_accumulation_boundary(self):
         return self.micro_steps % self.gradient_accumulation_steps() == 0
@@ -559,13 +643,14 @@ class DeepSpeedTorchEngine:
         self._settle([bool(overflow)] if self._use_loss_scaling else [False])
 
     @torch.no_grad()
-    def _apply_step(self) -> torch.Tensor:
-        """The update from the accumulated gradients, with no host read;
-        returns the overflow flag (a 0-d bool tensor, False but under
-        fp16)."""
+    def _apply_step(self, grads=None) -> torch.Tensor:
+        """The update from the accumulated gradients (or from ``grads``,
+        the fp32 gradients of this rank's flat state a wire reduced), with
+        no host read; returns the overflow flag (a 0-d bool tensor, False
+        but under fp16)."""
         with record_function("optimizer_step"):  # names the step in a profile
             acc = self._flat_grad
-            grads = self._reduced_grads()
+            grads = self._reduced_grads() if grads is None else grads
             if self._use_loss_scaling:
                 grads.div_(self.scale_state.cur_scale)
             # per parameter, then over the parameters (optax.global_norm's
@@ -632,6 +717,9 @@ class DeepSpeedTorchEngine:
         return t.cpu()
 
     def _require_gas_one(self, what: str):
+        if self._wire is not None:  # the JAX engine's assert: no fused program under it
+            raise AssertionError(f"{what} does not run under the bucketed gradient wire "
+                                 "(gradient_comm); use train_batch")
         if self.gradient_accumulation_steps() != 1:
             raise AssertionError(f"{what} requires gradient_accumulation_steps == 1")
 
@@ -654,6 +742,8 @@ class DeepSpeedTorchEngine:
         with the host reading only the overflow flag; returns the loss as a
         device scalar."""
         self._require_gas_one("fused_train_step")
+        if self._onebit_wire and self.global_steps >= self._wire_freeze_step:
+            return wire_step(self, args, kwargs)  # past the warmup: the 1-bit wire
         losses, overflows = self._train_window([(args, kwargs)])
         self._settle(self._fetch(overflows).tolist())
         return losses[0]
@@ -666,6 +756,11 @@ class DeepSpeedTorchEngine:
         one fetch of the losses and overflow flags, and the host's
         bookkeeping. Returns the ``[K]`` losses (fp32, on the host)."""
         self._require_gas_one("fused_train_steps")
+        if self._onebit_wire:
+            # the wire swaps in per step after freeze_step; a window of K steps
+            # would run uncompressed past the switch
+            raise RuntimeError("fused_train_steps does not compose with the 1-bit wire "
+                               "program (onebit* + comm_backend_name); use fused_train_step")
         args = tuple(self._to_device(a) for a in args)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
         lead = {t.shape[0] for t in (*args, *kwargs.values()) if isinstance(t, torch.Tensor)}
@@ -687,10 +782,13 @@ class DeepSpeedTorchEngine:
     def train_batch(self, data_iter=None):
         """One optimizer step over ``gradient_accumulation_steps``
         micro-batches (each item of ``data_iter``: a tuple of the model's
-        positional arguments, or one tensor): at gas 1 ``fused_train_step``,
-        above it the micro-batches and the apply step with one fetch.
+        positional arguments, or one tensor): under the bucketed gradient
+        wire its program; else at gas 1 ``fused_train_step``, above it the
+        micro-batches and the apply step with one fetch.
         Returns the mean loss as a float."""
         self._training = True
+        if self._wire is not None:
+            return self._wire.train_batch(data_iter, _batch)
         gas = self.gradient_accumulation_steps()
         if gas == 1:
             return float(self.fused_train_step(*_batch(next(data_iter))))

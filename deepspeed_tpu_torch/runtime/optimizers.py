@@ -25,8 +25,9 @@ increments), else the constant ``lr``. adam, adamw, lion and lamb run one
 K7 pass over the whole flat buffer (``ops/fused_optimizer.py``); LAMB
 writes its update into the gradient buffer, which is dead by then, and
 applies the trust ratio in PyTorch. sgd and adagrad are a few PyTorch
-ops. muP and the 1-bit optimizers raise ``NotImplementedError`` (they need
-the comm layer); so does any other name.
+ops. ``muadam``, ``muadamw`` and ``musgd`` are ``runtime/mup.py``'s,
+``onebitadam``, ``zerooneadam`` and ``onebitlamb`` ``runtime/onebit.py``'s;
+any other name raises ``NotImplementedError``.
 
 The update count lives on the device, as in the optax state the JAX
 program carries, so the engine can enqueue K steps with no host read
@@ -46,6 +47,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..comm.compressed import spans
 from ..ops.fused_optimizer import (adam_step_, device_scalar, lamb_apply_trust_,
                                    lamb_update_, lion_step_)
 
@@ -57,6 +59,9 @@ SGD_OPTIMIZER = "sgd"
 ADAGRAD_OPTIMIZER = "adagrad"
 MU_OPTIMIZERS = ("muadam", "muadamw", "musgd")
 ONEBIT_OPTIMIZERS = ("onebitadam", "zerooneadam", "onebitlamb")
+_MU_KEYS = {"base_shapes", "momentum", "nesterov"}
+_ONEBIT_KEYS = {"freeze_step", "comm_backend_name", "var_freeze_step", "var_update_scaler",
+                "max_coeff", "min_coeff"}
 ADAM_DEFAULT_BETAS = (0.9, 0.999)
 LION_DEFAULT_BETAS = (0.9, 0.99)
 ADAGRAD_INITIAL_ACCUMULATOR = 0.1
@@ -69,7 +74,11 @@ class FlatOptimizer:
     per parameter). Under ZeRO ``params`` is a rank's shard of the
     masters, ``bounds`` the pieces of parameters it holds, and ``norms``
     maps the pieces' views to the norms of their whole parameters (partial
-    sums all-reduced over the ZeRO group). Subclasses define ``_update(grads, lr, step, skip)``
+    sums all-reduced over the ZeRO group), ``sums`` a tensor of the
+    bounds' partial sums to their whole parameters' sums. ``owners`` is
+    each bound's parameter, ``names``, ``shapes`` and ``whole_numels`` the
+    parameters' (muP reads the names and shapes, the 1-bit optimizers
+    the numels). Subclasses define ``_update(grads, lr, step, skip)``
     (``lr`` and ``step`` one-element fp32 device tensors, ``skip`` a flag
     or None) and keep their state as flat fp32 buffers in ``self.state``."""
 
@@ -79,7 +88,9 @@ class FlatOptimizer:
             raise ValueError("the optimizer takes one flat fp32 master buffer")
         self.params = params
         self.bounds = list(bounds)
-        self.norms = None
+        self.norms = self.sums = None
+        self.owners = list(range(len(self.bounds)))
+        self.names = self.shapes = self.whole_numels = None
         self.lr = float(lr)
         self.lr_fn = lr_fn
         self.state: Dict[str, torch.Tensor] = {}
@@ -196,6 +207,22 @@ def _keep_unless(skip, buf, new):
     buf.copy_(new if skip is None else torch.where(skip, buf, new))
 
 
+def chunked(bounds):
+    """Each ``(start, end)`` of ``bounds`` cut into chunks of at most
+    ``CHUNK_ELEMENTS`` (each a multiple of 8 from its start)."""
+    return [(a + s, a + e) for a, b in bounds for s, e in spans(b - a)]
+
+
+def decay_and_step_(params, u, bounds, lr, weight_decay, skip):
+    """``p -= lr * (u + wd * p)`` over ``bounds`` a chunk at a time (no
+    large temporary), unless ``skip``."""
+    for a, b in chunked(bounds):
+        p, x = params[a:b], u[a:b]
+        if weight_decay:
+            x = x + weight_decay * p
+        _keep_unless(skip, p, p - lr * x)
+
+
 class SGD(FlatOptimizer):
     """SGD with optional (nesterov) momentum and L2 weight decay."""
 
@@ -233,22 +260,26 @@ def build_optimizer(name: Optional[str], params: torch.Tensor,
                     opt_params: Optional[Dict] = None,
                     lr_fn: Optional[Callable[[int], float]] = None,
                     bounds: Optional[Sequence[Tuple[int, int]]] = None,
-                    norms=None) -> FlatOptimizer:
+                    norms=None, sums=None, owners=None, names=None, shapes=None,
+                    whole_numels=None) -> FlatOptimizer:
     """The optimizer for config ``optimizer.type`` (default ``adamw``)
     over the flat fp32 master buffer ``params``; ``bounds``: each
     parameter's ``(start, end)`` in it (default: one parameter).
     ``opt_params`` takes ``lr``, ``betas``, ``eps`` and ``weight_decay``,
-    and for sgd ``momentum`` and ``nesterov``. ``norms``: see
+    for sgd ``momentum`` and ``nesterov``, for muP ``base_shapes`` (and
+    musgd's momentum), for the 1-bit optimizers ``freeze_step``,
+    ``comm_backend_name`` (the engine's wire), ``var_freeze_step``,
+    ``var_update_scaler``, ``max_coeff`` and ``min_coeff``. ``norms``,
+    ``sums``, ``owners``, ``names``, ``shapes``, ``whole_numels``: see
     ``FlatOptimizer``."""
     opt_params = dict(opt_params or {})
     name = (name or ADAMW_OPTIMIZER).lower()
-    if name in MU_OPTIMIZERS or name in ONEBIT_OPTIMIZERS:
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet: it needs "
-                                  "the comm layer (muP widths, compressed allreduce)")
-    allowed = _COMMON_KEYS | ({"momentum", "nesterov"} if name == SGD_OPTIMIZER else set())
+    allowed = _COMMON_KEYS | ({"momentum", "nesterov"} if name == SGD_OPTIMIZER else set()) \
+        | (_MU_KEYS if name in MU_OPTIMIZERS else set()) \
+        | (_ONEBIT_KEYS if name in ONEBIT_OPTIMIZERS else set())
     extra = sorted(set(opt_params) - allowed)
     if extra:
-        raise NotImplementedError(f"optimizer params {extra} are not ported yet")
+        raise NotImplementedError(f"optimizer {name!r} params {extra} are not ported yet")
     bounds = bounds if bounds is not None else [(0, params.numel())]
     lr = float(opt_params.get("lr", 1e-3))
     user_betas = opt_params.get("betas")
@@ -268,9 +299,18 @@ def build_optimizer(name: Optional[str], params: torch.Tensor,
                   bool(opt_params.get("nesterov", False)), wd)
     elif name == ADAGRAD_OPTIMIZER:
         opt = Adagrad(*common, eps)
+    elif name in MU_OPTIMIZERS:
+        from .mup import build_mu_optimizer
+        opt = build_mu_optimizer(name, common, opt_params)
+    elif name in ONEBIT_OPTIMIZERS:
+        from .onebit import build_onebit_optimizer
+        opt = build_onebit_optimizer(name, common, opt_params)
     else:
         raise NotImplementedError(
             f"optimizer {name!r} is not ported; the port has adam, adamw, lamb, lion, "
-            "sgd and adagrad")
-    opt.norms = norms
+            "sgd, adagrad, muadam, muadamw, musgd, onebitadam, zerooneadam and onebitlamb")
+    opt.norms, opt.sums = norms, sums
+    if owners is not None:
+        opt.owners = list(owners)
+    opt.names, opt.shapes, opt.whole_numels = names, shapes, whole_numels
     return opt

@@ -164,6 +164,7 @@ class GradReducer:
         self.acc = acc
         self.zero_axes = zero_axes
         self.on_reduced = on_reduced
+        self.paused = False  # the gradient wire reduces in its own way
         self._reset()
         me = weakref.ref(self)
         self._handles = [p.register_post_accumulate_grad_hook(
@@ -179,6 +180,8 @@ class GradReducer:
         self.done = [False] * len(self.layout.units)
 
     def got(self, i):
+        if self.paused:
+            return
         k = self.layout.unit_of[i]
         self.left[k] -= 1
         if self.left[k] == 0:

@@ -66,16 +66,22 @@ class Unit:
     into the engine's parameter list) at ``bounds`` within the segment of
     ``length`` elements, at ``full_offset`` in the whole flat buffer; each
     rank's shard is ``shard_len`` elements, at ``shard_offset`` in its flat
-    state. ``persistent``: whole on every rank at stage 3."""
+    state. ``persistent``: whole on every rank at stage 3. ``bounds`` and
+    ``length`` given: the parameters at those places in a segment of that
+    length (a bucket of the gradient wire, ``runtime/grad_comm.py``), the
+    length a multiple of ``zero_size``."""
 
     def __init__(self, name: str, params: List[int], numels: Sequence[int], zero_size: int,
-                 persistent: bool = False):
+                 persistent: bool = False, bounds=None, length: Optional[int] = None):
         self.name = name
         self.params = list(params)
         self.persistent = persistent
-        self.bounds, total = flat_bounds([numels[i] for i in self.params])
-        step = zero_size * FLAT_ALIGN
-        self.length = -(-total // step) * step if total else 0
+        if bounds is not None:
+            self.bounds, self.length = list(bounds), int(length)
+        else:
+            self.bounds, total = flat_bounds([numels[i] for i in self.params])
+            step = zero_size * FLAT_ALIGN
+            self.length = -(-total // step) * step if total else 0
         self.shard_len = self.length // zero_size
         self.full_offset = 0
         self.shard_offset = 0

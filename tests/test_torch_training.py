@@ -364,8 +364,11 @@ def test_training_model_refuses_unported_options(option):
         LlamaForCausalLM(LlamaConfig.tiny(**option), device="cpu")
 
 
-# ZeRO stages 1-3 and the mesh run now (test_torch_zero.py); their places
-# hold ZeRO offload and the bucketed gradient wire, which still raise
+# ZeRO stages 1-3, the mesh, the bucketed gradient wire at stages 0-2, muP
+# and the 1-bit optimizers run now (test_torch_zero.py,
+# test_torch_grad_comm.py, test_torch_mup.py, test_torch_onebit.py); their
+# places hold what still raises: ZeRO offload, the wire at stage 3 (the
+# scheduled ZeRO-3 store) and the reference optimizers' keys the port lacks
 @pytest.mark.parametrize("config,match", [
     ({"train_batch_size": 2, "zero_optimization": {"stage": 3,
                                                    "offload_param": {"device": "cpu"}}},
@@ -373,9 +376,13 @@ def test_training_model_refuses_unported_options(option):
     # fp16_master_weights_and_grads is accepted now (read by nothing, as in JAX)
     ({"train_batch_size": 2, "activation_checkpointing": {"partition_activations": True}},
      "partition_activations"),
-    ({"train_batch_size": 2, "gradient_comm": {"enabled": True}}, "gradient_comm"),
-    ({"train_batch_size": 2, "optimizer": {"type": "OneBitLamb"}}, "lamb"),
-    ({"train_batch_size": 2, "optimizer": {"type": "MuAdamW"}}, "muadamw"),
+    ({"train_batch_size": 2, "gradient_comm": {"enabled": True},
+      "zero_optimization": {"stage": 3}}, "gradient_comm"),
+    ({"train_batch_size": 2, "optimizer": {"type": "OneBitLamb",
+                                           "params": {"coeff_beta": 0.9}}}, "lamb"),
+    ({"train_batch_size": 2, "optimizer": {"type": "MuAdamW",
+                                           "params": {"base_shapes": {"a": [1]},
+                                                      "amsgrad": True}}}, "muadamw"),
 ])
 def test_engine_refuses_unported_config(config, match):
     model = init_llama_for_causal_lm(LlamaConfig.tiny(dtype=torch.float32),
