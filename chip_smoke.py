@@ -166,14 +166,33 @@ Phases, each printing one JSON line:
                       0 after every step, each window under
                       set_sync_debug_mode("error"); (b) two ranks spawned
                       on the one card over gloo (NCCL on two cards where
-                      there are two): stage 0 over {data: 2}, stage 3
-                      over {fsdp: 2}, stage 2 over {data: 2}, against
-                      (a)'s stage 0 within tests/test_torch_zero.py's
-                      bf16 tolerance, each rank's flat state half of stage
-                      0's plus padding, K7 once per step per rank and
-                      rank 1's stage-3 launch held against the plain
-                      version at its shard's length; peak memory and step
-                      times (gloo on one card, not a speed of NCCL).
+                      there are two): stage 0 over {data: 2} and stage 2
+                      over {data: 2} one step each, stage 3 over {fsdp:
+                      2} two, against (a)'s stage 0 within
+                      tests/test_torch_zero.py's bf16 tolerance, each
+                      rank's flat state half of stage 0's plus padding,
+                      K7 once per step per rank and rank 1's stage-3
+                      launch held against the plain version at its
+                      shard's length; peak memory and step times (gloo on
+                      one card, not a speed of NCCL).
+  5g. training_grad_comm — the bucketed gradient wire, the 1-bit
+                      optimizers' wire and muP on the same model at gas 2
+                      (see the phase's docstring).
+  5h. training_zero3_scheduled — the scheduled ZeRO-3 store on the same
+                      model without remat at gas 2: (a) world 1 over NCCL,
+                      bit-equal to the stage-2 wire every step, its
+                      schedule's epochs, prefetches, gathered peak and
+                      wire bytes, the int8 tiers within 0.05, K7 on the
+                      store's shard and K1/K2 at the path's shape held
+                      against their plain versions; (b) two gloo ranks on
+                      the card at half the store each, one step (state
+                      bytes, peak GiB, rank 1's K7 on its half).
+  5i. training_checkpoint — save, verify, corrupt the newest tag and fall
+                      back, resume bit-equal to an uninterrupted run,
+                      load into stage 2, write a universal directory;
+                      each save's, verify's and load's bytes
+                      and seconds, in a temporary directory under build/
+                      that the phase deletes.
   6. serving        — build_llama_engine at the full Llama-3-8B width (32
                       layers, seeded random bf16 weights, 1024 KV blocks of
                       64 tokens), greedy generate on 8 prompts of 128..1024
@@ -237,7 +256,7 @@ Phases, each printing one JSON line:
                       sweep_shape once at the Mistral shape: each leg's
                       K1/K2 and K3 times and the winners, committed to
                       this run's cache; nothing after it reads them.
-Each main path (phases 5, 5b, 5c, 5d, 5e, 5f, 6, 7, 8 and the BLOOM and
+Each main path (phases 5, 5b-5i, 6, 7, 8 and the BLOOM and
 Gemma-2 serving phases) runs with the launch counts of
 its kernels set to 0 just before and read just after. Every phase resolves
 the attention route against an empty cache directory made under build/
@@ -3700,11 +3719,15 @@ ZERO_CONFIG = {"train_batch_size": ZERO_ROWS, "bf16": {"enabled": True},
 # stage 0: the RMS of the master differences within 2^-4 of the learning
 # rate's path and none beyond twice it; losses within 2^-7
 ZERO_RMS, ZERO_MAX, ZERO_LOSS_RTOL = 2.0 ** -4, 2.0, 2.0 ** -7
-# part (b): name, stage, mesh, steps (the pure data-parallel stage 0 runs
-# one step, for each rank's peak memory beside stage 3's: gloo moves every
-# collective through host memory, ~5 s a step at this size)
-ZERO_RANK_RUNS = (("stage0", 0, {"data": 2}, 1), ("stage3", 3, {"fsdp": 2}, 5),
-                  ("stage2", 2, {"data": 2}, 5))
+# part (b): name, stage, mesh, steps (the pure data-parallel stage 0 and
+# stage 2 run one step each, for each rank's peak memory and state beside
+# stage 3's, stage 3 two, its masters against (a)'s stage 0 after as
+# many: gloo moves every collective through host memory, 12-20 s a step at
+# this size)
+ZERO_RANK_STAGE3_STEPS = 2
+ZERO_RANK_RUNS = (("stage0", 0, {"data": 2}, 1),
+                  ("stage3", 3, {"fsdp": 2}, ZERO_RANK_STAGE3_STEPS),
+                  ("stage2", 2, {"data": 2}, 1))
 
 
 def zero_batches():
@@ -3715,13 +3738,15 @@ def zero_batches():
     return torch.randint(0, 128256, (5, ZERO_ROWS, ZERO_SEQ), generator=gen, device="cuda")
 
 
-def zero_run(stage: int, mesh, after_step=None, check_sync: bool = False, steps: int = 5):
+def zero_run(stage: int, mesh, after_step=None, check_sync: bool = False, steps: int = 5,
+             arm=None):
     """One run of the phase at ``stage`` over ``mesh`` (None: the config
     names none): a fresh model from seed 0 through ``initialize``, 3
     forward/backward/step (``after_step(engine, i)`` after each) and a
     2-step ``fused_train_steps`` window, under
     ``set_sync_debug_mode("error")`` with ``check_sync`` (its one fetch
-    outside); ``steps`` < 5 runs that many forward/backward/step only.
+    outside); ``steps`` < 5 runs that many forward/backward/step only;
+    ``arm(engine)`` just before the first step (the K7 check's capture).
     K7's count is set to 0 just before the steps and read just after.
     Returns the engine and the run's record."""
     import torch
@@ -3744,6 +3769,8 @@ def zero_run(stage: int, mesh, after_step=None, check_sync: bool = False, steps:
     data = zero_batches()
     torch.cuda.reset_peak_memory_stats()
     fo.adam_step_.launches = 0
+    if arm is not None:
+        arm(engine)
     for i in range(min(steps, 3)):
         torch.cuda.synchronize()
         t = time.monotonic()
@@ -3805,22 +3832,22 @@ def _zero_rank(rank: int, world: int, store: str, out_dir: str, ref, ref_bounds)
     for name, stage, mesh, steps in ZERO_RANK_RUNS:
         taken = {}
 
-        def arm(engine, i, stage=stage):
-            """Rank 1 at stage 3: step 3's K7 launch on this rank's shard,
-            against the plain version right after it."""
-            if stage != 3 or rank != 1:
-                return
-            if i == 1:
+        def arm(engine, stage=stage):
+            """Rank 1 at stage 3: the first step's K7 launch on this rank's
+            shard, against the plain version right after it."""
+            if stage == 3 and rank == 1:
                 taken["inputs"] = capture_k7_inputs(engine)
-            elif i == 2:
+
+        def check(engine, i):
+            if i == 0 and "inputs" in taken:
                 taken["check"] = dict(k7_vs_plain_at_path_size(engine, taken.pop("inputs")),
                                       shard_numel=engine.layout.shard_numel)
 
-        engine, rec = zero_run(stage, mesh, after_step=arm, steps=steps)
+        engine, rec = zero_run(stage, mesh, after_step=check, steps=steps, arm=arm)
         if "check" in taken:
             rec["k7_shard_check"] = taken.pop("check")
         sq, worst, n = 0.0, 0.0, 0
-        for i, s, e, off in (engine.layout.pieces if steps == 5 else []):
+        for i, s, e, off in (engine.layout.pieces if steps == ZERO_RANK_STAGE3_STEPS else []):
             a = ref_bounds[i][0] + off
             d = engine._flat_master[s:e] - ref[a:a + e - s]
             sq += float(d.double().square().sum())
@@ -3848,8 +3875,9 @@ def phase_training_zero() -> dict:
     ``set_sync_debug_mode("error")``; (b) two ranks spawned on the one card
     over gloo (NCCL on two cards where there are two): stage 0 over
     ``{data: 2}``, stage 3 over ``{fsdp: 2}`` and stage 2 over ``{data:
-    2}``, losses and masters against (a)'s stage 0 within the bf16
-    tolerance of tests/test_torch_zero.py, each rank's flat state at stages
+    2}`` (stages 0 and 2 one step each, stage 3 two), losses against
+    (a)'s stage 0 and stage 3's masters against its masters after two
+    steps, within the bf16 tolerance of tests/test_torch_zero.py, each rank's flat state at stages
     2-3 half of stage 0's plus padding, K7 once per step on each rank and,
     on rank 1, its stage-3 launch held against the plain version at its
     shard's length; each rank's peak memory at stages 0 and 3 and the step
@@ -3868,15 +3896,16 @@ def phase_training_zero() -> dict:
         for stage in (0, 1, 2, 3):
             step_prints = []
 
-            def record(engine, i):
+            def record(engine, i, stage=stage):
                 step_prints.append(master_fingerprints(engine))
+                if stage == 0 and i == ZERO_RANK_STAGE3_STEPS - 1:  # (b)'s reference
+                    nonlocal ref, ref_bounds
+                    ref = engine._flat_master.clone()
+                    ref_bounds = [list(b) for b in engine.layout.full_bounds]
 
             engine, rec = zero_run(stage, None, after_step=record, check_sync=True)
             record(engine, 3)
             prints[stage] = step_prints
-            if stage == 0:
-                ref = engine._flat_master.clone()
-                ref_bounds = [list(b) for b in engine.layout.full_bounds]
             runs[f"a_world1_stage{stage}"] = rec
             del engine
             free_memory()
@@ -3904,7 +3933,7 @@ def phase_training_zero() -> dict:
     del ref
     free_memory()
     base = runs["a_world1_stage0"]
-    path = 5 * ZERO_LR
+    path = ZERO_RANK_STAGE3_STEPS * ZERO_LR
     for rk in ranks:
         r = rk["rank"]
         full_state = rk["runs"]["stage0"]["state_bytes"]
@@ -3915,7 +3944,7 @@ def phase_training_zero() -> dict:
             checks[f"{tag}_losses_within_tolerance"] = rel <= ZERO_LOSS_RTOL
             n_steps = len(rec["losses"])
             checks[f"{tag}_k7_one_launch_per_step"] = rec["k7_launches"] == n_steps
-            if n_steps == 5:  # against (a)'s stage 0 after its 5 steps
+            if n_steps == ZERO_RANK_STAGE3_STEPS:  # against (a)'s stage 0 after as many
                 checks[f"{tag}_masters_within_tolerance"] = (
                     rec["master_rms_diff"] <= ZERO_RMS * path
                     and rec["master_max_diff"] <= ZERO_MAX * path)
@@ -3967,13 +3996,13 @@ def wire_section(tier: str, overlap: bool) -> dict:
 # part (b): name, stage, gradient_comm (None: the default reduce), gas,
 # steps, optimizer
 GC_RANK_RUNS = (
-    ("fp32_s2_overlap", 2, wire_section("fp32", True), GC_GAS, GC_STEPS, GC_ADAMW),
+    ("fp32_s2_overlap", 2, wire_section("fp32", True), GC_GAS, 1, GC_ADAMW),
     ("int8_s1_overlap", 1, wire_section("int8", True), GC_GAS, 1, GC_ADAMW),
     ("onebit_s0_boundary", 0, wire_section("onebit", False), GC_GAS, 1, GC_ADAMW),
     ("onebitadam_wire", 0, None, 1, 4,
      {"type": "OneBitAdam", "params": {"lr": ZERO_LR, "weight_decay": 0.01, "freeze_step": 2,
                                        "comm_backend_name": "nccl"}}),
-    ("muadamw_s1", 1, None, 1, 2, {"type": "MuAdamW", "params": {"lr": ZERO_LR,
+    ("muadamw_s1", 1, None, 1, 1, {"type": "MuAdamW", "params": {"lr": ZERO_LR,
                                                                  "weight_decay": 0.01}}),
 )
 
@@ -3995,14 +4024,15 @@ def half_width_shapes(model) -> dict:
 
 
 def gc_run(stage: int, wire_cfg, gas: int, steps: int, optimizer, mesh=None, check_sync=False,
-           after_step=None):
+           after_step=None, arm=None):
     """One run: a fresh model from seed 0 through ``initialize`` at
     ``stage`` with ``gradient_comm`` section ``wire_cfg`` (None: none) and the
     comms logger banking the wire's bytes (its collectives untimed), then
     ``steps`` ``train_batch`` calls of ``gas`` micro-batches, each under
     ``set_sync_debug_mode("error")`` with ``check_sync`` (its one fetch
-    outside). K7's counts are set to 0 just before the steps and read
-    just after. Returns the engine and the run's record."""
+    outside); ``arm(engine)`` just before the first step. K7's counts are
+    set to 0 just before the steps and read just after. Returns the engine
+    and the run's record."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.comm import bucketing, reset_mesh_context
@@ -4044,6 +4074,8 @@ def gc_run(stage: int, wire_cfg, gas: int, steps: int, optimizer, mesh=None, che
     engine._fetch = outside
     torch.cuda.reset_peak_memory_stats()
     fo.adam_step_.launches = fo.lamb_update_.launches = 0
+    if arm is not None:
+        arm(engine)
     for i in range(steps):
         torch.cuda.synchronize()
         t = time.monotonic()
@@ -4103,17 +4135,17 @@ def _gc_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     for name, stage, wire_cfg, gas, steps, optimizer in GC_RANK_RUNS:
         taken = {}
 
-        def arm(engine, i, name=name):
-            if name != "fp32_s2_overlap" or rank != 1:
-                return
-            if i == 0:
+        def arm(engine, name=name):
+            if name == "fp32_s2_overlap" and rank == 1:
                 taken["inputs"] = capture_k7_inputs(engine)
-            else:
+
+        def check(engine, i):
+            if i == 0 and "inputs" in taken:
                 taken["check"] = dict(k7_vs_plain_at_path_size(engine, taken.pop("inputs")),
                                       shard_numel=engine.layout.shard_numel)
 
         engine, rec = gc_run(stage, wire_cfg, gas, steps, optimizer, mesh={"data": world},
-                             after_step=arm)
+                             after_step=check, arm=arm)
         if "check" in taken:
             rec["k7_shard_check"] = taken.pop("check")
         rec["shard_numel"], rec["full_numel"] = engine.layout.shard_numel, engine.layout.full_numel
@@ -4132,12 +4164,14 @@ def phase_training_grad_comm() -> dict:
     reduce at stage 0, then the fp32 tier at stages 0, 1 and 2 with and
     without overlap, each step under ``set_sync_debug_mode("error")``, its
     losses and every master bit-equal to the default reduce's after each
-    step (one rank: the same additions in the same order), K7 once a step;
-    stage 3 with the wire raises. (b) Two ranks spawned on the one card
-    over gloo (not a speed of NCCL): the fp32 tier with overlap at stage
-    2, int8 with overlap at stage 1, onebit at the boundary at stage 0,
-    1-bit Adam with ``comm_backend_name`` (freeze_step 2, 4 steps) and
-    muadamw with the base shapes of half the width (2 steps, stage 1).
+    step (one rank: the same additions in the same order), K7 once a step
+    (stage 3 under the wire is the scheduled store:
+    ``training_zero3_scheduled``). (b) Two ranks spawned on the one card
+    over gloo (not a speed of NCCL), one step each: the fp32 tier with
+    overlap at stage 2, int8 with overlap at stage 1, onebit at the
+    boundary at stage 0, muadamw with the base shapes of half the width
+    (stage 1); and 1-bit Adam with ``comm_backend_name`` (freeze_step 2,
+    4 steps).
     Checks: the fp32 tier's losses within the bf16 tolerance of (a); a
     quantized tier's within the JAX tests' 0.05 of it; each step's wire
     bytes banked as ``bucket_wire_bytes``; K7 once a step a rank (1-bit
@@ -4178,11 +4212,6 @@ def phase_training_grad_comm() -> dict:
             checks[f"a_{name}_losses_bit_equal"] = rec["losses"] == base["losses"]
             checks[f"a_{name}_masters_bit_equal_every_step"] = (
                 prints[name] == prints["default_s0"])
-        try:
-            gc_run(3, wire_section("fp32", True), GC_GAS, 1, GC_ADAMW)
-            checks["a_stage3_with_the_wire_raises"] = False
-        except NotImplementedError as e:
-            checks["a_stage3_with_the_wire_raises"] = "zero3_schedule" in str(e)
     finally:
         dist.destroy_process_group()
         reset_mesh_context()
@@ -4247,6 +4276,396 @@ def phase_training_grad_comm() -> dict:
                   "peak_memory_gib": run["peak_memory_gib"], "state_bytes": run["state_bytes"]})
     if not rec["ok"]:
         raise SystemExit(f"training_grad_comm checks failed: {checks}")
+    return rec
+
+
+# the training_zero3_scheduled and training_checkpoint phases: the
+# training_zero phase's model (Llama-3-8B width, ZERO_LAYERS layers, bf16,
+# the chunked CE) and global batch of ZERO_ROWS x ZERO_SEQ tokens a
+# micro-step, without remat (the store refuses it: a recomputed layer reads
+# its parameters outside the schedule), AdamW with no clipping
+Z3_GAS, Z3_STEPS = 2, 3
+Z3_RANK_STEPS = 1  # part (b)'s steps: gloo moves 3 GB a gather through host memory
+Z3_WIRE = {"enabled": True, "comm_quantization": "fp32", "overlap_comm": True}
+
+
+def z3_run(stage: int, zero_extra=None, gas: int = Z3_GAS, steps: int = Z3_STEPS, mesh=None,
+           check_sync: bool = False, after_step=None, data=None, arm=None):
+    """One run: a fresh model from seed 0 through ``initialize`` at
+    ``stage`` under the fp32 gradient wire (at stage 3 the scheduled store,
+    persistence threshold 0 unless ``zero_extra`` sets one), ``steps``
+    ``train_batch`` calls of ``gas`` micro-batches; steps after the first
+    (which traces the schedule) under ``set_sync_debug_mode("error")``
+    with ``check_sync``, each step's fetch outside; ``arm(engine)`` just
+    before the first step. K7's and K1/K2's counts are set to 0 just before
+    the steps and read just after. Returns the engine and the run's
+    record."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import reset_mesh_context
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
+    from deepspeed_tpu_torch.ops import attention as fa
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    reset_mesh_context()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=ZERO_LAYERS, ce_chunk_size=8192)
+    model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    zero = {"stage": stage, "stage3_param_persistence_threshold": 0}
+    zero.update(zero_extra or {})
+    config = {"train_batch_size": ZERO_ROWS * gas, "gradient_accumulation_steps": gas,
+              "bf16": {"enabled": True}, "optimizer": GC_ADAMW, "zero_optimization": zero,
+              "gradient_comm": dict(Z3_WIRE)}
+    if mesh is not None:
+        config["mesh"] = mesh
+    t = time.monotonic()
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+    torch.cuda.synchronize()
+    counted = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv,
+               fo.adam_step_)
+    rec = {"stage": stage, "zero": zero, "mesh": mesh, "gas": gas,
+           "engine_build_s": time.monotonic() - t, "store": engine._store is not None,
+           "losses": [], "step_ms": [], "fetches": []}
+    data = gc_batches(steps * gas) if data is None else data
+    fetch = engine._fetch
+
+    def outside(x):
+        torch.cuda.set_sync_debug_mode(0)
+        rec["fetches"].append(int(x.numel()))
+        return fetch(x)
+
+    engine._fetch = outside
+    torch.cuda.reset_peak_memory_stats()
+    for f in counted:
+        f.launches = 0
+    if arm is not None:
+        arm(engine)
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        if check_sync and i > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec["losses"].append(engine.train_batch(iter(
+                [(data[i * gas + j], data[i * gas + j]) for j in range(gas)])))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rec["step_ms"].append(1e3 * (time.monotonic() - t))
+        if after_step is not None:
+            after_step(engine, i)
+    del engine._fetch
+    rec["launches"] = {f.__name__: f.launches for f in counted}
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["state_bytes"] = engine.state_bytes()
+    if engine._store is not None and engine._zero3_schedule is not None:
+        sched, meta = engine._zero3_schedule, engine._zero3_store
+        rec["schedule"] = {"epochs": len(sched.epochs), "buckets": len(meta.layout.buckets),
+                           "prefetches": sched.prefetch_count,
+                           "peak_live_elements": sched.peak_live_elements,
+                           "max_live_parameters": engine._config.zero_config.max_live_parameters,
+                           "gather_wire_bytes_a_microbatch": sched.gather_wire_bytes,
+                           "persistent_elements": sched.persistent_elements}
+        rec["padded_elements"] = sum(b.padded_size for b in meta.layout.buckets)
+        rec["store_stats"] = dict(engine._store.stats)
+        rec["tiers"] = [engine._store.fwd_tier, engine._store.bwd_tier]
+    return engine, rec
+
+
+def _z3_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """Part (b)'s rank: the store over ``{data: 2}`` with both ranks on
+    the one card over gloo (NCCL over two cards where there are two),
+    ``Z3_RANK_STEPS`` steps; rank 1 holds its first K7 launch, on its half
+    of the store, against the plain version. Writes its record to
+    ``out_dir``."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    sys.path.insert(0, ROOT)
+    from deepspeed_tpu_torch import comm
+    two_cards = torch.cuda.device_count() >= 2
+    os.environ["LOCAL_RANK"] = str(rank if two_cards else 0)
+    comm.init_distributed(dist_backend="nccl" if two_cards else "gloo",
+                          init_method=f"file://{store}", rank=rank, world_size=world)
+    out = {"rank": rank, "backend": "nccl on two cards" if two_cards else "gloo on one card"}
+    taken = {}
+
+    def arm(engine):
+        if rank == 1:
+            taken["inputs"] = capture_k7_inputs(engine)
+
+    def check(engine, i):
+        if i == 0 and "inputs" in taken:
+            taken["check"] = dict(k7_vs_plain_at_path_size(engine, taken.pop("inputs")),
+                                  shard_numel=engine.layout.shard_numel)
+
+    engine, rec = z3_run(3, steps=Z3_RANK_STEPS, mesh={"data": world}, after_step=check,
+                         arm=arm, data=gc_batches(Z3_STEPS * Z3_GAS))  # (a)'s batches
+    if "check" in taken:
+        rec["k7_shard_check"] = taken.pop("check")
+    out["run"] = rec
+    del engine
+    free_memory()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_training_zero3_scheduled() -> dict:
+    """The scheduled ZeRO-3 store (``runtime/zero3_schedule.py``) at the
+    Llama-3-8B width (``ZERO_LAYERS`` layers, bf16, AdamW on K7, the
+    chunked CE, gas 2, no remat): (a) world 1 over NCCL in this process:
+    the stage-2 wire, then the store under the fp32 wire, from the same
+    weights; the store's losses and every master bit-equal to the stage-2
+    wire's after each step (one rank: the same additions in the same
+    order), one fetch a step, K7 once a step, each K1/K2 once a layer and
+    micro-step (and K1 once a layer for the schedule's trace at the first
+    step), K7's second launch held against the plain version over the
+    store's whole shard; the schedule's epochs, prefetches, gathered peak
+    against ``stage3_max_live_parameters`` and wire bytes; the store with
+    the int8 tiers (``zero_quantized_weights`` and
+    ``zero_quantized_gradients``) within the JAX tests' 0.05 of the fp32
+    store's losses; K1 and both K2 passes held against their plain
+    versions at the path's shape (2 x 1024, H 32, KV 8, D 128). (b) Two
+    ranks spawned on the one card over gloo (not a speed of NCCL), the
+    store over ``{data: 2}`` for ``Z3_RANK_STEPS`` steps: losses against
+    (a)'s store within the bf16 tolerance of tests/test_torch_zero.py,
+    each rank's masters and moments 4 x padded /
+    2 bytes, rank 1's K7 on its half held against the plain version. Prints
+    per run the step ms, the schedule's figures and the peak GiB."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.comm import reset_mesh_context
+    tmp = tempfile.mkdtemp(prefix="zero3_", dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store1')}",
+                            rank=0, world_size=1)
+    runs, checks, prints = {}, {}, {}
+    taken = {}
+
+    def arm(engine, i):
+        prints["store"].append(master_fingerprints(engine))
+        if i == 0:
+            taken["inputs"] = capture_k7_inputs(engine)
+        elif i == 1:
+            taken["check"] = dict(k7_vs_plain_at_path_size(engine, taken.pop("inputs")),
+                                  shard_numel=engine.layout.shard_numel)
+
+    try:
+        prints["stage2"], prints["store"] = [], []
+        engine, runs["a_stage2_wire"] = z3_run(
+            2, check_sync=True, after_step=lambda e, i: prints["stage2"].append(
+                master_fingerprints(e)))
+        del engine
+        free_memory()
+        engine, rec = z3_run(3, check_sync=True, after_step=arm)
+        rec["k7_store_check"] = taken.pop("check")
+        runs["a_store_fp32"] = rec
+        del engine
+        free_memory()
+        engine, runs["a_store_int8"] = z3_run(3, {"zero_quantized_weights": True,
+                                                  "zero_quantized_gradients": True})
+        del engine
+        free_memory()
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        flash = _flash_case(gen, "zero3_store_2x1024", ZERO_ROWS, ZERO_SEQ, True)
+    finally:
+        dist.destroy_process_group()
+        reset_mesh_context()
+    free_memory()
+    s2, s3, q = runs["a_stage2_wire"], runs["a_store_fp32"], runs["a_store_int8"]
+    L, n = ZERO_LAYERS, Z3_STEPS * Z3_GAS
+    checks["a_store_engaged"] = s3["store"] and q["store"] and not s2["store"]
+    checks["a_store_losses_bit_equal_stage2_wire"] = s3["losses"] == s2["losses"]
+    checks["a_store_masters_bit_equal_every_step"] = prints["store"] == prints["stage2"]
+    for name, rec in (("stage2_wire", s2), ("store_fp32", s3), ("store_int8", q)):
+        checks[f"a_{name}_one_fetch_a_step_no_sync"] = rec["fetches"] == [2] * Z3_STEPS
+        checks[f"a_{name}_k7_once_a_step"] = rec["launches"]["adam_step_"] == Z3_STEPS
+        trace = L if rec["store"] else 0  # the schedule pass's forward at the first step
+        checks[f"a_{name}_flash_once_a_layer_and_microstep"] = rec["launches"] == {
+            "flash_attention_fwd": n * L + trace, "flash_attention_bwd_dq": n * L,
+            "flash_attention_bwd_dkdv": n * L, "adam_step_": Z3_STEPS}
+    sched = s3["schedule"]
+    checks["a_schedule_every_bucket_gathered"] = sched["epochs"] >= sched["buckets"]
+    checks["a_schedule_peak_within_budget"] = (sched["peak_live_elements"]
+                                               <= sched["max_live_parameters"])
+    checks["a_store_gathers_counted"] = (s3["store_stats"]["gathers"]
+                                         == sched["epochs"] * n)
+    checks["a_int8_tiers"] = q["tiers"] == ["int8", "int8"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(q["losses"], s3["losses"]))
+    q["max_rel_loss_diff_vs_fp32_store"] = rel
+    checks["a_int8_losses_within_0.05"] = rel <= 0.05 and q["losses"] != s3["losses"]
+    checks["a_k7_at_store_shard_within_ulps"] = s3["k7_store_check"]["max_ulps"] <= K7_ULPS
+    checks["a_flash_at_path_shape"] = all(
+        flash[key]["row_rel_err"] <= flash["row_tolerance"]
+        and flash["lse_max_abs_err"] <= LSE_TOL
+        and flash[key]["vs_exact"]["kernel"] <= FLASH_EXACT_RATIO * flash[key]["vs_exact"]["plain"]
+        for key, _, _ in FLASH_KERNELS)
+    out_dir = tempfile.mkdtemp(prefix="ranks_", dir=tmp)
+    t = time.monotonic()
+    mp.start_processes(_z3_rank, args=(2, os.path.join(tmp, "store2"), out_dir), nprocs=2,
+                       start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    spawn_s = time.monotonic() - t
+    for rk in ranks:
+        rec, tag = rk["run"], f"b_rank{rk['rank']}"
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], s3["losses"]))
+        rec["max_rel_loss_diff_vs_a"] = rel
+        checks[f"{tag}_store_engaged"] = rec["store"]
+        checks[f"{tag}_losses_within_bf16_tolerance"] = rel <= ZERO_LOSS_RTOL
+        b, share = rec["state_bytes"], 4 * rec["padded_elements"] // 2
+        checks[f"{tag}_half_of_the_store"] = b["masters"] == b["m"] == b["v"] == share
+        checks[f"{tag}_k7_once_a_step"] = rec["launches"]["adam_step_"] == Z3_RANK_STEPS
+        checks[f"{tag}_gather_wire_bytes"] = rec["schedule"]["gather_wire_bytes_a_microbatch"] > 0
+    shard = ranks[1]["run"]["k7_shard_check"]
+    checks["b_rank1_k7_at_half_store_within_ulps"] = shard["max_ulps"] <= K7_ULPS
+    checks["b_backend_named"] = all(rk["backend"] for rk in ranks)
+    rec = {"phase": "training_zero3_scheduled",
+           "config": f"llama3_8b(num_hidden_layers={ZERO_LAYERS}, ce_chunk_size=8192), random "
+           f"bf16 weights, AdamW lr {ZERO_LR} wd 0.01, no clipping, no remat; gas {Z3_GAS} x "
+           f"{ZERO_ROWS} x {ZERO_SEQ} tokens; stage3_param_persistence_threshold 0",
+           "gpu": gpu_identity(), "runs": runs, "ranks": ranks, "flash_case": flash,
+           "b_spawn_s": spawn_s, "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    for name, run in runs.items():  # step ms, the schedule, peak GiB
+        emit({"training_zero3_scheduled_run": name, "step_ms": run["step_ms"],
+              "schedule": run.get("schedule"), "peak_memory_gib": run["peak_memory_gib"],
+              "state_bytes": run["state_bytes"]})
+    for rk in ranks:
+        run = rk["run"]
+        emit({"training_zero3_scheduled_rank": rk["rank"], "backend": rk["backend"],
+              "step_ms_" + rk["backend"].replace(" ", "_"): run["step_ms"],
+              "schedule": run["schedule"], "peak_memory_gib": run["peak_memory_gib"],
+              "state_bytes": run["state_bytes"]})
+    if not rec["ok"]:
+        raise SystemExit(f"training_zero3_scheduled checks failed: {checks}")
+    return rec
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_training_checkpoint() -> dict:
+    """Checkpointing and its lifecycle at the training_zero phase's model
+    and tokens (gas 1), world 1 over NCCL, into a temporary directory under
+    ``build/`` that the phase deletes (the free disk space printed before
+    it writes): engine A (the store) takes 2 steps, saves
+    ``global_step2`` and verifies it, takes a third step and saves
+    ``global_step3`` with the fault injector's ``checkpoint.corrupt`` set
+    (the commit seals it, then bytes rot), then 2 more steps. Engine B (the
+    store, other weights) loads the newest valid tag: the scan rejects
+    ``global_step3`` on its checksum, quarantines it and falls back to
+    ``global_step2``; B's steps 3-5 must equal A's losses and end on A's
+    masters, bit for bit. Engine C (the stage-2 wire) loads
+    ``global_step2`` (the reshard from 3 to 2) and its step 3 must equal
+    A's. ``ds_to_universal`` writes the universal directory of
+    ``global_step2`` (every parameter's master and Adam moments, step 2;
+    tests/test_torch_checkpoint.py loads such directories across the
+    packages). K7 once a step in every engine. Prints each save's,
+    verify's and load's bytes and seconds."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.checkpoint import ds_to_universal, verify_checkpoint
+    from deepspeed_tpu_torch.comm import reset_mesh_context
+    from deepspeed_tpu_torch.utils.fault_injection import get_fault_injector
+    build = os.path.join(ROOT, "build")
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=build)
+    save_dir = os.path.join(tmp, "save")
+    free_gib = shutil.disk_usage(build).free / 2**30
+    emit({"training_checkpoint_free_disk_gib": free_gib, "dir": "build/"})
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store1')}",
+                            rank=0, world_size=1)
+    data = zero_batches()
+    runs, checks, io = {}, {}, {}
+
+    def engine_of(stage):
+        return z3_run(stage, gas=1, steps=0, data=data)[0]
+
+    def steps(engine, lo, hi, name):
+        from deepspeed_tpu_torch.ops import fused_optimizer as fo
+        fo.adam_step_.launches = 0
+        losses = [engine.train_batch(iter([(data[i], data[i])])) for i in range(lo, hi)]
+        runs[name] = {"losses": losses, "k7_launches": fo.adam_step_.launches,
+                      "steps": hi - lo}
+        return losses
+
+    def timed_io(name, fn, path=None):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        io[name] = {"seconds": time.monotonic() - t}
+        if path is not None:
+            io[name]["bytes"] = dir_bytes(path)
+        return out
+
+    try:
+        a = engine_of(3)
+        steps(a, 0, 2, "A_steps_1_2")
+        checks["A_saved_step2"] = timed_io(
+            "save_global_step2", lambda: a.save_checkpoint(save_dir),
+            os.path.join(save_dir, "global_step2"))
+        checks["A_step2_verifies"] = timed_io(
+            "verify_global_step2",
+            lambda: verify_checkpoint(os.path.join(save_dir, "global_step2"))) == (True, "ok")
+        steps(a, 2, 3, "A_step_3")
+        get_fault_injector().configure({"faults": [{"site": "checkpoint.corrupt", "nth": 1}]})
+        try:
+            checks["A_saved_step3"] = timed_io(
+                "save_global_step3", lambda: a.save_checkpoint(save_dir),
+                os.path.join(save_dir, "global_step3"))
+        finally:
+            get_fault_injector().reset()
+        steps(a, 3, 5, "A_steps_4_5")
+        ref = runs["A_step_3"]["losses"] + runs["A_steps_4_5"]["losses"]
+        ref_prints = master_fingerprints(a)
+        del a
+        free_memory()
+        b = engine_of(3)
+        path, _ = timed_io("load_newest_valid", lambda: b.load_checkpoint(save_dir))
+        checks["B_fell_back_to_step2"] = path is not None and path.endswith("global_step2")
+        checks["B_quarantined_step3"] = (not os.path.exists(os.path.join(save_dir, "global_step3"))
+                                         and os.path.isdir(os.path.join(
+                                             save_dir, "global_step3.quarantined")))
+        shutil.rmtree(os.path.join(save_dir, "global_step3.quarantined"), ignore_errors=True)
+        checks["B_resumed_losses_bit_equal"] = steps(b, 2, 5, "B_steps_3_5") == ref
+        checks["B_resumed_masters_bit_equal"] = master_fingerprints(b) == ref_prints
+        del b
+        free_memory()
+        c = engine_of(2)
+        timed_io("load_into_stage2", lambda: c.load_checkpoint(save_dir, tag="global_step2"))
+        checks["C_stage2_step3_bit_equal"] = steps(c, 2, 3, "C_step_3") == ref[:1]
+        del c
+        free_memory()
+        uni = os.path.join(tmp, "universal")
+        timed_io("ds_to_universal", lambda: ds_to_universal(
+            os.path.join(save_dir, "global_step2"), uni), uni)
+        with open(os.path.join(uni, "universal_meta.json")) as f:
+            meta = json.load(f)
+        checks["universal_layout_written"] = (
+            meta["step"] == 2 and meta["has_optim_states"] and all(
+                os.path.exists(os.path.join(uni, "zero", name, fname)) for name in meta["params"]
+                for fname in ("fp32.npy", "exp_avg.npy", "exp_avg_sq.npy")))
+    finally:
+        dist.destroy_process_group()
+        reset_mesh_context()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, run in runs.items():
+        checks[f"{name}_k7_once_a_step"] = run["k7_launches"] == run["steps"]
+    checks["tmp_dir_deleted"] = not os.path.exists(tmp)
+    rec = {"phase": "training_checkpoint",
+           "config": f"llama3_8b(num_hidden_layers={ZERO_LAYERS}, ce_chunk_size=8192), random "
+           f"bf16 weights, AdamW lr {ZERO_LR} wd 0.01, the store (stage 3, fp32 wire) and the "
+           f"stage-2 wire; {ZERO_ROWS} x {ZERO_SEQ} tokens a step", "gpu": gpu_identity(),
+           "free_disk_gib_before": free_gib, "io": io, "runs": runs, "checks": checks,
+           "ok": all(checks.values())}
+    emit(rec)
+    for name, r in io.items():
+        emit({"training_checkpoint_io": name, **r})
+    if not rec["ok"]:
+        raise SystemExit(f"training_checkpoint checks failed: {checks}")
     return rec
 
 
@@ -5140,6 +5559,8 @@ def main() -> int:
     fused = timed("training_fused", phase_training_fused)
     zero = timed("training_zero", phase_training_zero)
     grad_comm = timed("training_grad_comm", phase_training_grad_comm)
+    zero3 = timed("training_zero3_scheduled", phase_training_zero3_scheduled)
+    checkpoint = timed("training_checkpoint", phase_training_checkpoint)
     bf16 = timed("serving", phase_serving, kernels)
     timed("serving_int8", phase_serving_int8, kernels, bf16)
     del bf16
@@ -5169,6 +5590,14 @@ def main() -> int:
             by_phase["adam_step_"][f"training_zero/rank{rk['rank']}_{name}"] = rec["k7_launches"]
     for name, rec in grad_comm["runs"].items():
         by_phase["adam_step_"][f"training_grad_comm/{name}"] = rec["k7_launches"]
+    for name, rec in zero3["runs"].items():  # K1/K2 and K7 under the store
+        for kernel, n in rec["launches"].items():
+            by_phase.setdefault(kernel, {})[f"training_zero3_scheduled/{name}"] = n
+    for rk in zero3["ranks"]:
+        for kernel, n in rk["run"]["launches"].items():
+            by_phase[kernel][f"training_zero3_scheduled/rank{rk['rank']}"] = n
+    for name, rec in checkpoint["runs"].items():
+        by_phase["adam_step_"][f"training_checkpoint/{name}"] = rec["k7_launches"]
     by_phase["lion_step_"] = {"training_optimizers/lion_bf16": runs["lion_bf16"]["k7_launches"]}
     by_phase["lamb_update_"] = {
         "training_optimizers/lamb_bf16": runs["lamb_bf16"]["k7_launches"]}
@@ -5200,7 +5629,11 @@ def main() -> int:
                                   zero["ranks"][1]["runs"]["stage3"]["k7_shard_check"],
                                   "training_grad_comm_rank1_fp32_s2_bucket_shard":
                                   grad_comm["ranks"][1]["runs"]["fp32_s2_overlap"]
-                                  ["k7_shard_check"]},
+                                  ["k7_shard_check"],
+                                  "training_zero3_scheduled_store_shard":
+                                  zero3["runs"]["a_store_fp32"]["k7_store_check"],
+                                  "training_zero3_scheduled_rank1_half_store":
+                                  zero3["ranks"][1]["run"]["k7_shard_check"]},
                    "lion_step_": {"lion_bf16": runs["lion_bf16"]["k7_path_check"]},
                    "lamb_update_": {"lamb_bf16": runs["lamb_bf16"]["k7_path_check"]}}
     # ptxas's report beside the wgmma kernels of the narrower widths and K4's

@@ -18,7 +18,12 @@ fp32 state, which reads its per-step scalars from device memory
 (``ops/``, ``csrc/``); with ZeRO stages 0-3 over the named mesh's
 ``data`` and ``fsdp`` axes (``runtime/zero_sharding.py``,
 ``runtime/zero3.py``, ``zero``), on the collectives of ``comm`` over
-``torch.distributed`` (NCCL on cards, gloo on the CPU).
+``torch.distributed`` (NCCL on cards, gloo on the CPU); the bucketed
+gradient wire and, at stage 3 under it, the scheduled ZeRO-3 store
+(``runtime/grad_comm.py``, ``runtime/zero3_schedule.py``); checkpoints
+that load across worlds and stages, the universal layout shared with the
+JAX package, and the resilience lifecycle (``checkpoint/``,
+``runtime/sentry.py``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

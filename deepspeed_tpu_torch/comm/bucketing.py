@@ -35,9 +35,11 @@ product of a code and a scale is exact), and ``torch.round`` rounds half
 to even as ``jnp.round`` does. So on the same input the codes, scales and
 dequantized values are the JAX engine's bits.
 
-The gradient wire's program is ``runtime/grad_comm.py``; the custom-VJP
-``param_gather_bucket`` belongs to the scheduled ZeRO-3 store, which is
-not ported yet.
+4. **The store's gather**, ``param_gather_bucket``: the all-gather of a
+   parameter bucket whose backward reduce-scatters the bucket's gradient,
+   for the scheduled ZeRO-3 store (``runtime/zero3_schedule.py``).
+
+The gradient wire's program is ``runtime/grad_comm.py``.
 """
 
 from dataclasses import dataclass
@@ -289,26 +291,92 @@ def reduce_scatter_bucket(x: torch.Tensor, group=None, tier: str = "fp32",
 
 
 def all_gather_bucket(shard: torch.Tensor, group=None, tier: str = "fp32",
-                      block_size: int = DEFAULT_BLOCK_SIZE, out: Optional[torch.Tensor] = None):
+                      block_size: int = DEFAULT_BLOCK_SIZE, out: Optional[torch.Tensor] = None,
+                      async_op: bool = False):
     """The ranks' shards gathered back into the whole flat bucket (into
     ``out`` where given). The quantized tiers send each shard quantized and
     every rank dequantizes the same bytes, so all end with the same
-    values."""
+    values. ``async_op=True`` returns a ``comm.CommHandle`` whose
+    ``wait()`` returns the bucket."""
     _check_tier(tier)
     if tier == "fp32":
-        return comm.all_gather_into_tensor(out, shard, group=group)
+        return comm.all_gather_into_tensor(out, shard, group=group, async_op=async_op)
     n = shard.shape[0]
     if tier == "int8":
         wire, _ = _pack_int8(shard, 1, block_size)
-        rows = _dequantize_rows(comm.all_gather(wire[0], group=group, tiled=False), block_size, n)
+
+        def rows(got):
+            return _dequantize_rows(got, block_size, n)
     else:
         wire, _ = _pack_onebit(shard.view(1, n))
-        rows = _signed_rows(comm.all_gather(wire[0], group=group, tiled=False), n)
-    if out is None:
-        return torch.cat(list(rows))
-    for i, row in enumerate(rows):
-        out[i * n:(i + 1) * n].copy_(row)
-    return out
+
+        def rows(got):
+            return _signed_rows(got, n)
+
+    def finish(got):
+        if out is None:
+            return torch.cat(list(rows(got)))
+        for i, row in enumerate(rows(got)):
+            out[i * n:(i + 1) * n].copy_(row)
+        return out
+
+    got = comm.all_gather(wire[0], group=group, tiled=False, async_op=async_op)
+    return _finish(got, finish, async_op)
+
+
+class _ParamGatherBucket(torch.autograd.Function):
+    """The differentiable bucket gather of the scheduled ZeRO-3 store (see
+    ``param_gather_bucket``)."""
+
+    @staticmethod
+    def forward(ctx, shard, group, fwd_tier, bwd_tier, block_size, handle):
+        ctx.opts = (group, bwd_tier, block_size)
+        if handle is not None:  # issued ahead (async_op): lands here
+            return handle.wait()
+        return all_gather_bucket(shard, group, fwd_tier, block_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, bwd_tier, block_size = ctx.opts
+        shard, _residual = reduce_scatter_bucket(g.contiguous(), group, bwd_tier, block_size)
+        return shard, None, None, None, None, None
+
+
+class PendingGather:
+    """A ``param_gather_bucket`` issued ahead of its use: ``wait()`` waits
+    for the collective and returns the gathered bucket, differentiable in
+    the shard."""
+
+    def __init__(self, shard, group, fwd_tier, bwd_tier, block_size):
+        self.args = (shard, group, fwd_tier, bwd_tier, block_size)
+        self.handle = all_gather_bucket(shard.detach(), group, fwd_tier, block_size,
+                                        async_op=True)
+
+    def wait(self) -> torch.Tensor:
+        return _ParamGatherBucket.apply(*self.args, self.handle)
+
+
+def param_gather_bucket(shard: torch.Tensor, group=None, fwd_tier: str = "fp32",
+                        bwd_tier: str = "fp32", block_size: int = DEFAULT_BLOCK_SIZE,
+                        async_op: bool = False):
+    """Differentiable bucket all-gather for the scheduled ZeRO-3 store
+    (``deepspeed_tpu/comm/bucketing.py:351-378``, a ``jax.custom_vjp``
+    there, a ``torch.autograd.Function`` here).
+
+    Forward: ``all_gather_bucket(shard, fwd_tier)`` (int8 with
+    ``zero_quantized_weights``). Backward: the cotangent of the whole
+    bucket reduce-scattered back to the shard's shape through ``bwd_tier``
+    (int8 with ``zero_quantized_gradients``): the SUM over the ranks, as
+    XLA's transpose of a tiled all-gather is, so for fp32 over fp32 the
+    store's gradient exchange is the stage-2 wire's reduce-scatter to the
+    bit; the quantized tiers pass the gradient straight through their
+    forward rounding. ``async_op=True`` issues the gather now and returns a
+    ``PendingGather`` whose ``wait()`` gives the bucket where it lands."""
+    _check_tier(fwd_tier)
+    _check_tier(bwd_tier)
+    if async_op:
+        return PendingGather(shard, group, fwd_tier, bwd_tier, block_size)
+    return _ParamGatherBucket.apply(shard, group, fwd_tier, bwd_tier, block_size, None)
 
 
 def allreduce_bucket(x: torch.Tensor, group=None, tier: str = "fp32",

@@ -16,11 +16,16 @@ ZeroConfig``: every key with its defaults and ``stage3_*`` aliases, stages
 ``activation_checkpointing`` (``:161``; ``remat_policy`` wraps the
 model's whole forward, ``runtime/activation_checkpointing/``) and
 ``gradient_comm`` (``:188 GradientCommConfig``, the bucketed gradient
-wire, ``runtime/grad_comm.py``). Any other key (``async_pipeline``,
+wire, ``runtime/grad_comm.py``), ``checkpoint`` (``:331
+CheckpointConfig``) and ``resilience`` (``:441 ResilienceConfig``, with
+its ``fault_injection``). Any other key (``async_pipeline``,
 ...), or one of these set to
-what the port does not run yet (ZeRO offload, ZeRO++'s quantized weights
-and gradients and hpZ, MiCS, ``partition_activations``,
-``cpu_checkpointing``), raises: nothing is ignored silently. fp16's
+what the port does not run yet (ZeRO offload, ZeRO++'s hpZ and
+nontrainable-weight quantization, MiCS, ``partition_activations``,
+``cpu_checkpointing``), raises: nothing is ignored silently. ZeRO++'s
+``zero_quantized_weights`` and ``zero_quantized_gradients`` run only as
+the scheduled ZeRO-3 store's int8 tiers (stage 3 with ``gradient_comm``,
+``runtime/zero3_schedule.py``) and raise elsewhere. fp16's
 ``auto_cast`` and ``fp16_master_weights_and_grads`` are accepted and
 change nothing, as in the JAX engine, which reads neither; so are the
 ZeRO keys the JAX docstring marks inert (bucket sizes, ``overlap_comm``,
@@ -38,7 +43,8 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 _KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
          GRADIENT_ACCUMULATION_STEPS, "optimizer", "scheduler", "bf16", "fp16",
          "gradient_clipping", "zero_optimization", "data_types",
-         "activation_checkpointing", "mesh", "comms_logger", "gradient_comm"}
+         "activation_checkpointing", "mesh", "comms_logger", "gradient_comm", "checkpoint",
+         "resilience"}
 WIRE_TIERS = ("fp32", "int8", "onebit")
 
 
@@ -106,10 +112,14 @@ class ZeroConfig:
     elements replicated at stage 3, and ``max_live_parameters`` feeds the
     governor's advisory (``runtime/zero_governor.py``). The keys that tune
     the reference's hook machinery are accepted and inert, as in JAX.
-    Offload, ZeRO++ (quantized weights and gradients, hpZ) and MiCS raise
-    ``NotImplementedError`` naming the key; so do the resilience keys
-    (anomaly rollback, save retries, fault injection) set to other than
-    their defaults."""
+    Offload, ZeRO++'s hpZ and nontrainable-weight quantization, and MiCS
+    raise ``NotImplementedError`` naming the key; ``zero_quantized_weights``
+    and ``zero_quantized_gradients`` raise unless the scheduled ZeRO-3
+    store can engage (stage 3 with ``gradient_comm``: checked by
+    ``DeepSpeedTorchConfig``, then by the engine). The resilience keys
+    (anomaly rollback, save retries, fault injection) are accepted and
+    inert here, as in JAX, whose ``ZeroConfig`` ignores them: the
+    ``resilience`` section holds the ones that act."""
 
     _DEFAULTS = {
         "stage": 0, "contiguous_gradients": True, "reduce_scatter": True,
@@ -144,9 +154,6 @@ class ZeroConfig:
                      "prefetch_bucket_size", "param_persistence_threshold",
                      "model_persistence_threshold", "max_live_parameters",
                      "max_reuse_distance", "zero_hpz_partition_size", "retry_backoff_secs")
-    _RESILIENCE = ("max_consecutive_anomalies", "loss_spike_window", "loss_spike_factor",
-                   "loss_spike_min_history", "rollback", "save_retries", "retry_backoff_secs",
-                   "fault_injection")
 
     def __init__(self, section: Dict[str, Any]):
         given = {self.ALIASES.get(k, k): v for k, v in section.items() if v != "auto"}
@@ -167,8 +174,7 @@ class ZeroConfig:
             if getattr(self, key):
                 raise NotImplementedError(f"zero_optimization.{key} is not ported yet: it "
                                           "needs host offload")
-        for key in ("zero_quantized_weights", "zero_quantized_nontrainable_weights",
-                    "zero_quantized_gradients"):
+        for key in ("zero_quantized_nontrainable_weights", ):
             if getattr(self, key):
                 raise NotImplementedError(f"zero_optimization.{key} (ZeRO++) is not ported "
                                           "yet")
@@ -178,10 +184,6 @@ class ZeroConfig:
         if self.mics_shard_size > 1:
             raise NotImplementedError("zero_optimization.mics_shard_size (MiCS) is not "
                                       "ported yet")
-        for key in self._RESILIENCE:
-            if getattr(self, key) != self._DEFAULTS[key]:
-                raise NotImplementedError(f"zero_optimization.{key} is not ported yet: it "
-                                          "belongs to the resilience layer")
 
 
 class GradientCommConfig:
@@ -234,6 +236,73 @@ class GradientCommConfig:
         """The tier of a bucket of ``dtype`` (a torch dtype or its name)."""
         key = str(dtype).replace("torch.", "")
         return self.comm_quantization_per_dtype.get(key, self.comm_quantization)
+
+
+class CheckpointConfig:
+    """The ``checkpoint`` section (``feature_configs.py:331``):
+    ``tag_validation`` (``Warn``, ``Ignore`` or ``Fail``: every rank must
+    save under the same tag); ``load_universal``,
+    ``use_node_local_storage`` and ``parallel_write`` are accepted and
+    inert, as in JAX (``engine.load_universal_checkpoint`` reads a
+    universal directory)."""
+
+    _DEFAULTS = {"tag_validation": "WARN", "load_universal": False,
+                 "use_node_local_storage": False, "parallel_write": {}}
+    MODES = ("WARN", "IGNORE", "FAIL")
+
+    def __init__(self, section: Dict[str, Any]):
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, section.get(key, default))
+        self.tag_validation = str(getattr(self.tag_validation, "value",
+                                          self.tag_validation)).upper()
+        if self.tag_validation not in self.MODES:
+            raise DeepSpeedConfigError(f"checkpoint.tag_validation must be one of {self.MODES}, "
+                                       f"got {self.tag_validation!r}")
+        self.load_universal = bool(self.load_universal)
+
+
+class FaultInjectionConfig:
+    """``resilience.fault_injection`` (``feature_configs.py:430``): a
+    deterministic fault plan, ``faults`` a list of ``{"site", "nth",
+    "times", "args"}`` (``utils/fault_injection.py``); inert unless
+    ``enabled``."""
+
+    _DEFAULTS = {"enabled": False, "seed": 0, "faults": []}
+
+    def __init__(self, section: Dict[str, Any]):
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, section.get(key, default))
+        self.enabled, self.seed = bool(self.enabled), int(self.seed)
+        self.faults = list(self.faults)
+
+
+class ResilienceConfig:
+    """The ``resilience`` section (``feature_configs.py:441``): preemption
+    autosave and ``auto_resume`` from ``save_dir``, the interval autosave,
+    ``keep_last_n`` retention, the anomaly sentry and its rollback; all
+    off unless ``enabled``. ``save_retries`` and ``retry_backoff_secs``
+    are accepted and inert, as in JAX."""
+
+    _DEFAULTS = {"enabled": False, "save_dir": None, "autosave_interval_steps": 0,
+                 "keep_last_n": 3, "auto_resume": False, "preempt_save": True,
+                 "preempt_signals": ["SIGTERM", "SIGINT"], "max_consecutive_anomalies": 3,
+                 "loss_spike_window": 20, "loss_spike_factor": 3.0,
+                 "loss_spike_min_history": 5, "rollback": True, "save_retries": 3,
+                 "retry_backoff_secs": 0.05, "fault_injection": {}}
+    _BOUNDS = {"autosave_interval_steps": 0, "keep_last_n": 0, "max_consecutive_anomalies": 1,
+               "loss_spike_window": 2, "loss_spike_min_history": 1, "save_retries": 1,
+               "retry_backoff_secs": 0}
+
+    def __init__(self, section: Dict[str, Any]):
+        for key, default in self._DEFAULTS.items():
+            setattr(self, key, section.get(key, default))
+        for key, low in self._BOUNDS.items():
+            if getattr(self, key) < low:
+                raise DeepSpeedConfigError(f"resilience.{key} must be >= {low}")
+        if not self.loss_spike_factor > 1.0:
+            raise DeepSpeedConfigError("resilience.loss_spike_factor must be > 1")
+        self.fault_injection = FaultInjectionConfig(
+            _section(section, "fault_injection", FaultInjectionConfig._DEFAULTS))
 
 
 class MeshConfig:
@@ -305,6 +374,16 @@ class DeepSpeedTorchConfig:
         from ..comm.comms_logging import CommsLoggerConfig
         self.comms_config = CommsLoggerConfig(_section(pd, "comms_logger",
                                                        CommsLoggerConfig._DEFAULTS))
+        self.checkpoint_config = CheckpointConfig(_section(pd, "checkpoint",
+                                                           CheckpointConfig._DEFAULTS))
+        self.resilience_config = ResilienceConfig(_section(pd, "resilience",
+                                                           ResilienceConfig._DEFAULTS))
+        zc = self.zero_config
+        for key in ("zero_quantized_weights", "zero_quantized_gradients"):
+            if getattr(zc, key) and not (zc.stage == 3 and self.gradient_comm_config.active):
+                raise NotImplementedError(
+                    f"zero_optimization.{key} (ZeRO++) is ported only as the scheduled ZeRO-3 "
+                    "store's int8 tier: stage 3 with gradient_comm")
         self.world_size = max(int(world_size), 1)
         self._configure_train_batch_size()
 

@@ -49,6 +49,15 @@ def jax_key_path(name: str) -> List[str]:
     return path
 
 
+def universal_name(name: str) -> str:
+    """A port parameter's name in the universal checkpoint layout
+    (``checkpoint/universal.py``): its JAX tree path, dotted, as the JAX
+    package's ``_flatten`` of the param tree writes it
+    (``model.layers.0.mlp.up_proj.kernel`` ->
+    ``model.layers_0.mlp.up_proj.kernel``)."""
+    return ".".join(jax_key_path(name))
+
+
 def lookup(tree, name: str):
     """The leaf of ``tree`` that port parameter ``name`` mirrors (a slice
     of a stacked leaf for a layer of a scanned model)."""

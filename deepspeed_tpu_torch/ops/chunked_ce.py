@@ -20,6 +20,7 @@ backward chains through it by ``1 - tanh^2`` (``_chunk_logits :50-67``,
 """
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 from torch.profiler import record_function
 
 
@@ -120,8 +121,13 @@ def chunked_unembed_ce(x, w, targets, chunk: int, compute_dtype=torch.bfloat16,
     """Per-token NLL of ``softmax(softcap(x @ w))`` without materializing
     the logits. ``x`` [T, H], ``w`` [H, V], ``targets`` [T] int (callers
     mask ignore_index outside), ``softcap`` Gemma-2's final logit cap or
-    None. Returns nll [T] fp32, differentiable in x and w. The JAX op's
+    None. Returns nll [T] fp32, differentiable in x and w. The call takes
+    part in ``__torch_function__`` (a mode sees ``w`` read here: the
+    scheduled ZeRO-3 store, ``runtime/zero3_schedule.py``). The JAX op's
     bias and logit scale wait for the first ported model that sets them."""
+    if has_torch_function((x, w)):  # a mode that reads the weight sees this call
+        return handle_torch_function(chunked_unembed_ce, (x, w), x, w, targets, chunk,
+                                     compute_dtype=compute_dtype, softcap=softcap)
     if softcap is not None and not softcap > 0:
         raise ValueError(f"chunked_unembed_ce: softcap must be positive, got {softcap!r}")
     return _ChunkedUnembedCE.apply(x, w, targets.long(), int(chunk), compute_dtype,

@@ -96,8 +96,11 @@ and raise.
 The wires (``:888-970``). With ``gradient_comm`` active and supported,
 ``train_batch`` runs the bucketed gradient wire (``runtime/grad_comm.py``)
 at any ``gradient_accumulation_steps``, the flat state is laid out by its
-bucket plan, and ``fused_train_step(s)`` raise; stage 3 with the wire
-raises ``NotImplementedError``. With ``onebitadam`` or ``onebitlamb`` and
+bucket plan, and ``fused_train_step(s)`` raise. At stage 3 the wire is the
+scheduled ZeRO-3 store (``runtime/zero3_schedule.py``, installed before
+the optimizer, so the moments are bucket shards): ``train_batch`` runs its
+scheduled step, and ``forward``/``eval_batch`` read the parameters
+through its schedule too. With ``onebitadam`` or ``onebitlamb`` and
 ``comm_backend_name`` at gas 1, ``fused_train_step`` (and so
 ``train_batch``) runs the compressed momentum exchange
 (``runtime/onebit_wire.py``) from step ``freeze_step`` on, decided on the
@@ -107,26 +110,46 @@ axes beyond data and fsdp, ...) logs a warning and keeps the default
 reduce, as the JAX engine does. ``forward``/``backward``/``step`` always
 keep the default reduce.
 
-Not ported yet (``ROADMAP.md``): offload, the scheduled ZeRO-3 store
-(``zero3_schedule.py``), the async step window (``_AsyncStepWindow``,
-``get_loss``), checkpointing, resilience and observability. The engine
+Checkpointing (``:2032-2420``): ``save_checkpoint`` writes each rank's
+flat state and its layout, rank 0 the host state, and seals the tag
+(``checkpoint/engine.py``); ``load_checkpoint`` falls back through older
+tags past a torn or corrupt one, and reads the ranges its own layout needs,
+so a checkpoint of any world and stage (2 or 3, the store or not) loads
+into any other; ``load_universal_checkpoint``, ``full_params`` and
+``save_16bit_model``. Resilience (``:1055-1230``): the ``resilience``
+section's preemption handlers (restored by ``destroy``), interval
+autosave and retention, ``auto_resume``, and the anomaly sentry's
+rollback, which keeps the data sampler's position; sync mode only.
+
+Not ported yet (``ROADMAP.md``): offload, the async step window
+(``_AsyncStepWindow``, ``get_loss``) and observability. The engine
 runs on ``cuda`` unless the caller passes ``device="cpu"``; without CUDA
 it raises.
 """
 
 import contextlib
 import logging
+import os
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from .. import zero
 from ..comm import comm
+from ..checkpoint.engine import (COMMIT_MARKER_FILE, MANIFEST_FILE, CheckpointCorruptionError,
+                                 ShardedReader,
+                                 TorchCheckpointEngine, find_latest_valid_checkpoint,
+                                 prune_checkpoints, quarantine_checkpoint, read_host_state,
+                                 read_latest_tag, verify_checkpoint, write_latest_tag)
 from ..comm.mesh import get_mesh_context, mesh_is_initialized
 from ..config.config import DeepSpeedTorchConfig
+from ..models.convert import universal_name
 from ..utils.device import resolve_device
 from ..utils.dtypes import resolve_dtype
+from ..utils.fault_injection import get_fault_injector
 from . import loss_scaler
 from .activation_checkpointing import checkpointing
 from .dataloader import DeepSpeedDataLoader
@@ -134,6 +157,7 @@ from .grad_comm import GradCommWire, grad_comm_supported, plan_wire
 from .lr_schedules import get_lr_schedule
 from .optimizers import ADAM_DEFAULT_BETAS, build_optimizer
 from .zero3 import GatherUnits, GradReducer
+from .zero3_schedule import Zero3Store, init_param_store
 from .onebit import ONEBIT_DEFAULT_FREEZE_STEP
 from .onebit_wire import wire_step, wire_supported
 from .zero_governor import max_live_advisory
@@ -207,14 +231,23 @@ class DeepSpeedTorchEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
         self.losses = None
+        self._last_overflows = []
         self._pending = None
         self._training = True
         self._last_grad_norm = None
         self._local = None  # this step's local loss, weighted for the global mean
         self._onebit_wire, self._wire_freeze_step = False, 0
         bucketed = self._choose_wire()
+        for key in ("zero_quantized_weights", "zero_quantized_gradients"):
+            if getattr(zc, key) and not bucketed:
+                raise NotImplementedError(
+                    f"zero_optimization.{key} (ZeRO++) is ported only as the scheduled ZeRO-3 "
+                    "store's int8 tier, which does not run here (it needs a pure data-parallel "
+                    "mesh whose ZeRO group is the whole dp world, bf16/fp32 and no remat)")
         self._init_state(model_parameters, bucketed)
-        self._wire = GradCommWire(self, self._bucket_layout) if bucketed else None
+        self._wire = None
+        if bucketed:
+            self._wire = self._store or GradCommWire(self, self._bucket_layout)
         if zc.stage >= 3:
             advice = max_live_advisory(sum(p.numel() for p in self._params),
                                        zc.max_live_parameters,
@@ -243,6 +276,8 @@ class DeepSpeedTorchEngine:
             self.training_dataloader = DeepSpeedDataLoader(
                 training_data, batch_size=self.train_micro_batch_size_per_gpu(),
                 collate_fn=collate_fn)
+        self.checkpoint_engine = self._make_checkpoint_engine()
+        self._init_resilience()
 
     @staticmethod
     def _dp_world_from(raw) -> int:
@@ -315,9 +350,9 @@ class DeepSpeedTorchEngine:
         if grad_comm_supported(self):
             return True
         logger.warning("gradient_comm requested but unsupported here (it needs a pure "
-                       "data-parallel mesh whose ZeRO group is the whole data-parallel world, "
-                       "bf16/fp32, and for a quantized tier more than one rank); gradients "
-                       "exchange through the default reduce")
+                       "data-parallel mesh, bf16/fp32, for a quantized tier more than one rank, "
+                       "and at stage 3 a ZeRO group that is the whole data-parallel world and "
+                       "no remat); gradients exchange through the default reduce")
         return False
 
     @torch.no_grad()
@@ -340,8 +375,12 @@ class DeepSpeedTorchEngine:
         numels = [p.numel() for p in params]
         plan = self.zero_plan
         self._sharded = plan.stage >= 1
-        self._bucket_layout = None
-        if bucketed:
+        self._bucket_layout = self._zero3_store = self._store = None
+        self._zero3_schedule = None
+        if bucketed and plan.shard_params:  # the scheduled ZeRO-3 store
+            self._zero3_store, units = init_param_store(self, self.param_names, self._shapes)
+            unit_modules = [[] for _ in units]
+        elif bucketed:
             self._bucket_layout, units = plan_wire(self.param_names, self._shapes,
                                                    self.dp_world_size, plan.zero_size,
                                                    self._config.gradient_comm_config)
@@ -376,7 +415,9 @@ class DeepSpeedTorchEngine:
         for p in params:
             p.requires_grad_(True)
         self._flat_compute = None
-        if plan.shard_params:
+        if self._zero3_store is not None:
+            self._store = Zero3Store(self, self._zero3_store)
+        elif plan.shard_params:
             self._flat_compute = (self._flat_master if self.compute_dtype == torch.float32
                                   else self._flat_master.to(self.compute_dtype))
             self._gather = GatherUnits(self.layout, params, self._shapes, self._flat_compute,
@@ -400,9 +441,10 @@ class DeepSpeedTorchEngine:
         if plan.shard_grads:
             self._flat_grad = torch.zeros(self.layout.shard_numel, dtype=self.grad_accum_dtype,
                                           device=self.device)
-            self._reducer = GradReducer(
-                self.layout, params, self._flat_grad, plan.zero_axes,
-                on_reduced=self._gather.release if self._gather is not None else None)
+            if self._store is None:  # the store's gather reduces in its backward
+                self._reducer = GradReducer(
+                    self.layout, params, self._flat_grad, plan.zero_axes,
+                    on_reduced=self._gather.release if self._gather is not None else None)
         else:
             self._flat_grad = torch.zeros(self.layout.full_numel, dtype=self.grad_accum_dtype,
                                           device=self.device)
@@ -419,6 +461,9 @@ class DeepSpeedTorchEngine:
         shard all-gathered into the whole copy per unit (stages 1-2), the
         cast shard and the persistent unit gathered (stage 3)."""
         plan = self.zero_plan
+        if self._store is not None:
+            self._store.refresh_persistent()
+            return
         if not self._sharded or plan.shard_params:
             if self._flat_compute is not None and self._flat_compute is not self._flat_master:
                 self._flat_compute.copy_(self._flat_master)
@@ -491,12 +536,17 @@ class DeepSpeedTorchEngine:
         if self._gather is not None:
             out["compute"] += sum(f.nbytes for u, f in zip(self.layout.units, self._gather.full)
                                   if u.persistent and f is not None)
+        if self._store is not None and self._store.pers_full is not None:
+            out["compute"] += self._store.pers_full.nbytes
         return out
 
     # ---- zero.GatheredParameters ----
 
     def _user_gather(self, params):
         """Gather and pin the stage-3 units of ``params``; returns them."""
+        if self._store is not None:
+            raise NotImplementedError("zero.GatheredParameters under the scheduled ZeRO-3 store: "
+                                      "read whole parameters with engine.full_params()")
         if self._gather is None:
             return []
         ks = sorted({self.layout.unit_of[self._index[id(p)]] for p in params})
@@ -549,7 +599,7 @@ class DeepSpeedTorchEngine:
             raise RuntimeError(
                 "forward() called twice without backward(); for evaluation "
                 "use engine.eval() (then forward() is grad-free) or eval_batch()")
-        args, kwargs = self._local_batch(args, kwargs)
+        args, kwargs = self._local_batch(*self._fault_poison(args, kwargs))
         loss = self._module_loss(args, kwargs)
         self._pending = loss
         if self.dp_world_size > 1:
@@ -559,6 +609,8 @@ class DeepSpeedTorchEngine:
     def _module_loss(self, args, kwargs):
         """The model's loss on this rank's ``args``/``kwargs``, with its
         autograd graph (under the remat policy; stage 3 gathers on use)."""
+        if self._store is not None:  # the parameters read through its schedule
+            return _extract_loss(self._store.call(args, kwargs))
         with self._gather.saved_tensors() if self._gather is not None else contextlib.nullcontext():
             out = (checkpointing.checkpoint_with(self._remat_policy, self.module, *args,
                                                  **kwargs)
@@ -568,7 +620,7 @@ class DeepSpeedTorchEngine:
     def _local_loss(self, *args, **kwargs):
         """The loss of this rank's rows of the global batch alone (the
         wires' micro-step loss: no token weighting)."""
-        return self._module_loss(*self._local_batch(args, kwargs))
+        return self._module_loss(*self._local_batch(*self._fault_poison(args, kwargs)))
 
     def _local_batch(self, args, kwargs):
         """The arguments on the device, each batch tensor cut to this
@@ -606,7 +658,9 @@ class DeepSpeedTorchEngine:
         if self._use_loss_scaling:
             scaled = scaled * self.scale_state.cur_scale
         scaled.backward()
-        if self._reducer is not None:  # stages 2-3: reduce-scattered into the shard
+        if self._store is not None:  # the shards' gradients, summed over the ranks
+            self._store.collect(self._flat_grad)
+        elif self._reducer is not None:  # stages 2-3: reduce-scattered into the shard
             self._reducer.flush()
             if self._gather is not None:
                 self._gather.release_all()
@@ -641,6 +695,7 @@ class DeepSpeedTorchEngine:
             return
         overflow = self._apply_step()
         self._settle([bool(overflow)] if self._use_loss_scaling else [False])
+        self._resilience_step_boundary(self.losses)
 
     @torch.no_grad()
     def _apply_step(self, grads=None) -> torch.Tensor:
@@ -703,6 +758,7 @@ class DeepSpeedTorchEngine:
         has read: the step and sample counts, ``skipped_steps``, the
         optimizer's host count and one schedule step per applied update."""
         applied = overflows.count(False)
+        self._last_overflows = list(overflows)
         self.global_steps += len(overflows)
         self.global_samples += len(overflows) * self.train_batch_size()
         self.skipped_steps += len(overflows) - applied
@@ -743,10 +799,13 @@ class DeepSpeedTorchEngine:
         device scalar."""
         self._require_gas_one("fused_train_step")
         if self._onebit_wire and self.global_steps >= self._wire_freeze_step:
-            return wire_step(self, args, kwargs)  # past the warmup: the 1-bit wire
-        losses, overflows = self._train_window([(args, kwargs)])
-        self._settle(self._fetch(overflows).tolist())
-        return losses[0]
+            loss = wire_step(self, args, kwargs)  # past the warmup: the 1-bit wire
+        else:
+            losses, overflows = self._train_window([(args, kwargs)])
+            self._settle(self._fetch(overflows).tolist())
+            loss = losses[0]
+        self._resilience_step_boundary(loss)
+        return loss
 
     def fused_train_steps(self, *args, **kwargs):
         """K optimizer steps of stacked batches with one host read: every
@@ -777,6 +836,7 @@ class DeepSpeedTorchEngine:
              for i in range(K)])
         host = self._fetch(torch.cat([losses, overflows.float()]))
         self._settle([bool(f) for f in host[K:]])
+        self._resilience_step_boundary(host[:K])
         return host[:K]
 
     def train_batch(self, data_iter=None):
@@ -788,7 +848,9 @@ class DeepSpeedTorchEngine:
         Returns the mean loss as a float."""
         self._training = True
         if self._wire is not None:
-            return self._wire.train_batch(data_iter, _batch)
+            loss = self._wire.train_batch(data_iter, _batch)
+            self._resilience_step_boundary([loss])
+            return loss
         gas = self.gradient_accumulation_steps()
         if gas == 1:
             return float(self.fused_train_step(*_batch(next(data_iter))))
@@ -800,6 +862,7 @@ class DeepSpeedTorchEngine:
         overflow = self._apply_step()
         host = self._fetch(torch.stack([total / gas, overflow.float()]))
         self._settle([bool(host[1])])
+        self._resilience_step_boundary(host[:1])
         return float(host[0])
 
     @torch.no_grad()
@@ -808,7 +871,8 @@ class DeepSpeedTorchEngine:
         batch's: a scalar loss as the token mean over it, a batch of
         outputs gathered in row order."""
         local_args, local_kwargs = self._local_batch(args, kwargs)
-        out = self.module(*local_args, **local_kwargs)
+        out = (self._store.call(local_args, local_kwargs) if self._store is not None
+               else self.module(*local_args, **local_kwargs))
         if self.dp_world_size == 1 or not isinstance(out, torch.Tensor):
             return out
         if out.dim() == 0:
@@ -816,6 +880,467 @@ class DeepSpeedTorchEngine:
         split = any(self.zero_plan.splits(self._to_device(a))
                     for a in (*args, *kwargs.values()))
         return comm.all_gather(out, group=self.zero_plan.dp_axes) if split else out
+
+    # ---- checkpointing (the JAX engine's :2032-2420) ----
+
+    def _dist_world(self) -> int:
+        import torch.distributed as dist
+        return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+    def _make_checkpoint_engine(self):
+        """This process's checkpoint engine: its global rank among the
+        processes that save one checkpoint, their barrier, and rank 0's
+        verdict shared with every rank."""
+        import torch.distributed as dist
+        if self._dist_world() == 1:
+            return TorchCheckpointEngine()
+
+        def agree(ok: bool) -> bool:
+            flag = torch.tensor([1.0 if ok else 0.0], device=self.device)
+            dist.broadcast(flag, src=0)
+            return bool(flag.item())
+
+        return TorchCheckpointEngine(rank=dist.get_rank(), barrier=lambda: agree(True),
+                                     agree=agree)
+
+    def _ckpt_writes(self) -> bool:
+        """Whether this rank writes its state: one rank of each set of
+        replicas (the data-parallel index 0 at stage 0, replica index 0
+        across the ZeRO groups above it)."""
+        plan = self.zero_plan
+        if self.mesh_ctx is None:
+            return True
+        if not self._sharded:
+            return plan.dp_index() == 0
+        return not plan.replica_axes or self.mesh_ctx.axis_index(plan.replica_axes) == 0
+
+    def _mid_accumulation(self) -> bool:
+        """Whether the accumulation buffer holds gradients (it is zero at a
+        boundary: the apply step zeroes it)."""
+        return self.micro_steps % self.gradient_accumulation_steps() != 0
+
+    def _state_dict(self):
+        """This rank's flat state: the masters (``fp32``), the accumulation
+        buffer between boundaries (at one it holds zeros, and a load zeroes
+        it), each optimizer buffer, the update count and the loss scale."""
+        buffers = {"fp32": self._flat_master}
+        if self._mid_accumulation():
+            buffers["grad_acc"] = self._flat_grad
+        buffers.update({f"optimizer.{k}": v for k, v in self.optimizer.state.items()})
+        return {"buffers": buffers,
+                "scalars": {"optimizer_count": int(self.optimizer.count),
+                            "scale_state": list(loss_scaler.to_host(self.scale_state))}}
+
+    def _ckpt_layout(self):
+        """Which parameter ranges each of ``_state_dict``'s buffers holds
+        (``checkpoint/engine.py ShardedReader``)."""
+        names = self.param_names
+        flat = [[names[i], s, e, off] for i, s, e, off in self.layout.pieces]
+        grad = (flat if self.zero_plan.shard_grads or not self._sharded else
+                [[names[i], a, b, 0] for i, (a, b) in enumerate(self.layout.full_bounds)])
+        kinds = {"fp32": "flat"}
+        if self._mid_accumulation():
+            kinds["grad_acc"] = "grad"
+        kinds.update({f"optimizer.{k}": "flat" for k in self.optimizer.state})
+        return {"params": {n: list(s) for n, s in zip(names, self._shapes)},
+                "pieces": {"flat": flat, "grad": grad}, "buffers": kinds,
+                "meta": {"stage": self.zero_plan.stage, "world": self.dp_world_size,
+                         "zero_size": self.zero_plan.zero_size,
+                         "zero3_store": self._zero3_store is not None}}
+
+    def _checkpoint_tag_validation(self, tag) -> None:
+        """Every process must save under the same tag (reference
+        engine.py:3092): a diverged tag fragments one checkpoint."""
+        import zlib
+        import torch.distributed as dist
+        mode = self._config.checkpoint_config.tag_validation
+        if self._dist_world() == 1 or mode == "IGNORE":
+            return
+        h = float(zlib.crc32(str(tag).encode()))
+        both = torch.tensor([h, -h], dtype=torch.float64, device=self.device)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        if float(both[0]) != -float(both[1]):
+            msg = (f"checkpoint tag '{tag}' is not consistent across processes — a "
+                   "mixed-tag save fragments the checkpoint")
+            if mode == "FAIL":
+                raise ValueError(msg)
+            logger.warning(msg)
+
+    def _host_state(self, client_state):
+        sd = {"global_steps": self.global_steps, "global_samples": self.global_samples,
+              "micro_steps": self.micro_steps, "skipped_steps": self.skipped_steps,
+              "ds_config_batch": [self.train_batch_size(), self.train_micro_batch_size_per_gpu(),
+                                  self.gradient_accumulation_steps()],
+              "client_state": client_state or {}}
+        if self.lr_scheduler is not None and hasattr(self.lr_scheduler, "state_dict"):
+            sd["lr_scheduler"] = self.lr_scheduler.state_dict()
+        sampler = self._sampler()
+        if sampler is not None and hasattr(sampler, "state_dict"):
+            sd["data_sampler"] = sampler.state_dict()
+        if self._zero3_store is not None:
+            m = self._zero3_store
+            sd["zero3_store"] = {"bucket_size_mb": float(m.bucket_size_mb),
+                                 "pad_multiple": int(m.pad_multiple),
+                                 "persistent_idx": [int(i) for i in m.p_idx],
+                                 "n_leaves": int(m.n_leaves)}
+        return sd
+
+    def _sampler(self):
+        return getattr(self.training_dataloader, "sampler", None)
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        """Save every rank's state under ``save_dir/tag`` (default
+        ``global_step<N>``) and seal it; ``latest`` moves only to a sealed
+        tag. Returns whether the checkpoint committed. A collective."""
+        t0 = time.perf_counter()
+        tag = str(tag or f"global_step{self.global_steps}")
+        self._checkpoint_tag_validation(tag)
+        ce = self.checkpoint_engine
+        ce.create(tag)
+        path = os.path.join(save_dir, tag)
+        ce.last_save_bytes = 0
+        if self._ckpt_writes():
+            ce.save(self._state_dict(), path, host_state=self._host_state(client_state),
+                    layout=self._ckpt_layout())
+        if self._config.zero_config.gather_16bit_weights_on_model_save:
+            self.save_16bit_model(path)
+        # commit before `latest` moves: the commit is the durability barrier
+        committed = ce.commit(tag) is not False
+        self.last_checkpoint = {"tag": tag, "bytes": ce.last_save_bytes,
+                                "seconds": time.perf_counter() - t0, "committed": committed}
+        if not committed:
+            logger.error(f"checkpoint {tag} failed to commit; `latest` still points at the "
+                         "previous checkpoint")
+            return False
+        self._last_good_tag = tag
+        if ce.rank == 0:
+            if save_latest:
+                write_latest_tag(save_dir, tag)
+            rc = self._resilience
+            if rc.enabled and rc.keep_last_n:
+                prune_checkpoints(save_dir, rc.keep_last_n, protect=(tag, ))
+        return True
+
+    @torch.no_grad()
+    def full_params(self):
+        """``{name: whole fp32 master}`` (the JAX engine's ``full_params
+        :2047``): the one deliberate whole-model gather under the
+        scheduled ZeRO-3 store. A collective."""
+        return self.full_master_params()
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.npz",
+                         exclude_frozen_parameters=False):
+        """The whole weights in the compute dtype (bf16, else fp16) as one
+        archive keyed by their JAX tree paths, bf16 as its uint16 bit
+        pattern with a ``__dtype__`` key (``:2159``). A collective; rank 0
+        writes."""
+        full = self.full_params()
+        bf16 = self.compute_dtype == torch.bfloat16
+        if self.checkpoint_engine.rank != 0:
+            return True
+        os.makedirs(save_dir, exist_ok=True)
+        sd = {}
+        for name, v in full.items():
+            v = v.detach().to("cpu")
+            sd[universal_name(name)] = (v.to(torch.bfloat16).view(torch.int16).numpy()
+                                        .view(np.uint16) if bf16
+                                        else v.to(torch.float16).numpy())
+        sd["__dtype__"] = np.asarray("bfloat16" if bf16 else "float16")
+        path = os.path.join(save_dir, save_filename)
+        np.savez(path, **sd)
+        logger.info(f"saved 16-bit model to {path} ({len(sd)} tensors)")
+        return True
+
+    def _resolve_load_tag(self, load_dir):
+        """``latest`` while it names a sealed, verified tag; else the
+        newest tag that verifies (quarantining the provably bad ones);
+        else a legacy ``latest``; else None."""
+        lt = read_latest_tag(load_dir)
+        rank0 = self.checkpoint_engine.rank == 0
+        if lt is not None:
+            path = os.path.join(load_dir, lt)
+            if verify_checkpoint(path, require_manifest=True)[0]:
+                return lt
+            if rank0 and any(os.path.exists(os.path.join(path, f))
+                             for f in (MANIFEST_FILE, COMMIT_MARKER_FILE)):
+                quarantine_checkpoint(load_dir, lt)  # provably bad: the scan skips it
+        tag = find_latest_valid_checkpoint(load_dir, quarantine=rank0)
+        if tag is None and lt is not None and verify_checkpoint(
+                os.path.join(load_dir, lt), require_manifest=False)[0]:
+            tag = lt
+        return tag
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False, custom_load_fn=None):
+        """Restore from ``load_dir/tag`` (no tag: the newest that verifies;
+        an explicit tag that fails verification raises
+        ``CheckpointCorruptionError``). The checkpoint may come from any
+        world and stage: each buffer's ranges are read through the saved
+        layouts. Returns ``(path, client_state)``, or ``(None, {})``."""
+        t0 = time.perf_counter()
+        verified = tag is None  # the tag the scan picks has verified
+        if tag is None:
+            tag = self._resolve_load_tag(load_dir)
+            if tag is None:
+                logger.warning(f"Unable to find a valid checkpoint in {load_dir}, if trying to "
+                               "load a specific checkpoint please pass tag")
+                return None, {}
+        path = os.path.join(load_dir, str(tag))
+        ok, reason = (True, "") if verified else verify_checkpoint(path, require_manifest=False)
+        if not ok:
+            raise CheckpointCorruptionError(f"{path}: {reason}")
+        host_state = read_host_state(path)
+        saved = (host_state or {}).get("zero3_store")
+        if saved is not None and self._zero3_store is not None and \
+                int(saved["n_leaves"]) != self._zero3_store.n_leaves:
+            raise ValueError(f"checkpoint ZeRO-3 store covers {saved['n_leaves']} param leaves "
+                             f"but the live model has {self._zero3_store.n_leaves}")
+        reader = ShardedReader(path)
+        kinds = ["fp32"]
+        if load_optimizer_states and not load_module_only:
+            self._flat_grad.zero_()
+            kinds += [k for k in ["grad_acc"] + [f"optimizer.{k}" for k in self.optimizer.state]
+                      if reader.has(k)]
+        self._read_buffers(reader, kinds)
+        if load_optimizer_states and not load_module_only:
+            sc = reader.scalars()
+            self._set_update_count(int(sc.get("optimizer_count", 0)))
+            if "scale_state" in sc:
+                self.scale_state = loss_scaler.to_device(
+                    loss_scaler.LossScaleState(*sc["scale_state"]), self.device)
+        self._refresh_compute()
+        client_state = {}
+        if host_state:
+            self.global_steps = host_state.get("global_steps", 0)
+            self.global_samples = host_state.get("global_samples", 0)
+            self.micro_steps = host_state.get("micro_steps", 0)
+            self.skipped_steps = host_state.get("skipped_steps", 0)
+            client_state = host_state.get("client_state", {})
+            if (load_lr_scheduler_states and self.lr_scheduler is not None
+                    and "lr_scheduler" in host_state
+                    and hasattr(self.lr_scheduler, "load_state_dict")):
+                self.lr_scheduler.load_state_dict(host_state["lr_scheduler"])
+            sampler = self._sampler()
+            if sampler is not None and "data_sampler" in host_state:
+                sampler.load_state_dict(host_state["data_sampler"])
+        self._last_good_tag = str(tag)
+        self.last_load = {"tag": str(tag), "seconds": time.perf_counter() - t0,
+                          "saved_stage": reader.meta.get("stage"),
+                          "saved_world": reader.meta.get("world")}
+        return path, client_state
+
+    @torch.no_grad()
+    def _read_buffers(self, reader, kinds):
+        """Each of ``kinds`` into this rank's buffer: the pieces it holds,
+        read from whichever saved ranks hold them."""
+        names = self.param_names
+        full_grad = self._sharded and not self.zero_plan.shard_grads
+        for kind in kinds:
+            buf = self._flat_buffer(kind)
+            places = ([(i, a, b, 0) for i, (a, b) in enumerate(self.layout.full_bounds)]
+                      if kind == "grad_acc" and full_grad else self.layout.pieces)
+            for i, s, e, off in places:
+                buf[s:e].copy_(reader.read(kind, names[i], off, off + e - s))
+
+    def _flat_buffer(self, kind: str) -> torch.Tensor:
+        """The flat buffer a checkpoint's ``kind`` names: ``fp32`` (the
+        masters), ``grad_acc``, ``optimizer.<state key>``."""
+        if kind == "fp32":
+            return self._flat_master
+        if kind == "grad_acc":
+            return self._flat_grad
+        return self.optimizer.state[kind[len("optimizer."):]]
+
+    def _set_update_count(self, n: int):
+        opt = self.optimizer
+        opt._count.fill_(n)
+        opt._count_host, opt._unsettled, opt._table_left = n, 0, 0
+
+    def _peek_zero3_store_meta(self, path):
+        """The saved store's descriptor from the checkpoint's host state
+        (no array data read), or None when it was saved without the store."""
+        hs = read_host_state(path)
+        return (hs or {}).get("zero3_store")
+
+    def load_universal_checkpoint(self, universal_dir):
+        """Resume from a universal checkpoint (``:2184``): the fp32 master
+        of each parameter, and with Adam-family state its moments and the
+        update count set to the saved step, onto this engine's layout
+        whatever wrote it (this package or the JAX one). The step counter
+        is the saved step; the schedule is not restored, as in JAX."""
+        from ..checkpoint.universal import load_universal, read_universal_meta
+        meta = read_universal_meta(universal_dir)
+        frags = {"fp32": load_universal(universal_dir, "fp32.npy")}
+        if meta.get("has_optim_states") and {"m", "v"} <= set(self.optimizer.state):
+            frags["optimizer.m"] = load_universal(universal_dir, "exp_avg.npy")
+            frags["optimizer.v"] = load_universal(universal_dir, "exp_avg_sq.npy")
+        missing = [universal_name(n) for n in self.param_names
+                   if universal_name(n) not in frags["fp32"]]
+        if missing:
+            raise KeyError(f"universal checkpoint missing parameters: {missing[:5]}")
+        with torch.no_grad():
+            for kind, arrays in frags.items():
+                buf = self._flat_buffer(kind)
+                for i, s, e, off in self.layout.pieces:
+                    flat = np.asarray(arrays[universal_name(self.param_names[i])],
+                                      dtype=np.float32).reshape(-1)
+                    buf[s:e].copy_(torch.from_numpy(flat[off:off + e - s]))
+        step = int(meta.get("step", 0))
+        if len(frags) > 1:
+            self._set_update_count(step)
+        self._refresh_compute()
+        self.global_steps = step
+        logger.info(f"loaded universal checkpoint {universal_dir} at step {step}")
+        return universal_dir, {}
+
+    # ---- resilience (the JAX engine's :1055-1230) ----
+
+    def _init_resilience(self):
+        rc = self._config.resilience_config
+        self._resilience = rc
+        self._sentry = None
+        self._preempted = False
+        self.preempt_count = 0
+        self._autosave_requested = False
+        self._last_good_tag = None
+        self._resilience_save_dir = rc.save_dir
+        self._signal_prev_handlers = {}
+        if not rc.enabled:
+            return
+        if rc.fault_injection.enabled:
+            get_fault_injector().configure(rc.fault_injection)
+        from .sentry import AnomalySentry
+        self._sentry = AnomalySentry(
+            max_consecutive=rc.max_consecutive_anomalies, spike_window=rc.loss_spike_window,
+            spike_factor=rc.loss_spike_factor, spike_min_history=rc.loss_spike_min_history)
+        if rc.preempt_save:
+            self._install_preempt_handlers()
+        if rc.auto_resume and rc.save_dir:
+            # the newest checkpoint that verifies, not blindly `latest`
+            path, _ = self.load_checkpoint(rc.save_dir)
+            if path is not None:
+                logger.info(f"[resilience] auto-resumed from {path} at step {self.global_steps}")
+
+    def _install_preempt_handlers(self):
+        import signal
+        for name in self._resilience.preempt_signals:
+            sig = getattr(signal, name, None)
+            if sig is None:
+                continue
+            try:
+                prev = signal.signal(sig, self._on_preempt_signal)
+            except (ValueError, OSError):  # not the main thread
+                continue
+            self._signal_prev_handlers[sig] = prev
+
+    def _remove_preempt_handlers(self):
+        import signal
+        for sig, prev in getattr(self, "_signal_prev_handlers", {}).items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
+        self._signal_prev_handlers = {}
+
+    def _on_preempt_signal(self, signum, frame):
+        # signal context: set flags only; the save runs at the next step
+        # boundary, where the engine's state is consistent
+        self._preempted = True
+        self.preempt_count += 1
+        logger.warning(f"[resilience] signal {signum} received; checkpoint will be saved at "
+                       "the next step boundary")
+
+    @property
+    def preempted(self) -> bool:
+        return self.preempt_count > 0
+
+    def _fault_poison(self, args, kwargs):
+        """The ``train.nan_grads`` fault site: the micro-batch's float
+        tensors set to NaN, so the loss and the gradients are NaN."""
+        fi = get_fault_injector()
+        if not (fi.enabled and fi.fire("train.nan_grads") is not None):
+            return args, kwargs
+
+        def poison(x):
+            if isinstance(x, torch.Tensor) and x.is_floating_point():
+                return torch.full_like(x, float("nan"))
+            return x
+        return tuple(poison(a) for a in args), {k: poison(v) for k, v in kwargs.items()}
+
+    def _resilience_step_boundary(self, losses):
+        """After each optimizer step of every training path: the sentry
+        fed the step's losses (host values the step fetched, or fetched
+        here) and overflow flags, the rollback on its verdict, the interval
+        autosave and the preemption save."""
+        rc = self._resilience
+        if not rc.enabled:
+            return
+        fi = get_fault_injector()
+        if fi.enabled and fi.fire("train.sigterm") is not None:
+            import signal
+            os.kill(os.getpid(), signal.SIGTERM)
+        if self._sentry is not None:
+            if isinstance(losses, torch.Tensor):
+                losses = losses.detach().float().reshape(-1).tolist()
+            flags = self._last_overflows or [False] * len(losses)
+            base = self.global_steps - len(losses)
+            for i, (loss, flag) in enumerate(zip(losses, flags)):
+                self._sentry.observe(None if loss is None else float(loss),
+                                     bool(flag) and self._use_loss_scaling, base + i + 1)
+                if self._sentry.should_rollback:
+                    self._rollback_to_last_good()
+                    break
+        if (rc.autosave_interval_steps and self.global_steps > 0
+                and self.global_steps % rc.autosave_interval_steps == 0):
+            self._autosave_requested = True
+        if self._preempted and rc.preempt_save:
+            self._autosave_requested = True
+            self._preempted = False  # one save per preemption notice
+        if self._autosave_requested and self._resilience_save_dir:
+            self._autosave_requested = False
+            ok = self.save_checkpoint(self._resilience_save_dir)
+            logger.info(f"[resilience] autosave at step {self.global_steps}: "
+                        f"{'committed' if ok else 'FAILED'}")
+
+    def _rollback_to_last_good(self) -> bool:
+        """Restore the masters, the optimizer state and the counters from
+        the last good checkpoint, but KEEP the data sampler's position: the
+        offending data window is skipped, not replayed."""
+        rc = self._resilience
+        self._sentry.reset()
+        if not rc.rollback or not self._resilience_save_dir:
+            logger.warning("[resilience] anomaly threshold hit but rollback is disabled or no "
+                           "save_dir is configured")
+            return False
+        sampler = self._sampler()
+        sampler_sd = (sampler.state_dict()
+                      if sampler is not None and hasattr(sampler, "state_dict") else None)
+        tag = self._last_good_tag or find_latest_valid_checkpoint(self._resilience_save_dir)
+        if tag is None:
+            logger.warning("[resilience] no valid checkpoint to roll back to")
+            return False
+        try:
+            path, _ = self.load_checkpoint(self._resilience_save_dir, tag=tag)
+        except CheckpointCorruptionError as e:
+            logger.error(f"[resilience] rollback target is corrupt: {e}")
+            return False
+        if path is None:
+            return False
+        if sampler_sd is not None:  # the load rewound it with the rest
+            sampler.load_state_dict(sampler_sd)
+        self._sentry.note_rollback(tag, self.global_steps)
+        return True
+
+    def destroy(self):
+        """Release the engine's state and hooks, and restore the signal
+        handlers the preemption autosave replaced (``:1992``)."""
+        self._remove_preempt_handlers()
+        for hooks in (self._gather, self._reducer):
+            if hooks is not None:
+                hooks.remove_hooks()
+        self._pending = None
 
     # ---- info ----
 

@@ -21,7 +21,8 @@ steps`` (1 included):
    them back through the tier; at stage 2 the reduce-scatter IS the
    gradient partition: the engine's stage-2 flat state is laid out by the
    bucket plan (each rank's shard of each bucket), so the reduce-scatter
-   writes the shard K7 steps on and no gradient gather follows;
+   writes the shard K7 steps on and no gradient gather follows (where the
+   ZeRO group is the whole world; see below);
 4. the engine's apply step (norm, clip, K7, the compute copy's refresh);
 5. the reported loss is the mean over the micro-steps and the ranks
    (JAX's ``pmean(loss_sum / gas)``), fetched once with the overflow flag.
@@ -35,13 +36,17 @@ loads stay aligned). ``forward``/``backward``/``step`` keep the default
 reduce over that layout.
 
 ``grad_comm_supported`` is JAX's predicate: a pure data-parallel mesh, no
-fp16, stage <= 2. Two differences: a world of one rank runs the fp32 tier
-(its numbers are the default reduce's, which JAX runs there; a quantized
-tier there falls back as in JAX), and at stages 1-2 the ZeRO group must be
-the whole data-parallel world (with both ``data`` and ``fsdp`` split it
-falls back). Stage 3 raises ``NotImplementedError`` where JAX would run
-its scheduled ZeRO-3 store (``runtime/zero3_schedule.py``), which is not
-ported yet.
+fp16; at stage 3 the scheduled ZeRO-3 store's (``runtime/zero3_schedule.py
+zero3_store_supported``), whose step (``Zero3Store.train_batch``) takes the
+wire's place. The buckets always run over the whole data-parallel world
+(``data x fsdp``), padded to ``world x quantization_block_size``. Where the
+ZeRO group is smaller than that world (``data`` and ``fsdp`` both split,
+the group ``fsdp``), stage 2 leaves each reduced bucket scattered over the
+ZeRO axes as JAX does: the world's reduced quarters (say) are gathered in
+fp32, which moves no number, and each rank keeps its ZeRO shard; stage 1
+gathers back through the tier, as at any world. One difference: a world of
+one rank runs the fp32 tier (its numbers are the default reduce's, which
+JAX runs there; a quantized tier there falls back as in JAX).
 """
 
 import time
@@ -52,7 +57,7 @@ from ..comm import comm
 from ..comm.bucketing import (all_gather_bucket, bucket_wire_bytes, jax_leaf_order,
                               plan_buckets, record_bucket_traffic, reduce_scatter_bucket)
 from ..comm.compressed import reciprocal
-from .zero_sharding import Unit, zero_axes_for
+from .zero_sharding import Unit
 
 NON_DP_AXES = ("model", "seq", "expert", "pipe")
 
@@ -62,24 +67,18 @@ def _dp_axes(ctx):
 
 
 def grad_comm_supported(engine) -> bool:
-    """Whether the wire runs for ``engine`` (see the module's docstring);
-    raises at stage 3 where it would."""
+    """Whether the wire runs for ``engine`` (see the module's docstring)."""
     cfg, ctx = engine._config, engine.mesh_ctx
     if ctx is None:
         return False
-    gc, stage = cfg.gradient_comm_config, cfg.zero_config.stage
-    dp = _dp_axes(ctx)
+    if cfg.zero_config.stage >= 3:
+        from .zero3_schedule import zero3_store_supported
+        return zero3_store_supported(engine)
+    gc = cfg.gradient_comm_config
     quantized = gc.comm_quantization != "fp32" or any(
         t != "fp32" for t in gc.comm_quantization_per_dtype.values())
-    runs = (not cfg.fp16_enabled and all(ctx.axis_size(a) == 1 for a in NON_DP_AXES)
-            and (len(dp) >= 1 or not quantized)
-            and (stage == 0 or tuple(zero_axes_for(ctx)) == dp))
-    if stage >= 3 and runs:
-        raise NotImplementedError(
-            "gradient_comm at ZeRO stage 3 runs the scheduled ZeRO-3 store "
-            "(deepspeed_tpu/runtime/zero3_schedule.py), which is not ported yet; use stage "
-            "0-2 with gradient_comm, or stage 3 without it")
-    return runs and stage <= 2
+    return (not cfg.fp16_enabled and all(ctx.axis_size(a) == 1 for a in NON_DP_AXES)
+            and (len(_dp_axes(ctx)) >= 1 or not quantized))
 
 
 def plan_wire(names, shapes, world: int, zero_size: int, gc):
@@ -115,6 +114,9 @@ class GradCommWire:
         plan = engine.zero_plan
         self.group = plan.dp_axes
         self.w = engine.dp_world_size
+        # stage 2 over a ZeRO group smaller than the world: the world's
+        # reduced chunks are gathered back and each rank keeps its shard
+        self._regather = plan.shard_grads and plan.zero_size != self.w
         self.stats = {"steps": 0, "wire_bytes": 0}
         self.step_bytes = bucket_wire_bytes(layout, self.w, self.tier, self.block)["wire_bytes"]
 
@@ -168,7 +170,10 @@ class GradCommWire:
         if eng.zero_plan.shard_grads:
             self._dst = acc if acc.dtype == torch.float32 else torch.zeros_like(
                 acc, dtype=torch.float32)
-            self._shards = [lay.unit_shard(self._dst, u) for u in lay.units]
+            self._shards = ([lay.unit_shard(self._dst, u) for u in lay.units]
+                            if not self._regather else
+                            [torch.zeros(u.length // self.w, dtype=torch.float32,
+                                         device=eng.device) for u in lay.units])
         else:
             self._dst = None
             self._shards = [torch.zeros(u.length // self.w, dtype=torch.float32,
@@ -241,7 +246,14 @@ class GradCommWire:
         self._acc = self._err = None
         inv = reciprocal(self.w, eng.device)  # XLA's s / w
         if eng.zero_plan.shard_grads:
-            return self._dst.mul_(inv)
+            if not self._regather:
+                return self._dst.mul_(inv)
+            zi = lay.zero_index
+            for u, shard in zip(lay.units, self._shards):
+                full = comm.all_gather_into_tensor(None, shard.mul_(inv), group=self.group)
+                lay.unit_shard(self._dst, u).copy_(full[zi * u.shard_len:(zi + 1) * u.shard_len])
+            self._shards = None
+            return self._dst
         acc = eng._flat_grad
         full = acc if acc.dtype == torch.float32 else self._full()
         for u, tier, shard in zip(lay.units, self.tiers, self._shards):

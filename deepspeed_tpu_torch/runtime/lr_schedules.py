@@ -45,6 +45,15 @@ class _LRScheduleBase:
         self.last_batch_iteration = last_batch_iteration
         self._last_lr = [self._lr(self.last_batch_iteration)]
 
+    def state_dict(self):
+        """The schedule's position, for a checkpoint (``lr_schedules.py:60``)."""
+        return {"last_batch_iteration": self.last_batch_iteration}
+
+    def load_state_dict(self, sd):
+        self.last_batch_iteration = sd["last_batch_iteration"]
+        self._last_lr = (None if self.last_batch_iteration < 0
+                         else [self._lr(self.last_batch_iteration)])
+
 
 class LRRangeTest(_LRScheduleBase):
     """LR range test: ``min_lr * (1 + count * step_rate)`` with ``count =

@@ -494,8 +494,14 @@ def test_world1_wire_refuses_fused_steps_and_stage3():
         eng.fused_train_step(ids, labels=ids)
     with pytest.raises(AssertionError, match="gradient wire"):
         eng.fused_train_steps(ids[None], labels=ids[None])
-    with pytest.raises(NotImplementedError, match="zero3_schedule"):
-        _world1({"gradient_comm": _gc()}, 3)
+    # stage 3 under the wire runs the scheduled ZeRO-3 store's step (it
+    # raised before runtime/zero3_schedule.py was ported), which refuses
+    # the fused steps as the wire does
+    eng3, losses, _ = _world1({"gradient_comm": _gc()}, 3, steps=1)
+    assert eng3._store is not None and eng3._wire is eng3._store
+    assert np.isfinite(losses).all()
+    with pytest.raises(AssertionError, match="gradient wire"):
+        eng3.fused_train_step(ids, labels=ids)
 
 
 @pytest.mark.parametrize("extra", [

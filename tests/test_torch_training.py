@@ -364,11 +364,12 @@ def test_training_model_refuses_unported_options(option):
         LlamaForCausalLM(LlamaConfig.tiny(**option), device="cpu")
 
 
-# ZeRO stages 1-3, the mesh, the bucketed gradient wire at stages 0-2, muP
-# and the 1-bit optimizers run now (test_torch_zero.py,
-# test_torch_grad_comm.py, test_torch_mup.py, test_torch_onebit.py); their
-# places hold what still raises: ZeRO offload, the wire at stage 3 (the
-# scheduled ZeRO-3 store) and the reference optimizers' keys the port lacks
+# ZeRO stages 1-3, the mesh, the bucketed gradient wire, the scheduled
+# ZeRO-3 store, muP and the 1-bit optimizers run now (test_torch_zero.py,
+# test_torch_grad_comm.py, test_torch_zero3_schedule.py, test_torch_mup.py,
+# test_torch_onebit.py); their places hold what still raises: ZeRO
+# offload, ZeRO++'s quantized weights where the store does not run (stage 2
+# under the wire) and the reference optimizers' keys the port lacks
 @pytest.mark.parametrize("config,match", [
     ({"train_batch_size": 2, "zero_optimization": {"stage": 3,
                                                    "offload_param": {"device": "cpu"}}},
@@ -377,7 +378,7 @@ def test_training_model_refuses_unported_options(option):
     ({"train_batch_size": 2, "activation_checkpointing": {"partition_activations": True}},
      "partition_activations"),
     ({"train_batch_size": 2, "gradient_comm": {"enabled": True},
-      "zero_optimization": {"stage": 3}}, "gradient_comm"),
+      "zero_optimization": {"stage": 2, "zero_quantized_weights": True}}, "gradient_comm"),
     ({"train_batch_size": 2, "optimizer": {"type": "OneBitLamb",
                                            "params": {"coeff_beta": 0.9}}}, "lamb"),
     ({"train_batch_size": 2, "optimizer": {"type": "MuAdamW",

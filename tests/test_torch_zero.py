@@ -425,7 +425,8 @@ def test_zero_config_keys_and_aliases(section, attr, value):
     ({"stage": 2, "zero_quantized_gradients": True}, "zero_quantized_gradients"),
     ({"stage": 3, "zero_hpz_partition_size": 2}, "zero_hpz_partition_size"),
     ({"stage": 3, "mics_shard_size": 2}, "mics_shard_size"),
-    ({"stage": 1, "rollback": False}, "rollback"),
+    ({"stage": 3, "zero_quantized_nontrainable_weights": True},
+     "zero_quantized_nontrainable_weights"),
 ])
 def test_zero_config_refuses_unported_keys(section, match):
     with pytest.raises(NotImplementedError, match=match):
