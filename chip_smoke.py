@@ -252,12 +252,33 @@ Phases, each printing one JSON line:
                       it; then the fp32 engine at the weights as first
                       drawn on that prompt, prefill and decode within
                       cosine 0.9999 of the plain fp32 forward.
+  serving_speculative — Llama-3-8B at its 32 layers with prefix caching on
+                      (64-token blocks in the serving KV budget): (a) eight
+                      prompts sharing a 2048-token prefix (tails of 64-200
+                      tokens, one diverging mid-block in another's tail)
+                      put cold and then adopting: tokens fed, adopted
+                      blocks, forks, first-token ms, adopted logits within
+                      the serving phase's prefill-against-decode bound,
+                      block conservation; (b) eight prompts of a repeated
+                      64-token pattern, 64 new tokens, d 4, n-gram 2: plain
+                      greedy at window 16, the per-token verify and the
+                      fused speculative window at 16, equal streams or
+                      each divergence explained by the logit margin against
+                      the two forwards' difference there, K4's plans
+                      beside it; a sampled pair (temperature 0.8, top-p
+                      0.95, d 3), fused against per-token, equal; drafted
+                      and accepted counts, decode tokens/s of a first and a
+                      warm run, captures and pool bytes; (c) score against
+                      a cold window put's
+                      log-softmax. Phase 2 holds K4 at the verify windows'
+                      shapes (N 5 and 3, each kernel) and an adopting
+                      put's (8 tails of 128 over 32 shared pages).
   9. attn_sweep     — python -m deepspeed_tpu_torch.ops.attn_sweep's
                       sweep_shape once at the Mistral shape: each leg's
                       K1/K2 and K3 times and the winners, committed to
                       this run's cache; nothing after it reads them.
-Each main path (phases 5, 5b-5i, 6, 7, 8 and the BLOOM and
-Gemma-2 serving phases) runs with the launch counts of
+Each main path (phases 5, 5b-5i, 6, 7, 8, serving_speculative and the
+BLOOM and Gemma-2 serving phases) runs with the launch counts of
 its kernels set to 0 just before and read just after. Every phase resolves
 the attention route against an empty cache directory made under build/
 (DS_TPU_ATTN_CACHE_DIR), and each training phase prints its decisions
@@ -576,12 +597,14 @@ CAP_Q_SCALE = 20.0
 
 def _paged_inputs(gen, seen: list, n_new: list, N: int, B: int, int8: bool = False,
                   widths=LLAMA_PAGED, window=None, alibi: bool = False, softcap=None,
-                  q_scale: float = 1.0, dtype=None):
+                  q_scale: float = 1.0, dtype=None, shared_pages: int = 0):
     """A paged-attention batch over a cache of ``widths`` as _paged_case
     describes it: (q, cache, layer, block table, seen, lens) and the
     wrapper's keywords (page size, window, ALiBi, softcap, int8 scales).
     Queries and a float cache are ``dtype`` (bf16 by default); an int8
-    cache quantizes a bf16 one, as the engine does."""
+    cache quantizes a bf16 one, as the engine does. ``shared_pages``: every
+    row's table starts with row 0's first pages, as sequences that adopted
+    one cached prefix share them."""
     import torch
     dtype = dtype or torch.bfloat16
     L, KV, G, D, ps, n_pages, layer = (widths[k] for k in (
@@ -595,6 +618,7 @@ def _paged_inputs(gen, seen: list, n_new: list, N: int, B: int, int8: bool = Fal
     q = (q_scale * torch.randn(S, N, KV * G, D, generator=gen, device="cuda")).to(dtype)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     bt = perm[:S * B].reshape(S, B).to(torch.int32)
+    bt[:, :shared_pages] = bt[:1, :shared_pages]
     for i, n in enumerate(n_new):
         if n == 0:
             bt[i] = 0
@@ -642,7 +666,8 @@ def k4_expected_path(shape: dict) -> str:
 def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                 graph: bool = False, int8: bool = False, widths=LLAMA_PAGED,
                 window=None, alibi: bool = False, softcap=None,
-                q_scale: float = 1.0, dtype=None, kernel=None) -> dict:
+                q_scale: float = 1.0, dtype=None, kernel=None,
+                shared_pages: int = 0) -> dict:
     """One paged-attention batch over a cache of ``widths``, bf16 or
     (``int8``) int8 with its scales, with BLOOM's ALiBi bias where
     ``alibi`` and Gemma-2's ``softcap`` (queries drawn ``q_scale`` times
@@ -656,7 +681,9 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     (``dtype``, over an fp32 or an int8 cache) run the fp32 chunk or decode
     kernel and are held to fp32's tolerances as well (FP32_PAGED_TOL,
     FP32_PAGED_ROW_TOL). ``kernel`` names a kernel to run whatever the plan
-    would choose (``run_kernel``), recorded as ``forced``."""
+    would choose (``run_kernel``), recorded as ``forced``. ``shared_pages``:
+    the rows share their first pages (adopted prefixes), read once in the
+    bound."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import (
         kernel_plan, paged_attention, paged_attention_reference, round_p_flip_bound,
@@ -664,7 +691,7 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     KV, G, D, ps, L = (widths[k] for k in ("KV", "G", "D", "ps", "L"))
     H, S = KV * G, len(seen)
     args, kw = _paged_inputs(gen, seen, n_new, N, B, int8, widths, window, alibi, softcap,
-                             q_scale, dtype)
+                             q_scale, dtype, shared_pages)
     q, cache, layer, bt, seen_t, lens_t = args
     kw.pop("page_size")
 
@@ -718,6 +745,7 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
     # some query of the sequence sees
     W = window or (1 << 30)
     kv_tokens = sum(s + n - max(0, s - W + 1) for s, n in zip(seen, n_new) if n)
+    kv_tokens -= (S - 1) * shared_pages * ps  # shared pages read once
     row_bytes = KV * (D + 4) if int8 else KV * D * cache.element_size()
     nbytes = (2 * q.numel() * q.element_size() + 2 * kv_tokens * row_bytes
               + bt.numel() * 4 + 2 * S * 4)
@@ -733,7 +761,8 @@ def _paged_case(gen, name: str, seen: list, n_new: list, N: int, B: int,
                                    "seen": seen, "n_new": n_new, "window": window,
                                    "alibi": alibi, "softcap": softcap, "q_scale": q_scale,
                                    "dtype": str(q.dtype)[6:],
-                                   "cache": "int8" if int8 else str(cache.dtype)[6:]},
+                                   "cache": "int8" if int8 else str(cache.dtype)[6:],
+                                   "shared_pages": shared_pages},
            "path": path, "forced": kernel, **errs,
            "timing": "cuda graph" if graph else "events", "ms": timer(launch),
            "plain_ms": timer(lambda: paged_attention_reference(*args, page_size=ps, **kw)),
@@ -1683,7 +1712,15 @@ def phase_kernels() -> list:
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    # serving_speculative's cases draw from a generator of their own, so
+    # that every earlier case keeps its inputs
+    gen_spec = torch.Generator(device="cuda")
+    gen_spec.manual_seed(21)
     rms = [_rms_case(8, 4096, gen), _rms_case(768, 4096, gen)]
+    # serving_speculative's verify windows: the fused window's 8 x 5 rows,
+    # the per-token window put's 64 (8 x 5 bucketed) and the sampled
+    # windows' 8 x 4
+    rms += [_rms_case(rows, 4096, gen_spec) for rows in (40, 64, 32)]
     # Gemma-2's serving norm: bf16 rows with the fp32 scale 1 + w, at a
     # decode step's 8 rows and a 768-row prefill chunk of hidden 3584
     rms_fp32 = [_rms_case(8, 3584, gen, fp32_scale=True),
@@ -1825,6 +1862,20 @@ def phase_kernels() -> list:
         _paged_case(gen32, "softcap_decode_fp32", gemma_seen, [1] * 8, N=1, B=82, graph=True,
                     dtype=torch.float32, kernel="cuda cores", **cap_kw),
     ]
+    # serving_speculative's shapes at the Llama-3-8B widths: the verify
+    # window of 8 sequences about 1100 deep at d 4 (N 5: 20 folded rows,
+    # the tiles) and d 2 (N 3: 12 rows, the decode kernel), each also
+    # through the other kernel (run_kernel), and an adopting put: 8 tails
+    # of 128 tokens at seq_seen 2048 whose tables share their first 32
+    # pages
+    spec_seen = [1100 + 7 * i for i in range(8)]
+    paged_spec_cases = [
+        _paged_case(gen_spec, f"verify_n{n}", spec_seen, [n] * 8, N=n, B=18, graph=True,
+                    kernel=kernel)
+        for n in (SPEC_DRAFTS + 1, 3) for kernel in (None, "decode" if n > 3 else "wgmma")]
+    paged_spec_cases.append(
+        _paged_case(gen_spec, "adopting_put", [SPEC_PREFIX] * 8, [128] * 8, N=128, B=34,
+                    widths=dict(LLAMA_PAGED, n_pages=288), shared_pages=SPEC_PREFIX // 64))
     # K1/K2 at head width 256 (Gemma-2-9B: H 16, KV 8, D 256, cap 50, q
     # scaled so that it bites) over the training phase's S 8192: causal with
     # the window 4096 (the even layers) and causal alone (the odd ones); the
@@ -1853,7 +1904,8 @@ def phase_kernels() -> list:
                 for n in (LAYER_PARAMS, K7_TAIL)]
     k7_cases += [_k7_case(gen, "lamb_step", LAYER_PARAMS)]
     all_paged = (paged_cases + paged_int8_cases + paged_window_cases + paged_alibi_cases
-                 + paged_softcap_cases + paged_fp32_cases + paged_cuda_core_cases)
+                 + paged_softcap_cases + paged_fp32_cases + paged_cuda_core_cases
+                 + paged_spec_cases)
     paged_ok = [c.get("staged_row_rel_err", c["row_rel_err"])
                 <= c["rounding_row_rel_err"] + PAGED_ROW_SLACK
                 and c.get("control_max_abs_err", c["max_abs_err"]) <= PAGED_TOL
@@ -1878,7 +1930,8 @@ def phase_kernels() -> list:
             if c["shape"]["N"] == 1 and c["shape"]["dtype"] == "bfloat16") and \
         [c["path"] for c in paged_fp32_cases] == ["fp32 decode"] * 2 + ["fp32 chunk"] * 3 and \
         paged_cuda_core_cases[0]["path"] == "cuda cores" and \
-        paged_fp32_cases[1]["split_pages"] < paged_fp32_cases[1]["shape"]["B"]
+        paged_fp32_cases[1]["split_pages"] < paged_fp32_cases[1]["shape"]["B"] and \
+        [c["path"] for c in paged_spec_cases] == ["wgmma", "decode", "decode", "wgmma", "wgmma"]
     crossover = crossover_sweep(gen)
     f32_crossover = f32_crossover_sweep(gen32)
     d256_cases = (flash_d256 + flash_d256_fp16 + flash_d256_fp32 + folded_d256
@@ -1915,7 +1968,8 @@ def phase_kernels() -> list:
          "row_rel_err": max(c["row_rel_err"] for c in paged_cases),
          **{k: paged[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
-         "cases": paged_cases},
+         "cases": paged_cases,
+         "spec_cases": paged_spec_cases},
         {"name": "paged_attention_int8", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cuh",
          "replaces": "deepspeed_tpu/ops/paged_attention.py:111",
@@ -3193,9 +3247,9 @@ def phase_serving_gemma2(kernels: list) -> dict:
     def counts32():
         return [getattr(pa, c) for c in KERNEL_COUNTERS]
 
-    def counted32(batch):
+    def counted32(batch, **kw):
         before = counts32()
-        out = inner32(batch)
+        out = inner32(batch, **kw)
         forwards32.append((batch.n_tokens, batch.q_tok_idx.shape[1] == 1,
                            [a - b for a, b in zip(counts32(), before)]))
         return out
@@ -4916,11 +4970,11 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
     def norm_counts():
         return {n: getattr(*counters[n]) for n in norms_per_forward}
 
-    def counted_forward(batch):
+    def counted_forward(batch, **kw):
         torch.cuda.synchronize()
         before = k4_counts()
         t = time.monotonic()
-        logits = inner_forward(batch)
+        logits = inner_forward(batch, **kw)
         torch.cuda.synchronize()
         steps.append((batch.n_tokens, batch.q_tok_idx.shape[1] == 1, time.monotonic() - t,
                       tuple(a - b for a, b in zip(k4_counts(), before))))
@@ -4943,8 +4997,8 @@ def _drive_serving(counters: dict, cfg=None, prompt_lens=SERVING_PROMPTS,
             bad_logits.append(("window", len(windows)))
         return out
 
-    def recording_put(uids, tokens, do_checks=True):
-        logits = inner_put(uids, tokens, do_checks=do_checks)
+    def recording_put(uids, tokens, do_checks=True, **kw):
+        logits = inner_put(uids, tokens, do_checks=do_checks, **kw)
         for i, (u, t) in enumerate(zip(uids, tokens)):
             if len(t) > 1:
                 prefill_logits[u] = logits[i].float().cpu()
@@ -5528,6 +5582,290 @@ def phase_serving_bloom(kernels: list) -> dict:
     return rec
 
 
+# serving_speculative: the prefix cache, speculative decoding and score at
+# the Llama-3-8B width
+SPEC_PREFIX = 2048                      # the shared prefix of part (a)
+SPEC_TAILS = [64, 200, 88, 176, 112, 152, 136, 100]  # its eight distinct tails
+SPEC_FORK_AT = 30                       # the last prompt shares 30 tail tokens
+SPEC_PATTERN, SPEC_PROMPT, SPEC_NEW = 64, 512, 64  # part (b)
+SPEC_DRAFTS, SPEC_NGRAM = 4, 2
+# the sampled pair drafts 3: its windows feed 1 + 3 = 4 tokens, a power of
+# two, so that the per-token verify (N bucketed to 4) and the fused window
+# (N 4) batch the same shapes and give the same logits
+SPEC_SAMPLED_DRAFTS = 3
+SPEC_SAMPLED_KW = dict(temperature=0.8, top_p=0.95, seed=0)
+# a greedy divergence between two paths is explained where the logit
+# margin of the two tokens there is within this many times the measured
+# difference of the two paths' logits at that position
+SPEC_MARGIN_RATIO = 2.0
+
+
+def spec_divergence(engine, prompt: list, a: list, b: list, drafts: int) -> dict:
+    """The first index where streams ``a`` and ``b`` of ``prompt`` differ
+    (None when they are equal), and there the logits of the next token by
+    the two kinds of forward that serve it: a one-token decode put and a
+    verify window of ``1 + drafts`` tokens (window logits, the window's
+    first row), each after a cold prefill of the common history; K4's plan
+    for each (kernel, pages per split, keys per step), the two tokens'
+    logit margin in each, and the largest difference of the two rows."""
+    import torch
+    from deepspeed_tpu_torch.ops.paged_attention import kernel_plan
+    t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if t is None:
+        return {"index": None}
+    if t == 0:  # the prefills disagree: nothing to compare the windows with
+        return {"index": 0, "explained": False}
+    hist = prompt + a[:t - 1]
+    uid = 1 << 26
+    rows, plans = {}, {}
+    cfg = engine.model().config
+    for kind, feed in (("decode", [a[t - 1]]), ("verify", [a[t - 1]] + a[t:t + drafts])):
+        engine.put([uid], [hist], adopt_prefix=False)
+        seq = engine._state_manager.get_sequence(uid)
+        engine._model.maybe_allocate_kv(seq, len(feed))
+        B = 1 << max(0, (seq.cur_allocated_blocks - 1).bit_length())
+        N = 1 << max(0, (len(feed) - 1).bit_length())
+        q = torch.empty(1, N, cfg.num_attention_heads, cfg.head_dim_, dtype=torch.bfloat16,
+                        device="cuda")
+        cache = engine._state_manager.kv_cache.cache
+        bt = torch.empty(1, B, dtype=torch.int32, device="cuda")
+        plans[kind] = list(kernel_plan(q, cache, bt, page_size=64))
+        out = engine.put([uid], [feed], window_logits=kind == "verify")
+        rows[kind] = (out[0, 0] if kind == "verify" else out[0]).float()
+        engine.flush(uid)
+    dec, ver = rows["decode"], rows["verify"]
+    margins = {k: float(r[a[t]] - r[b[t]]) for k, r in rows.items()}
+    diff = float((dec - ver).abs().max())
+    return {"index": t, "tokens": [a[t], b[t]], "plans": plans, "margins": margins,
+            "max_abs_logit_diff": diff,
+            "explained": min(abs(m) for m in margins.values()) <= SPEC_MARGIN_RATIO * diff}
+
+
+def phase_serving_speculative(kernels: list) -> dict:
+    """Llama-3-8B at its full 32 layers (seeded random bf16 weights,
+    64-token blocks in SERVING_KV_BYTES) with prefix caching on.
+    (a) The prefix cache: eight prompts share a 2048-token prefix with
+    distinct tails of 64-200 tokens, the last sharing 30 tokens of the
+    first's tail (a mid-block divergence). Each is put cold
+    (``adopt_prefix=False``) and flushed, then put again, adopting: tokens
+    fed, adopted blocks, forks, first-token ms of each; adopted logits
+    within the serving phase's prefill-against-decode bound (5% of
+    max|logit|) of the cold ones; block conservation after the flushes.
+    (b) Speculation: eight prompts of a repeated 64-token pattern, 64 new
+    tokens, d 4, n-gram 2: plain greedy at window 16, the per-token verify
+    and the fused speculative window at 16, the cache reset before each run
+    so that every run prefills alike, each run twice (the first captures,
+    the second replays). Their streams must be equal, or each
+    divergence explained (``spec_divergence``: the two tokens' margin
+    within SPEC_MARGIN_RATIO times the two forwards' difference there);
+    then a sampled pair (SPEC_SAMPLED_KW, d 3), fused against per-token,
+    equal streams. Drafted and accepted counts, decode tokens/s on
+    generate's wall time, the captures and their pool bytes. (c) ``score``
+    of two prompts against the log-softmax of a cold window put. K4's and
+    K5's counts are set to 0 before (a) and read after (c); K4's wgmma
+    tiles and decode kernel and K5 must have run."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2.config_v2 import (DSStateManagerConfig, KVCacheConfig,
+                                                            RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import build_llama_engine
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import per_token_kv_bytes
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.ops.normalization import rms_norm
+    from deepspeed_tpu_torch.ops.paged_attention import KERNEL_COUNTERS, paged_attention
+
+    cfg = LlamaConfig.llama3_8b()
+    V, bs = cfg.vocab_size, 64
+    per_block = bs * per_token_kv_bytes(KVCacheConfig(
+        block_size=bs, cache_shape=(cfg.num_hidden_layers, cfg.num_key_value_heads,
+                                    cfg.head_dim_), cache_dtype="bfloat16"))
+    num_blocks = SERVING_KV_BYTES // per_block
+    free_memory()
+    t0 = time.monotonic()
+    engine = build_llama_engine(
+        cfg, engine_config=RaggedInferenceEngineConfig(
+            num_kv_blocks=num_blocks, enable_prefix_caching=True,
+            state_manager=DSStateManagerConfig(max_ragged_batch_size=4096)),
+        seed=0, dtype=torch.bfloat16, kv_block_size=bs)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    sm, model = engine._state_manager, engine.model()
+    pc = sm.prefix_cache
+    counters = [(paged_attention, c) for c in ("launches", ) + KERNEL_COUNTERS] + \
+        [(rms_norm, "launches")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    checks = {}
+
+    # (a) the prefix cache
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, V, SPEC_PREFIX).tolist()
+    tails = [rng.integers(0, V, n).tolist() for n in SPEC_TAILS]
+    tails[-1] = tails[0][:SPEC_FORK_AT] + tails[-1]
+    prompts = [prefix + t for t in tails]
+
+    def timed_put(uid, prompt, **kw):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits = engine.put([uid], [prompt], **kw)[0].float()
+        torch.cuda.synchronize()
+        return logits, 1e3 * (time.monotonic() - t)
+
+    # cold: every token fed, nothing left in the cache
+    cold, cold_ms = [], []
+    for u, p in enumerate(prompts):
+        logits, ms = timed_put(u, p, adopt_prefix=False, defer_register={u})
+        cold.append(logits.cpu())
+        cold_ms.append(ms)
+        engine._scrub_pending(u)
+        engine.flush(u)
+    cold_cached = len(pc._by_block)
+    # the shared prefix alone (a system prompt), then each prompt adopting
+    engine.put([99], [prefix])
+    engine.flush(99)
+    adopted, adopted_ms, fed, adopted_blocks, forks = [], [], [], [], []
+    for u, p in enumerate(prompts):
+        saved, cow = pc.stats["saved_tokens"], pc.stats["cow_forks"]
+        logits, ms = timed_put(100 + u, p)
+        adopted.append(logits.cpu())
+        adopted_ms.append(ms)
+        fed.append(len(p) - (pc.stats["saved_tokens"] - saved))
+        adopted_blocks.append(len(sm.get_sequence(100 + u).adopted_blocks))
+        forks.append(pc.stats["cow_forks"] - cow)
+    live = set()
+    for seq in sm.tracked_sequences.values():
+        live.update(seq.kv_blocks)
+    conserved_live = (sm._allocator.free_blocks + len(live)
+                      + len({b for b in pc._by_block if b not in live}) == num_blocks)
+    for u in range(len(prompts)):
+        engine.flush(100 + u)
+    conserved = (sm._allocator.free_blocks + len(pc._by_block) == num_blocks
+                 and engine.free_blocks == num_blocks)
+    diffs = [float((a - c).abs().max()) for a, c in zip(adopted, cold)]
+    bounds = [0.05 * float(c.abs().max()) for c in cold]
+    prefix_rec = {"prompt_lens": [len(p) for p in prompts], "cold_tokens_fed": [len(p) for p in prompts],
+                  "adopted_tokens_fed": fed, "adopted_blocks": adopted_blocks,
+                  "cow_forks": forks, "first_token_ms_cold": cold_ms,
+                  "first_token_ms_adopted": adopted_ms,
+                  "adopted_vs_cold_max_abs_diff": diffs, "bounds": bounds,
+                  "report": engine.prefix_cache_report()}
+    checks.update({
+        "prefix_cold_puts_left_nothing_cached": cold_cached == 0,
+        "prefix_adopted_logits_within_prefill_decode_bound": all(
+            d <= b for d, b in zip(diffs, bounds)),
+        "prefix_every_prompt_adopted_the_prefix": adopted_blocks == [SPEC_PREFIX // bs] * 8,
+        "prefix_one_mid_block_fork": forks == [0] * 7 + [1],
+        "prefix_fed_the_tails": fed == [len(t) for t in tails[:-1]]
+        + [len(tails[-1]) - SPEC_FORK_AT],
+        "prefix_blocks_conserved_live": conserved_live,
+        "prefix_blocks_conserved_after_flushes": conserved,
+    })
+
+    # (b) speculation
+    prompts_b = [(rng.integers(0, V, SPEC_PATTERN).tolist() * (SPEC_PROMPT // SPEC_PATTERN))
+                 for _ in range(8)]
+    spec_kw = dict(speculative="prompt_lookup", num_draft_tokens=SPEC_DRAFTS,
+                   draft_ngram=SPEC_NGRAM)
+
+    def run(window, **kw):
+        """``generate`` twice from a reset cache: the first run captures its
+        keys' steps, the second (warm) replays what it can."""
+        recs, outs = {}, []
+        for name in ("first", "warm"):
+            sm.reset_prefix_cache()
+            graphs, pool = len(model._graphs), model.graph_pool_bytes
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            outs.append(engine.generate(prompts_b, max_new_tokens=SPEC_NEW,
+                                        fused_decode_window=window, **kw))
+            torch.cuda.synchronize()
+            s = time.monotonic() - t
+            n = sum(len(o) for o in outs[-1])
+            recs[name] = {"generate_s": s, "new_tokens": n, "decode_tokens_per_s": n / s,
+                          "spec_stats": (dict(engine.last_spec_stats) if "speculative" in kw
+                                         else None),
+                          "captures": len(model._graphs) - graphs,
+                          "capture_pool_bytes": model.graph_pool_bytes - pool}
+        recs["warm_stream_equals_first"] = outs[0] == outs[1]
+        return outs[0], recs
+
+    runs = {}
+    plain, runs["plain_greedy_k16"] = run(16)
+    per_token, runs["spec_per_token"] = run(1, **spec_kw)
+    fused, runs["spec_fused_k16"] = run(16, **spec_kw)
+    s_kw = dict(spec_kw, num_draft_tokens=SPEC_SAMPLED_DRAFTS, **SPEC_SAMPLED_KW)
+    s_fused, runs["sampled_spec_fused_k16"] = run(16, **s_kw)
+    s_per_token, runs["sampled_spec_per_token"] = run(1, **s_kw)
+    divergences = {}
+    for name, (a, b) in {"per_token_vs_plain": (plain, per_token),
+                         "fused_vs_plain": (plain, fused),
+                         "fused_vs_per_token": (per_token, fused)}.items():
+        divergences[name] = [dict(spec_divergence(engine, p, x, y, SPEC_DRAFTS), prompt=i)
+                             for i, (p, x, y) in enumerate(zip(prompts_b, a, b)) if x != y]
+    sampled_equal = s_fused == s_per_token
+    checks.update({
+        "spec_outputs_all_new_tokens": all(
+            len(o) == SPEC_NEW and all(0 <= t < V for t in o)
+            for o in plain + per_token + fused + s_fused + s_per_token),
+        "spec_greedy_streams_equal_or_explained": all(
+            d["explained"] for ds in divergences.values() for d in ds),
+        "spec_drafts_fired": all(runs[k]["first"]["spec_stats"]["drafted"] > 0
+                                 for k in ("spec_per_token", "spec_fused_k16")),
+        "spec_sampled_fused_equals_per_token": sampled_equal,
+        "spec_fused_captured": runs["spec_fused_k16"]["first"]["captures"] > 0,
+    })
+
+    # (c) score against the log-softmax of a cold window put
+    score_prompts = [prompts_b[0][:300], prompts[1][:700]]
+    got = engine.score([500, 501], score_prompts)
+    logits = engine.put([502, 503], score_prompts, window_logits=True, adopt_prefix=False)
+    score_diff = 0.0
+    for i, (g, p) in enumerate(zip(got, score_prompts)):
+        lp = torch.log_softmax(logits[i, :len(p) - 1].double(), -1)
+        ref = lp.gather(1, torch.tensor(p[1:], device=lp.device)[:, None])[:, 0].cpu().numpy()
+        score_diff = max(score_diff, float(np.abs(g - ref).max()))
+    engine.flush(502), engine.flush(503)
+    checks["score_matches_cold_window_log_softmax"] = score_diff <= 1e-6
+    launches = {f"{'paged_attention' if fn is paged_attention else 'rms_norm'}"
+                f"{'' if attr == 'launches' else '_' + attr}": getattr(fn, attr)
+                for fn, attr in counters}
+    checks["kernels_ran"] = (launches["paged_attention_wgmma_launches"] > 0
+                             and launches["paged_attention_decode_launches"] > 0
+                             and launches["rms_norm"] > 0)
+    checks["free_blocks_back_to_total"] = engine.free_blocks == num_blocks
+    rec = {"phase": "serving_speculative", "gpu": gpu_identity(),
+           "config": "llama3_8b (32 layers, random bf16 weights), prefix caching on",
+           "engine_build_s": build_s, "kv_blocks": num_blocks,
+           "prefix_cache": prefix_rec,
+           "speculation": {"prompts": f"8 x {SPEC_PROMPT} tokens (a {SPEC_PATTERN}-token "
+                                      "pattern repeated)", "new_tokens": SPEC_NEW,
+                           "num_draft_tokens": SPEC_DRAFTS, "draft_ngram": SPEC_NGRAM,
+                           "sampled": dict(SPEC_SAMPLED_KW, num_draft_tokens=SPEC_SAMPLED_DRAFTS),
+                           "runs": runs, "divergences": divergences,
+                           "sampled_first_divergence": None if sampled_equal else [
+                               next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                               for a, b in zip(s_fused, s_per_token)],
+                           "graphs": len(model._graphs), "graph_pool_bytes":
+                           model.graph_pool_bytes},
+           "score_max_abs_diff": score_diff, "launches": launches,
+           "checks": checks, "ok": all(checks.values())}
+    emit(rec)
+    del engine, model, sm, pc
+    free_memory()
+    if not rec["ok"]:
+        raise SystemExit(f"serving_speculative checks failed: {checks}")
+    keys = {"paged_attention": "paged_attention", "rms_norm": "rms_norm",
+            "paged_attention_wgmma": "paged_attention_wgmma_launches",
+            "paged_attention_decode": "paged_attention_decode_launches"}
+    for k in kernels:
+        key = keys.get(k["name"])
+        if key is not None:
+            by_phase = k.setdefault("launches_by_phase", {"serving": k["launches"] or 0})
+            by_phase["serving_speculative"] = launches[key]
+            k["launches"] = sum(by_phase.values())
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5565,6 +5903,7 @@ def main() -> int:
     timed("serving_int8", phase_serving_int8, kernels, bf16)
     del bf16
     free_memory()
+    timed("serving_speculative", phase_serving_speculative, kernels)
     timed("serving_starcoder2", phase_serving_starcoder2, kernels)
     timed("serving_bloom", phase_serving_bloom, kernels)
     timed("serving_gemma2", phase_serving_gemma2, kernels)

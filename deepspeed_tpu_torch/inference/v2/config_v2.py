@@ -1,9 +1,9 @@
 """Inference-v2 configuration (port of ``deepspeed_tpu/inference/v2/
 config_v2.py``): the same field names, defaults and validation errors, as
 plain dataclasses. Only the knobs of the ported serving path are here;
-tensor parallelism, the speculative sampling knobs, resilience,
-durability, continuous fusion, disaggregation, observability, prefix
-caching, tenants and adapters are not ported yet."""
+tensor parallelism, resilience, durability, continuous fusion,
+disaggregation, observability, tenants and adapters are not ported
+yet."""
 
 import dataclasses
 from typing import Optional, Tuple
@@ -74,8 +74,8 @@ class QuantizationConfig:
 
 @dataclasses.dataclass
 class SamplingConfig:
-    """On-device sampling and the fused decode window (the JAX
-    config_v2.py:SamplingConfig without its speculative knobs)."""
+    """On-device sampling, the fused decode window and the speculative
+    knobs (the JAX config_v2.py:SamplingConfig)."""
 
     device_sampling: bool = True
     """Run temperature/top-k/top-p sampling and the logit controls on the
@@ -88,11 +88,32 @@ class SamplingConfig:
     inside the captured step). Requires ``device_sampling``. False keeps
     the window greedy-only."""
 
+    fused_speculative_decode: bool = True
+    """Run speculative requests through the fused draft/verify window:
+    prompt-lookup drafting from a per-sequence token-history ring on the
+    device, window verification and rejection sampling inside one captured
+    step replayed K times (one host fetch per K windows). False keeps the
+    per-token draft/verify path, the parity oracle, for every speculative
+    request."""
+
+    spec_history_window: int = 128
+    """Token-history window for prompt-lookup drafting: the device ring
+    holds this many trailing tokens per sequence, and the per-token path
+    bounds its backward n-gram scan to the same window. Widened to at
+    least ``2 * (1 + num_draft_tokens) + spec_max_ngram``
+    (``spec_ring_window``)."""
+
+    spec_max_ngram: int = 8
+    """Largest ``draft_ngram`` the fused matcher takes (its comparison is
+    masked over this static width). Requests with a larger n-gram take the
+    per-token path."""
+
 
 @dataclasses.dataclass
 class RaggedInferenceEngineConfig:
     """Reference config_v2.py:RaggedInferenceEngineConfig, reduced to the
-    state manager, the KV block count, weight quantization and sampling.
+    state manager, the KV block count, weight quantization, prefix caching
+    and sampling.
     ``state_manager``, ``quantization`` and ``sampling`` also take a dict
     of their fields."""
     state_manager: DSStateManagerConfig = dataclasses.field(
@@ -104,6 +125,11 @@ class RaggedInferenceEngineConfig:
 
     quantization: QuantizationConfig = dataclasses.field(
         default_factory=QuantizationConfig)
+
+    # automatic prefix caching: content-addressed reuse of prompt KV blocks
+    # across sequences (ragged/prefix_cache.py). Disabled for sliding-window
+    # models, whose trailing-window release would free shared blocks.
+    enable_prefix_caching: bool = False
 
     sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
 

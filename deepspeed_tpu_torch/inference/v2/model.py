@@ -25,6 +25,13 @@ LayerNorm, which the JAX forward computes in jnp with the same
 arithmetic); the matmuls, embedding gather, rope and KV write stay plain
 PyTorch, as they were plain XLA.
 
+``forward(batch, window_logits=True)`` returns the fp32 logits at every
+fed token, ``[S, N, vocab]`` (the JAX forward's ``:1236-1241``), for the
+speculative verifier and ``score``. ``cow_copy_block`` copies one KV
+block (and an int8 cache's scales) inside the paged pool: the prefix
+cache's copy-on-write fork (the JAX ``:675``, plain XLA there, plain
+indexing here).
+
 With a sliding window on every layer, ``maybe_free_kv`` returns a
 sequence's leading KV blocks to the allocator once every later query is
 past their window, as the JAX engine does; their block-table entries read
@@ -57,6 +64,20 @@ block-table width, sampled statics) key is captured once into a
 the key's first step runs eagerly, as its warm-up, and is a real step of
 the window. On the CPU the same step runs eagerly each time: that is the
 plain version. A capture or replay error raises; nothing falls back.
+
+The fused speculative window (``fused_spec_decode``, the JAX ``:806`` and
+its ``_fused_spec_decode_loop`` ``:1340``) is built the same way: one step
+per key (live count, block-table width, history ring width, draft width
+``d``, ``max_ngram``, sampled or greedy) drafts from the ring on the
+device (``ops/sampling.ngram_draft_ring``), builds the ``1 + d``-token
+batch from the static buffers (``ragged_wrapper.spec_batch``), runs the
+forward with window logits, verifies the drafts (argmax match, or
+``spec_verify_window`` with the window's hashed draws), appends the
+emitted tokens to the ring and advances the lengths and output counts by
+the emitted count. Every window runs at the worst-case table width, the
+blocks of ``K * (1 + d)`` tokens being reserved up front; a rejected
+draft's KV is overwritten in place by the next window, which starts at
+the accepted position.
 """
 
 import math
@@ -68,7 +89,7 @@ import torch
 import torch.nn.functional as F
 
 from .config_v2 import KVCacheConfig
-from .ragged.ragged_wrapper import RaggedBatch, _bucket, decode_batch
+from .ragged.ragged_wrapper import RaggedBatch, _bucket, decode_batch, spec_batch
 from .ragged.sequence_descriptor import BaseSequenceDescriptor
 from ...linear.config import QuantizationConfig
 from ...linear.quantization import QuantizedParameter
@@ -78,7 +99,9 @@ from ...models.llama import (SERVING_FAMILY, LlamaConfig, LlamaModel, RMSNormWei
 from ...ops.normalization import layer_norm, rms_norm
 from ...ops.paged_attention import paged_attention
 from ...ops.quantizer import dequantize_int8_blockwise, true_div_127
-from ...ops.sampling import apply_logit_controls, gumbel_noise, sample_core
+from ...ops.sampling import (apply_logit_controls, greedy_verify_window, gumbel_noise,
+                             ngram_draft_ring, ring_append, sample_core, spec_draws,
+                             spec_verify_window)
 from ...utils.dtypes import resolve_dtype
 
 
@@ -200,6 +223,7 @@ class RaggedLlamaModel:
         # the fused window: static buffers per live count, step graphs per
         # key, their shared pool and what the captures reserved in it
         self._decode_states = {}
+        self._spec_states = {}
         self._graphs = {}
         self._graph_pool = self._capture_stream = None
         self.graph_pool_bytes = 0
@@ -298,12 +322,14 @@ class RaggedLlamaModel:
 
     # ---- forward ----
 
-    def forward(self, batch: RaggedBatch) -> torch.Tensor:
+    def forward(self, batch: RaggedBatch, window_logits: bool = False) -> torch.Tensor:
         """One ragged forward; returns fp32 logits ``[S, vocab]`` for each
-        sequence's final token and updates the KV cache in place."""
-        return self._forward(batch)
+        sequence's final token (``window_logits``: ``[S, N, vocab]`` at
+        every fed token, the ``q_tok_idx`` bucket) and updates the KV cache
+        in place."""
+        return self._forward(batch, window_logits)
 
-    def _forward(self, batch: RaggedBatch) -> torch.Tensor:
+    def _forward(self, batch: RaggedBatch, window_logits: bool = False) -> torch.Tensor:
         cache = self._state_manager.kv_cache.cache
         cache, scales = cache if isinstance(cache, tuple) else (cache, None)
         return _ragged_forward(self.model, cache, batch, config=self.config,
@@ -311,7 +337,24 @@ class RaggedLlamaModel:
                                cos=self.rope_cos, sin=self.rope_sin,
                                kernel=self._kernel, windows=self._layer_windows,
                                tied_unembed=self._tied_unembed,
-                               cache_scales=scales, norm_scales=self._norm_scales)
+                               cache_scales=scales, norm_scales=self._norm_scales,
+                               window_logits=window_logits)
+
+    @torch.inference_mode()
+    def cow_copy_block(self, src_block: int, dst_block: int) -> None:
+        """Copy KV block ``src_block``'s slots into ``dst_block`` (every
+        layer's K and V rows, and an int8 cache's scales): the prefix
+        cache's copy-on-write fork. The whole block is copied even where
+        only its first ``p`` slots are shared: under causal attention those
+        are what the forking sequence would compute, and its own prefill
+        overwrites the rest before ``seen_tokens`` lets a read reach
+        them."""
+        bs = self.kv_block_size
+        src = slice(src_block * bs, (src_block + 1) * bs)
+        dst = slice(dst_block * bs, (dst_block + 1) * bs)
+        cache = self._state_manager.kv_cache.cache
+        for arr in (cache if isinstance(cache, tuple) else (cache, )):
+            arr[:, dst].copy_(arr[:, src])
 
     # ---- the fused decode window ----
 
@@ -366,18 +409,23 @@ class RaggedLlamaModel:
     def _run_step(self, st, width: int, statics) -> None:
         """One step of the window: eagerly on the CPU; on CUDA by replaying
         the key's graph, captured after the key's first (eager) step."""
+        self._run((st.n, width, statics), lambda: self._decode_step(st, width, statics))
+
+    def _run(self, key, step) -> None:
+        """``step()`` (one window step on static buffers) under ``key``:
+        eagerly on the CPU; on CUDA eagerly at the key's first call, which
+        then captures it, and by replaying its graph after that."""
         if self.device.type != "cuda":
-            self._decode_step(st, width, statics)
+            step()
             return
-        key = (st.n, width, statics)
         graph = self._graphs.get(key)
         if graph is None:
-            self._decode_step(st, width, statics)
-            self._graphs[key] = self._capture(st, width, statics)
+            step()
+            self._graphs[key] = self._capture(step)
             return
         graph.replay()
 
-    def _capture(self, st, width: int, statics) -> "_StepGraph":
+    def _capture(self, step) -> "_StepGraph":
         """Capture one decode step into the shared pool, on a side stream
         (``torch.cuda.graph`` would empty the allocator's cache before every
         capture). The wrappers count their launches while the step is
@@ -395,7 +443,7 @@ class RaggedLlamaModel:
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=self._graph_pool)
             try:
-                self._decode_step(st, width, statics)
+                step()
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(stream)
@@ -437,6 +485,86 @@ class RaggedLlamaModel:
         st.tokens.copy_(nxt)
         st.lens.add_(st.live)
         st.n_out.add_(st.live)
+
+    # ---- the fused speculative window ----
+
+    @torch.inference_mode()
+    def fused_spec_decode(self, tokens, seq_lens, block_table, hist, hist_len, ngrams,
+                          max_drafts, n_steps: int, draft_width: int, max_ngram: int,
+                          sampling: Optional[dict] = None):
+        """``n_steps`` speculative windows of ``n = len(tokens)`` live
+        sequences with no host fetch; returns the device tensors ``(out
+        [n_steps, n, 1 + d] int32, n_emit [n_steps, n] int32, dlen [n_steps,
+        n] int32)``: window w of row i emitted ``out[w, i, :n_emit[w, i]]``
+        after drafting ``dlen[w, i]`` tokens.
+
+        ``tokens``/``seq_lens``: each row's next input token and history
+        length; ``block_table`` ``[n, B]`` covering ``seq_lens + n_steps *
+        (1 + d)`` tokens; ``hist`` ``[n, W]`` the history ring (logical
+        position p at ``p % W``), ``hist_len`` its length, ``ngrams`` and
+        ``max_drafts`` per row. ``sampling=None`` verifies greedily; else a
+        dict of per-row ``temps``/``top_ps`` f32, ``top_ks``, ``seeds``,
+        ``n_out`` (the output count at the window's start, which keys the
+        draws) and ``max_new`` int, and ``max_context``: a sampled window
+        drafts at most ``max_new - n_out - 1`` and ``max_context - seen -
+        2`` tokens (the per-token path's caps)."""
+        n, d = len(tokens), int(draft_width)
+        S = _bucket(n, floor=1)
+        W = np.asarray(hist).shape[1]
+        if W < 1 + d:
+            raise ValueError(f"fused_spec_decode: ring width {W} under the window 1 + {d}")
+        key = (n, W, d, int(max_ngram))
+        st = self._spec_states.get(key)
+        if st is None:
+            st = self._spec_states[key] = _SpecState(n, S, W, d, int(max_ngram), self.device)
+        st.load(tokens, seq_lens, block_table, hist, hist_len, ngrams, max_drafts, sampling)
+        B = block_table.shape[1]
+        statics = sampling is not None
+        out = torch.empty(n_steps, S, 1 + d, dtype=torch.int32, device=self.device)
+        counts = torch.empty(n_steps, 2, S, dtype=torch.int32, device=self.device)
+        for j in range(n_steps):
+            self._run(("spec", ) + key + (B, statics),
+                      lambda: self._spec_step(st, B, statics))
+            out[j].copy_(st.out)
+            counts[j, 0].copy_(st.n_emit)
+            counts[j, 1].copy_(st.dlen)
+        return out[:, :n], counts[:, 0, :n], counts[:, 1, :n]
+
+    def _spec_step(self, st, width: int, sampled: bool) -> None:
+        """The step the speculative window captures: draft, the ``1 +
+        d``-token batch, the forward with window logits, the verify, then
+        the ring, tokens, lengths and output counts advance in place by
+        each row's emitted count (padding rows emit nothing)."""
+        kv = self._state_manager.kv_cache
+        d = st.d
+        max_drafts = st.max_drafts
+        if sampled:  # the per-token path's caps: output budget, context
+            max_drafts = torch.minimum(max_drafts, torch.minimum(
+                st.max_new - st.n_out - 1, st.max_context - st.lens - 2)).clamp_min(0)
+        drafts, dlen = ngram_draft_ring(st.hist, st.hist_len, st.ngrams, max_drafts,
+                                        max_ngram=st.max_ngram, d=d)
+        on = st.live > 0
+        dlen = torch.where(on, dlen, 0)
+        batch = spec_batch(st.tokens, drafts, st.lens, st.live, st.tables[width],
+                           n_tokens=st.n * (1 + d), block_size=self.kv_block_size,
+                           total_slots=kv.num_blocks * kv.block_size)
+        logits = self._forward(batch, window_logits=True)  # [S, 1 + d, V]
+        if sampled:
+            uniforms, gumbel = spec_draws(st.seeds, st.n_out, d, logits.shape[-1])
+            out, n_emit = spec_verify_window(logits, drafts, dlen, uniforms, gumbel, st.temps,
+                                             st.top_ks, st.top_ps, d=d)
+        else:
+            out, n_emit = greedy_verify_window(logits, drafts, dlen, d=d)
+        n_emit = torch.where(on, n_emit, 0)
+        last = out.gather(1, (n_emit - 1).clamp_min(0).long()[:, None])[:, 0]
+        st.tokens.copy_(torch.where(on, last, st.tokens))
+        ring_append(st.hist, st.hist_len, out, n_emit)
+        st.hist_len.add_(n_emit)
+        st.lens.add_(n_emit)
+        st.n_out.add_(n_emit)
+        st.out.copy_(out)
+        st.n_emit.copy_(n_emit)
+        st.dlen.copy_(dlen)
 
 
 # every wrapper whose launches a captured step counts
@@ -511,11 +639,7 @@ class _DecodeState:
                        (self.eos_ids, col(sampling["eos_ids"], -1)),
                        (self.min_new, col(sampling["min_new"])),
                        (self.seeds, col(sampling["seeds"], 0, np.uint32))]
-        packed = torch.from_numpy(np.concatenate([a for _, a in fields])).to(self.device)
-        ofs = 0
-        for buf, a in fields:
-            buf.view(-1).copy_(packed[ofs:ofs + a.size].view(buf.dtype).view(-1))
-            ofs += a.size
+        _load_packed(fields, self.device)
         if sampling is not None and sampling.get("use_penalty"):
             if self.seen_mask is None:
                 self.seen_mask = torch.zeros(S, vocab, dtype=torch.bool, device=self.device)
@@ -524,14 +648,82 @@ class _DecodeState:
             self.seen_mask.copy_(torch.from_numpy(mask))
 
 
+def _load_packed(fields, device) -> None:
+    """``(buffer, host int32 words)`` pairs into their device buffers: one
+    host-to-device copy of the packed words, then device copies."""
+    packed = torch.from_numpy(np.concatenate([a for _, a in fields])).to(device)
+    ofs = 0
+    for buf, a in fields:
+        buf.view(-1).copy_(packed[ofs:ofs + a.size].view(buf.dtype).view(-1))
+        ofs += a.size
+
+
+class _SpecState:
+    """The speculative window's static buffers at one key (``n`` live rows
+    of ``S``, ring width ``W``, draft width ``d``, ``max_ngram``): its step
+    graphs read and advance these. One block table per width."""
+
+    @torch.inference_mode()
+    def __init__(self, n: int, S: int, W: int, d: int, max_ngram: int, device):
+        i32 = dict(dtype=torch.int32, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.n, self.S, self.W, self.d, self.max_ngram = n, S, W, d, max_ngram
+        self.device = device
+        self.tokens, self.lens, self.n_out, self.hist_len = (torch.zeros(S, **i32)
+                                                              for _ in range(4))
+        self.ngrams, self.max_drafts, self.top_ks, self.seeds = (torch.zeros(S, **i32)
+                                                                 for _ in range(4))
+        self.max_new, self.max_context = torch.zeros(S, **i32), torch.zeros(S, **i32)
+        self.live = torch.zeros(S, **i32)
+        self.live[:n] = 1
+        self.hist = torch.zeros(S, W, **i32)
+        self.temps, self.top_ps = torch.zeros(S, **f32), torch.ones(S, **f32)
+        self.tables = {}
+        self.out = torch.zeros(S, 1 + d, **i32)
+        self.n_emit, self.dlen = torch.zeros(S, **i32), torch.zeros(S, **i32)
+
+    def load(self, tokens, seq_lens, block_table, hist, hist_len, ngrams, max_drafts,
+             sampling) -> None:
+        n, S = self.n, self.S
+        block_table = np.asarray(block_table, np.int32)
+        B = block_table.shape[1]
+
+        def col(x, fill=0, dtype=np.int32):  # [n] -> [S] int32 words
+            a = np.full(S, fill, dtype)
+            a[:n] = x
+            return a.view(np.int32)
+
+        if B not in self.tables:
+            self.tables[B] = torch.zeros(S, B, dtype=torch.int32, device=self.device)
+        table = np.zeros((S, B), np.int32)
+        table[:n] = block_table
+        ring = np.zeros((S, self.W), np.int32)
+        ring[:n] = hist
+        fields = [(self.tokens, col(tokens)), (self.lens, col(seq_lens)),
+                  (self.hist_len, col(hist_len)), (self.ngrams, col(ngrams)),
+                  (self.max_drafts, col(max_drafts)), (self.tables[B], table.reshape(-1)),
+                  (self.hist, ring.reshape(-1))]
+        if sampling is not None:
+            fields += [(self.n_out, col(sampling["n_out"])),
+                       (self.temps, col(sampling["temps"], 0.0, np.float32)),
+                       (self.top_ps, col(sampling["top_ps"], 1.0, np.float32)),
+                       (self.top_ks, col(sampling["top_ks"])),
+                       (self.seeds, col(sampling["seeds"], 0, np.uint32)),
+                       (self.max_new, col(sampling["max_new"])),
+                       (self.max_context, col(sampling["max_context"]))]
+        _load_packed(fields, self.device)
+
+
 @torch.inference_mode()
 def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
                     *, config: LlamaConfig, block_size: int, cos: torch.Tensor,
                     sin: torch.Tensor, kernel, windows,
                     tied_unembed: Optional[torch.Tensor] = None,
                     cache_scales: Optional[torch.Tensor] = None,
-                    norm_scales: Optional[dict] = None) -> torch.Tensor:
-    """One ragged step: embed → L×(paged attn + mlp) → final-token logits.
+                    norm_scales: Optional[dict] = None,
+                    window_logits: bool = False) -> torch.Tensor:
+    """One ragged step: embed → L×(paged attn + mlp) → final-token logits
+    (``window_logits``: the logits at every fed token, ``[S, N, vocab]``).
     Writes this step's K/V into ``cache`` (and an int8 cache's
     ``cache_scales``) in place. ``kernel(module)`` gives a projection's
     weight; ``windows[l]`` is layer l's sliding window (None = global);
@@ -608,6 +800,8 @@ def _ragged_forward(model: LlamaModel, cache: torch.Tensor, batch: RaggedBatch,
         x = x + _mlp_tok(norm(x, layer.post_attention_layernorm), layer.mlp, kernel)
 
     x = norm(x, model.norm)
-    final = x[batch.last_token_idx].float()  # [S, E]
+    # the speculative verifier and score need every fed token's logits;
+    # decode and prefill only each sequence's last
+    final = x[q_tok_idx if window_logits else batch.last_token_idx].float()
     unembed = tied_unembed.T if tied_unembed is not None else model.lm_head.kernel
     return final_softcap(final @ unembed, cfg.final_logit_softcapping)

@@ -17,6 +17,9 @@ sequence) from device tensors instead, as the JAX package's fused decode
 loop builds it in its trace (``model.py:1294-1300``); the fused window's
 captured step runs it on its static buffers. It gives the same arrays as
 ``finalize``'s pure-decode fast path, at the same buckets.
+:func:`spec_batch` builds the fused speculative window's batch the same
+way (the JAX ``model.py:1374-1387``): ``1 + d`` tokens per sequence, the
+input token and its drafts, unbucketed (``T = S * (1 + d)``).
 """
 
 from typing import List, NamedTuple
@@ -85,6 +88,37 @@ def decode_batch(tokens: torch.Tensor, seq_lens: torch.Tensor, live: torch.Tenso
         seq_start=rows, seq_n_new=on.to(torch.int32), seq_seen=seen,
         block_table=torch.where(on[:, None], block_table, 0), last_token_idx=rows,
         q_tok_idx=rows[:, None], n_tokens=n_tokens)
+
+
+def spec_batch(tokens: torch.Tensor, drafts: torch.Tensor, seq_lens: torch.Tensor,
+               live: torch.Tensor, block_table: torch.Tensor, *, n_tokens: int,
+               block_size: int, total_slots: int) -> RaggedBatch:
+    """The :class:`RaggedBatch` of one speculative window from ``[S]``
+    int32 device tensors (each row's input token, history length and live
+    flag) and its ``[S, d]`` drafts: row s feeds its token then its drafts
+    at positions ``seq_lens[s] + j``, each writing its KV at the slot its
+    position gives, and ``q_tok_idx`` names all ``1 + d`` of them (the
+    window logits). ``n_tokens`` counts the live rows' tokens, which come
+    first; padding rows carry zeros and the one-past-the-end slot."""
+    S, d = drafts.shape
+    Np1 = 1 + d
+    dev = tokens.device
+    on = live > 0
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    jw = torch.arange(Np1, dtype=torch.int32, device=dev)
+    feed = torch.cat([tokens[:, None], drafts.to(tokens.dtype)], dim=1)
+    seen = torch.where(on, seq_lens, 0)
+    pos = seen[:, None] + jw[None, :]
+    table = torch.where(on[:, None], block_table, 0)
+    slot = table.gather(1, (pos // block_size).long()) * block_size + pos % block_size
+    slot = torch.where(on[:, None], slot, total_slots)
+    start = ar * Np1
+    return RaggedBatch(
+        tokens=torch.where(on[:, None], feed, 0).reshape(-1),
+        token_seq=ar.repeat_interleave(Np1), token_pos=pos.reshape(-1),
+        token_slot=slot.reshape(-1), seq_start=start, seq_n_new=on.to(torch.int32) * Np1,
+        seq_seen=seen, block_table=table, last_token_idx=start,
+        q_tok_idx=start[:, None] + jw[None, :], n_tokens=n_tokens)
 
 
 class RaggedBatchWrapper:

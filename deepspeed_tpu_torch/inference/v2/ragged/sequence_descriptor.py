@@ -1,7 +1,14 @@
 """Host-side sequence metadata (port of ``deepspeed_tpu/inference/v2/
 ragged/sequence_descriptor.py``; reference DSSequenceDescriptor /
 PlaceholderSequenceDescriptor). All metadata stays host numpy and reaches
-the device once per forward inside the RaggedBatch arrays."""
+the device once per forward inside the RaggedBatch arrays.
+
+With prefix caching a descriptor also carries the radix cache's
+bookkeeping: ``adopted_blocks`` (the cached blocks it adopted read-only),
+``chain_key`` and ``chain_blocks`` (the last registered chain entry and
+how many of its leading blocks the chain covers) and ``pending_tokens``
+(the fed tokens past ``chain_blocks`` not registered yet, under one
+block)."""
 
 from typing import List
 
@@ -45,6 +52,10 @@ class DSSequenceDescriptor(BaseSequenceDescriptor):
         self._blocks: List[int] = []
         self._freed_through = 0  # table indices < this are released (None)
         self._table_cache = {}  # width -> padded np table (decode hot path)
+        self.adopted_blocks = set()
+        self.chain_key = None
+        self.chain_blocks = 0
+        self.pending_tokens = np.zeros(0, np.int32)
 
     @property
     def seen_tokens(self) -> int:
@@ -109,7 +120,8 @@ class DSSequenceDescriptor(BaseSequenceDescriptor):
         self._in_flight_tokens = 0
 
     def rollback(self, n: int) -> None:
-        """Drop the last ``n`` tokens from history. Their KV slots stay
+        """Drop the last ``n`` tokens from history (speculative drafts the
+        verifier rejected). Their KV slots stay
         allocated and are overwritten in place by the next tokens at the
         same positions (slot = f(position))."""
         if not 0 <= n <= self._seen_tokens:

@@ -25,6 +25,13 @@ raise ``NotImplementedError``. Any other name is a ``ValueError``. The
 other keys of the config section are accepted, as in JAX, and change
 nothing.
 
+A parameter store that hands the forward its weights through a
+``TorchFunctionMode`` (the scheduled ZeRO-3 store) is gone by the time the
+backward recomputes a region. ``recompute_under(factory)`` records a
+context factory: every region checkpointed inside the block runs its
+recompute under ``factory()`` (a mode that gathers the weights again), and
+regions checkpointed inside that recompute take the same factory.
+
 The RNG tracker keeps named generator states (the reference's
 ``CudaRNGStatesTracker``): ``fork(name)`` runs its block on the named
 stream of the default generator and advances it. ``checkpoint`` hands the
@@ -133,6 +140,20 @@ def _selective_contexts(ops):
     return create_selective_checkpoint_contexts(functools.partial(_keep_ops, ops))
 
 
+# context factories of the enclosing ``recompute_under`` blocks, innermost last
+_RECOMPUTE = []
+
+
+@contextlib.contextmanager
+def recompute_under(factory: Callable):
+    """Regions checkpointed inside the block recompute under ``factory()``."""
+    _RECOMPUTE.append(factory)
+    try:
+        yield
+    finally:
+        _RECOMPUTE.pop()
+
+
 def checkpoint_with(policy: Optional[str], function: Callable, *args, **kwargs):
     """``function(*args, **kwargs)`` with its activations recomputed in the
     backward under the policy named ``policy`` (None: recompute all).
@@ -141,13 +162,18 @@ def checkpoint_with(policy: Optional[str], function: Callable, *args, **kwargs):
     if ops == "all" or not torch.is_grad_enabled():
         return function(*args, **kwargs)
     states = _RNG_TRACKER.get_states()
+    factory = _RECOMPUTE[-1] if _RECOMPUTE else None
     calls = [0]
 
     def run(*a, **kw):
         calls[0] += 1
         if calls[0] == 1:
             return function(*a, **kw)
-        with _RNG_TRACKER.states_as(states):  # the recompute
+        with contextlib.ExitStack() as stack:  # the recompute
+            stack.enter_context(_RNG_TRACKER.states_as(states))
+            if factory is not None:
+                stack.enter_context(recompute_under(factory))
+                stack.enter_context(factory())
             return function(*a, **kw)
 
     extra = {} if ops is None else {"context_fn": functools.partial(_selective_contexts, ops)}

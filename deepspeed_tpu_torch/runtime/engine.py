@@ -243,7 +243,7 @@ class DeepSpeedTorchEngine:
                 raise NotImplementedError(
                     f"zero_optimization.{key} (ZeRO++) is ported only as the scheduled ZeRO-3 "
                     "store's int8 tier, which does not run here (it needs a pure data-parallel "
-                    "mesh whose ZeRO group is the whole dp world, bf16/fp32 and no remat)")
+                    "mesh whose ZeRO group is the whole dp world and bf16/fp32)")
         self._init_state(model_parameters, bucketed)
         self._wire = None
         if bucketed:
@@ -351,8 +351,8 @@ class DeepSpeedTorchEngine:
             return True
         logger.warning("gradient_comm requested but unsupported here (it needs a pure "
                        "data-parallel mesh, bf16/fp32, for a quantized tier more than one rank, "
-                       "and at stage 3 a ZeRO group that is the whole data-parallel world and "
-                       "no remat); gradients exchange through the default reduce")
+                       "and at stage 3 a ZeRO group that is the whole data-parallel world); "
+                       "gradients exchange through the default reduce")
         return False
 
     @torch.no_grad()

@@ -52,12 +52,28 @@ in place of the gather units of ``runtime/zero3.py``:
    and ``zero_quantized_gradients`` pick the int8 forward and backward
    tiers (JAX ``:468-471``).
 
-Backward liveness: autograd keeps a gathered bucket as a residual of the
-products that read it, as JAX keeps it without remat; the port does not
-gather again inside the backward. So the store refuses remat (the engine's
-policy and the model's ``remat``): a recomputed layer would read the
-placeholders outside the mode. Where the store cannot run, the engine
-warns and keeps stage 3's default gather units (``zero3_store_supported``).
+Remat (the engine's ``remat_policy``, which checkpoints the whole
+forward, and the model's ``remat``, each layer). The store runs under
+both, as JAX's does. The checkpointed forward runs inside the scheduled
+mode like any other: its gathers are the schedule's, through
+``param_gather_bucket``. Its regions drop what they would save, the
+gathered weights included, so a bucket lives only for its epoch. The
+backward recomputes each region after the mode is gone: the call hands
+``checkpointing.recompute_under`` a factory, and each recompute runs under
+a mode of its own (``_recompute_mode``) that gathers again, through
+``param_gather_bucket`` on the detached shard, every bucket the region
+reads, once a region, and drops them when the region ends. PyTorch's
+checkpoint (``use_reentrant=False``) takes from a recompute only the
+tensors the forward's graph saved; the gradient flows through the
+forward's graph. So each bucket's gradient is reduce-scattered once per
+gather epoch of the forward (once a micro-step under the default
+schedule), by the backward of the forward's gather: a bucket that holds
+small leaves of several layers gathers again in each of their regions'
+recomputes, but those gathers have no backward, and the region's
+gradients with respect to the bucket's views add up in the forward
+gather's output before its backward runs. The gathered values are the
+forward's to the bit (the same shard through the same tier), so the
+recomputed activations are the forward's too.
 
 Two differences from JAX. A world of one rank runs the store too (JAX's
 predicate wants a split dp axis), over a group of one, as the port's
@@ -74,11 +90,13 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ..comm import comm
 from ..comm.bucketing import (BucketLayout, flatten_buckets, jax_leaf_order, param_gather_bucket,
                               plan_buckets)
 from ..comm.compressed import reciprocal
+from .activation_checkpointing import checkpointing
 from .zero_governor import gather_bucket_mb
 from .zero_sharding import Unit, zero_axes_for
 
@@ -162,18 +180,16 @@ def _dp_axes(ctx):
 
 def zero3_store_supported(engine) -> bool:
     """Whether the store runs for ``engine``: stage 3, the bucketed wire
-    asked for, no fp16 loss scaling, a pure data-parallel mesh whose ZeRO
-    axes are the whole dp world (JAX's predicate, ``:164``), and no remat
-    (see the module's docstring). A world of one rank qualifies."""
+    asked for, no fp16 loss scaling, and a pure data-parallel mesh whose
+    ZeRO axes are the whole dp world (JAX's predicate, ``:164``). A world
+    of one rank qualifies; remat does not matter."""
     cfg, ctx = engine._config, engine.mesh_ctx
     if ctx is None:
         return False
-    model_cfg = getattr(engine.module, "config", None)
     return (cfg.zero_config.stage >= 3 and cfg.gradient_comm_config.active
             and not cfg.fp16_enabled
             and all(ctx.axis_size(a) == 1 for a in NON_DP_AXES)
-            and tuple(zero_axes_for(ctx)) == _dp_axes(ctx)
-            and not engine._remat_policy and not getattr(model_cfg, "remat", False))
+            and tuple(zero_axes_for(ctx)) == _dp_axes(ctx))
 
 
 def init_param_store(engine, names, shapes):
@@ -443,7 +459,8 @@ class Zero3Store:
     buckets, then the persistent unit): the placeholders and the
     persistent compute copy, the schedules per batch shape, the scheduled
     forward, and the wire's ``train_batch``. ``stats``: the steps run, the
-    gathers issued, their wire bytes banked (the schedule's
+    gathers issued (``recompute_gathers``: those of remat's recomputes),
+    the forward gathers' wire bytes banked (the schedule's
     ``gather_wire_bytes`` a micro-batch) and the last step's seconds."""
 
     def __init__(self, engine, meta: Zero3StoreMeta):
@@ -464,8 +481,10 @@ class Zero3Store:
         self.leaves = [params[i] for i in meta.order]  # JAX leaf order
         np_set = set(meta.np_idx)
         self.leaf_of = {id(p): k for k, p in enumerate(self.leaves) if k in np_set}
+        self._bucket_of = {meta.np_idx[s.leaf_index]: b
+                           for b, bucket in enumerate(meta.layout.buckets) for s in bucket.slots}
         self.schedules = {}
-        self.stats = {"steps": 0, "gathers": 0, "wire_bytes": 0}
+        self.stats = {"steps": 0, "gathers": 0, "recompute_gathers": 0, "wire_bytes": 0}
         self._shards = None
         device = engine.device
         self._nan = torch.full((), float("nan"), dtype=self.dtype, device=device)
@@ -537,21 +556,20 @@ class Zero3Store:
         inflight, env = {}, {}
 
         def issue(j, e):
-            inflight[j] = param_gather_bucket(shards[e.bucket], self.group, self.fwd_tier,
-                                              self.bwd_tier, self.block, async_op=True)
+            with _disable_current_modes():
+                inflight[j] = param_gather_bucket(shards[e.bucket], self.group, self.fwd_tier,
+                                                  self.bwd_tier, self.block, async_op=True)
             self.stats["gathers"] += 1
 
         def at(t, read):
             for j, e in issue_at.get(t, ()):
                 issue(j, e)
             for j, e in land_at.get(t, ()):
-                b = buckets[e.bucket]
-                full = inflight.pop(j).wait().to(self.dtype)
-                sizes = [s.size for s in b.slots]
-                pad = b.padded_size - b.size
-                parts = full.split_with_sizes(sizes + [pad] if pad else sizes)
-                for s, part in zip(b.slots, parts):
-                    env[self.meta.np_idx[s.leaf_index]] = (j, part.view(s.shape))
+                with _disable_current_modes():
+                    full = inflight.pop(j).wait().to(self.dtype)
+                    views = self._split(e.bucket, full)
+                for k, view in views.items():
+                    env[k] = (j, view)
             try:
                 return {k: env[k][1] for k in read}
             except KeyError as e:
@@ -569,12 +587,53 @@ class Zero3Store:
 
         for j, e in issue_at.get(-1, ()):
             issue(j, e)
+        policy = self.engine._remat_policy
         try:
-            with _LeafMode(self.leaf_of, at, after):
+            with _LeafMode(self.leaf_of, at, after), \
+                    checkpointing.recompute_under(self._recompute_mode):
+                if policy:
+                    return checkpointing.checkpoint_with(policy, self.engine.module, *args,
+                                                         **kwargs)
                 return self.engine.module(*args, **kwargs)
         finally:
             for h in inflight.values():  # an epoch whose use never came
                 h.handle.wait()
+
+    def _split(self, b, full):
+        """Bucket ``b``'s gathered ``full`` (in the compute dtype) as
+        ``{leaf: view}``."""
+        bucket = self.meta.layout.buckets[b]
+        sizes = [s.size for s in bucket.slots]
+        pad = bucket.padded_size - bucket.size
+        parts = full.split_with_sizes(sizes + [pad] if pad else sizes)
+        return {self.meta.np_idx[s.leaf_index]: part.view(s.shape)
+                for s, part in zip(bucket.slots, parts)}
+
+    def _recompute_mode(self):
+        """The mode a checkpointed region's recompute runs under: each
+        bucket the region reads is gathered again at its first read and
+        dropped with the mode. The gather starts from a detached copy of
+        the shard that requires grad, so the recompute saves what the
+        forward saved (a product of weights that need no gradient saves
+        nothing); the forward's gather carries the gradient. The gathers
+        here and in the forward run outside the dispatch modes, so a
+        selective policy's op counts see the model's operations alone."""
+        lay, master = self.layout, self.engine._flat_master
+        env = {}
+
+        def at(t, read):
+            for k in read:
+                if k not in env:
+                    b = self._bucket_of[k]
+                    with _disable_current_modes():
+                        shard = lay.unit_shard(master, lay.units[b]).detach().requires_grad_()
+                        full = param_gather_bucket(shard, self.group, self.fwd_tier,
+                                                   self.bwd_tier, self.block)
+                        env.update(self._split(b, full.to(self.dtype)))
+                    self.stats["recompute_gathers"] += 1
+            return {k: env[k] for k in read}
+
+        return _LeafMode(self.leaf_of, at)
 
     @torch.no_grad()
     def collect(self, acc: torch.Tensor, persistent_acc: Optional[torch.Tensor] = None):

@@ -392,11 +392,11 @@ def fp32_engine(cs) -> dict:
     inner, steps = engine.model().forward, []
     counters = sorted(k for k in vars(pa) if k.endswith("launches"))
 
-    def timed(batch):
+    def timed(batch, **kw):
         before = [getattr(pa, c) for c in counters]
         torch.cuda.synchronize()
         t = time.monotonic()
-        out = inner(batch)
+        out = inner(batch, **kw)
         torch.cuda.synchronize()
         steps.append((batch.n_tokens, time.monotonic() - t,
                       {c: getattr(pa, c) - b for c, b in zip(counters, before)

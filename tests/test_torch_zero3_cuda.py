@@ -8,7 +8,10 @@ first (which traces the schedule) with no synchronising call
 (``set_sync_debug_mode("error")``), K7 once a step; its int8 tiers stay
 within the JAX tests' 0.05 of the fp32 store's losses; a checkpoint of the
 store resumed by a fresh engine, and the same checkpoint loaded at stage 2,
-take the uninterrupted run's next steps bit for bit.
+take the uninterrupted run's next steps bit for bit. Under remat (the
+engine's ``nothing_saveable`` around the model's per-layer
+``dots_saveable``) the store again gives the stage-2 wire's losses and
+masters bit for bit, its recomputes gathering each bucket again.
 
 This file imports neither ``jax`` nor ``deepspeed_tpu``; on the card run
 it with ``python -m pytest --noconftest -q tests/test_torch_zero3_cuda.py``."""
@@ -32,13 +35,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _engine(stage, zero_extra=None):
+def _engine(stage, zero_extra=None, remat=False):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.comm import reset_mesh_context
     from deepspeed_tpu_torch.models.llama import LlamaConfig, init_llama_for_causal_lm
     reset_mesh_context()
     cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_attention_heads=2,
-                           num_key_value_heads=1, ce_chunk_size=128)
+                           num_key_value_heads=1, ce_chunk_size=128, remat=remat,
+                           remat_policy="dots_saveable" if remat else None)
     model = init_llama_for_causal_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     zero = {"stage": stage, "stage3_param_persistence_threshold": 0}
     zero.update(zero_extra or {})
@@ -46,6 +50,8 @@ def _engine(stage, zero_extra=None):
               "bf16": {"enabled": True}, "zero_optimization": zero,
               "gradient_comm": {"enabled": True, "overlap_comm": True, "bucket_size_mb": 0.5},
               "optimizer": {"type": "AdamW", "params": {"lr": LR, "weight_decay": 0.01}}}
+    if remat:
+        config["activation_checkpointing"] = {"remat_policy": "nothing_saveable"}
     return deepspeed_tpu_torch.initialize(model=model, config=config)[0]
 
 
@@ -97,6 +103,20 @@ def _store(data, ok):
     ok["int8"] = all(abs(a - b) <= 0.05 * abs(b) for a, b in zip(ql, losses)) and ql != losses
 
 
+def _remat(data, ok):
+    s2 = _engine(2, remat=True)
+    base, _ = _steps(s2, data, 0, 3)
+    base_m = _masters(s2)
+    del s2
+    s3 = _engine(3, remat=True)
+    losses, k7 = _steps(s3, data, 0, 3)
+    m = _masters(s3)
+    ok["store_engaged"] = s3._store is not None
+    ok["regathered"] = s3._store.stats["recompute_gathers"] > 0
+    ok["bit_equal"] = losses == base and all(torch.equal(m[k], v) for k, v in base_m.items())
+    ok["k7"] = k7 == 3
+
+
 def _checkpoint(data, ok, tmp):
     a = _engine(3)
     _steps(a, data, 0, 2)
@@ -120,6 +140,8 @@ def _world1(rank, part, store, out, tmp):
     ok = {}
     if part == "store":
         _store(_data(), ok)
+    elif part == "remat":
+        _remat(_data(), ok)
     else:
         _checkpoint(_data(), ok, tmp)
     dist.destroy_process_group()
@@ -141,6 +163,11 @@ def _spawn(part):
 def test_world1_store_bit_equals_stage2_wire_on_the_card(cuda_device):
     assert _spawn("store") == {"store_engaged": True, "bit_equal": True, "k7": True,
                                "int8": True}
+
+
+def test_world1_store_under_remat_bit_equals_stage2_wire_on_the_card(cuda_device):
+    assert _spawn("remat") == {"store_engaged": True, "regathered": True, "bit_equal": True,
+                               "k7": True}
 
 
 def test_world1_checkpoint_round_trip_on_the_card(cuda_device):

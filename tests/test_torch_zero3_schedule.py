@@ -79,6 +79,20 @@ CASES = {
     "s2_fp32_df": (4, {"data": 2, "fsdp": 2},
                    {"zero_optimization": {"stage": 2}, "gradient_comm": dict(GC)}, Q_STEPS),
 }
+# remat: the engine's policies, and the model's own per-layer remat ("_model"
+# holds LlamaConfig fields)
+REMAT = {"nothing": {"activation_checkpointing": {"remat_policy": "nothing_saveable"}},
+         "everything": {"activation_checkpointing": {"remat_policy": "everything_saveable"}},
+         "dots": {"activation_checkpointing": {"remat_policy": "dots_saveable"}},
+         "dots_nb": {"activation_checkpointing":
+                     {"remat_policy": "dots_with_no_batch_dims_saveable"}},
+         "model": {"_model": {"remat": True}},
+         "model_dots": {"_model": {"remat": True, "remat_policy": "dots_saveable"}}}
+for _name, _remat in REMAT.items():
+    CASES[f"s3_fp32_remat_{_name}"] = (2, {"data": 2}, dict(_z3(), **_remat), Q_STEPS)
+    CASES[f"s2_fp32_remat_{_name}"] = (2, {"data": 2}, dict(CASES["s2_fp32"][2], **_remat),
+                                       Q_STEPS)
+CASES["s3_int8_remat"] = (2, {"data": 2}, dict(CASES["s3_int8"][2], **REMAT["nothing"]), Q_STEPS)
 JAX_CASES = ["s3_fp32", "s1_int8_df", "s2_int8_df", "s2_fp32_df"]
 GAS = 2
 EXTRA_STEPS = 2  # the two-rank store trains on past its checkpoint
@@ -89,7 +103,7 @@ def _engine_config(case):
     cfg = {"train_batch_size": ROWS * GAS, "train_micro_batch_size_per_gpu": ROWS // world,
            "gradient_accumulation_steps": GAS, "mesh": dict(mesh),
            "optimizer": {"type": "AdamW", "params": {"lr": LR, "weight_decay": 0.01}}}
-    cfg.update(extra)
+    cfg.update({k: v for k, v in extra.items() if k != "_model"})
     return cfg
 
 
@@ -267,13 +281,16 @@ def _world1(extra, stage=3, steps=STEPS, fields=None, seed=1, gas=GAS, batches=N
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.comm import reset_mesh_context
     reset_mesh_context()
-    model = init_llama_for_causal_lm(LlamaConfig(**(fields or TINY), dtype=torch.float32),
+    fields = dict(fields or TINY, **extra.get("_model", {}))
+    model = init_llama_for_causal_lm(LlamaConfig(**fields, dtype=torch.float32),
                                      seed=seed, device="cpu")
     cfg = {"train_batch_size": 2 * gas, "gradient_accumulation_steps": gas,
            "zero_optimization": {"stage": stage, "stage3_param_persistence_threshold": 0},
            "gradient_comm": dict(GC),
            "optimizer": {"type": "AdamW", "params": {"lr": LR, "weight_decay": 0.01}}}
     for k, v in extra.items():
+        if k == "_model":
+            continue
         if isinstance(v, dict) and isinstance(cfg.get(k), dict):
             cfg[k] = dict(cfg[k], **v)
         else:
@@ -392,24 +409,63 @@ def test_world1_full_params_and_save_16bit_model(tmp_path):
 
 
 def test_world1_remat_keeps_gather_units(caplog):
-    """Remat would recompute layers outside the store's schedule: the
-    engine warns and runs stage 3's gather units."""
+    """Remat no longer keeps stage 3's gather units: under the engine's
+    policy the store runs, with no warning, gathers each bucket again in
+    the recompute, and trains as the stage-2 wire does under the same
+    policy, bit for bit."""
+    extra = REMAT["nothing"]
+    _, base, base_m = _world1(extra, stage=2, steps=1)
     with caplog.at_level("WARNING"):
-        eng, losses, _ = _world1({"activation_checkpointing": {"remat_policy": "nothing_saveable"}},
-                                 steps=1)
-    assert eng._store is None and eng._gather is not None
-    assert "gradient_comm requested but unsupported" in caplog.text
-    assert np.isfinite(losses).all()
+        eng, losses, masters = _world1(extra, steps=1)
+    assert eng._store is not None and eng._gather is None
+    assert "gradient_comm requested but unsupported" not in caplog.text
+    assert eng._store.stats["recompute_gathers"] == eng._store.stats["gathers"]
+    assert losses == base
+    assert all(torch.equal(masters[k], base_m[k]) for k in base_m)
+
+
+_WORLD1_REMAT_STAGE2 = {}
+
+
+@pytest.mark.parametrize("remat", sorted(REMAT) + ["engine_and_model"])
+def test_world1_store_under_remat_bit_equals_stage2_wire(remat):
+    """Each remat policy of the engine, the model's per-layer remat (plain
+    and under a policy) and both at once: the store runs, its losses and
+    masters over two steps are the stage-2 wire's under the same remat,
+    bit for bit; a policy that keeps everything recomputes nothing, and
+    every other gathers again in the backward."""
+    extra = (dict(REMAT["nothing"], **REMAT["model"]) if remat == "engine_and_model"
+             else REMAT[remat])
+    _, base, base_m = _world1(extra, stage=2, steps=2)
+    eng, losses, masters = _world1(extra, steps=2)
+    assert eng._store is not None
+    assert losses == base
+    assert all(torch.equal(masters[k], base_m[k]) for k in base_m)
+    regathers = eng._store.stats["recompute_gathers"]
+    assert regathers == 0 if remat == "everything" else regathers > 0
 
 
 def test_world1_quantized_keys_raise_where_the_store_does_not_run():
+    """The int8 tiers raise where the store does not run (stage 2, fp16
+    loss scaling), and train under remat, where the store now runs, within
+    JAX's limits of the fp32 store (rtol 0.05 on the loss, 0.1 on the
+    masters)."""
     from deepspeed_tpu_torch.config.config import DeepSpeedTorchConfig
     with pytest.raises(NotImplementedError, match="zero_quantized_weights"):
         DeepSpeedTorchConfig({"train_batch_size": 2, "zero_optimization": {
             "stage": 2, "zero_quantized_weights": True}, "gradient_comm": {"enabled": True}})
     with pytest.raises(NotImplementedError, match="zero_quantized_gradients"):
         _world1({"zero_optimization": {"zero_quantized_gradients": True},
-                 "activation_checkpointing": {"remat_policy": "nothing_saveable"}}, steps=1)
+                 "fp16": {"enabled": True}}, steps=1)
+    _, base, base_m = _world1({}, steps=3)
+    for remat in ("nothing", "model"):
+        eng, losses, masters = _world1(
+            dict(REMAT[remat], zero_optimization={"zero_quantized_weights": True,
+                                                  "zero_quantized_gradients": True}), steps=3)
+        assert (eng._store.fwd_tier, eng._store.bwd_tier) == ("int8", "int8")
+        assert eng._store.stats["recompute_gathers"] > 0
+        np.testing.assert_allclose(losses, base, rtol=0.05)
+        assert max(float((masters[k] - base_m[k]).abs().max()) for k in base_m) < 0.1
 
 
 # ---------------------------------------------------------------- the JAX oracle
@@ -463,7 +519,8 @@ def _run_case(case, tree, ckpt_dir):
     from deepspeed_tpu_torch.comm import reset_mesh_context
     world, mesh, extra, steps = CASES[case]
     reset_mesh_context()
-    model = params_from_jax(tree, LlamaConfig(**TINY, dtype=torch.float32),
+    model = params_from_jax(tree, LlamaConfig(**dict(TINY, **extra.get("_model", {})),
+                                              dtype=torch.float32),
                             dtype=torch.float32, device="cpu", training=True)
     eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=_engine_config(case),
                                              device="cpu")
@@ -473,7 +530,7 @@ def _run_case(case, tree, ckpt_dir):
         return eng.train_batch(iter([(ids[k * GAS + i], ids[k * GAS + i]) for i in range(GAS)]))
 
     losses = [step(k) for k in range(steps)]
-    rec = {"losses": losses, "wired": eng._wire is not None,
+    rec = {"losses": losses, "wired": eng._wire is not None, "store": eng._store is not None,
            "masters": {k: v.detach().clone().numpy()
                        for k, v in eng.full_master_params().items()},
            "state_bytes": eng.state_bytes()}
@@ -659,6 +716,30 @@ def test_int8_tiers_at_two_ranks_within_jax_tolerance(runs):
         q, base = r["s3_int8"], r["s3_fp32"]
         np.testing.assert_allclose(q["losses"], base["losses"][:Q_STEPS], rtol=0.05)
         assert q["losses"] != base["losses"][:Q_STEPS]
+
+
+@pytest.mark.parametrize("remat", sorted(REMAT))
+def test_store_under_remat_bit_equals_stage2_wire_at_two_ranks(runs, remat):
+    """Three steps at gas 2 on two ranks under each remat: the store runs
+    and its losses and masters are the stage-2 wire's under the same
+    remat, bit for bit, on both ranks."""
+    for r in runs["world2"]:
+        s3, s2 = r[f"s3_fp32_remat_{remat}"], r[f"s2_fp32_remat_{remat}"]
+        assert s3["store"] and s3["stats"]["gathers"] > 0
+        assert (s3["stats"]["recompute_gathers"] == 0) == (remat == "everything")
+        assert s3["losses"] == s2["losses"]
+        assert all(np.array_equal(s3["masters"][k], s2["masters"][k]) for k in s2["masters"])
+
+
+def test_int8_tiers_under_remat_at_two_ranks_within_jax_tolerance(runs):
+    """The int8 tiers under remat on two ranks: within JAX's limits of the
+    fp32 store (rtol 0.05 on the loss, 0.1 on the masters)."""
+    for r in runs["world2"]:
+        q, base = r["s3_int8_remat"], r["s3_fp32"]
+        assert q["store"] and q["stats"]["recompute_gathers"] > 0
+        np.testing.assert_allclose(q["losses"], base["losses"][:Q_STEPS], rtol=0.05)
+        q_m = q["masters"]
+        assert max(float(np.abs(q_m[k] - r["s3_int8"]["masters"][k]).max()) for k in q_m) < 0.1
 
 
 @pytest.mark.parametrize("case", ["s1_int8_df", "s2_int8_df", "s2_fp32_df"])

@@ -374,12 +374,12 @@ def generate_decode(engine, cfg, prompt_lens) -> dict:
     inner = model.forward
     prefill = []
 
-    def forward(batch):
+    def forward(batch, **kw):
         if batch.q_tok_idx.shape[1] == 1:
-            return inner(batch)
+            return inner(batch, **kw)
         torch.cuda.synchronize()
         t = time.monotonic()
-        out = inner(batch)
+        out = inner(batch, **kw)
         torch.cuda.synchronize()
         prefill.append(time.monotonic() - t)
         return out
